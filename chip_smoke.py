@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving path on one NVIDIA GPU.
+"""Smoke run of the PyTorch port's serving and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -26,7 +26,35 @@ and the CUDA toolkit. It
    window, and that the probabilities match a plain-path service built from
    the same state dict (within 2e-2: bfloat16 activations through 24 layers,
    rounded at other places than in the plain version);
-6. prints one JSON line of per-kernel numbers, the card line, and last
+6. holds the backward kernels against their plain versions at the training
+   shapes (the SDPA backward at text 32x12x128x64 bf16 masked and at the
+   fusion head's 32x1x1x768 over 197 keys in float32; the fused block's
+   backward at 32x128x768 bf16, 12 heads, masked, its five outputs and, through
+   autograd, all ten gradients), with the tolerances above against each
+   output's scale (for the weight and bias gradients, sums over 4,096 rows
+   that cancel, the size of their terms), and times them like the forward
+   kernels (the library yardstick: the backward alone of
+   ``scaled_dot_product_attention`` / ``nn.MultiheadAttention`` over a graph
+   built once);
+7. trains the full-width model with ITC + TIM through the port's
+   ``cli/run_mm_late.main`` on a small generated task-3 dataset (64 posts,
+   a uint8 pixel cache, no pandas or PIL), one epoch at batch 16 in
+   bfloat16, once with ``--attn_impl auto`` and once with ``fused``, and
+   checks the artifacts, that every loss is finite, that every trainable
+   parameter got a finite gradient and the vision tower none, and the exact
+   launch counts per train step and per eval step; it prints ms per train
+   step, posts/s, the device idle share of one profiled step and the peak
+   device memory;
+8. holds the first train step of ``auto`` and of ``fused`` against the plain
+   path (``--attn_impl jnp``): same state dict, same batch, dropout 0, the
+   ITM swap pinned, every text-tower attention weight and fusion-head tensor
+   (but the key bias, whose exact gradient is zero). In float32 the loss
+   within 1e-5 and each gradient within 1e-3 relative (Frobenius). In
+   bfloat16 the plain path rounds its scores to bfloat16 before the softmax
+   where the kernels keep float32, so both are held against the float32
+   plain gradients: the kernel path's median and worst relative error no
+   more than 1.5 times the bfloat16 plain path's, the loss within 2e-2;
+9. prints one JSON line of per-kernel numbers, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero without the last line. Without CUDA, or
@@ -54,6 +82,8 @@ BATCH = 16
 N_REQUESTS = 48
 N_CLIENTS = 16
 PROB_TOL = 2e-2
+TRAIN_POSTS = (48, 8, 8)  # train / val / test rows of the generated dataset
+DEVICE = "cuda"
 
 
 def log(*a):
@@ -75,15 +105,20 @@ def device_ms(torch, fn, iters=30, warmup=3):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(200_000_000)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    host_bound = start.query()  # the card got past the sleep before the host was done
-    torch.cuda.synchronize()
-    if host_bound:
-        raise RuntimeError("timing loop was host-bound; lengthen the sleep")
+    for sleep in (200_000_000, 2_000_000_000):
+        torch.cuda._sleep(sleep)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        host_bound = start.query()  # the card got past the sleep before the host was done
+        torch.cuda.synchronize()
+        if not host_bound:
+            return start.elapsed_time(end) / iters
+    # still host-bound: the events' span includes the card waiting for the
+    # host, an upper bound on the device time
+    log(f"timing: {getattr(fn, '__name__', 'call')} stayed host-bound; its time is "
+        "the events' span, an upper bound")
     return start.elapsed_time(end) / iters
 
 
@@ -182,6 +217,363 @@ def check_kernels(torch):
                lambda: mha(x, x, x, key_padding_mask=pad, need_weights=False),
                nbytes(x, mask, *w, *bias, out), ops, "bfloat16")
     return rows
+
+
+def check_bwd_kernels(torch):
+    """Each backward kernel against its plain version at the training shapes."""
+    import torch.nn.functional as F
+
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.ops import attention as A
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.ops import attn_block as AB
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    rows = []
+
+    def randn(*shape, dtype):
+        return torch.randn(*shape, generator=g, device="cuda").to(dtype)
+
+    def close(name, outs, refs, scales, dtype):
+        """Max abs error over the outputs; each held to its own scale."""
+        worst = 0.0
+        for i, (o, r, sc) in enumerate(zip(outs, refs, scales)):
+            o, r = o.float(), r.float()
+            if not torch.isfinite(o).all():
+                raise AssertionError(f"{name}: output {i} is not finite")
+            err = (o - r).abs().max().item()
+            tol = (2e-2 if dtype == "bfloat16" else 1e-4) * max(1.0, sc)
+            if not err <= tol:
+                raise AssertionError(f"{name}: output {i} disagrees with the plain "
+                                     f"version ({err} > {tol})")
+            worst = max(worst, err)
+        log(f"check {name}: max_abs_err {worst:.3e} over {len(outs)} outputs ({dtype})")
+        return worst
+
+    def timed(name, kernel, key, err, run, plain, library, nb, ops, dtype):
+        bound_ms, bound_by = bound(nb, ops, dtype)
+        row = dict(name=name, kernel=kernel, key=key, max_abs_err=err,
+                   ms=device_ms(torch, run), plain_ms=device_ms(torch, plain),
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   library_ms=device_ms(torch, library))
+        log(f"time {name}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+            f"library {row['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        rows.append(row)
+
+    # kernel 3: the SDPA backward of the text tower and of the fusion head
+    for tag, (b, h, lq, lk, d, dtype, masked) in {
+            "text": (2 * BATCH, 12, 128, 128, 64, "bfloat16", True),
+            "fusion": (2 * BATCH, 1, 1, 197, 768, "float32", False)}.items():
+        dt = getattr(torch, dtype)
+        q, k, v = randn(b, h, lq, d, dtype=dt), randn(b, h, lk, d, dtype=dt), randn(b, h, lk, d, dtype=dt)
+        do = randn(b, h, lq, d, dtype=dt)
+        mask = None
+        if masked:
+            lens = torch.randint(2, lk + 1, (b,), generator=g, device="cuda")
+            mask = (torch.arange(lk, device="cuda")[None, :] < lens[:, None]).to(torch.int32)
+        scale = d ** -0.5
+        outs = A.sdpa_bwd_cuda(q, k, v, mask, do, scale)
+        refs = A.sdpa_bwd_reference(q, k, v, mask, do, scale)
+        err = close(f"sdpa_bwd/{tag}", outs, refs, [r.float().abs().max().item() for r in refs],
+                    dtype)
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        attn_mask = None if mask is None else (mask > 0)[:, None, None, :]
+        lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=attn_mask, scale=scale)
+        timed(f"sdpa_bwd/{tag}", "sdpa_bwd", (dtype, b, h, lq, lk, d, masked), err,
+              lambda: A.sdpa_bwd_cuda(q, k, v, mask, do, scale),
+              lambda: A.sdpa_bwd_reference(q, k, v, mask, do, scale),
+              lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True),
+              nbytes(q, k, v, do, mask, *outs), 10.0 * b * h * lq * lk * d, dtype)
+
+    # kernel 4: the fused block's backward in the text tower, --attn_impl fused
+    b, l, hid, heads = 2 * BATCH, 128, 768, 12
+    dt = torch.bfloat16
+    x = randn(b, l, hid, dtype=dt)
+    w = [(randn(hid, hid, dtype=torch.float32) * hid ** -0.5).to(dt) for _ in range(4)]
+    bias = [randn(hid, dtype=torch.float32).mul(0.1).to(dt) for _ in range(4)]
+    lens = torch.randint(2, l + 1, (b,), generator=g, device="cuda")
+    mask = (torch.arange(l, device="cuda")[None, :] < lens[:, None]).to(torch.int32)
+    do = randn(b, l, hid, dtype=dt)
+    scale = (hid // heads) ** -0.5
+    kargs = (x, mask, w[0], bias[0], w[1], bias[1], w[2], bias[2], w[3], do, heads)
+    outs = AB.attn_block_bwd_cuda(*kargs, scale)
+    refs = AB.attn_block_bwd_packed_reference(*kargs, scale)
+    err = close("attn_block_bwd/text", outs, refs,
+                [r.float().abs().max().item() for r in refs], "bfloat16")
+    # through autograd: the ten gradients of attn_block against the plain backward
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in (x, w[0], bias[0], w[1], bias[1], w[2], bias[2], w[3], bias[3])]
+    before = AB.bwd_launches.count
+    out = AB.attn_block(leaves[0], mask, *leaves[1:], heads=heads)
+    out.backward(do)
+    if AB.bwd_launches.count != before + 1:
+        raise AssertionError("attn_block's gradient did not launch kernel 4")
+    want = AB.attn_block_bwd_reference(x, mask, *w[:1], bias[0], w[1], bias[1], w[2], bias[2],
+                                       w[3], bias[3], do, heads)
+    _, dq, dk, dv, ctx = refs
+
+    def wscale(a, gr):
+        return (a.reshape(-1, hid).float().abs().t() @ gr.reshape(-1, hid).float().abs()).max().item()
+
+    def bscale(gr):
+        return gr.float().abs().sum(dim=(0, 1)).max().item()
+
+    scales = [outs[0].float().abs().max().item(), wscale(x, dq), bscale(dq), wscale(x, dk),
+              bscale(dk), wscale(x, dv), bscale(dv), wscale(ctx, do), bscale(do)]
+    # the row reports the kernel's own outputs; the weight and bias sums come
+    # from torch.matmul outside it and are checked here only
+    close("attn_block_bwd/text ten gradients", [t.grad for t in leaves],
+          (want[0],) + tuple(want[2:]), scales, "bfloat16")
+    mha = torch.nn.MultiheadAttention(hid, heads, batch_first=True, device="cuda", dtype=dt)
+    with torch.no_grad():
+        mha.in_proj_weight.copy_(torch.cat([wi.t() for wi in w[:3]]))
+        mha.in_proj_bias.copy_(torch.cat(bias[:3]))
+        mha.out_proj.weight.copy_(w[3].t())
+        mha.out_proj.bias.copy_(bias[3])
+    x_leaf = x.detach().clone().requires_grad_(True)
+    lib_out = mha(x_leaf, x_leaf, x_leaf, key_padding_mask=mask == 0, need_weights=False)[0]
+    m = b * l
+    ops = 2.0 * m * hid * hid * 7 + 12.0 * b * l * l * hid
+    timed("attn_block_bwd/text", "attn_block_bwd", ("bfloat16", b, l, hid, heads, True), err,
+          lambda: AB.attn_block_bwd_cuda(*kargs, scale),
+          lambda: AB.attn_block_bwd_packed_reference(*kargs, scale),
+          lambda: torch.autograd.grad(lib_out, (x_leaf,), do, retain_graph=True),
+          nbytes(x, mask, do, *w, *bias[:3], *outs), ops, "bfloat16")
+    return rows
+
+
+def make_dataset(root):
+    """A task-3 data key (``data_key_mvsa.csv``) and a 224-px uint8 pixel
+    cache in the on-disk format of ``data/cache.py``, made with the csv
+    module and numpy from a seed; returns the data directory."""
+    import csv
+
+    import numpy as np
+
+    rng = np.random.RandomState(7)
+    data = os.path.join(root, "data") + os.sep
+    os.makedirs(data, exist_ok=True)
+    words = "rain sun happy sad team win lose love hate coffee city tonight best worst".split()
+    splits = (["train"] * TRAIN_POSTS[0] + ["val"] * TRAIN_POSTS[1]
+              + ["test"] * TRAIN_POSTS[2])
+    ids = [1000 + i for i in range(len(splits))]
+    with open(data + "data_key_mvsa.csv", "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["tweet_id", "text", "label", "split"])
+        for i, split in zip(ids, splits):
+            text = " ".join(rng.choice(words, size=rng.randint(3, 60)))
+            w.writerow([i, text, rng.randint(0, 3), split])
+    cache = os.path.join(data, "cache", "mvsa_u8_224")
+    os.makedirs(cache)
+    np.save(os.path.join(cache, "pixels.npy"),
+            rng.randint(0, 256, (len(ids), 224, 224, 3), dtype=np.uint8))
+    with open(os.path.join(cache, "meta.json"), "w") as f:
+        json.dump({"index": {str(i): r for r, i in enumerate(ids)}, "size": 224,
+                   "valid": [True] * len(ids)}, f)
+    return data
+
+
+def train_args(attn_impl, extra=()):
+    return ["--txt_model_name", "bernice", "--img_model_name", "vit",
+            "--fusion_name", "attention", "--task", "3", "--epochs", "1",
+            "--seed", "30", "--arch", "base", "--dtype", "bfloat16",
+            "--use_clip_loss", "--use_tim_loss", "--use_saved_features",
+            "--save_model", "--log_every", "1", "--attn_impl", attn_impl, *extra]
+
+
+def train_run(torch, run_mm_late, counters, attn_impl, results_dir, expect):
+    """One epoch through ``run_mm_late.main``; returns its numbers and the
+    launch counts by (kernel, key)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for c in counters.values():
+        c.reset()
+    steps = []
+    state = {"t": None, "prev": {k: 0 for k in counters}}
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        counts = {k: c.count - state["prev"][k] for k, c in counters.items()}
+        state["prev"] = {k: c.count for k, c in counters.items()}
+        vals = {k: float(v) for k, v in metrics.items()}
+        if not all(map(lambda v: v == v and abs(v) != float("inf"), vals.values())):
+            raise AssertionError(f"train[{attn_impl}]: step {step} metrics not finite: {vals}")
+        steps.append(dict(seconds=None if state["t"] is None else now - state["t"],
+                          counts=counts, loss=vals["loss"]))
+        state["t"] = now
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state["t"] = None
+    trainer, setup = run_mm_late.main(train_args(attn_impl), on_step=on_step, keep_grads=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    totals = {k: c.count for k, c in counters.items()}
+    by_key = {k: dict(c.by_key) for k, c in counters.items()}
+
+    n_train = len(steps)
+    n_eval = setup.pipes["val"].num_batches + setup.pipes["test"].num_batches
+    for i, st in enumerate(steps):
+        for kernel, n in expect["train"].items():
+            if st["counts"][kernel] != n:
+                raise AssertionError(f"train[{attn_impl}]: step {i + 1} launched {kernel} "
+                                     f"{st['counts'][kernel]} times, expected {n}")
+    for kernel, n in expect["eval"].items():
+        seen = totals[kernel] - sum(st["counts"][kernel] for st in steps)
+        if seen != n * n_eval:
+            raise AssertionError(f"train[{attn_impl}]: {n_eval} eval steps launched "
+                                 f"{kernel} {seen} times, expected {n} each")
+    log(f"train[{attn_impl}]: launches per train step {expect['train']}, per eval step "
+        f"{expect['eval']} over {n_train} train and {n_eval} eval steps: exact")
+
+    grads = setup.train_step.last_grads
+    names = set(setup.optimizer.names)
+    unused = sorted(n for n, gr in grads.items() if gr is None)
+    if unused != ["linear_iadds.bias", "linear_iadds.weight"]:
+        raise AssertionError(f"train[{attn_impl}]: parameters without a gradient: {unused}")
+    bad = [n for n, gr in grads.items() if gr is not None and not torch.isfinite(gr).all()]
+    if bad:
+        raise AssertionError(f"train[{attn_impl}]: non-finite gradients in {bad[:5]}")
+    vision = [n for n, p in setup.model.named_parameters() if n.startswith("dual.vision.")]
+    if (not vision or any(n in names for n in vision)
+            or any(p.requires_grad or p.grad is not None
+                   for n, p in setup.model.named_parameters() if n in vision)):
+        raise AssertionError(f"train[{attn_impl}]: the vision tower is not frozen")
+    trainable = [n for n, p in setup.model.named_parameters() if n not in vision]
+    if sorted(trainable) != sorted(names):
+        raise AssertionError(f"train[{attn_impl}]: AdamW does not hold every trainable parameter")
+    log(f"train[{attn_impl}]: {len(names) - len(unused)} trainable tensors with finite "
+        f"gradients, {len(unused)} unused by the loss (linear_iadds, decayed as under optax), "
+        f"{len(vision)} vision tensors frozen without gradients")
+
+    stem = "bernice-vit-attention_task3_seed30_itc0.1itm0.1_"
+    for suffix in ("metrics_val.csv", "metrics_test.csv", "net.pth"):
+        path = os.path.join(results_dir, stem + suffix)
+        if not os.path.isfile(path) or os.path.getsize(path) == 0:
+            raise AssertionError(f"train[{attn_impl}]: artifact {path} missing")
+    with open(os.path.join(results_dir, stem + "metrics_test.csv")) as f:
+        table = f.read().splitlines()
+    if table[0] != "metric,epoch-1" or len(table) != 8:
+        raise AssertionError(f"train[{attn_impl}]: metrics table {table}")
+
+    # one more step under the profiler: the device's idle share
+    batch = next(setup.pipes["train"].device_iter(setup.device, shuffle=False))
+    setup.train_step(batch, trainer.gen)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        setup.train_step(batch, trainer.gen)
+        torch.cuda.synchronize()
+        step_wall = (time.perf_counter() - t1) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    idle = (1 - busy / step_wall) if busy else None
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    for e in top:
+        log(f"profile[train {attn_impl}]:   {e.self_device_time_total / 1e3:8.3f} ms "
+            f"x{e.count:<4d} {e.key[:90]}")
+    timed_steps = [st["seconds"] for st in steps if st["seconds"] is not None]
+    ms = 1e3 * sum(timed_steps) / len(timed_steps)
+    # the profiler's own host work lengthens the profiled step: the share
+    # against the unprofiled mean step is the second reading
+    result = dict(attn_impl=attn_impl, train_steps=n_train, eval_steps=n_eval,
+                  ms_per_train_step=ms, posts_per_s=BATCH / (ms / 1e3),
+                  profiled_step_ms=step_wall, device_busy_ms=busy,
+                  idle_share=idle,
+                  idle_share_of_mean_step=(1 - busy / ms) if busy else None,
+                  max_memory_allocated=peak, run_seconds=wall,
+                  losses=[st["loss"] for st in steps])
+    log(f"train[{attn_impl}]: {json.dumps(result)}")
+    if idle is None:
+        log(f"train[{attn_impl}]: device idle share not measured (the profiler saw no "
+            "device events)")
+    del trainer, setup, batch
+    torch.cuda.empty_cache()
+    return result, by_key
+
+
+def first_step_check(torch, C, run_mm_late, build, hub):
+    """The first train step of auto and fused against the plain path.
+
+    float32: the loss within 1e-5 relative and every gradient within 1e-3
+    relative (Frobenius) of the plain path's. bfloat16: the plain path
+    rounds its scores q.k to bfloat16 before the softmax (as the JAX
+    package's plain version does) where the kernels keep float32, so both
+    are held against the float32 plain gradients: the loss within 2e-2 of
+    the bfloat16 plain path's, and the kernel path's median and worst
+    relative gradient error no more than 1.5 times the bfloat16 plain
+    path's. Every check is made before any fails."""
+    import numpy as np
+
+    for name in ("bernice", "vit"):
+        d = os.path.join(hub, name)
+        os.makedirs(d, exist_ok=True)
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump({"hidden_dropout_prob": 0.0}, f)
+        C.MODEL_DIR_DICT[name] = d + os.sep
+    perm = np.random.RandomState(3).permutation(BATCH)
+    results, failed = {}, []
+
+    def rel_errors(keep, ref):
+        return {n: (torch.linalg.vector_norm(g - ref[n])
+                    / torch.linalg.vector_norm(ref[n])).item() for n, g in keep.items()}
+
+    ref32 = plain16 = None
+    for dtype in ("float32", "bfloat16"):
+        plain_loss = None
+        for impl in ("jnp", "auto", "fused"):
+            args = run_mm_late.parse_args(train_args(impl, ["--dropout", "0",
+                                                            "--dtype", dtype]))
+            setup = build.build_mm_late_train_setup(args, C.Config(args), torch.device(DEVICE),
+                                                    torch.Generator().manual_seed(30))
+            batch = next(setup.pipes["train"].device_iter(setup.device, shuffle=False))
+            batch["tim_src"] = torch.as_tensor(perm, device=DEVICE)
+            batch["tim_labels"] = torch.as_tensor(
+                (perm == np.arange(BATCH)).astype(np.int32), device=DEVICE)
+            grads, parts, _ = setup.train_step.gradients(batch, torch.Generator(DEVICE))
+            # the text tower's attention weights and the fusion head's tensors,
+            # but fc_k.bias: a key bias shifts every score of a row alike, so
+            # its exact gradient is zero and its relative error is noise
+            keep = {n: gr.float() for n, gr in grads.items() if gr is not None and (
+                (n.startswith("dual.text.encoder.") and ".attention." in n
+                 and n.endswith("weight"))
+                or (n.startswith("fusion.") and n != "fusion.fc_k.bias"))}
+            loss = float(parts["loss"].detach())
+            del setup, grads, batch
+            torch.cuda.empty_cache()
+            if impl == "jnp":
+                plain_loss = loss
+                if dtype == "float32":
+                    ref32 = keep
+                else:
+                    plain16 = rel_errors(keep, ref32)
+                    log(f"first step[jnp, bfloat16 vs float32]: gradient rel error median "
+                        f"{np.median(list(plain16.values())):.2e}, worst "
+                        f"{max(plain16.values()):.2e}")
+                continue
+            rel_loss = abs(loss - plain_loss) / abs(plain_loss)
+            rel = rel_errors(keep, ref32)
+            worst = max(rel, key=rel.get)
+            med = float(np.median(list(rel.values())))
+            if dtype == "float32":
+                tol_loss, tol_med, tol_worst = 1e-5, 1e-3, 1e-3
+            else:
+                tol_loss = 2e-2
+                tol_med = 1.5 * float(np.median(list(plain16.values())))
+                tol_worst = 1.5 * max(plain16.values())
+            log(f"first step[{impl}, {dtype}]: loss {loss:.6f} vs plain {plain_loss:.6f} "
+                f"(rel {rel_loss:.2e}, tol {tol_loss}); gradient rel error vs the float32 "
+                f"plain path over {len(rel)} tensors: median {med:.2e} (tol {tol_med:.2e}), "
+                f"worst {rel[worst]:.2e} (tol {tol_worst:.2e}, {worst})")
+            results[f"{impl}/{dtype}"] = dict(rel_loss=rel_loss, median_rel=med,
+                                               worst_rel=rel[worst], worst_grad=worst)
+            if not (rel_loss <= tol_loss and med <= tol_med and rel[worst] <= tol_worst):
+                failed.append(f"{impl}/{dtype}")
+    if failed:
+        raise AssertionError(f"first step disagrees with the plain path: {failed}")
+    return results
 
 
 def make_requests():
@@ -326,7 +718,7 @@ def main():
         regs = [ln.strip() for ln in _cuda.build_log(name).splitlines() if "Used" in ln]
         log(f"ptxas {name}: {regs}")
 
-    rows = check_kernels(torch)
+    rows = check_kernels(torch) + check_bwd_kernels(torch)
 
     reqs = make_requests()
     http_text = "an http request about the #weather @user"
@@ -389,14 +781,49 @@ def main():
                 for key, n in by_key.items():
                     launches[(kernel, key)] = launches.get((kernel, key), 0) + n
 
+    # the training path: two one-epoch runs of run_mm_late and the first-step check
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.cli import _build as build
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.cli import run_mm_late
+
+    counters = {"sdpa_fwd": A.launches, "sdpa_bwd": A.bwd_launches,
+                "attn_block_fwd": AB.launches, "attn_block_bwd": AB.bwd_launches}
+    none = {k: 0 for k in counters}
+    per_step = {
+        # text tower (2B rows, one call) 12 + vision 12 + fusion head 1;
+        # backward: text 12 + fusion 1 (the vision tower is frozen)
+        "auto": {"train": {**none, "sdpa_fwd": 25, "sdpa_bwd": 13},
+                 "eval": {**none, "sdpa_fwd": 25}},
+        "fused": {"train": {**none, "attn_block_fwd": 24, "sdpa_fwd": 1,
+                            "attn_block_bwd": 12, "sdpa_bwd": 1},
+                  "eval": {**none, "attn_block_fwd": 24, "sdpa_fwd": 1}}}
+    training = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = make_dataset(tmp)
+        C.DATA_PATH = data
+        C.PATH[3] = data + "data_key_mvsa.csv"
+        C.IMG_FMT[3] = data + "MVSA-Single/data/{}.jpg"  # never read: the cache holds every id
+        C.results_dir_mm_late = os.path.join(tmp, "results", "mm_late") + os.sep
+        for impl, expect in per_step.items():
+            training[impl], by_key = train_run(torch, run_mm_late, counters, impl,
+                                               C.results_dir_mm_late, expect)
+            for kernel, keys in by_key.items():
+                for key, n in keys.items():
+                    launches[(kernel, key)] = launches.get((kernel, key), 0) + n
+        training["first_step"] = first_step_check(torch, C, run_mm_late, build,
+                                                  os.path.join(tmp, "hub"))
+    log(json.dumps({"training": training}))
+
     sources = {"sdpa_fwd": (f"{PKG}/csrc/sdpa_fwd.cu", f"{JAX_PKG}/ops/attention.py:81"),
                "attn_block_fwd": (f"{PKG}/csrc/attn_block_fwd.cu",
-                                  f"{JAX_PKG}/ops/attn_block.py:143")}
+                                  f"{JAX_PKG}/ops/attn_block.py:143"),
+               "sdpa_bwd": (f"{PKG}/csrc/sdpa_bwd.cu", f"{JAX_PKG}/ops/attention.py:98"),
+               "attn_block_bwd": (f"{PKG}/csrc/attn_block_bwd.cu",
+                                  f"{JAX_PKG}/ops/attn_block.py:175")}
     kernels = []
     for row in rows:
         n = launches.get((row["kernel"], row["key"]), 0)
         if n == 0:
-            raise AssertionError(f"{row['name']} was never launched on the serving path")
+            raise AssertionError(f"{row['name']} was never launched on the main paths")
         source, replaces = sources[row["kernel"]]
         kernels.append(dict(name=row["name"], route="cuda", source=source,
                             replaces=replaces, launches=n,

@@ -1,25 +1,37 @@
-"""Builds the late-fusion model for serving.
+"""Builds the late-fusion model, for serving and for training.
 
-Counterpart of ``build_mm_late_setup`` in the JAX package's ``cli/_build.py``,
-serving part only: the model for the transformer towers, the tokenizer and
-the forward. It builds no data splits, pipelines, optimizer or mesh.
+Counterpart of ``build_mm_late_setup`` in the JAX package's ``cli/_build.py``:
+``build_mm_late_setup`` makes the model for the transformer towers, the
+tokenizer and the serving forward; ``build_mm_late_train_setup`` adds what a
+trainer needs on its device: the vision tower frozen (``requires_grad``
+off, outside AdamW, as the reference freezes it), the data splits and
+pipelines, AdamW, the loss configuration and the train and eval steps. No
+mesh is built: the port runs on one device.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from ..core import config as C
 from ..data.images import normalize_on_device
+from ..data.pipeline import PipelineConfig, SplitPipeline, make_image_source
+from ..data.prep import prepare_data
 from ..data.tokenizers import TweetTokenizerFrontend, build_tokenizer
 from ..models.encoder import init_weights
 from ..models.fusion import FUSION_NAMES, MMLateModel
 from ..models.text import NO_TOKEN_TYPES, text_encoder_config
 from ..models.vision import CNN_MODELS, IMAGE_NORM, vision_encoder_config, vit_geometry
+from ..train.optim import AdamW, vision_frozen
+from ..train.steps import EvalStep, LossConfig, TrainStep
+from ..utils.logging import get_logger
 from ._common import arch_overrides
+
+logger = get_logger(__name__)
 
 
 @dataclasses.dataclass
@@ -87,3 +99,88 @@ def build_mm_late_setup(args, cfg: C.ServingConfig,
 
     return Setup(model=model, tokenizer=tokenizer, image_size=geo["image_size"],
                  image_norm=(mean, std), forward_fn=forward_fn)
+
+
+@dataclasses.dataclass
+class TrainSetup:
+    model: MMLateModel
+    device: torch.device
+    optimizer: AdamW
+    pipes: Dict[str, SplitPipeline]
+    train_step: TrainStep
+    eval_step: EvalStep
+
+
+def _loss_cfg_from(cfg) -> LossConfig:
+    return LossConfig(
+        num_labels=cfg.num_labels, multilabel=cfg.multilabel,
+        use_clip_loss=cfg.use_clip_loss, use_tim_loss=cfg.use_tim_loss,
+        use_iadds_loss=cfg.use_iadds_loss,
+        use_loss_correction=cfg.use_loss_correction, beta_itc=cfg.beta_itc,
+        beta_itm=cfg.beta_itm, beta_iadds=cfg.beta_iadds,
+        T=tuple(map(tuple, C.T)))
+
+
+def build_mm_late_train_setup(args, cfg: C.Config, device: torch.device,
+                              generator: torch.Generator,
+                              keep_grads: bool = False) -> TrainSetup:
+    """Everything a late-fusion training run needs, on ``device``: the model
+    initialised from ``generator``, the splits of ``cfg.data`` (subsampled
+    with ``np.random.RandomState(args.seed)``, as the JAX package's
+    ``build_mm_late_setup`` does),
+    the pipelines (the uint8 cache under ``<data>/cache/{task}_u8_{size}``
+    with ``--use_saved_features``), AdamW and the steps."""
+    base = build_mm_late_setup(args, cfg, generator=generator)
+    model = base.model.to(device)
+    for name, p in model.named_parameters():
+        p.requires_grad_(not vision_frozen(name))
+
+    rng = np.random.RandomState(args.seed)
+    train, val, test, weights = prepare_data(
+        cfg.data, cfg.num_labels, testing=args.testing,
+        nsamples=getattr(args, "nsamples", -1),
+        load_image_adds=cfg.use_iadds_loss, multilabel=cfg.multilabel, rng=rng)
+    size = base.image_size
+    pipe_cfg = PipelineConfig(batch_size=cfg.batch_size, max_length=cfg.max_length,
+                              image_size=size)
+    pipes = {}
+    for name, split in (("train", train), ("val", val), ("test", test)):
+        src = make_image_source(
+            cfg.img_fmt, ids=split.ids, size=size,
+            use_cache=getattr(args, "use_saved_features", False),
+            cache_dir=f"{C.DATA_PATH}cache/{cfg.task_name}_u8_{size}")
+        pipes[name] = SplitPipeline(split, pipe_cfg, tokenizer=base.tokenizer,
+                                    image_source=src)
+
+    mean, std = base.image_norm
+    dtype = getattr(torch, args.dtype)
+    use_tt = args.txt_model_name not in NO_TOKEN_TYPES
+
+    def forward_fn(batch, tim_inputs, gen, deterministic):
+        """The model's output dict; the TIM rows re-encoded in training, taken
+        from the first pass's rows in eval (exact there)."""
+        pixels = normalize_on_device(batch["pixel_values"], mean, std, dtype)
+        tim_kw = {}
+        if tim_inputs is not None:
+            if deterministic:  # eval: the TIM rows are rows of the first pass
+                tim_kw = {"tim_src": tim_inputs["src"]}
+            else:
+                tim_kw = {"tim_ids": tim_inputs["ids"], "tim_mask": tim_inputs["mask"],
+                          "tim_token_type_ids": tim_inputs["token_type_ids"]}
+        return model(batch["ids"], batch["mask"], pixels,
+                     batch.get("token_type_ids") if use_tt else None,
+                     iadds_task=cfg.use_iadds_loss, gen=gen, **tim_kw)
+
+    mu_dtype = torch.bfloat16 if args.opt_moments == "bf16" else None
+    optimizer = AdamW(model.named_parameters(), cfg.lr, cfg.weight_decay,
+                      mu_dtype=mu_dtype, frozen=vision_frozen)
+    loss_cfg = _loss_cfg_from(cfg)
+    cw = None if weights is None else torch.tensor(weights, device=device)
+    n_all = sum(p.numel() for p in model.parameters())
+    n_train = sum(p.numel() for _, p in optimizer.params)
+    logger.info("model parameters %d (trainable %d)", n_all, n_train)
+    return TrainSetup(
+        model=model, device=device, optimizer=optimizer, pipes=pipes,
+        train_step=TrainStep(model, forward_fn, loss_cfg, optimizer, cw,
+                             keep_grads=keep_grads),
+        eval_step=EvalStep(model, forward_fn, loss_cfg, cw))

@@ -1,10 +1,18 @@
-"""Shared CLI plumbing: architecture presets, artifact names, seeding.
+"""Shared CLI plumbing: the trainers' flags, architecture presets, artifact
+names, seeding, the CSV writers.
 
-Counterpart of the JAX package's ``cli/_common.py`` (the parts serving uses).
+Counterpart of the JAX package's ``cli/_common.py``. ``add_common_args``
+declares the JAX package's whole flag surface plus ``--device``, so a command
+line for one package parses for the other; ``check_training_supported``
+refuses, with ``SystemExit``, every value that selects something the port
+does not have yet. ``--prng_impl`` is accepted and logged only: the port's
+draws come from ``torch.Generator``.
 """
 
 from __future__ import annotations
 
+import argparse
+import csv
 import os
 import random
 
@@ -16,6 +24,152 @@ ARCH_PRESETS = {
     "small": dict(hidden=256, layers=4, heads=4, mlp_dim=512),
     "tiny": dict(hidden=64, layers=2, heads=2, mlp_dim=128),
 }
+
+
+def add_common_args(parser: argparse.ArgumentParser, multimodal: bool = False):
+    """The JAX package's common trainer flags, plus ``--device``."""
+    parser.add_argument("--task", type=int, choices=[0, 1, 2, 3, 4, 5, 6],
+                        help="task to run")
+    parser.add_argument("--epochs", type=int, default=2, help="number of epochs")
+    parser.add_argument("--weight_decay", type=float, default=0.00025,
+                        help="weight decay param")
+    parser.add_argument("--lr", type=float, default=1e-5, help="learning rate param")
+    parser.add_argument("--dropout", type=float, default=0.05,
+                        help="dropout of the classification head")
+    parser.add_argument("--seed", type=int, default=30, help="manual seed")
+    parser.add_argument("--testing", action="store_true", help="testing sample")
+    parser.add_argument("--save_model", action="store_true", help="save model")
+    parser.add_argument("--save_preds", action="store_true", help="eval test")
+    parser.add_argument("--use_loss_correction", action="store_true",
+                        help="use Loss correction (only for binary cases)")
+    if multimodal:
+        parser.add_argument("--use_clip_loss", action="store_true",
+                            help="use contrastive Loss")
+        parser.add_argument("--use_tim_loss", action="store_true", help="use TIM Loss")
+        parser.add_argument("--beta_itc", type=float, default=0.1,
+                            help="hyperparameter for itc loss")
+        parser.add_argument("--beta_itm", type=float, default=0.1,
+                            help="hyperparameter for itm loss")
+        parser.add_argument("--use_saved_features", action="store_true",
+                            help="use the uint8 pixel cache")
+    parser.add_argument("--dtype", type=str, default="bfloat16",
+                        choices=["bfloat16", "float32"],
+                        help="activation compute dtype")
+    parser.add_argument("--attn_impl", type=str, default="auto",
+                        choices=["auto", "pallas", "pallas_interpret", "jnp",
+                                 "fused", "fused_interpret"],
+                        help="auto/pallas: the SDPA kernels; fused: the "
+                             "whole-block kernels for self-attention; jnp: "
+                             "the plain PyTorch version")
+    parser.add_argument("--opt_moments", type=str, default="f32",
+                        choices=["f32", "bf16"],
+                        help="AdamW first-moment storage dtype")
+    parser.add_argument("--opt_kernel", type=str, default="fused",
+                        choices=["fused", "optax"],
+                        help="AdamW emission in the JAX package; both names "
+                             "are the same AdamW here")
+    parser.add_argument("--tim_reuse_text", action="store_true",
+                        help="(not ported) reuse the primary text pass for "
+                             "the TIM rows in training")
+    parser.add_argument("--prng_impl", type=str, default="rbg",
+                        choices=["rbg", "threefry"],
+                        help="JAX PRNG; logged only: the port draws from "
+                             "torch.Generator")
+    parser.add_argument("--mesh_pipe", type=int, default=1,
+                        help="(not ported) pipeline-parallel stages")
+    parser.add_argument("--pp_microbatches", type=int, default=0,
+                        help="(not ported) microbatches per pipeline step")
+    parser.add_argument("--pp_interleave", type=int, default=1,
+                        help="(not ported) interleaved pipeline levels")
+    parser.add_argument("--bucket_seq", type=str, nargs="?", const="32,64,96",
+                        default=None, metavar="L1,L2,..",
+                        help="(not ported) sequence-length bucketing")
+    parser.add_argument("--bucket_group", action="store_true",
+                        help="(not ported) bucket-grouped chunked dispatch")
+    parser.add_argument("--mesh_data", type=int, default=None,
+                        help="(not ported beyond 1) data-parallel mesh axis size")
+    parser.add_argument("--mesh_model", type=int, default=1,
+                        help="(not ported beyond 1) tensor-parallel mesh axis size")
+    parser.add_argument("--arch", type=str, default="base",
+                        choices=list(ARCH_PRESETS),
+                        help="architecture size preset (tiny/small for smoke runs)")
+    parser.add_argument("--remat", action="store_true",
+                        help="(not ported) rematerialise encoder layers")
+    parser.add_argument("--scan_layers", action="store_true",
+                        help="(not ported) scanned layer stack")
+    parser.add_argument("--opt_impl", type=str, default="exact",
+                        choices=["exact", "lazy_emb"],
+                        help="exact: dense AdamW; lazy_emb: not ported")
+    if multimodal:
+        parser.add_argument("--cache_vision", action="store_true",
+                            help="(not ported) cache the frozen vision "
+                                 "tower's activations")
+    parser.add_argument("--steps_per_dispatch", type=int, default=1,
+                        help="(not ported beyond 1) optimizer steps per dispatch")
+    parser.add_argument("--resume", action="store_true",
+                        help="(not ported) resume from a checkpoint")
+    parser.add_argument("--ckpt_every", type=int, default=0,
+                        help="(not ported) checkpoint every N steps")
+    parser.add_argument("--profile", type=str, default=None,
+                        help="(not ported) profiler trace directory")
+    parser.add_argument("--log_every", type=int, default=10,
+                        help="log training metrics every N steps")
+    parser.add_argument("--image_size", type=int, default=None,
+                        help="(CNN towers) input image size")
+    parser.add_argument("--log_jsonl", type=str, default=None,
+                        help="append structured per-step/epoch records to this JSONL file")
+    parser.add_argument("--img_decoder", type=str, default="pil",
+                        choices=["pil", "native"],
+                        help="image decoder (only pil is ported)")
+    parser.add_argument("--device", type=str, default="cuda",
+                        choices=["cuda", "cpu"],
+                        help="where the run happens; cuda unless cpu is asked "
+                             "for (no quiet fallback)")
+    return parser
+
+
+def check_training_supported(args) -> None:
+    """Raise ``SystemExit`` for every flag value that selects something the
+    port's trainers do not have yet, rather than ignoring it."""
+    refused = [
+        ("--remat", args.remat),
+        ("--scan_layers", args.scan_layers),
+        ("--mesh_pipe > 1", args.mesh_pipe > 1),
+        ("--mesh_data > 1", (args.mesh_data or 1) > 1),
+        ("--mesh_model > 1", args.mesh_model > 1),
+        ("--steps_per_dispatch > 1", args.steps_per_dispatch > 1),
+        ("--bucket_seq", bool(args.bucket_seq)),
+        ("--bucket_group", args.bucket_group),
+        ("--opt_impl lazy_emb", args.opt_impl == "lazy_emb"),
+        ("--tim_reuse_text", args.tim_reuse_text),
+        ("--cache_vision", getattr(args, "cache_vision", False)),
+        ("--ckpt_every", args.ckpt_every > 0),
+        ("--resume", args.resume),
+        ("--profile", bool(args.profile)),
+        ("--img_decoder native", args.img_decoder != "pil"),
+    ]
+    for flag, asked in refused:
+        if asked:
+            raise SystemExit(f"{flag} is not ported to PyTorch yet")
+
+
+def save_predictions_csv(res: dict, path: str) -> None:
+    """``data_id,label,prediction``, as the JAX package writes it."""
+    def cell(x):
+        return x.tolist() if hasattr(x, "tolist") else x
+
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(["data_id", "label", "prediction"])
+        for row in zip(res["data_id"], res["labels"], res["predictions"]):
+            w.writerow([cell(x) for x in row])
+
+
+def save_metrics_csv(metrics: dict, path: str) -> None:
+    """``compute_metrics``' ``{"metric": [...], "result": [...]}`` table."""
+    from ..train.loop import write_table_csv
+
+    write_table_csv(metrics, path)
 
 
 def arch_overrides(args) -> dict:

@@ -1,17 +1,22 @@
-"""Task registry and the serving configuration.
+"""Task registry, the training configuration and the serving configuration.
 
-Counterpart of the JAX package's ``core/config.py``, serving subset: the
-constant tables, ``task_spec`` and a ``serving_config`` that needs no data
-files (and no pandas). Paths are anchored at ``SMTC_DATA_PATH`` /
-``SMTC_RESULTS_PATH`` (default ``<repo>/data/`` and ``<repo>/results/``), as
-in the JAX package, so both resolve the same artifact names.
+Counterpart of the JAX package's ``core/config.py``: the constant tables,
+``Config(args)`` for the trainers (the task's data key read with ``csv``,
+not pandas, into a table of numpy columns), ``task_spec`` and a
+``serving_config`` that needs no data files. Paths are anchored at
+``SMTC_DATA_PATH`` / ``SMTC_RESULTS_PATH`` (default ``<repo>/data/`` and
+``<repo>/results/``), as in the JAX package, so both resolve the same
+artifact names.
 """
 
 from __future__ import annotations
 
+import csv
 import dataclasses
 import os
 from typing import Any, Dict, List, Optional
+
+import numpy as np
 
 TASKS = {
     0: "text_is_represented",
@@ -30,6 +35,16 @@ def _repo_root() -> str:
 
 DATA_PATH = os.environ.get("SMTC_DATA_PATH", os.path.join(_repo_root(), "data") + os.sep)
 RES_PATH = os.environ.get("SMTC_RESULTS_PATH", os.path.join(_repo_root(), "results") + os.sep)
+
+PATH = {
+    0: DATA_PATH + "data_key_imgtxt_random.csv",
+    1: DATA_PATH + "data_key_imgtxt_random.csv",
+    2: DATA_PATH + "data_key_imgtxt_random.csv",
+    3: DATA_PATH + "data_key_mvsa.csv",
+    4: DATA_PATH + "data_key_mhp.csv",
+    5: DATA_PATH + "data_key_mic.csv",
+    6: DATA_PATH + "data_key_msd.csv",
+}
 
 IMG_FMT = {
     0: DATA_PATH + "text-image/T{}.jpg",
@@ -52,6 +67,20 @@ CLASSES = {
     6: ["not sarcastic", "sarcastic"],
 }
 
+metric_names = [
+    "f1_weighted",
+    "f1_macro",
+    "precision_weighted",
+    "precision_macro",
+    "recall_weighted",
+    "recall_macro",
+    "loss",
+]
+
+# Noisy-label transition matrix of the (binary) loss-correction objective,
+# as the JAX package defines it.
+T = [[0.9, 0.1], [0.1, 0.9]]
+
 results_dir_txt = RES_PATH + "txt_only/"
 results_dir_img = RES_PATH + "img_only/"
 results_dir_mm_early = RES_PATH + "mm_early/"
@@ -70,6 +99,73 @@ MODEL_DIR_DICT = {
     "beit": os.environ.get("SMTC_BEIT_DIR", DATA_PATH + "hub/BEiT/"),
     "deit": os.environ.get("SMTC_DEIT_DIR", DATA_PATH + "hub/DEiT/"),
 }
+
+
+def _column(values: List[str]) -> np.ndarray:
+    """One CSV column as pandas' ``read_csv`` types it for these files:
+    int64 when every cell is an integer, float64 when every cell is a
+    number, else an object array of strings."""
+    for kind in (np.int64, np.float64):
+        try:
+            return np.asarray([kind(v) for v in values], dtype=kind)
+        except ValueError:
+            pass
+    return np.asarray(values, dtype=object)
+
+
+def read_csv(path: str) -> Dict[str, np.ndarray]:
+    """A CSV file with a header row as ``{column: numpy array}``."""
+    with open(path, newline="", encoding="utf-8") as f:
+        rows = list(csv.reader(f))
+    header, body = rows[0], rows[1:]
+    return {name: _column([r[i] for r in body]) for i, name in enumerate(header)}
+
+
+class Config:
+    """Per-run configuration: task data, labels, aux-loss flags.
+
+    ``Config(args)`` mirrors the JAX package's ``Config.__init__``: the
+    task's data key, the label column (task 2 argmaxes four one-hot columns,
+    tasks 0/1 rename their task column), batch size and number of labels per
+    task, ``max_length`` and the ``loss_str`` artifact tag. ``data`` is a
+    table ``{column: numpy array}`` with the columns tweet_id, text, label
+    and split."""
+
+    column_names = ["tweet_id", "text", "label", "split"]
+
+    def __init__(self, args):
+        task = args.task
+        self.task = task
+        self.multilabel = task in {10}
+        key = read_csv(PATH[task])
+        if task < 2:
+            data = {c: key[c] for c in ("tweet_id", "text", "split")}
+            data["label"] = key[TASKS[task]]
+        elif task == 2:
+            data = {c: key[c] for c in ("tweet_id", "text", "split")}
+            onehot = np.stack([key[c] for c in (
+                "image_adds_text_repr", "image_adds_text_notrepr",
+                "image_notadds_text_repr", "image_notadds_text_notrepr")], axis=1)
+            data["label"] = np.argmax(onehot, axis=1)
+        elif task == 5:
+            data = {c: key[c] for c in ("text", "label", "split")}
+            data["tweet_id"] = key["id"]
+        elif task in (3, 4, 6):
+            data = {c: key[c] for c in self.column_names}
+        else:
+            raise ValueError(f"unknown task {task}")
+        self.data = data
+        spec = task_spec(task)
+        self.num_labels = spec["num_labels"]
+        self.batch_size = spec["batch_size"]
+        self.img_fmt = IMG_FMT[task]
+        self.task_name = TASKS[task]
+        self.classes = CLASSES.get(task)
+        self.dropout = args.dropout
+        self.weight_decay = args.weight_decay
+        self.lr = args.lr
+        self.max_length = 128  # 40 only for ViLT, which is not ported
+        _apply_aux_loss_flags(self, args, multimodal=True)
 
 
 @dataclasses.dataclass

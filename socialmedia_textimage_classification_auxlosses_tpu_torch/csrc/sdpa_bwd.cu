@@ -1,0 +1,58 @@
+// Kernel 3: SDPA backward on Hopper (sm_90a).
+//
+// Replaces socialmedia_textimage_classification_auxlosses_tpu/ops/attention.py
+// ::_bwd_kernel (the Pallas TPU kernel reached from _pallas_bwd for Lq <= 256,
+// the backward of the custom VJP _sdpa_pallas). The TPU kernel held one batch
+// element's Q/K/V/dO for all heads in VMEM and recomputed P there; here a
+// block takes one (batch, head) with its whole Lq x Lk problem, so dK and dV
+// still sum over every query row inside one block, without atomics. The
+// kernels and what bounds them are described in sdpa_bwd_core.cuh.
+//
+// Plain-C interface for ctypes: pointers from tensor.data_ptr(), PyTorch's
+// current stream, and cudaGetLastError() as the return value.
+
+#include "sdpa_bwd_core.cuh"
+
+extern "C" {
+
+// q, dout, dq: (B, H, Lq, D); k, v, dk, dv: (B, H, Lk, D); all contiguous in
+// one dtype (0 = float32, 1 = bfloat16); mask: (B, Lk) int32 or nullptr.
+int smtc_sdpa_bwd(const void* q, const void* k, const void* v, const int* mask,
+                  const void* dout, void* dq, void* dk, void* dv, int batch, int heads, int lq,
+                  int lk, int d, float scale, int dtype, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  smtc::SdpaBwdArgs a = {};
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.dout = dout;
+  a.mask = mask;
+  a.dq = dq;
+  a.dk = dk;
+  a.dv = dv;
+  a.o = nullptr;
+  a.heads = heads;
+  a.lq = lq;
+  a.lk = lk;
+  a.d = d;
+  a.q_sl = d;
+  a.q_sh = (long long)lq * d;
+  a.q_sb = a.q_sh * heads;
+  a.k_sl = d;
+  a.k_sh = (long long)lk * d;
+  a.k_sb = a.k_sh * heads;
+  a.scale = scale;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)smtc::launch_sdpa_bwd<float>(a, batch, s);
+  if (dtype == 1) return (int)smtc::launch_sdpa_bwd<__nv_bfloat16>(a, batch, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// 1 if the kernels take this (Lq, Lk, D): the block kernel's two f32 row
+// sets, or the row kernel's rows, fit one block's shared memory.
+int smtc_sdpa_bwd_fits(int lq, int lk, int d) { return smtc::sdpa_bwd_fits(lq, lk, d) ? 1 : 0; }
+
+const char* smtc_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+
+}  // extern "C"

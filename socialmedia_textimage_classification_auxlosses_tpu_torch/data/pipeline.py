@@ -1,0 +1,147 @@
+"""Batch pipeline: fixed-shape batches with a ``valid`` row mask.
+
+Counterpart of the JAX package's ``data/pipeline.py`` (``PipelineConfig``,
+``SplitPipeline.batches``, the image sources): text is normalized and
+tokenized once per split into padded int32 arrays; images come from the
+uint8 cache (``--use_saved_features``) or a memoised lazy decoder; every
+batch has the same shape, the last one padded by repeating its last row and
+marked in ``valid``. Visit order under ``shuffle`` is
+``rng.shuffle(arange(n))`` with the trainer's ``np.random.RandomState``, as
+in the JAX package, so both see the same batches in the same order.
+
+``to_device`` is the adapter to torch: every array but the host-side
+``data_id`` becomes a tensor on the device (``pin_memory`` +
+``non_blocking`` on CUDA). Sequence bucketing (``--bucket_seq``), chunked
+dispatch and the multi-host row slicing are not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Iterator, Optional
+
+import numpy as np
+import torch
+
+from .cache import ImageCache
+from .images import load_pixels_u8
+from .prep import SplitArrays
+
+
+class LazyImageSource:
+    """Decode + resize on first touch (PIL), memoised in RAM as uint8."""
+
+    def __init__(self, img_fmt: str, size: int = 224):
+        self.img_fmt = img_fmt
+        self.size = size
+        self._memo: Dict[str, np.ndarray] = {}
+
+    def gather(self, ids) -> np.ndarray:
+        out = np.empty((len(ids), self.size, self.size, 3), np.uint8)
+        for i, data_id in enumerate(ids):
+            key = str(data_id)
+            px = self._memo.get(key)
+            if px is None:
+                try:
+                    px = load_pixels_u8(self.img_fmt, data_id, size=self.size)
+                except OSError:  # an image that does not open is zeros
+                    px = np.zeros((self.size, self.size, 3), np.uint8)
+                self._memo[key] = px
+            out[i] = px
+        return out
+
+
+@dataclasses.dataclass
+class PipelineConfig:
+    batch_size: int
+    max_length: int = 128
+    image_size: int = 224
+
+
+class SplitPipeline:
+    """One split's tokenised arrays + image source -> padded batches."""
+
+    def __init__(self, split: SplitArrays, cfg: PipelineConfig, tokenizer=None,
+                 image_source=None):
+        self.cfg = cfg
+        self.n = len(split)
+        self.labels = np.asarray(split.labels, np.float32)
+        self.data_ids = split.ids
+        self.ids_num = split.ids_num
+        self.image_adds = split.image_adds
+        self.image_source = image_source
+        if tokenizer is not None:
+            enc = tokenizer(list(split.text))
+            self.ids, self.mask = enc["ids"], enc["mask"]
+            self.token_type_ids = enc.get("token_type_ids")
+        else:
+            self.ids = self.mask = self.token_type_ids = None
+
+    def __len__(self):
+        return self.n
+
+    @property
+    def num_batches(self):
+        return -(-self.n // self.cfg.batch_size) if self.n else 0
+
+    def batches(self, shuffle=False, rng: Optional[np.random.RandomState] = None
+                ) -> Iterator[Dict[str, np.ndarray]]:
+        if self.n == 0:
+            return
+        order = np.arange(self.n)
+        if shuffle:
+            (rng or np.random.RandomState(0)).shuffle(order)
+        bs = self.cfg.batch_size
+        for start in range(0, self.n, bs):
+            idx = order[start:start + bs]
+            pad = bs - len(idx)
+            valid = np.ones(bs, np.float32)
+            if pad:
+                idx = np.concatenate([idx, np.repeat(idx[-1:], pad)])
+                valid[bs - pad:] = 0.0
+            batch: Dict[str, np.ndarray] = {
+                "labels": self.labels[idx],
+                "valid": valid,
+                "data_id": self.ids_num[idx],
+            }
+            if self.ids is not None:
+                batch["ids"] = self.ids[idx]
+                batch["mask"] = self.mask[idx]
+                if self.token_type_ids is not None:
+                    batch["token_type_ids"] = self.token_type_ids[idx]
+            if self.image_source is not None:
+                batch["pixel_values"] = self.image_source.gather(
+                    [self.data_ids[i] for i in idx])
+            if self.image_adds is not None:
+                batch["image_adds"] = np.asarray(self.image_adds, np.int32)[idx]
+            yield batch
+
+    def device_iter(self, device, shuffle=False, rng=None):
+        """``batches`` through ``to_device``."""
+        for batch in self.batches(shuffle=shuffle, rng=rng):
+            yield to_device(batch, device)
+
+
+def to_device(batch: Dict[str, np.ndarray], device) -> Dict:
+    """Numpy batch -> tensors on ``device``; ``data_id`` stays a host int64
+    array (the step never reads it; prediction CSVs need every digit)."""
+    device = torch.device(device)
+    out = {}
+    for key, value in batch.items():
+        if key == "data_id":
+            out[key] = value
+            continue
+        t = torch.from_numpy(np.ascontiguousarray(value))
+        if device.type == "cuda":
+            t = t.pin_memory().to(device, non_blocking=True)
+        out[key] = t
+    return out
+
+
+def make_image_source(img_fmt: str, ids=None, size: int = 224,
+                      cache_dir: Optional[str] = None, use_cache: bool = False):
+    """The uint8 cache under ``cache_dir`` when asked (``--use_saved_features``;
+    missing ids are decoded into it), else memoised lazy decoding."""
+    if use_cache and cache_dir and ids is not None:
+        return ImageCache(cache_dir, size=size).build(ids, img_fmt)
+    return LazyImageSource(img_fmt, size=size)

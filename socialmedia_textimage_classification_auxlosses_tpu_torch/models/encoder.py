@@ -1,4 +1,4 @@
-"""Shared transformer encoder core (forward only).
+"""Shared transformer encoder core.
 
 Counterpart of the JAX package's ``models/encoder.py``. One stack covers the
 BERT/RoBERTa/Bernice text towers (post-LN, learned positions, RoBERTa-style
@@ -19,7 +19,14 @@ JAX package drifts otherwise:
   ``cfg.dtype`` until ``ln_final``;
 * GELU is exact (erf).
 
-Dropout is the identity: this module serves, it does not train.
+Dropout sits where the flax modules put it: after the embedding LayerNorm,
+on the attention block's output, on the MLP's output and after the ViT patch
+embeddings (no dropout on the attention probabilities). It is
+``dropout(x, rate, training, gen)``: active only while the module is in
+training mode, drawing from the explicit ``torch.Generator`` handed down the
+forward (``gen``); under ``model.eval()`` it is the identity. The draws
+differ from JAX's for the same seed, so tests that compare the two run at
+rate 0 or feed both sides the same masks.
 """
 
 from __future__ import annotations
@@ -70,6 +77,18 @@ class EncoderConfig:
         raise ValueError(self.hidden_act)
 
 
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            gen: torch.Generator = None) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each value with probability ``1 - rate`` and
+    scale the kept ones by ``1 / (1 - rate)``; the identity when not training
+    or at rate 0. The mask is drawn from ``gen`` (on x's device)."""
+    if not training or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """flax ``Dense(dtype=dtype)``: input, weight and bias cast to ``dtype``;
     the product is rounded to ``dtype`` before the bias is added."""
@@ -106,7 +125,7 @@ class Attention(nn.Module):
         self.value = nn.Linear(h, h)
         self.out = nn.Linear(h, h)
 
-    def forward(self, q_input, kv_input, key_mask=None):
+    def forward(self, q_input, kv_input, key_mask=None, gen=None):
         cfg = self.cfg
         dt = cfg.torch_dtype
         b, lq, _ = q_input.shape
@@ -118,9 +137,10 @@ class Attention(nn.Module):
                                                  self.value, self.out)]
             bias = [lin.bias.to(dt) for lin in (self.query, self.key,
                                               self.value, self.out)]
-            return attn_block(q_input.to(dt), key_mask, w[0], bias[0], w[1],
-                              bias[1], w[2], bias[2], w[3], bias[3],
-                              heads=cfg.heads, impl=cfg.attn_impl)
+            out = attn_block(q_input.to(dt), key_mask, w[0], bias[0], w[1],
+                             bias[1], w[2], bias[2], w[3], bias[3],
+                             heads=cfg.heads, impl=cfg.attn_impl)
+            return dropout(out, cfg.dropout, self.training, gen)
 
         def split(x):
             return x.reshape(b, -1, cfg.heads, cfg.head_dim).transpose(1, 2)
@@ -132,7 +152,7 @@ class Attention(nn.Module):
                      else cfg.attn_impl)
         ctx = sdpa(q, k, v, key_mask=key_mask, impl=sdpa_impl)
         ctx = ctx.transpose(1, 2).reshape(b, lq, cfg.hidden)
-        return dense(self.out, ctx, dt)
+        return dropout(dense(self.out, ctx, dt), cfg.dropout, self.training, gen)
 
 
 class Mlp(nn.Module):
@@ -142,9 +162,10 @@ class Mlp(nn.Module):
         self.mlp_in = nn.Linear(cfg.hidden, cfg.mlp_dim)
         self.mlp_out = nn.Linear(cfg.mlp_dim, cfg.hidden)
 
-    def forward(self, x):
+    def forward(self, x, gen=None):
         dt = self.cfg.torch_dtype
-        return dense(self.mlp_out, self.cfg.activation(dense(self.mlp_in, x, dt)), dt)
+        h = dense(self.mlp_out, self.cfg.activation(dense(self.mlp_in, x, dt)), dt)
+        return dropout(h, self.cfg.dropout, self.training, gen)
 
 
 class EncoderLayer(nn.Module):
@@ -156,13 +177,13 @@ class EncoderLayer(nn.Module):
         self.ln_attn = nn.LayerNorm(cfg.hidden, eps=cfg.ln_eps)
         self.ln_mlp = nn.LayerNorm(cfg.hidden, eps=cfg.ln_eps)
 
-    def forward(self, x, key_mask=None):
+    def forward(self, x, key_mask=None, gen=None):
         if self.cfg.ln_style == "post":  # BERT family
-            x = layer_norm(self.ln_attn, x + self.attention(x, x, key_mask))
-            return layer_norm(self.ln_mlp, x + self.mlp(x))
+            x = layer_norm(self.ln_attn, x + self.attention(x, x, key_mask, gen))
+            return layer_norm(self.ln_mlp, x + self.mlp(x, gen))
         h = layer_norm(self.ln_attn, x)  # pre-LN, ViT family
-        x = x + self.attention(h, h, key_mask)
-        return x + self.mlp(layer_norm(self.ln_mlp, x))
+        x = x + self.attention(h, h, key_mask, gen)
+        return x + self.mlp(layer_norm(self.ln_mlp, x), gen)
 
 
 class TransformerStack(nn.Module):
@@ -170,9 +191,9 @@ class TransformerStack(nn.Module):
         super().__init__()
         self.layers = nn.ModuleList(EncoderLayer(cfg) for _ in range(cfg.layers))
 
-    def forward(self, x, key_mask=None):
+    def forward(self, x, key_mask=None, gen=None):
         for layer in self.layers:
-            x = layer(x, key_mask)
+            x = layer(x, key_mask, gen)
         return x
 
 
@@ -200,7 +221,7 @@ class TextEmbeddings(nn.Module):
                            if cfg.type_vocab else None)
         self.ln = nn.LayerNorm(cfg.hidden, eps=cfg.ln_eps)
 
-    def forward(self, ids, token_type_ids=None):
+    def forward(self, ids, token_type_ids=None, gen=None):
         cfg = self.cfg
         dt = cfg.torch_dtype
         emb = F.embedding(ids, self.word.weight).to(dt)
@@ -216,7 +237,7 @@ class TextEmbeddings(nn.Module):
             if token_type_ids is None:
                 token_type_ids = torch.zeros_like(ids)
             emb = emb + F.embedding(token_type_ids, self.token_type.weight).to(dt)
-        return layer_norm(self.ln, emb)
+        return dropout(layer_norm(self.ln, emb), cfg.dropout, self.training, gen)
 
 
 class BertEncoder(nn.Module):
@@ -230,11 +251,11 @@ class BertEncoder(nn.Module):
         self.encoder = TransformerStack(cfg)
         self.pooler = Pooler(cfg)
 
-    def forward(self, ids, attention_mask=None, token_type_ids=None):
+    def forward(self, ids, attention_mask=None, token_type_ids=None, gen=None):
         if attention_mask is None:
             attention_mask = torch.ones_like(ids)
-        x = self.embeddings(ids, token_type_ids)
-        x = self.encoder(x, attention_mask)
+        x = self.embeddings(ids, token_type_ids, gen)
+        x = self.encoder(x, attention_mask, gen)
         return x, self.pooler(x)
 
 
@@ -254,7 +275,7 @@ class PatchEmbeddings(nn.Module):
         n = (image_size // patch) ** 2 + num_prefix_tokens
         self.pos_embed = nn.Parameter(torch.zeros(1, n, cfg.hidden))
 
-    def forward(self, pixel_values):
+    def forward(self, pixel_values, gen=None):
         dt = self.cfg.torch_dtype
         b = pixel_values.shape[0]
         if pixel_values.shape[1] != self.channels:
@@ -264,7 +285,8 @@ class PatchEmbeddings(nn.Module):
         x = x + p.bias.to(dt)[:, None, None]
         x = x.flatten(2).transpose(1, 2)  # (B, patches, hidden), row-major
         prefix = self.prefix_tokens.to(dt).expand(b, -1, -1)
-        return torch.cat([prefix, x], dim=1) + self.pos_embed.to(dt)
+        x = torch.cat([prefix, x], dim=1) + self.pos_embed.to(dt)
+        return dropout(x, self.cfg.dropout, self.training, gen)
 
 
 class ViTEncoder(nn.Module):
@@ -285,9 +307,9 @@ class ViTEncoder(nn.Module):
         self.ln_final = nn.LayerNorm(cfg.hidden, eps=cfg.ln_eps)
         self.pooler = Pooler(cfg) if pooling == "tanh" else None
 
-    def forward(self, pixel_values):
-        x = self.embeddings(pixel_values)
-        x = self.encoder(x, None)
+    def forward(self, pixel_values, gen=None):
+        x = self.embeddings(pixel_values, gen)
+        x = self.encoder(x, None, gen)
         x = layer_norm(self.ln_final, x)
         pooled = self.pooler(x) if self.pooler is not None else x[:, 0, :]
         return x, pooled

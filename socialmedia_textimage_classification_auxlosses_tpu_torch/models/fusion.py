@@ -1,4 +1,4 @@
-"""Late-fusion multimodal classifier, the paper's main model (forward only).
+"""Late-fusion multimodal classifier, the paper's main model.
 
 Counterpart of the JAX package's ``models/fusion.py``: dual encoder + one of
 four fusion heads + the classification and auxiliary heads.
@@ -11,8 +11,11 @@ four fusion heads + the classification and auxiliary heads.
 * ``aspect-att`` - tanh-scored softmax over the stacked pooled vectors
 * ``gmu``        - sigmoid gate over the CLS tokens blending 2H projections
 
-The head dropout is the identity: this module serves. ``MMCnnModel`` (the
-ResNet fusion path) is not ported yet.
+The head dropout (rate ``dropout``, the CLI's ``--dropout``) acts on the fused
+feature before ``linear_cls`` and ``linear_iadds``, not before ``linear_tim``,
+as in the JAX module; like the towers' dropout it draws from the forward's
+``gen`` and is the identity in eval mode. ``MMCnnModel`` (the ResNet fusion
+path) is not ported yet.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from torch import nn
 
 from ..ops.attention import sdpa
 from .dual import DualEncoder
-from .encoder import EncoderConfig, dense
+from .encoder import EncoderConfig, dense, dropout
 
 FUSION_NAMES = ("concat", "attention", "aspect-att", "gmu")
 
@@ -100,6 +103,7 @@ class MMLateModel(nn.Module):
         super().__init__()
         self.text_cfg = text_cfg
         self.vision_cfg = vision_cfg
+        self.dropout = dropout
         self.dual = DualEncoder(text_cfg, vision_cfg, patch=patch,
                                 image_size=image_size,
                                 num_prefix_tokens=num_prefix_tokens,
@@ -112,13 +116,13 @@ class MMLateModel(nn.Module):
         self.linear_tim = nn.Linear(text_cfg.hidden, 2)
         self.linear_iadds = nn.Linear(text_cfg.hidden, 2)
 
-    def encode_vision(self, pixel_values):
-        return self.dual.encode_vision(pixel_values)
+    def encode_vision(self, pixel_values, gen=None):
+        return self.dual.encode_vision(pixel_values, gen)
 
     def forward(self, ids, attention_mask, pixel_values, token_type_ids=None,
                 tim_ids=None, tim_mask=None, tim_token_type_ids=None,
                 iadds_task=False, vision_hidden=None, vision_pooled=None,
-                tim_src=None):
+                tim_src=None, gen=None):
         b = ids.shape[0]
         use_tim = tim_ids is not None or tim_src is not None
         if tim_ids is not None:
@@ -127,12 +131,12 @@ class MMLateModel(nn.Module):
             if token_type_ids is not None:
                 token_type_ids = torch.cat([token_type_ids, tim_token_type_ids], 0)
         text_hidden, text_pooled = self.dual.encode_text(ids, attention_mask,
-                                                         token_type_ids)
+                                                         token_type_ids, gen)
         if tim_src is not None:
             text_hidden = torch.cat([text_hidden, text_hidden[tim_src]], 0)
             text_pooled = torch.cat([text_pooled, text_pooled[tim_src]], 0)
         if vision_hidden is None:
-            vision_hidden, vision_pooled = self.dual.encode_vision(pixel_values)
+            vision_hidden, vision_pooled = self.dual.encode_vision(pixel_values, gen)
         logits_per_text = self.dual.logits_per_text(text_pooled[:b], vision_pooled)
         if use_tim:
             vh = torch.cat([vision_hidden, vision_hidden], 0)
@@ -141,9 +145,10 @@ class MMLateModel(nn.Module):
             vh, vp = vision_hidden, vision_pooled
         fused_all = self.fusion(text_hidden, vh, text_pooled, vp)
         fused = fused_all[:b]
-        out_cls = self.linear_cls(fused.float())
+        dropped = dropout(fused, self.dropout, self.training, gen)
+        out_cls = self.linear_cls(dropped.float())
         out_tim = self.linear_tim(fused_all[b:].float()) if use_tim else None
-        out_iadds = self.linear_iadds(fused.float()) if iadds_task else None
+        out_iadds = self.linear_iadds(dropped.float()) if iadds_task else None
         return {
             "out_cls": out_cls,
             "logits_per_text": logits_per_text,

@@ -1,16 +1,23 @@
 """Scaled-dot-product attention: the plain version and the CUDA kernel.
 
 Counterpart of the JAX package's ``ops/attention.py``. Every attention of the
-serving path goes through ``sdpa``: encoder self-attention (text L = 128 with
-a key mask, image L = 197), and the fusion head's single query of width 768
-over the image tokens, in float32.
+serving and training paths goes through ``sdpa``: encoder self-attention
+(text L = 128 with a key mask, 2B rows in training with TIM; image L = 197),
+and the fusion head's single query of width 768 over the image tokens, in
+float32. The frozen vision tower needs no backward; the text tower and the
+fusion head do.
 
-``sdpa`` sends a CUDA tensor to the hand-written Hopper kernel
-(``csrc/sdpa_fwd.cu``, kernel 1 in PERF.md) and a CPU tensor to
-``sdpa_reference``. Unlike the JAX package's TPU dispatch (``_auto_impl``,
-tuned on a v5e), ``auto`` on the card always means the kernel. ``impl="jnp"``
-asks for the plain version on either device; it is how a plain-path service
-is built to check the kernels against.
+``sdpa`` runs ``_SdpaFunction``, the counterpart of the JAX custom VJP
+``_sdpa_pallas``: on a CUDA tensor its forward launches the hand-written
+Hopper kernel (``csrc/sdpa_fwd.cu``, kernel 1 in PERF.md) and its backward
+the backward kernel (``csrc/sdpa_bwd.cu``, kernel 3); on a CPU tensor they
+are the plain versions ``sdpa_reference`` and ``sdpa_bwd_reference``. Like
+the JAX residuals, the function saves only its inputs and recomputes the
+probabilities in the backward. Unlike the JAX package's TPU dispatch
+(``_auto_impl``, tuned on a v5e), ``auto`` on the card always means the
+kernels. ``impl="jnp"`` asks for the plain forward on either device, with
+PyTorch's autograd of its ops for the gradient; it is how a plain path is
+built to check the kernels against.
 
 Semantics kept from the JAX package: key mask 1 = keep; masked scores are
 -1e30, not -inf, so a fully masked row is uniform rather than NaN; softmax in
@@ -31,6 +38,7 @@ _NEG_INF = -1e30
 IMPLS = ("auto", "pallas", "pallas_interpret", "fused", "fused_interpret", "jnp")
 
 launches = _cuda.LaunchCounter("sdpa_fwd")
+bwd_launches = _cuda.LaunchCounter("sdpa_bwd")
 
 
 def sdpa_reference(q, k, v, key_mask=None, scale: Optional[float] = None):
@@ -43,12 +51,48 @@ def sdpa_reference(q, k, v, key_mask=None, scale: Optional[float] = None):
     if scale is None:
         scale = q.shape[-1] ** -0.5
     scores = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
-    scores = scores.float()
+    scores = scores.to(_acc_dtype(q.dtype))
     if key_mask is not None:
         keep = key_mask[:, None, None, :] > 0
         scores = scores + torch.where(keep, 0.0, _NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bhkd->bhqd", probs, v)
+
+
+def _acc_dtype(dtype):
+    """float32 for the narrow types, the type itself for float64 (so the
+    plain versions can be gradient-checked in double precision)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def sdpa_bwd_reference(q, k, v, key_mask, do, scale: Optional[float] = None):
+    """The backward of ``sdpa``: (dq, dk, dv) for the output gradient ``do``.
+
+    An op-for-op mirror of the JAX Pallas kernel ``_bwd_kernel`` with its
+    rounding points, not autograd of the forward: P recomputed in float32
+    (products of the input dtype accumulated in float32, masked keys at
+    -1e30); P rounded to dO's dtype only for dV = P^T dO; dP = dO V^T in
+    float32; dS = P (dP - rowsum(dP P)) from the unrounded P, then rounded to
+    K's dtype; dQ = (dS K) * scale and dK = (dS^T Q) * scale, scaled after the
+    product; each output cast to its input's dtype."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    acc = _acc_dtype(q.dtype)
+    qa, ka, va, doa = (t.to(acc) for t in (q, k, v, do))
+    s = torch.einsum("bhqd,bhkd->bhqk", qa, ka) * scale
+    if key_mask is not None:
+        s = torch.where(key_mask[:, None, None, :] > 0, s, _NEG_INF)
+    s = s - s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s)
+    p = e / e.sum(dim=-1, keepdim=True)
+    pc = p.to(do.dtype).to(acc)
+    dv = torch.einsum("bhqk,bhqd->bhkd", pc, doa)
+    dp = torch.einsum("bhqd,bhkd->bhqk", doa, va)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dsc = ds.to(k.dtype).to(acc)
+    dq = torch.einsum("bhqk,bhkd->bhqd", dsc, ka) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", dsc, qa) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _lib():
@@ -64,6 +108,26 @@ def _lib():
     return lib
 
 
+def _bwd_lib():
+    lib = _cuda.library("sdpa_bwd")
+    if not getattr(lib, "_smtc_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.smtc_sdpa_bwd.argtypes = [p] * 8 + [i, i, i, i, i, ctypes.c_float,
+                                                 i, i, p]
+        lib.smtc_sdpa_bwd.restype = i
+        lib.smtc_sdpa_bwd_fits.argtypes = [i, i, i]
+        lib.smtc_sdpa_bwd_fits.restype = i
+        lib._smtc_typed = True
+    return lib
+
+
+def backward_fits(lq: int, lk: int, d: int) -> bool:
+    """Whether the backward kernel takes this shape: its block holds the
+    whole (Lq, Lk) problem (two float32 row sets) in shared memory, or
+    streams K and V for at most 4 query rows."""
+    return bool(_bwd_lib().smtc_sdpa_bwd_fits(lq, lk, d))
+
+
 def max_key_length() -> int:
     """Longest key sequence the kernel takes: a block holds its rows of
     scores in shared memory."""
@@ -76,6 +140,30 @@ def sdpa_fwd_cuda(q, k, v, key_mask, scale: float):
     int32 on the same device. Returns o: (B, H, Lq, D)."""
     if q.device.type != "cuda":
         raise ValueError(f"sdpa_fwd_cuda needs CUDA tensors, got {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("sdpa_fwd_cuda returns no gradient: call sdpa(), "
+                           "whose autograd function launches the backward kernel")
+    _check_qkv(q, k, v, key_mask, "sdpa")
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    dtype = str(q.dtype).removeprefix("torch.")
+    lib = _lib()
+    if lk > lib.smtc_sdpa_max_lk():
+        raise ValueError(f"sdpa kernel: Lk={lk} exceeds its shared-memory row "
+                         f"of {lib.smtc_sdpa_max_lk()} keys")
+    out = torch.empty_like(q)
+    rc = lib.smtc_sdpa_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if key_mask is None else key_mask.data_ptr(), out.data_ptr(),
+        b, h, lq, lk, d, float(scale), _cuda.DTYPE_CODES[dtype],
+        q.device.index or 0, _cuda.stream_of(q))
+    _cuda.check(lib, rc, "sdpa_fwd")
+    launches.add((dtype, b, h, lq, lk, d, key_mask is not None))
+    return out
+
+
+def _check_qkv(q, k, v, key_mask, what):
+    """The checks both kernels make of q, k, v and the key mask."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be (B, H, L, D)")
     b, h, lq, d = q.shape
@@ -95,37 +183,84 @@ def sdpa_fwd_cuda(q, k, v, key_mask, scale: float):
             or key_mask.device != q.device or not key_mask.is_contiguous()):
         raise ValueError("key_mask must be a contiguous (B, Lk) int32 tensor "
                          "on the device of q")
-    lib = _lib()
-    if lk > lib.smtc_sdpa_max_lk():
-        raise ValueError(f"sdpa kernel: Lk={lk} exceeds its shared-memory row "
-                         f"of {lib.smtc_sdpa_max_lk()} keys")
     if min(b, h, lq, lk, d) == 0:
-        raise ValueError("sdpa kernel: empty input")
-    out = torch.empty_like(q)
-    rc = lib.smtc_sdpa_fwd(
+        raise ValueError(f"{what} kernel: empty input")
+
+
+def sdpa_bwd_cuda(q, k, v, key_mask, do, scale: float):
+    """Launch kernel 3: (dq, dk, dv) for the output gradient ``do``. Takes
+    what ``sdpa_fwd_cuda`` takes, plus a contiguous ``do`` shaped like q."""
+    if q.device.type != "cuda":
+        raise ValueError(f"sdpa_bwd_cuda needs CUDA tensors, got {q.device}")
+    _check_qkv(q, k, v, key_mask, "sdpa_bwd")
+    if (do.shape != q.shape or do.dtype != q.dtype or do.device != q.device
+            or not do.is_contiguous()):
+        raise ValueError("do must be a contiguous tensor shaped and typed like q")
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    dtype = str(q.dtype).removeprefix("torch.")
+    lib = _bwd_lib()
+    if not lib.smtc_sdpa_bwd_fits(lq, lk, d):
+        raise ValueError(f"sdpa backward kernel: (Lq, Lk, D) = ({lq}, {lk}, {d}) "
+                         "does not fit one block's shared memory")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    rc = lib.smtc_sdpa_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if key_mask is None else key_mask.data_ptr(), out.data_ptr(),
+        None if key_mask is None else key_mask.data_ptr(), do.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         b, h, lq, lk, d, float(scale), _cuda.DTYPE_CODES[dtype],
         q.device.index or 0, _cuda.stream_of(q))
-    _cuda.check(lib, rc, "sdpa_fwd")
-    launches.add((dtype, b, h, lq, lk, d, key_mask is not None))
-    return out
+    _cuda.check(lib, rc, "sdpa_bwd")
+    bwd_launches.add((dtype, b, h, lq, lk, d, key_mask is not None))
+    return dq, dk, dv
+
+
+class _SdpaFunction(torch.autograd.Function):
+    """``sdpa`` with a gradient: the kernels on CUDA, the plain versions on
+    the CPU. Saves only its inputs, as the JAX residuals do."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, scale):
+        ctx.scale = scale
+        ctx.save_for_backward(q, k, v, key_mask)
+        if q.device.type == "cpu":
+            return sdpa_reference(q, k, v, key_mask, scale)
+        return sdpa_fwd_cuda(q, k, v, key_mask, scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, key_mask = ctx.saved_tensors
+        do = do.contiguous()  # the head transpose of Attention hands a strided one
+        if q.device.type == "cpu":
+            grads = sdpa_bwd_reference(q, k, v, key_mask, do, ctx.scale)
+        else:
+            grads = sdpa_bwd_cuda(q, k, v, key_mask, do, ctx.scale)
+        return (*grads, None, None)
 
 
 def sdpa(q, k, v, key_mask=None, scale: Optional[float] = None,
          impl: str = "auto"):
     """Fused SDPA. ``impl``: one of ``IMPLS``, the JAX package's names.
 
-    On a CUDA tensor every name but "jnp" launches the kernel (there is no
-    interpret mode on the card); "jnp" is the plain version. On a CPU tensor
-    every name runs the plain version."""
+    On a CUDA tensor every name but "jnp" launches the kernels (there is no
+    interpret mode on the card): the forward now, the backward when a
+    gradient is asked for. On a CPU tensor they are the plain versions.
+    "jnp" is the plain forward with PyTorch's autograd. A CUDA call that
+    needs a gradient at a shape the backward kernel does not take raises
+    here, before the forward."""
     if impl not in IMPLS:
         raise ValueError(f"unknown sdpa impl {impl!r}; expected one of {IMPLS}")
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if impl == "jnp" or q.device.type == "cpu":
+    if impl == "jnp":
         return sdpa_reference(q, k, v, key_mask, scale)
     if key_mask is not None:
         key_mask = key_mask.to(torch.int32).contiguous()
-    return sdpa_fwd_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
-                         key_mask, scale)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if (q.device.type == "cuda" and torch.is_grad_enabled()
+            and any(t.requires_grad for t in (q, k, v))
+            and not backward_fits(q.shape[2], k.shape[2], q.shape[3])):
+        raise ValueError(f"sdpa: a gradient is needed at (Lq, Lk, D) = "
+                         f"({q.shape[2]}, {k.shape[2]}, {q.shape[3]}), which the "
+                         "backward kernel does not take")
+    return _SdpaFunction.apply(q, k, v, key_mask, scale)

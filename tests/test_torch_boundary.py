@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: every module imports with ``jax`` and
-``flax`` blocked, no source imports the JAX package, and asking for CUDA on
-a host without it raises instead of falling back to the CPU."""
+``flax`` blocked (and with ``pandas`` and ``PIL`` blocked too: the card's
+machine has neither, and the trainers read their data with ``csv`` and the
+pixel cache), no source imports the JAX package or pandas, and asking for
+CUDA on a host without it raises instead of falling back to the CPU."""
 
 import os
 import pkgutil
@@ -31,9 +33,9 @@ def _sources():
     return files
 
 
-def test_every_module_imports_without_jax():
+def _import_all_blocking(blocked):
     code = ("import sys\n"
-            "for name in ('jax', 'flax', 'jaxlib'):\n"
+            f"for name in {blocked!r}:\n"
             "    sys.modules[name] = None\n"
             "import importlib\n"
             f"for m in {_modules()!r}:\n"
@@ -48,7 +50,15 @@ def test_every_module_imports_without_jax():
                          text=True, cwd=ROOT, env=env, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.strip() == "ok"
+
+
+def test_every_module_imports_without_jax():
+    _import_all_blocking(("jax", "flax", "jaxlib"))
     assert len(_modules()) >= 20
+
+
+def test_every_module_imports_without_pandas_or_pil():
+    _import_all_blocking(("jax", "flax", "jaxlib", "pandas", "PIL"))
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))
@@ -59,6 +69,7 @@ def test_no_source_imports_jax_or_the_jax_package(path):
     imports = [line for line in text.splitlines()
                if re.match(r"\s*(import|from)\s", line) and JAX_PACKAGE.search(line)]
     assert not imports, imports
+    assert not re.search(r"^\s*(import|from)\s+pandas\b", text, re.M), path
 
 
 def test_asking_for_cuda_without_it_raises(monkeypatch):
@@ -81,3 +92,27 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     w, b = torch.zeros(8, 8), torch.zeros(8)
     with pytest.raises(ValueError, match="CUDA"):
         attn_block.attn_block_cuda(h, None, w, b, w, b, w, b, w, b, 2, 1.0)
+
+
+def test_trainer_asks_for_cuda_by_default(monkeypatch):
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.cli import run_mm_late
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = run_mm_late.parse_args(["--task", "3", "--txt_model_name", "bernice",
+                                   "--img_model_name", "vit", "--fusion_name", "attention"])
+    assert args.device == "cuda"  # the default
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_mm_late.main(["--task", "3", "--txt_model_name", "bernice",
+                          "--img_model_name", "vit", "--fusion_name", "attention"])
+
+
+def test_backward_wrappers_refuse_cpu_tensors():
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.ops import attention, attn_block
+
+    x = torch.zeros(1, 1, 4, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        attention.sdpa_bwd_cuda(x, x, x, None, x, 1.0)
+    h = torch.zeros(1, 4, 8)
+    w, b = torch.zeros(8, 8), torch.zeros(8)
+    with pytest.raises(ValueError, match="CUDA"):
+        attn_block.attn_block_bwd_cuda(h, None, w, b, w, b, w, b, w, h, 2, 1.0)

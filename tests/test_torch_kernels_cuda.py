@@ -13,6 +13,15 @@ row it holds), the row kernel (at most 4 query rows) with and without a
 mask, a fully masked row, and the block kernel at a narrow width. Tolerances: float32 1e-4 of the output's scale (another
 summation order); bfloat16 2e-2 of it (the plain version rounds its score
 product to bfloat16 where the kernels keep float32).
+
+The backward kernels are held against their plain versions
+(``sdpa_bwd_reference``, ``attn_block_bwd_reference``, op-for-op mirrors of
+the JAX kernels with the same rounding points) at tiny shapes and at the
+training path's (text 32x12x128x64 bf16 masked, the fusion head's one
+768-wide query over 197 keys in float32, the fused block at 32x128x768 with
+12 heads), every gradient, with the same tolerances against each gradient's
+scale; and an autograd round trip through ``sdpa`` and ``attn_block`` shows
+that the gradient on the card comes from the backward kernels.
 """
 
 import pytest
@@ -128,3 +137,139 @@ def test_attn_block_takes_linear_weight_views(cuda):
     out = AB.attn_block(x, None, w, b, w, b, w, b, w, b, heads=2)
     ref = AB.attn_block(x, None, w, b, w, b, w, b, w, b, heads=2, impl="jnp")
     assert (out - ref).abs().max().item() <= 1e-4
+
+
+SDPA_BWD_CASES = {
+    # name: (b, h, lq, lk, d, masked, one fully masked row)
+    "block_small": (2, 3, 16, 24, 8, True, False),
+    "block_ragged": (3, 2, 37, 70, 40, True, True),
+    "block_many_tiles": (2, 2, 65, 100, 64, False, False),
+    "block_text_path": (32, 12, 128, 128, 64, True, True),
+    "row_fusion_path": (32, 1, 1, 197, 768, False, False),
+    "row_masked": (2, 3, 4, 70, 64, True, True),
+    "row_single_key": (2, 1, 1, 1, 8, False, False),
+}
+
+
+def _close(out, ref, dtype, what):
+    out, ref = out.float(), ref.float()
+    assert torch.isfinite(out).all(), what
+    err = (out - ref).abs().max().item()
+    assert err <= _tol(ref, dtype), (what, err, _tol(ref, dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", sorted(SDPA_BWD_CASES))
+def test_sdpa_bwd_kernel_matches_plain(cuda, case, dtype):
+    b, h, lq, lk, d, masked, empty = SDPA_BWD_CASES[case]
+    q = torch.randn(b, h, lq, d, generator=cuda, device="cuda").to(dtype)
+    k = torch.randn(b, h, lk, d, generator=cuda, device="cuda").to(dtype)
+    v = torch.randn(b, h, lk, d, generator=cuda, device="cuda").to(dtype)
+    do = torch.randn(b, h, lq, d, generator=cuda, device="cuda").to(dtype)
+    mask = _mask(cuda, b, lk, empty) if masked else None
+    scale = d ** -0.5
+    before = A.bwd_launches.count
+    got = A.sdpa_bwd_cuda(q, k, v, mask, do, scale)
+    assert A.bwd_launches.count == before + 1
+    want = A.sdpa_bwd_reference(q, k, v, mask, do, scale)
+    torch.cuda.synchronize()
+    for name, g, r, x in zip("qkv", got, want, (q, k, v)):
+        assert g.dtype == dtype and g.shape == x.shape
+        _close(g, r, dtype, f"d{name}")
+
+
+BLOCK_BWD_CASES = {
+    # name: (b, l, hidden, heads, masked)
+    "narrow": (2, 16, 64, 2, True),
+    "ragged": (3, 37, 96, 3, False),
+    "text_path": (32, 128, 768, 12, True),
+}
+
+
+def _block_inputs(gen, b, l, hid, heads, masked, dtype, grad=False):
+    x = torch.randn(b, l, hid, generator=gen, device="cuda").to(dtype)
+    params = []
+    for _ in range(4):
+        params.append((torch.randn(hid, hid, generator=gen, device="cuda")
+                       * hid ** -0.5).to(dtype))
+        params.append((0.1 * torch.randn(hid, generator=gen, device="cuda")).to(dtype))
+    mask = _mask(gen, b, l, False) if masked else None
+    do = torch.randn(b, l, hid, generator=gen, device="cuda").to(dtype)
+    if grad:
+        x.requires_grad_(True)
+        for p in params:
+            p.requires_grad_(True)
+    return x, mask, params, do
+
+
+def _term_scales(x, dq, dk, dv, ctx, do):
+    """The scale of each weight and bias gradient as the size of its terms:
+    |a|^T |g| and the sum of |g| over the B*L rows. These sums cancel (the
+    exact bias gradient of the keys is zero, since each row of dS sums to
+    zero), so a tolerance against the size of the result would be one
+    against rounding noise."""
+    h = x.shape[-1]
+
+    def w(a, g):
+        return a.reshape(-1, h).float().abs().t() @ g.reshape(-1, h).float().abs()
+
+    def b(g):
+        return g.float().abs().sum(dim=(0, 1))
+
+    return (w(x, dq), b(dq), w(x, dk), b(dk), w(x, dv), b(dv), w(ctx, do), b(do))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", sorted(BLOCK_BWD_CASES))
+def test_attn_block_bwd_round_trip_matches_plain(cuda, case, dtype):
+    """The gradient of ``attn_block`` on the card: one backward-kernel
+    launch; the kernel's dx, dq, dk, dv and ctx against the plain kernel
+    body, and all ten gradients against the plain backward (the weight and
+    bias gradients against the size of their terms)."""
+    b, l, hid, heads, masked = BLOCK_BWD_CASES[case]
+    x, mask, params, do = _block_inputs(cuda, b, l, hid, heads, masked, dtype, grad=True)
+    fwd0, bwd0 = AB.launches.count, AB.bwd_launches.count
+    out = AB.attn_block(x, mask, *params, heads=heads)
+    assert out.grad_fn is not None
+    out.backward(do)
+    assert (AB.launches.count, AB.bwd_launches.count) == (fwd0 + 1, bwd0 + 1)
+    plain = [p.detach() for p in params]
+    packed = AB.attn_block_bwd_packed_reference(x.detach(), mask, *plain[:7], do, heads)
+    got = AB.attn_block_bwd_cuda(x.detach(), mask, *plain[:7], do, heads, (hid // heads) ** -0.5)
+    want = AB.attn_block_bwd_reference(x.detach(), mask, *plain, do, heads)
+    torch.cuda.synchronize()
+    for name, g, r in zip(("dx", "dq", "dk", "dv", "ctx"), got, packed):
+        _close(g, r, dtype, name)
+    assert want[1] is None and len(want) == 10
+    _close(x.grad, want[0], dtype, "dx")
+    scales = _term_scales(x.detach(), *packed[1:], do)
+    names = ["wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo"]
+    for name, t, r, sc in zip(names, params, want[2:], scales):
+        err = (t.grad.float() - r.float()).abs().max().item()
+        tol = (1e-4 if dtype == torch.float32 else 2e-2) * max(1.0, sc.max().item())
+        assert torch.isfinite(t.grad).all() and err <= tol, ("d" + name, err, tol)
+
+
+def test_sdpa_round_trip_launches_the_backward_kernel(cuda):
+    q, k, v = (torch.randn(4, 12, 128, 64, generator=cuda, device="cuda")
+               .bfloat16().requires_grad_(True) for _ in range(3))
+    mask = _mask(cuda, 4, 128, True)
+    do = torch.randn(4, 12, 128, 64, generator=cuda, device="cuda").bfloat16()
+    before = A.bwd_launches.count
+    out = A.sdpa(q, k, v, mask)
+    assert out.grad_fn is not None
+    out.backward(do)
+    assert A.bwd_launches.count == before + 1
+    want = A.sdpa_bwd_reference(q.detach(), k.detach(), v.detach(), mask, do, 64 ** -0.5)
+    for t, r in zip((q, k, v), want):
+        _close(t.grad, r, torch.bfloat16, "round trip")
+
+
+def test_raw_wrappers_refuse_inputs_that_need_a_gradient(cuda):
+    q = torch.randn(1, 1, 8, 8, device="cuda", requires_grad=True)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        A.sdpa_fwd_cuda(q, q, q, None, 1.0)
+    x = torch.randn(1, 8, 16, device="cuda", requires_grad=True)
+    w, b = torch.zeros(16, 16, device="cuda"), torch.zeros(16, device="cuda")
+    with pytest.raises(RuntimeError, match="no gradient"):
+        AB.attn_block_cuda(x, None, w, b, w, b, w, b, w, b, 2, 1.0)
