@@ -9,8 +9,12 @@ and the CUDA toolkit. It
 1. prints the card (``nvidia-smi`` name and power limit);
 2. builds the port's CUDA kernels from ``csrc/`` (one ``nvcc`` per source,
    all at once) and prints the build seconds;
-3. calls each kernel's wrapper at every shape the serving path gives it and
-   holds the result against the plain PyTorch version on the same inputs
+3. calls each kernel's wrapper at every shape the serving path and ViLT's
+   joint encoder give it (ViLT: 32x12x402x402x64 bf16 with ViLT's mask of
+   text padding and canvas area past each image's extent, and the fused
+   block at 32x402x768; also checked, though no path runs them, 402 in
+   float32 and the fixed square's 185) and holds the result against the
+   plain PyTorch version on the same inputs
    (float32: 1e-4 of the output's scale; bfloat16: 2e-2 of it, because the
    plain version rounds its score product to bfloat16 where the kernel keeps
    float32), and times the kernel, the plain version and, as a yardstick the
@@ -27,10 +31,12 @@ and the CUDA toolkit. It
    the same state dict (within 2e-2: bfloat16 activations through 24 layers,
    rounded at other places than in the plain version);
 6. holds the backward kernels against their plain versions at the training
-   shapes (the SDPA backward at text 32x12x128x64 bf16 masked and at the
-   fusion head's 32x1x1x768 over 197 keys in float32; the fused block's
-   backward at 32x128x768 bf16, 12 heads, masked, its five outputs and, through
-   autograd, all ten gradients), with the tolerances above against each
+   shapes (the SDPA backward at text 32x12x128x64 bf16 masked, at the
+   fusion head's 32x1x1x768 over 197 keys in float32, and at ViLT's shapes
+   above, where the query-tiled pair runs; the query-tiled pair also at the
+   text shape, timed beside the block kernel; the fused block's backward at
+   32x128x768 and 32x402x768 bf16, 12 heads, masked, its five outputs and,
+   through autograd, all ten gradients), with the tolerances above against each
    output's scale (for the weight and bias gradients, sums over 4,096 rows
    that cancel, the size of their terms), and times them like the forward
    kernels (the library yardstick: the backward alone of
@@ -45,17 +51,29 @@ and the CUDA toolkit. It
    launch counts per train step and per eval step; it prints ms per train
    step, posts/s, the device idle share of one profiled step and the peak
    device memory;
-8. holds the first train step of ``auto`` and of ``fused`` against the plain
-   path (``--attn_impl jnp``): same state dict, same batch, dropout 0, the
-   ITM swap pinned, every text-tower attention weight and fusion-head tensor
+8. trains full-width ViLT-B/32 (12 pre-LN layers, hidden 768, vocab 30,522,
+   40 text positions, patch 32) with ITC + TIM through ``cli/run_mm_early.main``
+   under ``--vilt_exact_resize`` on the same posts, one epoch at batch 16 in
+   bfloat16 under ``auto`` and ``fused``: each image a generated frame at the
+   extent of a random photo size on the 608-px canvas (the card's machine
+   has no PIL), and it checks that every batch carries its images' extents,
+   the exact launch counts (12 SDPA forward and 12 backward per train step,
+   12 forward per eval step, all at L = 402; under ``fused`` the block
+   kernels instead), finite losses and gradients of every parameter but the
+   unread pooler, and the artifacts, with the same numbers as step 7;
+9. holds the first train step of ``auto`` and of ``fused`` against the plain
+   path (``--attn_impl jnp``), for late fusion and for ViLT: same state
+   dict, same batch, dropout 0, the ITM swap pinned, every text-tower (ViLT:
+   joint-encoder) attention weight and, in late fusion, fusion-head tensor
    (but the key bias, whose exact gradient is zero). In float32 the loss
    within 1e-5 and each gradient within 1e-3 relative (Frobenius). In
    bfloat16 the plain path rounds its scores to bfloat16 before the softmax
    where the kernels keep float32, so both are held against the float32
    plain gradients: the kernel path's median and worst relative error no
    more than 1.5 times the bfloat16 plain path's, the loss within 2e-2;
-9. prints one JSON line of per-kernel numbers, the card line, and last
-   ``{"ok": true, "device": {...}}``.
+10. prints one JSON line of per-kernel numbers (``launches``: the count over
+   the serving and training runs; 0 for the check-only shapes), the card
+   line, and last ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero without the last line. Without CUDA, or
 without the repository beside it, it exits non-zero at once.
@@ -84,6 +102,11 @@ N_CLIENTS = 16
 PROB_TOL = 2e-2
 TRAIN_POSTS = (48, 8, 8)  # train / val / test rows of the generated dataset
 DEVICE = "cuda"
+VILT_TEXT, VILT_SIDE = 40, 19  # ViLT's text positions; the 608-px canvas at patch 32
+VILT_LEN = VILT_TEXT + 1 + VILT_SIDE ** 2  # 402, --vilt_exact_resize
+VILT_FIXED_LEN = VILT_TEXT + 1 + 12 ** 2  # 185, the fixed 384-px square
+# photo sizes (height, width) of 4:3, 3:4, 16:9 and 1:1 for the generated ViLT frames
+VILT_PHOTOS = ((480, 640), (640, 480), (720, 1280), (500, 500), (960, 1280), (1080, 1920))
 
 
 def log(*a):
@@ -132,6 +155,25 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
+def vilt_mask(torch, g, b, length):
+    """ViLT's joint key mask (B, L) int32: 40 text positions padded past a
+    random length, the image CLS, then the image patches: at L = 402 the
+    19 x 19 canvas kept inside a random extent of 12 to 19 patches a side
+    (canvas area past the image is masked), at L = 185 the 12 x 12 square
+    kept whole."""
+    lens = torch.randint(2, VILT_TEXT + 1, (b,), generator=g, device="cuda")
+    text = torch.arange(VILT_TEXT, device="cuda")[None, :] < lens[:, None]
+    side = round((length - VILT_TEXT - 1) ** 0.5)
+    if length == VILT_LEN:
+        gh, gw = (torch.randint(12, side + 1, (b,), generator=g, device="cuda") for _ in range(2))
+    else:
+        gh = gw = torch.full((b,), side, device="cuda")
+    iy = torch.arange(side, device="cuda")
+    grid = (iy[None, :, None] < gh[:, None, None]) & (iy[None, None, :] < gw[:, None, None])
+    return torch.cat([text, torch.ones(b, 1, dtype=torch.bool, device="cuda"),
+                      grid.reshape(b, -1)], dim=1).to(torch.int32)
+
+
 def check_kernels(torch):
     """Each kernel against its plain version at the serving shapes."""
     import torch.nn.functional as F
@@ -173,14 +215,22 @@ def check_kernels(torch):
             f"library {row['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
         rows.append(row)
 
-    # kernel 1: every SDPA of the serving path
+    # TPU kernels 1 and 3: every SDPA of the serving path and of ViLT (the
+    # joint sequence with TIM batched, 2B rows; 402 > 256 is kernel 3's
+    # range; float32 and the fixed square's 185 are checked, not on the paths)
     for tag, (b, h, lq, lk, d, dtype, masked) in {
             "text": (BATCH, 12, 128, 128, 64, "bfloat16", True),
             "image": (BATCH, 12, 197, 197, 64, "bfloat16", False),
-            "fusion": (BATCH, 1, 1, 197, 768, "float32", False)}.items():
+            "fusion": (BATCH, 1, 1, 197, 768, "float32", False),
+            "vilt_exact": (2 * BATCH, 12, VILT_LEN, VILT_LEN, 64, "bfloat16", "vilt"),
+            "vilt_exact_f32": (2 * BATCH, 12, VILT_LEN, VILT_LEN, 64, "float32", "vilt"),
+            "vilt_fixed": (2 * BATCH, 12, VILT_FIXED_LEN, VILT_FIXED_LEN, 64, "bfloat16",
+                           "vilt")}.items():
         dt = getattr(torch, dtype)
         q, k, v = randn(b, h, lq, d, dtype=dt), randn(b, h, lk, d, dtype=dt), randn(b, h, lk, d, dtype=dt)
-        mask = lengths_mask(b, lk) if masked else None
+        mask = (vilt_mask(torch, g, b, lk) if masked == "vilt"
+                else lengths_mask(b, lk) if masked else None)
+        masked = mask is not None
         scale = d ** -0.5
         attn_mask = None if mask is None else (mask > 0)[:, None, None, :]
         out = A.sdpa(q, k, v, mask, scale)
@@ -191,15 +241,18 @@ def check_kernels(torch):
                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask, scale=scale),
                nbytes(q, k, v, mask, out), 4.0 * b * h * lq * lk * d, dtype)
 
-    # kernel 2: every self-attention block with --attn_impl fused
+    # TPU kernel 7: every self-attention block with --attn_impl fused
     hid, heads = 768, 12
     for tag, (b, l, masked) in {"text": (BATCH, 128, True),
-                                "image": (BATCH, 197, False)}.items():
+                                "image": (BATCH, 197, False),
+                                "vilt_exact": (2 * BATCH, VILT_LEN, "vilt")}.items():
         dt = torch.bfloat16
         x = randn(b, l, hid, dtype=dt)
         w = [(randn(hid, hid, dtype=torch.float32) * hid ** -0.5).to(dt) for _ in range(4)]
         bias = [randn(hid, dtype=torch.float32).mul(0.1).to(dt) for _ in range(4)]
-        mask = lengths_mask(b, l) if masked else None
+        mask = (vilt_mask(torch, g, b, l) if masked == "vilt"
+                else lengths_mask(b, l) if masked else None)
+        masked = mask is not None
         args = [x, mask, w[0], bias[0], w[1], bias[1], w[2], bias[2], w[3], bias[3]]
         mha = torch.nn.MultiheadAttention(hid, heads, batch_first=True, device="cuda", dtype=dt)
         with torch.no_grad():
@@ -258,22 +311,41 @@ def check_bwd_kernels(torch):
             f"library {row['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
         rows.append(row)
 
-    # kernel 3: the SDPA backward of the text tower and of the fusion head
+    # TPU kernels 2 and 4: the SDPA backward of the text tower, of the fusion
+    # head and of ViLT's joint sequence (the query-tiled pair at 402 and 185;
+    # float32 and 185 are checked, not on the paths)
     for tag, (b, h, lq, lk, d, dtype, masked) in {
             "text": (2 * BATCH, 12, 128, 128, 64, "bfloat16", True),
-            "fusion": (2 * BATCH, 1, 1, 197, 768, "float32", False)}.items():
+            "fusion": (2 * BATCH, 1, 1, 197, 768, "float32", False),
+            "vilt_exact": (2 * BATCH, 12, VILT_LEN, VILT_LEN, 64, "bfloat16", "vilt"),
+            "vilt_exact_f32": (2 * BATCH, 12, VILT_LEN, VILT_LEN, 64, "float32", "vilt"),
+            "vilt_fixed": (2 * BATCH, 12, VILT_FIXED_LEN, VILT_FIXED_LEN, 64, "bfloat16",
+                           "vilt")}.items():
         dt = getattr(torch, dtype)
         q, k, v = randn(b, h, lq, d, dtype=dt), randn(b, h, lk, d, dtype=dt), randn(b, h, lk, d, dtype=dt)
         do = randn(b, h, lq, d, dtype=dt)
         mask = None
-        if masked:
+        if masked == "vilt":
+            mask = vilt_mask(torch, g, b, lk)
+        elif masked:
             lens = torch.randint(2, lk + 1, (b,), generator=g, device="cuda")
             mask = (torch.arange(lk, device="cuda")[None, :] < lens[:, None]).to(torch.int32)
+        masked = mask is not None
         scale = d ** -0.5
         outs = A.sdpa_bwd_cuda(q, k, v, mask, do, scale)
         refs = A.sdpa_bwd_reference(q, k, v, mask, do, scale)
         err = close(f"sdpa_bwd/{tag}", outs, refs, [r.float().abs().max().item() for r in refs],
                     dtype)
+        if tag == "text":
+            # the query-tiled pair where the block kernel runs: which is faster
+            tiled = A.sdpa_bwd_cuda(q, k, v, mask, do, scale, kernel="tiled")
+            close("sdpa_bwd/text tiled pair", tiled, refs,
+                  [r.float().abs().max().item() for r in refs], dtype)
+            block_ms = device_ms(torch, lambda: A.sdpa_bwd_cuda(q, k, v, mask, do, scale))
+            tiled_ms = device_ms(torch, lambda: A.sdpa_bwd_cuda(q, k, v, mask, do, scale,
+                                                                kernel="tiled"))
+            log(f"time sdpa_bwd/text: block kernel {block_ms:.4f} ms, query-tiled pair "
+                f"{tiled_ms:.4f} ms")
         leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
         attn_mask = None if mask is None else (mask > 0)[:, None, None, :]
         lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=attn_mask, scale=scale)
@@ -283,60 +355,69 @@ def check_bwd_kernels(torch):
               lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True),
               nbytes(q, k, v, do, mask, *outs), 10.0 * b * h * lq * lk * d, dtype)
 
-    # kernel 4: the fused block's backward in the text tower, --attn_impl fused
-    b, l, hid, heads = 2 * BATCH, 128, 768, 12
-    dt = torch.bfloat16
-    x = randn(b, l, hid, dtype=dt)
-    w = [(randn(hid, hid, dtype=torch.float32) * hid ** -0.5).to(dt) for _ in range(4)]
-    bias = [randn(hid, dtype=torch.float32).mul(0.1).to(dt) for _ in range(4)]
-    lens = torch.randint(2, l + 1, (b,), generator=g, device="cuda")
-    mask = (torch.arange(l, device="cuda")[None, :] < lens[:, None]).to(torch.int32)
-    do = randn(b, l, hid, dtype=dt)
-    scale = (hid // heads) ** -0.5
-    kargs = (x, mask, w[0], bias[0], w[1], bias[1], w[2], bias[2], w[3], do, heads)
-    outs = AB.attn_block_bwd_cuda(*kargs, scale)
-    refs = AB.attn_block_bwd_packed_reference(*kargs, scale)
-    err = close("attn_block_bwd/text", outs, refs,
-                [r.float().abs().max().item() for r in refs], "bfloat16")
-    # through autograd: the ten gradients of attn_block against the plain backward
-    leaves = [t.detach().clone().requires_grad_(True)
-              for t in (x, w[0], bias[0], w[1], bias[1], w[2], bias[2], w[3], bias[3])]
-    before = AB.bwd_launches.count
-    out = AB.attn_block(leaves[0], mask, *leaves[1:], heads=heads)
-    out.backward(do)
-    if AB.bwd_launches.count != before + 1:
-        raise AssertionError("attn_block's gradient did not launch kernel 4")
-    want = AB.attn_block_bwd_reference(x, mask, *w[:1], bias[0], w[1], bias[1], w[2], bias[2],
-                                       w[3], bias[3], do, heads)
-    _, dq, dk, dv, ctx = refs
+    # TPU kernel 8: the fused block's backward in the text tower and in
+    # ViLT's joint encoder, --attn_impl fused
+    hid, heads = 768, 12
+    for tag, l in (("text", 128), ("vilt_exact", VILT_LEN)):
+        b, dt = 2 * BATCH, torch.bfloat16
+        x = randn(b, l, hid, dtype=dt)
+        w = [(randn(hid, hid, dtype=torch.float32) * hid ** -0.5).to(dt) for _ in range(4)]
+        bias = [randn(hid, dtype=torch.float32).mul(0.1).to(dt) for _ in range(4)]
+        if tag == "text":
+            lens = torch.randint(2, l + 1, (b,), generator=g, device="cuda")
+            mask = (torch.arange(l, device="cuda")[None, :] < lens[:, None]).to(torch.int32)
+        else:
+            mask = vilt_mask(torch, g, b, l)
+        do = randn(b, l, hid, dtype=dt)
+        scale = (hid // heads) ** -0.5
+        kargs = (x, mask, w[0], bias[0], w[1], bias[1], w[2], bias[2], w[3], do, heads)
+        outs = AB.attn_block_bwd_cuda(*kargs, scale)
+        refs = AB.attn_block_bwd_packed_reference(*kargs, scale)
+        err = close(f"attn_block_bwd/{tag}", outs, refs,
+                    [r.float().abs().max().item() for r in refs], "bfloat16")
+        # through autograd: the ten gradients of attn_block against the plain backward
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (x, w[0], bias[0], w[1], bias[1], w[2], bias[2], w[3], bias[3])]
+        before = AB.bwd_launches.count
+        out = AB.attn_block(leaves[0], mask, *leaves[1:], heads=heads)
+        out.backward(do)
+        if AB.bwd_launches.count != before + 1:
+            raise AssertionError("attn_block's gradient did not launch its backward kernel")
+        want = AB.attn_block_bwd_reference(x, mask, *w[:1], bias[0], w[1], bias[1], w[2],
+                                           bias[2], w[3], bias[3], do, heads)
+        _, dq, dk, dv, ctx = refs
 
-    def wscale(a, gr):
-        return (a.reshape(-1, hid).float().abs().t() @ gr.reshape(-1, hid).float().abs()).max().item()
+        def wscale(a, gr):
+            return (a.reshape(-1, hid).float().abs().t()
+                    @ gr.reshape(-1, hid).float().abs()).max().item()
 
-    def bscale(gr):
-        return gr.float().abs().sum(dim=(0, 1)).max().item()
+        def bscale(gr):
+            return gr.float().abs().sum(dim=(0, 1)).max().item()
 
-    scales = [outs[0].float().abs().max().item(), wscale(x, dq), bscale(dq), wscale(x, dk),
-              bscale(dk), wscale(x, dv), bscale(dv), wscale(ctx, do), bscale(do)]
-    # the row reports the kernel's own outputs; the weight and bias sums come
-    # from torch.matmul outside it and are checked here only
-    close("attn_block_bwd/text ten gradients", [t.grad for t in leaves],
-          (want[0],) + tuple(want[2:]), scales, "bfloat16")
-    mha = torch.nn.MultiheadAttention(hid, heads, batch_first=True, device="cuda", dtype=dt)
-    with torch.no_grad():
-        mha.in_proj_weight.copy_(torch.cat([wi.t() for wi in w[:3]]))
-        mha.in_proj_bias.copy_(torch.cat(bias[:3]))
-        mha.out_proj.weight.copy_(w[3].t())
-        mha.out_proj.bias.copy_(bias[3])
-    x_leaf = x.detach().clone().requires_grad_(True)
-    lib_out = mha(x_leaf, x_leaf, x_leaf, key_padding_mask=mask == 0, need_weights=False)[0]
-    m = b * l
-    ops = 2.0 * m * hid * hid * 7 + 12.0 * b * l * l * hid
-    timed("attn_block_bwd/text", "attn_block_bwd", ("bfloat16", b, l, hid, heads, True), err,
-          lambda: AB.attn_block_bwd_cuda(*kargs, scale),
-          lambda: AB.attn_block_bwd_packed_reference(*kargs, scale),
-          lambda: torch.autograd.grad(lib_out, (x_leaf,), do, retain_graph=True),
-          nbytes(x, mask, do, *w, *bias[:3], *outs), ops, "bfloat16")
+        scales = [outs[0].float().abs().max().item(), wscale(x, dq), bscale(dq), wscale(x, dk),
+                  bscale(dk), wscale(x, dv), bscale(dv), wscale(ctx, do), bscale(do)]
+        # the row reports the kernel's own outputs; the weight and bias sums come
+        # from torch.matmul outside it and are checked here only
+        close(f"attn_block_bwd/{tag} ten gradients", [t.grad for t in leaves],
+              (want[0],) + tuple(want[2:]), scales, "bfloat16")
+        del leaves, out, want
+        mha = torch.nn.MultiheadAttention(hid, heads, batch_first=True, device="cuda", dtype=dt)
+        with torch.no_grad():
+            mha.in_proj_weight.copy_(torch.cat([wi.t() for wi in w[:3]]))
+            mha.in_proj_bias.copy_(torch.cat(bias[:3]))
+            mha.out_proj.weight.copy_(w[3].t())
+            mha.out_proj.bias.copy_(bias[3])
+        x_leaf = x.detach().clone().requires_grad_(True)
+        lib_out = mha(x_leaf, x_leaf, x_leaf, key_padding_mask=mask == 0, need_weights=False)[0]
+        m = b * l
+        ops = 2.0 * m * hid * hid * 7 + 12.0 * b * l * l * hid
+        timed(f"attn_block_bwd/{tag}", "attn_block_bwd", ("bfloat16", b, l, hid, heads, True),
+              err, lambda: AB.attn_block_bwd_cuda(*kargs, scale),
+              lambda: AB.attn_block_bwd_packed_reference(*kargs, scale),
+              lambda: torch.autograd.grad(lib_out, (x_leaf,), do, retain_graph=True),
+              nbytes(x, mask, do, *w, *bias[:3], *outs), ops, "bfloat16")
+        del lib_out, x_leaf, mha, outs, refs
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -379,9 +460,69 @@ def train_args(attn_impl, extra=()):
             "--save_model", "--log_every", "1", "--attn_impl", attn_impl, *extra]
 
 
-def train_run(torch, run_mm_late, counters, attn_impl, results_dir, expect):
-    """One epoch through ``run_mm_late.main``; returns its numbers and the
-    launch counts by (kernel, key)."""
+def vilt_args(attn_impl, extra=()):
+    return ["--model", "vilt", "--task", "3", "--epochs", "1", "--seed", "30",
+            "--arch", "base", "--dtype", "bfloat16", "--vilt_exact_resize",
+            "--use_clip_loss", "--use_tim_loss", "--save_model", "--log_every", "1",
+            "--attn_impl", attn_impl, *extra]
+
+
+def fill_vilt_frames(build_early, ids):
+    """The card's machine has no PIL to decode photos: every split's
+    ``ExactViltImageSource`` gets its memo filled with generated frames, each
+    at the ``vilt_exact_geometry`` extent of a random photo size of
+    ``VILT_PHOTOS`` (so a batch mixes extents), pasted onto the 608-px
+    canvas. Returns the memo and the list of (ids, grid_hw) every gather
+    returned, to check the batches against."""
+    import numpy as np
+
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.data.images import (
+        vilt_canvas, vilt_exact_geometry)
+
+    rng = np.random.RandomState(11)
+    canvas = vilt_canvas()
+    memo, seen = {}, []
+    for data_id in ids:
+        nh, nw = vilt_exact_geometry(*VILT_PHOTOS[rng.randint(len(VILT_PHOTOS))])
+        frame = np.zeros((canvas, canvas, 3), np.uint8)
+        frame[:nh, :nw] = rng.randint(0, 256, (nh, nw, 3), dtype=np.uint8)
+        memo[str(data_id)] = (frame, (nh, nw))
+    base = build_early.ExactViltImageSource
+
+    class FilledSource(base):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.memo.update(memo)
+
+        def gather(self, batch_ids):
+            frames, grid = super().gather(batch_ids)
+            seen.append(([str(i) for i in batch_ids], grid.copy()))
+            return frames, grid
+
+    build_early.ExactViltImageSource = FilledSource
+    return memo, seen
+
+
+def check_vilt_extents(memo, seen, tag):
+    """Every gathered batch carries its images' own extents, and mixes them."""
+    if not seen:
+        raise AssertionError(f"{tag}: no image batch was gathered")
+    for ids, grid in seen:
+        want = [list(memo[i][1]) for i in ids]
+        if grid.tolist() != want:
+            raise AssertionError(f"{tag}: batch extents {grid.tolist()} are not the "
+                                 f"images' {want}")
+        if len({tuple(g) for g in want}) < 2:
+            raise AssertionError(f"{tag}: a batch of one extent {want[0]}")
+    log(f"{tag}: {len(seen)} image batches, each with its images' extents "
+        f"({len({tuple(g) for _, gr in seen for g in gr.tolist()})} distinct)")
+
+
+def train_run(torch, main, argv, tag, counters, results_dir, stem, expect, check_grads):
+    """One epoch through a trainer's ``main(argv)``; checks the launch counts
+    per train and eval step, the gradients (``check_grads(setup, grads)``)
+    and the artifacts ``stem`` + ...; returns its numbers and the launch
+    counts by (kernel, key)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -397,7 +538,7 @@ def train_run(torch, run_mm_late, counters, attn_impl, results_dir, expect):
         state["prev"] = {k: c.count for k, c in counters.items()}
         vals = {k: float(v) for k, v in metrics.items()}
         if not all(map(lambda v: v == v and abs(v) != float("inf"), vals.values())):
-            raise AssertionError(f"train[{attn_impl}]: step {step} metrics not finite: {vals}")
+            raise AssertionError(f"{tag}: step {step} metrics not finite: {vals}")
         steps.append(dict(seconds=None if state["t"] is None else now - state["t"],
                           counts=counts, loss=vals["loss"]))
         state["t"] = now
@@ -406,7 +547,7 @@ def train_run(torch, run_mm_late, counters, attn_impl, results_dir, expect):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state["t"] = None
-    trainer, setup = run_mm_late.main(train_args(attn_impl), on_step=on_step, keep_grads=True)
+    trainer, setup = main(argv, on_step=on_step, keep_grads=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
@@ -418,45 +559,26 @@ def train_run(torch, run_mm_late, counters, attn_impl, results_dir, expect):
     for i, st in enumerate(steps):
         for kernel, n in expect["train"].items():
             if st["counts"][kernel] != n:
-                raise AssertionError(f"train[{attn_impl}]: step {i + 1} launched {kernel} "
+                raise AssertionError(f"{tag}: step {i + 1} launched {kernel} "
                                      f"{st['counts'][kernel]} times, expected {n}")
     for kernel, n in expect["eval"].items():
         seen = totals[kernel] - sum(st["counts"][kernel] for st in steps)
         if seen != n * n_eval:
-            raise AssertionError(f"train[{attn_impl}]: {n_eval} eval steps launched "
+            raise AssertionError(f"{tag}: {n_eval} eval steps launched "
                                  f"{kernel} {seen} times, expected {n} each")
-    log(f"train[{attn_impl}]: launches per train step {expect['train']}, per eval step "
+    log(f"{tag}: launches per train step {expect['train']}, per eval step "
         f"{expect['eval']} over {n_train} train and {n_eval} eval steps: exact")
 
-    grads = setup.train_step.last_grads
-    names = set(setup.optimizer.names)
-    unused = sorted(n for n, gr in grads.items() if gr is None)
-    if unused != ["linear_iadds.bias", "linear_iadds.weight"]:
-        raise AssertionError(f"train[{attn_impl}]: parameters without a gradient: {unused}")
-    bad = [n for n, gr in grads.items() if gr is not None and not torch.isfinite(gr).all()]
-    if bad:
-        raise AssertionError(f"train[{attn_impl}]: non-finite gradients in {bad[:5]}")
-    vision = [n for n, p in setup.model.named_parameters() if n.startswith("dual.vision.")]
-    if (not vision or any(n in names for n in vision)
-            or any(p.requires_grad or p.grad is not None
-                   for n, p in setup.model.named_parameters() if n in vision)):
-        raise AssertionError(f"train[{attn_impl}]: the vision tower is not frozen")
-    trainable = [n for n, p in setup.model.named_parameters() if n not in vision]
-    if sorted(trainable) != sorted(names):
-        raise AssertionError(f"train[{attn_impl}]: AdamW does not hold every trainable parameter")
-    log(f"train[{attn_impl}]: {len(names) - len(unused)} trainable tensors with finite "
-        f"gradients, {len(unused)} unused by the loss (linear_iadds, decayed as under optax), "
-        f"{len(vision)} vision tensors frozen without gradients")
+    check_grads(setup, setup.train_step.last_grads)
 
-    stem = "bernice-vit-attention_task3_seed30_itc0.1itm0.1_"
     for suffix in ("metrics_val.csv", "metrics_test.csv", "net.pth"):
         path = os.path.join(results_dir, stem + suffix)
         if not os.path.isfile(path) or os.path.getsize(path) == 0:
-            raise AssertionError(f"train[{attn_impl}]: artifact {path} missing")
+            raise AssertionError(f"{tag}: artifact {path} missing")
     with open(os.path.join(results_dir, stem + "metrics_test.csv")) as f:
         table = f.read().splitlines()
     if table[0] != "metric,epoch-1" or len(table) != 8:
-        raise AssertionError(f"train[{attn_impl}]: metrics table {table}")
+        raise AssertionError(f"{tag}: metrics table {table}")
 
     # one more step under the profiler: the device's idle share
     batch = next(setup.pipes["train"].device_iter(setup.device, shuffle=False))
@@ -472,30 +594,80 @@ def train_run(torch, run_mm_late, counters, attn_impl, results_dir, expect):
     idle = (1 - busy / step_wall) if busy else None
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     for e in top:
-        log(f"profile[train {attn_impl}]:   {e.self_device_time_total / 1e3:8.3f} ms "
+        log(f"profile {tag}:   {e.self_device_time_total / 1e3:8.3f} ms "
             f"x{e.count:<4d} {e.key[:90]}")
     timed_steps = [st["seconds"] for st in steps if st["seconds"] is not None]
     ms = 1e3 * sum(timed_steps) / len(timed_steps)
     # the profiler's own host work lengthens the profiled step: the share
     # against the unprofiled mean step is the second reading
-    result = dict(attn_impl=attn_impl, train_steps=n_train, eval_steps=n_eval,
+    result = dict(run=tag, train_steps=n_train, eval_steps=n_eval,
                   ms_per_train_step=ms, posts_per_s=BATCH / (ms / 1e3),
                   profiled_step_ms=step_wall, device_busy_ms=busy,
                   idle_share=idle,
                   idle_share_of_mean_step=(1 - busy / ms) if busy else None,
                   max_memory_allocated=peak, run_seconds=wall,
                   losses=[st["loss"] for st in steps])
-    log(f"train[{attn_impl}]: {json.dumps(result)}")
+    log(f"{tag}: {json.dumps(result)}")
     if idle is None:
-        log(f"train[{attn_impl}]: device idle share not measured (the profiler saw no "
+        log(f"{tag}: device idle share not measured (the profiler saw no "
             "device events)")
     del trainer, setup, batch
     torch.cuda.empty_cache()
     return result, by_key
 
 
-def first_step_check(torch, C, run_mm_late, build, hub):
-    """The first train step of auto and fused against the plain path.
+def late_grads_check(torch, tag):
+    """Late fusion: every trainable parameter but ``linear_iadds`` (unused by
+    the loss) has a finite gradient, the vision tower is frozen without
+    gradients, and AdamW holds every trainable parameter."""
+    def check(setup, grads):
+        names = set(setup.optimizer.names)
+        unused = sorted(n for n, gr in grads.items() if gr is None)
+        if unused != ["linear_iadds.bias", "linear_iadds.weight"]:
+            raise AssertionError(f"{tag}: parameters without a gradient: {unused}")
+        bad = [n for n, gr in grads.items() if gr is not None and not torch.isfinite(gr).all()]
+        if bad:
+            raise AssertionError(f"{tag}: non-finite gradients in {bad[:5]}")
+        vision = [n for n, p in setup.model.named_parameters() if n.startswith("dual.vision.")]
+        if (not vision or any(n in names for n in vision)
+                or any(p.requires_grad or p.grad is not None
+                       for n, p in setup.model.named_parameters() if n in vision)):
+            raise AssertionError(f"{tag}: the vision tower is not frozen")
+        trainable = [n for n, p in setup.model.named_parameters() if n not in vision]
+        if sorted(trainable) != sorted(names):
+            raise AssertionError(f"{tag}: AdamW does not hold every trainable parameter")
+        log(f"{tag}: {len(names) - len(unused)} trainable tensors with finite "
+            f"gradients, {len(unused)} unused by the loss (linear_iadds, decayed as under optax), "
+            f"{len(vision)} vision tensors frozen without gradients")
+
+    return check
+
+
+def vilt_grads_check(torch, tag):
+    """Early fusion trains everything: every parameter but the pooler (whose
+    output no head reads) has a finite gradient, and AdamW holds them all."""
+
+    def check(setup, grads):
+        unused = sorted(n for n, gr in grads.items() if gr is None)
+        if unused != ["backbone.pooler.dense.bias", "backbone.pooler.dense.weight"]:
+            raise AssertionError(f"{tag}: parameters without a gradient: {unused}")
+        bad = [n for n, gr in grads.items() if gr is not None and not torch.isfinite(gr).all()]
+        if bad:
+            raise AssertionError(f"{tag}: non-finite gradients in {bad[:5]}")
+        every = sorted(n for n, _ in setup.model.named_parameters())
+        if sorted(setup.optimizer.names) != every or sorted(grads) != every:
+            raise AssertionError(f"{tag}: AdamW does not hold every parameter")
+        log(f"{tag}: {len(every) - len(unused)} tensors with finite gradients, "
+            f"{len(unused)} unused by the loss (the pooler), nothing frozen")
+
+    return check
+
+
+def first_step_check(torch, tag, make_setup, keep):
+    """The first train step of auto and fused against the plain path: the
+    setups from ``make_setup(attn_impl, dtype)`` (the same state dict from
+    the same seed), the same first batch, the TIM swap pinned, the gradients
+    of the parameters named by ``keep``.
 
     float32: the loss within 1e-5 relative and every gradient within 1e-3
     relative (Frobenius) of the plain path's. bfloat16: the plain path
@@ -507,12 +679,6 @@ def first_step_check(torch, C, run_mm_late, build, hub):
     path's. Every check is made before any fails."""
     import numpy as np
 
-    for name in ("bernice", "vit"):
-        d = os.path.join(hub, name)
-        os.makedirs(d, exist_ok=True)
-        with open(os.path.join(d, "config.json"), "w") as f:
-            json.dump({"hidden_dropout_prob": 0.0}, f)
-        C.MODEL_DIR_DICT[name] = d + os.sep
     perm = np.random.RandomState(3).permutation(BATCH)
     results, failed = {}, []
 
@@ -524,37 +690,28 @@ def first_step_check(torch, C, run_mm_late, build, hub):
     for dtype in ("float32", "bfloat16"):
         plain_loss = None
         for impl in ("jnp", "auto", "fused"):
-            args = run_mm_late.parse_args(train_args(impl, ["--dropout", "0",
-                                                            "--dtype", dtype]))
-            setup = build.build_mm_late_train_setup(args, C.Config(args), torch.device(DEVICE),
-                                                    torch.Generator().manual_seed(30))
+            setup = make_setup(impl, dtype)
             batch = next(setup.pipes["train"].device_iter(setup.device, shuffle=False))
             batch["tim_src"] = torch.as_tensor(perm, device=DEVICE)
             batch["tim_labels"] = torch.as_tensor(
                 (perm == np.arange(BATCH)).astype(np.int32), device=DEVICE)
             grads, parts, _ = setup.train_step.gradients(batch, torch.Generator(DEVICE))
-            # the text tower's attention weights and the fusion head's tensors,
-            # but fc_k.bias: a key bias shifts every score of a row alike, so
-            # its exact gradient is zero and its relative error is noise
-            keep = {n: gr.float() for n, gr in grads.items() if gr is not None and (
-                (n.startswith("dual.text.encoder.") and ".attention." in n
-                 and n.endswith("weight"))
-                or (n.startswith("fusion.") and n != "fusion.fc_k.bias"))}
+            kept = {n: gr.float() for n, gr in grads.items() if gr is not None and keep(n)}
             loss = float(parts["loss"].detach())
             del setup, grads, batch
             torch.cuda.empty_cache()
             if impl == "jnp":
                 plain_loss = loss
                 if dtype == "float32":
-                    ref32 = keep
+                    ref32 = kept
                 else:
-                    plain16 = rel_errors(keep, ref32)
-                    log(f"first step[jnp, bfloat16 vs float32]: gradient rel error median "
+                    plain16 = rel_errors(kept, ref32)
+                    log(f"first step[{tag} jnp, bfloat16 vs float32]: gradient rel error median "
                         f"{np.median(list(plain16.values())):.2e}, worst "
                         f"{max(plain16.values()):.2e}")
                 continue
             rel_loss = abs(loss - plain_loss) / abs(plain_loss)
-            rel = rel_errors(keep, ref32)
+            rel = rel_errors(kept, ref32)
             worst = max(rel, key=rel.get)
             med = float(np.median(list(rel.values())))
             if dtype == "float32":
@@ -563,7 +720,7 @@ def first_step_check(torch, C, run_mm_late, build, hub):
                 tol_loss = 2e-2
                 tol_med = 1.5 * float(np.median(list(plain16.values())))
                 tol_worst = 1.5 * max(plain16.values())
-            log(f"first step[{impl}, {dtype}]: loss {loss:.6f} vs plain {plain_loss:.6f} "
+            log(f"first step[{tag} {impl}, {dtype}]: loss {loss:.6f} vs plain {plain_loss:.6f} "
                 f"(rel {rel_loss:.2e}, tol {tol_loss}); gradient rel error vs the float32 "
                 f"plain path over {len(rel)} tensors: median {med:.2e} (tol {tol_med:.2e}), "
                 f"worst {rel[worst]:.2e} (tol {tol_worst:.2e}, {worst})")
@@ -572,8 +729,54 @@ def first_step_check(torch, C, run_mm_late, build, hub):
             if not (rel_loss <= tol_loss and med <= tol_med and rel[worst] <= tol_worst):
                 failed.append(f"{impl}/{dtype}")
     if failed:
-        raise AssertionError(f"first step disagrees with the plain path: {failed}")
+        raise AssertionError(f"first step[{tag}] disagrees with the plain path: {failed}")
     return results
+
+
+def late_first_step(torch, C, run_mm_late, build, hub):
+    """``first_step_check`` of late fusion: the text tower's attention
+    weights and the fusion head's tensors, but ``fc_k.bias`` (a key bias
+    shifts every score of a row alike, so its exact gradient is zero and its
+    relative error is noise)."""
+    for name in ("bernice", "vit"):
+        d = os.path.join(hub, name)
+        os.makedirs(d, exist_ok=True)
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump({"hidden_dropout_prob": 0.0}, f)
+        C.MODEL_DIR_DICT[name] = d + os.sep
+
+    def make_setup(impl, dtype):
+        args = run_mm_late.parse_args(train_args(impl, ["--dropout", "0", "--dtype", dtype]))
+        return build.build_mm_late_train_setup(args, C.Config(args), torch.device(DEVICE),
+                                               torch.Generator().manual_seed(30))
+
+    def keep(n):
+        return ((n.startswith("dual.text.encoder.") and ".attention." in n
+                 and n.endswith("weight"))
+                or (n.startswith("fusion.") and n != "fusion.fc_k.bias"))
+
+    return first_step_check(torch, "late", make_setup, keep)
+
+
+def vilt_first_step(torch, C, run_mm_early, build_early, hub):
+    """``first_step_check`` of ViLT under ``--vilt_exact_resize``: every
+    attention weight of the joint encoder (12 layers x q, k, v, out)."""
+    d = os.path.join(hub, "vilt")
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump({"hidden_dropout_prob": 0.0}, f)
+    C.MODEL_DIR_DICT["vilt"] = d + os.sep
+
+    def make_setup(impl, dtype):
+        args = run_mm_early.parse_args(vilt_args(impl, ["--dropout", "0", "--dtype", dtype]))
+        return build_early.build_mm_early_train_setup(
+            args, C.Config(args, model_name="vilt"), torch.device(DEVICE),
+            torch.Generator().manual_seed(30))
+
+    def keep(n):
+        return n.startswith("backbone.encoder.") and ".attention." in n and n.endswith("weight")
+
+    return first_step_check(torch, "vilt", make_setup, keep)
 
 
 def make_requests():
@@ -781,9 +984,15 @@ def main():
                 for key, n in by_key.items():
                     launches[(kernel, key)] = launches.get((kernel, key), 0) + n
 
-    # the training path: two one-epoch runs of run_mm_late and the first-step check
+    # the training paths: one-epoch runs of run_mm_late and of run_mm_early
+    # (ViLT) under auto and fused, and their first-step checks
+    import csv
+
     from socialmedia_textimage_classification_auxlosses_tpu_torch.cli import _build as build
-    from socialmedia_textimage_classification_auxlosses_tpu_torch.cli import run_mm_late
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.cli import (
+        _build_early as build_early)
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.cli import (
+        run_mm_early, run_mm_late)
 
     counters = {"sdpa_fwd": A.launches, "sdpa_bwd": A.bwd_launches,
                 "attn_block_fwd": AB.launches, "attn_block_bwd": AB.bwd_launches}
@@ -804,27 +1013,69 @@ def main():
         C.IMG_FMT[3] = data + "MVSA-Single/data/{}.jpg"  # never read: the cache holds every id
         C.results_dir_mm_late = os.path.join(tmp, "results", "mm_late") + os.sep
         for impl, expect in per_step.items():
-            training[impl], by_key = train_run(torch, run_mm_late, counters, impl,
-                                               C.results_dir_mm_late, expect)
+            tag = f"train[{impl}]"
+            training[impl], by_key = train_run(
+                torch, run_mm_late.main, train_args(impl), tag, counters,
+                C.results_dir_mm_late, "bernice-vit-attention_task3_seed30_itc0.1itm0.1_",
+                expect, late_grads_check(torch, tag))
             for kernel, keys in by_key.items():
                 for key, n in keys.items():
                     launches[(kernel, key)] = launches.get((kernel, key), 0) + n
-        training["first_step"] = first_step_check(torch, C, run_mm_late, build,
-                                                  os.path.join(tmp, "hub"))
+        training["first_step"] = late_first_step(torch, C, run_mm_late, build,
+                                                 os.path.join(tmp, "hub"))
+
+        # ViLT early fusion under --vilt_exact_resize: every attention is the
+        # joint sequence, L = 402, 2B rows with TIM batched
+        with open(C.PATH[3], newline="") as f:
+            ids = [row["tweet_id"] for row in csv.DictReader(f)]
+        memo, seen = fill_vilt_frames(build_early, ids)
+        C.results_dir_mm_early = os.path.join(tmp, "results", "mm_early") + os.sep
+        vilt_step = {
+            "auto": {"train": {**none, "sdpa_fwd": 12, "sdpa_bwd": 12},
+                     "eval": {**none, "sdpa_fwd": 12}},
+            "fused": {"train": {**none, "attn_block_fwd": 12, "attn_block_bwd": 12},
+                      "eval": {**none, "attn_block_fwd": 12}}}
+        for impl, expect in vilt_step.items():
+            tag = f"vilt[{impl}]"
+            seen.clear()
+            training[f"vilt/{impl}"], by_key = train_run(
+                torch, run_mm_early.main, vilt_args(impl), tag, counters,
+                C.results_dir_mm_early, "vilt_task3_seed30_itc0.1itm0.1_", expect,
+                vilt_grads_check(torch, tag))
+            check_vilt_extents(memo, seen, tag)
+            lengths = {key[3] if kernel.startswith("sdpa") else key[2]
+                       for kernel, keys in by_key.items() for key in keys}
+            if lengths != {VILT_LEN}:
+                raise AssertionError(f"{tag}: attention at lengths {sorted(lengths)}, "
+                                     f"expected only {VILT_LEN}")
+            for kernel, keys in by_key.items():
+                for key, n in keys.items():
+                    launches[(kernel, key)] = launches.get((kernel, key), 0) + n
+        training["vilt/first_step"] = vilt_first_step(torch, C, run_mm_early, build_early,
+                                                      os.path.join(tmp, "hub"))
     log(json.dumps({"training": training}))
 
-    sources = {"sdpa_fwd": (f"{PKG}/csrc/sdpa_fwd.cu", f"{JAX_PKG}/ops/attention.py:81"),
+    # the TPU kernel each row replaces: the JAX SDPA kernels by query length
+    # (above 2 x 128 rows the blocked ones), the fused block's by kernel
+    sources = {"sdpa_fwd": (f"{PKG}/csrc/sdpa_fwd.cu", f"{JAX_PKG}/ops/attention.py:81",
+                            f"{JAX_PKG}/ops/attention.py:144"),
                "attn_block_fwd": (f"{PKG}/csrc/attn_block_fwd.cu",
-                                  f"{JAX_PKG}/ops/attn_block.py:143"),
-               "sdpa_bwd": (f"{PKG}/csrc/sdpa_bwd.cu", f"{JAX_PKG}/ops/attention.py:98"),
+                                  f"{JAX_PKG}/ops/attn_block.py:143", None),
+               "sdpa_bwd": (f"{PKG}/csrc/sdpa_bwd.cu", f"{JAX_PKG}/ops/attention.py:98",
+                            f"{JAX_PKG}/ops/attention.py:154"),
                "attn_block_bwd": (f"{PKG}/csrc/attn_block_bwd.cu",
-                                  f"{JAX_PKG}/ops/attn_block.py:175")}
+                                  f"{JAX_PKG}/ops/attn_block.py:175", None)}
+    # rows held against their plain versions at shapes no main path runs
+    check_only = {"sdpa_fwd/vilt_exact_f32", "sdpa_fwd/vilt_fixed",
+                  "sdpa_bwd/vilt_exact_f32", "sdpa_bwd/vilt_fixed"}
     kernels = []
     for row in rows:
         n = launches.get((row["kernel"], row["key"]), 0)
-        if n == 0:
+        if n == 0 and row["name"] not in check_only:
             raise AssertionError(f"{row['name']} was never launched on the main paths")
-        source, replaces = sources[row["kernel"]]
+        source, replaces, blocked = sources[row["kernel"]]
+        if blocked and row["key"][3] > 256:
+            replaces = blocked
         kernels.append(dict(name=row["name"], route="cuda", source=source,
                             replaces=replaces, launches=n,
                             max_abs_err=row["max_abs_err"], ms=row["ms"],

@@ -176,9 +176,13 @@ def arch_overrides(args) -> dict:
     return dict(ARCH_PRESETS[args.arch])
 
 
-def artifact_stem(args, cfg) -> str:
-    """The late-fusion artifact naming contract, shared with the JAX
-    package's trainers (``{txt}-{img}-{fusion}_task{t}_seed{s}_{loss_str}_{N}``)."""
+def artifact_stem(args, cfg, family: str = "mm_late") -> str:
+    """The artifact naming contract, shared with the JAX package's trainers:
+    late fusion ``{txt}-{img}-{fusion}_task{t}_seed{s}_{loss_str}_{N}``,
+    early fusion ``{model}_task{t}_seed{s}_{loss_str}_`` (``family`` = the
+    early model's name, e.g. ``vilt_task3_seed30_itc0.1itm0.1_``)."""
+    if family != "mm_late":
+        return f"{family}_task{args.task}_seed{args.seed}_{cfg.loss_str}_"
     nsamples = getattr(args, "nsamples", -1)
     nsamples_str = "" if nsamples == -1 else f"N{nsamples}_"
     return "{}-{}-{}_task{}_seed{}_{}_{}".format(

@@ -98,6 +98,7 @@ MODEL_DIR_DICT = {
     "vit": os.environ.get("SMTC_VIT_DIR", DATA_PATH + "hub/ViT/"),
     "beit": os.environ.get("SMTC_BEIT_DIR", DATA_PATH + "hub/BEiT/"),
     "deit": os.environ.get("SMTC_DEIT_DIR", DATA_PATH + "hub/DEiT/"),
+    "vilt": os.environ.get("SMTC_VILT_DIR", DATA_PATH + "hub/ViLT/"),
 }
 
 
@@ -124,16 +125,17 @@ def read_csv(path: str) -> Dict[str, np.ndarray]:
 class Config:
     """Per-run configuration: task data, labels, aux-loss flags.
 
-    ``Config(args)`` mirrors the JAX package's ``Config.__init__``: the
-    task's data key, the label column (task 2 argmaxes four one-hot columns,
-    tasks 0/1 rename their task column), batch size and number of labels per
-    task, ``max_length`` and the ``loss_str`` artifact tag. ``data`` is a
-    table ``{column: numpy array}`` with the columns tweet_id, text, label
-    and split."""
+    ``Config(args, model_name)`` mirrors the JAX package's
+    ``Config.__init__``: the task's data key, the label column (task 2
+    argmaxes four one-hot columns, tasks 0/1 rename their task column), batch
+    size and number of labels per task, ``max_length`` (40 for ViLT, 128
+    otherwise) and the ``loss_str`` artifact tag. ``data`` is a table
+    ``{column: numpy array}`` with the columns tweet_id, text, label and
+    split."""
 
     column_names = ["tweet_id", "text", "label", "split"]
 
-    def __init__(self, args):
+    def __init__(self, args, model_name: Optional[str] = None):
         task = args.task
         self.task = task
         self.multilabel = task in {10}
@@ -164,7 +166,7 @@ class Config:
         self.dropout = args.dropout
         self.weight_decay = args.weight_decay
         self.lr = args.lr
-        self.max_length = 128  # 40 only for ViLT, which is not ported
+        self.max_length = 40 if model_name == "vilt" else 128
         _apply_aux_loss_flags(self, args, multimodal=True)
 
 

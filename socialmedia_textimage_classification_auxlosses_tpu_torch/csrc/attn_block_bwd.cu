@@ -1,4 +1,4 @@
-// Kernel 4: fused self-attention block backward on Hopper (sm_90a).
+// TPU kernel 8 of PERF.md's table: fused self-attention block backward on Hopper (sm_90a).
 //
 // Replaces socialmedia_textimage_classification_auxlosses_tpu/ops/attn_block.py
 // ::_bwd_kernel2 (the Pallas TPU kernel reached from _run_bwd2, the backward
@@ -21,8 +21,9 @@
 // entry point and one launch count, as the forward (attn_block_fwd.cu):
 //   1. the forward's NT GEMM with bias (gemm_core.cuh) recomputes q, k, v;
 //   2. the NN GEMM computes dctx = dO . Wo_lin (Wo^T of the flax kernel);
-//   3. the SDPA backward block kernel per (batch, head), heads as column
-//      slices, also writing ctx;
+//   3. the SDPA backward per (batch, head), heads as column slices, also
+//      writing ctx: the block kernel where its row sets fit (L <= 128 at
+//      head dim 64), else the query-tiled pair (ViLT's L = 402);
 //   4. the NN GEMM sums dq . Wq_lin + dk . Wk_lin + dv . Wv_lin into dx in one
 //      f32 accumulator.
 // q, k, v, dctx, ctx, dq, dk and dv make one round trip through device
@@ -45,11 +46,13 @@ extern "C" {
 
 // x, dout, dx: (B, L, H); mask: (B, L) int32 or nullptr; w*: (H, H) as
 // (out, in); b*: (H,); q, k, v, dctx: (B, L, H) scratch; ctx, dq, dk, dv:
-// (B, L, H) outputs. One dtype for all (0 = float32, 1 = bfloat16).
+// (B, L, H) outputs; stats: (B, heads, L, 3) float32 scratch of the SDPA
+// backward's query-tiled pair. One dtype for all (0 = float32, 1 = bfloat16).
 int smtc_attn_block_bwd(const void* x, const int* mask, const void* wq, const void* bq,
                         const void* wk, const void* bk, const void* wv, const void* bv,
                         const void* wo, const void* dout, void* q, void* k, void* v, void* dctx,
-                        void* ctx, void* dq, void* dk, void* dv, void* dx, int batch, int len,
+                        void* ctx, void* dq, void* dk, void* dv, void* dx, float* stats,
+                        int batch, int len,
                         int hidden, int heads, float scale, int dtype, int device,
                         void* stream) {
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
@@ -93,6 +96,7 @@ int smtc_attn_block_bwd(const void* x, const int* mask, const void* wq, const vo
   a.dk = dk;
   a.dv = dv;
   a.o = ctx;
+  a.stats = stats;
   a.heads = heads;
   a.lq = len;
   a.lk = len;

@@ -1,4 +1,4 @@
-// Kernel 2: fused self-attention block forward on Hopper (sm_90a).
+// TPU kernel 7 of PERF.md's table: fused self-attention block forward on Hopper (sm_90a).
 //
 // Replaces socialmedia_textimage_classification_auxlosses_tpu/ops/attn_block.py
 // ::_fwd_kernel2 (the Pallas TPU kernel reached from _run_fwd2, used by

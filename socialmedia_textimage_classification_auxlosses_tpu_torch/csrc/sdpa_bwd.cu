@@ -1,11 +1,15 @@
-// Kernel 3: SDPA backward on Hopper (sm_90a).
+// TPU kernels 2 and 4 of PERF.md's table: SDPA backward on Hopper (sm_90a).
 //
 // Replaces socialmedia_textimage_classification_auxlosses_tpu/ops/attention.py
-// ::_bwd_kernel (the Pallas TPU kernel reached from _pallas_bwd for Lq <= 256,
-// the backward of the custom VJP _sdpa_pallas). The TPU kernel held one batch
-// element's Q/K/V/dO for all heads in VMEM and recomputed P there; here a
-// block takes one (batch, head) with its whole Lq x Lk problem, so dK and dV
-// still sum over every query row inside one block, without atomics. The
+// ::_bwd_kernel (the Pallas TPU kernel reached from _pallas_bwd for Lq <= 256)
+// and ::_bwd_kernel_blocked (Lq > 256, 128-row query tiles), the backward of
+// the custom VJP _sdpa_pallas. The TPU kernels held one batch element's
+// Q/K/V/dO for all heads in VMEM and recomputed P there. Here the block
+// kernel takes one (batch, head) with its whole Lq x Lk problem where that
+// fits a block's shared memory (Lq, Lk up to 128 at head dim 64), the row
+// kernel the fusion head's single query, and the query-tiled pair every other
+// shape the forward takes: pass A writes dQ and per-row statistics, pass B
+// sums dK and dV per key tile over every query row, without atomics. The
 // kernels and what bounds them are described in sdpa_bwd_core.cuh.
 //
 // Plain-C interface for ctypes: pointers from tensor.data_ptr(), PyTorch's
@@ -16,10 +20,13 @@
 extern "C" {
 
 // q, dout, dq: (B, H, Lq, D); k, v, dk, dv: (B, H, Lk, D); all contiguous in
-// one dtype (0 = float32, 1 = bfloat16); mask: (B, Lk) int32 or nullptr.
+// one dtype (0 = float32, 1 = bfloat16); mask: (B, Lk) int32 or nullptr;
+// stats: (B, H, Lq, 3) float32 scratch; kernel: 0 = chosen by shape, 1 = the
+// query-tiled pair.
 int smtc_sdpa_bwd(const void* q, const void* k, const void* v, const int* mask,
-                  const void* dout, void* dq, void* dk, void* dv, int batch, int heads, int lq,
-                  int lk, int d, float scale, int dtype, int device, void* stream) {
+                  const void* dout, void* dq, void* dk, void* dv, float* stats, int batch,
+                  int heads, int lq, int lk, int d, float scale, int dtype, int kernel,
+                  int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   smtc::SdpaBwdArgs a = {};
@@ -32,6 +39,7 @@ int smtc_sdpa_bwd(const void* q, const void* k, const void* v, const int* mask,
   a.dk = dk;
   a.dv = dv;
   a.o = nullptr;
+  a.stats = stats;
   a.heads = heads;
   a.lq = lq;
   a.lk = lk;
@@ -44,13 +52,14 @@ int smtc_sdpa_bwd(const void* q, const void* k, const void* v, const int* mask,
   a.k_sb = a.k_sh * heads;
   a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)smtc::launch_sdpa_bwd<float>(a, batch, s);
-  if (dtype == 1) return (int)smtc::launch_sdpa_bwd<__nv_bfloat16>(a, batch, s);
+  if (dtype == 0) return (int)smtc::launch_sdpa_bwd<float>(a, batch, s, kernel);
+  if (dtype == 1) return (int)smtc::launch_sdpa_bwd<__nv_bfloat16>(a, batch, s, kernel);
   return (int)cudaErrorInvalidValue;
 }
 
-// 1 if the kernels take this (Lq, Lk, D): the block kernel's two f32 row
-// sets, or the row kernel's rows, fit one block's shared memory.
+// 1 if the kernels take this (Lq, Lk, D): the row kernel's rows, the block
+// kernel's two f32 row sets or pass A's row set of the query-tiled pair fit
+// one block's shared memory (pass A's takes every Lk the forward takes).
 int smtc_sdpa_bwd_fits(int lq, int lk, int d) { return smtc::sdpa_bwd_fits(lq, lk, d) ? 1 : 0; }
 
 const char* smtc_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

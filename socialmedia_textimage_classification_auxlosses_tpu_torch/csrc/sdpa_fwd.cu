@@ -1,11 +1,15 @@
-// Kernel 1: SDPA forward on Hopper (sm_90a).
+// TPU kernels 1 and 3 of PERF.md's table: SDPA forward on Hopper (sm_90a).
 //
 // Replaces socialmedia_textimage_classification_auxlosses_tpu/ops/attention.py
-// ::_fwd_kernel (the Pallas TPU kernel reached from _pallas_fwd for Lq <= 256).
-// The TPU kernel held one batch element's Q/K/V for all heads in VMEM and ran
-// head-batched MXU contractions; here a block takes one (batch, head, tile of
-// 32 query rows), since Hopper runs blocks in parallel on 132 SMs and has
-// 227 KB of shared memory per block, not megabytes of VMEM.
+// ::_fwd_kernel (the Pallas TPU kernel reached from _pallas_fwd for Lq <= 256)
+// and ::_fwd_kernel_blocked (Lq > 256: Q in 128-row tiles, the whole K and V,
+// the padded tail sliced off). The TPU kernels held one batch element's Q/K/V
+// for all heads in VMEM and ran head-batched MXU contractions; here a block
+// takes one (batch, head, tile of 32 or 64 query rows), since Hopper runs
+// blocks in parallel on 132 SMs and has 227 KB of shared memory per block,
+// not megabytes of VMEM. Query tiles make the blocked variant the same
+// kernel: ViLT's joint sequence (Lq = Lk = 402, a ragged last tile of 18
+// rows) runs in the tensor-core kernel in bf16 and the FMA kernel in f32.
 //
 // What bounds it on the H100. On the serving shapes (text 16x12x128x64 and
 // image 16x12x197x64 in bf16; the fusion head 16x1x1x768 over 197 keys in

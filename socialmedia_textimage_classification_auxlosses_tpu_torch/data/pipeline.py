@@ -3,9 +3,11 @@
 Counterpart of the JAX package's ``data/pipeline.py`` (``PipelineConfig``,
 ``SplitPipeline.batches``, the image sources): text is normalized and
 tokenized once per split into padded int32 arrays; images come from the
-uint8 cache (``--use_saved_features``) or a memoised lazy decoder; every
-batch has the same shape, the last one padded by repeating its last row and
-marked in ``valid``. Visit order under ``shuffle`` is
+uint8 cache (``--use_saved_features``) or a memoised lazy decoder, or, for
+ViLT under ``--vilt_exact_resize``, from ``ExactViltImageSource``, whose
+batches also carry each image's true extent as ``grid_hw``; every batch has
+the same shape, the last one padded by repeating its last row and marked in
+``valid``. Visit order under ``shuffle`` is
 ``rng.shuffle(arange(n))`` with the trainer's ``np.random.RandomState``, as
 in the JAX package, so both see the same batches in the same order.
 
@@ -24,7 +26,7 @@ import numpy as np
 import torch
 
 from .cache import ImageCache
-from .images import load_pixels_u8
+from .images import load_pixels_u8, vilt_canvas
 from .prep import SplitArrays
 
 
@@ -49,6 +51,45 @@ class LazyImageSource:
                 self._memo[key] = px
             out[i] = px
         return out
+
+
+class ExactViltImageSource:
+    """``--vilt_exact_resize``: each image resized as ``ViltImageProcessor``
+    does (``images.vilt_exact_resize_u8``) onto the fixed canvas, instead of
+    the default square resize. ``gather`` returns ``(frames, grid_hw)``;
+    ``returns_grid`` tells the pipeline to put the extents in the batch as
+    ``grid_hw``. Each id is decoded once and memoised; an image that does not
+    open is a zero frame of extent ``shortest`` x ``shortest``, as in the JAX
+    package. A caller may fill ``memo`` itself (id string -> (frame,
+    (h, w))), as on a host without PIL."""
+
+    returns_grid = True
+
+    def __init__(self, img_fmt: str, shortest: int = 384):
+        self.img_fmt = img_fmt
+        self.shortest = shortest
+        self.canvas = vilt_canvas(shortest)
+        self.memo: Dict[str, tuple] = {}
+
+    def gather(self, ids):
+        from .images import open_image, vilt_exact_resize_u8
+
+        frames = np.empty((len(ids), self.canvas, self.canvas, 3), np.uint8)
+        grids = np.empty((len(ids), 2), np.int32)
+        for i, data_id in enumerate(ids):
+            key = str(data_id)
+            hit = self.memo.get(key)
+            if hit is None:
+                try:
+                    frame, hw = vilt_exact_resize_u8(open_image(self.img_fmt, data_id),
+                                                     self.shortest)
+                except OSError:  # an image that does not open
+                    frame = np.zeros((self.canvas, self.canvas, 3), np.uint8)
+                    hw = (self.shortest, self.shortest)
+                hit = (frame, hw)
+                self.memo[key] = hit
+            frames[i], grids[i] = hit
+        return frames, grids
 
 
 @dataclasses.dataclass
@@ -110,8 +151,11 @@ class SplitPipeline:
                 if self.token_type_ids is not None:
                     batch["token_type_ids"] = self.token_type_ids[idx]
             if self.image_source is not None:
-                batch["pixel_values"] = self.image_source.gather(
-                    [self.data_ids[i] for i in idx])
+                images = self.image_source.gather([self.data_ids[i] for i in idx])
+                if getattr(self.image_source, "returns_grid", False):
+                    batch["pixel_values"], batch["grid_hw"] = images
+                else:
+                    batch["pixel_values"] = images
             if self.image_adds is not None:
                 batch["image_adds"] = np.asarray(self.image_adds, np.int32)[idx]
             yield batch

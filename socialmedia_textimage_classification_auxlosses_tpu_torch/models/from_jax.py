@@ -9,7 +9,8 @@ architecture. The modules use the flax names, so the map is mechanical:
 * Conv ``kernel`` HWIO             -> Conv2d ``weight`` OIHW
 * Embed ``embedding``              -> Embedding ``weight``
 * LayerNorm ``scale`` / ``bias``   -> LayerNorm ``weight`` / ``bias``
-* ``prefix_tokens``, ``pos_embed``, ``logit_scale`` and biases keep their names
+* ``prefix_tokens``, ``pos_embed``, ViLT's ``image_cls`` and ``image_pos``,
+  ``logit_scale`` and biases keep their names
 * ``layer_{i}``                    -> ``layers.{i}``
 * the ``scan_layers`` layout ``layers/layer/...``, whose leaves carry a
   leading layer axis, -> ``layers.{i}.…`` one slice per layer.

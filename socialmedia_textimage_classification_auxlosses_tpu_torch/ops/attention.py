@@ -1,23 +1,26 @@
-"""Scaled-dot-product attention: the plain version and the CUDA kernel.
+"""Scaled-dot-product attention: the plain version and the CUDA kernels.
 
 Counterpart of the JAX package's ``ops/attention.py``. Every attention of the
 serving and training paths goes through ``sdpa``: encoder self-attention
-(text L = 128 with a key mask, 2B rows in training with TIM; image L = 197),
-and the fusion head's single query of width 768 over the image tokens, in
-float32. The frozen vision tower needs no backward; the text tower and the
-fusion head do.
+(text L = 128 with a key mask, 2B rows in training with TIM; image L = 197;
+ViLT's joint text + image sequence, L = 40 + 362 = 402 under
+``--vilt_exact_resize``, 40 + 145 = 185 otherwise), and the fusion head's
+single query of width 768 over the image tokens, in float32. The frozen
+vision tower needs no backward; the text tower, the fusion head and ViLT do.
 
 ``sdpa`` runs ``_SdpaFunction``, the counterpart of the JAX custom VJP
 ``_sdpa_pallas``: on a CUDA tensor its forward launches the hand-written
-Hopper kernel (``csrc/sdpa_fwd.cu``, kernel 1 in PERF.md) and its backward
-the backward kernel (``csrc/sdpa_bwd.cu``, kernel 3); on a CPU tensor they
-are the plain versions ``sdpa_reference`` and ``sdpa_bwd_reference``. Like
-the JAX residuals, the function saves only its inputs and recomputes the
-probabilities in the backward. Unlike the JAX package's TPU dispatch
-(``_auto_impl``, tuned on a v5e), ``auto`` on the card always means the
-kernels. ``impl="jnp"`` asks for the plain forward on either device, with
-PyTorch's autograd of its ops for the gradient; it is how a plain path is
-built to check the kernels against.
+Hopper kernel (``csrc/sdpa_fwd.cu``, TPU kernels 1 and 3 of PERF.md's table:
+its 64-row query tiles cover the JAX whole-Lq and 128-row-blocked forwards
+alike) and its backward the backward kernels (``csrc/sdpa_bwd.cu``, TPU
+kernels 2 and 4: a block kernel, a row kernel and the query-tiled pair, by
+shape); on a CPU tensor they are the plain versions ``sdpa_reference`` and
+``sdpa_bwd_reference``. Like the JAX residuals, the function saves only its
+inputs and recomputes the probabilities in the backward. Unlike the JAX
+package's TPU dispatch (``_auto_impl``, tuned on a v5e), ``auto`` on the card
+always means the kernels. ``impl="jnp"`` asks for the plain forward on
+either device, with PyTorch's autograd of its ops for the gradient; it is how
+a plain path is built to check the kernels against.
 
 Semantics kept from the JAX package: key mask 1 = keep; masked scores are
 -1e30, not -inf, so a fully masked row is uniform rather than NaN; softmax in
@@ -46,7 +49,10 @@ def sdpa_reference(q, k, v, key_mask=None, scale: Optional[float] = None):
 
     q: (B, H, Lq, D); k, v: (B, H, Lk, D); key_mask: (B, Lk) 1=keep 0=pad.
     Mirrors the JAX ``sdpa_reference`` op for op, roundings included: the
-    score product is taken in the input dtype, then raised to float32.
+    score product is taken in the input dtype, then raised to float32. It is
+    the plain version of the forward at every length: the JAX Pallas
+    forwards for Lq <= 256 (``_fwd_kernel``) and above it
+    (``_fwd_kernel_blocked``, 128-row query tiles) compute this one function.
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -74,7 +80,13 @@ def sdpa_bwd_reference(q, k, v, key_mask, do, scale: Optional[float] = None):
     -1e30); P rounded to dO's dtype only for dV = P^T dO; dP = dO V^T in
     float32; dS = P (dP - rowsum(dP P)) from the unrounded P, then rounded to
     K's dtype; dQ = (dS K) * scale and dK = (dS^T Q) * scale, scaled after the
-    product; each output cast to its input's dtype."""
+    product; each output cast to its input's dtype.
+
+    It is the plain version at every length: the blocked JAX kernel
+    (``_bwd_kernel_blocked``, Lq > 256) computes the same function per
+    128-row query tile and sums dK and dV over the tiles in float32 before
+    its one rounding, so the two JAX kernels differ only in the order of
+    their float32 sums, as the port's block kernel and query-tiled pair do."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     acc = _acc_dtype(q.dtype)
@@ -112,8 +124,8 @@ def _bwd_lib():
     lib = _cuda.library("sdpa_bwd")
     if not getattr(lib, "_smtc_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.smtc_sdpa_bwd.argtypes = [p] * 8 + [i, i, i, i, i, ctypes.c_float,
-                                                 i, i, p]
+        lib.smtc_sdpa_bwd.argtypes = [p] * 9 + [i, i, i, i, i, ctypes.c_float,
+                                                 i, i, i, p]
         lib.smtc_sdpa_bwd.restype = i
         lib.smtc_sdpa_bwd_fits.argtypes = [i, i, i]
         lib.smtc_sdpa_bwd_fits.restype = i
@@ -122,9 +134,10 @@ def _bwd_lib():
 
 
 def backward_fits(lq: int, lk: int, d: int) -> bool:
-    """Whether the backward kernel takes this shape: its block holds the
-    whole (Lq, Lk) problem (two float32 row sets) in shared memory, or
-    streams K and V for at most 4 query rows."""
+    """Whether the backward kernels take this shape: the row kernel (at
+    most 4 query rows), the block kernel (the whole (Lq, Lk) problem in
+    shared memory) or the query-tiled pair, which takes any Lq and every Lk
+    the forward takes, so this is false only beyond ``max_key_length()``."""
     return bool(_bwd_lib().smtc_sdpa_bwd_fits(lq, lk, d))
 
 
@@ -135,9 +148,10 @@ def max_key_length() -> int:
 
 
 def sdpa_fwd_cuda(q, k, v, key_mask, scale: float):
-    """Launch kernel 1. q: (B, H, Lq, D), k/v: (B, H, Lk, D), contiguous CUDA
-    tensors of one dtype (float32 or bfloat16); key_mask: None or (B, Lk)
-    int32 on the same device. Returns o: (B, H, Lq, D)."""
+    """Launch the forward kernel (TPU kernels 1 and 3). q: (B, H, Lq, D),
+    k/v: (B, H, Lk, D), contiguous CUDA tensors of one dtype (float32 or
+    bfloat16); key_mask: None or (B, Lk) int32 on the same device. Returns
+    o: (B, H, Lq, D)."""
     if q.device.type != "cuda":
         raise ValueError(f"sdpa_fwd_cuda needs CUDA tensors, got {q.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
@@ -187,9 +201,15 @@ def _check_qkv(q, k, v, key_mask, what):
         raise ValueError(f"{what} kernel: empty input")
 
 
-def sdpa_bwd_cuda(q, k, v, key_mask, do, scale: float):
-    """Launch kernel 3: (dq, dk, dv) for the output gradient ``do``. Takes
-    what ``sdpa_fwd_cuda`` takes, plus a contiguous ``do`` shaped like q."""
+BWD_KERNELS = {"auto": 0, "tiled": 1}
+
+
+def sdpa_bwd_cuda(q, k, v, key_mask, do, scale: float, kernel: str = "auto"):
+    """Launch the backward kernels (TPU kernels 2 and 4): (dq, dk, dv) for
+    the output gradient ``do``. Takes what ``sdpa_fwd_cuda`` takes, plus a
+    contiguous ``do`` shaped like q. ``kernel="auto"`` picks the row, block
+    or query-tiled kernel by shape; ``"tiled"`` asks for the query-tiled pair
+    (to time it where the block kernel would run)."""
     if q.device.type != "cuda":
         raise ValueError(f"sdpa_bwd_cuda needs CUDA tensors, got {q.device}")
     _check_qkv(q, k, v, key_mask, "sdpa_bwd")
@@ -203,12 +223,15 @@ def sdpa_bwd_cuda(q, k, v, key_mask, do, scale: float):
     if not lib.smtc_sdpa_bwd_fits(lq, lk, d):
         raise ValueError(f"sdpa backward kernel: (Lq, Lk, D) = ({lq}, {lk}, {d}) "
                          "does not fit one block's shared memory")
+    if kernel not in BWD_KERNELS:
+        raise ValueError(f"sdpa_bwd_cuda kernel {kernel!r}: one of {tuple(BWD_KERNELS)}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    stats = torch.empty((b, h, lq, 3), dtype=torch.float32, device=q.device)
     rc = lib.smtc_sdpa_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if key_mask is None else key_mask.data_ptr(), do.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b, h, lq, lk, d, float(scale), _cuda.DTYPE_CODES[dtype],
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+        b, h, lq, lk, d, float(scale), _cuda.DTYPE_CODES[dtype], BWD_KERNELS[kernel],
         q.device.index or 0, _cuda.stream_of(q))
     _cuda.check(lib, rc, "sdpa_bwd")
     bwd_launches.add((dtype, b, h, lq, lk, d, key_mask is not None))
@@ -246,8 +269,8 @@ def sdpa(q, k, v, key_mask=None, scale: Optional[float] = None,
     interpret mode on the card): the forward now, the backward when a
     gradient is asked for. On a CPU tensor they are the plain versions.
     "jnp" is the plain forward with PyTorch's autograd. A CUDA call that
-    needs a gradient at a shape the backward kernel does not take raises
-    here, before the forward."""
+    needs a gradient at a shape the backward kernels do not take (a key
+    row longer than the forward's) raises here, before the forward."""
     if impl not in IMPLS:
         raise ValueError(f"unknown sdpa impl {impl!r}; expected one of {IMPLS}")
     if scale is None:
@@ -262,5 +285,5 @@ def sdpa(q, k, v, key_mask=None, scale: Optional[float] = None,
             and not backward_fits(q.shape[2], k.shape[2], q.shape[3])):
         raise ValueError(f"sdpa: a gradient is needed at (Lq, Lk, D) = "
                          f"({q.shape[2]}, {k.shape[2]}, {q.shape[3]}), which the "
-                         "backward kernel does not take")
+                         "backward kernels do not take")
     return _SdpaFunction.apply(q, k, v, key_mask, scale)

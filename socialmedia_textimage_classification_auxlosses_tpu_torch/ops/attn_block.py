@@ -3,9 +3,9 @@
 Counterpart of the JAX package's ``ops/attn_block.py`` (the ``fused`` impl,
 ``_fwd_kernel2`` and ``_bwd_kernel2`` under the custom VJP ``_attn_block2``).
 ``attn_block`` runs ``_AttnBlockFunction``: on a CUDA tensor its forward
-launches the hand-written Hopper kernel (``csrc/attn_block_fwd.cu``, kernel
-2 in PERF.md) and its backward the backward kernel
-(``csrc/attn_block_bwd.cu``, kernel 4), which returns dx and the packed
+launches the hand-written Hopper kernel (``csrc/attn_block_fwd.cu``, TPU
+kernel 7 of PERF.md's table) and its backward the backward kernel
+(``csrc/attn_block_bwd.cu``, TPU kernel 8), which returns dx and the packed
 dq/dk/dv/ctx; the weight and bias gradients are then plain large products
 (``torch.matmul`` in float32, a float32 sum), outside the kernel as in the
 JAX package. On a CPU tensor forward and backward are the plain versions
@@ -91,7 +91,8 @@ def attn_block_bwd_reference(x, key_mask, wq, bq, wk, bk, wv, bv, wo, bo, do,
 
 def attn_block_bwd_packed_reference(x, key_mask, wq, bq, wk, bk, wv, bv, wo, do,
                                     heads: int, scale: Optional[float] = None):
-    """What kernel 4 returns, (dx, dq, dk, dv, ctx), in plain PyTorch.
+    """What the backward kernel (TPU kernel 8) returns, (dx, dq, dk, dv,
+    ctx), in plain PyTorch.
 
     An op-for-op mirror of the JAX Pallas kernel ``_bwd_kernel2``, not
     autograd of the forward: q/k/v recomputed as float32 products plus bias,
@@ -153,7 +154,7 @@ def _bwd_lib():
     if not getattr(lib, "_smtc_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.smtc_attn_block_bwd.argtypes = (
-            [p] * 19 + [i, i, i, i, ctypes.c_float, i, i, p])
+            [p] * 20 + [i, i, i, i, ctypes.c_float, i, i, p])
         lib.smtc_attn_block_bwd.restype = i
         lib._smtc_typed = True
     return lib
@@ -196,9 +197,10 @@ def _check_block(x, key_mask, ws, bs, heads, what):
 
 def attn_block_cuda(x, key_mask, wq, bq, wk, bk, wv, bv, wo, bo, heads: int,
                     scale: float):
-    """Launch kernel 2. x: (B, L, H) contiguous CUDA float32 or bfloat16;
-    weights (H, H) in the (in, out) layout and biases (H,), all of x's dtype;
-    key_mask: None or (B, L) int32. Returns (B, L, H) in x's dtype."""
+    """Launch the forward kernel (TPU kernel 7). x: (B, L, H) contiguous
+    CUDA float32 or bfloat16; weights (H, H) in the (in, out) layout and
+    biases (H,), all of x's dtype; key_mask: None or (B, L) int32. Returns
+    (B, L, H) in x's dtype."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, wq, bq, wk, bk, wv, bv, wo, bo)):
         raise RuntimeError("attn_block_cuda returns no gradient: call "
@@ -228,11 +230,12 @@ def attn_block_cuda(x, key_mask, wq, bq, wk, bk, wv, bv, wo, bo, heads: int,
 
 def attn_block_bwd_cuda(x, key_mask, wq, bq, wk, bk, wv, bv, wo, do,
                         heads: int, scale: float):
-    """Launch kernel 4 for the output gradient ``do`` (contiguous, shaped and
-    typed like x). Takes what ``attn_block_cuda`` takes (the out-projection
-    bias plays no part). Returns (dx, dq, dk, dv, ctx), each (B, L, H) in
-    x's dtype: the packed per-head gradients and the recomputed context
-    feed the weight gradients."""
+    """Launch the backward kernel (TPU kernel 8) for the output gradient
+    ``do`` (contiguous, shaped and typed like x). Takes what
+    ``attn_block_cuda`` takes (the out-projection bias plays no part).
+    Returns (dx, dq, dk, dv, ctx), each (B, L, H) in x's dtype: the packed
+    per-head gradients and the recomputed context feed the weight
+    gradients."""
     wts = _check_block(x, key_mask, (wq, wk, wv, wo), (bq, bk, bv), heads,
                        "attn_block_bwd_cuda")
     if (do.shape != x.shape or do.dtype != x.dtype or do.device != x.device
@@ -246,6 +249,7 @@ def attn_block_bwd_cuda(x, key_mask, wq, bq, wk, bk, wv, bv, wo, do,
     dtype = str(x.dtype).removeprefix("torch.")
     lib = _bwd_lib()
     scratch = torch.empty((4, b, l, h), dtype=x.dtype, device=x.device)  # q k v dctx
+    stats = torch.empty((b, heads, l, 3), dtype=torch.float32, device=x.device)
     ctx, dq, dk, dv, dx = (torch.empty_like(x) for _ in range(5))
     wq_t, wk_t, wv_t, wo_t = wts
     rc = lib.smtc_attn_block_bwd(
@@ -254,7 +258,7 @@ def attn_block_bwd_cuda(x, key_mask, wq, bq, wk, bk, wv, bv, wo, do,
         wv_t.data_ptr(), bv.data_ptr(), wo_t.data_ptr(), do.data_ptr(),
         scratch[0].data_ptr(), scratch[1].data_ptr(), scratch[2].data_ptr(),
         scratch[3].data_ptr(), ctx.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), dx.data_ptr(),
+        dv.data_ptr(), dx.data_ptr(), stats.data_ptr(),
         b, l, h, heads, float(scale), _cuda.DTYPE_CODES[dtype],
         x.device.index or 0, _cuda.stream_of(x))
     _cuda.check(lib, rc, "attn_block_bwd")

@@ -116,3 +116,40 @@ def test_backward_wrappers_refuse_cpu_tensors():
     w, b = torch.zeros(8, 8), torch.zeros(8)
     with pytest.raises(ValueError, match="CUDA"):
         attn_block.attn_block_bwd_cuda(h, None, w, b, w, b, w, b, w, h, 2, 1.0)
+
+
+def test_early_fusion_trainer_asks_for_cuda_by_default(monkeypatch):
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.cli import run_mm_early
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["--task", "3", "--model", "vilt", "--vilt_exact_resize"]
+    assert run_mm_early.parse_args(argv).device == "cuda"  # the default
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_mm_early.main(argv)
+
+
+def test_vilt_path_modules_are_walked():
+    mods = _modules()
+    for name in ("cli._build_early", "cli.run_mm_early", "models.vilt"):
+        assert f"{port.__name__}.{name}" in mods, name
+
+
+def test_exact_vilt_source_runs_without_pil_from_its_memo():
+    """The card's machine has no PIL: a memo filled by the caller is all
+    ``ExactViltImageSource.gather`` reads."""
+    code = ("import sys\n"
+            "sys.modules['PIL'] = None\n"
+            "import numpy as np\n"
+            "from socialmedia_textimage_classification_auxlosses_tpu_torch.data.pipeline "
+            "import ExactViltImageSource\n"
+            "src = ExactViltImageSource('/nonexistent/{}.jpg')\n"
+            "src.memo['7'] = (np.ones((608, 608, 3), np.uint8), (352, 480))\n"
+            "frames, grid = src.gather([7, 7])\n"
+            "assert frames.shape == (2, 608, 608, 3) and frames.all()\n"
+            "assert grid.tolist() == [[352, 480], [352, 480]]\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=ROOT, env=env, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip() == "ok"

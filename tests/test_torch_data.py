@@ -4,8 +4,9 @@ with ``csv`` into the same columns pandas gives; ``prepare_data`` picks the
 same rows in the same order under ``--testing`` and ``--nsamples`` (the
 subsample equals pandas' ``DataFrame.sample``) with the same labels and class
 weights; ``SplitPipeline.batches`` yields the same shuffled, padded batches;
-and each package reads the uint8 pixel cache the other built. Everything is
-compared exactly.
+each package reads the uint8 pixel cache the other built; and ViLT's exact
+resize (``--vilt_exact_resize``) gives the same geometry, frames and extents.
+Everything is compared exactly.
 """
 
 import os
@@ -14,9 +15,11 @@ import sys
 import numpy as np
 import pandas as pd
 import pytest
+import torch
 
 from socialmedia_textimage_classification_auxlosses_tpu.core import config as JC
 from socialmedia_textimage_classification_auxlosses_tpu.data import cache as JCache
+from socialmedia_textimage_classification_auxlosses_tpu.data import images as JImages
 from socialmedia_textimage_classification_auxlosses_tpu.data import pipeline as JP
 from socialmedia_textimage_classification_auxlosses_tpu.data import prep as JPrep
 from socialmedia_textimage_classification_auxlosses_tpu.data.tokenizers import (
@@ -25,6 +28,7 @@ from socialmedia_textimage_classification_auxlosses_tpu.data.tokenizers import (
 from socialmedia_textimage_classification_auxlosses_tpu_torch.cli import run_mm_late
 from socialmedia_textimage_classification_auxlosses_tpu_torch.core import config as TC
 from socialmedia_textimage_classification_auxlosses_tpu_torch.data import cache as TCache
+from socialmedia_textimage_classification_auxlosses_tpu_torch.data import images as TImages
 from socialmedia_textimage_classification_auxlosses_tpu_torch.data import pipeline as TP
 from socialmedia_textimage_classification_auxlosses_tpu_torch.data import prep as TPrep
 from socialmedia_textimage_classification_auxlosses_tpu_torch.data.tokenizers import (
@@ -134,3 +138,41 @@ def test_pipeline_batches_match_jax(configs, tmp_path):
     assert tb[-1]["valid"].tolist() == [1.0] * 8 + [0.0] * 4
     dev = TP.to_device(tb[0], "cpu")
     assert dev["ids"].dtype.is_floating_point is False and isinstance(dev["data_id"], np.ndarray)
+
+
+@pytest.mark.parametrize("hw", [(480, 640), (640, 480), (720, 1280), (500, 500), (100, 3000),
+                                (3000, 90), (31, 31), (384, 385)], ids=str)
+def test_vilt_exact_geometry_matches_jax(hw):
+    assert TImages.vilt_exact_geometry(*hw) == JImages.vilt_exact_geometry(*hw)
+    assert TImages.vilt_canvas() == JImages.vilt_canvas() == 608
+
+
+def test_exact_vilt_source_and_batches_match_jax(configs, tmp_path):
+    """``--vilt_exact_resize``: the same frames and extents for photos of
+    several aspects (and the zero frame of extent 384 for one that does not
+    open), and the pipeline puts the extents in the batch as ``grid_hw``."""
+    from PIL import Image
+
+    jc, tc, _, _ = configs
+    train = TPrep.prepare_data(tc.data, tc.num_labels, rng=np.random.RandomState(30))[0]
+    rng = np.random.RandomState(5)
+    sizes = [(480, 640), (640, 480), (720, 1280), (500, 500)]
+    img_fmt = str(tmp_path / "{}.jpg")
+    for i, data_id in enumerate(train.ids[:-1]):  # the last id has no file
+        h, w = sizes[i % len(sizes)]
+        Image.fromarray(rng.randint(0, 256, (h, w, 3), np.uint8)).save(img_fmt.format(data_id))
+    jsrc, tsrc = JP.ExactViltImageSource(img_fmt), TP.ExactViltImageSource(img_fmt)
+    jf, jg = jsrc.gather(list(train.ids))
+    tf, tg = tsrc.gather(list(train.ids))
+    np.testing.assert_array_equal(tf, jf)
+    np.testing.assert_array_equal(tg, jg)
+    assert tg.dtype == np.int32 and tg[-1].tolist() == [384, 384] and not tf[-1].any()
+    assert {tuple(g) for g in tg[:-1]} == {JImages.vilt_exact_geometry(*s) for s in sizes}
+    cfg = TP.PipelineConfig(batch_size=12, max_length=40, image_size=608)
+    pipe = TP.SplitPipeline(train, cfg, tokenizer=port_tokenizer("bert", None, 40, 1000),
+                            image_source=tsrc)
+    for batch in pipe.batches(shuffle=False):
+        assert batch["pixel_values"].shape == (12, 608, 608, 3)
+        assert batch["grid_hw"].shape == (12, 2) and batch["token_type_ids"].shape == (12, 40)
+    dev = TP.to_device(batch, "cpu")
+    assert dev["grid_hw"].dtype == torch.int32

@@ -10,18 +10,23 @@ Shapes go beyond the serving path's: ragged key tiles, several query tiles,
 the bf16 tensor-core kernel at each head dim it is built for and at its
 longest key row, the FMA kernel (float32, other head dims, the longest key
 row it holds), the row kernel (at most 4 query rows) with and without a
-mask, a fully masked row, and the block kernel at a narrow width. Tolerances: float32 1e-4 of the output's scale (another
-summation order); bfloat16 2e-2 of it (the plain version rounds its score
-product to bfloat16 where the kernels keep float32).
+mask, a fully masked row, the block kernel at a narrow width, and ViLT's
+joint lengths (402 with a ragged last query tile, 185, and 296 = 2 x 128 + 40,
+the JAX blocked kernel's padded tail). Tolerances: float32 1e-4 of the
+output's scale (another summation order); bfloat16 2e-2 of it (the plain
+version rounds its score product to bfloat16 where the kernels keep float32).
 
 The backward kernels are held against their plain versions
 (``sdpa_bwd_reference``, ``attn_block_bwd_reference``, op-for-op mirrors of
 the JAX kernels with the same rounding points) at tiny shapes and at the
 training path's (text 32x12x128x64 bf16 masked, the fusion head's one
 768-wide query over 197 keys in float32, the fused block at 32x128x768 with
-12 heads), every gradient, with the same tolerances against each gradient's
-scale; and an autograd round trip through ``sdpa`` and ``attn_block`` shows
-that the gradient on the card comes from the backward kernels.
+12 heads), and the query-tiled pair at the lengths the block kernel cannot
+hold (296, 185, 402, the longest key row, ragged and wide head dims) and,
+asked for, at the block kernel's own shape, every gradient, with the same
+tolerances against each gradient's scale; and autograd round trips through
+``sdpa`` and ``attn_block`` (at 128 and at ViLT's 402) show that the
+gradient on the card comes from the backward kernels.
 """
 
 import pytest
@@ -67,6 +72,8 @@ SDPA_CASES = {
     "row_fusion": (3, 1, 1, 197, 768, False, False),
     "row_masked": (2, 3, 4, 70, 64, True, True),
     "row_single_key": (2, 1, 1, 1, 8, False, False),
+    "vilt_exact": (2, 3, 402, 402, 64, True, False),
+    "blocked_tail": (2, 2, 296, 296, 64, True, False),
 }
 
 
@@ -148,6 +155,12 @@ SDPA_BWD_CASES = {
     "row_fusion_path": (32, 1, 1, 197, 768, False, False),
     "row_masked": (2, 3, 4, 70, 64, True, True),
     "row_single_key": (2, 1, 1, 1, 8, False, False),
+    "tiled_blocked_tail": (2, 2, 296, 296, 64, True, False),
+    "tiled_vilt_fixed": (2, 3, 185, 185, 64, True, True),
+    "tiled_vilt_exact": (2, 3, 402, 402, 64, True, False),
+    "tiled_ragged": (3, 2, 150, 70, 40, True, True),
+    "tiled_wide_head": (1, 2, 130, 50, 200, True, False),
+    "tiled_longest_row": (1, 1, 40, 1600, 64, True, False),
 }
 
 
@@ -178,11 +191,27 @@ def test_sdpa_bwd_kernel_matches_plain(cuda, case, dtype):
         _close(g, r, dtype, f"d{name}")
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", ["block_ragged", "block_text_path"])
+def test_sdpa_bwd_tiled_pair_at_block_shapes(cuda, case, dtype):
+    """The query-tiled pair, asked for where the block kernel would run."""
+    b, h, lq, lk, d, masked, empty = SDPA_BWD_CASES[case]
+    q, k, v, do = (torch.randn(b, h, n, d, generator=cuda, device="cuda").to(dtype)
+                   for n in (lq, lk, lk, lq))
+    mask = _mask(cuda, b, lk, empty) if masked else None
+    got = A.sdpa_bwd_cuda(q, k, v, mask, do, d ** -0.5, kernel="tiled")
+    want = A.sdpa_bwd_reference(q, k, v, mask, do, d ** -0.5)
+    torch.cuda.synchronize()
+    for name, g, r in zip("qkv", got, want):
+        _close(g, r, dtype, f"d{name}")
+
+
 BLOCK_BWD_CASES = {
     # name: (b, l, hidden, heads, masked)
     "narrow": (2, 16, 64, 2, True),
     "ragged": (3, 37, 96, 3, False),
     "text_path": (32, 128, 768, 12, True),
+    "vilt_exact": (2, 402, 768, 12, True),
 }
 
 
@@ -250,11 +279,12 @@ def test_attn_block_bwd_round_trip_matches_plain(cuda, case, dtype):
         assert torch.isfinite(t.grad).all() and err <= tol, ("d" + name, err, tol)
 
 
-def test_sdpa_round_trip_launches_the_backward_kernel(cuda):
-    q, k, v = (torch.randn(4, 12, 128, 64, generator=cuda, device="cuda")
+@pytest.mark.parametrize("length", [128, 402])
+def test_sdpa_round_trip_launches_the_backward_kernel(cuda, length):
+    q, k, v = (torch.randn(4, 12, length, 64, generator=cuda, device="cuda")
                .bfloat16().requires_grad_(True) for _ in range(3))
-    mask = _mask(cuda, 4, 128, True)
-    do = torch.randn(4, 12, 128, 64, generator=cuda, device="cuda").bfloat16()
+    mask = _mask(cuda, 4, length, True)
+    do = torch.randn(4, 12, length, 64, generator=cuda, device="cuda").bfloat16()
     before = A.bwd_launches.count
     out = A.sdpa(q, k, v, mask)
     assert out.grad_fn is not None
@@ -263,6 +293,17 @@ def test_sdpa_round_trip_launches_the_backward_kernel(cuda):
     want = A.sdpa_bwd_reference(q.detach(), k.detach(), v.detach(), mask, do, 64 ** -0.5)
     for t, r in zip((q, k, v), want):
         _close(t.grad, r, torch.bfloat16, "round trip")
+
+
+def test_backward_takes_every_length_the_forward_takes(cuda):
+    longest = A.max_key_length()
+    assert A.backward_fits(402, 402, 64) and A.backward_fits(185, 185, 64)
+    assert A.backward_fits(4096, longest, 64)
+    assert not A.backward_fits(8, longest + 1, 64)
+    q = torch.zeros(1, 1, 8, 64, device="cuda", requires_grad=True)
+    kv = torch.zeros(1, 1, longest + 1, 64, device="cuda", requires_grad=True)
+    with pytest.raises(ValueError, match="do not take"):
+        A.sdpa(q, kv, kv)
 
 
 def test_raw_wrappers_refuse_inputs_that_need_a_gradient(cuda):

@@ -5,12 +5,17 @@ functions (which take the plain backward, ``sdpa_bwd_reference`` /
 JAX ``sdpa(..., impl="pallas_interpret")`` / ``attn_block(...,
 impl="fused_interpret")``, which runs the Pallas kernels ``_bwd_kernel`` /
 ``_bwd_kernel2`` in interpret mode. The same inputs and output gradient,
-made with numpy, go to both. (The CUDA kernels are held against the same
+made with numpy, go to both. The long sequences of ViLT's joint encoder are
+covered too: Lq = 2 x 128 + 40, where the JAX package takes its blocked
+kernels (``_fwd_kernel_blocked``, ``_bwd_kernel_blocked``, a padded query
+tail) and the port its query-tiled backward on the card, and Lq = 185, the
+unblocked kernels above the port's block-kernel range. (The CUDA kernels are held against the same
 plain versions on the card by ``test_torch_kernels_cuda.py`` and
 ``chip_smoke.py``.)
 
 Tolerances: float32 1e-5 of each gradient's scale (the same arithmetic,
-summed in another order); bfloat16 2e-2 of it (P, dS and the outputs are
+summed in another order), 2e-4 at the long sequences (sums over hundreds of
+keys and query tiles, in another order); bfloat16 2e-2 of it (P, dS and the outputs are
 rounded to bfloat16, 2**-8 relative, at the same points, but the float32
 values rounded differ in their last bits). The weight and bias gradients of
 the block are sums over every row whose exact values partly cancel (a key
@@ -81,6 +86,34 @@ def test_sdpa_backward_matches_pallas_bwd_kernel(rng, case, dtype):
     for name, leaf, w in zip("qkv", leaves, want):
         assert leaf.grad.dtype == TDT[dtype]
         _close(leaf.grad.float().numpy(), w.astype(jnp.float32), dtype, what="d" + name)
+
+
+LONG_CASES = {
+    # name: (b, h, lq, lk, d): lq > 2 x 128 takes the JAX blocked kernels
+    "blocked_padded_tail": (1, 2, 2 * JA._Q_BLOCK + 40, 96, 8),
+    "vilt_fixed_length": (1, 2, 185, 185, 8),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LONG_CASES))
+def test_sdpa_long_sequences_match_pallas_kernels(rng, case):
+    b, h, lq, lk, d = LONG_CASES[case]
+    q, k, v = (rng.randn(b, h, n, d).astype(np.float32) for n in (lq, lk, lk))
+    do = rng.randn(b, h, lq, d).astype(np.float32)
+    mask = _mask(b, lk, "right_pad")
+    out, vjp = jax.vjp(lambda q_, k_, v_: JA.sdpa(q_, k_, v_, jnp.asarray(mask),
+                                                  impl="pallas_interpret"),
+                       *[jnp.asarray(a) for a in (q, k, v)])
+    want = vjp(jnp.asarray(do))
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    got = TA.sdpa(*leaves, torch.from_numpy(mask))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(out), rtol=0,
+                               atol=2e-4 * max(1.0, np.abs(np.asarray(out)).max()))
+    got.backward(torch.from_numpy(do))
+    for name, leaf, w in zip("qkv", leaves, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(leaf.grad.numpy(), w, rtol=0,
+                                   atol=2e-4 * max(1.0, np.abs(w).max()), err_msg="d" + name)
 
 
 def test_sdpa_plain_backward_is_the_function_backward(rng):
