@@ -71,9 +71,30 @@ and the CUDA toolkit. It
    where the kernels keep float32, so both are held against the float32
    plain gradients: the kernel path's median and worst relative error no
    more than 1.5 times the bfloat16 plain path's, the loss within 2e-2;
-10. prints one JSON line of per-kernel numbers (``launches``: the count over
-   the serving and training runs; 0 for the check-only shapes), the card
-   line, and last ``{"ok": true, "device": {...}}``.
+10. drives ``attn_block(impl="fused_perhead")`` (TPU kernels 5 and 6) at
+   full width, 768 hidden and 12 heads, masked where the path masks: the
+   forward at text 16x128 and image 16x197, forward and backward (through
+   ``torch.autograd.grad``) at text 32x128 and ViLT 32x402 in bfloat16 and
+   at 32x402 in float32, with the counts at 0 before and read after; holds
+   the outputs, the backward kernel's five outputs and the ten gradients
+   against the plain per-head versions (step 3's and step 6's tolerances),
+   and times each kernel beside its plain version, ``nn.MultiheadAttention``,
+   its bound and the packed kernels 7 and 8 at the same shape;
+11. starts the late-fusion towers from checkpoints written from a seed under
+   Hugging Face's names at full width (Bernice-base ``pytorch_model.bin``
+   with a hand-encoded ``sentencepiece.bpe.model``, ViT-B/16
+   ``model.safetensors`` written by hand): one epoch of
+   ``cli/run_mm_late.main``, every imported tensor on the device checked
+   against the file's, the tokenizer's ids against the file's vocabulary,
+   the vision tower frozen as the file's, finite losses; then
+   ``--import_reference_ckpt`` with a reference-format ``MM_Model`` state
+   dict, its classification logits equal to those of a model loaded from
+   the converted state dict; no transformers, safetensors, msgpack or flax
+   imported;
+12. prints one JSON line of per-kernel numbers (``launches``: the count over
+   the serving and training runs and the per-head phase's main path; 0 for
+   the check-only shapes), the card line, and last
+   ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero without the last line. Without CUDA, or
 without the repository beside it, it exits non-zero at once.
@@ -419,6 +440,181 @@ def check_bwd_kernels(torch):
         del lib_out, x_leaf, mha, outs, refs
         torch.cuda.empty_cache()
     return rows
+
+
+def check_perhead_kernels(torch):
+    """TPU kernels 5 and 6, ``attn_block(impl="fused_perhead")``, at full
+    width (768 hidden, 12 heads): the forward at the serving shapes (text
+    16x128 masked, image 16x197) and the forward and backward at the training
+    shapes (text 32x128 masked, ViLT 32x402 bf16 and float32 with ViLT's
+    mask). The main path is driven first, with the counts at 0 before it and
+    read after it: each forward through ``attn_block`` and each backward
+    through ``torch.autograd.grad``. Then its outputs, the backward kernel's
+    five outputs and the ten gradients are held against the plain versions
+    (rows 7/8's tolerances), and each kernel is timed beside its plain
+    version, ``nn.MultiheadAttention`` (forward, or its backward over a graph
+    built once), its bound and the packed kernels 7/8 at the same shape.
+    Returns the rows, the launches by (kernel, key) and the comparison."""
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.ops import attn_block as AB
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    hid, heads = 768, 12
+    scale = (hid // heads) ** -0.5
+
+    def randn(*shape, dtype):
+        return torch.randn(*shape, generator=g, device="cuda").to(dtype)
+
+    def lengths_mask(b, length):
+        lens = torch.randint(2, length + 1, (b,), generator=g, device="cuda")
+        return (torch.arange(length, device="cuda")[None, :] < lens[:, None]).to(torch.int32)
+
+    shapes = {  # tag: (batch, length, dtype, mask, backward)
+        "text": (BATCH, 128, "bfloat16", "lengths", False),
+        "image": (BATCH, 197, "bfloat16", None, False),
+        "text_train": (2 * BATCH, 128, "bfloat16", "lengths", True),
+        "vilt_exact": (2 * BATCH, VILT_LEN, "bfloat16", "vilt", True),
+        "vilt_exact_f32": (2 * BATCH, VILT_LEN, "float32", "vilt", True)}
+    cases = {}
+    for tag, (b, l, dtype, masked, bwd) in shapes.items():
+        dt = getattr(torch, dtype)
+        x = randn(b, l, hid, dtype=dt)
+        w = [(randn(hid, hid, dtype=torch.float32) * hid ** -0.5).to(dt) for _ in range(4)]
+        bias = [randn(hid, dtype=torch.float32).mul(0.1).to(dt) for _ in range(4)]
+        mask = (vilt_mask(torch, g, b, l) if masked == "vilt"
+                else lengths_mask(b, l) if masked else None)
+        do = randn(b, l, hid, dtype=dt) if bwd else None
+        params = [w[0], bias[0], w[1], bias[1], w[2], bias[2], w[3], bias[3]]
+        cases[tag] = dict(b=b, l=l, dtype=dtype, x=x, mask=mask, params=params, do=do,
+                          key=(dtype, b, l, hid, heads, mask is not None))
+
+    # the main path: attn_block(impl="fused_perhead"), forward and autograd
+    AB.perhead_launches.reset()
+    AB.perhead_bwd_launches.reset()
+    for tag, c in cases.items():
+        if c["do"] is None:
+            with torch.no_grad():
+                c["out"] = AB.attn_block(c["x"], c["mask"], *c["params"], heads=heads,
+                                         impl="fused_perhead")
+        else:
+            leaves = [t.detach().clone().requires_grad_(True) for t in [c["x"]] + c["params"]]
+            out = AB.attn_block(leaves[0], c["mask"], *leaves[1:], heads=heads,
+                                impl="fused_perhead")
+            c["grads"] = torch.autograd.grad(out, leaves, c["do"])
+            c["out"] = out.detach()
+            del leaves, out
+    torch.cuda.synchronize()
+    launches = {("attn_block_perhead_fwd", k): n
+                for k, n in AB.perhead_launches.by_key.items()}
+    launches.update({("attn_block_perhead_bwd", k): n
+                     for k, n in AB.perhead_bwd_launches.by_key.items()})
+    want_bwd = sum(c["do"] is not None for c in cases.values())
+    if (AB.perhead_launches.count, AB.perhead_bwd_launches.count) != (len(cases), want_bwd):
+        raise AssertionError(f"perhead: {AB.perhead_launches.count} forward and "
+                             f"{AB.perhead_bwd_launches.count} backward launches, expected "
+                             f"{len(cases)} and {want_bwd}")
+    log(f"perhead: main path launched attn_block_perhead_fwd {AB.perhead_launches.count} and "
+        f"attn_block_perhead_bwd {AB.perhead_bwd_launches.count} times")
+
+    def close(name, outs, refs, scales, dtype):
+        worst = 0.0
+        for i, (o, r, sc) in enumerate(zip(outs, refs, scales)):
+            o, r = o.float(), r.float()
+            if not torch.isfinite(o).all():
+                raise AssertionError(f"{name}: output {i} is not finite")
+            err = (o - r).abs().max().item()
+            tol = (2e-2 if dtype == "bfloat16" else 1e-4) * max(1.0, sc)
+            if not err <= tol:
+                raise AssertionError(f"{name}: output {i} disagrees with the plain version "
+                                     f"({err} > {tol})")
+            worst = max(worst, err)
+        log(f"check {name}: max_abs_err {worst:.3e} over {len(outs)} outputs ({dtype})")
+        return worst
+
+    def mha_of(c):
+        dt = getattr(torch, c["dtype"])
+        wq, bq, wk, bk, wv, bv, wo, bo = c["params"]
+        mha = torch.nn.MultiheadAttention(hid, heads, batch_first=True, device="cuda", dtype=dt)
+        with torch.no_grad():
+            mha.in_proj_weight.copy_(torch.cat([wq.t(), wk.t(), wv.t()]))
+            mha.in_proj_bias.copy_(torch.cat([bq, bk, bv]))
+            mha.out_proj.weight.copy_(wo.t())
+            mha.out_proj.bias.copy_(bo)
+        return mha
+
+    rows, versus = [], []
+    for tag, c in cases.items():
+        b, l, dtype, x, mask, params = c["b"], c["l"], c["dtype"], c["x"], c["mask"], c["params"]
+        pad = None if mask is None else mask == 0
+        mha = mha_of(c)
+        ref = AB.attn_block_perhead_reference(x, mask, *params, heads, scale)
+        err = close(f"attn_block_perhead_fwd/{tag}", [c["out"]], [ref],
+                    [ref.float().abs().max().item()], dtype)
+        nb = nbytes(x, mask, *params, c["out"])
+        ops = 2.0 * b * l * hid * hid * 4 + 4.0 * b * l * l * hid
+        bound_ms, bound_by = bound(nb, ops, dtype)
+        with torch.no_grad():
+            row = dict(name=f"attn_block_perhead_fwd/{tag}", kernel="attn_block_perhead_fwd",
+                       key=c["key"], max_abs_err=err,
+                       ms=device_ms(torch, lambda: AB.attn_block_perhead_cuda(
+                           x, mask, *params, heads, scale)),
+                       plain_ms=device_ms(torch, lambda: AB.attn_block_perhead_reference(
+                           x, mask, *params, heads, scale)),
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       library_ms=device_ms(torch, lambda: mha(x, x, x, key_padding_mask=pad,
+                                                                 need_weights=False)))
+            packed_ms = device_ms(torch, lambda: AB.attn_block_cuda(x, mask, *params, heads,
+                                                                      scale))
+        rows.append(row)
+        versus.append(dict(name=row["name"], perhead_ms=row["ms"], packed_ms=packed_ms))
+        log(f"time {row['name']}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+            f"library {row['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+            f"packed kernel 7 {packed_ms:.4f} ms")
+        if c["do"] is None:
+            continue
+        do, kargs = c["do"], (x, mask, *params[:7], c["do"], heads, scale)
+        outs = AB.attn_block_perhead_bwd_cuda(*kargs)
+        refs = AB.attn_block_perhead_bwd_banked_reference(*kargs)
+        err = close(f"attn_block_perhead_bwd/{tag}", outs, refs,
+                    [r.float().abs().max().item() for r in refs], dtype)
+        want = AB.attn_block_perhead_bwd_reference(x, mask, *params, do, heads, scale)
+        dq, dk, dv, ctx = (AB._merge_heads(t) for t in refs[1:])
+
+        def wscale(a, gr):
+            return (a.reshape(-1, hid).float().abs().t()
+                    @ gr.reshape(-1, hid).float().abs()).max().item()
+
+        def bscale(gr):
+            return gr.float().abs().sum(dim=(0, 1)).max().item()
+
+        scales = [refs[0].float().abs().max().item(), wscale(x, dq), bscale(dq), wscale(x, dk),
+                  bscale(dk), wscale(x, dv), bscale(dv), wscale(ctx, do), bscale(do)]
+        close(f"attn_block_perhead_bwd/{tag} ten gradients", c["grads"],
+              (want[0],) + tuple(want[2:]), scales, dtype)
+        del want, dq, dk, dv, ctx
+        x_leaf = x.detach().clone().requires_grad_(True)
+        lib_out = mha(x_leaf, x_leaf, x_leaf, key_padding_mask=pad, need_weights=False)[0]
+        m = b * l
+        ops = 2.0 * m * hid * hid * 7 + 12.0 * b * l * l * hid
+        bound_ms, bound_by = bound(nbytes(x, mask, do, *params[:7], *outs), ops, dtype)
+        row = dict(name=f"attn_block_perhead_bwd/{tag}", kernel="attn_block_perhead_bwd",
+                   key=c["key"], max_abs_err=err,
+                   ms=device_ms(torch, lambda: AB.attn_block_perhead_bwd_cuda(*kargs)),
+                   plain_ms=device_ms(torch, lambda: AB.attn_block_perhead_bwd_banked_reference(
+                       *kargs)),
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   library_ms=device_ms(torch, lambda: torch.autograd.grad(
+                       lib_out, (x_leaf,), do, retain_graph=True)))
+        packed_ms = device_ms(torch, lambda: AB.attn_block_bwd_cuda(*kargs))
+        rows.append(row)
+        versus.append(dict(name=row["name"], perhead_ms=row["ms"], packed_ms=packed_ms))
+        log(f"time {row['name']}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+            f"library {row['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+            f"packed kernel 8 {packed_ms:.4f} ms")
+        del lib_out, x_leaf, outs, refs
+        torch.cuda.empty_cache()
+    del cases
+    torch.cuda.empty_cache()
+    return rows, launches, versus
 
 
 def make_dataset(root):
@@ -779,6 +975,304 @@ def vilt_first_step(torch, C, run_mm_early, build_early, hub):
     return first_step_check(torch, "vilt", make_setup, keep)
 
 
+def spm_model_bytes(pieces):
+    """A sentencepiece ModelProto in protobuf wire format, written by hand:
+    repeated field 1, each a SentencePiece of piece (1, string), score (2,
+    float) and type (3, enum)."""
+    import struct
+
+    def varint(n):
+        out = bytearray()
+        while True:
+            out.append((n & 0x7F) | (0x80 if n > 0x7F else 0))
+            n >>= 7
+            if not n:
+                return bytes(out)
+
+    buf = bytearray()
+    for piece, score, typ in pieces:
+        raw = piece.encode("utf-8")
+        msg = (b"\x0a" + varint(len(raw)) + raw + b"\x15" + struct.pack("<f", score)
+               + b"\x18" + varint(typ))
+        buf += b"\x0a" + varint(len(msg)) + msg
+    return bytes(buf)
+
+
+def write_safetensors(path, tensors):
+    """``tensors`` as a ``.safetensors`` file, written by hand: the header's
+    length (little-endian uint64), the JSON header, the raw float32 bytes."""
+    import struct
+
+    header, offset = {"__metadata__": {"format": "pt"}}, 0
+    for name, t in tensors.items():
+        n = t.numel() * 4
+        header[name] = {"dtype": "F32", "shape": list(t.shape), "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for t in tensors.values():
+            f.write(t.float().contiguous().numpy().tobytes())
+
+
+BERNICE_CONFIG = {"vocab_size": 250002, "hidden_size": 768, "num_hidden_layers": 12,
+                  "num_attention_heads": 12, "intermediate_size": 3072,
+                  "max_position_embeddings": 514, "type_vocab_size": 1, "pad_token_id": 1,
+                  "layer_norm_eps": 1e-5, "hidden_dropout_prob": 0.1}
+VIT_CONFIG = {"hidden_size": 768, "num_hidden_layers": 12, "num_attention_heads": 12,
+              "intermediate_size": 3072, "image_size": 224, "patch_size": 16,
+              "layer_norm_eps": 1e-12, "hidden_dropout_prob": 0.0}
+
+
+def hf_tower_state(torch, g, kind):
+    """A full-width Hugging Face-named state dict from ``g``: Bernice-base
+    (XLM-R naming, 250,002 x 768 word embeddings) or ViT-B/16. Linear weights
+    (out, in), LayerNorm scales near 1, on the CPU in float32."""
+    cfg = BERNICE_CONFIG if kind == "text" else VIT_CONFIG
+    h, m = cfg["hidden_size"], cfg["intermediate_size"]
+    state = {}
+
+    def arr(key, *shape, scale=0.02, offset=0.0):
+        state[key] = (offset + scale * torch.randn(*shape, generator=g, device="cuda")).cpu()
+
+    def dense(key, out, inp):
+        arr(f"{key}.weight", out, inp, scale=inp ** -0.5)
+        arr(f"{key}.bias", out)
+
+    def ln(key):
+        arr(f"{key}.weight", h, scale=0.05, offset=1.0)
+        arr(f"{key}.bias", h)
+
+    if kind == "text":
+        arr("embeddings.word_embeddings.weight", cfg["vocab_size"], h, scale=0.5)
+        arr("embeddings.position_embeddings.weight", cfg["max_position_embeddings"], h, scale=0.5)
+        arr("embeddings.token_type_embeddings.weight", 1, h, scale=0.5)
+        ln("embeddings.LayerNorm")
+        state["embeddings.position_ids"] = torch.arange(514)[None]
+    else:
+        arr("embeddings.cls_token", 1, 1, h, scale=0.5)
+        arr("embeddings.position_embeddings", 1, 197, h, scale=0.5)
+        arr("embeddings.patch_embeddings.projection.weight", h, 3, 16, 16, scale=768 ** -0.5)
+        arr("embeddings.patch_embeddings.projection.bias", h)
+        ln("layernorm")
+    for i in range(cfg["num_hidden_layers"]):
+        p = f"encoder.layer.{i}"
+        att = f"{p}.attention.self" if kind == "text" else f"{p}.attention.attention"
+        for name in ("query", "key", "value"):
+            dense(f"{att}.{name}", h, h)
+        dense(f"{p}.attention.output.dense", h, h)
+        dense(f"{p}.intermediate.dense", m, h)
+        dense(f"{p}.output.dense", h, m)
+        if kind == "text":
+            ln(f"{p}.attention.output.LayerNorm")
+            ln(f"{p}.output.LayerNorm")
+        else:
+            ln(f"{p}.layernorm_before")
+            ln(f"{p}.layernorm_after")
+    dense("pooler.dense", h, h)
+    return state
+
+
+def pretrained_start(torch, C, run_mm_late, counters):
+    """The towers start from checkpoints: a full-width Bernice-base
+    ``pytorch_model.bin`` (``torch.save``) with its ``config.json`` and a
+    small ``sentencepiece.bpe.model`` (protobuf written by hand), a ViT-B/16
+    ``model.safetensors`` (written by hand) with its ``config.json``, and a
+    reference-format ``MM_Model`` state dict, all from a seed into temporary
+    directories. One epoch of ``run_mm_late.main`` with ``MODEL_DIR_DICT``
+    there (the path that used to train on a random vision tower): every
+    imported tensor on the device equals the file's (a Linear's (out, in)
+    weight is the file's as it is: the import transposes to the flax layout
+    and back), the tokenizer is the file's SentencePiece-BPE, the vision tower
+    gets no gradient and stays the file's, the losses are finite. Then
+    ``--import_reference_ckpt``: the model's classification logits on a batch
+    equal (exactly) those of a model loaded from the converted state dict.
+    No transformers, safetensors, msgpack or flax is imported."""
+    import numpy as np
+
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.data.tokenizers import (
+        build_tokenizer)
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.models import hf_import as H
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.models.fusion import (
+        MMLateModel)
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    t0 = time.monotonic()
+    result = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        text_dir, vit_dir = os.path.join(tmp, "bernice"), os.path.join(tmp, "vit")
+        os.makedirs(text_dir)
+        os.makedirs(vit_dir)
+        text_state = hf_tower_state(torch, g, "text")
+        vit_state = hf_tower_state(torch, g, "vision")
+        torch.save(text_state, os.path.join(text_dir, "pytorch_model.bin"))
+        write_safetensors(os.path.join(vit_dir, "model.safetensors"), vit_state)
+        words = "rain sun happy sad team win lose love hate coffee city tonight best worst"
+        pieces = [("<unk>", 0.0, 2), ("<s>", 0.0, 3), ("</s>", 0.0, 3)]
+        pieces += [(c, -10.0, 1) for c in sorted(set(words.replace(" ", ""))) + ["\u2581"]]
+        marked = sorted({"\u2581" + w[:n] for w in words.split() for n in range(1, len(w) + 1)})
+        pieces += [(p, float(len(p)), 1) for p in marked]
+        with open(os.path.join(text_dir, "sentencepiece.bpe.model"), "wb") as f:
+            f.write(spm_model_bytes(pieces))
+        for d, cfg in ((text_dir, BERNICE_CONFIG), (vit_dir, VIT_CONFIG)):
+            with open(os.path.join(d, "config.json"), "w") as f:
+                json.dump(cfg, f)
+        C.MODEL_DIR_DICT["bernice"] = text_dir + os.sep
+        C.MODEL_DIR_DICT["vit"] = vit_dir + os.sep
+        log(f"pretrained: checkpoints written in {time.monotonic() - t0:.1f} s "
+            f"({os.path.getsize(os.path.join(text_dir, 'pytorch_model.bin')) / 2 ** 20:.0f} MiB "
+            f"Bernice, {os.path.getsize(os.path.join(vit_dir, 'model.safetensors')) / 2 ** 20:.0f}"
+            " MiB ViT)")
+
+        # the file's tensors in the port's names: the import's own map, and a
+        # few names checked by hand
+        expect = {"dual.text." + k: v for k, v in H.torch_state_from_jax(
+            H.import_bert_tower({k: v.numpy() for k, v in text_state.items()}, 12)).items()}
+        expect.update({"dual.vision." + k: v for k, v in H.torch_state_from_jax(
+            H.import_vit_tower({k: v.numpy() for k, v in vit_state.items()}, 12)).items()})
+        by_hand = {"dual.text.embeddings.word.weight": text_state["embeddings.word_embeddings.weight"],
+                   "dual.text.encoder.layers.7.attention.value.weight":
+                       text_state["encoder.layer.7.attention.self.value.weight"],
+                   "dual.vision.embeddings.proj.weight":
+                       vit_state["embeddings.patch_embeddings.projection.weight"],
+                   "dual.vision.encoder.layers.11.mlp.mlp_out.weight":
+                       vit_state["encoder.layer.11.output.dense.weight"],
+                   "dual.vision.embeddings.prefix_tokens": vit_state["embeddings.cls_token"]}
+
+        def check_imported(setup):
+            own = setup.model.state_dict()
+            for key, want in list(expect.items()) + list(by_hand.items()):
+                got = own[key]
+                if got.device.type != "cuda" or not torch.equal(
+                        got, torch.as_tensor(np.asarray(want)).to(got)):
+                    raise AssertionError(f"pretrained: {key} is not the file's tensor")
+            tok = build_tokenizer("bernice", text_dir, 128, 250002).backend
+            ids = tok.encode_batch(["rain sun"])[0][0][:4].tolist()
+            want_ids = [0] + [1 + [p for p, _, _ in pieces].index("\u2581" + w)
+                              for w in ("rain", "sun")] + [2]
+            if type(tok).__name__ != "SentencePieceBPE" or ids != want_ids:
+                raise AssertionError(f"pretrained: tokenizer {type(tok).__name__} gives {ids}, "
+                                     f"expected {want_ids}")
+            # the pipelines' ids come from the file's vocabulary (hashed ids
+            # would spread over all 250,002)
+            top = max(int(pipe.ids.max()) for pipe in setup.pipes.values())
+            if top > len(pieces):
+                raise AssertionError(f"pretrained: token id {top} is outside the vocabulary")
+            log(f"pretrained: {len(expect)} imported tensors on the device equal the files' "
+                f"({len(by_hand)} also by name by hand); tokenizer {type(tok).__name__} "
+                f"{ids}, every pipeline id <= {top}")
+
+        real_build = run_mm_late.build_mm_late_train_setup
+
+        def build_and_check(*a, **k):
+            setup = real_build(*a, **k)
+            check_imported(setup)
+            return setup
+
+        for c in counters.values():
+            c.reset()
+        losses = []
+        run_mm_late.build_mm_late_train_setup = build_and_check
+        try:
+            t1 = time.monotonic()
+            _, setup = run_mm_late.main(
+                train_args("auto"), keep_grads=True,
+                on_step=lambda step, m: losses.append(float(m["loss"])))
+        finally:
+            run_mm_late.build_mm_late_train_setup = real_build
+        counts = {k: c.count for k, c in counters.items()}
+        if not losses or not all(np.isfinite(losses)):
+            raise AssertionError(f"pretrained: losses {losses}")
+        grads = setup.train_step.last_grads
+        own = setup.model.state_dict()
+        vision = [n for n in own if n.startswith("dual.vision.")]
+        if any(grads.get(n) is not None for n in vision) or any(
+                p.grad is not None for n, p in setup.model.named_parameters() if n in vision):
+            raise AssertionError("pretrained: the vision tower got a gradient")
+        for n in vision:
+            if not torch.equal(own[n], torch.as_tensor(np.asarray(expect[n])).to(own[n])):
+                raise AssertionError(f"pretrained: vision tensor {n} moved in training")
+        if not counts["sdpa_fwd"] or not counts["sdpa_bwd"]:
+            raise AssertionError(f"pretrained: kernel launches {counts}")
+        log(f"pretrained: one epoch from the checkpoints in {time.monotonic() - t1:.1f} s, "
+            f"{len(losses)} steps, losses finite (first {losses[0]:.4f}, last {losses[-1]:.4f}); "
+            f"{len(vision)} vision tensors frozen, still the file's; launches {counts}")
+        result["losses"] = list(losses)
+        del setup, grads, own
+        torch.cuda.empty_cache()
+
+        # --import_reference_ckpt: a reference MM_Model over the same towers
+        ref = {f"dual_encoder.text_model.{k}": v for k, v in text_state.items()}
+        ref.update({f"dual_encoder.vision_model.{k}": v for k, v in vit_state.items()})
+        heads = {"dual_encoder.text_projection.weight": (512, 768),
+                 "dual_encoder.visual_projection.weight": (512, 768),
+                 "fc_Q.weight": (768, 768), "fc_K.weight": (768, 768),
+                 "fc_V.weight": (768, 768), "linear_fusion.weight": (768, 1536),
+                 "linear_cls.weight": (3, 768), "linear_tim.weight": (2, 768),
+                 "linear_iadds.weight": (2, 768)}
+        for key, shape in heads.items():
+            ref[key] = (torch.randn(*shape, generator=g, device="cuda") * shape[1] ** -0.5).cpu()
+            if not key.startswith("dual_encoder."):
+                ref[key[:-len("weight")] + "bias"] = 0.1 * torch.randn(
+                    shape[0], generator=g, device="cuda").cpu()
+        ref["dual_encoder.logit_scale"] = torch.tensor(2.3)
+        ref_path = os.path.join(tmp, "mm_model.pth")
+        torch.save(ref, ref_path)
+        del ref, text_state, vit_state
+
+        real_import = run_mm_late.import_reference_checkpoint
+        checked = {}
+
+        def import_and_check(model, args):
+            real_import(model, args)
+            with torch.device("meta"):
+                twin = MMLateModel(model.text_cfg, model.vision_cfg, 3, fusion_name="attention",
+                                   dropout=0.0, patch=16, image_size=224)
+            twin = twin.to_empty(device="cuda").eval()
+            tree = H.import_reference_mm_late(H.load_torch_file(ref_path), 12, 12, "attention")
+            twin.load_state_dict({k: torch.as_tensor(np.asarray(v, np.float32))
+                                  for k, v in H.torch_state_from_jax(tree).items()})
+            gen = torch.Generator().manual_seed(5)
+            ids = torch.randint(4, 250002, (4, 128), generator=gen).cuda()
+            mask = torch.ones(4, 128, dtype=torch.int32, device="cuda")
+            mask[1:, 60:] = 0
+            px = torch.randn(4, 224, 224, 3, generator=gen).cuda().to(model.text_cfg.torch_dtype)
+            was = model.training
+            model.eval()
+            with torch.no_grad():
+                got = model(ids, mask, px)["out_cls"].float()
+                want = twin(ids, mask, px)["out_cls"].float()
+            model.train(was)
+            checked["max_abs_diff"] = (got - want).abs().max().item()
+            checked["finite"] = bool(torch.isfinite(got).all())
+            del twin
+
+        run_mm_late.import_reference_checkpoint = import_and_check
+        losses.clear()
+        try:
+            t1 = time.monotonic()
+            run_mm_late.main(train_args("auto", ["--import_reference_ckpt", ref_path]),
+                             on_step=lambda step, m: losses.append(float(m["loss"])))
+        finally:
+            run_mm_late.import_reference_checkpoint = real_import
+        if not checked or not checked["finite"] or checked["max_abs_diff"] != 0.0:
+            raise AssertionError(f"pretrained: --import_reference_ckpt logits {checked}")
+        if not losses or not all(np.isfinite(losses)):
+            raise AssertionError(f"pretrained: --import_reference_ckpt losses {losses}")
+        log(f"pretrained: --import_reference_ckpt in {time.monotonic() - t1:.1f} s: classification "
+            f"logits equal the converted state dict's (max |diff| {checked['max_abs_diff']}), "
+            f"{len(losses)} finite losses")
+        result["reference_ckpt"] = dict(checked, losses=list(losses))
+    for name in ("transformers", "safetensors", "msgpack", "flax", "jax"):
+        if name in sys.modules:
+            raise AssertionError(f"pretrained: the import pulled in {name}")
+    result["seconds"] = time.monotonic() - t0
+    torch.cuda.empty_cache()
+    return result
+
+
 def make_requests():
     import numpy as np
 
@@ -922,6 +1416,8 @@ def main():
         log(f"ptxas {name}: {regs}")
 
     rows = check_kernels(torch) + check_bwd_kernels(torch)
+    perhead_rows, perhead_launches, perhead_vs_packed = check_perhead_kernels(torch)
+    rows += perhead_rows
 
     reqs = make_requests()
     http_text = "an http request about the #weather @user"
@@ -1053,7 +1549,11 @@ def main():
                     launches[(kernel, key)] = launches.get((kernel, key), 0) + n
         training["vilt/first_step"] = vilt_first_step(torch, C, run_mm_early, build_early,
                                                       os.path.join(tmp, "hub"))
+        # the late-fusion towers from checkpoints, and --import_reference_ckpt
+        training["pretrained"] = pretrained_start(torch, C, run_mm_late, counters)
     log(json.dumps({"training": training}))
+    log(json.dumps({"perhead_vs_packed": perhead_vs_packed}))
+    launches.update(perhead_launches)
 
     # the TPU kernel each row replaces: the JAX SDPA kernels by query length
     # (above 2 x 128 rows the blocked ones), the fused block's by kernel
@@ -1064,7 +1564,11 @@ def main():
                "sdpa_bwd": (f"{PKG}/csrc/sdpa_bwd.cu", f"{JAX_PKG}/ops/attention.py:98",
                             f"{JAX_PKG}/ops/attention.py:154"),
                "attn_block_bwd": (f"{PKG}/csrc/attn_block_bwd.cu",
-                                  f"{JAX_PKG}/ops/attn_block.py:175", None)}
+                                  f"{JAX_PKG}/ops/attn_block.py:175", None),
+               "attn_block_perhead_fwd": (f"{PKG}/csrc/attn_block_perhead_fwd.cu",
+                                          f"{JAX_PKG}/ops/attn_block.py:70", None),
+               "attn_block_perhead_bwd": (f"{PKG}/csrc/attn_block_perhead_bwd.cu",
+                                          f"{JAX_PKG}/ops/attn_block.py:89", None)}
     # rows held against their plain versions at shapes no main path runs
     check_only = {"sdpa_fwd/vilt_exact_f32", "sdpa_fwd/vilt_fixed",
                   "sdpa_bwd/vilt_exact_f32", "sdpa_bwd/vilt_fixed"}

@@ -2,11 +2,16 @@
 
 Counterpart of ``build_mm_late_setup`` in the JAX package's ``cli/_build.py``:
 ``build_mm_late_setup`` makes the model for the transformer towers, the
-tokenizer and the serving forward; ``build_mm_late_train_setup`` adds what a
-trainer needs on its device: the vision tower frozen (``requires_grad``
-off, outside AdamW, as the reference freezes it), the data splits and
-pipelines, AdamW, the loss configuration and the train and eval steps. No
-mesh is built: the port runs on one device.
+tokenizer and the serving forward, and imports each pretrained tower whose
+``MODEL_DIR_DICT`` directory holds a checkpoint (the text tower into
+``dual.text``, ViT / DeiT into ``dual.vision``; a directory without one
+leaves the tower random), as the JAX builder does; ``build_mm_late_train_setup``
+adds what a trainer needs on its device: the vision tower frozen
+(``requires_grad`` off, outside AdamW, as the reference freezes it), the data
+splits and pipelines, AdamW, the loss configuration and the train and eval
+steps; ``import_reference_checkpoint`` loads a reference-trained ``MM_Model``
+state dict (``--import_reference_ckpt``). No mesh is built: the port runs on
+one device.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from ..data.images import normalize_on_device
 from ..data.pipeline import PipelineConfig, SplitPipeline, make_image_source
 from ..data.prep import prepare_data
 from ..data.tokenizers import TweetTokenizerFrontend, build_tokenizer
+from ..models import hf_import as H
 from ..models.encoder import init_weights
 from ..models.fusion import FUSION_NAMES, MMLateModel
 from ..models.text import NO_TOKEN_TYPES, text_encoder_config
@@ -63,7 +69,7 @@ def build_mm_late_setup(args, cfg: C.ServingConfig,
                         generator: Optional[torch.Generator] = None) -> Setup:
     """The late-fusion model on the CPU in float32: random init from
     ``generator`` when one is given, else uninitialised storage for a
-    checkpoint to fill."""
+    checkpoint to fill; then the pretrained towers of ``MODEL_DIR_DICT``."""
     check_mm_late_supported(args)
     txt_name, img_name = args.txt_model_name, args.img_model_name
     txt_dir = C.MODEL_DIR_DICT.get(txt_name)
@@ -86,6 +92,14 @@ def build_mm_late_setup(args, cfg: C.ServingConfig,
         init_weights(model, generator)
         with torch.no_grad():
             model.dual.logit_scale.fill_(2.6592)  # DualEncoder's init value
+    towers = (("text", txt_dir, H.maybe_import_text_tower(
+                  model, txt_dir, text_cfg.layers, prefix="dual.text.")),
+              ("vision", img_dir, H.maybe_import_vision_tower(
+                  model, img_dir, vis_cfg.layers, distilled=img_name == "deit",
+                  pooling=geo["pooling"], prefix="dual.vision.")))
+    for what, model_dir, keys in towers:
+        if keys:
+            logger.info("%s tower: %d pretrained tensors from %s", what, len(keys), model_dir)
 
     mean, std = IMAGE_NORM[img_name]
     dtype = getattr(torch, args.dtype)
@@ -99,6 +113,21 @@ def build_mm_late_setup(args, cfg: C.ServingConfig,
 
     return Setup(model=model, tokenizer=tokenizer, image_size=geo["image_size"],
                  image_norm=(mean, std), forward_fn=forward_fn)
+
+
+def import_reference_checkpoint(model: MMLateModel, args) -> None:
+    """``--import_reference_ckpt``: a reference-trained ``MM_Model`` state
+    dict (``dual_encoder.*``, the fusion head's and the heads' names) into
+    ``model``, every tensor checked by name and shape."""
+    state = H.load_torch_file(args.import_reference_ckpt)
+    if state is None:
+        raise SystemExit(f"--import_reference_ckpt {args.import_reference_ckpt!r}: no such file")
+    tree = H.import_reference_mm_late(state, model.text_cfg.layers, model.vision_cfg.layers,
+                                      args.fusion_name, distilled=args.img_model_name == "deit",
+                                      vision_pooling=vit_geometry(args.img_model_name)["pooling"])
+    keys = H.merge_into(model, tree)
+    logger.info("imported reference checkpoint %s (%d tensors)", args.import_reference_ckpt,
+                len(keys))
 
 
 @dataclasses.dataclass

@@ -12,13 +12,14 @@ fixed square, with ``--use_saved_features`` the uint8 cache under
 is frozen in early fusion); the loss configuration and the train and eval
 steps. In training and in eval the TIM rows run through the joint pass with
 their own texts (they cannot be taken from the first pass's rows: each joint
-row mixes its text with the image). LXMERT and MMBT are not ported, nor is
-importing a checkpoint: the model starts from random weights.
+row mixes its text with the image). The backbone starts from the HF ViLT
+checkpoint in ``MODEL_DIR_DICT["vilt"]`` (``SMTC_VILT_DIR``) when that holds
+one, else from random weights, as in the JAX builder;
+``import_reference_checkpoint`` loads a reference-trained ``ViLT`` state
+dict (``--import_reference_ckpt``). LXMERT and MMBT are not ported.
 """
 
 from __future__ import annotations
-
-import os
 
 import numpy as np
 import torch
@@ -28,6 +29,7 @@ from ..data.images import normalize_on_device, vilt_canvas
 from ..data.pipeline import ExactViltImageSource, PipelineConfig, SplitPipeline, make_image_source
 from ..data.prep import prepare_data
 from ..data.tokenizers import build_tokenizer
+from ..models import hf_import as H
 from ..models.encoder import EncoderConfig
 from ..models.vilt import ViltClassifier, init_vilt_weights
 from ..models.vision import IMAGE_NORM, _load_hf_config
@@ -40,7 +42,6 @@ from ._common import arch_overrides
 logger = get_logger(__name__)
 
 VILT_VOCAB = 30522
-_CHECKPOINT_FILES = ("model.safetensors", "pytorch_model.bin", "pytorch_model.pt")
 
 
 def check_mm_early_supported(args) -> None:
@@ -48,12 +49,18 @@ def check_mm_early_supported(args) -> None:
     if args.model != "vilt":
         raise SystemExit(f"--model {args.model} is not ported to PyTorch yet "
                          "(only vilt is)")
-    if args.import_reference_ckpt:
-        raise SystemExit("--import_reference_ckpt is not ported to PyTorch yet")
-    model_dir = C.MODEL_DIR_DICT.get("vilt")
-    if model_dir and any(os.path.isfile(os.path.join(model_dir, f)) for f in _CHECKPOINT_FILES):
-        raise SystemExit(f"{model_dir!r} holds a ViLT checkpoint, but importing one is not "
-                         "ported to PyTorch yet")
+
+
+def import_reference_checkpoint(model: ViltClassifier, path: str) -> None:
+    """``--import_reference_ckpt``: a reference-trained ``ViLT`` wrapper
+    state dict (``model.*`` = HF ViltModel, ``linear``, ``linear_tim``,
+    ``logit_scale``) into ``model``, every tensor checked by name and
+    shape."""
+    state = H.load_torch_file(path)
+    if state is None:
+        raise SystemExit(f"--import_reference_ckpt {path!r}: no such file")
+    keys = H.merge_into(model, H.import_reference_vilt(state, model.cfg.layers))
+    logger.info("imported reference checkpoint %s (%d tensors)", path, len(keys))
 
 
 def build_mm_early_train_setup(args, cfg: C.Config, device: torch.device,
@@ -92,6 +99,9 @@ def build_mm_early_train_setup(args, cfg: C.Config, device: torch.device,
                                tim_batched=not args.tim_two_pass, canvas_size=canvas)
     model = model.to_empty(device="cpu")
     init_vilt_weights(model, generator)
+    keys = H.maybe_import_vilt(model, model_dir, enc_cfg.layers, prefix="backbone.")
+    if keys:
+        logger.info("ViLT backbone: %d pretrained tensors from %s", len(keys), model_dir)
     model = model.to(device)
 
     train, val, test, weights = prepare_data(

@@ -13,8 +13,10 @@ Every attention of the joint encoder, forward and backward, launches the
 port's hand-written kernels on a CUDA device (at L = 402 under
 ``--vilt_exact_resize``, the query-tiled backward); ``--device cpu`` runs the
 plain versions on the CPU. The ``net.pth`` artifact is the port's own
-``torch.save`` state dict. ``--model lxmert|mmbt``,
-``--import_reference_ckpt`` and the flags of
+``torch.save`` state dict. The backbone starts from the HF ViLT checkpoint
+in ``SMTC_VILT_DIR`` when it holds one, and ``--import_reference_ckpt`` loads
+a reference-trained ``ViLT`` state dict over the whole model (AdamW starts
+afresh after it). ``--model lxmert|mmbt`` and the flags of
 ``cli/_common.py::check_training_supported`` raise ``SystemExit``.
 """
 
@@ -26,7 +28,8 @@ from ..core import config as C
 from ..train.loop import Trainer
 from ..train.metrics import compute_metrics
 from ..utils.logging import get_logger
-from ._build_early import build_mm_early_train_setup, check_mm_early_supported
+from ._build_early import (build_mm_early_train_setup, check_mm_early_supported,
+                           import_reference_checkpoint)
 from ._common import (add_common_args, artifact_stem, check_training_supported,
                       resolve_device, results_dir_for, save_metrics_csv,
                       save_predictions_csv, seed_everything)
@@ -40,7 +43,8 @@ def parse_args(argv=None):
                         help="model name (only vilt is ported)")
     parser.add_argument("--evaltest", action="store_true", help="eval test")
     parser.add_argument("--import_reference_ckpt", type=str, default=None,
-                        help="(not ported) reference-trained state dict to import")
+                        help="reference-trained ViLT state dict (torch.save) to import "
+                             "before training")
     parser.add_argument("--vilt_exact_resize", action="store_true",
                         help="ViltProcessor geometry per sample: aspect-preserving "
                              "resize onto a fixed masked 608-px canvas (402 joint "
@@ -77,6 +81,9 @@ def main(argv=None, on_step=None, keep_grads=False):
 
     cfg = C.Config(args, model_name=args.model)
     setup = build_mm_early_train_setup(args, cfg, device, generator, keep_grads=keep_grads)
+    if args.import_reference_ckpt:
+        import_reference_checkpoint(setup.model, args.import_reference_ckpt)
+        setup.optimizer.reset()
     stem = artifact_stem(args, cfg, family=args.model)
     trainer = Trainer(setup.train_step, setup.eval_step, setup.model, device,
                       seed=args.seed, multilabel=cfg.multilabel,

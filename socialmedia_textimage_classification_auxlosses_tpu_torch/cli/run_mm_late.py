@@ -13,10 +13,13 @@ and ``preds_lm.csv`` / ``metrics_lm.csv`` under ``--load_saved_model``):
 Every attention of the forward and of the backward launches the port's
 hand-written kernels on a CUDA device; ``--device cpu`` runs the plain
 versions on the CPU. The ``net.pth`` artifact is the port's own
-``torch.save`` state dict. What the port lacks raises ``SystemExit``
-(``cli/_common.py::check_training_supported``, and here
-``--import_reference_ckpt``, ``--quantize``, ``--extract_features``,
-``--eval_txt_test``, the CNN and BEiT towers).
+``torch.save`` state dict. The towers start from the checkpoints in their
+``MODEL_DIR_DICT`` directories (``SMTC_BERNICE_DIR``, ``SMTC_VIT_DIR``, ...)
+when those hold one, and ``--import_reference_ckpt`` loads a reference-trained
+``MM_Model`` state dict over the whole model (AdamW starts afresh after it).
+What the port lacks raises ``SystemExit``
+(``cli/_common.py::check_training_supported``, and here ``--quantize``,
+``--extract_features``, ``--eval_txt_test``, the CNN and BEiT towers).
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ from ..train.checkpoint import load_params
 from ..train.loop import Trainer
 from ..train.metrics import compute_metrics
 from ..utils.logging import get_logger
-from ._build import build_mm_late_train_setup, check_mm_late_supported
+from ._build import (build_mm_late_train_setup, check_mm_late_supported,
+                     import_reference_checkpoint)
 from ._common import (add_common_args, artifact_stem, check_training_supported,
                       resolve_device, results_dir_for, save_metrics_csv,
                       save_predictions_csv, seed_everything)
@@ -61,7 +65,8 @@ def parse_args(argv=None):
     parser.add_argument("--quantize", type=str, default=None, choices=["w8"],
                         help="(not ported) weight-only int8 serving")
     parser.add_argument("--import_reference_ckpt", type=str, default=None,
-                        help="(not ported) reference-trained state dict to import")
+                        help="reference-trained MM_Model state dict (torch.save) to "
+                             "import before training")
     parser.add_argument("--extract_features", action="store_true",
                         help="(not ported) dump fused mm_features")
     add_common_args(parser, multimodal=True)
@@ -76,8 +81,7 @@ def parse_args(argv=None):
 
 def check_supported(args) -> None:
     check_training_supported(args)
-    for flag, asked in (("--import_reference_ckpt", args.import_reference_ckpt),
-                        ("--quantize", args.quantize),
+    for flag, asked in (("--quantize", args.quantize),
                         ("--extract_features", args.extract_features),
                         ("--eval_txt_test", args.eval_txt_test)):
         if asked:
@@ -108,6 +112,9 @@ def main(argv=None, on_step=None, keep_grads=False):
     cfg.use_iadds_loss = args.use_iadds_loss
     cfg.beta_iadds = args.beta_iadds if args.use_iadds_loss else None
     setup = build_mm_late_train_setup(args, cfg, device, generator, keep_grads=keep_grads)
+    if args.import_reference_ckpt:
+        import_reference_checkpoint(setup.model, args)
+        setup.optimizer.reset()
 
     stem = artifact_stem(args, cfg)
     model_path = (results_dir + stem + "net.pth"

@@ -1,12 +1,14 @@
-// Tiled GEMMs of the fused attention block, shared by attn_block_fwd.cu and
-// attn_block_bwd.cu.
+// Tiled GEMMs of the fused attention blocks, shared by attn_block_fwd.cu,
+// attn_block_bwd.cu and the per-head variant (attn_block_perhead_*.cu).
 //
 // Two orientations, both with f32 accumulation and one rounding of the
 // result to the activation dtype:
 //   * "NT" with a bias epilogue: C_z = A (M, K) . W_z^T + b_z, W_z stored
 //     (N, K) row-major -- the nn.Linear (out, in) layout. This is x . W for a
 //     flax (in, out) kernel W: the QKV and out projections of the forward,
-//     and the q/k/v recompute of the backward. blockIdx.z picks z.
+//     and the q/k/v recompute of the backward. blockIdx.z picks z. The bias
+//     may be absent, and C may be written head-banked, (B, heads, L, N /
+//     heads), instead of (M, N) row-major.
 //   * "NN" summed over pairs: C = sum_z A_z (M, K) . W_z (K, N), W_z stored
 //     (K, N) row-major. With W_z a Linear's (out, in) weight this is
 //     g . W^T for the flax kernel: dctx = dO . Wo^T and
@@ -29,10 +31,19 @@ namespace {
 struct GemmArgs {
   const void* a;        // (M, K) row-major
   const void* w[3];     // (N, K) row-major
-  const void* bias[3];  // (N,)
-  void* c[3];           // (M, N) row-major
+  const void* bias[3];  // (N,), or nullptr for none
+  void* c[3];           // (M, N) row-major; head-banked when heads > 0
   int m, n, k;
+  int len, heads;       // heads > 0: row m = b * len + l, column n = h * d + c of
+                        // C land at ((b * heads + h) * len + l) * d + c, d = N / heads
 };
+
+// Offset of C's element (row, col) in the layout GemmArgs names.
+__device__ __forceinline__ size_t gemm_c_offset(const GemmArgs& g, int row, int col) {
+  if (g.heads == 0) return (size_t)row * g.n + col;
+  const int d = g.n / g.heads;
+  return (((size_t)(row / g.len) * g.heads + col / d) * g.len + row % g.len) * d + col % d;
+}
 
 // ---- bf16: tensor cores through mma.sync, a 3-stage cp.async pipeline -----
 //
@@ -128,19 +139,21 @@ __global__ void __launch_bounds__(kGThreads) gemm_bias_bf16(GemmArgs g) {
   }
   asm volatile("cp.async.wait_group 0;\n");
 
-  // epilogue: (f32 sum + bias) rounded once to bf16
+  // epilogue: (f32 sum + bias) rounded once to bf16; col and col + 1 are in
+  // one row of C in either layout (n and the head dim are even)
 #pragma unroll
   for (int ni = 0; ni < 4; ++ni) {
     const int col = n0 + wn * 32 + ni * 8 + 2 * t4;
     if (col >= g.n) continue;  // n % 8 == 0, so col + 1 < n too
-    const float b0 = __bfloat162float(bias[col]), b1 = __bfloat162float(bias[col + 1]);
+    const float b0 = bias ? __bfloat162float(bias[col]) : 0.f;
+    const float b1 = bias ? __bfloat162float(bias[col + 1]) : 0.f;
 #pragma unroll
     for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int row = m0 + wm * 64 + mi * 16 + grp + half * 8;
         if (row >= g.m) continue;
-        *reinterpret_cast<__nv_bfloat162*>(C + (size_t)row * g.n + col) =
+        *reinterpret_cast<__nv_bfloat162*>(C + gemm_c_offset(g, row, col)) =
             __floats2bfloat162_rn(acc[mi][ni][2 * half] + b0, acc[mi][ni][2 * half + 1] + b1);
       }
   }
@@ -190,7 +203,7 @@ __global__ void __launch_bounds__(256) gemm_bias_f32(GemmArgs g) {
 #pragma unroll
     for (int cc = 0; cc < 4; ++cc) {
       const int col = n0 + tx * 4 + cc;
-      if (col < g.n) C[(size_t)row * g.n + col] = acc[r][cc] + bias[col];
+      if (col < g.n) C[gemm_c_offset(g, row, col)] = acc[r][cc] + (bias ? bias[col] : 0.f);
     }
   }
 }

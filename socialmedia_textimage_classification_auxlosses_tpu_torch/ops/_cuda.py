@@ -28,7 +28,8 @@ from typing import Dict, Iterable
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("sdpa_fwd", "attn_block_fwd", "sdpa_bwd", "attn_block_bwd")
+SOURCES = ("sdpa_fwd", "attn_block_fwd", "sdpa_bwd", "attn_block_bwd",
+           "attn_block_perhead_fwd", "attn_block_perhead_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

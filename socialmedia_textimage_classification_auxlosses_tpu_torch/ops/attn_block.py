@@ -18,8 +18,18 @@ stores the transpose, ``(out, in)``, and that is what the kernel reads:
 here is the contiguous Linear weight again, so no copy is made; a contiguous
 ``(in, out)`` array is transposed once per call.
 
-The per-head-split variant (``fused_perhead``, the JAX ``_fwd_kernel``) is not
-ported yet (ROADMAP.md Queue 2); asking for it raises.
+The per-head variant, ``impl="fused_perhead"`` (the JAX ``_fwd_kernel`` and
+``_bwd_kernel`` under the custom VJP ``_attn_block``, kept there as an
+ablation), runs ``_AttnBlockPerheadFunction``: on a CUDA tensor the kernels
+of ``csrc/attn_block_perhead_fwd.cu`` (TPU kernel 5) and
+``csrc/attn_block_perhead_bwd.cu`` (TPU kernel 6), on a CPU tensor their plain
+versions ``attn_block_perhead_reference`` and
+``attn_block_perhead_bwd_reference``. It differs from ``fused`` in the order
+of its float32 sums, not in what it computes: the out-projection is summed
+head by head in order, dx over heads and within a head over q, k, v, and the
+backward returns dq, dk, dv and ctx head-banked, (B, heads, L, d). The
+per-head kernels read Wq, Wk and Wv in the Linear (out, in) layout and Wo in
+the flax (in, out) layout, where each head's block is a contiguous row block.
 """
 
 from __future__ import annotations
@@ -32,10 +42,12 @@ import torch
 from . import _cuda
 from .attention import _acc_dtype, _NEG_INF, backward_fits, max_key_length, sdpa_reference
 
-IMPLS = ("fused", "fused_interpret", "jnp")
+IMPLS = ("fused", "fused_interpret", "fused_perhead", "fused_perhead_interpret", "jnp")
 
 launches = _cuda.LaunchCounter("attn_block_fwd")
 bwd_launches = _cuda.LaunchCounter("attn_block_bwd")
+perhead_launches = _cuda.LaunchCounter("attn_block_perhead_fwd")
+perhead_bwd_launches = _cuda.LaunchCounter("attn_block_perhead_bwd")
 
 
 def attn_block_reference(x, key_mask, wq, bq, wk, bk, wv, bv, wo, bo,
@@ -138,6 +150,95 @@ def attn_block_bwd_packed_reference(x, key_mask, wq, bq, wk, bk, wv, bv, wo, do,
     return dx, dq, dk, dv, ctx
 
 
+def _perhead_parts(x, key_mask, wq, bq, wk, bk, wv, bv, heads, scale):
+    """Per head, as the JAX ``_qkv_head`` and ``_head_softmax``: the head's
+    column slice, q/k/v as float32 products plus bias rounded to x's dtype,
+    and the float32 softmax of the scaled, masked scores. Yields (slice, q,
+    k, v, p), q/k/v raised back to float32."""
+    h = x.shape[-1]
+    d = h // heads
+    dt, acc = x.dtype, _acc_dtype(x.dtype)
+    xa = x.to(acc)
+    for hh in range(heads):
+        sl = slice(hh * d, (hh + 1) * d)
+        q, k, v = ((xa @ w[:, sl].to(acc) + bias[sl].to(acc)).to(dt).to(acc)
+                   for w, bias in ((wq, bq), (wk, bk), (wv, bv)))
+        s = q @ k.transpose(-1, -2) * scale
+        if key_mask is not None:
+            s = torch.where(key_mask[:, None, :] > 0, s, _NEG_INF)
+        s = s - s.amax(dim=-1, keepdim=True)
+        e = torch.exp(s)
+        yield sl, q, k, v, e / e.sum(dim=-1, keepdim=True)
+
+
+def attn_block_perhead_reference(x, key_mask, wq, bq, wk, bk, wv, bv, wo, bo,
+                                 heads: int, scale: Optional[float] = None):
+    """Plain version of the per-head forward (TPU kernel 5), op for op the
+    JAX ``_fwd_kernel``: per head, ctx = round(round(P) V), and
+    ``acc += ctx Wo_h`` in float32, head 0 to heads - 1 in order; then
+    ``acc + bo`` rounded once. Weights (in, out)."""
+    if scale is None:
+        scale = (x.shape[-1] // heads) ** -0.5
+    dt, acc_t = x.dtype, _acc_dtype(x.dtype)
+    acc = torch.zeros(x.shape, dtype=acc_t, device=x.device)
+    for sl, q, k, v, p in _perhead_parts(x, key_mask, wq, bq, wk, bk, wv, bv, heads, scale):
+        ctx = (p.to(dt).to(acc_t) @ v).to(dt)
+        acc = acc + ctx.to(acc_t) @ wo[sl, :].to(acc_t)
+    return (acc + bo.to(acc_t)).to(dt)
+
+
+def attn_block_perhead_bwd_banked_reference(x, key_mask, wq, bq, wk, bk, wv, bv, wo, do,
+                                            heads: int, scale: Optional[float] = None):
+    """What the per-head backward kernel (TPU kernel 6) returns: dx (B, L, H)
+    and dq, dk, dv, ctx head-banked (B, heads, L, d), in plain PyTorch.
+
+    Op for op the JAX ``_bwd_kernel``: per head, dctx = round(dO Wo_h^T);
+    dv = round(P)^T dctx, dP = dctx V^T, dS = P (dP - rowsum(dP P)) rounded,
+    dq = (dS K) scale and dk = (dS^T Q) scale, each rounded, ctx =
+    round(round(P) V); dx summed in float32 over heads in order and within a
+    head over q, k, v in order, rounded once."""
+    if scale is None:
+        scale = (x.shape[-1] // heads) ** -0.5
+    dt, acc_t = x.dtype, _acc_dtype(x.dtype)
+    doa = do.to(acc_t)
+    dx = torch.zeros(x.shape, dtype=acc_t, device=x.device)
+    banks = ([], [], [], [])
+    for sl, q, k, v, p in _perhead_parts(x, key_mask, wq, bq, wk, bk, wv, bv, heads, scale):
+        pc = p.to(dt).to(acc_t)
+        ctx = (pc @ v).to(dt)
+        dctx = (doa @ wo[sl, :].to(acc_t).t()).to(dt).to(acc_t)
+        dv = (pc.transpose(-1, -2) @ dctx).to(dt)
+        dp = dctx @ v.transpose(-1, -2)
+        ds = (p * (dp - (dp * p).sum(dim=-1, keepdim=True))).to(dt).to(acc_t)
+        dq = ((ds @ k) * scale).to(dt)
+        dk = ((ds.transpose(-1, -2) @ q) * scale).to(dt)
+        for g, w in ((dq, wq), (dk, wk), (dv, wv)):
+            dx = dx + g.to(acc_t) @ w[:, sl].to(acc_t).t()
+        for bank, t in zip(banks, (dq, dk, dv, ctx)):
+            bank.append(t)
+    dq, dk, dv, ctx = (torch.stack(bank, dim=1) for bank in banks)
+    return dx.to(dt), dq, dk, dv, ctx
+
+
+def _merge_heads(t):
+    """(B, heads, L, d) -> (B, L, H), as the JAX ``_attn_block_bwd``'s merge."""
+    b, heads, l, d = t.shape
+    return t.permute(0, 2, 1, 3).reshape(b, l, heads * d)
+
+
+def attn_block_perhead_bwd_reference(x, key_mask, wq, bq, wk, bk, wv, bv, wo, bo, do,
+                                     heads: int, scale: Optional[float] = None):
+    """The ten gradients of ``attn_block(impl="fused_perhead")`` for ``do``
+    (dx, None for the mask, then the weight and bias gradients in the (in,
+    out) layout): the plain kernel body and the products of the JAX wrapper
+    ``_attn_block_bwd`` over the merged banks."""
+    dx, dq, dk, dv, ctx = attn_block_perhead_bwd_banked_reference(
+        x, key_mask, wq, bq, wk, bk, wv, bv, wo, do, heads, scale)
+    return (dx, None) + _param_grads(x, _merge_heads(dq), _merge_heads(dk),
+                                     _merge_heads(dv), _merge_heads(ctx), do,
+                                     wq.dtype, bq.dtype)
+
+
 def _lib():
     lib = _cuda.library("attn_block_fwd")
     if not getattr(lib, "_smtc_typed", False):
@@ -160,9 +261,10 @@ def _bwd_lib():
     return lib
 
 
-def _check_block(x, key_mask, ws, bs, heads, what):
-    """The checks both block kernels make; returns the four weights in the
-    (out, in) layout the kernels read."""
+def _check_block(x, key_mask, ws, bs, heads, what, wo_flax=False):
+    """The checks every block kernel makes; returns the four weights in the
+    (out, in) layout the kernels read, but Wo, with ``wo_flax``, in the
+    (in, out) layout the per-head kernels read."""
     if x.device.type != "cuda":
         raise ValueError(f"{what} needs CUDA tensors, got {x.device}")
     if x.dim() != 3 or not x.is_contiguous():
@@ -177,7 +279,10 @@ def _check_block(x, key_mask, ws, bs, heads, what):
     for name, w in zip(("wq", "wk", "wv", "wo"), ws):
         if tuple(w.shape) != (h, h) or w.dtype != x.dtype or w.device != x.device:
             raise ValueError(f"{name} must be ({h}, {h}) {x.dtype} on {x.device}")
-        wts.append(w.t().contiguous())  # (out, in); a view when w is a Linear's .t()
+        if wo_flax and name == "wo":
+            wts.append(w.contiguous())  # (in, out): head h's rows are Wo_h
+        else:
+            wts.append(w.t().contiguous())  # (out, in); a view when w is a Linear's .t()
     for name, bias in zip(("bq", "bk", "bv", "bo"), bs):
         if (tuple(bias.shape) != (h,) or bias.dtype != x.dtype
                 or bias.device != x.device or not bias.is_contiguous()):
@@ -266,6 +371,92 @@ def attn_block_bwd_cuda(x, key_mask, wq, bq, wk, bk, wv, bv, wo, do,
     return dx, dq, dk, dv, ctx
 
 
+def _perhead_lib():
+    lib = _cuda.library("attn_block_perhead_fwd")
+    if not getattr(lib, "_smtc_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.smtc_attn_block_perhead_fwd.argtypes = (
+            [p] * 15 + [i, i, i, i, ctypes.c_float, i, i, p])
+        lib.smtc_attn_block_perhead_fwd.restype = i
+        lib._smtc_typed = True
+    return lib
+
+
+def _perhead_bwd_lib():
+    lib = _cuda.library("attn_block_perhead_bwd")
+    if not getattr(lib, "_smtc_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.smtc_attn_block_perhead_bwd.argtypes = (
+            [p] * 20 + [i, i, i, i, ctypes.c_float, i, i, p])
+        lib.smtc_attn_block_perhead_bwd.restype = i
+        lib._smtc_typed = True
+    return lib
+
+
+def attn_block_perhead_cuda(x, key_mask, wq, bq, wk, bk, wv, bv, wo, bo, heads: int,
+                            scale: float):
+    """Launch the per-head forward kernel (TPU kernel 5). Takes and returns
+    what ``attn_block_cuda`` does."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, wq, bq, wk, bk, wv, bv, wo, bo)):
+        raise RuntimeError("attn_block_perhead_cuda returns no gradient: call "
+                           "attn_block(impl='fused_perhead'), whose autograd "
+                           "function launches the backward kernel")
+    wq_t, wk_t, wv_t, wo_f = _check_block(x, key_mask, (wq, wk, wv, wo), (bq, bk, bv, bo),
+                                          heads, "attn_block_perhead_cuda", wo_flax=True)
+    b, l, h = x.shape
+    dtype = str(x.dtype).removeprefix("torch.")
+    lib = _perhead_lib()
+    banks = torch.empty((4, b, heads, l, h // heads), dtype=x.dtype, device=x.device)
+    out = torch.empty_like(x)
+    rc = lib.smtc_attn_block_perhead_fwd(
+        x.data_ptr(), None if key_mask is None else key_mask.data_ptr(),
+        wq_t.data_ptr(), bq.data_ptr(), wk_t.data_ptr(), bk.data_ptr(),
+        wv_t.data_ptr(), bv.data_ptr(), wo_f.data_ptr(), bo.data_ptr(),
+        banks[0].data_ptr(), banks[1].data_ptr(), banks[2].data_ptr(),
+        banks[3].data_ptr(), out.data_ptr(),
+        b, l, h, heads, float(scale), _cuda.DTYPE_CODES[dtype],
+        x.device.index or 0, _cuda.stream_of(x))
+    _cuda.check(lib, rc, "attn_block_perhead_fwd")
+    perhead_launches.add((dtype, b, l, h, heads, key_mask is not None))
+    return out
+
+
+def attn_block_perhead_bwd_cuda(x, key_mask, wq, bq, wk, bk, wv, bv, wo, do,
+                                heads: int, scale: float):
+    """Launch the per-head backward kernel (TPU kernel 6) for the output
+    gradient ``do``. Takes what ``attn_block_bwd_cuda`` takes. Returns dx
+    (B, L, H) and dq, dk, dv, ctx head-banked, (B, heads, L, d), in x's
+    dtype, as ``attn_block_perhead_bwd_banked_reference``."""
+    wq_t, wk_t, wv_t, wo_f = _check_block(x, key_mask, (wq, wk, wv, wo), (bq, bk, bv), heads,
+                                          "attn_block_perhead_bwd_cuda", wo_flax=True)
+    if (do.shape != x.shape or do.dtype != x.dtype or do.device != x.device
+            or not do.is_contiguous() or do.data_ptr() % 16):
+        raise ValueError("do must be a contiguous, 16-byte aligned tensor shaped "
+                         "and typed like x")
+    b, l, h = x.shape
+    if not backward_fits(l, l, h // heads):
+        raise ValueError(f"attn_block perhead backward kernel: L={l} does not fit the "
+                         "SDPA backward block")
+    dtype = str(x.dtype).removeprefix("torch.")
+    lib = _perhead_bwd_lib()
+    banks = torch.empty((8, b, heads, l, h // heads), dtype=x.dtype, device=x.device)
+    q, k, v, dctx, ctx, dq, dk, dv = banks
+    stats = torch.empty((b, heads, l, 3), dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    rc = lib.smtc_attn_block_perhead_bwd(
+        x.data_ptr(), None if key_mask is None else key_mask.data_ptr(),
+        wq_t.data_ptr(), bq.data_ptr(), wk_t.data_ptr(), bk.data_ptr(),
+        wv_t.data_ptr(), bv.data_ptr(), wo_f.data_ptr(), do.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dctx.data_ptr(), ctx.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dx.data_ptr(), stats.data_ptr(),
+        b, l, h, heads, float(scale), _cuda.DTYPE_CODES[dtype],
+        x.device.index or 0, _cuda.stream_of(x))
+    _cuda.check(lib, rc, "attn_block_perhead_bwd")
+    perhead_bwd_launches.add((dtype, b, l, h, heads, key_mask is not None))
+    return dx, dq, dk, dv, ctx
+
+
 class _AttnBlockFunction(torch.autograd.Function):
     """``attn_block`` with a gradient: the kernels on CUDA, the plain
     versions on the CPU. Saves only its inputs, as the JAX residuals do."""
@@ -295,20 +486,52 @@ class _AttnBlockFunction(torch.autograd.Function):
         return (*grads, None, None)
 
 
+class _AttnBlockPerheadFunction(torch.autograd.Function):
+    """``attn_block(impl="fused_perhead")`` with a gradient: kernels 5 and 6
+    on CUDA, their plain versions on the CPU. Saves only its inputs."""
+
+    @staticmethod
+    def forward(ctx, x, key_mask, wq, bq, wk, bk, wv, bv, wo, bo, heads, scale):
+        ctx.heads, ctx.scale = heads, scale
+        ctx.save_for_backward(x, key_mask, wq, bq, wk, bk, wv, bv, wo, bo)
+        args = (x, key_mask, wq, bq, wk, bk, wv, bv, wo, bo, heads, scale)
+        if x.device.type == "cpu":
+            return attn_block_perhead_reference(*args)
+        return attn_block_perhead_cuda(*args)
+
+    @staticmethod
+    def backward(ctx, do):
+        x, key_mask, wq, bq, wk, bk, wv, bv, wo, bo = ctx.saved_tensors
+        do = do.contiguous()
+        if x.device.type == "cpu":
+            grads = attn_block_perhead_bwd_reference(x, key_mask, wq, bq, wk, bk, wv, bv,
+                                                     wo, bo, do, ctx.heads, ctx.scale)
+        else:
+            if do.data_ptr() % 16:
+                do = do.clone()
+            dx, dq, dk, dv, cx = attn_block_perhead_bwd_cuda(
+                x, key_mask, wq, bq, wk, bk, wv, bv, wo, do, ctx.heads, ctx.scale)
+            grads = (dx, None) + _param_grads(x, _merge_heads(dq), _merge_heads(dk),
+                                              _merge_heads(dv), _merge_heads(cx), do,
+                                              wq.dtype, bq.dtype)
+        return (*grads, None, None)
+
+
 def attn_block(x, key_mask, wq, bq, wk, bk, wv, bv, wo, bo, heads: int,
                scale: Optional[float] = None, impl: str = "fused"):
     """Fused self-attention block.
 
     x: (B, L, H); key_mask: (B, L) 1=keep or None; weights: four (H, H)
     matrices in the flax (in, out) layout + (H,) biases. ``impl``: "fused" /
-    "fused_interpret" launch the kernels on a CUDA tensor (the backward when
-    a gradient is asked for) and take the plain versions on a CPU tensor;
-    "jnp" is the plain oracle with PyTorch's autograd. A CUDA call that needs
-    a gradient at a length the backward kernel does not take raises here."""
+    "fused_interpret" (kernels 7 and 8) and "fused_perhead" /
+    "fused_perhead_interpret" (kernels 5 and 6) launch the kernels on a CUDA
+    tensor (the backward when a gradient is asked for) and take the plain
+    versions on a CPU tensor; "jnp" is the plain oracle with PyTorch's
+    autograd. A CUDA call that needs a gradient at a length the backward
+    kernel does not take raises here."""
     if impl not in IMPLS:
-        raise ValueError(
-            f"attn_block impl {impl!r} is not available in the PyTorch port "
-            f"(expected one of {IMPLS}; fused_perhead is not ported yet)")
+        raise ValueError(f"attn_block impl {impl!r} is not available in the PyTorch "
+                         f"port (expected one of {IMPLS})")
     if scale is None:
         scale = (x.shape[-1] // heads) ** -0.5
     if impl == "jnp":
@@ -324,4 +547,5 @@ def attn_block(x, key_mask, wq, bq, wk, bk, wv, bv, wo, bo, heads: int,
             and not backward_fits(l, l, h // heads)):
         raise ValueError(f"attn_block: a gradient is needed at L={l}, which the "
                          "backward kernel does not take")
-    return _AttnBlockFunction.apply(x, key_mask, *params, heads, scale)
+    fn = _AttnBlockPerheadFunction if impl.startswith("fused_perhead") else _AttnBlockFunction
+    return fn.apply(x, key_mask, *params, heads, scale)

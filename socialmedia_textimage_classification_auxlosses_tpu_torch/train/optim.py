@@ -46,7 +46,14 @@ class AdamW:
         named = list(named_params)
         self.frozen_names = [n for n, _ in named if frozen is not None and frozen(n)]
         self.params = [(n, p) for n, p in named if frozen is None or not frozen(n)]
-        self.mu = {n: torch.zeros_like(p, dtype=mu_dtype or p.dtype) for n, p in self.params}
+        self.reset()
+
+    def reset(self) -> None:
+        """The state of a fresh optimizer: zero moments, step 0 (after new
+        weights are imported, as the JAX runners initialise ``opt_state``
+        again)."""
+        self.mu = {n: torch.zeros_like(p, dtype=self.mu_dtype or p.dtype)
+                   for n, p in self.params}
         self.nu = {n: torch.zeros_like(p) for n, p in self.params}
         self.count = 0
 

@@ -92,6 +92,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     w, b = torch.zeros(8, 8), torch.zeros(8)
     with pytest.raises(ValueError, match="CUDA"):
         attn_block.attn_block_cuda(h, None, w, b, w, b, w, b, w, b, 2, 1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        attn_block.attn_block_perhead_cuda(h, None, w, b, w, b, w, b, w, b, 2, 1.0)
 
 
 def test_trainer_asks_for_cuda_by_default(monkeypatch):
@@ -116,6 +118,8 @@ def test_backward_wrappers_refuse_cpu_tensors():
     w, b = torch.zeros(8, 8), torch.zeros(8)
     with pytest.raises(ValueError, match="CUDA"):
         attn_block.attn_block_bwd_cuda(h, None, w, b, w, b, w, b, w, h, 2, 1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        attn_block.attn_block_perhead_bwd_cuda(h, None, w, b, w, b, w, b, w, h, 2, 1.0)
 
 
 def test_early_fusion_trainer_asks_for_cuda_by_default(monkeypatch):
@@ -130,7 +134,8 @@ def test_early_fusion_trainer_asks_for_cuda_by_default(monkeypatch):
 
 def test_vilt_path_modules_are_walked():
     mods = _modules()
-    for name in ("cli._build_early", "cli.run_mm_early", "models.vilt"):
+    for name in ("cli._build_early", "cli.run_mm_early", "models.vilt", "models.hf_import",
+                 "data.bpe_backends"):
         assert f"{port.__name__}.{name}" in mods, name
 
 

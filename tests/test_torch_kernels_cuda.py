@@ -27,6 +27,11 @@ asked for, at the block kernel's own shape, every gradient, with the same
 tolerances against each gradient's scale; and autograd round trips through
 ``sdpa`` and ``attn_block`` (at 128 and at ViLT's 402) show that the
 gradient on the card comes from the backward kernels.
+
+The per-head block (``impl="fused_perhead"``, kernels 5 and 6) is held the
+same way: its forward, its backward kernel's dx and head-banked dq, dk, dv
+and ctx, and the ten gradients through autograd, against the plain per-head
+versions, from head dim 8 to ViLT's L = 402.
 """
 
 import pytest
@@ -314,3 +319,48 @@ def test_raw_wrappers_refuse_inputs_that_need_a_gradient(cuda):
     w, b = torch.zeros(16, 16, device="cuda"), torch.zeros(16, device="cuda")
     with pytest.raises(RuntimeError, match="no gradient"):
         AB.attn_block_cuda(x, None, w, b, w, b, w, b, w, b, 2, 1.0)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        AB.attn_block_perhead_cuda(x, None, w, b, w, b, w, b, w, b, 2, 1.0)
+
+
+PERHEAD_CASES = {
+    # name: (b, l, hidden, heads, masked)
+    "head_dim_8": (2, 20, 16, 2, True),
+    "narrow": (2, 16, 64, 2, True),
+    "ragged": (3, 37, 96, 3, False),
+    "text_path": (32, 128, 768, 12, True),
+    "vilt_exact": (2, 402, 768, 12, True),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", sorted(PERHEAD_CASES))
+def test_attn_block_perhead_round_trip_matches_plain(cuda, case, dtype):
+    """``attn_block(impl="fused_perhead")`` on the card: one launch of each
+    per-head kernel; the forward against ``attn_block_perhead_reference``,
+    the backward kernel's dx and banked dq, dk, dv, ctx against the plain
+    kernel body, the ten gradients against the plain backward."""
+    b, l, hid, heads, masked = PERHEAD_CASES[case]
+    x, mask, params, do = _block_inputs(cuda, b, l, hid, heads, masked, dtype, grad=True)
+    fwd0, bwd0 = AB.perhead_launches.count, AB.perhead_bwd_launches.count
+    out = AB.attn_block(x, mask, *params, heads=heads, impl="fused_perhead")
+    out.backward(do)
+    assert (AB.perhead_launches.count, AB.perhead_bwd_launches.count) == (fwd0 + 1, bwd0 + 1)
+    plain = [p.detach() for p in params]
+    _close(out, AB.attn_block_perhead_reference(x.detach(), mask, *plain, heads), dtype, "out")
+    banked = AB.attn_block_perhead_bwd_banked_reference(x.detach(), mask, *plain[:7], do, heads)
+    got = AB.attn_block_perhead_bwd_cuda(x.detach(), mask, *plain[:7], do, heads,
+                                         (hid // heads) ** -0.5)
+    want = AB.attn_block_perhead_bwd_reference(x.detach(), mask, *plain, do, heads)
+    torch.cuda.synchronize()
+    for name, g, r in zip(("dx", "dq", "dk", "dv", "ctx"), got, banked):
+        assert g.shape == r.shape, name
+        _close(g, r, dtype, name)
+    _close(x.grad, want[0], dtype, "dx")
+    merged = [AB._merge_heads(t) for t in banked[1:]]
+    scales = _term_scales(x.detach(), *merged, do)
+    names = ["wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo"]
+    for name, t, r, sc in zip(names, params, want[2:], scales):
+        err = (t.grad.float() - r.float()).abs().max().item()
+        tol = (1e-4 if dtype == torch.float32 else 2e-2) * max(1.0, sc.max().item())
+        assert torch.isfinite(t.grad).all() and err <= tol, ("d" + name, err, tol)

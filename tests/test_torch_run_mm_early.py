@@ -118,7 +118,7 @@ def test_evaltest_artifacts_match_jax(runs):
 
 
 REFUSED = [
-    ["--model", "lxmert"], ["--model", "mmbt"], ["--import_reference_ckpt", "x.pth"],
+    ["--model", "lxmert"], ["--model", "mmbt"],
     ["--remat"], ["--scan_layers"], ["--mesh_pipe", "2"], ["--bucket_seq"],
     ["--tim_reuse_text"], ["--ckpt_every", "10"], ["--profile", "p"],
 ]

@@ -119,7 +119,7 @@ REFUSED = [
     ["--mesh_model", "2"], ["--steps_per_dispatch", "4"], ["--bucket_seq"],
     ["--bucket_group"], ["--opt_impl", "lazy_emb"], ["--tim_reuse_text"],
     ["--cache_vision"], ["--ckpt_every", "10"], ["--resume"], ["--profile", "p"],
-    ["--import_reference_ckpt", "x.pth"], ["--quantize", "w8"],
+    ["--quantize", "w8"],
     ["--extract_features"], ["--eval_txt_test"], ["--img_decoder", "native"],
     ["--img_model_name", "beit"],
 ]
