@@ -10,12 +10,12 @@ and the CUDA toolkit. It
 2. builds the port's CUDA kernels from ``csrc/`` (one ``nvcc`` per source,
    all at once) and prints the build seconds;
 3. calls each kernel's wrapper at every shape the serving path and ViLT's
-   joint encoder give it (ViLT: 32x12x402x402x64 bf16 with ViLT's mask of
-   text padding and canvas area past each image's extent, and the fused
-   block at 32x402x768; also checked, though no path runs them, 402 in
-   float32 and the fixed square's 185) and holds the result against the
-   plain PyTorch version on the same inputs
-   (float32: 1e-4 of the output's scale; bfloat16: 2e-2 of it, because the
+   joint encoder give it (every bf16 SDPA in the tensor-core kernel of
+   ``sdpa_core.cuh``, P in registers; ViLT: 32x12x402x402x64 bf16 with
+   ViLT's mask of text padding and canvas area past each image's extent,
+   and the fused block at 32x402x768; also checked, though no path runs
+   them, 402 in float32 and the fixed square's 185) and holds the result
+   against the plain PyTorch version on the same inputs (float32: 1e-4 of the output's scale; bfloat16: 2e-2 of it, because the
    plain version rounds its score product to bfloat16 where the kernel keeps
    float32), and times the kernel, the plain version and, as a yardstick the
    port never calls, one PyTorch library call computing the same function;
@@ -33,8 +33,9 @@ and the CUDA toolkit. It
 6. holds the backward kernels against their plain versions at the training
    shapes (the SDPA backward at text 32x12x128x64 bf16 masked, at the
    fusion head's 32x1x1x768 over 197 keys in float32, and at ViLT's shapes
-   above, where the query-tiled pair runs; the query-tiled pair also at the
-   text shape, timed beside the block kernel; the fused block's backward at
+   above; in bf16 the tensor-core query-tiled pair of ``sdpa_bwd_core.cuh``
+   runs at all of them, and at the text shape the block kernel, asked for,
+   is checked and timed beside it; the fused block's backward at
    32x128x768 and 32x402x768 bf16, 12 heads, masked, its five outputs and,
    through autograd, all ten gradients), with the tolerances above against each
    output's scale (for the weight and bias gradients, sums over 4,096 rows
@@ -44,7 +45,7 @@ and the CUDA toolkit. It
    built once);
 7. trains the full-width model with ITC + TIM through the port's
    ``cli/run_mm_late.main`` on a small generated task-3 dataset (64 posts,
-   a uint8 pixel cache, no pandas or PIL), one epoch at batch 16 in
+   a uint8 pixel cache, neither pandas nor PIL), one epoch at batch 16 in
    bfloat16, once with ``--attn_impl auto`` and once with ``fused``, and
    checks the artifacts, that every loss is finite, that every trainable
    parameter got a finite gradient and the vision tower none, and the exact
@@ -55,8 +56,9 @@ and the CUDA toolkit. It
    40 text positions, patch 32) with ITC + TIM through ``cli/run_mm_early.main``
    under ``--vilt_exact_resize`` on the same posts, one epoch at batch 16 in
    bfloat16 under ``auto`` and ``fused``: each image a generated frame at the
-   extent of a random photo size on the 608-px canvas (the card's machine
-   has no PIL), and it checks that every batch carries its images' extents,
+   extent of a random photo size on the 608-px canvas (no photo is decoded,
+   so no PIL is needed), and it checks that every batch carries its images'
+   extents,
    the exact launch counts (12 SDPA forward and 12 backward per train step,
    12 forward per eval step, all at L = 402; under ``fused`` the block
    kernels instead), finite losses and gradients of every parameter but the
@@ -91,7 +93,10 @@ and the CUDA toolkit. It
    dict, its classification logits equal to those of a model loaded from
    the converted state dict; no transformers, safetensors, msgpack or flax
    imported;
-12. prints one JSON line of per-kernel numbers (``launches``: the count over
+12. logs the ptxas registers and spills of every kernel and the resident
+   blocks per SM of the tensor-core SDPA kernels at ViLT's 402 keys
+   (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
+13. prints one JSON line of per-kernel numbers (``launches``: the count over
    the serving and training runs and the per-head phase's main path; 0 for
    the check-only shapes), the card line, and last
    ``{"ok": true, "device": {...}}``.
@@ -193,6 +198,44 @@ def vilt_mask(torch, g, b, length):
     grid = (iy[None, :, None] < gh[:, None, None]) & (iy[None, None, :] < gw[:, None, None])
     return torch.cat([text, torch.ones(b, 1, dtype=torch.bool, device="cuda"),
                       grid.reshape(b, -1)], dim=1).to(torch.int32)
+
+
+def log_ptxas(source, text):
+    """One line per kernel of ``source``'s nvcc log (``-Xptxas -v``): its
+    (mangled) name, registers and spill bytes."""
+    import re
+
+    name = None
+    for ln in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            name, spill = m.group(1), ""
+        elif name and "spill" in ln:
+            spill = ln.strip()
+        elif name and "Used" in ln:
+            regs = re.search(r"Used (\d+) registers", ln)
+            log(f"ptxas {source}: {name}: {regs.group(1) if regs else ln.strip()} registers; "
+                f"{spill}")
+            name = None
+
+
+def log_occupancy(A):
+    """Resident blocks per SM of the tensor-core SDPA kernels at ViLT's
+    402 keys, head dim 64, from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+    (128 threads a block; shared memory and registers as launched)."""
+    import ctypes
+
+    fwd, bwd = A._lib(), A._bwd_lib()
+    fwd.smtc_sdpa_fwd_blocks_per_sm.argtypes = [ctypes.c_int] * 2
+    bwd.smtc_sdpa_bwd_blocks_per_sm.argtypes = [ctypes.c_int] * 3
+    for kernel, n in (("sdpa_fwd_tc_kernel<64>", fwd.smtc_sdpa_fwd_blocks_per_sm(64, VILT_LEN)),
+                      ("sdpa_bwd_rows_tc_kernel<64> (pass A)",
+                       bwd.smtc_sdpa_bwd_blocks_per_sm(0, 64, VILT_LEN)),
+                      ("sdpa_bwd_keys_tc_kernel<64> (pass B)",
+                       bwd.smtc_sdpa_bwd_blocks_per_sm(1, 64, VILT_LEN))):
+        if n < 0:
+            raise AssertionError(f"occupancy query of {kernel}: CUDA error {-n}")
+        log(f"occupancy {kernel}: {n} blocks of 128 threads per SM at Lk = {VILT_LEN}")
 
 
 def check_kernels(torch):
@@ -358,15 +401,16 @@ def check_bwd_kernels(torch):
         err = close(f"sdpa_bwd/{tag}", outs, refs, [r.float().abs().max().item() for r in refs],
                     dtype)
         if tag == "text":
-            # the query-tiled pair where the block kernel runs: which is faster
-            tiled = A.sdpa_bwd_cuda(q, k, v, mask, do, scale, kernel="tiled")
-            close("sdpa_bwd/text tiled pair", tiled, refs,
+            # the block kernel, asked for, where the tensor-core pair runs:
+            # which is faster
+            block = A.sdpa_bwd_cuda(q, k, v, mask, do, scale, kernel="block")
+            close("sdpa_bwd/text block kernel", block, refs,
                   [r.float().abs().max().item() for r in refs], dtype)
-            block_ms = device_ms(torch, lambda: A.sdpa_bwd_cuda(q, k, v, mask, do, scale))
-            tiled_ms = device_ms(torch, lambda: A.sdpa_bwd_cuda(q, k, v, mask, do, scale,
-                                                                kernel="tiled"))
+            block_ms = device_ms(torch, lambda: A.sdpa_bwd_cuda(q, k, v, mask, do, scale,
+                                                                kernel="block"))
+            pair_ms = device_ms(torch, lambda: A.sdpa_bwd_cuda(q, k, v, mask, do, scale))
             log(f"time sdpa_bwd/text: block kernel {block_ms:.4f} ms, query-tiled pair "
-                f"{tiled_ms:.4f} ms")
+                f"{pair_ms:.4f} ms")
         leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
         attn_mask = None if mask is None else (mask > 0)[:, None, None, :]
         lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=attn_mask, scale=scale)
@@ -664,7 +708,7 @@ def vilt_args(attn_impl, extra=()):
 
 
 def fill_vilt_frames(build_early, ids):
-    """The card's machine has no PIL to decode photos: every split's
+    """No photos are decoded (the port needs no PIL on the card): every split's
     ``ExactViltImageSource`` gets its memo filled with generated frames, each
     at the ``vilt_exact_geometry`` extent of a random photo size of
     ``VILT_PHOTOS`` (so a batch mixes extents), pasted onto the 608-px
@@ -1412,8 +1456,8 @@ def main():
     secs = _cuda.build()
     log(f"build: {time.monotonic() - t0:.1f} s wall; per source {secs}")
     for name in _cuda.SOURCES:
-        regs = [ln.strip() for ln in _cuda.build_log(name).splitlines() if "Used" in ln]
-        log(f"ptxas {name}: {regs}")
+        log_ptxas(name, _cuda.build_log(name))
+    log_occupancy(A)
 
     rows = check_kernels(torch) + check_bwd_kernels(torch)
     perhead_rows, perhead_launches, perhead_vs_packed = check_perhead_kernels(torch)

@@ -22,8 +22,9 @@
 //   1. the forward's NT GEMM with bias (gemm_core.cuh) recomputes q, k, v;
 //   2. the NN GEMM computes dctx = dO . Wo_lin (Wo^T of the flax kernel);
 //   3. the SDPA backward per (batch, head), heads as column slices, also
-//      writing ctx: the block kernel where its row sets fit (L <= 128 at
-//      head dim 64), else the query-tiled pair (ViLT's L = 402);
+//      writing ctx: in bf16 the tensor-core query-tiled pair at every length
+//      (sdpa_bwd_core.cuh); in f32 the block kernel where its row sets fit
+//      (L <= 128 at head dim 64), else the FMA query-tiled pair;
 //   4. the NN GEMM sums dq . Wq_lin + dk . Wk_lin + dv . Wv_lin into dx in one
 //      f32 accumulator.
 // q, k, v, dctx, ctx, dq, dk and dv make one round trip through device
@@ -34,8 +35,7 @@
 // 2 x 4096 x 768 x 768 = 38.7 GFLOP) plus the per-head SDPA backward
 // (2.4 GFLOP), about 41 us on the bf16 tensor cores at 989 TFLOP/s; the
 // bytes (x, dO, the weights, dx, dq, dk, dv, ctx) take under 10 us. The
-// GEMMs run on the tensor cores (mma.sync); the SDPA part is the f32 FMA
-// block kernel.
+// GEMMs and, in bf16, the SDPA backward run on the tensor cores (mma.sync).
 //
 // Weights arrive as (out, in) row-major, the nn.Linear layout.
 

@@ -24,11 +24,12 @@
 //      a contiguous (d, H) row block of the (in, out) out-projection, which
 //      is the (N, K) operand the NT GEMM reads;
 //   3. the SDPA backward per (batch, head) on the banked blocks, writing ctx:
-//      the block kernel where the head's whole (L, L) problem fits in shared
-//      memory (L <= 128 at head dim 64), else the query-tiled pair (ViLT's
-//      L = 402: one head's 402 x 402 f32 P alone is 646 KB, over a block's
-//      227 KB), whose pass B sums dK and dV over the query tiles in f32 with
-//      no atomics;
+//      in bf16 the tensor-core query-tiled pair of sdpa_bwd_core.cuh at every
+//      length; in f32 the block kernel where the head's whole (L, L) problem
+//      fits in shared memory (L <= 128 at head dim 64), else the FMA
+//      query-tiled pair (ViLT's L = 402: one head's 402 x 402 f32 P alone is
+//      646 KB, over a block's 227 KB). Both pairs' pass B sums dK and dV over
+//      the query tiles in f32 with no atomics;
 //   4. perhead_core.cuh's head-ordered product: every block owns a 128 x 64
 //      tile of dx and walks (head, then q, k, v) in order, each product into a
 //      fresh f32 partial added to the tile's accumulator, rounded once: the
@@ -37,10 +38,9 @@
 // What bounds it on the H100. The work is that of TPU kernel 8
 // (attn_block_bwd.cu): the eight 768-wide products and the per-head SDPA
 // backward, bound by the bf16 tensor-core rate at the training shapes (x of
-// 32x128x768 and 32x402x768: 0.0391 and 0.1556 ms). Measured by chip_smoke.py
-// on an NVIDIA H100 80GB HBM3 at 700 W: 0.867 and 7.088 ms, against kernel
-// 8's 0.678 and 6.765 ms in the same run (PERF.md); the f32 FMA SDPA
-// backward (step 3) takes most of it at 402.
+// 32x128x768 and 32x402x768: 0.0391 and 0.1556 ms). chip_smoke.py times it
+// beside kernel 8 at each shape (PERF.md): the head-ordered dx product makes
+// it 30-60% slower than kernel 8; in bf16 step 3 is the tensor-core pair.
 
 #include "perhead_core.cuh"
 #include "sdpa_bwd_core.cuh"

@@ -34,11 +34,10 @@
 // What bounds it on the H100. The work is that of TPU kernel 7
 // (attn_block_fwd.cu): at x of 16x128x768 and 16x197x768 and ViLT's
 // 32x402x768 in bf16, the four projections and the per-head SDPA, bound by
-// the bf16 tensor-core rate (0.0106, 0.0170 and 0.0774 ms). Measured by
-// chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W: 0.191, 0.340 and
-// 2.714 ms, against kernel 7's 0.162, 0.273 and 2.617 ms in the same run
-// (PERF.md): the SDPA forward dominates at 402, and the head-ordered
-// out-projection costs 18-25% more than kernel 7's at the short lengths.
+// the bf16 tensor-core rate (0.0106, 0.0170 and 0.0774 ms). chip_smoke.py
+// times it beside kernel 7 at each shape (PERF.md): the head-ordered
+// out-projection makes it 20-40% slower than kernel 7; the SDPA forward, on
+// the tensor cores, is a quarter of the call at 402.
 
 #include "perhead_core.cuh"
 

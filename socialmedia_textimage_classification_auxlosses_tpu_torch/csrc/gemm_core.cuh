@@ -55,25 +55,10 @@ __device__ __forceinline__ size_t gemm_c_offset(const GemmArgs& g, int row, int 
 constexpr int kGM = 128, kGN = 64, kGK = 32, kStages = 3, kGLd = kGK + 8;
 constexpr int kGThreads = 128;
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  const int n = pred ? 16 : 0;  // 0 source bytes: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
+// the copy and fragment loads of the SDPA tensor-core kernels (sdpa_core.cuh)
+using smtc::cp_async16;
+using smtc::ldmatrix_x4;
+using smtc::ldmatrix_x4_trans;
 
 __global__ void __launch_bounds__(kGThreads) gemm_bias_bf16(GemmArgs g) {
   __shared__ __align__(128) __nv_bfloat16 As[kStages][kGM][kGLd];

@@ -4,13 +4,14 @@
 // ::_bwd_kernel (the Pallas TPU kernel reached from _pallas_bwd for Lq <= 256)
 // and ::_bwd_kernel_blocked (Lq > 256, 128-row query tiles), the backward of
 // the custom VJP _sdpa_pallas. The TPU kernels held one batch element's
-// Q/K/V/dO for all heads in VMEM and recomputed P there. Here the block
-// kernel takes one (batch, head) with its whole Lq x Lk problem where that
-// fits a block's shared memory (Lq, Lk up to 128 at head dim 64), the row
-// kernel the fusion head's single query, and the query-tiled pair every other
-// shape the forward takes: pass A writes dQ and per-row statistics, pass B
-// sums dK and dV per key tile over every query row, without atomics. The
-// kernels and what bounds them are described in sdpa_bwd_core.cuh.
+// Q/K/V/dO for all heads in VMEM and recomputed P there. Here bf16 at head
+// dims 32 and 64 (every training path) runs the tensor-core query-tiled pair:
+// pass A writes dQ and per-row statistics, pass B sums dK and dV per key tile
+// over every query row, without atomics, every product on mma.sync. The
+// fusion head's single query runs in the row kernel, and float32 in the block
+// kernel where the whole (Lq, Lk) problem fits a block's shared memory, else
+// in the FMA query-tiled pair. The kernels and what bounds them are described
+// in sdpa_bwd_core.cuh.
 //
 // Plain-C interface for ctypes: pointers from tensor.data_ptr(), PyTorch's
 // current stream, and cudaGetLastError() as the return value.
@@ -21,8 +22,8 @@ extern "C" {
 
 // q, dout, dq: (B, H, Lq, D); k, v, dk, dv: (B, H, Lk, D); all contiguous in
 // one dtype (0 = float32, 1 = bfloat16); mask: (B, Lk) int32 or nullptr;
-// stats: (B, H, Lq, 3) float32 scratch; kernel: 0 = chosen by shape, 1 = the
-// query-tiled pair.
+// stats: (B, H, Lq, 3) float32 scratch; kernel: 0 = chosen by shape, 1 = a
+// query-tiled pair (the tensor-core one where it fits), 2 = the block kernel.
 int smtc_sdpa_bwd(const void* q, const void* k, const void* v, const int* mask,
                   const void* dout, void* dq, void* dk, void* dv, float* stats, int batch,
                   int heads, int lq, int lk, int d, float scale, int dtype, int kernel,
@@ -61,6 +62,13 @@ int smtc_sdpa_bwd(const void* q, const void* k, const void* v, const int* mask,
 // kernel's two f32 row sets or pass A's row set of the query-tiled pair fit
 // one block's shared memory (pass A's takes every Lk the forward takes).
 int smtc_sdpa_bwd_fits(int lq, int lk, int d) { return smtc::sdpa_bwd_fits(lq, lk, d) ? 1 : 0; }
+
+// Resident blocks per SM of the tensor-core pair's pass A (pass 0) or pass B
+// (pass 1) at head dim d and Lk keys, or minus the CUDA error (the occupancy
+// line of chip_smoke.py).
+int smtc_sdpa_bwd_blocks_per_sm(int pass, int d, int lk) {
+  return smtc::sdpa_bwd_tc_blocks_per_sm(pass, d, lk);
+}
 
 const char* smtc_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 

@@ -2,8 +2,8 @@
 // attn_block_bwd.cu.
 //
 // Computes exactly the JAX package's Pallas backward
-// (ops/attention.py::_bwd_kernel, and the per-head body of
-// ops/attn_block.py::_bwd_kernel2), with its rounding points:
+// (ops/attention.py::_bwd_kernel, ::_bwd_kernel_blocked, and the per-head
+// body of ops/attn_block.py::_bwd_kernel2), with its rounding points:
 //   * P is recomputed with the forward's numerics (sdpa_core.cuh): scores
 //     q.k in f32, times scale, masked keys at -1e30, max / exp / sum in f32;
 //   * dV = round(P) ^T dO: P rounded to the input dtype for this product only;
@@ -16,54 +16,81 @@
 //     backward needs it for the out-projection's weight gradient);
 //   * every output rounded once to the input dtype.
 //
-// Three kernels, chosen by launch_sdpa_bwd:
-//   * the block kernel: one block per (batch, head) holds the whole Lq x Lk
-//     problem, the f32 P and dP/dS row sets in shared memory (2 x 66 KB at
-//     Lq = Lk = 128), like the Pallas kernel's grid over batch rows, so dK and
-//     dV sum over every query row inside the block: no atomics, no second
-//     pass. The six products are 64 x 64 output tiles of 4 x 4 f32 FMA
-//     micro-tiles per thread; Q, K, V and dO stream from device memory
-//     through 64 x 64 staging tiles. It takes any head dim, float32 or
-//     bfloat16, and Lq, Lk up to what the two row sets leave room for.
+// Kernels, chosen by launch_sdpa_bwd from the arguments alone:
+//   * the tensor-core pair, for bf16 with a head dim of 32 or 64, 16-byte
+//     aligned rows and more than kRowMaxLq query rows: every bf16 attention
+//     of the training paths (text L = 128, ViLT 185 and 402, the fused
+//     blocks' column slices). It replaces TPU kernel 4
+//     (ops/attention.py::_bwd_kernel_blocked, whose grid walks 128-row query
+//     tiles in order and sums dK and dV across them in an f32 output block)
+//     and TPU kernel 2 (::_bwd_kernel) at those shapes. Hopper blocks run in
+//     no order, so the sum over query tiles moves into a second pass
+//     (FlashAttention-2's shape, no atomics). Both passes are 4 warps of 16
+//     rows, every product mma.sync.m16n8k16 with bf16 operands and f32
+//     accumulators, operands through ldmatrix, the streamed tiles through
+//     sdpa_core.cuh's cp.async ring (kRing stages of two 64-row tiles, 18 KB
+//     at D = 64); nothing score-shaped lives in shared memory.
+//       pass A (sdpa_bwd_rows_tc_kernel), one block per (64 query rows,
+//       head, batch): Q and dO fragments in registers, K and V streaming.
+//       Sweep 1: S = Q K^T for the row max m and sum l, online, as the
+//       forward. Sweep 2: S and dP = dO V^T together, 32 keys at a time; the
+//       f32 P from the final m and l; rowsum(dP P) from the unrounded P;
+//       ctx += round(P) V when asked for. Sweep 3: S and dP again, dS =
+//       round(P (dP - rowsum)) packed from C fragments into A fragments,
+//       dQ += dS K with K through ldmatrix.trans. It writes dQ * scale,
+//       ctx, and per query row the max, the sum and the rowsum to `stats`.
+//       pass B (sdpa_bwd_keys_tc_kernel), one block per (64 keys, head,
+//       batch): K and V fragments in registers as A operands; Q, dO and the
+//       stats of each 64-row query tile streaming. S^T = K Q^T and dP^T =
+//       V dO^T in registers, P^T from the stored m and l, dS^T =
+//       round(P^T (dP^T - rowsum)); dV += round(P^T) dO and dK += dS^T Q,
+//       dO and Q read from the same shared tiles through ldmatrix.trans,
+//       summed in f32 registers over every query tile and rounded once.
+//       Query rows past Lq add exactly zero: their P and dS are set to 0
+//       (pass A writes no stats for them; the JAX kernel pads dO with zeros
+//       for the same reason).
+//     Pass B forms P and dS with pass A's formulas from pass A's m, l and
+//     rowsum; its S^T and dP^T are pass A's products with the mma operands
+//     swapped, the same bf16 pairs summed in the same k order. They equal
+//     pass A's P and dS bit for bit only where the tensor cores sum a k16
+//     step the same way whichever operand is A, which is not documented and
+//     was not checked; nothing relies on it: each output is held to its
+//     plain version on the card.
+//     What changes against the JAX kernels: the order of the f32 sums, the
+//     online row sum (about 1e-7 relative) and p = e * (1 / l).
+//     Occupancy at D = 64, Lk = 402: pass A 3 blocks per SM (168 registers),
+//     pass B 3 (bounded to 168 registers); D = 128 would hold 64 more f32
+//     accumulators per thread and is left to the FMA kernels below.
 //   * the row kernel, for at most kRowMaxLq query rows (the fusion head's one
 //     query of width 768 over 197 image keys, 605 KB of f32 K or V per batch
 //     row, far beyond shared memory): one block per (batch, head) streams K
 //     and V from device memory, one warp per key for the scores and dP,
 //     reduces dQ with one thread per column, and writes dK and dV directly
 //     as the outer products dS^T q and round(P)^T dO.
-//   * the query-tiled pair, for every other shape the forward takes (ViLT's
-//     joint sequence, L = 402 or 185): the counterpart of the Pallas
-//     ops/attention.py::_bwd_kernel_blocked, whose grid walks 128-row query
-//     tiles in order and sums dK and dV across them in an f32 output block.
-//     Hopper blocks run in no order, so the sum moves into a second pass
-//     (FlashAttention-2's shape, no atomics):
-//       pass A (sdpa_bwd_rows_kernel), one block of 128 threads per (batch,
-//       head, tile of kBQ = 32 query rows): the scores of the tile's rows into
-//       one f32 row set in shared memory (the forward's layout and products,
-//       so it takes every Lk the forward does), the exact softmax, ctx =
-//       round(P) V when asked for, rowsum(dP P) with dP = dO V^T swept once,
-//       then dP swept again to overwrite P in place with round(P (dP -
-//       rowsum)), and dQ = (dS K) * scale. Per query row it writes three f32
-//       numbers, the max, the sum and the rowsum, to `stats`. Two row sets of
-//       64 rows would need 231 KB at Lk = 402, over a block's 227 KB: the one
-//       row set and the second dP sweep are what make the tile fit.
-//       pass B (sdpa_bwd_keys_kernel), one block of 256 threads per (batch,
-//       head, tile of kBT = 64 keys): over the query rows in tiles of 64, P
-//       recomputed from the stored max and sum, dP, dS from the stored
-//       rowsum, and dV += round(P)^T dO, dK += dS^T Q in registers, so dK and
-//       dV sum in f32 over every query row and are rounded once.
-//     Both passes sum every product over the head dim in the same order, so
-//     pass B's P and dS are pass A's bit for bit.
+//   * the block kernel, float32 (and bf16 at other head dims) up to what its
+//     two row sets leave room for: one block per (batch, head) holds the
+//     whole Lq x Lk problem, the f32 P and dP/dS row sets in shared memory
+//     (2 x 66 KB at Lq = Lk = 128), like the Pallas kernel's grid over batch
+//     rows, so dK and dV sum over every query row inside the block. The six
+//     products are 64 x 64 output tiles of 4 x 4 f32 FMA micro-tiles.
+//   * the FMA query-tiled pair for the other float32 shapes (and bf16 at
+//     other head dims, including 128, whose tensor-core pair would hold
+//     more accumulators than a thread has registers): pass A
+//     (sdpa_bwd_rows_kernel) per 32 query rows holds one f32 row set of
+//     scores, P and then dS in shared memory, sweeping dP = dO V^T twice;
+//     pass B (sdpa_bwd_keys_kernel) per 64 keys recomputes P and dS from the
+//     stats with the same products in the same order, so its P and dS are
+//     pass A's bit for bit.
 //
 // What bounds it on the H100. At the training shapes (text 32x12x128x64 in
 // bf16; fusion 32x1x1x768 over 197 keys in f32) the least time is set by the
-// bytes of q, k, v, dO and the three gradients (about 6 us and 24 us at
-// 3.35 TB/s); the text shape's 2.4 GFLOP would take 2.4 us on the bf16 tensor
-// cores. ViLT's 32x12x402x402x64 in bf16 is 25 GFLOP, 25 us on the tensor
-// cores against 13 us for its bytes. The kernels keep P and dS on chip, so
-// only those bytes cross device memory, but their products run on the CUDA
-// cores in f32 FMA: they are bound by FMA issue and shared-memory bandwidth,
-// not by device memory. mma.sync/wgmma for the products is the next step.
+// bytes of q, k, v, dO and the three gradients (about 13 us and 23 us at
+// 3.35 TB/s). ViLT's 32x12x402x402x64 in bf16 is 40 GFLOP of the five
+// products (41 us at 989 TFLOP/s) against 41 us for its bytes; the
+// tensor-core pair does twice the products (S three times in pass A and once
+// in pass B, dP twice and once) plus three exponentials per score, so it is
+// bound by mma.sync issue and the softmax arithmetic, not by device memory.
+// f32 runs on the CUDA cores at 67 TFLOP/s.
 
 #pragma once
 
@@ -405,7 +432,7 @@ __global__ void __launch_bounds__(kRowThreads) sdpa_bwd_row_kernel(SdpaBwdArgs a
   }
 }
 
-// ---- the query-tiled pair ------------------------------------------------------
+// ---- the FMA query-tiled pair (float32, other head dims) ---------------------
 //
 // Pass A's thread layout is the forward FMA kernel's (sdpa_core.cuh): 128
 // threads, ty = tid / 16 owns query rows 4 ty .. 4 ty + 3 of the kBQ-row tile,
@@ -700,13 +727,290 @@ __global__ void __launch_bounds__(kBwdThreads) sdpa_bwd_keys_kernel(SdpaBwdArgs 
   }
 }
 
-enum SdpaBwdKernel { kBwdAuto = 0, kBwdTiled = 1 };
+// ---- the tensor-core pair (bf16) -------------------------------------------------
+
+// Pass A's P (f32, from the final row max and sum) and dP = dO V^T of the
+// warp's 16 rows against keys hk .. hk + 31 of a (K, V) stage
+template <int D>
+__device__ __forceinline__ void probs_and_dp(float (&p)[4][4], float (&dp)[4][4],
+                                             const uint32_t (&qf)[D / 16][4],
+                                             const uint32_t (&dof)[D / 16][4],
+                                             const __nv_bfloat16* st, int hk, const float* cm,
+                                             float scale, const float (&m)[2],
+                                             const float (&rl)[2]) {
+  nt_tile<D, 32>(p, qf, st + hk * tc_ld(D));
+  nt_tile<D, 32>(dp, dof, st + tc_tile(D) + hk * tc_ld(D));
+  scale_mask<32>(p, cm + hk, scale);
+  probs<32>(p, m, rl);
+}
+
+// Pass A: one block per (kMQ query rows, head, batch). Shared memory as the
+// forward's: the ring, then the column map of the key mask.
+template <int D>
+__global__ void __launch_bounds__(kThreads) sdpa_bwd_rows_tc_kernel(SdpaBwdArgs a) {
+  extern __shared__ float4 smem4[];
+  constexpr int kTile = tc_tile(D), kLd = tc_ld(D);
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem4);  // kRing x 2 tiles
+  float* cm = reinterpret_cast<float*>(ring + kRing * 2 * kTile);  // [tc_cols(lk)]
+  const int q0 = blockIdx.x * kMQ, h = blockIdx.y, b = blockIdx.z;
+  const long long qo = b * a.q_sb + h * a.q_sh, ko = b * a.k_sb + h * a.k_sh;
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q) + qo;
+  const __nv_bfloat16* dout = static_cast<const __nv_bfloat16*>(a.dout) + qo;
+  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(a.k) + ko;
+  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(a.v) + ko;
+  float* stats = a.stats + ((long long)b * a.heads + h) * a.lq * kStats;
+  const int lq = a.lq, lk = a.lk, nt = (lk + kMK - 1) / kMK, n1 = (nt + 1) / 2;
+  const int lane = threadIdx.x % 32, row0 = (threadIdx.x / 32) * 16;
+  const int grp = lane >> 2, t4 = lane & 3;
+
+  __nv_bfloat16* last = ring + (kRing - 1) * 2 * kTile;
+  tile_async<D>(last, q, a.q_sl, q0, lq);
+  tile_async<D>(last + kTile, dout, a.q_sl, q0, lq);
+  cp_async_commit();
+  fill_cols(cm, a.mask ? a.mask + (long long)b * lk : nullptr, lk);
+  // stage s: two K tiles (sweep 1, s < n1), then a (K, V) pair per key tile
+  // for sweep 2 and again for sweep 3
+  auto issue = [&](int s) {
+    __nv_bfloat16* dst = ring + (s % kRing) * 2 * kTile;
+    if (s < n1) {
+      tile_async<D>(dst, k, a.k_sl, 2 * s * kMK, lk);
+      if ((2 * s + 1) * kMK < lk) tile_async<D>(dst + kTile, k, a.k_sl, (2 * s + 1) * kMK, lk);
+    } else if (s < n1 + 2 * nt) {
+      const int kt = (s - n1) % nt * kMK;
+      tile_async<D>(dst, k, a.k_sl, kt, lk);
+      tile_async<D>(dst + kTile, v, a.k_sl, kt, lk);
+    }
+    cp_async_commit();
+  };
+  ring_start(issue);
+  uint32_t qf[D / 16][4], dof[D / 16][4];
+  a_frags<D>(qf, last, row0);
+  a_frags<D>(dof, last + kTile, row0);
+  int s = 0;
+  auto next = [&]() {
+    return static_cast<const __nv_bfloat16*>(ring + ring_next(s, issue) * 2 * kTile);
+  };
+
+  // 1. row max and sum
+  float m[2], l[2];
+  row_stats<D>(m, l, qf, next, cm, lk, a.scale);
+  const float rl[2] = {1.f / l[0], 1.f / l[1]};
+
+  // 2. rowsum(dP P) from the f32 P, and ctx = round(P) V when asked for;
+  //    32 keys at a time keep the score fragments few
+  float rs[2] = {0.f, 0.f};
+  {
+    float cacc[D / 8][4] = {};
+    for (int t = 0; t < nt; ++t) {
+      const __nv_bfloat16* st = next();
+#pragma unroll
+      for (int hk = 0; hk < kMK; hk += 32) {
+        float p[4][4], dp[4][4];
+        probs_and_dp<D>(p, dp, qf, dof, st, hk, cm + t * kMK, a.scale, m, rl);
+#pragma unroll
+        for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) rs[e >> 1] += dp[nb][e] * p[nb][e];
+        if (a.o != nullptr) {
+          uint32_t pf[2][4];
+          pack_a<32>(pf, p);
+          nn_tile<D, 32>(cacc, pf, st + kTile + hk * kLd);
+        }
+      }
+    }
+    if (a.o != nullptr)
+      store_rows<D>(static_cast<__nv_bfloat16*>(a.o) + qo, a.q_sl, q0 + row0, lq, cacc, 1.f);
+  }
+  rs[0] = quad_sum(rs[0]);
+  rs[1] = quad_sum(rs[1]);
+  if (t4 == 0)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = q0 + row0 + grp + 8 * r;
+      if (i < lq) {
+        stats[i * kStats] = m[r];
+        stats[i * kStats + 1] = l[r];
+        stats[i * kStats + 2] = rs[r];
+      }
+    }
+
+  // 3. dS = round(P (dP - rowsum)), dQ += dS K
+  float qacc[D / 8][4] = {};
+  for (int t = 0; t < nt; ++t) {
+    const __nv_bfloat16* st = next();
+#pragma unroll
+    for (int hk = 0; hk < kMK; hk += 32) {
+      float p[4][4], dp[4][4];
+      probs_and_dp<D>(p, dp, qf, dof, st, hk, cm + t * kMK, a.scale, m, rl);
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dp[nb][e] = p[nb][e] * (dp[nb][e] - rs[e >> 1]);
+      uint32_t df[2][4];
+      pack_a<32>(df, dp);
+      nn_tile<D, 32>(qacc, df, st + hk * kLd);
+    }
+  }
+  cp_async_wait<0>();
+  store_rows<D>(static_cast<__nv_bfloat16*>(a.dq) + qo, a.q_sl, q0 + row0, lq, qacc, a.scale);
+}
+
+// Pass B stage: a Q tile, a dO tile, then the tile's stats as f32
+template <int D>
+__host__ __device__ constexpr int keys_tc_stage_bytes() {
+  return 2 * tc_tile(D) * (int)sizeof(__nv_bfloat16) + kMQ * kStats * (int)sizeof(float);
+}
+
+// Pass B: one block per (kMK keys, head, batch); dV and dK of the block's
+// keys summed over every query tile. Bounded to 168 registers so 3 blocks
+// share an SM: at D = 64 that spills a few bytes (ptxas: 64 B stored, 104 B
+// loaded) and beat the unbounded 186 registers (2 blocks) by 9-13% (PERF.md).
+template <int D>
+__global__ void __launch_bounds__(kThreads, 3) sdpa_bwd_keys_tc_kernel(SdpaBwdArgs a) {
+  extern __shared__ float4 smem4[];
+  constexpr int kTile = tc_tile(D), kLd = tc_ld(D), kStage = keys_tc_stage_bytes<D>();
+  char* ring = reinterpret_cast<char*>(smem4);  // kRing stages of kStage bytes
+  const int k0 = blockIdx.x * kMK, h = blockIdx.y, b = blockIdx.z;
+  const long long qo = b * a.q_sb + h * a.q_sh, ko = b * a.k_sb + h * a.k_sh;
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q) + qo;
+  const __nv_bfloat16* dout = static_cast<const __nv_bfloat16*>(a.dout) + qo;
+  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(a.k) + ko;
+  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(a.v) + ko;
+  const float* stats = a.stats + ((long long)b * a.heads + h) * a.lq * kStats;
+  const int lq = a.lq, lk = a.lk, nqt = (lq + kMQ - 1) / kMQ;
+  const int lane = threadIdx.x % 32, row0 = (threadIdx.x / 32) * 16;
+  const int grp = lane >> 2, t4 = lane & 3;
+  const float scale = a.scale;
+  auto stage = [&](int s) {
+    return reinterpret_cast<__nv_bfloat16*>(ring + s % kRing * kStage);
+  };
+
+  __nv_bfloat16* last = stage(kRing - 1);
+  tile_async<D>(last, k, a.k_sl, k0, lk);
+  tile_async<D>(last + kTile, v, a.k_sl, k0, lk);
+  cp_async_commit();
+  // the key mask of the warp's two rows (rows past lk are never written)
+  bool keep[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int j = k0 + row0 + grp + 8 * r;
+    keep[r] = j < lk && (a.mask == nullptr || a.mask[(long long)b * lk + j] > 0);
+  }
+  // stage s: query tile s's Q, dO and stats (rows past lq zero-filled)
+  auto issue = [&](int s) {
+    if (s < nqt) {
+      __nv_bfloat16* dst = stage(s);
+      const int r0 = s * kMQ;
+      tile_async<D>(dst, q, a.q_sl, r0, lq);
+      tile_async<D>(dst + kTile, dout, a.q_sl, r0, lq);
+      float* st = reinterpret_cast<float*>(dst + 2 * kTile);
+      for (int e = threadIdx.x; e < kMQ * kStats; e += kThreads) {
+        const bool ok = r0 * kStats + e < lq * kStats;
+        cp_async4(st + e, ok ? stats + r0 * kStats + e : stats, ok);
+      }
+    }
+    cp_async_commit();
+  };
+  ring_start(issue);
+  uint32_t kf[D / 16][4], vf[D / 16][4];
+  a_frags<D>(kf, last, row0);
+  a_frags<D>(vf, last + kTile, row0);
+  int s = 0;
+  auto next = [&]() { return static_cast<const __nv_bfloat16*>(stage(ring_next(s, issue))); };
+
+  float vacc[D / 8][4] = {}, kacc[D / 8][4] = {};
+  for (int t = 0; t < nqt; ++t) {
+    const __nv_bfloat16* st = next();
+    const float* sts = reinterpret_cast<const float*>(st + 2 * kTile);
+#pragma unroll
+    for (int hq = 0; hq < kMQ; hq += 32) {
+      // S^T and dP^T of the warp's 16 keys against 32 query rows
+      float p[4][4], dp[4][4];
+      nt_tile<D, 32>(p, kf, st + hq * kLd);
+      nt_tile<D, 32>(dp, vf, st + kTile + hq * kLd);
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc) {
+          const int i = hq + nb * 8 + 2 * t4 + cc;  // query row within the tile
+          const bool valid = t * kMQ + i < lq;
+          const float mq = sts[i * kStats], rl = 1.f / sts[i * kStats + 1];
+          const float rsq = sts[i * kStats + 2];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const float x = keep[r] ? p[nb][2 * r + cc] * scale : kNegInf;
+            const float pv = valid ? expf(x - mq) * rl : 0.f;
+            dp[nb][2 * r + cc] = valid ? pv * (dp[nb][2 * r + cc] - rsq) : 0.f;
+            p[nb][2 * r + cc] = pv;
+          }
+        }
+      uint32_t pf[2][4], df[2][4];
+      pack_a<32>(pf, p);
+      pack_a<32>(df, dp);
+      nn_tile<D, 32>(vacc, pf, st + kTile + hq * kLd);  // dV += round(P^T) dO
+      nn_tile<D, 32>(kacc, df, st + hq * kLd);          // dK += dS^T Q
+    }
+  }
+  cp_async_wait<0>();
+  store_rows<D>(static_cast<__nv_bfloat16*>(a.dv) + ko, a.k_sl, k0 + row0, lk, vacc, 1.f);
+  store_rows<D>(static_cast<__nv_bfloat16*>(a.dk) + ko, a.k_sl, k0 + row0, lk, kacc, scale);
+}
+
+__host__ inline size_t sdpa_bwd_keys_tc_smem_bytes(int d) {
+  return (size_t)kRing * (d == 32 ? keys_tc_stage_bytes<32>() : keys_tc_stage_bytes<64>());
+}
+
+// Whether the tensor-core pair takes these arguments (bf16 is the caller's
+// test): a head dim of 32 or 64, more than kRowMaxLq query rows, rows and
+// pointers 16-byte aligned, the column map within a block's shared memory.
+inline bool sdpa_bwd_tc_fits(const SdpaBwdArgs& a) {
+  return (a.d == 32 || a.d == 64) && a.lq > kRowMaxLq && a.stats != nullptr &&
+         sdpa_tc_fits(a.d, {a.q_sb, a.q_sh, a.q_sl, a.k_sb, a.k_sh, a.k_sl},
+                      {a.q, a.k, a.v, a.dout, a.dq, a.dk, a.dv, a.o}) &&
+         sdpa_tc_smem_bytes(a.lk, a.d) <= 232448;
+}
+
+template <int D>
+cudaError_t launch_sdpa_bwd_tc(const SdpaBwdArgs& a, int batch, cudaStream_t stream) {
+  const size_t smem_a = sdpa_tc_smem_bytes(a.lk, D);
+  cudaError_t err = cudaFuncSetAttribute(sdpa_bwd_rows_tc_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_a);
+  if (err != cudaSuccess) return err;
+  sdpa_bwd_rows_tc_kernel<D><<<dim3((a.lq + kMQ - 1) / kMQ, a.heads, batch), kThreads, smem_a,
+                               stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t smem_b = sdpa_bwd_keys_tc_smem_bytes(D);
+  err = cudaFuncSetAttribute(sdpa_bwd_keys_tc_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_b);
+  if (err != cudaSuccess) return err;
+  sdpa_bwd_keys_tc_kernel<D><<<dim3((a.lk + kMK - 1) / kMK, a.heads, batch), kThreads, smem_b,
+                               stream>>>(a);
+  return cudaGetLastError();
+}
+
+// Resident blocks per SM of pass A (pass 0) or pass B (pass 1) at head dim d
+// and Lk keys, or minus the CUDA error.
+inline int sdpa_bwd_tc_blocks_per_sm(int pass, int d, int lk) {
+  if (d != 32 && d != 64) return -(int)cudaErrorInvalidValue;
+  if (pass == 0) {
+    const size_t smem = sdpa_tc_smem_bytes(lk, d);
+    return d == 32 ? blocks_per_sm(sdpa_bwd_rows_tc_kernel<32>, kThreads, smem)
+                   : blocks_per_sm(sdpa_bwd_rows_tc_kernel<64>, kThreads, smem);
+  }
+  const size_t smem = sdpa_bwd_keys_tc_smem_bytes(d);
+  return d == 32 ? blocks_per_sm(sdpa_bwd_keys_tc_kernel<32>, kThreads, smem)
+                 : blocks_per_sm(sdpa_bwd_keys_tc_kernel<64>, kThreads, smem);
+}
+
+enum SdpaBwdKernel { kBwdAuto = 0, kBwdTiled = 1, kBwdBlock = 2 };
 
 inline bool sdpa_bwd_row_fits(int lq, int lk, int d) {
   return lq <= kRowMaxLq && sdpa_bwd_row_smem_bytes(lq, lk, d) <= 232448;
 }
 inline bool sdpa_bwd_block_fits(int lq, int lk) { return sdpa_bwd_smem_bytes(lq, lk) <= 232448; }
-// pass A holds the forward FMA kernel's row set, so it takes every Lk that does
+// the FMA pair's pass A holds the forward FMA kernel's row set, so it takes
+// every Lk that does; so does the tensor-core pair
 inline bool sdpa_bwd_tiled_fits(int lk) { return sdpa_smem_bytes(lk) <= 232448; }
 
 inline bool sdpa_bwd_fits(int lq, int lk, int d) {
@@ -734,32 +1038,47 @@ cudaError_t launch_sdpa_bwd_tiled(const SdpaBwdArgs& a, int batch, cudaStream_t 
   return cudaGetLastError();
 }
 
-// kernel: kBwdAuto takes the row kernel for a few query rows, else the block
-// kernel where its row sets fit, else the query-tiled pair; kBwdTiled asks
-// for the pair at any shape it takes.
+template <typename T>
+cudaError_t launch_sdpa_bwd_block(const SdpaBwdArgs& a, int batch, cudaStream_t stream) {
+  const size_t smem = sdpa_bwd_smem_bytes(a.lq, a.lk);
+  cudaError_t err = cudaFuncSetAttribute(sdpa_bwd_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  sdpa_bwd_kernel<T><<<dim3(a.heads, batch), kBwdThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// kernel: kBwdAuto takes the tensor-core pair where it fits (bf16), else the
+// row kernel for a few query rows, else the block kernel where its row sets
+// fit, else the FMA query-tiled pair; kBwdTiled asks for a query-tiled pair
+// (the tensor-core one where it fits) and kBwdBlock for the block kernel, at
+// any shape they take, to time them against each other.
 template <typename T>
 cudaError_t launch_sdpa_bwd(const SdpaBwdArgs& a, int batch, cudaStream_t stream,
                             int kernel = kBwdAuto) {
   if (!sdpa_bwd_fits(a.lq, a.lk, a.d)) return cudaErrorInvalidValue;
+  if (kernel == kBwdBlock) {
+    if (!sdpa_bwd_block_fits(a.lq, a.lk)) return cudaErrorInvalidValue;
+    return launch_sdpa_bwd_block<T>(a, batch, stream);
+  }
+  if (kernel != kBwdAuto && kernel != kBwdTiled) return cudaErrorInvalidValue;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (sdpa_bwd_tc_fits(a))
+      return a.d == 32 ? launch_sdpa_bwd_tc<32>(a, batch, stream)
+                       : launch_sdpa_bwd_tc<64>(a, batch, stream);
+  }
   if (kernel == kBwdTiled ||
       (!sdpa_bwd_row_fits(a.lq, a.lk, a.d) && !sdpa_bwd_block_fits(a.lq, a.lk)))
     return launch_sdpa_bwd_tiled<T>(a, batch, stream);
-  if (kernel != kBwdAuto) return cudaErrorInvalidValue;
-  const dim3 grid(a.heads, batch);
   if (sdpa_bwd_row_fits(a.lq, a.lk, a.d)) {
     const size_t smem = sdpa_bwd_row_smem_bytes(a.lq, a.lk, a.d);
     cudaError_t err = cudaFuncSetAttribute(sdpa_bwd_row_kernel<T>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    sdpa_bwd_row_kernel<T><<<grid, kRowThreads, smem, stream>>>(a);
+    sdpa_bwd_row_kernel<T><<<dim3(a.heads, batch), kRowThreads, smem, stream>>>(a);
     return cudaGetLastError();
   }
-  const size_t smem = sdpa_bwd_smem_bytes(a.lq, a.lk);
-  cudaError_t err = cudaFuncSetAttribute(sdpa_bwd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  sdpa_bwd_kernel<T><<<grid, kBwdThreads, smem, stream>>>(a);
-  return cudaGetLastError();
+  return launch_sdpa_bwd_block<T>(a, batch, stream);
 }
 
 }  // namespace smtc

@@ -14,17 +14,14 @@
 // What bounds it on the H100. On the serving shapes (text 16x12x128x64 and
 // image 16x12x197x64 in bf16; the fusion head 16x1x1x768 over 197 keys in
 // f32) the least time is set by the bytes of q, k, v and o at 3.35 TB/s
-// (about 3.8 us, 5.8 us and 5.8 us); the operations would take less on the
-// tensor cores. The kernels keep scores and probabilities in shared memory so
-// that only q, k, v and o cross device memory, which is what the bound counts.
-// The fusion head's single query runs in the row kernel (sdpa_core.cuh), one
-// block per query row, reading K and V once. The encoder attentions run in
-// the tensor-core kernel, 16-byte loads and mma.sync. Both still run 6-20x
-// above the bound (PERF.md): the scores make a round trip through shared
-// memory in f32, the loads are not pipelined (no cp.async/TMA), and a block
-// of 4 warps leaves the tensor cores idle while it softmaxes; wgmma with a
-// register-resident online softmax is the next step, with care for where the
-// probabilities are rounded.
+// (about 3.8 us, 5.8 us and 5.8 us); at ViLT's 32x12x402x402x64 the bf16
+// products (16 us at 989 TFLOP/s) and the bytes (24 us) are close. The bf16
+// attentions run in sdpa_core.cuh's tensor-core kernel: scores, probabilities
+// and the output accumulator in registers, K and V through a cp.async ring,
+// mma.sync for both products, so only q, k, v and o cross device memory and
+// several blocks share an SM. The fusion head's single query runs in the row
+// kernel, one block per query row, reading K and V once. PERF.md has the
+// times against these bounds.
 //
 // Plain-C interface for ctypes: pointers from tensor.data_ptr(), PyTorch's
 // current stream, and cudaGetLastError() as the return value.
@@ -69,11 +66,22 @@ int smtc_sdpa_fwd(const void* q, const void* k, const void* v, const int* mask, 
   return (int)cudaErrorInvalidValue;
 }
 
-// Largest Lk whose row of scores fits the shared memory of one block.
+// Largest Lk the forward takes: the FMA kernel's (float32, other head dims)
+// rows of scores fit one block's shared memory.
 int smtc_sdpa_max_lk(void) {
   int lk = smtc::kBK;
   while (smtc::sdpa_smem_bytes(lk + smtc::kBK) <= 232448) lk += smtc::kBK;
   return lk;
+}
+
+// Resident blocks per SM of the tensor-core kernel at head dim d and Lk keys,
+// or minus the CUDA error (the occupancy line of chip_smoke.py).
+int smtc_sdpa_fwd_blocks_per_sm(int d, int lk) {
+  const size_t smem = smtc::sdpa_tc_smem_bytes(lk, d);
+  if (d == 32) return smtc::blocks_per_sm(smtc::sdpa_fwd_tc_kernel<32>, smtc::kThreads, smem);
+  if (d == 64) return smtc::blocks_per_sm(smtc::sdpa_fwd_tc_kernel<64>, smtc::kThreads, smem);
+  if (d == 128) return smtc::blocks_per_sm(smtc::sdpa_fwd_tc_kernel<128>, smtc::kThreads, smem);
+  return -(int)cudaErrorInvalidValue;
 }
 
 const char* smtc_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

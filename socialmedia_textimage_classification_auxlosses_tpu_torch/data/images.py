@@ -1,9 +1,9 @@
 """Image ingest: decode + resize on the host to uint8, normalize on the device.
 
 Counterpart of the JAX package's ``data/images.py``. PIL is imported only
-where an image is decoded or resized, so the module imports without it (the
-card's machine has no PIL: training there reads the uint8 pixel cache of
-``data/cache.py``). The native C++ decoder (``--img_decoder native``), the
+where an image is decoded or resized, so the module imports without it
+(training on the card reads the uint8 pixel cache of ``data/cache.py`` and
+needs no PIL). The native C++ decoder (``--img_decoder native``), the
 empty-image flow of the text-only MIC eval and the CNN center crop are not
 ported.
 """

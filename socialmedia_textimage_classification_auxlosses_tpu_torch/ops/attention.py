@@ -12,10 +12,11 @@ vision tower needs no backward; the text tower, the fusion head and ViLT do.
 ``_sdpa_pallas``: on a CUDA tensor its forward launches the hand-written
 Hopper kernel (``csrc/sdpa_fwd.cu``, TPU kernels 1 and 3 of PERF.md's table:
 its 64-row query tiles cover the JAX whole-Lq and 128-row-blocked forwards
-alike) and its backward the backward kernels (``csrc/sdpa_bwd.cu``, TPU
-kernels 2 and 4: a block kernel, a row kernel and the query-tiled pair, by
-shape); on a CPU tensor they are the plain versions ``sdpa_reference`` and
-``sdpa_bwd_reference``. Like the JAX residuals, the function saves only its
+alike; bf16 on the tensor cores) and its backward the backward kernels
+(``csrc/sdpa_bwd.cu``, TPU kernels 2 and 4: for bf16 the tensor-core
+query-tiled pair, else a row kernel, a block kernel or the FMA query-tiled
+pair, by shape); on a CPU tensor they are the plain versions
+``sdpa_reference`` and ``sdpa_bwd_reference``. Like the JAX residuals, the function saves only its
 inputs and recomputes the probabilities in the backward. Unlike the JAX
 package's TPU dispatch (``_auto_impl``, tuned on a v5e), ``auto`` on the card
 always means the kernels. ``impl="jnp"`` asks for the plain forward on
@@ -201,15 +202,16 @@ def _check_qkv(q, k, v, key_mask, what):
         raise ValueError(f"{what} kernel: empty input")
 
 
-BWD_KERNELS = {"auto": 0, "tiled": 1}
+BWD_KERNELS = {"auto": 0, "tiled": 1, "block": 2}
 
 
 def sdpa_bwd_cuda(q, k, v, key_mask, do, scale: float, kernel: str = "auto"):
     """Launch the backward kernels (TPU kernels 2 and 4): (dq, dk, dv) for
     the output gradient ``do``. Takes what ``sdpa_fwd_cuda`` takes, plus a
-    contiguous ``do`` shaped like q. ``kernel="auto"`` picks the row, block
-    or query-tiled kernel by shape; ``"tiled"`` asks for the query-tiled pair
-    (to time it where the block kernel would run)."""
+    contiguous ``do`` shaped like q. ``kernel="auto"`` picks the kernel by
+    shape (for bf16 at head dims 32 and 64 the tensor-core query-tiled pair);
+    ``"tiled"`` asks for a query-tiled pair and ``"block"`` for the block
+    kernel at any shape it holds, to time them against each other."""
     if q.device.type != "cuda":
         raise ValueError(f"sdpa_bwd_cuda needs CUDA tensors, got {q.device}")
     _check_qkv(q, k, v, key_mask, "sdpa_bwd")

@@ -68,7 +68,7 @@ def test_roberta_positions_follow_the_jax_formula():
     """Padding slots (id 0 from the hashing tokenizer, pad_token_id 1) take
     increasing positions: the JAX formula is reproduced, not corrected."""
     cfg = dataclasses.replace(torch_cfg(text_cfg("float32")), max_positions=16)
-    emb = TE.TextEmbeddings(cfg)
+    emb = TE.TextEmbeddings(cfg).eval()  # no dropout: it would draw from the global RNG
     with torch.no_grad():  # position p embeds as the one-hot of p
         emb.word.weight.zero_()
         emb.token_type.weight.zero_()

@@ -22,11 +22,14 @@ the JAX kernels with the same rounding points) at tiny shapes and at the
 training path's (text 32x12x128x64 bf16 masked, the fusion head's one
 768-wide query over 197 keys in float32, the fused block at 32x128x768 with
 12 heads), and the query-tiled pair at the lengths the block kernel cannot
-hold (296, 185, 402, the longest key row, ragged and wide head dims) and,
-asked for, at the block kernel's own shape, every gradient, with the same
-tolerances against each gradient's scale; and autograd round trips through
-``sdpa`` and ``attn_block`` (at 128 and at ViLT's 402) show that the
-gradient on the card comes from the backward kernels.
+hold (296, 185, 402, the longest key row, ragged and wide head dims), the
+tensor-core pair at its edges (Lq != Lk both ways, a fully masked row at
+402, head dims 32 and 128), the query-tiled pair asked for at the block
+kernel's own shape and the block kernel asked for at the pair's, every
+gradient, with the same tolerances against each gradient's scale; and
+autograd round trips through ``sdpa`` and ``attn_block`` (at 128 and at
+ViLT's 402) show that the gradient on the card comes from the backward
+kernels.
 
 The per-head block (``impl="fused_perhead"``, kernels 5 and 6) is held the
 same way: its forward, its backward kernel's dx and head-banked dq, dk, dv
@@ -79,6 +82,12 @@ SDPA_CASES = {
     "row_single_key": (2, 1, 1, 1, 8, False, False),
     "vilt_exact": (2, 3, 402, 402, 64, True, False),
     "blocked_tail": (2, 2, 296, 296, 64, True, False),
+    # the tensor-core kernel's edges: Lq != Lk both ways, ragged tiles, a
+    # fully masked row at 402, an odd number of key tiles
+    "tc_short_q_long_k": (2, 3, 70, 402, 64, True, True),
+    "tc_long_q_short_k": (2, 3, 402, 37, 64, True, False),
+    "tc_vilt_masked_row": (2, 3, 402, 402, 64, True, True),
+    "tc_head32_odd_tiles": (2, 2, 130, 321, 32, True, True),
 }
 
 
@@ -117,6 +126,7 @@ BLOCK_CASES = {
     "text_width": (2, 128, 768, 12, True),
     "image_width": (2, 197, 768, 12, False),
     "narrow_ragged": (3, 37, 64, 2, True),
+    "vilt_exact": (2, 402, 768, 12, True),
 }
 
 
@@ -166,6 +176,14 @@ SDPA_BWD_CASES = {
     "tiled_ragged": (3, 2, 150, 70, 40, True, True),
     "tiled_wide_head": (1, 2, 130, 50, 200, True, False),
     "tiled_longest_row": (1, 1, 40, 1600, 64, True, False),
+    # the tensor-core pair's edges: Lq != Lk both ways, a fully masked row at
+    # 402, head dims 32 and 128 (128: the FMA kernels), a ragged last tile
+    "tc_short_q_long_k": (2, 3, 70, 402, 64, True, True),
+    "tc_long_q_short_k": (2, 3, 402, 37, 64, True, False),
+    "tc_vilt_masked_row": (2, 3, 402, 402, 64, True, True),
+    "tc_head32": (2, 3, 150, 201, 32, True, True),
+    "tc_head128": (2, 3, 150, 201, 128, True, False),
+    "tc_five_rows": (2, 2, 5, 130, 64, True, False),
 }
 
 
@@ -205,6 +223,21 @@ def test_sdpa_bwd_tiled_pair_at_block_shapes(cuda, case, dtype):
                    for n in (lq, lk, lk, lq))
     mask = _mask(cuda, b, lk, empty) if masked else None
     got = A.sdpa_bwd_cuda(q, k, v, mask, do, d ** -0.5, kernel="tiled")
+    want = A.sdpa_bwd_reference(q, k, v, mask, do, d ** -0.5)
+    torch.cuda.synchronize()
+    for name, g, r in zip("qkv", got, want):
+        _close(g, r, dtype, f"d{name}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", ["block_many_tiles", "block_text_path"])
+def test_sdpa_bwd_block_kernel_asked_for(cuda, case, dtype):
+    """The block kernel, asked for where the tensor-core pair runs (bf16)."""
+    b, h, lq, lk, d, masked, empty = SDPA_BWD_CASES[case]
+    q, k, v, do = (torch.randn(b, h, n, d, generator=cuda, device="cuda").to(dtype)
+                   for n in (lq, lk, lk, lq))
+    mask = _mask(cuda, b, lk, empty) if masked else None
+    got = A.sdpa_bwd_cuda(q, k, v, mask, do, d ** -0.5, kernel="block")
     want = A.sdpa_bwd_reference(q, k, v, mask, do, d ** -0.5)
     torch.cuda.synchronize()
     for name, g, r in zip("qkv", got, want):
