@@ -18,7 +18,9 @@ and the CUDA toolkit. It
    against the plain PyTorch version on the same inputs (float32: 1e-4 of the output's scale; bfloat16: 2e-2 of it, because the
    plain version rounds its score product to bfloat16 where the kernel keeps
    float32), and times the kernel, the plain version and, as a yardstick the
-   port never calls, one PyTorch library call computing the same function;
+   port never calls, one PyTorch library call computing the same function
+   (the fused block's forward also as the encoder calls it, with Linear weight
+   views that the wrapper reads without copying);
 4. serves the full-width late-fusion model (Bernice-base + ViT-B/16, 12+12
    layers, hidden 768, vocab 250,002, 224 px, ``max_batch`` 16, random
    weights from a seed) through ``build_service`` + ``MicroBatcher`` + HTTP,
@@ -32,10 +34,10 @@ and the CUDA toolkit. It
    rounded at other places than in the plain version);
 6. holds the backward kernels against their plain versions at the training
    shapes (the SDPA backward at text 32x12x128x64 bf16 masked, at the
-   fusion head's 32x1x1x768 over 197 keys in float32, and at ViLT's shapes
-   above; in bf16 the tensor-core query-tiled pair of ``sdpa_bwd_core.cuh``
-   runs at all of them, and at the text shape the block kernel, asked for,
-   is checked and timed beside it; the fused block's backward at
+   fusion head's 32x1x1x768 over 197 keys in float32, where the row pair of
+   ``sdpa_bwd_core.cuh`` runs, and at ViLT's shapes above; in bf16 the
+   tensor-core query-tiled pair runs at all of them, and at the text shape
+   the block kernel, asked for, is checked and timed beside it; the fused block's backward at
    32x128x768 and 32x402x768 bf16, 12 heads, masked, its five outputs and,
    through autograd, all ten gradients), with the tolerances above against each
    output's scale (for the weight and bias gradients, sums over 4,096 rows
@@ -93,9 +95,21 @@ and the CUDA toolkit. It
    dict, its classification logits equal to those of a model loaded from
    the converted state dict; no transformers, safetensors, msgpack or flax
    imported;
-12. logs the ptxas registers and spills of every kernel and the resident
-   blocks per SM of the tensor-core SDPA kernels at ViLT's 402 keys
-   (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
+12. logs the ptxas registers and spills of every kernel, the resident
+   blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) of the
+   tensor-core SDPA kernels at ViLT's 402 keys, of the fusion head's row
+   pair and of the bf16 NT GEMM, and the count of HGMMA (wgmma), UTMALDG
+   (TMA load) and HMMA (mma.sync) instructions in each library's SASS
+   (``cuobjdump --dump-sass``), failing if a library that holds the GEMM has
+   none of the first two; then holds the bf16 NT GEMM of kernels 5-8 alone
+   against its plain version at row 7's shapes (M = 2048, 3152, 12864; three
+   weights and one) and times it beside ``torch.nn.functional.linear`` over
+   the same weights, with the TFLOP/s of each (a yardstick the port never
+   calls), and the host's time to enqueue one fused block, forward and
+   forward plus backward, at a shape whose device time is smaller
+   (``python3 chip_smoke.py --enqueue ROOT`` runs that reading alone for
+   the port of another checkout, such as an older commit's, so two versions
+   can be compared in one run);
 13. prints one JSON line of per-kernel numbers (``launches``: the count over
    the serving and training runs and the per-head phase's main path; 0 for
    the check-only shapes), the card line, and last
@@ -219,23 +233,159 @@ def log_ptxas(source, text):
             name = None
 
 
-def log_occupancy(A):
-    """Resident blocks per SM of the tensor-core SDPA kernels at ViLT's
-    402 keys, head dim 64, from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
-    (128 threads a block; shared memory and registers as launched)."""
+def log_occupancy(A, AB):
+    """Resident blocks per SM, from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+    with shared memory and registers as launched: the tensor-core SDPA
+    kernels at ViLT's 402 keys, head dim 64 (128 threads a block), the row
+    pair of the fusion head's backward at 197 keys in float32 (256 threads)
+    and the bf16 NT GEMM (384 threads, its 4-stage ring and output staging)."""
     import ctypes
 
     fwd, bwd = A._lib(), A._bwd_lib()
     fwd.smtc_sdpa_fwd_blocks_per_sm.argtypes = [ctypes.c_int] * 2
     bwd.smtc_sdpa_bwd_blocks_per_sm.argtypes = [ctypes.c_int] * 3
-    for kernel, n in (("sdpa_fwd_tc_kernel<64>", fwd.smtc_sdpa_fwd_blocks_per_sm(64, VILT_LEN)),
-                      ("sdpa_bwd_rows_tc_kernel<64> (pass A)",
-                       bwd.smtc_sdpa_bwd_blocks_per_sm(0, 64, VILT_LEN)),
-                      ("sdpa_bwd_keys_tc_kernel<64> (pass B)",
-                       bwd.smtc_sdpa_bwd_blocks_per_sm(1, 64, VILT_LEN))):
+    for kernel, n, what in (
+            ("sdpa_fwd_tc_kernel<64>", fwd.smtc_sdpa_fwd_blocks_per_sm(64, VILT_LEN),
+             f"128 threads at Lk = {VILT_LEN}"),
+            ("sdpa_bwd_rows_tc_kernel<64> (pass A)",
+             bwd.smtc_sdpa_bwd_blocks_per_sm(0, 64, VILT_LEN), f"128 threads at Lk = {VILT_LEN}"),
+            ("sdpa_bwd_keys_tc_kernel<64> (pass B)",
+             bwd.smtc_sdpa_bwd_blocks_per_sm(1, 64, VILT_LEN), f"128 threads at Lk = {VILT_LEN}"),
+            ("sdpa_bwd_row_scores_kernel<float> (row pair, score pass)",
+             bwd.smtc_sdpa_bwd_blocks_per_sm(2, 768, 197), "256 threads"),
+            ("sdpa_bwd_row_cols_kernel<float> (row pair, column pass)",
+             bwd.smtc_sdpa_bwd_blocks_per_sm(3, 768, 197), "256 threads at Lk = 197"),
+            ("gemm_bias_bf16_tma", AB._lib().smtc_gemm_blocks_per_sm(), "384 threads")):
         if n < 0:
             raise AssertionError(f"occupancy query of {kernel}: CUDA error {-n}")
-        log(f"occupancy {kernel}: {n} blocks of 128 threads per SM at Lk = {VILT_LEN}")
+        log(f"occupancy {kernel}: {n} blocks of {what} per SM")
+
+
+def log_sass(_cuda):
+    """Counts of the Hopper instructions in each built library's SASS
+    (``cuobjdump --dump-sass``): HGMMA (wgmma), UTMALDG (TMA loads) and HMMA
+    (mma.sync). Fails if a library that holds the bf16 NT GEMM lost wgmma or
+    TMA."""
+    import re
+    import shutil
+
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    tool = shutil.which("cuobjdump") or os.path.join(home, "bin", "cuobjdump")
+    for name in _cuda.SOURCES:
+        sass = subprocess.run([tool, "--dump-sass", _cuda.library_path(name)], capture_output=True,
+                              text=True, check=True, timeout=300).stdout
+        n = {op: len(re.findall(rf"\b{op}\.", sass)) for op in ("HGMMA", "UTMALDG", "HMMA")}
+        log(f"sass {name}: HGMMA {n['HGMMA']}, UTMALDG {n['UTMALDG']}, HMMA {n['HMMA']}")
+        if name != "sdpa_fwd" and name != "sdpa_bwd" and not (n["HGMMA"] and n["UTMALDG"]):
+            raise AssertionError(f"{name}: the bf16 NT GEMM issues no wgmma or no TMA load")
+
+
+def time_gemm(torch, AB):
+    """The bf16 NT GEMM of kernels 5-8 alone at row 7's shapes (the QKV
+    projections, three weights, and the out-projection, one), held against
+    its plain version and timed beside ``torch.nn.functional.linear`` over
+    the same weights concatenated, a yardstick the port never calls; the
+    achieved TFLOP/s of each."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    hid, out = 768, []
+    for tag, m in (("text", BATCH * 128), ("image", BATCH * 197), ("vilt_exact", 2 * BATCH * VILT_LEN)):
+        a = torch.randn(m, hid, generator=g, device="cuda").bfloat16()
+        for count in (3, 1):
+            ws = [(torch.randn(hid, hid, generator=g, device="cuda") * hid ** -0.5).bfloat16()
+                  for _ in range(count)]
+            bs = [torch.randn(hid, generator=g, device="cuda").bfloat16() for _ in range(count)]
+            got = AB.gemm_nt(a, ws, bs)
+            want = AB.gemm_nt_reference(a, ws, bs)
+            err = max((x.float() - y.float()).abs().max().item() for x, y in zip(got, want))
+            if not err <= 2e-2 * max(1.0, max(y.float().abs().max().item() for y in want)):
+                raise AssertionError(f"gemm_nt {tag} x{count}: disagrees with its plain version "
+                                     f"({err})")
+            w_cat, b_cat = torch.cat(ws), torch.cat(bs)
+            ms = device_ms(torch, lambda: AB.gemm_nt(a, ws, bs))
+            lib_ms = device_ms(torch, lambda: F.linear(a, w_cat, b_cat))
+            flop = 2.0 * m * hid * hid * count
+            row = dict(shape=f"{tag} {m}x{hid}x{hid} x{count}", max_abs_err=err, ms=ms,
+                       tflops=flop / ms / 1e9, linear_ms=lib_ms, linear_tflops=flop / lib_ms / 1e9)
+            log(f"gemm_nt/{tag} x{count}: M {m}, kernel {ms:.5f} ms ({row['tflops']:.1f} TFLOP/s), "
+                f"F.linear {lib_ms:.5f} ms ({row['linear_tflops']:.1f} TFLOP/s), "
+                f"max_abs_err {err:.3e}")
+            out.append(row)
+    return out
+
+
+ENQUEUE_CALLS = 300
+
+
+def time_enqueue(torch, AB):
+    """Host microseconds to enqueue the fused block (kernels 7 and 8) once,
+    at 2x16x768 bf16, 12 heads, masked, with Linear weight views as the
+    encoder passes them: its forward under ``no_grad``, and forward plus
+    backward through autograd. Each is the wall time of ``ENQUEUE_CALLS``
+    calls without a sync, per call, the median of five such loops; the
+    device time per call (``device_ms``) stands beside it, and where it is
+    the smaller, the loop measured the host's enqueue, not the card."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    b, l, hid, heads = 2, 16, 768, 12
+    x = torch.randn(b, l, hid, generator=g, device="cuda").bfloat16()
+    lin = [(torch.randn(hid, hid, generator=g, device="cuda") * hid ** -0.5).bfloat16()
+           .requires_grad_() for _ in range(4)]  # (out, in), as nn.Linear keeps them
+    bias = [(0.1 * torch.randn(hid, generator=g, device="cuda")).bfloat16().requires_grad_()
+            for _ in range(4)]
+    mask = torch.ones(b, l, dtype=torch.int32, device="cuda")
+    mask[1, l // 2:] = 0
+    do = torch.randn(b, l, hid, generator=g, device="cuda").bfloat16()
+
+    def block():
+        return AB.attn_block(x, mask, lin[0].t(), bias[0], lin[1].t(), bias[1], lin[2].t(),
+                             bias[2], lin[3].t(), bias[3], heads=heads)
+
+    def fwd():
+        with torch.no_grad():
+            block()
+
+    def fwd_bwd():
+        block().backward(do)
+
+    out = {}
+    for name, fn in (("fwd", fwd), ("fwd_bwd", fwd_bwd)):
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        loops = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            for _ in range(ENQUEUE_CALLS):
+                fn()
+            loops.append((time.perf_counter() - t0) / ENQUEUE_CALLS * 1e6)
+            torch.cuda.synchronize()
+        out[name] = {"host_us": sorted(loops)[2], "host_us_loops": loops,
+                     "device_us": device_ms(torch, fn) * 1e3}
+        log(f"enqueue attn_block {name} 2x16x768: host {out[name]['host_us']:.2f} us per call "
+            f"(median of 5 loops of {ENQUEUE_CALLS}; loops {[round(t, 2) for t in loops]}), "
+            f"device {out[name]['device_us']:.2f} us")
+    return out
+
+
+def enqueue_only(root):
+    """``python3 chip_smoke.py --enqueue ROOT``: ``time_enqueue`` alone, for the
+    port of the checkout at ROOT (for example an unpacked older commit, to
+    compare two versions in one run), after building its kernels there."""
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.ops import _cuda
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.ops import attn_block as AB
+
+    _cuda.build()
+    log(f"enqueue: the port at {os.path.dirname(os.path.dirname(os.path.abspath(AB.__file__)))}; "
+        f"card: {card_line()}")
+    log(json.dumps({"enqueue": time_enqueue(torch, AB)}))
+    return 0
 
 
 def check_kernels(torch):
@@ -333,6 +483,17 @@ def check_kernels(torch):
                lambda: AB.attn_block(*args, heads=heads, impl="jnp"),
                lambda: mha(x, x, x, key_padding_mask=pad, need_weights=False),
                nbytes(x, mask, *w, *bias, out), ops, "bfloat16")
+        # the call as the encoder makes it, with Linear weights: the wrapper reads
+        # their (out, in) storage through .t() views, where the row above copies
+        # the four contiguous (in, out) weights into that layout on every call
+        lin = [wi.t().contiguous().t() for wi in w]
+        largs = [x, mask, lin[0], bias[0], lin[1], bias[1], lin[2], bias[2], lin[3], bias[3]]
+        with torch.no_grad():
+            if not torch.equal(AB.attn_block(*largs, heads=heads), out):
+                raise AssertionError(f"attn_block_fwd/{tag}: Linear weight views change the output")
+            views_ms = device_ms(torch, lambda: AB.attn_block(*largs, heads=heads))
+        log(f"time attn_block_fwd/{tag} with Linear weight views (no copies): kernel "
+            f"{views_ms:.5f} ms")
     return rows
 
 
@@ -832,10 +993,13 @@ def train_run(torch, main, argv, tag, counters, results_dir, stem, expect, check
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in events) / 1e3
     idle = (1 - busy / step_wall) if busy else None
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
-    for e in top:
-        log(f"profile {tag}:   {e.self_device_time_total / 1e3:8.3f} ms "
-            f"x{e.count:<4d} {e.key[:90]}")
+    ranked = sorted(events, key=lambda e: -e.self_device_time_total)
+    # the eight largest, then every other kernel of the port's own
+    # (csrc/: the smtc:: SDPA kernels and the block kernels' GEMMs)
+    for i, e in enumerate(ranked):
+        if i < 8 or "smtc::" in e.key or "namespace)::gemm_" in e.key:
+            log(f"profile {tag}:   {e.self_device_time_total / 1e3:8.3f} ms "
+                f"x{e.count:<4d} {e.key[:90]}")
     timed_steps = [st["seconds"] for st in steps if st["seconds"] is not None]
     ms = 1e3 * sum(timed_steps) / len(timed_steps)
     # the profiler's own host work lengthens the profiled step: the share
@@ -1457,7 +1621,10 @@ def main():
     log(f"build: {time.monotonic() - t0:.1f} s wall; per source {secs}")
     for name in _cuda.SOURCES:
         log_ptxas(name, _cuda.build_log(name))
-    log_occupancy(A)
+    log_occupancy(A, AB)
+    log_sass(_cuda)
+    gemm_rows = time_gemm(torch, AB)
+    enqueue = time_enqueue(torch, AB)
 
     rows = check_kernels(torch) + check_bwd_kernels(torch)
     perhead_rows, perhead_launches, perhead_vs_packed = check_perhead_kernels(torch)
@@ -1597,6 +1764,8 @@ def main():
         training["pretrained"] = pretrained_start(torch, C, run_mm_late, counters)
     log(json.dumps({"training": training}))
     log(json.dumps({"perhead_vs_packed": perhead_vs_packed}))
+    log(json.dumps({"gemm_nt": gemm_rows}))
+    log(json.dumps({"enqueue": enqueue}))
     launches.update(perhead_launches)
 
     # the TPU kernel each row replaces: the JAX SDPA kernels by query length
@@ -1639,6 +1808,8 @@ def main():
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--enqueue"] and len(sys.argv) == 3:
+            sys.exit(enqueue_only(sys.argv[2]))
         sys.exit(main())
     except Exception:
         traceback.print_exc()

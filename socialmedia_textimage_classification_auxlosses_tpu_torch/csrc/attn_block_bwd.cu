@@ -34,8 +34,9 @@
 // bf16, 12 heads) the work is the eight 768-wide products (4 + 4 of
 // 2 x 4096 x 768 x 768 = 38.7 GFLOP) plus the per-head SDPA backward
 // (2.4 GFLOP), about 41 us on the bf16 tensor cores at 989 TFLOP/s; the
-// bytes (x, dO, the weights, dx, dq, dk, dv, ctx) take under 10 us. The
-// GEMMs and, in bf16, the SDPA backward run on the tensor cores (mma.sync).
+// bytes (x, dO, the weights, dx, dq, dk, dv, ctx) take under 10 us. In bf16
+// everything runs on the tensor cores: the NT GEMM on wgmma fed by TMA, the
+// NN GEMM and the SDPA backward on mma.sync.
 //
 // Weights arrive as (out, in) row-major, the nn.Linear layout.
 
@@ -46,8 +47,9 @@ extern "C" {
 
 // x, dout, dx: (B, L, H); mask: (B, L) int32 or nullptr; w*: (H, H) as
 // (out, in); b*: (H,); q, k, v, dctx: (B, L, H) scratch; ctx, dq, dk, dv:
-// (B, L, H) outputs; stats: (B, heads, L, 3) float32 scratch of the SDPA
-// backward's query-tiled pair. One dtype for all (0 = float32, 1 = bfloat16).
+// (B, L, H) outputs; stats: the SDPA backward's float32 scratch
+// (sdpa_bwd_scratch_floats(B, heads, L, L) floats, sdpa_bwd_core.cuh). One
+// dtype for all (0 = float32, 1 = bfloat16).
 int smtc_attn_block_bwd(const void* x, const int* mask, const void* wq, const void* bq,
                         const void* wk, const void* bk, const void* wv, const void* bv,
                         const void* wo, const void* dout, void* q, void* k, void* v, void* dctx,

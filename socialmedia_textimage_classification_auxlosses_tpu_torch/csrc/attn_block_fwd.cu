@@ -23,10 +23,9 @@
 // What bounds it on the H100. At the serving shapes (x of 16x128x768 and
 // 16x197x768 in bf16) the work is the four projections, 9.7 and 14.9 GFLOP,
 // so the bound is the bf16 tensor-core rate (about 10.6 and 17 us at
-// 989 TFLOP/s). The bf16 GEMM therefore runs on the tensor cores through
-// mma.sync.m16n8k16 (f32 accumulation), 128x64x32 block tiles fed by a
-// 3-stage cp.async pipeline; wgmma and TMA, the only way to the card's full
-// rate, are later work. The float32 GEMM is plain FMA: it only serves
+// 989 TFLOP/s). The bf16 GEMM therefore runs on wgmma (f32 accumulation),
+// fed by TMA through a 4-stage ring of 128x64 tiles, one persistent block per
+// SM (gemm_core.cuh). The float32 GEMM is plain FMA: it only serves
 // --dtype float32.
 //
 // Weights arrive as (out, in) row-major, the nn.Linear layout; ops/attn_block.py
@@ -93,6 +92,34 @@ int smtc_attn_block_fwd(const void* x, const int* mask, const void* wq, const vo
   go.k = hidden;
   return (int)launch_gemm(go, 1, dtype, s);
 }
+
+// The bf16 NT GEMM of steps 1 and 3 alone: C_z = A . W_z^T + b_z for z < count
+// (1 to 3). a: (M, K); w*: (N, K); b*: (N,) or nullptr; c*: (M, N) row-major,
+// or head-banked (M / len, heads, len, N / heads) when heads > 0. A shape TMA
+// cannot describe (K not a multiple of 8, A or W not 16-byte aligned) returns
+// cudaErrorInvalidValue before any launch.
+int smtc_gemm_nt_bf16(const void* a, const void* w0, const void* w1, const void* w2,
+                      const void* b0, const void* b1, const void* b2, void* c0, void* c1, void* c2,
+                      int m, int n, int k, int count, int len, int heads, int device,
+                      void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  GemmArgs g = {};
+  g.a = a;
+  g.w[0] = w0, g.w[1] = w1, g.w[2] = w2;
+  g.bias[0] = b0, g.bias[1] = b1, g.bias[2] = b2;
+  g.c[0] = c0, g.c[1] = c1, g.c[2] = c2;
+  g.m = m;
+  g.n = n;
+  g.k = k;
+  g.len = len;
+  g.heads = heads;
+  return (int)launch_gemm(g, count, 1, static_cast<cudaStream_t>(stream));
+}
+
+// Resident blocks per SM of the bf16 GEMM, or minus the CUDA error (the
+// occupancy lines of chip_smoke.py).
+int smtc_gemm_blocks_per_sm() { return gemm_tma_blocks_per_sm(); }
 
 const char* smtc_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 

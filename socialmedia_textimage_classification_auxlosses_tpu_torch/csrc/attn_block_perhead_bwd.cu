@@ -50,8 +50,8 @@ extern "C" {
 // x, dout, dx: (B, L, H); mask: (B, L) int32 or nullptr; wq, wk, wv: (H, H)
 // as (out, in); wo: (H, H) as (in, out); b*: (H,); q, k, v, dctx: banked
 // (B, heads, L, H / heads) scratch; ctx, dq, dk, dv: banked outputs; stats:
-// (B, heads, L, 3) float32 scratch of the query-tiled pair. One dtype for all
-// (0 = float32, 1 = bfloat16).
+// the SDPA backward's float32 scratch (sdpa_bwd_scratch_floats(B, heads, L, L)
+// floats, sdpa_bwd_core.cuh). One dtype for all (0 = float32, 1 = bfloat16).
 int smtc_attn_block_perhead_bwd(const void* x, const int* mask, const void* wq, const void* bq,
                                 const void* wk, const void* bk, const void* wv, const void* bv,
                                 const void* wo, const void* dout, void* q, void* k, void* v,

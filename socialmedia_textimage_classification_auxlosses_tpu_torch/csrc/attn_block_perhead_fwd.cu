@@ -17,9 +17,9 @@
 // are contiguous (d, H) row blocks of the (out, in) Linear weights, Wo_h a
 // contiguous (d, H) row block of the (in, out) out-projection. Three launches
 // on one stream behind one C entry point and one launch count:
-//   1. gemm_core.cuh's NT GEMM: blockIdx.z picks q, k or v, and each 64-wide
-//      column tile of the 768-wide product is one head's (L x 768).(768 x 64)
-//      product at d = 64; its epilogue writes q, k and v head-banked,
+//   1. gemm_core.cuh's NT GEMM (wgmma, TMA): z picks q, k or v, and its
+//      epilogue writes each 128-wide column tile of the 768-wide product, two
+//      heads' (L x 768).(768 x 64) products at d = 64, head-banked,
 //      (B, heads, L, d), the layout of the Pallas kernels' per-head blocks;
 //   2. sdpa_core.cuh's SDPA on the banked heads, ctx banked;
 //   3. perhead_core.cuh's head-ordered product: one block per 128 x 64 output

@@ -8,7 +8,8 @@
 // dims 32 and 64 (every training path) runs the tensor-core query-tiled pair:
 // pass A writes dQ and per-row statistics, pass B sums dK and dV per key tile
 // over every query row, without atomics, every product on mma.sync. The
-// fusion head's single query runs in the row kernel, and float32 in the block
+// fusion head's single query runs in the row pair (a score pass per key, then
+// a gradient pass per 64 head-dim columns), and float32 in the block
 // kernel where the whole (Lq, Lk) problem fits a block's shared memory, else
 // in the FMA query-tiled pair. The kernels and what bounds them are described
 // in sdpa_bwd_core.cuh.
@@ -22,7 +23,9 @@ extern "C" {
 
 // q, dout, dq: (B, H, Lq, D); k, v, dk, dv: (B, H, Lk, D); all contiguous in
 // one dtype (0 = float32, 1 = bfloat16); mask: (B, Lk) int32 or nullptr;
-// stats: (B, H, Lq, 3) float32 scratch; kernel: 0 = chosen by shape, 1 = a
+// stats: float32 scratch of sdpa_bwd_stats_floats(B, H, Lq) floats (the
+// query-tiled pair's per-row stats), followed, for Lq <= 4, by the row pair's
+// (B, H, Lq, Lk, 2) scores and dP; kernel: 0 = chosen by shape, 1 = a
 // query-tiled pair (the tensor-core one where it fits), 2 = the block kernel.
 int smtc_sdpa_bwd(const void* q, const void* k, const void* v, const int* mask,
                   const void* dout, void* dq, void* dk, void* dv, float* stats, int batch,
@@ -58,14 +61,21 @@ int smtc_sdpa_bwd(const void* q, const void* k, const void* v, const int* mask,
   return (int)cudaErrorInvalidValue;
 }
 
-// 1 if the kernels take this (Lq, Lk, D): the row kernel's rows, the block
+// 1 if the kernels take this (Lq, Lk, D): the row pair's rows, the block
 // kernel's two f32 row sets or pass A's row set of the query-tiled pair fit
 // one block's shared memory (pass A's takes every Lk the forward takes).
 int smtc_sdpa_bwd_fits(int lq, int lk, int d) { return smtc::sdpa_bwd_fits(lq, lk, d) ? 1 : 0; }
 
+// Floats of the f32 scratch that `stats` points to (ops/attention.py's
+// bwd_scratch allocates this many).
+long long smtc_sdpa_bwd_scratch_floats(int batch, int heads, int lq, int lk) {
+  return (long long)smtc::sdpa_bwd_scratch_floats(batch, heads, lq, lk);
+}
+
 // Resident blocks per SM of the tensor-core pair's pass A (pass 0) or pass B
-// (pass 1) at head dim d and Lk keys, or minus the CUDA error (the occupancy
-// line of chip_smoke.py).
+// (pass 1) at head dim d and Lk keys, of the float32 row pair's score pass
+// (pass 2) or column pass (pass 3), or minus the CUDA error (the occupancy
+// lines of chip_smoke.py).
 int smtc_sdpa_bwd_blocks_per_sm(int pass, int d, int lk) {
   return smtc::sdpa_bwd_tc_blocks_per_sm(pass, d, lk);
 }

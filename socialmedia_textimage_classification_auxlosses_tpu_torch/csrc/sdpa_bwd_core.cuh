@@ -61,12 +61,15 @@
 //     Occupancy at D = 64, Lk = 402: pass A 3 blocks per SM (168 registers),
 //     pass B 3 (bounded to 168 registers); D = 128 would hold 64 more f32
 //     accumulators per thread and is left to the FMA kernels below.
-//   * the row kernel, for at most kRowMaxLq query rows (the fusion head's one
+//   * the row pair, for at most kRowMaxLq query rows (the fusion head's one
 //     query of width 768 over 197 image keys, 605 KB of f32 K or V per batch
-//     row, far beyond shared memory): one block per (batch, head) streams K
-//     and V from device memory, one warp per key for the scores and dP,
-//     reduces dQ with one thread per column, and writes dK and dV directly
-//     as the outer products dS^T q and round(P)^T dO.
+//     row, far beyond shared memory): a score pass with one warp per key
+//     writes the scores and dP to an f32 scratch; a column pass, one block
+//     per 64 head-dim columns, forms P and dS from them and writes dK and dV
+//     as the outer products dS^T q and round(P)^T dO, and dQ (and ctx) as
+//     sums over the keys (design note below). One block per (batch, head)
+//     would run 32 blocks on 132 SMs at the fusion head's shape; the column
+//     pass runs 384.
 //   * the block kernel, float32 (and bf16 at other head dims) up to what its
 //     two row sets leave room for: one block per (batch, head) holds the
 //     whole Lq x Lk problem, the f32 P and dP/dS row sets in shared memory
@@ -85,7 +88,8 @@
 // What bounds it on the H100. At the training shapes (text 32x12x128x64 in
 // bf16; fusion 32x1x1x768 over 197 keys in f32) the least time is set by the
 // bytes of q, k, v, dO and the three gradients (about 13 us and 23 us at
-// 3.35 TB/s). ViLT's 32x12x402x402x64 in bf16 is 40 GFLOP of the five
+// 3.35 TB/s); the row pair moves K twice (once per pass, the second mostly
+// from L2) and V once more than that bound counts. ViLT's 32x12x402x402x64 in bf16 is 40 GFLOP of the five
 // products (41 us at 989 TFLOP/s) against 41 us for its bytes; the
 // tensor-core pair does twice the products (S three times in pass A and once
 // in pass B, dP twice and once) plus three exponentials per score, so it is
@@ -129,8 +133,9 @@ __host__ inline size_t sdpa_bwd_smem_bytes(int lq, int lk) {
                           2 * (size_t)kBT * kBTLd);
 }
 
-__host__ inline size_t sdpa_bwd_row_smem_bytes(int lq, int lk, int d) {
-  return sizeof(float) * 2 * (size_t)lq * ((size_t)d + lk);
+// the row pair's column pass holds its row's (s, dP) pairs, and nothing else
+__host__ inline size_t sdpa_bwd_row_smem_bytes(int lq, int lk) {
+  return sizeof(float2) * (size_t)lq * lk;
 }
 
 // dst[i][j] = epi(sum_c A[i][c] B[j][c], i, j) for i < rows_pad(na) and
@@ -302,133 +307,234 @@ __global__ void __launch_bounds__(kBwdThreads) sdpa_bwd_kernel(SdpaBwdArgs a) {
                                   a.d, 1.f, As, Bs);
 }
 
-// At most kRowMaxLq query rows: K and V stream from device memory.
-template <typename T>
-__global__ void __launch_bounds__(kRowThreads) sdpa_bwd_row_kernel(SdpaBwdArgs a) {
-  extern __shared__ float4 smem4[];
-  const int lq = a.lq, lk = a.lk, d = a.d;
-  float* qs = reinterpret_cast<float*>(smem4);  // [lq][d]
-  float* dos = qs + lq * d;                     // [lq][d]
-  float* P = dos + lq * d;                      // [lq][lk] scores, then f32 P
-  float* G = P + lq * lk;                       // [lq][lk] dP, then round(dS)
-  const int h = blockIdx.x, b = blockIdx.y;
-  const long long qo = b * a.q_sb + h * a.q_sh, ko = b * a.k_sb + h * a.k_sh;
+// ---- the row pair (at most kRowMaxLq query rows) ---------------------------------
+//
+// The fusion head's backward: one query of width 768 over 197 keys, per batch
+// row. Two launches on the caller's stream, through an f32 scratch that lies
+// in the same buffer as `stats`, after it (sdpa_bwd_row_scratch):
+//   score pass, one block per (kRowKeys keys, head, batch), one warp per key:
+//     s_ij = (q_i . k_j) * scale (-1e30 at masked keys) and dP_ij = dO_i . v_j
+//     in f32, K and V rows read once with 16-byte loads, into the scratch as
+//     (s, dP) pairs, (B, heads, Lq, Lk);
+//   column pass, one block per (kRowCols head-dim columns, head, batch): the
+//     block copies its row's pairs to shared memory, one warp per query row
+//     forms P (f32) and round(dS) from them, then the block's warps walk the
+//     keys for its columns: dK and dV written once each, coalesced along the
+//     columns, dQ and ctx summed per lane over its keys and then across the
+//     warp's lanes. Every block forms P and dS with the same warp and lane
+//     partition, so the blocks of one row agree on them bit for bit.
+// The rounding points are the file header's; dQ's and ctx's f32 sums run in a
+// fixed order (each lane's keys in order, then a butterfly across lanes).
+
+constexpr int kRowKeys = kRowThreads / 32;  // score pass: keys per block, a warp each
+constexpr int kRowColLanes = 2;             // column pass: lanes per key row, 4 columns each
+constexpr int kRowKeyGroups = 32 / kRowColLanes;  // keys a warp holds at once
+constexpr int kRowCols = kRowThreads / 32 * kRowColLanes * 4;  // columns per block: 64
+
+// Floats of the backward's f32 scratch that the query-tiled pair's stats take,
+// rounded up to 16 bytes; the row pair's (s, dP) pairs follow.
+__host__ __device__ inline size_t sdpa_bwd_stats_floats(int batch, int heads, int lq) {
+  return ((size_t)batch * heads * lq * kStats + 3) / 4 * 4;
+}
+
+// Floats of the whole scratch the caller allocates (exported to
+// ops/attention.py's bwd_scratch as smtc_sdpa_bwd_scratch_floats)
+__host__ inline size_t sdpa_bwd_scratch_floats(int batch, int heads, int lq, int lk) {
+  return sdpa_bwd_stats_floats(batch, heads, lq) +
+         (lq <= kRowMaxLq ? 2 * (size_t)batch * heads * lq * lk : 0);
+}
+
+__host__ inline float2* sdpa_bwd_row_scratch(const SdpaBwdArgs& a, int batch) {
+  return reinterpret_cast<float2*>(a.stats + sdpa_bwd_stats_floats(batch, a.heads, a.lq));
+}
+
+template <int Bytes> struct RawVec;
+template <> struct RawVec<16> { using type = uint4; };
+template <> struct RawVec<8> { using type = uint2; };
+
+// x = columns c .. c + N - 1 of row p in f32, zero past d. VEC: d % N == 0 and
+// p + c aligned to N elements, so a column group is all in or all out.
+template <typename T, int N, bool VEC>
+__device__ __forceinline__ void load_cols(float (&x)[N], const T* p, int c, int d) {
+  if (VEC && c < d) {
+    using V = typename RawVec<N * sizeof(T)>::type;
+    const V raw = *reinterpret_cast<const V*>(p + c);
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int i = 0; i < N; ++i) x[i] = to_f32(e[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) x[i] = c + i < d ? to_f32(p[c + i]) : 0.f;
+  }
+}
+
+template <typename T, int N, bool VEC>
+__device__ __forceinline__ void store_cols(T* p, int c, int d, const float (&x)[N]) {
+  if (VEC && c < d) {
+    using V = typename RawVec<N * sizeof(T)>::type;
+    V raw;
+    T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+    for (int i = 0; i < N; ++i) e[i] = from_f32<T>(x[i]);
+    *reinterpret_cast<V*>(p + c) = raw;
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      if (c + i < d) p[c + i] = from_f32<T>(x[i]);
+  }
+}
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kRowThreads) sdpa_bwd_row_scores_kernel(SdpaBwdArgs a,
+                                                                          float2* sc) {
+  constexpr int N = 16 / sizeof(T);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int j = blockIdx.x * kRowKeys + warp, h = blockIdx.y, b = blockIdx.z;
+  if (j >= a.lk) return;  // the whole warp
+  const int lq = a.lq, d = a.d;
+  const long long qo = b * a.q_sb + h * a.q_sh, ko = b * a.k_sb + h * a.k_sh + j * a.k_sl;
   const T* q = static_cast<const T*>(a.q) + qo;
   const T* dout = static_cast<const T*>(a.dout) + qo;
-  const T* k = static_cast<const T*>(a.k) + ko;
-  const T* v = static_cast<const T*>(a.v) + ko;
-  const int* mask = a.mask ? a.mask + (long long)b * lk : nullptr;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  constexpr int kWarps = kRowThreads / 32;
-
-  for (int e = tid; e < lq * d; e += kRowThreads) {
-    const int i = e / d, c = e % d;
-    qs[e] = to_f32(q[i * a.q_sl + c]);
-    dos[e] = to_f32(dout[i * a.q_sl + c]);
-  }
-  __syncthreads();
-
-  // 1. scores and dP, one warp per key: K and V rows read once, coalesced
-  for (int j = warp; j < lk; j += kWarps) {
-    const T* kj = k + j * a.k_sl;
-    const T* vj = v + j * a.k_sl;
-    float s[kRowMaxLq] = {}, dp[kRowMaxLq] = {};
-    for (int c = lane; c < d; c += 32) {
-      const float kv = to_f32(kj[c]), vv = to_f32(vj[c]);
+  const T* kj = static_cast<const T*>(a.k) + ko;
+  const T* vj = static_cast<const T*>(a.v) + ko;
+  float s[kRowMaxLq] = {}, dp[kRowMaxLq] = {};
+  for (int c = lane * N; c < d; c += 32 * N) {
+    float kx[N], vx[N];
+    load_cols<T, N, VEC>(kx, kj, c, d);
+    load_cols<T, N, VEC>(vx, vj, c, d);
 #pragma unroll
-      for (int i = 0; i < kRowMaxLq; ++i)
-        if (i < lq) {
-          s[i] = fmaf(qs[i * d + c], kv, s[i]);
-          dp[i] = fmaf(dos[i * d + c], vv, dp[i]);
+    for (int i = 0; i < kRowMaxLq; ++i)
+      if (i < lq) {
+        float qx[N], ox[N];
+        load_cols<T, N, VEC>(qx, q + i * a.q_sl, c, d);
+        load_cols<T, N, VEC>(ox, dout + i * a.q_sl, c, d);
+#pragma unroll
+        for (int e = 0; e < N; ++e) {
+          s[i] = fmaf(qx[e], kx[e], s[i]);
+          dp[i] = fmaf(ox[e], vx[e], dp[i]);
         }
-    }
-#pragma unroll
-    for (int i = 0; i < kRowMaxLq; ++i) {
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        s[i] += __shfl_xor_sync(0xffffffffu, s[i], off);
-        dp[i] += __shfl_xor_sync(0xffffffffu, dp[i], off);
       }
-      if (lane == 0 && i < lq) {
-        P[i * lk + j] = (mask == nullptr || mask[j] > 0) ? s[i] * a.scale : kNegInf;
-        G[i * lk + j] = dp[i];
-      }
-    }
   }
+#pragma unroll
+  for (int i = 0; i < kRowMaxLq; ++i)
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      s[i] += __shfl_xor_sync(0xffffffffu, s[i], off);
+      dp[i] += __shfl_xor_sync(0xffffffffu, dp[i], off);
+    }
+  if (lane == 0) {
+    const bool keep = a.mask == nullptr || a.mask[(long long)b * a.lk + j] > 0;
+    float2* out = sc + ((long long)b * a.heads + h) * lq * a.lk + j;
+#pragma unroll
+    for (int i = 0; i < kRowMaxLq; ++i)
+      if (i < lq) out[i * a.lk] = make_float2(keep ? s[i] * a.scale : kNegInf, dp[i]);
+  }
+}
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kRowThreads) sdpa_bwd_row_cols_kernel(SdpaBwdArgs a,
+                                                                        const float2* sc) {
+  extern __shared__ float4 smem4[];
+  float2* R = reinterpret_cast<float2*>(smem4);  // [lq][lk] (s, dP), then (P, round(dS))
+  const int lq = a.lq, lk = a.lk, d = a.d;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const float2* src = sc + ((long long)b * a.heads + h) * lq * lk;
+  for (int e = tid; e < lq * lk; e += kRowThreads) R[e] = src[e];
   __syncthreads();
 
-  // 2. softmax and dS, one warp per query row
+  // 1. softmax and dS, one warp per query row, every block alike
   if (warp < lq) {
-    float* prow = P + warp * lk;
-    float* grow = G + warp * lk;
+    float2* row = R + warp * lk;
     float m = -INFINITY;
-    for (int j = lane; j < lk; j += 32) m = fmaxf(m, prow[j]);
+    for (int j = lane; j < lk; j += 32) m = fmaxf(m, row[j].x);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
     float l = 0.f;
     for (int j = lane; j < lk; j += 32) {
-      const float e = expf(prow[j] - m);
-      prow[j] = e;
+      const float e = expf(row[j].x - m);
+      row[j].x = e;
       l += e;
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
     float r = 0.f;
     for (int j = lane; j < lk; j += 32) {
-      const float p = prow[j] / l;
-      prow[j] = p;
-      r += grow[j] * p;
+      const float p = row[j].x / l;
+      row[j].x = p;
+      r += row[j].y * p;
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) r += __shfl_xor_sync(0xffffffffu, r, off);
-    for (int j = lane; j < lk; j += 32) grow[j] = to_f32(from_f32<T>(prow[j] * (grow[j] - r)));
+    for (int j = lane; j < lk; j += 32)
+      row[j].y = to_f32(from_f32<T>(row[j].x * (row[j].y - r)));
   }
   __syncthreads();
 
-  // 3. dQ (and ctx): one thread per column, K (and V) read down the keys
-  T* dq = static_cast<T*>(a.dq) + qo;
-  T* o = a.o ? static_cast<T*>(a.o) + qo : nullptr;
-  for (int c = tid; c < d; c += kRowThreads) {
-    float aq[kRowMaxLq] = {}, ao[kRowMaxLq] = {};
-    for (int j = 0; j < lk; ++j) {
-      const float kv = to_f32(k[j * a.k_sl + c]);
-      const float vv = o ? to_f32(v[j * a.k_sl + c]) : 0.f;
+  // 2. the block's columns: a lane holds 4 columns of every kRowKeyGroups-th
+  //    key; dK = (dS^T q) * scale and dV = round(P)^T dO per key, dQ and ctx
+  //    summed over the lane's keys
+  const int c = blockIdx.x * kRowCols + warp * kRowColLanes * 4 + (lane % kRowColLanes) * 4;
+  const int kg = lane / kRowColLanes;
+  const long long qo = b * a.q_sb + h * a.q_sh, ko = b * a.k_sb + h * a.k_sh;
+  const T* q = static_cast<const T*>(a.q) + qo;
+  const T* dout = static_cast<const T*>(a.dout) + qo;
+  const T* k = static_cast<const T*>(a.k) + ko;
+  const T* v = static_cast<const T*>(a.v) + ko;
+  T* dk = static_cast<T*>(a.dk) + ko;
+  T* dv = static_cast<T*>(a.dv) + ko;
+  const bool want_o = a.o != nullptr;
+  float qc[kRowMaxLq][4], oc[kRowMaxLq][4];
+  float aq[kRowMaxLq][4] = {}, ao[kRowMaxLq][4] = {};
 #pragma unroll
-      for (int i = 0; i < kRowMaxLq; ++i)
-        if (i < lq) {
-          aq[i] = fmaf(G[i * lk + j], kv, aq[i]);
-          ao[i] = fmaf(to_f32(from_f32<T>(P[i * lk + j])), vv, ao[i]);
-        }
-    }
+  for (int i = 0; i < kRowMaxLq; ++i) {
+    load_cols<T, 4, VEC>(qc[i], q + (i < lq ? i : 0) * a.q_sl, c, i < lq ? d : 0);
+    load_cols<T, 4, VEC>(oc[i], dout + (i < lq ? i : 0) * a.q_sl, c, i < lq ? d : 0);
+  }
+  for (int j = kg; j < lk; j += kRowKeyGroups) {
+    float kx[4], vx[4] = {}, sk[4] = {}, sv[4] = {};
+    load_cols<T, 4, VEC>(kx, k + j * a.k_sl, c, d);
+    if (want_o) load_cols<T, 4, VEC>(vx, v + j * a.k_sl, c, d);
 #pragma unroll
     for (int i = 0; i < kRowMaxLq; ++i)
       if (i < lq) {
-        dq[i * a.q_sl + c] = from_f32<T>(aq[i] * a.scale);
-        if (o) o[i * a.q_sl + c] = from_f32<T>(ao[i]);
+        const float2 pd = R[i * lk + j];
+        const float pr = to_f32(from_f32<T>(pd.x));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          aq[i][e] = fmaf(pd.y, kx[e], aq[i][e]);
+          ao[i][e] = fmaf(pr, vx[e], ao[i][e]);
+          sk[e] = fmaf(pd.y, qc[i][e], sk[e]);
+          sv[e] = fmaf(pr, oc[i][e], sv[e]);
+        }
       }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sk[e] *= a.scale;
+    store_cols<T, 4, VEC>(dk + j * a.k_sl, c, d, sk);
+    store_cols<T, 4, VEC>(dv + j * a.k_sl, c, d, sv);
   }
 
-  // 4. dK = (dS^T q) * scale and dV = round(P)^T dO as outer products
-  T* dk = static_cast<T*>(a.dk) + ko;
-  T* dv = static_cast<T*>(a.dv) + ko;
-  for (int c = tid; c < d; c += kRowThreads) {
-    float qc[kRowMaxLq], dc[kRowMaxLq];
+  // 3. dQ and ctx: the warp's key groups summed by a fixed butterfly
 #pragma unroll
-    for (int i = 0; i < kRowMaxLq; ++i) {
-      qc[i] = i < lq ? qs[i * d + c] : 0.f;
-      dc[i] = i < lq ? dos[i * d + c] : 0.f;
-    }
-    for (int j = 0; j < lk; ++j) {
-      float sk = 0.f, sv = 0.f;
+  for (int i = 0; i < kRowMaxLq; ++i)
 #pragma unroll
-      for (int i = 0; i < kRowMaxLq; ++i)
-        if (i < lq) {
-          sk = fmaf(G[i * lk + j], qc[i], sk);
-          sv = fmaf(to_f32(from_f32<T>(P[i * lk + j])), dc[i], sv);
-        }
-      dk[j * a.k_sl + c] = from_f32<T>(sk * a.scale);
-      dv[j * a.k_sl + c] = from_f32<T>(sv);
-    }
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int off = kRowColLanes; off < 32; off <<= 1) {
+        aq[i][e] += __shfl_xor_sync(0xffffffffu, aq[i][e], off);
+        ao[i][e] += __shfl_xor_sync(0xffffffffu, ao[i][e], off);
+      }
+  if (kg == 0) {
+    T* dq = static_cast<T*>(a.dq) + qo;
+    T* o = want_o ? static_cast<T*>(a.o) + qo : nullptr;
+#pragma unroll
+    for (int i = 0; i < kRowMaxLq; ++i)
+      if (i < lq) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) aq[i][e] *= a.scale;
+        store_cols<T, 4, VEC>(dq + i * a.q_sl, c, d, aq[i]);
+        if (want_o) store_cols<T, 4, VEC>(o + i * a.q_sl, c, d, ao[i]);
+      }
   }
 }
 
@@ -989,9 +1095,15 @@ cudaError_t launch_sdpa_bwd_tc(const SdpaBwdArgs& a, int batch, cudaStream_t str
   return cudaGetLastError();
 }
 
-// Resident blocks per SM of pass A (pass 0) or pass B (pass 1) at head dim d
-// and Lk keys, or minus the CUDA error.
+// Resident blocks per SM of the tensor-core pair's pass A (pass 0) or pass B
+// (pass 1) at head dim d and Lk keys, or of the float32 row pair's score pass
+// (pass 2) or column pass (pass 3, one query row of Lk keys), or minus the
+// CUDA error.
 inline int sdpa_bwd_tc_blocks_per_sm(int pass, int d, int lk) {
+  if (pass == 2) return blocks_per_sm(sdpa_bwd_row_scores_kernel<float, true>, kRowThreads, 0);
+  if (pass == 3)
+    return blocks_per_sm(sdpa_bwd_row_cols_kernel<float, true>, kRowThreads,
+                         sdpa_bwd_row_smem_bytes(1, lk));
   if (d != 32 && d != 64) return -(int)cudaErrorInvalidValue;
   if (pass == 0) {
     const size_t smem = sdpa_tc_smem_bytes(lk, d);
@@ -1005,8 +1117,11 @@ inline int sdpa_bwd_tc_blocks_per_sm(int pass, int d, int lk) {
 
 enum SdpaBwdKernel { kBwdAuto = 0, kBwdTiled = 1, kBwdBlock = 2 };
 
+// The row pair takes at most kRowMaxLq query rows at any head dim, and every
+// Lk whose (s, dP) pairs fit the column pass's shared memory: 29,056 keys for
+// one query row, 7,264 for four.
 inline bool sdpa_bwd_row_fits(int lq, int lk, int d) {
-  return lq <= kRowMaxLq && sdpa_bwd_row_smem_bytes(lq, lk, d) <= 232448;
+  return lq <= kRowMaxLq && d > 0 && sdpa_bwd_row_smem_bytes(lq, lk) <= 232448;
 }
 inline bool sdpa_bwd_block_fits(int lq, int lk) { return sdpa_bwd_smem_bytes(lq, lk) <= 232448; }
 // the FMA pair's pass A holds the forward FMA kernel's row set, so it takes
@@ -1048,8 +1163,45 @@ cudaError_t launch_sdpa_bwd_block(const SdpaBwdArgs& a, int batch, cudaStream_t 
   return cudaGetLastError();
 }
 
+// Whether the row pair may read and write whole 16-byte groups of columns (4
+// elements in the column pass): the head dim and every stride a multiple of
+// 16 bytes' worth of elements, every pointer 16-byte aligned.
+inline bool sdpa_bwd_row_vec(const SdpaBwdArgs& a, int elem_bytes) {
+  const int n = 16 / elem_bytes;
+  if (a.d % n) return false;
+  for (long long s : {a.q_sb, a.q_sh, a.q_sl, a.k_sb, a.k_sh, a.k_sl})
+    if (s % n) return false;
+  for (const void* p : std::initializer_list<const void*>{a.q, a.k, a.v, a.dout, a.dq, a.dk,
+                                                         a.dv, a.o})
+    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
+  return true;
+}
+
+template <typename T, bool VEC>
+cudaError_t launch_sdpa_bwd_row_pair(const SdpaBwdArgs& a, int batch, cudaStream_t stream) {
+  float2* sc = sdpa_bwd_row_scratch(a, batch);
+  sdpa_bwd_row_scores_kernel<T, VEC>
+      <<<dim3((a.lk + kRowKeys - 1) / kRowKeys, a.heads, batch), kRowThreads, 0, stream>>>(a, sc);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t smem = sdpa_bwd_row_smem_bytes(a.lq, a.lk);
+  err = cudaFuncSetAttribute(sdpa_bwd_row_cols_kernel<T, VEC>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  sdpa_bwd_row_cols_kernel<T, VEC>
+      <<<dim3((a.d + kRowCols - 1) / kRowCols, a.heads, batch), kRowThreads, smem, stream>>>(a, sc);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_sdpa_bwd_row(const SdpaBwdArgs& a, int batch, cudaStream_t stream) {
+  if (a.stats == nullptr) return cudaErrorInvalidValue;  // the scratch lies after the stats
+  return sdpa_bwd_row_vec(a, sizeof(T)) ? launch_sdpa_bwd_row_pair<T, true>(a, batch, stream)
+                                        : launch_sdpa_bwd_row_pair<T, false>(a, batch, stream);
+}
+
 // kernel: kBwdAuto takes the tensor-core pair where it fits (bf16), else the
-// row kernel for a few query rows, else the block kernel where its row sets
+// row pair for a few query rows, else the block kernel where its row sets
 // fit, else the FMA query-tiled pair; kBwdTiled asks for a query-tiled pair
 // (the tensor-core one where it fits) and kBwdBlock for the block kernel, at
 // any shape they take, to time them against each other.
@@ -1070,14 +1222,7 @@ cudaError_t launch_sdpa_bwd(const SdpaBwdArgs& a, int batch, cudaStream_t stream
   if (kernel == kBwdTiled ||
       (!sdpa_bwd_row_fits(a.lq, a.lk, a.d) && !sdpa_bwd_block_fits(a.lq, a.lk)))
     return launch_sdpa_bwd_tiled<T>(a, batch, stream);
-  if (sdpa_bwd_row_fits(a.lq, a.lk, a.d)) {
-    const size_t smem = sdpa_bwd_row_smem_bytes(a.lq, a.lk, a.d);
-    cudaError_t err = cudaFuncSetAttribute(sdpa_bwd_row_kernel<T>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    sdpa_bwd_row_kernel<T><<<dim3(a.heads, batch), kRowThreads, smem, stream>>>(a);
-    return cudaGetLastError();
-  }
+  if (sdpa_bwd_row_fits(a.lq, a.lk, a.d)) return launch_sdpa_bwd_row<T>(a, batch, stream);
   return launch_sdpa_bwd_block<T>(a, batch, stream);
 }
 

@@ -14,7 +14,7 @@ Hopper kernel (``csrc/sdpa_fwd.cu``, TPU kernels 1 and 3 of PERF.md's table:
 its 64-row query tiles cover the JAX whole-Lq and 128-row-blocked forwards
 alike; bf16 on the tensor cores) and its backward the backward kernels
 (``csrc/sdpa_bwd.cu``, TPU kernels 2 and 4: for bf16 the tensor-core
-query-tiled pair, else a row kernel, a block kernel or the FMA query-tiled
+query-tiled pair, else the row pair, a block kernel or the FMA query-tiled
 pair, by shape); on a CPU tensor they are the plain versions
 ``sdpa_reference`` and ``sdpa_bwd_reference``. Like the JAX residuals, the function saves only its
 inputs and recomputes the probabilities in the backward. Unlike the JAX
@@ -127,6 +127,8 @@ def _bwd_lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.smtc_sdpa_bwd.argtypes = [p] * 9 + [i, i, i, i, i, ctypes.c_float,
                                                  i, i, i, p]
+        lib.smtc_sdpa_bwd_scratch_floats.argtypes = [i, i, i, i]
+        lib.smtc_sdpa_bwd_scratch_floats.restype = ctypes.c_longlong
         lib.smtc_sdpa_bwd.restype = i
         lib.smtc_sdpa_bwd_fits.argtypes = [i, i, i]
         lib.smtc_sdpa_bwd_fits.restype = i
@@ -134,8 +136,20 @@ def _bwd_lib():
     return lib
 
 
+def bwd_scratch(b: int, h: int, lq: int, lk: int, device) -> torch.Tensor:
+    """The backward kernels' float32 scratch on the CUDA ``device``, of the
+    size the kernels' library gives (``sdpa_bwd_scratch_floats`` of
+    ``csrc/sdpa_bwd_core.cuh``): the query-tiled pairs' max, sum and
+    rowsum(dP P) per query row, then, for at most four query rows, the row
+    pair's score and dP per (query row, key), which its score pass writes and
+    its column pass reads. Allocated on the current stream, where both of the
+    row pair's launches run."""
+    n = _bwd_lib().smtc_sdpa_bwd_scratch_floats(b, h, lq, lk)
+    return torch.empty(n, dtype=torch.float32, device=device)
+
+
 def backward_fits(lq: int, lk: int, d: int) -> bool:
-    """Whether the backward kernels take this shape: the row kernel (at
+    """Whether the backward kernels take this shape: the row pair (at
     most 4 query rows), the block kernel (the whole (Lq, Lk) problem in
     shared memory) or the query-tiled pair, which takes any Lq and every Lk
     the forward takes, so this is false only beyond ``max_key_length()``."""
@@ -228,7 +242,7 @@ def sdpa_bwd_cuda(q, k, v, key_mask, do, scale: float, kernel: str = "auto"):
     if kernel not in BWD_KERNELS:
         raise ValueError(f"sdpa_bwd_cuda kernel {kernel!r}: one of {tuple(BWD_KERNELS)}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    stats = torch.empty((b, h, lq, 3), dtype=torch.float32, device=q.device)
+    stats = bwd_scratch(b, h, lq, lk, q.device)
     rc = lib.smtc_sdpa_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if key_mask is None else key_mask.data_ptr(), do.data_ptr(),

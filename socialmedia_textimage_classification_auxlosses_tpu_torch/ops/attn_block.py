@@ -40,7 +40,8 @@ from typing import Optional
 import torch
 
 from . import _cuda
-from .attention import _acc_dtype, _NEG_INF, backward_fits, max_key_length, sdpa_reference
+from .attention import (_acc_dtype, _NEG_INF, backward_fits, bwd_scratch, max_key_length,
+                        sdpa_reference)
 
 IMPLS = ("fused", "fused_interpret", "fused_perhead", "fused_perhead_interpret", "jnp")
 
@@ -48,6 +49,7 @@ launches = _cuda.LaunchCounter("attn_block_fwd")
 bwd_launches = _cuda.LaunchCounter("attn_block_bwd")
 perhead_launches = _cuda.LaunchCounter("attn_block_perhead_fwd")
 perhead_bwd_launches = _cuda.LaunchCounter("attn_block_perhead_bwd")
+gemm_launches = _cuda.LaunchCounter("gemm_nt_bf16")  # the GEMM alone (gemm_nt)
 
 
 def attn_block_reference(x, key_mask, wq, bq, wk, bk, wv, bv, wo, bo,
@@ -246,8 +248,74 @@ def _lib():
         lib.smtc_attn_block_fwd.argtypes = (
             [p] * 15 + [i, i, i, i, ctypes.c_float, i, i, p])
         lib.smtc_attn_block_fwd.restype = i
+        lib.smtc_gemm_nt_bf16.argtypes = [p] * 10 + [i] * 7 + [p]
+        lib.smtc_gemm_nt_bf16.restype = i
+        lib.smtc_gemm_blocks_per_sm.argtypes = []
+        lib.smtc_gemm_blocks_per_sm.restype = i
         lib._smtc_typed = True
     return lib
+
+
+def gemm_nt_reference(a, ws, biases, heads: int = 0, length: Optional[int] = None):
+    """The block kernels' NT GEMM in plain PyTorch: C_z = a . W_z^T + b_z for
+    each pair (W_z, b_z) of ``ws`` and ``biases``, the product and the bias
+    in float32, rounded once to a's dtype. a: (M, K); W_z: (N, K), the
+    nn.Linear layout; b_z: (N,) or None. With ``heads`` > 0 each C_z is
+    head-banked, (M / length, heads, length, N / heads), as the per-head
+    kernels write q, k and v; else (M, N)."""
+    m, n = a.shape[0], ws[0].shape[0]
+    acc = _acc_dtype(a.dtype)
+    outs = []
+    for w, bias in zip(ws, biases):
+        c = a.to(acc) @ w.to(acc).t()
+        if bias is not None:
+            c = c + bias.to(acc)
+        c = c.to(a.dtype)
+        if heads:
+            c = c.reshape(m // length, length, heads, n // heads).permute(0, 2, 1, 3).contiguous()
+        outs.append(c)
+    return outs
+
+
+def gemm_nt(a, ws, biases, heads: int = 0, length: Optional[int] = None):
+    """``gemm_nt_reference``'s function: on a CUDA tensor the bf16 GEMM
+    (``csrc/gemm_core.cuh``, wgmma fed by TMA) that kernels 5-8 launch inside
+    their entry points, here alone, so that it can be held against its plain
+    version and timed at the blocks' shapes; on a CPU tensor the plain
+    version. Up to three (W_z, b_z) pairs, as the QKV projections pass."""
+    if not 1 <= len(ws) <= 3 or len(biases) != len(ws):
+        raise ValueError("gemm_nt takes one to three weights, each with a bias or None")
+    if heads and (length is None or a.shape[0] % length or ws[0].shape[0] % heads):
+        raise ValueError("a banked gemm_nt needs length dividing M and heads dividing N")
+    if a.device.type == "cpu":
+        return gemm_nt_reference(a, ws, biases, heads, length)
+    if a.dtype != torch.bfloat16 or a.dim() != 2 or not a.is_contiguous():
+        raise ValueError("gemm_nt's kernel takes a contiguous (M, K) bfloat16 matrix")
+    m, k = a.shape
+    n = ws[0].shape[0]
+    for w, bias in zip(ws, biases):
+        if (w.shape != (n, k) or w.dtype != a.dtype or w.device != a.device
+                or not w.is_contiguous()):
+            raise ValueError(f"each weight must be a contiguous ({n}, {k}) {a.dtype} tensor "
+                             f"on {a.device}")
+        if bias is not None and (bias.shape != (n,) or bias.dtype != a.dtype
+                                 or bias.device != a.device or not bias.is_contiguous()):
+            raise ValueError(f"each bias must be None or a contiguous ({n},) {a.dtype} tensor")
+    if heads:
+        outs = [torch.empty((m // length, heads, length, n // heads), dtype=a.dtype,
+                            device=a.device) for _ in ws]
+    else:
+        outs = [torch.empty((m, n), dtype=a.dtype, device=a.device) for _ in ws]
+    pad = [None] * (3 - len(ws))
+    lib = _lib()
+    rc = lib.smtc_gemm_nt_bf16(
+        a.data_ptr(), *[w.data_ptr() for w in ws], *pad,
+        *[None if bias is None else bias.data_ptr() for bias in biases], *pad,
+        *[c.data_ptr() for c in outs], *pad,
+        m, n, k, len(ws), length or 0, heads, a.device.index or 0, _cuda.stream_of(a))
+    _cuda.check(lib, rc, "gemm_nt_bf16")
+    gemm_launches.add((m, n, k, len(ws), heads, any(bias is not None for bias in biases)))
+    return outs
 
 
 def _bwd_lib():
@@ -354,7 +422,7 @@ def attn_block_bwd_cuda(x, key_mask, wq, bq, wk, bk, wv, bv, wo, do,
     dtype = str(x.dtype).removeprefix("torch.")
     lib = _bwd_lib()
     scratch = torch.empty((4, b, l, h), dtype=x.dtype, device=x.device)  # q k v dctx
-    stats = torch.empty((b, heads, l, 3), dtype=torch.float32, device=x.device)
+    stats = bwd_scratch(b, heads, l, l, x.device)
     ctx, dq, dk, dv, dx = (torch.empty_like(x) for _ in range(5))
     wq_t, wk_t, wv_t, wo_t = wts
     rc = lib.smtc_attn_block_bwd(
@@ -442,7 +510,7 @@ def attn_block_perhead_bwd_cuda(x, key_mask, wq, bq, wk, bk, wv, bv, wo, do,
     lib = _perhead_bwd_lib()
     banks = torch.empty((8, b, heads, l, h // heads), dtype=x.dtype, device=x.device)
     q, k, v, dctx, ctx, dq, dk, dv = banks
-    stats = torch.empty((b, heads, l, 3), dtype=torch.float32, device=x.device)
+    stats = bwd_scratch(b, heads, l, l, x.device)
     dx = torch.empty_like(x)
     rc = lib.smtc_attn_block_perhead_bwd(
         x.data_ptr(), None if key_mask is None else key_mask.data_ptr(),

@@ -35,6 +35,14 @@ The per-head block (``impl="fused_perhead"``, kernels 5 and 6) is held the
 same way: its forward, its backward kernel's dx and head-banked dq, dk, dv
 and ctx, and the ten gradients through autograd, against the plain per-head
 versions, from head dim 8 to ViLT's L = 402.
+
+The SDPA backward's row pair (at most 4 query rows) is held at head dims 8
+to 768, one key to the longest key row it takes, masked, with a fully masked
+row, with and without ctx, and its column blocks must agree bit for bit. The
+bf16 NT GEMM of kernels 5-8 (wgmma fed by TMA) is held alone at M of 1 to
+12,864 rows (ragged), hidden 16, 64 and 768, one and three weights, without a
+bias and head-banked, each element within one bf16 step (plus 1e-3) of the
+plain version's f32 sum; a shape TMA cannot describe is refused.
 """
 
 import pytest
@@ -245,11 +253,16 @@ def test_sdpa_bwd_block_kernel_asked_for(cuda, case, dtype):
 
 
 BLOCK_BWD_CASES = {
-    # name: (b, l, hidden, heads, masked)
+    # name: (b, l, hidden, heads, masked); "empty" masks the first row fully.
+    # Up to four tokens the SDPA backward runs the row pair, which writes ctx.
     "narrow": (2, 16, 64, 2, True),
     "ragged": (3, 37, 96, 3, False),
     "text_path": (32, 128, 768, 12, True),
     "vilt_exact": (2, 402, 768, 12, True),
+    "row_pair_four_tokens": (2, 4, 64, 2, True),
+    "row_pair_two_tokens_head768": (4, 2, 768, 1, True),
+    "row_pair_one_token": (3, 1, 64, 1, False),
+    "row_pair_masked_row": (3, 3, 96, 3, "empty"),
 }
 
 
@@ -260,7 +273,7 @@ def _block_inputs(gen, b, l, hid, heads, masked, dtype, grad=False):
         params.append((torch.randn(hid, hid, generator=gen, device="cuda")
                        * hid ** -0.5).to(dtype))
         params.append((0.1 * torch.randn(hid, generator=gen, device="cuda")).to(dtype))
-    mask = _mask(gen, b, l, False) if masked else None
+    mask = _mask(gen, b, l, masked == "empty") if masked else None
     do = torch.randn(b, l, hid, generator=gen, device="cuda").to(dtype)
     if grad:
         x.requires_grad_(True)
@@ -397,3 +410,125 @@ def test_attn_block_perhead_round_trip_matches_plain(cuda, case, dtype):
         err = (t.grad.float() - r.float()).abs().max().item()
         tol = (1e-4 if dtype == torch.float32 else 2e-2) * max(1.0, sc.max().item())
         assert torch.isfinite(t.grad).all() and err <= tol, ("d" + name, err, tol)
+
+
+ROW_PAIR_CASES = {
+    # name: (b, h, lq, lk, d, masked, one fully masked row); ctx, which only
+    # the fused blocks ask for, is checked through BLOCK_BWD_CASES' row_pair_*
+    "one_row_head8": (3, 2, 1, 197, 8, True, True),
+    "two_rows_head64": (2, 3, 2, 197, 64, True, False),
+    "three_rows_head768": (2, 1, 3, 197, 768, False, False),
+    "four_rows_head64_masked_row": (2, 2, 4, 70, 64, True, True),
+    "fusion_head": (32, 1, 1, 197, 768, False, False),
+    "fusion_head_masked": (32, 1, 1, 197, 768, True, False),
+    "single_key": (2, 1, 1, 1, 8, False, False),
+    "single_key_four_rows": (2, 2, 4, 1, 768, True, True),
+    "ragged_head": (2, 2, 3, 50, 42, True, False),
+    "longest_one_row": (1, 1, 1, 29056, 8, True, False),
+    "longest_four_rows": (1, 1, 4, 7264, 64, True, True),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", sorted(ROW_PAIR_CASES))
+def test_sdpa_bwd_row_pair_matches_plain(cuda, case, dtype):
+    """The row pair (at most 4 query rows): dq, dk and dv against the plain
+    version, at head dims 8 to 768, 1 to the longest key row it takes,
+    masked and with a fully masked row."""
+    b, h, lq, lk, d, masked, empty = ROW_PAIR_CASES[case]
+    assert A.backward_fits(lq, lk, d)
+    q, k, v, do = (torch.randn(b, h, n, d, generator=cuda, device="cuda").to(dtype)
+                   for n in (lq, lk, lk, lq))
+    mask = _mask(cuda, b, lk, empty) if masked else None
+    scale = d ** -0.5
+    before = A.bwd_launches.count
+    got = A.sdpa_bwd_cuda(q, k, v, mask, do, scale)
+    assert A.bwd_launches.count == before + 1
+    want = A.sdpa_bwd_reference(q, k, v, mask, do, scale)
+    torch.cuda.synchronize()
+    for name, g, r in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == r.shape
+        _close(g, r, dtype, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_sdpa_bwd_row_pair_column_blocks_agree(cuda, dtype):
+    """Every column block of the row pair forms the row's P and dS itself:
+    with head-dim columns 0-127 repeated at 128-255, the blocks that compute
+    them must give bit-identical gradients, and, in the fused block's
+    backward (one head of 768, two tokens: its SDPA runs in the row pair),
+    bit-identical ctx."""
+    b, h, lq, lk, d = 4, 1, 2, 197, 768
+    q, k, v, do = (torch.randn(b, h, n, d, generator=cuda, device="cuda").to(dtype)
+                   for n in (lq, lk, lk, lq))
+    for t in (q, k, v, do):
+        t[..., 128:256] = t[..., 0:128]
+    mask = _mask(cuda, b, lk, False)
+    got = A.sdpa_bwd_cuda(q, k, v, mask, do, d ** -0.5)
+    torch.cuda.synchronize()
+    for name, g in zip(("dq", "dk", "dv"), got):
+        assert torch.equal(g[..., 0:128], g[..., 128:256]), name
+
+    x, mask, params, do = _block_inputs(cuda, b, lq, d, 1, True, dtype)
+    wq, bq, wk, bk, wv, bv, wo, _ = params  # (in, out): q = x wq + bq
+    for w, bias in ((wq, bq), (wk, bk), (wv, bv)):
+        w[:, 128:256] = w[:, 0:128]
+        bias[128:256] = bias[0:128]
+    wo[128:256] = wo[0:128]  # dctx = do wo^T
+    got = AB.attn_block_bwd_cuda(x, mask, wq, bq, wk, bk, wv, bv, wo, do, 1, d ** -0.5)
+    torch.cuda.synchronize()
+    for name, g in zip(("dq", "dk", "dv", "ctx"), got[1:]):
+        assert torch.equal(g[..., 0:128], g[..., 128:256]), name
+
+
+GEMM_CASES = {
+    # name: (m, hidden, count, bias, heads, length); N = K = hidden
+    "one_row": (1, 768, 3, True, 0, None),
+    "ragged_hidden64": (37 * 3, 64, 3, True, 0, None),
+    "text_qkv": (2048, 768, 3, True, 0, None),
+    "text_out_no_bias": (2048, 768, 1, False, 0, None),
+    "image_qkv": (3152, 768, 3, True, 0, None),
+    "image_out": (3152, 768, 1, True, 0, None),
+    "vilt_qkv": (12864, 768, 3, True, 0, None),
+    "hidden64_one": (2048, 64, 1, True, 0, None),
+    "banked_image": (3152, 768, 3, True, 12, 197),
+    "banked_ragged": (37 * 3, 64, 3, False, 2, 37),
+    "banked_head8": (3 * 20, 16, 1, True, 2, 20),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GEMM_CASES))
+def test_gemm_nt_matches_plain(cuda, case):
+    """The bf16 NT GEMM (wgmma fed by TMA) against its plain version: the
+    same f32 sum rounded once, so each element within one bf16 step of it,
+    plus 1e-3 (outputs of scale 1) for the f32 sums' other order."""
+    m, hid, count, with_bias, heads, length = GEMM_CASES[case]
+    a = torch.randn(m, hid, generator=cuda, device="cuda").bfloat16()
+    ws = [(torch.randn(hid, hid, generator=cuda, device="cuda") * hid ** -0.5).bfloat16()
+          for _ in range(count)]
+    biases = [torch.randn(hid, generator=cuda, device="cuda").bfloat16() if with_bias else None
+              for _ in range(count)]
+    before = AB.gemm_launches.count
+    got = AB.gemm_nt(a, ws, biases, heads, length)
+    assert AB.gemm_launches.count == before + 1
+    want = AB.gemm_nt_reference(a, ws, biases, heads, length)
+    torch.cuda.synchronize()
+    for z, (g, r) in enumerate(zip(got, want)):
+        assert g.shape == r.shape and g.dtype == torch.bfloat16
+        err = (g.float() - r.float()).abs()
+        assert torch.isfinite(g).all()
+        assert (err <= 2 ** -7 * r.float().abs() + 1e-3).all(), (z, err.max().item())
+
+
+def test_gemm_nt_refuses_what_tma_cannot_describe(cuda):
+    """A row stride that is not a multiple of 16 bytes, or a matrix that does
+    not start on a 16-byte boundary, is refused before any launch."""
+    w = torch.zeros(64, 36, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        AB.gemm_nt(torch.zeros(8, 36, device="cuda", dtype=torch.bfloat16), [w], [None])
+    flat = torch.zeros(8 * 64 + 1, device="cuda", dtype=torch.bfloat16)
+    w = torch.zeros(64, 64, device="cuda", dtype=torch.bfloat16)
+    before = AB.gemm_launches.count
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        AB.gemm_nt(flat[1:].view(8, 64), [w], [None])
+    assert AB.gemm_launches.count == before
