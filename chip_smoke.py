@@ -44,16 +44,21 @@ and the CUDA toolkit. It
    that cancel, the size of their terms), and times them like the forward
    kernels (the library yardstick: the backward alone of
    ``scaled_dot_product_attention`` / ``nn.MultiheadAttention`` over a graph
-   built once);
+   built once); the fused block's backward twice: the kernel alone (to x,
+   against ``nn.MultiheadAttention``'s backward to x) and whole, through
+   autograd with its weight gradients on the TN GEMM (against
+   ``nn.MultiheadAttention``'s backward to x, its weights and biases);
 7. trains the full-width model with ITC + TIM through the port's
    ``cli/run_mm_late.main`` on a small generated task-3 dataset (64 posts,
    a uint8 pixel cache, neither pandas nor PIL), one epoch at batch 16 in
    bfloat16, once with ``--attn_impl auto`` and once with ``fused``, and
    checks the artifacts, that every loss is finite, that every trainable
    parameter got a finite gradient and the vision tower none, and the exact
-   launch counts per train step and per eval step; it prints ms per train
-   step, posts/s, the device idle share of one profiled step and the peak
-   device memory;
+   launch counts per train step and per eval step (under ``fused`` one TN
+   weight-gradient launch per block backward); it prints ms per train
+   step, posts/s, the device idle share of one profiled step, its largest
+   kernels, copies and float32 sgemm launches (``fused`` may launch no more
+   of these than ``auto``) and the peak device memory;
 8. trains full-width ViLT-B/32 (12 pre-LN layers, hidden 768, vocab 30,522,
    40 text positions, patch 32) with ITC + TIM through ``cli/run_mm_early.main``
    under ``--vilt_exact_resize`` on the same posts, one epoch at batch 16 in
@@ -63,7 +68,7 @@ and the CUDA toolkit. It
    extents,
    the exact launch counts (12 SDPA forward and 12 backward per train step,
    12 forward per eval step, all at L = 402; under ``fused`` the block
-   kernels instead), finite losses and gradients of every parameter but the
+   kernels and 12 TN launches instead), finite losses and gradients of every parameter but the
    unread pooler, and the artifacts, with the same numbers as step 7;
 9. holds the first train step of ``auto`` and of ``fused`` against the plain
    path (``--attn_impl jnp``), for late fusion and for ViLT: same state
@@ -98,14 +103,18 @@ and the CUDA toolkit. It
 12. logs the ptxas registers and spills of every kernel, the resident
    blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) of the
    tensor-core SDPA kernels at ViLT's 402 keys, of the fusion head's row
-   pair and of the bf16 NT GEMM, and the count of HGMMA (wgmma), UTMALDG
-   (TMA load) and HMMA (mma.sync) instructions in each library's SASS
-   (``cuobjdump --dump-sass``), failing if a library that holds the GEMM has
-   none of the first two; then holds the bf16 NT GEMM of kernels 5-8 alone
-   against its plain version at row 7's shapes (M = 2048, 3152, 12864; three
-   weights and one) and times it beside ``torch.nn.functional.linear`` over
-   the same weights, with the TFLOP/s of each (a yardstick the port never
-   calls), and the host's time to enqueue one fused block, forward and
+   pair and of the bf16 GEMM in each orientation, and the count of HGMMA
+   (wgmma), UTMALDG (TMA load) and HMMA (mma.sync) instructions in each
+   kernel function's SASS (``cuobjdump --dump-sass``), failing if a bf16
+   GEMM function (NT, NN or TN) has none of the first two; then holds the
+   bf16 GEMM alone against its plain version and times it beside one cuBLAS
+   call over the same operands (a yardstick the port never calls), with the
+   TFLOP/s of each: NT at row 7's shapes (M = 2048, 3152, 12864; three
+   weights and one, against ``F.linear``), NN at row 8's (dctx and dx at
+   M = 4096 and 12864, against ``torch.matmul``) and TN, the four weight
+   gradients of a block at the same rows (against ``torch.bmm``); and the
+   host's time to enqueue
+   one fused block, forward and
    forward plus backward, at a shape whose device time is smaller
    (``python3 chip_smoke.py --enqueue ROOT`` runs that reading alone for
    the port of another checkout, such as an older commit's, so two versions
@@ -238,10 +247,11 @@ def log_occupancy(A, AB):
     with shared memory and registers as launched: the tensor-core SDPA
     kernels at ViLT's 402 keys, head dim 64 (128 threads a block), the row
     pair of the fusion head's backward at 197 keys in float32 (256 threads)
-    and the bf16 NT GEMM (384 threads, its 4-stage ring and output staging)."""
+    and the bf16 GEMM in its three orientations (384 threads, its 4-stage
+    ring and output staging)."""
     import ctypes
 
-    fwd, bwd = A._lib(), A._bwd_lib()
+    fwd, bwd, gemm = A._lib(), A._bwd_lib(), AB._bwd_lib()
     fwd.smtc_sdpa_fwd_blocks_per_sm.argtypes = [ctypes.c_int] * 2
     bwd.smtc_sdpa_bwd_blocks_per_sm.argtypes = [ctypes.c_int] * 3
     for kernel, n, what in (
@@ -255,64 +265,132 @@ def log_occupancy(A, AB):
              bwd.smtc_sdpa_bwd_blocks_per_sm(2, 768, 197), "256 threads"),
             ("sdpa_bwd_row_cols_kernel<float> (row pair, column pass)",
              bwd.smtc_sdpa_bwd_blocks_per_sm(3, 768, 197), "256 threads at Lk = 197"),
-            ("gemm_bias_bf16_tma", AB._lib().smtc_gemm_blocks_per_sm(), "384 threads")):
+            ("gemm_bf16_tma<NT>", gemm.smtc_gemm_blocks_per_sm(0), "384 threads"),
+            ("gemm_bf16_tma<NN>", gemm.smtc_gemm_blocks_per_sm(1), "384 threads"),
+            ("gemm_bf16_tma<TN>", gemm.smtc_gemm_blocks_per_sm(2), "384 threads")):
         if n < 0:
             raise AssertionError(f"occupancy query of {kernel}: CUDA error {-n}")
         log(f"occupancy {kernel}: {n} blocks of {what} per SM")
 
 
+# the bf16 GEMM's orientations (gemm_core.cuh::GemmMode) each library must hold
+GEMM_MODES = {"attn_block_fwd": {0}, "attn_block_bwd": {0, 1, 2},
+              "attn_block_perhead_fwd": {0}, "attn_block_perhead_bwd": {0}}
+
+
 def log_sass(_cuda):
-    """Counts of the Hopper instructions in each built library's SASS
-    (``cuobjdump --dump-sass``): HGMMA (wgmma), UTMALDG (TMA loads) and HMMA
-    (mma.sync). Fails if a library that holds the bf16 NT GEMM lost wgmma or
-    TMA."""
+    """Counts of the Hopper instructions in each kernel function's SASS
+    (``cuobjdump --dump-sass`` of every built library): HGMMA (wgmma),
+    UTMALDG (TMA loads) and HMMA (mma.sync). Fails if a library lacks a
+    bf16 GEMM orientation it should hold (``GEMM_MODES``: NT, and in the
+    block backward's library NN and TN too), or if one of those functions
+    issues no wgmma or no TMA load."""
     import re
     import shutil
 
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
     tool = shutil.which("cuobjdump") or os.path.join(home, "bin", "cuobjdump")
-    for name in _cuda.SOURCES:
-        sass = subprocess.run([tool, "--dump-sass", _cuda.library_path(name)], capture_output=True,
+    names = {0: "NT", 1: "NN", 2: "TN"}
+    for lib in _cuda.SOURCES:
+        sass = subprocess.run([tool, "--dump-sass", _cuda.library_path(lib)], capture_output=True,
                               text=True, check=True, timeout=300).stdout
-        n = {op: len(re.findall(rf"\b{op}\.", sass)) for op in ("HGMMA", "UTMALDG", "HMMA")}
-        log(f"sass {name}: HGMMA {n['HGMMA']}, UTMALDG {n['UTMALDG']}, HMMA {n['HMMA']}")
-        if name != "sdpa_fwd" and name != "sdpa_bwd" and not (n["HGMMA"] and n["UTMALDG"]):
-            raise AssertionError(f"{name}: the bf16 NT GEMM issues no wgmma or no TMA load")
+        parts = re.split(r"Function : (\S+)", sass)
+        seen = set()
+        for fn, body in zip(parts[1::2], parts[2::2]):
+            n = {op: len(re.findall(rf"\b{op}\.", body)) for op in ("HGMMA", "UTMALDG", "HMMA")}
+            mode = re.search(r"gemm_bf16_tmaILi(\d)E", fn)
+            tag = f"gemm_bf16_tma<{names[int(mode.group(1))]}>" if mode else fn[:90]
+            log(f"sass {lib}: {tag}: HGMMA {n['HGMMA']}, UTMALDG {n['UTMALDG']}, HMMA {n['HMMA']}")
+            if mode:
+                seen.add(int(mode.group(1)))
+                if not (n["HGMMA"] and n["UTMALDG"]):
+                    raise AssertionError(f"{lib}: {tag} issues no wgmma or no TMA load")
+        if not GEMM_MODES.get(lib, set()) <= seen:
+            raise AssertionError(f"{lib}: bf16 GEMM orientations {sorted(seen)}, expected "
+                                 f"{sorted(GEMM_MODES[lib])}")
 
 
 def time_gemm(torch, AB):
-    """The bf16 NT GEMM of kernels 5-8 alone at row 7's shapes (the QKV
-    projections, three weights, and the out-projection, one), held against
-    its plain version and timed beside ``torch.nn.functional.linear`` over
-    the same weights concatenated, a yardstick the port never calls; the
-    achieved TFLOP/s of each."""
+    """The bf16 GEMM of kernels 5-8 alone, in its three orientations, each
+    held against its plain version (2e-2 of the output's scale) and timed
+    beside one cuBLAS call over the same operands, a yardstick the port
+    never calls; the achieved TFLOP/s of each:
+      * NT at row 7's shapes (the QKV projections, three weights, and the
+        out-projection, one) against ``F.linear`` over the weights
+        concatenated;
+      * NN at row 8's (dctx = dO . Wo, one pair, and dx, three pairs summed)
+        against ``torch.matmul`` (over the pairs concatenated along K);
+      * TN, the four weight gradients of one block backward (x with dq, dk
+        and dv, ctx with dO) at the same rows, against one ``torch.bmm``.
+    Returns the lines by orientation and the TN kernel rows (the rows of
+    the main path's shapes, for the kernels line)."""
     import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(3)
-    hid, out = 768, []
+    hid, out = 768, {"gemm_nt": [], "gemm_nn": [], "gemm_tn": []}
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device="cuda") * scale).bfloat16()
+
+    def held(what, got, want):
+        err = max((x.float() - y.float()).abs().max().item() for x, y in zip(got, want))
+        if not err <= 2e-2 * max(1.0, max(y.float().abs().max().item() for y in want)):
+            raise AssertionError(f"{what}: disagrees with its plain version ({err})")
+        return err
+
+    def line(kind, what, m, err, ms, lib_name, lib_ms, flop, **extra):
+        row = dict(shape=what, m=m, max_abs_err=err, ms=ms, tflops=flop / ms / 1e9,
+                   library_ms=lib_ms, library_tflops=flop / lib_ms / 1e9, **extra)
+        log(f"{kind}/{what}: M {m}, kernel {ms:.5f} ms ({row['tflops']:.1f} TFLOP/s), "
+            f"{lib_name} {lib_ms:.5f} ms ({row['library_tflops']:.1f} TFLOP/s), "
+            f"max_abs_err {err:.3e}" + "".join(f", {k} {v}" for k, v in extra.items()))
+        out[kind].append(row)
+        return row
+
     for tag, m in (("text", BATCH * 128), ("image", BATCH * 197), ("vilt_exact", 2 * BATCH * VILT_LEN)):
-        a = torch.randn(m, hid, generator=g, device="cuda").bfloat16()
+        a = randn(m, hid)
         for count in (3, 1):
-            ws = [(torch.randn(hid, hid, generator=g, device="cuda") * hid ** -0.5).bfloat16()
-                  for _ in range(count)]
-            bs = [torch.randn(hid, generator=g, device="cuda").bfloat16() for _ in range(count)]
-            got = AB.gemm_nt(a, ws, bs)
-            want = AB.gemm_nt_reference(a, ws, bs)
-            err = max((x.float() - y.float()).abs().max().item() for x, y in zip(got, want))
-            if not err <= 2e-2 * max(1.0, max(y.float().abs().max().item() for y in want)):
-                raise AssertionError(f"gemm_nt {tag} x{count}: disagrees with its plain version "
-                                     f"({err})")
+            ws = [randn(hid, hid, scale=hid ** -0.5) for _ in range(count)]
+            bs = [randn(hid) for _ in range(count)]
+            err = held(f"gemm_nt {tag} x{count}", AB.gemm_nt(a, ws, bs), AB.gemm_nt_reference(a, ws, bs))
             w_cat, b_cat = torch.cat(ws), torch.cat(bs)
-            ms = device_ms(torch, lambda: AB.gemm_nt(a, ws, bs))
-            lib_ms = device_ms(torch, lambda: F.linear(a, w_cat, b_cat))
-            flop = 2.0 * m * hid * hid * count
-            row = dict(shape=f"{tag} {m}x{hid}x{hid} x{count}", max_abs_err=err, ms=ms,
-                       tflops=flop / ms / 1e9, linear_ms=lib_ms, linear_tflops=flop / lib_ms / 1e9)
-            log(f"gemm_nt/{tag} x{count}: M {m}, kernel {ms:.5f} ms ({row['tflops']:.1f} TFLOP/s), "
-                f"F.linear {lib_ms:.5f} ms ({row['linear_tflops']:.1f} TFLOP/s), "
-                f"max_abs_err {err:.3e}")
-            out.append(row)
-    return out
+            line("gemm_nt", f"{tag} x{count}", m, err, device_ms(torch, lambda: AB.gemm_nt(a, ws, bs)),
+                 "F.linear", device_ms(torch, lambda: F.linear(a, w_cat, b_cat)),
+                 2.0 * m * hid * hid * count)
+
+    tn_rows = []
+    for tag, m in (("text", 2 * BATCH * 128), ("vilt_exact", 2 * BATCH * VILT_LEN)):
+        # NN: dctx (one pair) and dx (three), W the Linear (out, in) weight as (K, N)
+        for count in (1, 3):
+            as_ = [randn(m, hid) for _ in range(count)]
+            ws = [randn(hid, hid, scale=(count * hid) ** -0.5) for _ in range(count)]
+            err = held(f"gemm_nn {tag} x{count}", [AB.gemm_nn(as_, ws)],
+                       [AB.gemm_nn_reference(as_, ws)])
+            a_cat, w_cat = torch.cat(as_, dim=1), torch.cat(ws)
+            line("gemm_nn", f"{tag} x{count}", m, err, device_ms(torch, lambda: AB.gemm_nn(as_, ws)),
+                 "torch.matmul", device_ms(torch, lambda: torch.matmul(a_cat, w_cat)),
+                 2.0 * m * hid * hid * count)
+        # TN: the block's four weight gradients over m token rows
+        x, ctx = randn(m, hid), randn(m, hid)
+        xs, gs = [x, x, x, ctx], [randn(m, hid, scale=m ** -0.5) for _ in range(4)]
+        want = AB.gemm_tn_reference(xs, gs)
+        err = held(f"gemm_tn {tag}", AB.gemm_tn(xs, gs), want)
+        x_st, g_st = torch.stack(xs), torch.stack(gs)
+        flop = 2.0 * m * hid * hid * 4
+        lib_ms = device_ms(torch, lambda: torch.bmm(g_st.transpose(1, 2), x_st))
+        ms = device_ms(torch, lambda: AB.gemm_tn(xs, gs))
+        line("gemm_tn", f"{tag} x4", m, err, ms, "torch.bmm", lib_ms, flop)
+        # the kernels line: six (m, 768) inputs read once, four (768, 768) written
+        bound_ms, bound_by = bound(nbytes(x, ctx, *gs, *want), flop, "bfloat16")
+        tn_rows.append(dict(name=f"gemm_tn/{tag}", kernel="gemm_tn_bf16", key=(m, hid, hid, 4),
+                            max_abs_err=err, ms=ms,
+                            plain_ms=device_ms(torch, lambda: AB.gemm_tn_reference(xs, gs)),
+                            bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms))
+        log(f"time gemm_tn/{tag}: kernel {ms:.4f} ms, plain {tn_rows[-1]['plain_ms']:.4f} ms, "
+            f"library {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        del x, ctx, xs, gs, want, x_st, g_st
+        torch.cuda.empty_cache()
+    return out, tn_rows
 
 
 ENQUEUE_CALLS = 300
@@ -606,27 +684,30 @@ def check_bwd_kernels(torch):
                   for t in (x, w[0], bias[0], w[1], bias[1], w[2], bias[2], w[3], bias[3])]
         before = AB.bwd_launches.count
         out = AB.attn_block(leaves[0], mask, *leaves[1:], heads=heads)
-        out.backward(do)
+        out.backward(do, retain_graph=True)
         if AB.bwd_launches.count != before + 1:
             raise AssertionError("attn_block's gradient did not launch its backward kernel")
         want = AB.attn_block_bwd_reference(x, mask, *w[:1], bias[0], w[1], bias[1], w[2],
                                            bias[2], w[3], bias[3], do, heads)
-        _, dq, dk, dv, ctx = refs
+        _, dq, dk, dv, _ = refs
+        want = (want[0],) + tuple(want[2:])
 
-        def wscale(a, gr):
-            return (a.reshape(-1, hid).float().abs().t()
-                    @ gr.reshape(-1, hid).float().abs()).max().item()
+        def wscale(i):
+            # a weight gradient is held as the TN GEMM alone is (time_gemm),
+            # to 2e-2 of its largest element
+            return want[i].float().abs().max().item()
 
         def bscale(gr):
             return gr.float().abs().sum(dim=(0, 1)).max().item()
 
-        scales = [outs[0].float().abs().max().item(), wscale(x, dq), bscale(dq), wscale(x, dk),
-                  bscale(dk), wscale(x, dv), bscale(dv), wscale(ctx, do), bscale(do)]
-        # the row reports the kernel's own outputs; the weight and bias sums come
-        # from torch.matmul outside it and are checked here only
-        close(f"attn_block_bwd/{tag} ten gradients", [t.grad for t in leaves],
-              (want[0],) + tuple(want[2:]), scales, "bfloat16")
-        del leaves, out, want
+        scales = [outs[0].float().abs().max().item(), wscale(1), bscale(dq), wscale(3),
+                  bscale(dk), wscale(5), bscale(dv), wscale(7), bscale(do)]
+        # the kernel's row reports its own outputs; the whole backward's row
+        # below, these ten
+        err_whole = close(f"attn_block_bwd/{tag} ten gradients", [t.grad for t in leaves],
+                          want, scales, "bfloat16")
+        grads = [t.grad for t in leaves]
+        del want
         mha = torch.nn.MultiheadAttention(hid, heads, batch_first=True, device="cuda", dtype=dt)
         with torch.no_grad():
             mha.in_proj_weight.copy_(torch.cat([wi.t() for wi in w[:3]]))
@@ -642,7 +723,19 @@ def check_bwd_kernels(torch):
               lambda: AB.attn_block_bwd_packed_reference(*kargs, scale),
               lambda: torch.autograd.grad(lib_out, (x_leaf,), do, retain_graph=True),
               nbytes(x, mask, do, *w, *bias[:3], *outs), ops, "bfloat16")
-        del lib_out, x_leaf, mha, outs, refs
+        # the whole backward through autograd: the kernel, the TN GEMM's four
+        # weight gradients and the bias sums, against nn.MultiheadAttention's
+        # backward to x, its weights and its biases
+        mha_params = [mha.in_proj_weight, mha.in_proj_bias, mha.out_proj.weight,
+                      mha.out_proj.bias]
+        timed(f"attn_block_bwd_whole/{tag}", "attn_block_bwd_whole",
+              ("bfloat16", b, l, hid, heads, True), err_whole,
+              lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
+              lambda: AB.attn_block_bwd_reference(x, mask, w[0], bias[0], w[1], bias[1], w[2],
+                                                  bias[2], w[3], bias[3], do, heads),
+              lambda: torch.autograd.grad(lib_out, [x_leaf] + mha_params, do, retain_graph=True),
+              nbytes(x, mask, do, *w, *bias, *grads), ops + 2.0 * m * hid * hid * 4, "bfloat16")
+        del lib_out, x_leaf, mha, mha_params, outs, refs, leaves, out, grads
         torch.cuda.empty_cache()
     return rows
 
@@ -994,6 +1087,17 @@ def train_run(torch, main, argv, tag, counters, results_dir, stem, expect, check
     busy = sum(e.self_device_time_total for e in events) / 1e3
     idle = (1 - busy / step_wall) if busy else None
     ranked = sorted(events, key=lambda e: -e.self_device_time_total)
+    # cuBLAS's float32 SIMT GEMMs (the block's weight gradients before they
+    # moved onto the TN GEMM): their launches and time
+    sgemm = [e for e in events if "sgemm" in e.key]
+    sgemm_calls = sum(e.count for e in sgemm)
+    sgemm_ms = sum(e.self_device_time_total for e in sgemm) / 1e3
+    # copies and casts (PyTorch's copy kernels), e.g. float32 copies made for
+    # products, or a transpose copy of a gradient
+    copies = [e for e in events if "copy_kernel" in e.key]
+    log(f"profile {tag}: f32 sgemm {sgemm_ms:.3f} ms x{sgemm_calls}; copies "
+        f"{sum(e.self_device_time_total for e in copies) / 1e3:.3f} ms "
+        f"x{sum(e.count for e in copies)}")
     # the eight largest, then every other kernel of the port's own
     # (csrc/: the smtc:: SDPA kernels and the block kernels' GEMMs)
     for i, e in enumerate(ranked):
@@ -1007,7 +1111,7 @@ def train_run(torch, main, argv, tag, counters, results_dir, stem, expect, check
     result = dict(run=tag, train_steps=n_train, eval_steps=n_eval,
                   ms_per_train_step=ms, posts_per_s=BATCH / (ms / 1e3),
                   profiled_step_ms=step_wall, device_busy_ms=busy,
-                  idle_share=idle,
+                  idle_share=idle, sgemm_calls=sgemm_calls, sgemm_ms=sgemm_ms,
                   idle_share_of_mean_step=(1 - busy / ms) if busy else None,
                   max_memory_allocated=peak, run_seconds=wall,
                   losses=[st["loss"] for st in steps])
@@ -1018,6 +1122,16 @@ def train_run(torch, main, argv, tag, counters, results_dir, stem, expect, check
     del trainer, setup, batch
     torch.cuda.empty_cache()
     return result, by_key
+
+
+def no_added_sgemm(fused, auto, tag):
+    """The fused path's profiled step launches no more float32 sgemm than
+    the auto path's: the block's weight gradients run on the TN GEMM."""
+    if fused["sgemm_calls"] > auto["sgemm_calls"]:
+        raise AssertionError(f"{tag}[fused]: {fused['sgemm_calls']} f32 sgemm launches in a "
+                             f"step, {auto['sgemm_calls']} under auto")
+    log(f"{tag}: f32 sgemm a step, fused {fused['sgemm_calls']} ({fused['sgemm_ms']:.3f} ms), "
+        f"auto {auto['sgemm_calls']} ({auto['sgemm_ms']:.3f} ms)")
 
 
 def late_grads_check(torch, tag):
@@ -1623,10 +1737,10 @@ def main():
         log_ptxas(name, _cuda.build_log(name))
     log_occupancy(A, AB)
     log_sass(_cuda)
-    gemm_rows = time_gemm(torch, AB)
+    gemm_rows, tn_rows = time_gemm(torch, AB)
     enqueue = time_enqueue(torch, AB)
 
-    rows = check_kernels(torch) + check_bwd_kernels(torch)
+    rows = check_kernels(torch) + check_bwd_kernels(torch) + tn_rows
     perhead_rows, perhead_launches, perhead_vs_packed = check_perhead_kernels(torch)
     rows += perhead_rows
 
@@ -1702,15 +1816,17 @@ def main():
         run_mm_early, run_mm_late)
 
     counters = {"sdpa_fwd": A.launches, "sdpa_bwd": A.bwd_launches,
-                "attn_block_fwd": AB.launches, "attn_block_bwd": AB.bwd_launches}
+                "attn_block_fwd": AB.launches, "attn_block_bwd": AB.bwd_launches,
+                "gemm_tn_bf16": AB.wgrad_launches}
     none = {k: 0 for k in counters}
     per_step = {
         # text tower (2B rows, one call) 12 + vision 12 + fusion head 1;
-        # backward: text 12 + fusion 1 (the vision tower is frozen)
+        # backward: text 12 + fusion 1 (the vision tower is frozen); under
+        # fused each block backward's weight gradients are one TN launch
         "auto": {"train": {**none, "sdpa_fwd": 25, "sdpa_bwd": 13},
                  "eval": {**none, "sdpa_fwd": 25}},
         "fused": {"train": {**none, "attn_block_fwd": 24, "sdpa_fwd": 1,
-                            "attn_block_bwd": 12, "sdpa_bwd": 1},
+                            "attn_block_bwd": 12, "sdpa_bwd": 1, "gemm_tn_bf16": 12},
                   "eval": {**none, "attn_block_fwd": 24, "sdpa_fwd": 1}}}
     training = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1728,6 +1844,7 @@ def main():
             for kernel, keys in by_key.items():
                 for key, n in keys.items():
                     launches[(kernel, key)] = launches.get((kernel, key), 0) + n
+        no_added_sgemm(training["fused"], training["auto"], "train")
         training["first_step"] = late_first_step(torch, C, run_mm_late, build,
                                                  os.path.join(tmp, "hub"))
 
@@ -1740,7 +1857,8 @@ def main():
         vilt_step = {
             "auto": {"train": {**none, "sdpa_fwd": 12, "sdpa_bwd": 12},
                      "eval": {**none, "sdpa_fwd": 12}},
-            "fused": {"train": {**none, "attn_block_fwd": 12, "attn_block_bwd": 12},
+            "fused": {"train": {**none, "attn_block_fwd": 12, "attn_block_bwd": 12,
+                                "gemm_tn_bf16": 12},
                       "eval": {**none, "attn_block_fwd": 12}}}
         for impl, expect in vilt_step.items():
             tag = f"vilt[{impl}]"
@@ -1751,20 +1869,24 @@ def main():
                 vilt_grads_check(torch, tag))
             check_vilt_extents(memo, seen, tag)
             lengths = {key[3] if kernel.startswith("sdpa") else key[2]
-                       for kernel, keys in by_key.items() for key in keys}
+                       for kernel, keys in by_key.items() for key in keys
+                       if kernel != "gemm_tn_bf16"}
+            # the weight gradients' K: the 2B x 402 token rows
+            lengths |= {key[0] // (2 * BATCH) for key in by_key["gemm_tn_bf16"]}
             if lengths != {VILT_LEN}:
                 raise AssertionError(f"{tag}: attention at lengths {sorted(lengths)}, "
                                      f"expected only {VILT_LEN}")
             for kernel, keys in by_key.items():
                 for key, n in keys.items():
                     launches[(kernel, key)] = launches.get((kernel, key), 0) + n
+        no_added_sgemm(training["vilt/fused"], training["vilt/auto"], "vilt")
         training["vilt/first_step"] = vilt_first_step(torch, C, run_mm_early, build_early,
                                                       os.path.join(tmp, "hub"))
         # the late-fusion towers from checkpoints, and --import_reference_ckpt
         training["pretrained"] = pretrained_start(torch, C, run_mm_late, counters)
     log(json.dumps({"training": training}))
     log(json.dumps({"perhead_vs_packed": perhead_vs_packed}))
-    log(json.dumps({"gemm_nt": gemm_rows}))
+    log(json.dumps(gemm_rows))
     log(json.dumps({"enqueue": enqueue}))
     launches.update(perhead_launches)
 
@@ -1778,6 +1900,11 @@ def main():
                             f"{JAX_PKG}/ops/attention.py:154"),
                "attn_block_bwd": (f"{PKG}/csrc/attn_block_bwd.cu",
                                   f"{JAX_PKG}/ops/attn_block.py:175", None),
+               # the whole backward of the custom VJP, its weight gradients included
+               "attn_block_bwd_whole": (f"{PKG}/csrc/attn_block_bwd.cu",
+                                        f"{JAX_PKG}/ops/attn_block.py:371", None),
+               "gemm_tn_bf16": (f"{PKG}/csrc/gemm_core.cuh",
+                                f"{JAX_PKG}/ops/attn_block.py:378", None),
                "attn_block_perhead_fwd": (f"{PKG}/csrc/attn_block_perhead_fwd.cu",
                                           f"{JAX_PKG}/ops/attn_block.py:70", None),
                "attn_block_perhead_bwd": (f"{PKG}/csrc/attn_block_perhead_bwd.cu",
@@ -1787,7 +1914,9 @@ def main():
                   "sdpa_bwd/vilt_exact_f32", "sdpa_bwd/vilt_fixed"}
     kernels = []
     for row in rows:
-        n = launches.get((row["kernel"], row["key"]), 0)
+        # the whole backward runs once per launch of the backward kernel
+        counted = "attn_block_bwd" if row["kernel"] == "attn_block_bwd_whole" else row["kernel"]
+        n = launches.get((counted, row["key"]), 0)
         if n == 0 and row["name"] not in check_only:
             raise AssertionError(f"{row['name']} was never launched on the main paths")
         source, replaces, blocked = sources[row["kernel"]]

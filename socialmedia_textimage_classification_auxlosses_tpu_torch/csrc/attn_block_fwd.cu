@@ -50,7 +50,7 @@ int smtc_attn_block_fwd(const void* x, const int* mask, const void* wq, const vo
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 
   GemmArgs g = {};
-  g.a = x;
+  g.a[0] = x;
   g.w[0] = wq, g.w[1] = wk, g.w[2] = wv;
   g.bias[0] = bq, g.bias[1] = bk, g.bias[2] = bv;
   g.c[0] = q, g.c[1] = k, g.c[2] = v;
@@ -83,7 +83,7 @@ int smtc_attn_block_fwd(const void* x, const int* mask, const void* wq, const vo
   if (err != cudaSuccess) return (int)err;
 
   GemmArgs go = {};
-  go.a = ctx;
+  go.a[0] = ctx;
   go.w[0] = wo;
   go.bias[0] = bo;
   go.c[0] = out;
@@ -105,7 +105,7 @@ int smtc_gemm_nt_bf16(const void* a, const void* w0, const void* w1, const void*
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   GemmArgs g = {};
-  g.a = a;
+  g.a[0] = a;
   g.w[0] = w0, g.w[1] = w1, g.w[2] = w2;
   g.bias[0] = b0, g.bias[1] = b1, g.bias[2] = b2;
   g.c[0] = c0, g.c[1] = c1, g.c[2] = c2;
@@ -116,10 +116,6 @@ int smtc_gemm_nt_bf16(const void* a, const void* w0, const void* w1, const void*
   g.heads = heads;
   return (int)launch_gemm(g, count, 1, static_cast<cudaStream_t>(stream));
 }
-
-// Resident blocks per SM of the bf16 GEMM, or minus the CUDA error (the
-// occupancy lines of chip_smoke.py).
-int smtc_gemm_blocks_per_sm() { return gemm_tma_blocks_per_sm(); }
 
 const char* smtc_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 

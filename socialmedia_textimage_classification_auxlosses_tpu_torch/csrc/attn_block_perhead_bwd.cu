@@ -66,7 +66,7 @@ int smtc_attn_block_perhead_bwd(const void* x, const int* mask, const void* wq, 
 
   // 1. q, k, v per head, banked, as in the forward
   GemmArgs g = {};
-  g.a = x;
+  g.a[0] = x;
   g.w[0] = wq, g.w[1] = wk, g.w[2] = wv;
   g.bias[0] = bq, g.bias[1] = bk, g.bias[2] = bv;
   g.c[0] = q, g.c[1] = k, g.c[2] = v;
@@ -80,7 +80,7 @@ int smtc_attn_block_perhead_bwd(const void* x, const int* mask, const void* wq, 
 
   // 2. dctx_h = dO Wo_h^T, banked
   GemmArgs gc = {};
-  gc.a = dout;
+  gc.a[0] = dout;
   gc.w[0] = wo;
   gc.c[0] = dctx;
   gc.m = m;

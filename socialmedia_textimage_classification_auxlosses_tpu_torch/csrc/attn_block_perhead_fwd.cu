@@ -59,7 +59,7 @@ int smtc_attn_block_perhead_fwd(const void* x, const int* mask, const void* wq, 
 
   // 1. q, k, v per head, banked
   GemmArgs g = {};
-  g.a = x;
+  g.a[0] = x;
   g.w[0] = wq, g.w[1] = wk, g.w[2] = wv;
   g.bias[0] = bq, g.bias[1] = bk, g.bias[2] = bv;
   g.c[0] = q, g.c[1] = k, g.c[2] = v;

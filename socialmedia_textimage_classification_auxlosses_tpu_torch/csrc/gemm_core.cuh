@@ -1,26 +1,31 @@
-// Tiled GEMMs of the fused attention blocks, shared by attn_block_fwd.cu,
-// attn_block_bwd.cu and the per-head variant (attn_block_perhead_*.cu).
+// Tiled GEMMs of the fused attention blocks and of their weight gradients,
+// shared by attn_block_fwd.cu, attn_block_bwd.cu and the per-head variant
+// (attn_block_perhead_*.cu).
 //
-// Two orientations, both with f32 accumulation and one rounding of the
+// Three orientations, all with f32 accumulation and one rounding of the
 // result to the activation dtype:
 //   * "NT" with a bias epilogue: C_z = A (M, K) . W_z^T + b_z, W_z stored
 //     (N, K) row-major -- the nn.Linear (out, in) layout. This is x . W for a
 //     flax (in, out) kernel W: the QKV and out projections of the forward,
-//     and the q/k/v recompute of the backward. blockIdx.z picks z. The bias
-//     may be absent, and C may be written head-banked, (B, heads, L, N /
-//     heads), instead of (M, N) row-major.
+//     and the q/k/v recompute of the backward. The bias may be absent, and C
+//     may be written head-banked, (B, heads, L, N / heads), instead of (M, N)
+//     row-major.
 //   * "NN" summed over pairs: C = sum_z A_z (M, K) . W_z (K, N), W_z stored
 //     (K, N) row-major. With W_z a Linear's (out, in) weight this is
 //     g . W^T for the flax kernel: dctx = dO . Wo^T and
 //     dx = dq . Wq^T + dk . Wk^T + dv . Wv^T of the backward, the three
 //     products of dx accumulated in the same registers.
+//   * "TN", the weight gradients: C_z = G_z^T . X_z, G_z stored (K, M) and
+//     X_z (K, N) row-major, K the B * L token rows. With (X_z, G_z) = (x, dq)
+//     C_z is dWq in the Linear (out, in) layout, and likewise (x, dk),
+//     (x, dv) and (ctx, dO): the wgrad products of the JAX package's
+//     ops/attn_block.py::_attn_block2_bwd, up to four in one launch.
 //
-// bf16 NT runs on Hopper's warpgroup tensor-core instruction, wgmma, fed by
-// TMA loads into a swizzled shared-memory ring (gemm_bias_bf16_tma, design
-// note below; both operands K-major, wgmma's native bf16 case). bf16 NN runs
-// on mma.sync.m16n8k16 (128 x 64 x 32 block tiles, a 3-stage cp.async
-// pipeline, its K-major B tile through ldmatrix.trans). float32 is plain FMA
-// on the CUDA cores and only serves --dtype float32.
+// bf16 runs all three on one persistent kernel, gemm_bf16_tma<mode>: Hopper's
+// warpgroup tensor-core instruction, wgmma, fed by TMA loads into a swizzled
+// shared-memory ring (design note below). float32 is plain FMA on the CUDA
+// cores and only serves --dtype float32 (NT and NN; its weight gradients
+// stay plain float32 products).
 
 #pragma once
 
@@ -33,14 +38,19 @@
 
 namespace {
 
+enum GemmMode : int { kNT = 0, kNN = 1, kTN = 2 };
+
 struct GemmArgs {
-  const void* a;        // (M, K) row-major
-  const void* w[3];     // (N, K) row-major
-  const void* bias[3];  // (N,), or nullptr for none
-  void* c[3];           // (M, N) row-major; head-banked when heads > 0
+  const void* a[4];     // wgmma's A side: NT a[0] (M, K); NN A_z (M, K); TN G_z (K, M)
+  const void* w[4];     // its B side: NT W_z (N, K); NN W_z (K, N); TN X_z (K, N)
+  const void* bias[3];  // NT: (N,), or nullptr for none
+  void* c[4];           // (M, N) row-major (NN: c[0] only); NT: head-banked when heads > 0
+  float* partial;       // TN: the sliced tiles' f32 partial sums, 128 x 128 a slice
   int m, n, k;
   int len, heads;       // heads > 0: row m = b * len + l, column n = h * d + c of
                         // C land at ((b * heads + h) * len + l) * d + c, d = N / heads
+  int splits;           // TN: slices of the K rows of a sliced tile (1: none)
+  int whole;            // TN: the tiles before the sliced ones (both set by the launch)
 };
 
 // Offset of C's element (row, col) in the layout GemmArgs names.
@@ -50,37 +60,61 @@ __device__ __forceinline__ size_t gemm_c_offset(const GemmArgs& g, int row, int 
   return (((size_t)(row / g.len) * g.heads + col / d) * g.len + row % g.len) * d + col % d;
 }
 
-// ---- bf16 NT: wgmma fed by TMA ------------------------------------------------
+// ---- bf16: wgmma fed by TMA ---------------------------------------------------
 //
-// A persistent kernel, one block per SM, walking output tiles of 128 x 128
-// (z, then M, then N fastest) with 64-deep k-steps. Three warpgroups:
+// A persistent kernel, one block per SM, walking work units: an output tile
+// of 128 x 128 and its 64-deep k-steps (NT: z, then M, then N fastest; NN:
+// the k-steps of all pairs in one sequence, pair z then z + 1; TN: z, then
+// M, then N, and the last tiles in K slices, below). Three warpgroups:
 //   * the producer (one thread of warpgroup 2) keeps a ring of kWStages
-//     stages in flight: per stage one TMA load (cp.async.bulk.tensor.2d) of
-//     the A tile (128 rows x 64 k) and one of the W tile (128 rows x 64 k),
-//     16 KB each, written by the copy engine with the 128-byte swizzle and
-//     reported on the stage's `full` mbarrier; rows past M or N and k past K
-//     are zero-filled by TMA, so no tile needs a bounds check;
-//   * two consumer warpgroups take the block's tiles in turn ("ping-pong"):
+//     stages in flight: per stage the A side's tile (128 rows of M x 64 k)
+//     and the B side's (128 of N x 64 k), 16 KB each, written by the copy
+//     engine with the 128-byte swizzle and reported on the stage's `full`
+//     mbarrier. A K-major operand (K contiguous: A and W of NT, A of NN) is
+//     one TMA box of 128 rows x 64 k; an MN-major one (M or N contiguous: W
+//     of NN, G and X of TN) two boxes of 64 k-rows x 64 columns, 8 KB each,
+//     one per 64-wide half. Rows or columns past M, N or K are zero-filled
+//     by TMA, so no tile needs a bounds check;
+//   * two consumer warpgroups take the block's units in turn ("ping-pong"):
 //     each waits on `full`, issues eight wgmma.mma_async.m64n128k16 per
 //     k-step (bf16 in, the tile's two 64-row halves in f32 registers) straight
 //     from the swizzled tiles through shared-memory descriptors, keeps one
 //     k-step in flight and releases the stage before it on its `empty`
-//     mbarrier, which the producer waits on before refilling it.
-// The ring runs on across tiles, so while one warpgroup runs its epilogue
-// the other's products keep the tensor cores busy. The epilogue adds the
-// bias in f32, rounds once to bf16 into the warpgroup's staging rows in
-// shared memory (from the accumulator layout: warp w of a warpgroup holds
+//     mbarrier, which the producer waits on before refilling it. An MN-major
+//     operand sets wgmma's transpose bit and its descriptor's two strides:
+//     8 KB between the 64-wide halves (leading) and 1 KB between groups of
+//     8 k-rows (stride); a k16 step advances 32 bytes in a K-major tile and
+//     2 KB in an MN-major one.
+// The ring runs on across units, so while one warpgroup runs its epilogue
+// the other's products keep the tensor cores busy. The bf16 epilogue adds
+// the bias in f32 (NT), rounds once to bf16 into the warpgroup's staging rows
+// in shared memory (from the accumulator layout: warp w of a warpgroup holds
 // rows 16 w + l / 4 and + 8 of a half, lane l columns 2 (l % 4) + 8 j and + 1
 // of the 8-column group j), then writes them to C row-major or head-banked
 // (gemm_c_offset) in 16-byte chunks along the rows; written straight from
 // the accumulator layout, each store touched eight rows and the epilogue
 // took longer than the products (PERF.md). setmaxnreg moves registers from
 // the producer (40) to the consumers (232), which hold 128 accumulators.
-// TMA needs every row stride and base address 16-byte aligned, so K must be a
-// multiple of 8 and A and W 16-byte aligned: gemm_tma_fits refuses the rest
-// from the arguments, before any launch. The tensor maps are encoded on the
-// host per call, through the runtime's driver entry point (no -lcuda), and
-// passed as __grid_constant__ parameters.
+//
+// TN's K is long (4,096 or 12,864 token rows) and its M x N short (768 x 768:
+// 36 tiles a product, 144 for four, on 132 SMs): whole tiles alone would take
+// two rounds, the second for 12 tiles. So the tiles that do not fill a last
+// round (all of them when there are fewer than SMs) are cut along K into
+// `splits` slices each (gemm_tn_splits: as many as fill the SMs once more,
+// each at least 4 k-steps): the first `whole` units are whole tiles, the rest
+// slices. A slice writes its f32 sum to its own 128 x 128 block of `partial`
+// straight from the accumulators (each warp store 8 rows x 32 bytes, whole
+// sectors), and gemm_split_sum adds a tile's slices in slice order and
+// rounds once. The order is fixed, so two runs agree bit for bit: no float
+// atomics. (Cutting every tile alike cost about 8 us of partial-sum traffic
+// a slice at 4 x 768 x 768 and gained at most 7%; PERF.md.)
+//
+// TMA needs every row stride and base address 16-byte aligned: K a multiple
+// of 8 for a K-major operand, M or N for an MN-major one, every operand
+// 16-byte aligned. gemm_tma_fits refuses the rest from the arguments, before
+// any launch. The tensor maps are encoded on the host per call, through the
+// runtime's driver entry point (no -lcuda), and passed as __grid_constant__
+// parameters.
 
 constexpr int kWM = 128, kWN = 128, kWK = 64, kWStages = 4;
 constexpr int kWConsumers = 2;                      // warpgroups, a whole tile each
@@ -97,10 +131,18 @@ constexpr int kWOutBytes = kWConsumers * kWM * kWOutLd * 2;
 // the ring, the output staging, 1 KB of slack to align the ring to the
 // swizzle's 1024-byte period, and the full and empty barriers: 197 KB
 constexpr int kWSmemBytes = kWStages * kWStageBytes + kWOutBytes + 1024 + 2 * kWStages * 8;
+constexpr int kMaxSplits = 16;
+
+// which operands are MN-major (their M or N contiguous in memory)
+template <int kMode>
+struct GemmMajor {
+  static constexpr bool a = kMode == kTN;  // G_z (K, M)
+  static constexpr bool w = kMode != kNT;  // W_z (K, N) of NN, X_z (K, N) of TN
+};
 
 struct GemmMaps {
-  CUtensorMap a;     // A: (M, K), boxes of kWM rows x kWK
-  CUtensorMap w[3];  // W_z: (N, K), boxes of kWN rows x kWK
+  CUtensorMap a[4];  // K-major: boxes of kWM rows x kWK; MN-major: kWK rows x 64
+  CUtensorMap w[4];
 };
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
@@ -129,7 +171,8 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       : "memory");
 }
 
-// the box at (c0 along K, c1 along rows) of `map` into shared memory at dst
+// the box at (c0 along the contiguous dimension, c1 along rows) of `map`
+// into shared memory at dst
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                             int c0, int c1) {
   asm volatile(
@@ -139,14 +182,40 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
-// wgmma descriptor of a K-major tile of 128-byte rows under the 128-byte
-// swizzle, starting at a 1024-byte aligned address: stride 1024 bytes between
-// 8-row groups, the leading offset unused (a k16 step stays inside a row).
-// Advancing along K by 16 bf16 (32 bytes) adds 2 to the encoded address.
+// One stage's operand tile: rows r0.. r0 + 127 of M or N at k-steps from kc.
+// K-major: one box of 128 rows x 64 k; MN-major: two boxes of 64 k-rows x 64
+// columns, the halves r0 and r0 + 64, 8 KB apart.
+template <bool kMN>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int kc, int r0) {
+  if (kMN) {
+    tma_load_2d(dst, map, bar, r0, kc);
+    tma_load_2d(dst + kWTileBytes / 2, map, bar, r0 + 64, kc);
+  } else {
+    tma_load_2d(dst, map, bar, kc, r0);
+  }
+}
+
+// wgmma descriptors under the 128-byte swizzle, from a 1024-byte aligned
+// address. K-major: 128-byte rows of k, 1024 bytes between 8-row groups, the
+// leading offset unused (a k16 step stays inside a row); a k16 step adds 2
+// to the encoded address (32 bytes). MN-major: rows of 64 M or N per k, 1024
+// bytes between groups of 8 k-rows (stride), 8 KB between the 64-wide halves
+// (leading); a k16 step adds 128 (2 KB).
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)1 << 16 | (uint64_t)(1024 >> 4) << 32 |
          (uint64_t)1 << 62;
 }
+__device__ __forceinline__ uint64_t sw128_mn_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)((kWTileBytes / 2) >> 4) << 16 |
+         (uint64_t)(1024 >> 4) << 32 | (uint64_t)1 << 62;
+}
+template <bool kMN>
+__device__ __forceinline__ uint64_t tile_desc(uint32_t addr) {
+  return kMN ? sw128_mn_desc(addr) : sw128_desc(addr);
+}
+template <bool kMN>
+constexpr uint64_t kK16Step = kMN ? 2048 >> 4 : 32 >> 4;
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() {
@@ -179,8 +248,9 @@ __device__ __forceinline__ void fence_acc(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d (64 x 128, f32) += A (64 x 16, K-major) . B (16 x 128, K-major), or = when
-// accumulate is 0
+// d (64 x 128, f32) += A (64 x 16) . B (16 x 128), or = when accumulate is
+// 0; kTA / kTB: A / B MN-major (wgmma's transpose bits)
+template <int kTA, int kTB>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db,
                                                  int accumulate) {
   asm volatile(
@@ -196,7 +266,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p_acc, 1, 1, 0, 0;\n"
+      "%64, %65, p_acc, 1, 1, %67, %68;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -214,11 +284,52 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(kTA), "n"(kTB));
 }
 
+// A work unit: output tile (m0, n0) of product z and its k-steps
+// [k0, k0 + steps) (NN: of the sequence over all pairs); `slice` is the K
+// slice of a sliced TN tile (its block of `partial`), -1 for a whole tile.
+struct GemmUnit {
+  int z, slice, m0, n0, k0, steps;
+};
+
+template <int kMode>
+__device__ __forceinline__ GemmUnit gemm_unit(const GemmArgs& g, int count, int t, int tiles_m,
+                                              int tiles_n, int nk) {
+  const int per = tiles_m * tiles_n, r = t % per, q = t / per;
+  GemmUnit u;
+  u.m0 = r / tiles_n * kWM;
+  u.n0 = r % tiles_n * kWN;
+  if (kMode == kNT) {
+    u.z = q, u.slice = 0, u.k0 = 0, u.steps = nk;
+  } else if (kMode == kNN) {
+    u.z = 0, u.slice = 0, u.k0 = 0, u.steps = count * nk;
+  } else if (t < g.whole) {
+    u.z = q, u.slice = -1, u.k0 = 0, u.steps = nk;
+  } else {
+    const int j = t - g.whole, tile = g.whole + j / g.splits;
+    u.z = tile / per;
+    u.m0 = tile % per / tiles_n * kWM;
+    u.n0 = tile % per % tiles_n * kWN;
+    u.slice = j;
+    u.k0 = j % g.splits * nk / g.splits;
+    u.steps = (j % g.splits + 1) * nk / g.splits - u.k0;
+  }
+  return u;
+}
+
+template <int kMode>
+__host__ __device__ __forceinline__ int gemm_units(const GemmArgs& g, int count, int tiles_m, int tiles_n) {
+  const int per = tiles_m * tiles_n;
+  return kMode == kNT ? per * count : kMode == kNN ? per
+                                     : g.whole + (per * count - g.whole) * g.splits;
+}
+
+template <int kMode>
 __global__ void __launch_bounds__(kWThreads, 1)
-    gemm_bias_bf16_tma(const __grid_constant__ GemmMaps maps, const GemmArgs g, int count) {
+    gemm_bf16_tma(const __grid_constant__ GemmMaps maps, const GemmArgs g, int count) {
+  constexpr bool kAmn = GemmMajor<kMode>::a, kWmn = GemmMajor<kMode>::w;
   extern __shared__ __align__(1024) unsigned char wsmem[];
   const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(wsmem));
   const uint32_t pad = ((base + 1023) & ~1023u) - base;
@@ -229,36 +340,42 @@ __global__ void __launch_bounds__(kWThreads, 1)
   auto full = [&](int s) { return bars + 8 * s; };
   auto empty = [&](int s) { return bars + 8 * (kWStages + s); };
   const int tiles_m = (g.m + kWM - 1) / kWM, tiles_n = (g.n + kWN - 1) / kWN;
-  const int tiles = tiles_m * tiles_n * count, nk = (g.k + kWK - 1) / kWK;
+  const int units = gemm_units<kMode>(g, count, tiles_m, tiles_n), nk = (g.k + kWK - 1) / kWK;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kWStages; ++s) {
       mbar_init(full(s), 1);   // the producer's expect_tx, then the bytes
-      mbar_init(empty(s), 1);  // the consumer warpgroup of the stage's tile
+      mbar_init(empty(s), 1);  // the consumer warpgroup of the stage's unit
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  // The block's tiles t = blockIdx.x + i gridDim.x go to warpgroup i % 2, and
-  // k-step kt of the block's i-th tile to ring step i nk + kt.
+  // The block's units t = blockIdx.x + i gridDim.x go to warpgroup i % 2, and
+  // their k-steps to consecutive ring steps.
   if (threadIdx.x >= 128 * kWConsumers) {  // the producer warpgroup: one thread issues
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kWProducerRegs));
     if (threadIdx.x != 128 * kWConsumers) return;
-    for (const CUtensorMap* map : {&maps.a, &maps.w[0], &maps.w[1], &maps.w[2]})
-      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+    for (int z = 0; z < count; ++z) {
+      if (z == 0 || kMode != kNT)
+        asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&maps.a[z]))
+                     : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&maps.w[z]))
+                   : "memory");
+    }
     int s = 0;
     uint32_t phase = 0;
-    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-      const int z = t / (tiles_m * tiles_n), r = t % (tiles_m * tiles_n);
-      const int m0 = r / tiles_n * kWM, n0 = r % tiles_n * kWN;
-      const CUtensorMap* wmap = z == 0 ? &maps.w[0] : z == 1 ? &maps.w[1] : &maps.w[2];
-      for (int kt = 0; kt < nk; ++kt) {
+    for (int t = blockIdx.x; t < units; t += gridDim.x) {
+      const GemmUnit u = gemm_unit<kMode>(g, count, t, tiles_m, tiles_n, nk);
+      for (int j = 0; j < u.steps; ++j) {
+        // NN walks the pairs in turn: pair j / nk at its k-step j % nk
+        const int z = kMode == kNN ? j / nk : u.z;
+        const int kc = (kMode == kNN ? j % nk : u.k0 + j) * kWK;
         mbar_wait(empty(s), phase ^ 1);  // the first pass over the ring finds it free
         mbar_expect_tx(full(s), kWStageBytes);
         const uint32_t st = ring + s * kWStageBytes;
-        tma_load_2d(st, &maps.a, full(s), kt * kWK, m0);
-        tma_load_2d(st + kWTileBytes, wmap, full(s), kt * kWK, n0);
+        tma_tile<kAmn>(st, &maps.a[kMode == kNT ? 0 : z], full(s), kc, u.m0);
+        tma_tile<kWmn>(st + kWTileBytes, &maps.w[z], full(s), kc, u.n0);
         if (++s == kWStages) s = 0, phase ^= 1;
       }
     }
@@ -273,40 +390,44 @@ __global__ void __launch_bounds__(kWThreads, 1)
   const bool leader = threadIdx.x % 128 == 0;
   // 8 columns from a multiple of 8 lie in one 16-byte aligned row of C, in
   // either layout, when N and the head dim are multiples of 8
-  const bool chunks = g.n % 8 == 0 && (g.heads == 0 || (g.n / g.heads) % 8 == 0) &&
-                      reinterpret_cast<uintptr_t>(g.c[0]) % 16 == 0 &&
-                      reinterpret_cast<uintptr_t>(g.c[count > 1 ? 1 : 0]) % 16 == 0 &&
-                      reinterpret_cast<uintptr_t>(g.c[count > 2 ? 2 : 0]) % 16 == 0;
+  bool chunks = g.n % 8 == 0 && (g.heads == 0 || (g.n / g.heads) % 8 == 0);
+  for (int z = 0; z < (kMode == kNN ? 1 : count); ++z)
+    chunks = chunks && reinterpret_cast<uintptr_t>(g.c[z]) % 16 == 0;
   __nv_bfloat16* out = staged + cw * kWM * kWOutLd;
-  const int n_tiles = (tiles - blockIdx.x + gridDim.x - 1) / gridDim.x;  // the block's
-  for (int i = cw, t = blockIdx.x + cw * gridDim.x; t < tiles; i += 2, t += 2 * gridDim.x) {
-    const int z = t / (tiles_m * tiles_n), r = t % (tiles_m * tiles_n);
-    const int m0 = r / tiles_n * kWM, n0 = r % tiles_n * kWN;
-    // Tile i's products start when tile i - 1's are done: the warpgroups
-    // take turns on the tensor cores, and every ring step before tile i's
+  const int n_units = (units - blockIdx.x + gridDim.x - 1) / gridDim.x;  // the block's
+  // the ring step of unit i's first k-step: the k-steps of the block's units
+  // before it, the other warpgroup's included
+  int first = cw == 0 ? 0 : gemm_unit<kMode>(g, count, blockIdx.x, tiles_m, tiles_n, nk).steps;
+  for (int i = cw, t = blockIdx.x + cw * gridDim.x; t < units; i += 2, t += 2 * gridDim.x) {
+    const GemmUnit u = gemm_unit<kMode>(g, count, t, tiles_m, tiles_n, nk);
+    // Unit i's products start when unit i - 1's are done: the warpgroups
+    // take turns on the tensor cores, and every ring step before unit i's
     // has been waited on, so the parity of each `full` wait names one phase.
     if (i > 0) handover_wait(3 + i % 2);
     float lo[64], hi[64];
 #pragma unroll
     for (int e = 0; e < 64; ++e) lo[e] = hi[e] = 0.f;
     int prev = 0;
-    for (int kt = 0; kt < nk; ++kt) {
-      const int step = i * nk + kt, s = step % kWStages;
+    for (int j = 0; j < u.steps; ++j) {
+      const int step = first + j, s = step % kWStages;
       mbar_wait(full(s), (step / kWStages) & 1);
       const uint32_t st = ring + s * kWStageBytes;
-      const uint64_t da = sw128_desc(st), db = sw128_desc(st + kWTileBytes);
+      const uint64_t da = tile_desc<kAmn>(st), db = tile_desc<kWmn>(st + kWTileBytes);
       fence_acc(lo);
       fence_acc(hi);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kWK / 16; ++kk) {
-        wgmma_m64n128k16(lo, da + 2 * kk, db + 2 * kk, kt > 0 || kk > 0);
-        wgmma_m64n128k16(hi, da + (64 * 128 >> 4) + 2 * kk, db + 2 * kk, kt > 0 || kk > 0);
+        // the tile's second 64 rows lie 8 KB on in either majorness
+        wgmma_m64n128k16<kAmn, kWmn>(lo, da + kK16Step<kAmn> * kk, db + kK16Step<kWmn> * kk,
+                                     j > 0 || kk > 0);
+        wgmma_m64n128k16<kAmn, kWmn>(hi, da + ((kWTileBytes / 2) >> 4) + kK16Step<kAmn> * kk,
+                                     db + kK16Step<kWmn> * kk, j > 0 || kk > 0);
       }
       wgmma_commit();
       fence_acc(lo);
       fence_acc(hi);
-      if (kt > 0) {  // the previous k-step's products are done: free its stage
+      if (j > 0) {  // the previous k-step's products are done: free its stage
         wgmma_wait<1>();
         fence_acc(lo);
         fence_acc(hi);
@@ -317,17 +438,40 @@ __global__ void __launch_bounds__(kWThreads, 1)
     wgmma_wait<0>();
     fence_acc(lo);
     fence_acc(hi);
-    if (leader) mbar_arrive(empty(prev));
-    if (i + 1 < n_tiles) handover_arrive(3 + (i + 1) % 2);
+    if (leader && u.steps > 0) mbar_arrive(empty(prev));
+    if (i + 1 < n_units) handover_arrive(3 + (i + 1) % 2);
+    first += u.steps;
+    if (t + gridDim.x < units)
+      first += gemm_unit<kMode>(g, count, t + gridDim.x, tiles_m, tiles_n, nk).steps;
+
+    const int r0 = wi * 16 + lane / 4;
+    if (kMode == kTN && u.slice >= 0) {
+      // the slice's f32 sum into its block of partial, straight from the
+      // accumulators (the whole 128 x 128: gemm_split_sum drops the edge)
+      float* P = g.partial + (size_t)u.slice * kWM * kWN;
+#pragma unroll
+      for (int j = 0; j < kWN / 8; ++j) {
+        const int c = j * 8 + 2 * (lane % 4);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int rr = r0 + 8 * half;
+          *reinterpret_cast<float2*>(P + rr * kWN + c) =
+              make_float2(lo[4 * j + 2 * half], lo[4 * j + 2 * half + 1]);
+          *reinterpret_cast<float2*>(P + (rr + 64) * kWN + c) =
+              make_float2(hi[4 * j + 2 * half], hi[4 * j + 2 * half + 1]);
+        }
+      }
+      continue;
+    }
 
     // epilogue: (f32 sum + bias) rounded once to bf16 into the warpgroup's
     // staging rows, then out to C in 16-byte chunks along the rows
-    const __nv_bfloat16* bias = static_cast<const __nv_bfloat16*>(g.bias[z]);
-    __nv_bfloat16* C = static_cast<__nv_bfloat16*>(g.c[z]);
-    const int r0 = wi * 16 + lane / 4;
+    const __nv_bfloat16* bias =
+        kMode == kNT ? static_cast<const __nv_bfloat16*>(g.bias[u.z]) : nullptr;
+    __nv_bfloat16* C = static_cast<__nv_bfloat16*>(g.c[u.z]);
 #pragma unroll
     for (int j = 0; j < kWN / 8; ++j) {
-      const int c = j * 8 + 2 * (lane % 4), col = n0 + c;
+      const int c = j * 8 + 2 * (lane % 4), col = u.n0 + c;
       const float b0 = bias && col < g.n ? __bfloat162float(bias[col]) : 0.f;
       const float b1 = bias && col + 1 < g.n ? __bfloat162float(bias[col + 1]) : 0.f;
 #pragma unroll
@@ -342,7 +486,7 @@ __global__ void __launch_bounds__(kWThreads, 1)
     named_sync(1 + cw);
     for (int e = threadIdx.x % 128; e < kWM * (kWN / 8); e += 128) {
       const int rr = e / (kWN / 8), c = e % (kWN / 8) * 8;
-      const int row = m0 + rr, col = n0 + c;
+      const int row = u.m0 + rr, col = u.n0 + c;
       if (row >= g.m || col >= g.n) continue;
       const __nv_bfloat16* src = out + rr * kWOutLd + c;
       if (chunks) {
@@ -353,6 +497,31 @@ __global__ void __launch_bounds__(kWThreads, 1)
       }
     }
     named_sync(1 + cw);  // the rows are read before the next tile writes them
+  }
+}
+
+// TN's sliced tiles: C_z's tile = its slices' f32 sums added in slice
+// order, then rounded once to bf16. Four columns a thread (N % 8 == 0).
+__global__ void __launch_bounds__(256) gemm_split_sum(const GemmArgs g, int tiles_n, int per,
+                                                      int sliced) {
+  constexpr int kQuads = kWM * kWN / 4;  // float4s of one 128 x 128 block
+  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < (size_t)sliced * kQuads;
+       e += (size_t)gridDim.x * blockDim.x) {
+    const int lt = (int)(e / kQuads), q = (int)(e % kQuads);
+    const int rr = q / (kWN / 4), c = q % (kWN / 4) * 4;
+    const int tile = g.whole + lt, z = tile / per;
+    const int row = tile % per / tiles_n * kWM + rr, col = tile % per % tiles_n * kWN + c;
+    if (row >= g.m || col >= g.n) continue;
+    const float* P = g.partial + (size_t)lt * g.splits * kWM * kWN + rr * kWN + c;
+    float4 acc = *reinterpret_cast<const float4*>(P);
+    for (int s = 1; s < g.splits; ++s) {
+      const float4 p = *reinterpret_cast<const float4*>(P + (size_t)s * kWM * kWN);
+      acc.x += p.x, acc.y += p.y, acc.z += p.z, acc.w += p.w;
+    }
+    __nv_bfloat162* C = reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(g.c[z]) +
+                                                           (size_t)row * g.n + col);
+    C[0] = __floats2bfloat162_rn(acc.x, acc.y);
+    C[1] = __floats2bfloat162_rn(acc.z, acc.w);
   }
 }
 
@@ -381,33 +550,48 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// the tensor map of a (rows, k) row-major bf16 matrix in boxes of 128 rows x 64
-inline bool encode_rows(EncodeTiledFn enc, CUtensorMap* map, const void* ptr, int rows, int k) {
-  const cuuint64_t dims[2] = {(cuuint64_t)k, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)k * sizeof(__nv_bfloat16)};
-  const cuuint32_t box[2] = {kWK, kWM};
+// The tensor map of a (rows, cols) row-major bf16 matrix under the 128-byte
+// swizzle: K-major (cols = K) in boxes of 128 rows x 64; MN-major (rows = K)
+// in boxes of 64 rows x 64.
+inline bool encode_tile_map(EncodeTiledFn enc, CUtensorMap* map, const void* ptr, int rows,
+                            int cols, bool mn_major) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(__nv_bfloat16)};
+  const cuuint32_t box[2] = {kWK, mn_major ? (cuuint32_t)kWK : (cuuint32_t)kWM};
   const cuuint32_t step[2] = {1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
              step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// What TMA can describe: A and every W_z 16-byte aligned, K a multiple of 8
-// (16-byte row strides); a banked C's heads dividing N.
+inline bool aligned(const void* p, uintptr_t bytes) {
+  return p != nullptr && reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+// What TMA and the epilogues can take: every operand 16-byte aligned, each
+// operand's row stride a multiple of 16 bytes (K for a K-major operand, M or
+// N for an MN-major one); NT: a banked C's heads dividing N.
+template <int kMode>
 inline bool gemm_tma_fits(const GemmArgs& g, int count) {
-  if (count < 1 || count > 3 || g.m <= 0 || g.n <= 0 || g.k <= 0 || g.k % 8) return false;
-  if (g.heads < 0 || (g.heads > 0 && (g.n % g.heads || g.len <= 0))) return false;
-  if (reinterpret_cast<uintptr_t>(g.a) % 16) return false;
-  for (int z = 0; z < count; ++z)
-    if (reinterpret_cast<uintptr_t>(g.w[z]) % 16 || reinterpret_cast<uintptr_t>(g.c[z]) % 2 ||
-        reinterpret_cast<uintptr_t>(g.bias[z]) % 2)
-      return false;
+  if (count < 1 || count > (kMode == kTN ? 4 : 3) || g.m <= 0 || g.n <= 0 || g.k <= 0)
+    return false;
+  if ((kMode == kNT && g.k % 8) || (kMode == kNN && (g.k % 8 || g.n % 8)) ||
+      (kMode == kTN && (g.m % 8 || g.n % 8)))
+    return false;
+  if (g.heads < 0 || (g.heads > 0 && (kMode != kNT || g.n % g.heads || g.len <= 0))) return false;
+  for (int z = 0; z < count; ++z) {
+    if (!aligned(g.a[kMode == kNT ? 0 : z], 16) || !aligned(g.w[z], 16)) return false;
+    if (kMode != kNN && !aligned(g.c[z], kMode == kTN ? 8 : 2)) return false;
+    if (kMode == kNT && reinterpret_cast<uintptr_t>(g.bias[z]) % 2) return false;
+  }
+  if (kMode == kNN && !aligned(g.c[0], 2)) return false;
   return true;
 }
 
 // The current device's SM count, with the kernel's shared-memory opt-in set
 // there: both looked up once per device and kept, so that a launch adds no
 // attribute calls to the host's enqueue.
+template <int kMode>
 inline cudaError_t gemm_tma_device_setup(int* sms) {
   constexpr int kMaxDevices = 64;
   static std::atomic<int> sm_count[kMaxDevices];  // 0 until the device is set up
@@ -419,8 +603,8 @@ inline cudaError_t gemm_tma_device_setup(int* sms) {
   if (n == 0) {
     err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(gemm_bias_bf16_tma, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 kWSmemBytes);
+      err = cudaFuncSetAttribute(gemm_bf16_tma<kMode>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, kWSmemBytes);
     if (err != cudaSuccess) return err;
     sm_count[device].store(n, std::memory_order_relaxed);
   }
@@ -428,42 +612,78 @@ inline cudaError_t gemm_tma_device_setup(int* sms) {
   return cudaSuccess;
 }
 
-inline cudaError_t launch_gemm_tma(const GemmArgs& g, int count, cudaStream_t stream) {
-  if (!gemm_tma_fits(g, count)) return cudaErrorInvalidValue;
+// TN on `sms` SMs: the whole tiles before the sliced ones, with `splits`
+// slices a sliced tile. The tiles past the last full round (all of them when
+// there are fewer than SMs) are sliced, unless splits is 1.
+inline int gemm_tn_whole(int tiles, int sms, int splits) {
+  return splits == 1 ? tiles : tiles < sms ? 0 : tiles - tiles % sms;
+}
+
+// The K slices the TN GEMM takes: as many as fill the SMs once with the
+// sliced tiles' slices, each at least 4 k-steps, at most kMaxSplits (1 at
+// short K, where nothing is sliced).
+inline int gemm_tn_splits(int m, int n, int k, int count, int sms) {
+  const int nk = (k + kWK - 1) / kWK;
+  const int tiles = (m + kWM - 1) / kWM * ((n + kWN - 1) / kWN) * count;
+  const int sliced = tiles - gemm_tn_whole(tiles, sms, 2);
+  int s = sliced > 0 ? sms / sliced : 1;
+  if (s > nk / 4) s = nk / 4;
+  if (s > kMaxSplits) s = kMaxSplits;
+  return s < 1 ? 1 : s;
+}
+
+// The f32 elements of TN's partial sums at this shape.
+inline long long gemm_tn_partial_floats(int m, int n, int k, int count, int sms) {
+  const int tiles = (m + kWM - 1) / kWM * ((n + kWN - 1) / kWN) * count;
+  const int splits = gemm_tn_splits(m, n, k, count, sms);
+  return (long long)(tiles - gemm_tn_whole(tiles, sms, splits)) * splits * kWM * kWN;
+}
+
+template <int kMode>
+inline cudaError_t launch_gemm_bf16(GemmArgs g, int count, cudaStream_t stream) {
+  constexpr bool kAmn = GemmMajor<kMode>::a, kWmn = GemmMajor<kMode>::w;
+  if (!gemm_tma_fits<kMode>(g, count)) return cudaErrorInvalidValue;
   const EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return cudaErrorNotSupported;
   GemmMaps maps;
   memset(&maps, 0, sizeof(maps));
-  if (!encode_rows(enc, &maps.a, g.a, g.m, g.k)) return cudaErrorInvalidValue;
-  for (int z = 0; z < count; ++z)
-    if (!encode_rows(enc, &maps.w[z], g.w[z], g.n, g.k)) return cudaErrorInvalidValue;
+  for (int z = 0; z < count; ++z) {
+    const bool a_ok = (kMode == kNT && z > 0) ||
+                      encode_tile_map(enc, &maps.a[z], g.a[z], kAmn ? g.k : g.m,
+                                      kAmn ? g.m : g.k, kAmn);
+    if (!a_ok || !encode_tile_map(enc, &maps.w[z], g.w[z], kWmn ? g.k : g.n, kWmn ? g.n : g.k,
+                                  kWmn))
+      return cudaErrorInvalidValue;
+  }
   int sms = 0;
-  const cudaError_t err = gemm_tma_device_setup(&sms);
+  cudaError_t err = gemm_tma_device_setup<kMode>(&sms);
   if (err != cudaSuccess) return err;
-  const int tiles = (g.m + kWM - 1) / kWM * ((g.n + kWN - 1) / kWN) * count;
-  gemm_bias_bf16_tma<<<tiles < sms ? tiles : sms, kWThreads, kWSmemBytes, stream>>>(maps, g, count);
+  const int tiles_m = (g.m + kWM - 1) / kWM, tiles_n = (g.n + kWN - 1) / kWN;
+  int sliced = 0;
+  if (kMode == kTN) {
+    g.splits = gemm_tn_splits(g.m, g.n, g.k, count, sms);
+    g.whole = gemm_tn_whole(tiles_m * tiles_n * count, sms, g.splits);
+    sliced = tiles_m * tiles_n * count - g.whole;
+    if (sliced > 0 && !aligned(g.partial, 16)) return cudaErrorInvalidValue;
+  }
+  const int units = gemm_units<kMode>(g, count, tiles_m, tiles_n);
+  gemm_bf16_tma<kMode><<<units < sms ? units : sms, kWThreads, kWSmemBytes, stream>>>(maps, g,
+                                                                                      count);
+  if (sliced > 0) {
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    const int blocks = (sliced * (kWM * kWN / 4) + 255) / 256;
+    gemm_split_sum<<<blocks < 4 * sms ? blocks : 4 * sms, 256, 0, stream>>>(
+        g, tiles_n, tiles_m * tiles_n, sliced);
+  }
   return cudaGetLastError();
 }
 
-// Resident blocks per SM of the TMA GEMM, or minus the CUDA error.
+// Resident blocks per SM of the bf16 GEMM, or minus the CUDA error.
+template <int kMode>
 inline int gemm_tma_blocks_per_sm() {
-  return smtc::blocks_per_sm(gemm_bias_bf16_tma, kWThreads, kWSmemBytes);
+  return smtc::blocks_per_sm(gemm_bf16_tma<kMode>, kWThreads, kWSmemBytes);
 }
-
-// ---- bf16 NN: tensor cores through mma.sync, a 3-stage cp.async pipeline -----
-//
-// Block tile 128 x 64 (4 warps, 64 x 32 each), 32-deep k-steps; while the
-// warps multiply one stage, cp.async fills the next two. Operand fragments
-// come from shared memory through ldmatrix; rows are padded to 40 bf16 (80 B)
-// so the eight 16-byte rows of each 8x8 matrix fall in distinct banks.
-
-constexpr int kGM = 128, kGN = 64, kGK = 32, kStages = 3, kGLd = kGK + 8;
-constexpr int kGThreads = 128;
-
-// the copy and fragment loads of the SDPA tensor-core kernels (sdpa_core.cuh)
-using smtc::cp_async16;
-using smtc::ldmatrix_x4;
-using smtc::ldmatrix_x4_trans;
 
 // ---- float32: FMA on the CUDA cores -----------------------------------------
 
@@ -473,7 +693,7 @@ __global__ void __launch_bounds__(256) gemm_bias_f32(GemmArgs g) {
   __shared__ __align__(16) float As[kBKf][kBM];  // k-major
   __shared__ __align__(16) float Bs[kBKf][kBN];
   const int z = blockIdx.z;
-  const float* A = static_cast<const float*>(g.a);
+  const float* A = static_cast<const float*>(g.a[0]);
   const float* W = static_cast<const float*>(g.w[z]);
   const float* bias = static_cast<const float*>(g.bias[z]);
   float* C = static_cast<float*>(g.c[z]);
@@ -515,112 +735,21 @@ __global__ void __launch_bounds__(256) gemm_bias_f32(GemmArgs g) {
 }
 
 cudaError_t launch_gemm(const GemmArgs& g, int count, int dtype, cudaStream_t stream) {
-  if (dtype == 1) return launch_gemm_tma(g, count, stream);
+  if (dtype == 1) return launch_gemm_bf16<kNT>(g, count, stream);
   gemm_bias_f32<<<dim3((g.n + kBN - 1) / kBN, (g.m + kBM - 1) / kBM, count), 256, 0, stream>>>(g);
   return cudaGetLastError();
 }
 
-// ---- NN, summed over up to three (A_z, W_z) pairs ---------------------------
+// ---- NN in float32, summed over up to three (A_z, W_z) pairs ----------------
 
-struct GemmNNArgs {
-  const void* a[3];  // (M, K) row-major
-  const void* w[3];  // (K, N) row-major
-  void* c;           // (M, N) row-major
-  int m, n, k, count;
-};
-
-// The k-steps of all pairs form one sequence (pair z, then z + 1), so the
-// cp.async pipeline runs across the pair boundaries and the three products
-// of dx share one f32 accumulator, rounded once.
-__global__ void __launch_bounds__(kGThreads) gemm_nn_bf16(GemmNNArgs g) {
-  constexpr int kBLd = kGN + 8;  // 144 B rows: ldmatrix rows in distinct banks
-  __shared__ __align__(128) __nv_bfloat16 As[kStages][kGM][kGLd];
-  __shared__ __align__(128) __nv_bfloat16 Bs[kStages][kGK][kBLd];
-  const int m0 = blockIdx.y * kGM, n0 = blockIdx.x * kGN;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = warp / 2, wn = warp % 2;
-  const int grp = lane >> 2, t4 = lane & 3;
-  const int nk = (g.k + kGK - 1) / kGK;
-  const int steps = nk * g.count;
-
-  // A: 128 rows x 4 chunks; B: 32 k-rows x 8 chunks of 8 columns
-  auto load_stage = [&](int stage, int t) {
-    const int z = t / nk, k0 = (t % nk) * kGK;
-    const __nv_bfloat16* A = static_cast<const __nv_bfloat16*>(g.a[z]);
-    const __nv_bfloat16* W = static_cast<const __nv_bfloat16*>(g.w[z]);
-    for (int e = tid; e < kGM * (kGK / 8) + kGK * (kGN / 8); e += kGThreads) {
-      if (e < kGM * (kGK / 8)) {
-        const int r = e / (kGK / 8), c = (e % (kGK / 8)) * 8;
-        const bool ok = k0 + c < g.k && m0 + r < g.m;
-        cp_async16(&As[stage][r][c], ok ? A + (size_t)(m0 + r) * g.k + k0 + c : A, ok);
-      } else {
-        const int f = e - kGM * (kGK / 8);
-        const int r = f / (kGN / 8), c = (f % (kGN / 8)) * 8;
-        const bool ok = k0 + r < g.k && n0 + c < g.n;
-        cp_async16(&Bs[stage][r][c], ok ? W + (size_t)(k0 + r) * g.n + n0 + c : W, ok);
-      }
-    }
-  };
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < steps) load_stage(s, s);
-    asm volatile("cp.async.commit_group;\n");
-  }
-
-  float acc[4][4][4] = {};
-  for (int kt = 0; kt < steps; ++kt) {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2));
-    __syncthreads();
-    if (kt + kStages - 1 < steps) load_stage((kt + kStages - 1) % kStages, kt + kStages - 1);
-    asm volatile("cp.async.commit_group;\n");
-    const int st = kt % kStages;
-#pragma unroll
-    for (int kk = 0; kk < kGK; kk += 16) {
-      uint32_t af[4][4], bfr[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-        ldmatrix_x4(af[mi], &As[st][wm * 64 + mi * 16 + (lane % 16)][kk + (lane / 16) * 8]);
-      // B stored k-major: the transposing load gives the .col fragments;
-      // lanes 0-15 address k rows of the first n8 tile, 16-31 of the next
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj)
-        ldmatrix_x4_trans(bfr[nj], &Bs[st][kk + (lane & 15)][wn * 32 + nj * 16 + (lane >> 4) * 8]);
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-          smtc::mma_16816(acc[mi][ni], af[mi], bfr[ni / 2][(ni % 2) * 2],
-                          bfr[ni / 2][(ni % 2) * 2 + 1]);
-    }
-  }
-  asm volatile("cp.async.wait_group 0;\n");
-
-  __nv_bfloat16* C = static_cast<__nv_bfloat16*>(g.c);
-#pragma unroll
-  for (int ni = 0; ni < 4; ++ni) {
-    const int col = n0 + wn * 32 + ni * 8 + 2 * t4;
-    if (col >= g.n) continue;
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = m0 + wm * 64 + mi * 16 + grp + half * 8;
-        if (row >= g.m) continue;
-        *reinterpret_cast<__nv_bfloat162*>(C + (size_t)row * g.n + col) =
-            __floats2bfloat162_rn(acc[mi][ni][2 * half], acc[mi][ni][2 * half + 1]);
-      }
-  }
-}
-
-__global__ void __launch_bounds__(256) gemm_nn_f32(GemmNNArgs g) {
+__global__ void __launch_bounds__(256) gemm_nn_f32(GemmArgs g, int count) {
   __shared__ __align__(16) float As[kBKf][kBM];  // k-major
   __shared__ __align__(16) float Bs[kBKf][kBN];
   const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
 
   float acc[4][4] = {};
-  for (int z = 0; z < g.count; ++z) {
+  for (int z = 0; z < count; ++z) {
     const float* A = static_cast<const float*>(g.a[z]);
     const float* W = static_cast<const float*>(g.w[z]);
     for (int k0 = 0; k0 < g.k; k0 += kBKf) {
@@ -645,7 +774,7 @@ __global__ void __launch_bounds__(256) gemm_nn_f32(GemmNNArgs g) {
       __syncthreads();
     }
   }
-  float* C = static_cast<float*>(g.c);
+  float* C = static_cast<float*>(g.c[0]);
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int row = m0 + ty * 4 + r;
@@ -656,14 +785,6 @@ __global__ void __launch_bounds__(256) gemm_nn_f32(GemmNNArgs g) {
       if (col < g.n) C[(size_t)row * g.n + col] = acc[r][cc];
     }
   }
-}
-
-cudaError_t launch_gemm_nn(const GemmNNArgs& g, int dtype, cudaStream_t stream) {
-  if (dtype == 1)
-    gemm_nn_bf16<<<dim3((g.n + kGN - 1) / kGN, (g.m + kGM - 1) / kGM), kGThreads, 0, stream>>>(g);
-  else
-    gemm_nn_f32<<<dim3((g.n + kBN - 1) / kBN, (g.m + kBM - 1) / kBM), 256, 0, stream>>>(g);
-  return cudaGetLastError();
 }
 
 }  // namespace

@@ -15,15 +15,27 @@
 // do not, so the order lives inside one block: every block owns an output
 // tile and walks all heads itself. No atomics, no scratch of partials.
 //
-// bf16 runs on the tensor cores (mma.sync.m16n8k16, the tiles, pipeline and
-// fragment loads of gemm_core.cuh's NN kernel, with the head walk as its
-// k-step sequence); float32 is FMA on the CUDA cores.
+// bf16 runs on the tensor cores (mma.sync.m16n8k16, the head walk as the
+// k-step sequence); float32 is FMA on the CUDA cores (gemm_core.cuh's tiles).
 
 #pragma once
 
 #include "gemm_core.cuh"
 
 namespace {
+
+// bf16: block tile 128 x 64 (4 warps, 64 x 32 each), 32-deep k-steps in a
+// 3-stage cp.async pipeline; while the warps multiply one stage, cp.async
+// fills the next two. Operand fragments come from shared memory through
+// ldmatrix; rows are padded to 40 bf16 (80 B) so the eight 16-byte rows of
+// each 8x8 matrix fall in distinct banks.
+constexpr int kGM = 128, kGN = 64, kGK = 32, kStages = 3, kGLd = kGK + 8;
+constexpr int kGThreads = 128;
+
+// the copy and fragment loads of the SDPA tensor-core kernels (sdpa_core.cuh)
+using smtc::cp_async16;
+using smtc::ldmatrix_x4;
+using smtc::ldmatrix_x4_trans;
 
 struct HeadSumArgs {
   const void* a[3];  // A_z: (B, heads, len, d) bf16 or f32

@@ -6,10 +6,16 @@ Counterpart of the JAX package's ``ops/attn_block.py`` (the ``fused`` impl,
 launches the hand-written Hopper kernel (``csrc/attn_block_fwd.cu``, TPU
 kernel 7 of PERF.md's table) and its backward the backward kernel
 (``csrc/attn_block_bwd.cu``, TPU kernel 8), which returns dx and the packed
-dq/dk/dv/ctx; the weight and bias gradients are then plain large products
-(``torch.matmul`` in float32, a float32 sum), outside the kernel as in the
-JAX package. On a CPU tensor forward and backward are the plain versions
-``attn_block_reference`` and ``attn_block_bwd_reference``.
+dq/dk/dv/ctx; the weight gradients are then large products outside the
+kernel, as in the JAX package: in bfloat16 the port's TN GEMM (``gemm_tn``,
+the four of a block in one launch), in float32 ``torch.matmul``; the bias
+gradients a float32 sum. On a CPU tensor forward and backward are the plain
+versions ``attn_block_reference`` and ``attn_block_bwd_reference``.
+
+The three orientations of the blocks' bf16 GEMM (``csrc/gemm_core.cuh``, one
+wgmma kernel fed by TMA) can also be called alone, each beside its plain
+version: ``gemm_nt`` (the projections), ``gemm_nn`` (dctx and dx of the
+backward kernel) and ``gemm_tn`` (the weight gradients).
 
 Weight layout. The four weights are taken in the flax Dense layout,
 ``(in, out)``, so tests hand both packages the same arrays. ``nn.Linear``
@@ -50,6 +56,8 @@ bwd_launches = _cuda.LaunchCounter("attn_block_bwd")
 perhead_launches = _cuda.LaunchCounter("attn_block_perhead_fwd")
 perhead_bwd_launches = _cuda.LaunchCounter("attn_block_perhead_bwd")
 gemm_launches = _cuda.LaunchCounter("gemm_nt_bf16")  # the GEMM alone (gemm_nt)
+gemm_nn_launches = _cuda.LaunchCounter("gemm_nn_bf16")  # the NN GEMM alone (gemm_nn)
+wgrad_launches = _cuda.LaunchCounter("gemm_tn_bf16")  # the weight gradients (gemm_tn)
 
 
 def attn_block_reference(x, key_mask, wq, bq, wk, bk, wv, bv, wo, bo,
@@ -73,22 +81,27 @@ def attn_block_reference(x, key_mask, wq, bq, wk, bk, wv, bv, wo, bo,
 
 def _param_grads(x, dq, dk, dv, ctx, do, w_dtype, b_dtype):
     """The eight weight and bias gradients from the packed (B, L, H)
-    activations: wgrad = a^T g over the flattened batch, accumulated in
-    float32 and cast to the weight's dtype; bgrad = the float32 sum over
-    (B, L). The JAX package leaves the same products to XLA
-    (``_attn_block2_bwd``)."""
+    activations, as the JAX package's ``_attn_block2_bwd`` forms them:
+    wgrad = a^T g over the flattened batch, accumulated in float32 and cast
+    to the weight's dtype; bgrad = the float32 sum over (B, L). On a bf16
+    CUDA tensor the four products are one launch of the TN GEMM
+    (``gemm_tn``), which reads the bf16 activations as they are; elsewhere
+    (the CPU, and float32 on the card) they are float32 products. Each
+    weight gradient is the ``.t()`` view of its (out, in) product, the
+    nn.Linear layout, so a Linear weight's ``.t()`` takes it back without a
+    copy."""
     h = x.shape[-1]
+    xs = [t.reshape(-1, h) for t in (x, x, x, ctx)]
+    gs = [t.reshape(-1, h) for t in (dq, dk, dv, do)]
+    if x.device.type == "cuda" and x.dtype == torch.bfloat16:
+        dws = gemm_tn(xs, gs)
+    else:
+        dws = gemm_tn_reference(xs, gs)
     acc = _acc_dtype(x.dtype)
-
-    def wgrad(a, g):
-        return torch.matmul(a.reshape(-1, h).to(acc).t(),
-                            g.reshape(-1, h).to(acc)).to(w_dtype)
-
-    def bgrad(g):
-        return g.to(acc).sum(dim=(0, 1)).to(b_dtype)
-
-    return (wgrad(x, dq), bgrad(dq), wgrad(x, dk), bgrad(dk),
-            wgrad(x, dv), bgrad(dv), wgrad(ctx, do), bgrad(do))
+    grads = ()
+    for dw, g in zip(dws, (dq, dk, dv, do)):
+        grads += (dw.t().to(w_dtype), g.sum(dim=(0, 1), dtype=acc).to(b_dtype))
+    return grads
 
 
 def attn_block_bwd_reference(x, key_mask, wq, bq, wk, bk, wv, bv, wo, bo, do,
@@ -250,8 +263,6 @@ def _lib():
         lib.smtc_attn_block_fwd.restype = i
         lib.smtc_gemm_nt_bf16.argtypes = [p] * 10 + [i] * 7 + [p]
         lib.smtc_gemm_nt_bf16.restype = i
-        lib.smtc_gemm_blocks_per_sm.argtypes = []
-        lib.smtc_gemm_blocks_per_sm.restype = i
         lib._smtc_typed = True
     return lib
 
@@ -325,8 +336,117 @@ def _bwd_lib():
         lib.smtc_attn_block_bwd.argtypes = (
             [p] * 20 + [i, i, i, i, ctypes.c_float, i, i, p])
         lib.smtc_attn_block_bwd.restype = i
+        lib.smtc_gemm_nn_bf16.argtypes = [p] * 7 + [i] * 5 + [p]
+        lib.smtc_gemm_nn_bf16.restype = i
+        lib.smtc_gemm_tn_bf16.argtypes = [p] * 13 + [i] * 5 + [p]
+        lib.smtc_gemm_tn_bf16.restype = i
+        lib.smtc_gemm_tn_partial_floats.argtypes = [i] * 5
+        lib.smtc_gemm_tn_partial_floats.restype = ctypes.c_longlong
+        lib.smtc_gemm_blocks_per_sm.argtypes = [i]
+        lib.smtc_gemm_blocks_per_sm.restype = i
         lib._smtc_typed = True
     return lib
+
+
+def gemm_nn_reference(as_, ws):
+    """The backward kernel's NN GEMM in plain PyTorch: C = sum_z a_z . W_z
+    over the pairs of ``as_`` and ``ws``, float32 products summed and
+    rounded once to a's dtype. a_z: (M, K); W_z: (K, N), a Linear's (out,
+    in) weight read as (K, N)."""
+    acc = _acc_dtype(as_[0].dtype)
+    c = as_[0].to(acc) @ ws[0].to(acc)
+    for a, w in zip(as_[1:], ws[1:]):
+        c = c + a.to(acc) @ w.to(acc)
+    return c.to(as_[0].dtype)
+
+
+def gemm_nn(as_, ws):
+    """``gemm_nn_reference``'s function: on a CUDA tensor the bf16 GEMM that
+    the backward kernel (TPU kernel 8) launches for dctx (one pair) and dx
+    (three), here alone (``csrc/gemm_core.cuh``, wgmma fed by TMA, the
+    weight read MN-major); on a CPU tensor the plain version."""
+    if not 1 <= len(as_) <= 3 or len(ws) != len(as_):
+        raise ValueError("gemm_nn takes one to three (a, W) pairs")
+    a0 = as_[0]
+    m, k = a0.shape
+    n = ws[0].shape[-1]
+    if any(a.shape != (m, k) or w.shape != (k, n) for a, w in zip(as_, ws)):
+        raise ValueError(f"each pair must be an ({m}, {k}) a and a ({k}, {n}) W")
+    if a0.device.type == "cpu":
+        return gemm_nn_reference(as_, ws)
+    if a0.dtype != torch.bfloat16 or any(
+            t.dtype != a0.dtype or t.device != a0.device or not t.is_contiguous()
+            for t in as_ + ws):
+        raise ValueError(f"gemm_nn's kernel takes contiguous bfloat16 tensors on {a0.device}")
+    out = torch.empty((m, n), dtype=a0.dtype, device=a0.device)
+    pad = [None] * (3 - len(as_))
+    lib = _bwd_lib()
+    rc = lib.smtc_gemm_nn_bf16(*[a.data_ptr() for a in as_], *pad,
+                               *[w.data_ptr() for w in ws], *pad, out.data_ptr(),
+                               m, n, k, len(as_), a0.device.index or 0, _cuda.stream_of(a0))
+    _cuda.check(lib, rc, "gemm_nn_bf16")
+    gemm_nn_launches.add((m, n, k, len(as_)))
+    return out
+
+
+def gemm_tn_reference(xs, gs):
+    """The weight-gradient GEMM in plain PyTorch: C_z = g_z^T . x_z for each
+    pair of ``xs`` and ``gs``, a float32 product over the K rows rounded
+    once to x's dtype. x_z: (K, N); g_z: (K, M); C_z: (M, N), the nn.Linear
+    (out, in) layout of a weight's gradient."""
+    acc = _acc_dtype(xs[0].dtype)
+    return [(g.to(acc).t() @ x.to(acc)).to(xs[0].dtype) for x, g in zip(xs, gs)]
+
+
+_tn_floats = {}  # (M, N, K, count, device) -> f32 elements of the partial sums
+
+
+def _tn_partial_floats(lib, m, n, k, count, device):
+    """The size of the partial sums the library needs for this call, asked
+    once per shape."""
+    key = (m, n, k, count, device)
+    floats = _tn_floats.get(key)
+    if floats is None:
+        floats = lib.smtc_gemm_tn_partial_floats(m, n, k, count, device)
+        _cuda.check(lib, max(0, -floats), "gemm_tn_partial_floats")
+        _tn_floats[key] = floats
+    return floats
+
+
+def gemm_tn(xs, gs):
+    """``gemm_tn_reference``'s function: on a CUDA tensor the port's bf16 TN
+    GEMM (``csrc/gemm_core.cuh``, wgmma fed by TMA, both operands read
+    MN-major), up to four products in one launch, each an f32 sum over all
+    K rows rounded once; on a CPU tensor the plain version. Where K is long
+    enough the library cuts the K rows of the tiles past the card's last
+    full round of SMs into slices, summed apart and then added in slice
+    order, so two runs agree bit for bit."""
+    if not 1 <= len(xs) <= 4 or len(gs) != len(xs):
+        raise ValueError("gemm_tn takes one to four (x, g) pairs")
+    x0 = xs[0]
+    k, n = x0.shape
+    m = gs[0].shape[-1]
+    if any(x.shape != (k, n) or g.shape != (k, m) for x, g in zip(xs, gs)):
+        raise ValueError(f"each pair must be a ({k}, {n}) x and a ({k}, {m}) g")
+    if x0.device.type == "cpu":
+        return gemm_tn_reference(xs, gs)
+    if x0.dtype != torch.bfloat16 or any(
+            t.dtype != x0.dtype or t.device != x0.device or not t.is_contiguous()
+            for t in xs + gs):
+        raise ValueError(f"gemm_tn's kernel takes contiguous bfloat16 tensors on {x0.device}")
+    count, device = len(xs), x0.device.index or 0
+    lib = _bwd_lib()
+    floats = _tn_partial_floats(lib, m, n, k, count, device)
+    outs = torch.empty((count, m, n), dtype=x0.dtype, device=x0.device)
+    partial = torch.empty(floats, dtype=torch.float32, device=x0.device) if floats else None
+    pad = [None] * (4 - count)
+    rc = lib.smtc_gemm_tn_bf16(
+        *[x.data_ptr() for x in xs], *pad, *[g.data_ptr() for g in gs], *pad,
+        *[c.data_ptr() for c in outs], *pad, None if partial is None else partial.data_ptr(),
+        m, n, k, count, device, _cuda.stream_of(x0))
+    _cuda.check(lib, rc, "gemm_tn_bf16")
+    wgrad_launches.add((k, m, n, count))
+    return list(outs)
 
 
 def _check_block(x, key_mask, ws, bs, heads, what, wo_flax=False):

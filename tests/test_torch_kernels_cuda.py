@@ -42,7 +42,13 @@ row, with and without ctx, and its column blocks must agree bit for bit. The
 bf16 NT GEMM of kernels 5-8 (wgmma fed by TMA) is held alone at M of 1 to
 12,864 rows (ragged), hidden 16, 64 and 768, one and three weights, without a
 bias and head-banked, each element within one bf16 step (plus 1e-3) of the
-plain version's f32 sum; a shape TMA cannot describe is refused.
+plain version's f32 sum; a shape TMA cannot describe is refused. Its NN
+orientation (dctx and dx of kernel 8, the weight read MN-major) and TN
+orientation (the weight gradients, both operands MN-major, K cut into
+slices) are held the same way at M (NN) or K rows (TN) of 1, 63, 64, 65,
+4,096 and 12,864 and widths 768 and 2,304; two TN runs with the K rows cut
+into slices agree bit for bit, and misaligned or odd-width operands are
+refused before any launch.
 """
 
 import pytest
@@ -308,11 +314,13 @@ def test_attn_block_bwd_round_trip_matches_plain(cuda, case, dtype):
     bias gradients against the size of their terms)."""
     b, l, hid, heads, masked = BLOCK_BWD_CASES[case]
     x, mask, params, do = _block_inputs(cuda, b, l, hid, heads, masked, dtype, grad=True)
-    fwd0, bwd0 = AB.launches.count, AB.bwd_launches.count
+    fwd0, bwd0, tn0 = AB.launches.count, AB.bwd_launches.count, AB.wgrad_launches.count
     out = AB.attn_block(x, mask, *params, heads=heads)
     assert out.grad_fn is not None
     out.backward(do)
     assert (AB.launches.count, AB.bwd_launches.count) == (fwd0 + 1, bwd0 + 1)
+    # bf16: the four weight gradients in one launch of the TN GEMM
+    assert AB.wgrad_launches.count == tn0 + (dtype == torch.bfloat16)
     plain = [p.detach() for p in params]
     packed = AB.attn_block_bwd_packed_reference(x.detach(), mask, *plain[:7], do, heads)
     got = AB.attn_block_bwd_cuda(x.detach(), mask, *plain[:7], do, heads, (hid // heads) ** -0.5)
@@ -532,3 +540,90 @@ def test_gemm_nt_refuses_what_tma_cannot_describe(cuda):
     with pytest.raises(RuntimeError, match="invalid argument"):
         AB.gemm_nt(flat[1:].view(8, 64), [w], [None])
     assert AB.gemm_launches.count == before
+
+
+NN_TN_ROWS = [1, 63, 64, 65, 4096, 12864]
+
+
+def _within_a_bf16_step(got, want, what):
+    err = (got.float() - want.float()).abs()
+    assert torch.isfinite(got).all(), what
+    assert (err <= 2 ** -7 * want.float().abs() + 1e-3).all(), (what, err.max().item())
+
+
+@pytest.mark.parametrize("width", [768, 2304])
+@pytest.mark.parametrize("m", NN_TN_ROWS)
+def test_gemm_nn_matches_plain(cuda, m, width):
+    """The bf16 NN GEMM (wgmma fed by TMA, W read MN-major) against its plain
+    version: dctx's one pair at K = width, dx's three at N = width."""
+    for pairs, k, n in ((1, width, 768), (3, 768, width)):
+        as_ = [torch.randn(m, k, generator=cuda, device="cuda").bfloat16() for _ in range(pairs)]
+        ws = [(torch.randn(k, n, generator=cuda, device="cuda") * (pairs * k) ** -0.5).bfloat16()
+              for _ in range(pairs)]
+        before = AB.gemm_nn_launches.count
+        got = AB.gemm_nn(as_, ws)
+        assert AB.gemm_nn_launches.count == before + 1
+        want = AB.gemm_nn_reference(as_, ws)
+        torch.cuda.synchronize()
+        assert got.shape == (m, n) and got.dtype == torch.bfloat16
+        _within_a_bf16_step(got, want, (pairs, k, n))
+
+
+@pytest.mark.parametrize("width", [768, 2304])
+@pytest.mark.parametrize("rows", NN_TN_ROWS)
+def test_gemm_tn_matches_plain(cuda, rows, width):
+    """The bf16 TN GEMM (both operands MN-major) against its plain version:
+    four products over ``rows`` K rows, C_z (768, width), with the slices
+    the library picks (none at short K, the last round's tiles at long K)."""
+    xs = [torch.randn(rows, width, generator=cuda, device="cuda").bfloat16() for _ in range(4)]
+    gs = [(torch.randn(rows, 768, generator=cuda, device="cuda") * rows ** -0.5).bfloat16()
+          for _ in range(4)]
+    want = AB.gemm_tn_reference(xs, gs)
+    before = AB.wgrad_launches.count
+    got = AB.gemm_tn(xs, gs)
+    assert AB.wgrad_launches.count == before + 1
+    torch.cuda.synchronize()
+    for z, (g, r) in enumerate(zip(got, want)):
+        assert g.shape == (768, width) and g.dtype == torch.bfloat16
+        _within_a_bf16_step(g, r, z)
+
+
+@pytest.mark.parametrize("rows", [64, 4096])
+@pytest.mark.parametrize("count", [1, 2, 3, 4])
+def test_gemm_tn_slices_agree_bit_for_bit(cuda, count, rows):
+    """Two runs give the same bits and agree with the plain version within a
+    bf16 step, on every route the library takes: at 64 rows no slices; at
+    4096 rows every tile sliced (counts 1-3: fewer tiles than SMs) or the
+    tiles past the last full round (count 4), the slices summed apart and
+    then in slice order."""
+    xs = [torch.randn(rows, 768, generator=cuda, device="cuda").bfloat16() for _ in range(count)]
+    gs = [(torch.randn(rows, 768, generator=cuda, device="cuda") * rows ** -0.5).bfloat16()
+          for _ in range(count)]
+    first = AB.gemm_tn(xs, gs)
+    again = AB.gemm_tn(xs, gs)
+    want = AB.gemm_tn_reference(xs, gs)
+    torch.cuda.synchronize()
+    for z, (a, b, r) in enumerate(zip(first, again, want)):
+        assert torch.equal(a, b), z
+        _within_a_bf16_step(a, r, z)
+
+
+def test_gemm_nn_tn_refuse_what_tma_cannot_describe(cuda):
+    """An odd width (a row stride not a multiple of 16 bytes) or an operand
+    not on a 16-byte boundary is refused before any launch."""
+    bf = dict(device="cuda", dtype=torch.bfloat16)
+    nn0, tn0 = AB.gemm_nn_launches.count, AB.wgrad_launches.count
+    with pytest.raises(RuntimeError, match="invalid argument"):  # K = 36
+        AB.gemm_nn([torch.zeros(8, 36, **bf)], [torch.zeros(36, 64, **bf)])
+    with pytest.raises(RuntimeError, match="invalid argument"):  # N = 36
+        AB.gemm_nn([torch.zeros(8, 64, **bf)], [torch.zeros(64, 36, **bf)])
+    flat = torch.zeros(8 * 64 + 1, **bf)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        AB.gemm_nn([flat[1:].view(8, 64)], [torch.zeros(64, 64, **bf)])
+    with pytest.raises(RuntimeError, match="invalid argument"):  # N = 36
+        AB.gemm_tn([torch.zeros(8, 36, **bf)], [torch.zeros(8, 64, **bf)])
+    with pytest.raises(RuntimeError, match="invalid argument"):  # M = 36
+        AB.gemm_tn([torch.zeros(8, 64, **bf)], [torch.zeros(8, 36, **bf)])
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        AB.gemm_tn([flat[1:].view(8, 64)], [torch.zeros(8, 64, **bf)])
+    assert (AB.gemm_nn_launches.count, AB.wgrad_launches.count) == (nn0, tn0)
