@@ -58,7 +58,17 @@ and the CUDA toolkit. It
    weight-gradient launch per block backward); it prints ms per train
    step, posts/s, the device idle share of one profiled step, its largest
    kernels, copies and float32 sgemm launches (``fused`` may launch no more
-   of these than ``auto``) and the peak device memory;
+   of these than ``auto``) and the peak device memory; then ``fused`` again
+   at ``--steps_per_dispatch 3``, every step a CUDA graph replay: the launch
+   counts exact per chunk (a launch counts when a replay runs it; the first
+   chunk and the first eval add the eager warm-up step run before each
+   capture), one profiled replay running the port's kernels by name as often
+   as the eager step does and moving the counters by one step's counts, each
+   step's loss within 1e-5 relative of the K = 1 run's; every run also times
+   three more passes over the train split with one sync at the end (ms per
+   step with the host free to run ahead); the text-only runner
+   ``cli/run_txt.main`` (Bernice-base, CLS head) the same way under
+   ``fused`` at K = 1 and K = 3;
 8. trains full-width ViLT-B/32 (12 pre-LN layers, hidden 768, vocab 30,522,
    40 text positions, patch 32) with ITC + TIM through ``cli/run_mm_early.main``
    under ``--vilt_exact_resize`` on the same posts, one epoch at batch 16 in
@@ -69,7 +79,12 @@ and the CUDA toolkit. It
    the exact launch counts (12 SDPA forward and 12 backward per train step,
    12 forward per eval step, all at L = 402; under ``fused`` the block
    kernels and 12 TN launches instead), finite losses and gradients of every parameter but the
-   unread pooler, and the artifacts, with the same numbers as step 7;
+   unread pooler, and the artifacts, with the same numbers as step 7, and
+   ``fused`` at K = 3 as in step 7; then ``--ckpt_every 2`` and ``--resume``
+   (a 1.3 GB checkpoint at step 2; the resumed run's parameters equal the
+   straight run's within 1e-6 of their scale; deleted after) and
+   ``--remat`` (the first step's gradients, dropout on, within 1e-6 of those
+   without it; the peak memory of both);
 9. holds the first train step of ``auto`` and of ``fused`` against the plain
    path (``--attn_impl jnp``), for late fusion and for ViLT: same state
    dict, same batch, dropout 0, the ITM swap pinned, every text-tower (ViLT:
@@ -119,7 +134,11 @@ and the CUDA toolkit. It
    (``python3 chip_smoke.py --enqueue ROOT`` runs that reading alone for
    the port of another checkout, such as an older commit's, so two versions
    can be compared in one run);
-13. prints one JSON line of per-kernel numbers (``launches``: the count over
+13. times one AdamW step over ViLT-B/32's 211 parameter tensors (float32
+   and bfloat16 first moments): the kernel launches and copies the profiler
+   sees, device ms and ms per step (``python3 chip_smoke.py --optimizer
+   ROOT`` runs it alone for the port of another checkout);
+14. prints one JSON line of per-kernel numbers (``launches``: the count over
    the serving and training runs and the per-head phase's main path; 0 for
    the check-only shapes), the card line, and last
    ``{"ok": true, "device": {...}}``.
@@ -150,6 +169,7 @@ N_REQUESTS = 48
 N_CLIENTS = 16
 PROB_TOL = 2e-2
 TRAIN_POSTS = (48, 8, 8)  # train / val / test rows of the generated dataset
+STEADY_PASSES = 3  # passes over the train split timed after each training run
 DEVICE = "cuda"
 VILT_TEXT, VILT_SIDE = 40, 19  # ViLT's text positions; the 608-px canvas at patch 32
 VILT_LEN = VILT_TEXT + 1 + VILT_SIDE ** 2  # 402, --vilt_exact_resize
@@ -961,6 +981,18 @@ def vilt_args(attn_impl, extra=()):
             "--attn_impl", attn_impl, *extra]
 
 
+def txt_args(attn_impl, extra=()):
+    return ["--model_name", "bernice", "--task", "3", "--epochs", "1", "--seed", "30",
+            "--arch", "base", "--dtype", "bfloat16", "--save_model", "--log_every", "1",
+            "--attn_impl", attn_impl, *extra]
+
+
+def count_launches(launches, by_key):
+    for kernel, keys in by_key.items():
+        for key, n in keys.items():
+            launches[(kernel, key)] = launches.get((kernel, key), 0) + n
+
+
 def fill_vilt_frames(build_early, ids):
     """No photos are decoded (the port needs no PIL on the card): every split's
     ``ExactViltImageSource`` gets its memo filled with generated frames, each
@@ -1012,17 +1044,48 @@ def check_vilt_extents(memo, seen, tag):
         f"({len({tuple(g) for _, gr in seen for g in gr.tolist()})} distinct)")
 
 
-def train_run(torch, main, argv, tag, counters, results_dir, stem, expect, check_grads):
-    """One epoch through a trainer's ``main(argv)``; checks the launch counts
-    per train and eval step, the gradients (``check_grads(setup, grads)``)
-    and the artifacts ``stem`` + ...; returns its numbers and the launch
-    counts by (kernel, key)."""
+def is_port_kernel(key: str) -> bool:
+    """The port's own kernels in a profile (csrc/: the smtc:: SDPA kernels
+    and the block kernels' GEMMs)."""
+    return "smtc::" in key or "namespace)::gemm_" in key
+
+
+def profile_step(torch, step, tag):
+    """One call of ``step`` under the profiler: its wall ms, the device's busy
+    ms and idle share, and the events on the device."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t1) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    if not busy:
+        log(f"{tag}: device idle share not measured (the profiler saw no device events)")
+    return wall, busy, (1 - busy / wall) if busy else None, events
+
+
+def train_run(torch, main, argv, tag, counters, results_dir, stem, expect, check_grads,
+              k=1, eager_kernels=None):
+    """One epoch through a trainer's ``main(argv)`` at ``--steps_per_dispatch
+    k``; checks the launch counts per train and eval step, the gradients
+    (``check_grads(setup, grads)``) and the artifacts ``stem`` + ...; returns
+    its numbers and the launch counts by (kernel, key).
+
+    Under k > 1 ``on_step`` comes once per chunk, each step a CUDA graph
+    replay: a chunk of n steps launches n times a step's kernels, the
+    first chunk once more (the step's gradients, run eagerly before the
+    capture), and the evals once more than their steps (the eval step run
+    before its capture). A replayed step is profiled: it must run the port's
+    kernels by name as often as the eager step of the same path does
+    (``eager_kernels``), and move the counters by one step's counts."""
     for c in counters.values():
         c.reset()
-    steps = []
+    chunks = []
     state = {"t": None, "prev": {k: 0 for k in counters}}
 
     def on_step(step, metrics):
@@ -1030,17 +1093,17 @@ def train_run(torch, main, argv, tag, counters, results_dir, stem, expect, check
         now = time.perf_counter()
         counts = {k: c.count - state["prev"][k] for k, c in counters.items()}
         state["prev"] = {k: c.count for k, c in counters.items()}
-        vals = {k: float(v) for k, v in metrics.items()}
-        if not all(map(lambda v: v == v and abs(v) != float("inf"), vals.values())):
+        vals = {k: v.reshape(-1).tolist() for k, v in metrics.items()}
+        if not all(x == x and abs(x) != float("inf") for v in vals.values() for x in v):
             raise AssertionError(f"{tag}: step {step} metrics not finite: {vals}")
-        steps.append(dict(seconds=None if state["t"] is None else now - state["t"],
-                          counts=counts, loss=vals["loss"]))
+        chunks.append(dict(seconds=None if state["t"] is None else now - state["t"],
+                           counts=counts, losses=vals["loss"]))
         state["t"] = now
 
+    argv = list(argv) + ["--steps_per_dispatch", str(k)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    state["t"] = None
     trainer, setup = main(argv, on_step=on_step, keep_grads=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1048,20 +1111,24 @@ def train_run(torch, main, argv, tag, counters, results_dir, stem, expect, check
     totals = {k: c.count for k, c in counters.items()}
     by_key = {k: dict(c.by_key) for k, c in counters.items()}
 
-    n_train = len(steps)
+    losses = [x for ch in chunks for x in ch["losses"]]
+    n_train = len(losses)
     n_eval = setup.pipes["val"].num_batches + setup.pipes["test"].num_batches
-    for i, st in enumerate(steps):
+    for i, ch in enumerate(chunks):
+        steps = len(ch["losses"]) + (1 if k > 1 and i == 0 else 0)
         for kernel, n in expect["train"].items():
-            if st["counts"][kernel] != n:
-                raise AssertionError(f"{tag}: step {i + 1} launched {kernel} "
-                                     f"{st['counts'][kernel]} times, expected {n}")
+            if ch["counts"][kernel] != n * steps:
+                raise AssertionError(f"{tag}: chunk {i + 1} launched {kernel} "
+                                     f"{ch['counts'][kernel]} times, expected {n} x {steps}")
+    evals = n_eval + (1 if k > 1 else 0)
     for kernel, n in expect["eval"].items():
-        seen = totals[kernel] - sum(st["counts"][kernel] for st in steps)
-        if seen != n * n_eval:
-            raise AssertionError(f"{tag}: {n_eval} eval steps launched "
+        seen = totals[kernel] - sum(ch["counts"][kernel] for ch in chunks)
+        if seen != n * evals:
+            raise AssertionError(f"{tag}: {evals} eval steps launched "
                                  f"{kernel} {seen} times, expected {n} each")
     log(f"{tag}: launches per train step {expect['train']}, per eval step "
-        f"{expect['eval']} over {n_train} train and {n_eval} eval steps: exact")
+        f"{expect['eval']} over {n_train} train and {n_eval} eval steps in "
+        f"{len(chunks)} dispatches of up to {k}: exact")
 
     check_grads(setup, setup.train_step.last_grads)
 
@@ -1074,18 +1141,48 @@ def train_run(torch, main, argv, tag, counters, results_dir, stem, expect, check
     if table[0] != "metric,epoch-1" or len(table) != 8:
         raise AssertionError(f"{tag}: metrics table {table}")
 
-    # one more step under the profiler: the device's idle share
-    batch = next(setup.pipes["train"].device_iter(setup.device, shuffle=False))
-    setup.train_step(batch, trainer.gen)
+    # the train split STEADY_PASSES times more through the same path, one
+    # sync at the end: ms per step with the host free to run ahead of the
+    # card (and under k > 1 to stage a chunk while the card runs the last)
+    pipe, dev, gen = setup.pipes["train"], setup.device, trainer.gen
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t1 = time.perf_counter()
-        setup.train_step(batch, trainer.gen)
-        torch.cuda.synchronize()
-        step_wall = (time.perf_counter() - t1) * 1e3
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in events) / 1e3
-    idle = (1 - busy / step_wall) if busy else None
+    t1 = time.perf_counter()
+    for _ in range(STEADY_PASSES):
+        if k == 1:
+            for batch in pipe.device_iter(dev, shuffle=False):
+                setup.train_step(batch, gen)
+        else:
+            for batches, k_real in pipe.device_iter_chunks(dev, k):
+                trainer.train_many(batches, k_real, gen)
+    torch.cuda.synchronize()
+    steady_ms = (time.perf_counter() - t1) * 1e3 / (STEADY_PASSES * pipe.num_batches)
+
+    # one more step under the profiler: the device's idle share
+    if k == 1:
+        batch = next(pipe.device_iter(dev, shuffle=False))
+        setup.train_step(batch, gen)
+
+        def step():
+            setup.train_step(batch, gen)
+    else:
+        batches, _ = next(pipe.device_iter_chunks(dev, 1))
+
+        def step():
+            trainer.train_many(batches, 1, gen)
+    before = {k: c.count for k, c in counters.items()}
+    step_wall, busy, idle, events = profile_step(torch, step, tag)
+    moved = {k: c.count - before[k] for k, c in counters.items()}
+    if moved != expect["train"]:
+        raise AssertionError(f"{tag}: the profiled step moved the counters by {moved}, "
+                             f"expected {expect['train']}")
+    kernels = {e.key: e.count for e in events if is_port_kernel(e.key)}
+    if eager_kernels is not None:
+        if kernels != eager_kernels:
+            raise AssertionError(f"{tag}: the replayed step ran the port's kernels "
+                                 f"{kernels}, the eager step {eager_kernels}")
+        log(f"{tag}: the profiled replay ran the port's kernels as the eager step did "
+            f"({sum(kernels.values())} launches of {len(kernels)} kernels) and moved the "
+            f"counters by one step's counts")
     ranked = sorted(events, key=lambda e: -e.self_device_time_total)
     # cuBLAS's float32 SIMT GEMMs (the block's weight gradients before they
     # moved onto the TN GEMM): their launches and time
@@ -1097,31 +1194,44 @@ def train_run(torch, main, argv, tag, counters, results_dir, stem, expect, check
     copies = [e for e in events if "copy_kernel" in e.key]
     log(f"profile {tag}: f32 sgemm {sgemm_ms:.3f} ms x{sgemm_calls}; copies "
         f"{sum(e.self_device_time_total for e in copies) / 1e3:.3f} ms "
-        f"x{sum(e.count for e in copies)}")
+        f"x{sum(e.count for e in copies)}; {sum(e.count for e in events)} kernel launches")
     # the eight largest, then every other kernel of the port's own
-    # (csrc/: the smtc:: SDPA kernels and the block kernels' GEMMs)
     for i, e in enumerate(ranked):
-        if i < 8 or "smtc::" in e.key or "namespace)::gemm_" in e.key:
+        if i < 8 or is_port_kernel(e.key):
             log(f"profile {tag}:   {e.self_device_time_total / 1e3:8.3f} ms "
                 f"x{e.count:<4d} {e.key[:90]}")
-    timed_steps = [st["seconds"] for st in steps if st["seconds"] is not None]
-    ms = 1e3 * sum(timed_steps) / len(timed_steps)
+    timed = [ch["seconds"] / len(ch["losses"]) for ch in chunks if ch["seconds"] is not None]
+    ms = 1e3 * sum(timed) / len(timed) if timed else None
     # the profiler's own host work lengthens the profiled step: the share
-    # against the unprofiled mean step is the second reading
-    result = dict(run=tag, train_steps=n_train, eval_steps=n_eval,
-                  ms_per_train_step=ms, posts_per_s=BATCH / (ms / 1e3),
+    # against the unprofiled step is the second reading
+    result = dict(run=tag, steps_per_dispatch=k, train_steps=n_train, eval_steps=n_eval,
+                  ms_per_train_step=ms, posts_per_s=BATCH / (ms / 1e3) if ms else None,
+                  steady_ms_per_step=steady_ms, steady_posts_per_s=BATCH / (steady_ms / 1e3),
                   profiled_step_ms=step_wall, device_busy_ms=busy,
                   idle_share=idle, sgemm_calls=sgemm_calls, sgemm_ms=sgemm_ms,
-                  idle_share_of_mean_step=(1 - busy / ms) if busy else None,
-                  max_memory_allocated=peak, run_seconds=wall,
-                  losses=[st["loss"] for st in steps])
+                  idle_share_of_mean_step=(1 - busy / ms) if busy and ms else None,
+                  idle_share_of_steady_step=(1 - busy / steady_ms) if busy else None,
+                  kernel_launches=sum(e.count for e in events),
+                  max_memory_allocated=peak, run_seconds=wall, losses=losses)
     log(f"{tag}: {json.dumps(result)}")
-    if idle is None:
-        log(f"{tag}: device idle share not measured (the profiler saw no "
-            "device events)")
-    del trainer, setup, batch
+    del trainer, setup
     torch.cuda.empty_cache()
-    return result, by_key
+    return result, by_key, kernels
+
+
+def same_losses(replayed, eager, tag):
+    """Every step's loss of the K = 3 run within 1e-5 relative of the K = 1
+    run of the same seed."""
+    if len(replayed["losses"]) != len(eager["losses"]):
+        raise AssertionError(f"{tag}: {len(replayed['losses'])} steps against "
+                             f"{len(eager['losses'])}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(replayed["losses"], eager["losses"]))
+    log(f"{tag}: per-step losses against K = 1: worst relative difference {rel:.2e} "
+        f"(tol 1e-5)")
+    if not rel <= 1e-5:
+        raise AssertionError(f"{tag}: losses {replayed['losses']} against K = 1 "
+                             f"{eager['losses']}")
+    return rel
 
 
 def no_added_sgemm(fused, auto, tag):
@@ -1179,6 +1289,163 @@ def vilt_grads_check(torch, tag):
             f"{len(unused)} unused by the loss (the pooler), nothing frozen")
 
     return check
+
+
+def txt_grads_check(torch, tag):
+    """Text-only: every parameter but the pooler (the CLS head does not read
+    it) has a finite gradient, and AdamW holds them all."""
+
+    def check(setup, grads):
+        unused = sorted(n for n, gr in grads.items() if gr is None)
+        if unused != ["tower.pooler.dense.bias", "tower.pooler.dense.weight"]:
+            raise AssertionError(f"{tag}: parameters without a gradient: {unused}")
+        bad = [n for n, gr in grads.items() if gr is not None and not torch.isfinite(gr).all()]
+        if bad:
+            raise AssertionError(f"{tag}: non-finite gradients in {bad[:5]}")
+        if sorted(setup.optimizer.names) != sorted(n for n, _ in setup.model.named_parameters()):
+            raise AssertionError(f"{tag}: AdamW does not hold every parameter")
+        log(f"{tag}: {len(grads) - len(unused)} tensors with finite gradients, "
+            f"{len(unused)} unused by the loss (the pooler)")
+
+    return check
+
+
+def vilt_resume_check(torch, C, run_mm_early):
+    """``--ckpt_every`` and ``--resume`` on ViLT at full width (``fused``,
+    dropout on): a run of the epoch's three steps saves a checkpoint at step
+    2 (parameters, both moments, the generators); a second run resumes from
+    it, skips the two steps taken and trains the third. Its parameters must
+    equal the first run's (the same kernels from the same state and
+    generator: within 1e-6 of each tensor's scale). The checkpoints are
+    deleted after."""
+    import shutil
+
+    ckpt_dir = C.results_dir_mm_early + "vilt_task3_seed30_itc0.1itm0.1_ckpt"
+    params, steps, size = {}, {}, None
+    for run, extra in (("straight", ["--ckpt_every", "2"]),
+                       ("resumed", ["--ckpt_every", "2", "--resume"])):
+        seen = []
+        t0 = time.perf_counter()
+        trainer, setup = run_mm_early.main(vilt_args("fused", extra),
+                                           on_step=lambda step, m: seen.append(step))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        params[run] = {k: v.float().clone() for k, v in setup.model.state_dict().items()}
+        steps[run] = seen
+        if run == "straight":
+            size = os.path.getsize(os.path.join(ckpt_dir, "step_2.pt"))
+        log(f"vilt resume[{run}]: steps {seen} in {seconds:.1f} s; checkpoints "
+            f"{sorted(os.listdir(ckpt_dir))}")
+        del trainer, setup
+        torch.cuda.empty_cache()
+    shutil.rmtree(ckpt_dir)
+    if steps != {"straight": [1, 2, 3], "resumed": [3]}:
+        raise AssertionError(f"vilt resume: steps {steps}")
+    worst, exact = 0.0, 0
+    for name, want in params["straight"].items():
+        got = params["resumed"][name]
+        exact += bool(torch.equal(got, want))
+        worst = max(worst, (got - want).abs().max().item()
+                    / max(want.abs().max().item(), 1e-12))
+    log(f"vilt resume: checkpoint {size / 1e9:.3f} GB; resumed parameters against the "
+        f"straight run: {exact} of {len(params['straight'])} tensors equal, worst "
+        f"{worst:.2e} of the tensor's scale (tol 1e-6)")
+    if not worst <= 1e-6:
+        raise AssertionError("vilt resume: the resumed run ends elsewhere")
+    return dict(checkpoint_bytes=size, tensors_equal=exact, tensors=len(params["straight"]),
+                worst_rel=worst)
+
+
+def vilt_remat_check(torch, C, run_mm_early, build_early, hub):
+    """``--remat`` on ViLT at full width (``fused``, dropout 0.1): the first
+    step's gradients with and without it, from the same state dict, batch and
+    generator seed, within 1e-6 of each gradient's scale (the recompute reuses
+    the dropout masks the forward drew); the peak memory of each."""
+    d = os.path.join(hub, "vilt")
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump({"hidden_dropout_prob": 0.1}, f)
+    C.MODEL_DIR_DICT["vilt"] = d + os.sep
+    grads, peak = {}, {}
+    for remat in (False, True):
+        args = run_mm_early.parse_args(vilt_args("fused", ["--remat"] if remat else []))
+        setup = build_early.build_mm_early_train_setup(
+            args, C.Config(args, model_name="vilt"), torch.device(DEVICE),
+            torch.Generator().manual_seed(30))
+        batch = next(setup.pipes["train"].device_iter(setup.device, shuffle=False))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        g, _, _ = setup.train_step.gradients(batch, torch.Generator(DEVICE).manual_seed(1))
+        torch.cuda.synchronize()
+        peak[remat] = torch.cuda.max_memory_allocated()
+        grads[remat] = {n: v.float() for n, v in g.items() if v is not None}
+        del setup, g, batch
+        torch.cuda.empty_cache()
+    worst = max((grads[True][n] - w).abs().max().item() / max(w.abs().max().item(), 1e-12)
+                for n, w in grads[False].items())
+    log(f"vilt remat: first-step gradients against no remat over {len(grads[False])} "
+        f"tensors: worst {worst:.2e} of the gradient's scale (tol 1e-6); peak memory "
+        f"{peak[True] / 1e9:.2f} GB with remat, {peak[False] / 1e9:.2f} GB without")
+    if not worst <= 1e-6 or set(grads[True]) != set(grads[False]):
+        raise AssertionError("vilt remat: the gradients differ from those without remat")
+    return dict(worst_rel=worst, peak_bytes_remat=peak[True], peak_bytes_plain=peak[False])
+
+
+def optimizer_launches(torch, optim, vilt, encoder):
+    """The device work of one AdamW step over ViLT-B/32's parameters (random
+    weights and gradients), with float32 and with bfloat16 first moments:
+    the kernel launches and host-to-device copies the profiler sees in one
+    step, their device ms, and ms per step (20 steps, one sync at the end)."""
+    cfg = encoder.EncoderConfig(vocab_size=30522, hidden=768, layers=12, heads=12,
+                                mlp_dim=3072, max_positions=40, type_vocab=2,
+                                ln_style="pre", dtype="bfloat16", attn_impl="fused")
+    with torch.device("meta"):
+        model = vilt.ViltClassifier(cfg, 3, patch=32, image_size=384, canvas_size=608)
+    model = model.to_empty(device=DEVICE)
+    g = torch.Generator(DEVICE).manual_seed(0)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.normal_(0.0, 0.02, generator=g)
+    grads = {n: 1e-3 * torch.randn(p.shape, generator=g, device=DEVICE)
+             for n, p in model.named_parameters()}
+    out = {}
+    for moments in ("f32", "bf16"):
+        opt = optim.AdamW(model.named_parameters(), 1e-5, 0.00025,
+                          mu_dtype=torch.bfloat16 if moments == "bf16" else None)
+        for _ in range(3):
+            opt.step(grads)
+        _, busy, _, events = profile_step(torch, lambda: opt.step(grads), "optimizer")
+        copies = sum(e.count for e in events if e.key.startswith("Memcpy"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            opt.step(grads)
+        torch.cuda.synchronize()
+        out[moments] = dict(tensors=len(opt.params), kernel_launches=sum(
+            e.count for e in events) - copies, memcpy=copies, device_ms=busy,
+            ms_per_step=(time.perf_counter() - t0) * 1e3 / 20)
+        log(f"optimizer[{moments} moments]: {json.dumps(out[moments])}")
+        del opt
+    return out
+
+
+def optimizer_only(root):
+    """``python3 chip_smoke.py --optimizer ROOT``: ``optimizer_launches`` alone,
+    for the port of the checkout at ROOT (an unpacked older commit, to set
+    two versions of AdamW side by side in one run)."""
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.models import encoder, vilt
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.train import optim
+
+    log(f"optimizer: the port at {os.path.dirname(os.path.dirname(os.path.abspath(optim.__file__)))}"
+        f"; card: {card_line()}")
+    log(json.dumps({"optimizer": optimizer_launches(torch, optim, vilt, encoder)}))
+    return 0
 
 
 def first_step_check(torch, tag, make_setup, keep):
@@ -1813,7 +2080,7 @@ def main():
     from socialmedia_textimage_classification_auxlosses_tpu_torch.cli import (
         _build_early as build_early)
     from socialmedia_textimage_classification_auxlosses_tpu_torch.cli import (
-        run_mm_early, run_mm_late)
+        run_mm_early, run_mm_late, run_txt)
 
     counters = {"sdpa_fwd": A.launches, "sdpa_bwd": A.bwd_launches,
                 "attn_block_fwd": AB.launches, "attn_block_bwd": AB.bwd_launches,
@@ -1835,16 +2102,39 @@ def main():
         C.PATH[3] = data + "data_key_mvsa.csv"
         C.IMG_FMT[3] = data + "MVSA-Single/data/{}.jpg"  # never read: the cache holds every id
         C.results_dir_mm_late = os.path.join(tmp, "results", "mm_late") + os.sep
+        late_stem = "bernice-vit-attention_task3_seed30_itc0.1itm0.1_"
+        eager_kernels = {}
         for impl, expect in per_step.items():
             tag = f"train[{impl}]"
-            training[impl], by_key = train_run(
+            training[impl], by_key, eager_kernels[impl] = train_run(
                 torch, run_mm_late.main, train_args(impl), tag, counters,
-                C.results_dir_mm_late, "bernice-vit-attention_task3_seed30_itc0.1itm0.1_",
-                expect, late_grads_check(torch, tag))
-            for kernel, keys in by_key.items():
-                for key, n in keys.items():
-                    launches[(kernel, key)] = launches.get((kernel, key), 0) + n
+                C.results_dir_mm_late, late_stem, expect, late_grads_check(torch, tag))
+            count_launches(launches, by_key)
         no_added_sgemm(training["fused"], training["auto"], "train")
+        # the same run at --steps_per_dispatch 3: every step a CUDA graph replay
+        tag = "train[fused, K=3]"
+        training["fused/k3"], by_key, _ = train_run(
+            torch, run_mm_late.main, train_args("fused"), tag, counters, C.results_dir_mm_late,
+            late_stem, per_step["fused"], late_grads_check(torch, tag), k=3,
+            eager_kernels=eager_kernels["fused"])
+        training["fused/k3"]["loss_rel_vs_k1"] = same_losses(training["fused/k3"],
+                                                             training["fused"], tag)
+        count_launches(launches, by_key)
+        # the text-only runner (Bernice-base, CLS head) under fused, K = 1 and 3
+        C.results_dir_txt = os.path.join(tmp, "results", "txt") + os.sep
+        txt_step = {"train": {**none, "attn_block_fwd": 12, "attn_block_bwd": 12,
+                              "gemm_tn_bf16": 12},
+                    "eval": {**none, "attn_block_fwd": 12}}
+        for k in (1, 3):
+            tag = f"txt[fused, K={k}]"
+            training[f"txt/fused/k{k}"], by_key, kernels = train_run(
+                torch, run_txt.main, txt_args("fused"), tag, counters, C.results_dir_txt,
+                "bernice_task3_seed30_", txt_step, txt_grads_check(torch, tag), k=k,
+                eager_kernels=eager_kernels.get("txt/fused"))
+            eager_kernels.setdefault("txt/fused", kernels)
+            count_launches(launches, by_key)
+        training["txt/fused/k3"]["loss_rel_vs_k1"] = same_losses(
+            training["txt/fused/k3"], training["txt/fused/k1"], "txt[fused, K=3]")
         training["first_step"] = late_first_step(torch, C, run_mm_late, build,
                                                  os.path.join(tmp, "hub"))
 
@@ -1860,13 +2150,21 @@ def main():
             "fused": {"train": {**none, "attn_block_fwd": 12, "attn_block_bwd": 12,
                                 "gemm_tn_bf16": 12},
                       "eval": {**none, "attn_block_fwd": 12}}}
-        for impl, expect in vilt_step.items():
-            tag = f"vilt[{impl}]"
+        for impl, k in (("auto", 1), ("fused", 1), ("fused", 3)):
+            expect = vilt_step[impl]
+            tag = f"vilt[{impl}]" if k == 1 else f"vilt[{impl}, K={k}]"
             seen.clear()
-            training[f"vilt/{impl}"], by_key = train_run(
+            run = f"vilt/{impl}" if k == 1 else f"vilt/{impl}/k{k}"
+            training[run], by_key, kernels = train_run(
                 torch, run_mm_early.main, vilt_args(impl), tag, counters,
                 C.results_dir_mm_early, "vilt_task3_seed30_itc0.1itm0.1_", expect,
-                vilt_grads_check(torch, tag))
+                vilt_grads_check(torch, tag), k=k,
+                eager_kernels=eager_kernels[f"vilt/{impl}"] if k > 1 else None)
+            if k == 1:
+                eager_kernels[f"vilt/{impl}"] = kernels
+            else:
+                training[run]["loss_rel_vs_k1"] = same_losses(
+                    training[run], training[f"vilt/{impl}"], tag)
             check_vilt_extents(memo, seen, tag)
             lengths = {key[3] if kernel.startswith("sdpa") else key[2]
                        for kernel, keys in by_key.items() for key in keys
@@ -1876,14 +2174,20 @@ def main():
             if lengths != {VILT_LEN}:
                 raise AssertionError(f"{tag}: attention at lengths {sorted(lengths)}, "
                                      f"expected only {VILT_LEN}")
-            for kernel, keys in by_key.items():
-                for key, n in keys.items():
-                    launches[(kernel, key)] = launches.get((kernel, key), 0) + n
+            count_launches(launches, by_key)
         no_added_sgemm(training["vilt/fused"], training["vilt/auto"], "vilt")
+        training["vilt/resume"] = vilt_resume_check(torch, C, run_mm_early)
+        training["vilt/remat"] = vilt_remat_check(torch, C, run_mm_early, build_early,
+                                                  os.path.join(tmp, "hub_remat"))
         training["vilt/first_step"] = vilt_first_step(torch, C, run_mm_early, build_early,
                                                       os.path.join(tmp, "hub"))
+
         # the late-fusion towers from checkpoints, and --import_reference_ckpt
         training["pretrained"] = pretrained_start(torch, C, run_mm_late, counters)
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.models import encoder, vilt
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.train import optim
+
+    training["optimizer"] = optimizer_launches(torch, optim, vilt, encoder)
     log(json.dumps({"training": training}))
     log(json.dumps({"perhead_vs_packed": perhead_vs_packed}))
     log(json.dumps(gemm_rows))
@@ -1939,6 +2243,8 @@ if __name__ == "__main__":
     try:
         if sys.argv[1:2] == ["--enqueue"] and len(sys.argv) == 3:
             sys.exit(enqueue_only(sys.argv[2]))
+        if sys.argv[1:2] == ["--optimizer"] and len(sys.argv) == 3:
+            sys.exit(optimizer_only(sys.argv[2]))
         sys.exit(main())
     except Exception:
         traceback.print_exc()

@@ -10,8 +10,9 @@ adds what a trainer needs on its device: the vision tower frozen
 (``requires_grad`` off, outside AdamW, as the reference freezes it), the data
 splits and pipelines, AdamW, the loss configuration and the train and eval
 steps; ``import_reference_checkpoint`` loads a reference-trained ``MM_Model``
-state dict (``--import_reference_ckpt``). No mesh is built: the port runs on
-one device.
+state dict (``--import_reference_ckpt``); ``build_text_setup`` builds the
+text-only classifier of ``cli/run_txt.py`` and its trainer's parts (the JAX
+``build_text_setup``). No mesh is built: the port runs on one device.
 """
 
 from __future__ import annotations
@@ -30,10 +31,10 @@ from ..data.tokenizers import TweetTokenizerFrontend, build_tokenizer
 from ..models import hf_import as H
 from ..models.encoder import init_weights
 from ..models.fusion import FUSION_NAMES, MMLateModel
-from ..models.text import NO_TOKEN_TYPES, text_encoder_config
+from ..models.text import NO_TOKEN_TYPES, build_text_classifier, text_encoder_config
 from ..models.vision import CNN_MODELS, IMAGE_NORM, vision_encoder_config, vit_geometry
 from ..train.optim import AdamW, vision_frozen
-from ..train.steps import EvalStep, LossConfig, TrainStep
+from ..train.steps import EvalStep, LossConfig, TrainStep, make_feature_step
 from ..utils.logging import get_logger
 from ._common import arch_overrides
 
@@ -74,7 +75,7 @@ def build_mm_late_setup(args, cfg: C.ServingConfig,
     txt_name, img_name = args.txt_model_name, args.img_model_name
     txt_dir = C.MODEL_DIR_DICT.get(txt_name)
     img_dir = C.MODEL_DIR_DICT.get(img_name)
-    overrides = arch_overrides(args)
+    overrides = dict(arch_overrides(args), remat=getattr(args, "remat", False))
     text_cfg = text_encoder_config(txt_name, txt_dir, dtype=args.dtype,
                                    attn_impl=args.attn_impl, **overrides)
     vis_cfg = vision_encoder_config(img_name, img_dir, dtype=args.dtype,
@@ -132,12 +133,15 @@ def import_reference_checkpoint(model: MMLateModel, args) -> None:
 
 @dataclasses.dataclass
 class TrainSetup:
-    model: MMLateModel
+    model: torch.nn.Module
     device: torch.device
     optimizer: AdamW
     pipes: Dict[str, SplitPipeline]
     train_step: TrainStep
     eval_step: EvalStep
+    tokenizer: Optional[TweetTokenizerFrontend] = None
+    # batch -> (features, label ids), for --extract_features
+    feature_step: Optional[Callable] = None
 
 
 def _loss_cfg_from(cfg) -> LossConfig:
@@ -212,4 +216,61 @@ def build_mm_late_train_setup(args, cfg: C.Config, device: torch.device,
         model=model, device=device, optimizer=optimizer, pipes=pipes,
         train_step=TrainStep(model, forward_fn, loss_cfg, optimizer, cw,
                              keep_grads=keep_grads),
-        eval_step=EvalStep(model, forward_fn, loss_cfg, cw))
+        eval_step=EvalStep(model, forward_fn, loss_cfg, cw), tokenizer=base.tokenizer,
+        feature_step=make_feature_step(model, forward_fn))
+
+
+def build_text_setup(args, cfg: C.Config, device: torch.device,
+                     generator: torch.Generator, freeze: bool = False,
+                     keep_grads: bool = False) -> TrainSetup:
+    """The text-only classifier (``TextClassifier``: the tower of
+    ``--model_name`` and a linear head) on ``device``, initialised from
+    ``generator``, then the pretrained tower of its ``MODEL_DIR_DICT``
+    directory when that holds one; the splits (subsampled with
+    ``np.random.RandomState(args.seed)``), text-only pipelines, AdamW
+    (with ``freeze``, the tower frozen) and the steps."""
+    model_name = args.model_name
+    model_dir = C.MODEL_DIR_DICT.get(model_name)
+    with torch.device("meta"):  # no default init: it is replaced anyway
+        model = build_text_classifier(model_name, cfg.num_labels, model_dir,
+                                      dropout=cfg.dropout, dtype=args.dtype,
+                                      attn_impl=args.attn_impl, remat=args.remat,
+                                      **arch_overrides(args))
+    model = model.to_empty(device="cpu")
+    init_weights(model, generator)
+    keys = H.maybe_import_text_tower(model, model_dir, model.cfg.layers, prefix="tower.")
+    if keys:
+        logger.info("text tower: %d pretrained tensors from %s", len(keys), model_dir)
+    model = model.to(device)
+
+    def frozen(name):
+        return freeze and name.split(".")[0] == "tower"
+
+    for name, p in model.named_parameters():
+        p.requires_grad_(not frozen(name))
+    tokenizer = build_tokenizer(model_name, model_dir, cfg.max_length, model.cfg.vocab_size)
+    train, val, test, weights = prepare_data(
+        cfg.data, cfg.num_labels, testing=args.testing, multilabel=cfg.multilabel,
+        rng=np.random.RandomState(args.seed))
+    pipe_cfg = PipelineConfig(batch_size=cfg.batch_size, max_length=cfg.max_length)
+    pipes = {name: SplitPipeline(split, pipe_cfg, tokenizer=tokenizer)
+             for name, split in (("train", train), ("val", val), ("test", test))}
+    use_tt = model_name not in NO_TOKEN_TYPES
+
+    def forward_fn(batch, tim_inputs, gen, deterministic):
+        return {"out_cls": model(batch["ids"], batch["mask"],
+                                 batch.get("token_type_ids") if use_tt else None, gen=gen)}
+
+    mu_dtype = torch.bfloat16 if args.opt_moments == "bf16" else None
+    optimizer = AdamW(model.named_parameters(), cfg.lr, cfg.weight_decay, mu_dtype=mu_dtype,
+                      frozen=frozen)
+    loss_cfg = _loss_cfg_from(cfg)
+    cw = None if weights is None else torch.tensor(weights, device=device)
+    logger.info("text classifier parameters %d (trainable %d)",
+                sum(p.numel() for p in model.parameters()),
+                sum(p.numel() for _, p in optimizer.params))
+    return TrainSetup(
+        model=model, device=device, optimizer=optimizer, pipes=pipes,
+        train_step=TrainStep(model, forward_fn, loss_cfg, optimizer, cw,
+                             keep_grads=keep_grads),
+        eval_step=EvalStep(model, forward_fn, loss_cfg, cw), tokenizer=tokenizer)

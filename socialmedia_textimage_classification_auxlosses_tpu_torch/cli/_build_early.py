@@ -91,7 +91,7 @@ def build_mm_early_train_setup(args, cfg: C.Config, device: torch.device,
         # the backbone's dropout follows the checkpoint's config, as in the
         # JAX builder; --dropout is the head's
         dropout=hf.get("hidden_dropout_prob", 0.1),
-        dtype=args.dtype, attn_impl=args.attn_impl)
+        dtype=args.dtype, attn_impl=args.attn_impl, remat=args.remat)
     canvas = vilt_canvas(geo["image_size"]) if exact else None
     with torch.device("meta"):  # no default init: it is replaced anyway
         model = ViltClassifier(enc_cfg, cfg.num_labels, patch=geo["patch"],

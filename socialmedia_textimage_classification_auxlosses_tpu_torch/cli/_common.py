@@ -94,7 +94,8 @@ def add_common_args(parser: argparse.ArgumentParser, multimodal: bool = False):
                         choices=list(ARCH_PRESETS),
                         help="architecture size preset (tiny/small for smoke runs)")
     parser.add_argument("--remat", action="store_true",
-                        help="(not ported) rematerialise encoder layers")
+                        help="rematerialise encoder layers (recompute each in "
+                             "the backward)")
     parser.add_argument("--scan_layers", action="store_true",
                         help="(not ported) scanned layer stack")
     parser.add_argument("--opt_impl", type=str, default="exact",
@@ -105,13 +106,15 @@ def add_common_args(parser: argparse.ArgumentParser, multimodal: bool = False):
                             help="(not ported) cache the frozen vision "
                                  "tower's activations")
     parser.add_argument("--steps_per_dispatch", type=int, default=1,
-                        help="(not ported beyond 1) optimizer steps per dispatch")
+                        help="optimizer steps per dispatch: chunks of K batches "
+                             "staged together, each step a CUDA graph replay on "
+                             "a CUDA device")
     parser.add_argument("--resume", action="store_true",
-                        help="(not ported) resume from a checkpoint")
+                        help="resume from the newest checkpoint")
     parser.add_argument("--ckpt_every", type=int, default=0,
-                        help="(not ported) checkpoint every N steps")
+                        help="checkpoint every N steps (0: none)")
     parser.add_argument("--profile", type=str, default=None,
-                        help="(not ported) profiler trace directory")
+                        help="torch.profiler trace directory")
     parser.add_argument("--log_every", type=int, default=10,
                         help="log training metrics every N steps")
     parser.add_argument("--image_size", type=int, default=None,
@@ -132,25 +135,37 @@ def check_training_supported(args) -> None:
     """Raise ``SystemExit`` for every flag value that selects something the
     port's trainers do not have yet, rather than ignoring it."""
     refused = [
-        ("--remat", args.remat),
         ("--scan_layers", args.scan_layers),
         ("--mesh_pipe > 1", args.mesh_pipe > 1),
         ("--mesh_data > 1", (args.mesh_data or 1) > 1),
         ("--mesh_model > 1", args.mesh_model > 1),
-        ("--steps_per_dispatch > 1", args.steps_per_dispatch > 1),
         ("--bucket_seq", bool(args.bucket_seq)),
         ("--bucket_group", args.bucket_group),
         ("--opt_impl lazy_emb", args.opt_impl == "lazy_emb"),
         ("--tim_reuse_text", args.tim_reuse_text),
         ("--cache_vision", getattr(args, "cache_vision", False)),
-        ("--ckpt_every", args.ckpt_every > 0),
-        ("--resume", args.resume),
-        ("--profile", bool(args.profile)),
         ("--img_decoder native", args.img_decoder != "pil"),
     ]
     for flag, asked in refused:
         if asked:
             raise SystemExit(f"{flag} is not ported to PyTorch yet")
+
+
+def run_control(args, setup, ckpt_dir: str) -> dict:
+    """The ``Trainer``'s run-control arguments from the common flags:
+    ``--ckpt_every`` checkpoints under ``ckpt_dir`` (the JAX runners'
+    directory name), ``--resume``, ``--profile`` and ``--steps_per_dispatch``
+    with the chunked train and eval steps of ``setup``."""
+    from ..train.checkpoint import TrainCheckpointer
+    from ..train.steps import make_eval_many, make_train_many
+
+    return dict(
+        checkpointer=(TrainCheckpointer(ckpt_dir, args.ckpt_every)
+                      if args.ckpt_every else None),
+        profile_dir=args.profile, resume=args.resume,
+        train_many=make_train_many(setup.train_step),
+        eval_many=make_eval_many(setup.eval_step),
+        steps_per_dispatch=args.steps_per_dispatch)
 
 
 def save_predictions_csv(res: dict, path: str) -> None:

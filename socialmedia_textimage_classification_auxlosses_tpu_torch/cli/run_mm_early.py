@@ -16,8 +16,10 @@ plain versions on the CPU. The ``net.pth`` artifact is the port's own
 ``torch.save`` state dict. The backbone starts from the HF ViLT checkpoint
 in ``SMTC_VILT_DIR`` when it holds one, and ``--import_reference_ckpt`` loads
 a reference-trained ``ViLT`` state dict over the whole model (AdamW starts
-afresh after it). ``--model lxmert|mmbt`` and the flags of
-``cli/_common.py::check_training_supported`` raise ``SystemExit``.
+afresh after it). The run-control flags (``--steps_per_dispatch``,
+``--ckpt_every`` into ``{stem}ckpt/``, ``--resume``, ``--profile``,
+``--remat``) act as in the JAX runner. ``--model lxmert|mmbt`` and the flags
+of ``cli/_common.py::check_training_supported`` raise ``SystemExit``.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from ..utils.logging import get_logger
 from ._build_early import (build_mm_early_train_setup, check_mm_early_supported,
                            import_reference_checkpoint)
 from ._common import (add_common_args, artifact_stem, check_training_supported,
-                      resolve_device, results_dir_for, save_metrics_csv,
+                      resolve_device, results_dir_for, run_control, save_metrics_csv,
                       save_predictions_csv, seed_everything)
 
 logger = get_logger(__name__)
@@ -89,7 +91,8 @@ def main(argv=None, on_step=None, keep_grads=False):
                       seed=args.seed, multilabel=cfg.multilabel,
                       num_labels=cfg.num_labels, metric_names=C.metric_names,
                       log_every=args.log_every, log_jsonl=args.log_jsonl,
-                      on_step=on_step)
+                      on_step=on_step,
+                      **run_control(args, setup, results_dir + stem + "ckpt"))
     logger.info("Training")
     trainer.fit(setup.pipes["train"], setup.pipes["val"], args.epochs,
                 te_pipe=setup.pipes["test"],

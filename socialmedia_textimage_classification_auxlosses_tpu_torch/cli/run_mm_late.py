@@ -17,14 +17,21 @@ versions on the CPU. The ``net.pth`` artifact is the port's own
 ``MODEL_DIR_DICT`` directories (``SMTC_BERNICE_DIR``, ``SMTC_VIT_DIR``, ...)
 when those hold one, and ``--import_reference_ckpt`` loads a reference-trained
 ``MM_Model`` state dict over the whole model (AdamW starts afresh after it).
-What the port lacks raises ``SystemExit``
-(``cli/_common.py::check_training_supported``, and here ``--quantize``,
-``--extract_features``, ``--eval_txt_test``, the CNN and BEiT towers).
+``--extract_features`` writes ``features.npz`` (the fusion head's
+``mm_features`` of the test split, its labels and data ids) and
+``--eval_txt_test`` evaluates the text-only MIC set with the empty image
+(``preds_txt.csv``, ``metrics_txt.csv``). The run-control flags
+(``--steps_per_dispatch``, ``--ckpt_every`` into ``{stem}ckpt/``,
+``--resume``, ``--profile``, ``--remat``) act as in the JAX runner. What the
+port lacks raises ``SystemExit`` (``cli/_common.py::check_training_supported``,
+and here ``--quantize``, the CNN and BEiT towers).
 """
 
 from __future__ import annotations
 
 import argparse
+
+import numpy as np
 
 from ..core import config as C
 from ..train.checkpoint import load_params
@@ -34,7 +41,7 @@ from ..utils.logging import get_logger
 from ._build import (build_mm_late_train_setup, check_mm_late_supported,
                      import_reference_checkpoint)
 from ._common import (add_common_args, artifact_stem, check_training_supported,
-                      resolve_device, results_dir_for, save_metrics_csv,
+                      resolve_device, results_dir_for, run_control, save_metrics_csv,
                       save_predictions_csv, seed_everything)
 
 logger = get_logger(__name__)
@@ -59,7 +66,7 @@ def parse_args(argv=None):
     parser.add_argument("--nsamples", type=int, default=-1,
                         help="number of training samples")
     parser.add_argument("--eval_txt_test", action="store_true",
-                        help="(not ported) eval txt test")
+                        help="eval txt test")
     parser.add_argument("--load_saved_model", action="store_true",
                         help="load saved model")
     parser.add_argument("--quantize", type=str, default=None, choices=["w8"],
@@ -68,7 +75,7 @@ def parse_args(argv=None):
                         help="reference-trained MM_Model state dict (torch.save) to "
                              "import before training")
     parser.add_argument("--extract_features", action="store_true",
-                        help="(not ported) dump fused mm_features")
+                        help="dump fused mm_features")
     add_common_args(parser, multimodal=True)
     args = parser.parse_args(argv)
     if args.img_model_name in ("resnet50", "resnet152") and (
@@ -81,11 +88,8 @@ def parse_args(argv=None):
 
 def check_supported(args) -> None:
     check_training_supported(args)
-    for flag, asked in (("--quantize", args.quantize),
-                        ("--extract_features", args.extract_features),
-                        ("--eval_txt_test", args.eval_txt_test)):
-        if asked:
-            raise SystemExit(f"{flag} is not ported to PyTorch yet")
+    if args.quantize:
+        raise SystemExit("--quantize is not ported to PyTorch yet")
     check_mm_late_supported(args)
 
 
@@ -123,7 +127,8 @@ def main(argv=None, on_step=None, keep_grads=False):
                       seed=args.seed, multilabel=cfg.multilabel,
                       num_labels=cfg.num_labels, metric_names=C.metric_names,
                       log_every=args.log_every, log_jsonl=args.log_jsonl,
-                      on_step=on_step)
+                      on_step=on_step,
+                      **run_control(args, setup, results_dir + stem + "ckpt"))
 
     if not args.load_saved_model:
         logger.info("Training")
@@ -136,6 +141,18 @@ def main(argv=None, on_step=None, keep_grads=False):
             path = results_dir + stem + "preds.csv"
             save_predictions_csv(trainer.evaluate(setup.pipes["test"]), path)
             logger.info("%s saved", path)
+        if args.extract_features:
+            res = trainer.evaluate(setup.pipes["test"], collect_features=True,
+                                   feature_step=setup.feature_step)
+            np.savez(results_dir + stem + "features.npz", features=res["features"],
+                     labels=res["labels"], data_id=res["data_id"])
+            logger.info("%s saved", results_dir + stem + "features.npz")
+        if args.eval_txt_test:
+            logger.info("Evaluate and compute metrics (txt test)")
+            predictions = trainer.evaluate(_txt_test_pipe(args, cfg, setup))
+            metrics = compute_metrics(predictions, cfg.num_labels)
+            save_predictions_csv(predictions, results_dir + stem + "preds_txt.csv")
+            save_metrics_csv(metrics, results_dir + stem + "metrics_txt.csv")
     else:
         from ..utils.cast import cast_params_for_eval
 
@@ -149,6 +166,20 @@ def main(argv=None, on_step=None, keep_grads=False):
         logger.info("%s saved", results_dir + stem + "metrics_lm.csv")
     logger.info("Done!")
     return trainer, setup
+
+
+def _txt_test_pipe(args, cfg, setup):
+    """The MIC text-only eval set (``C.TDATA5``) with the empty image
+    (``C.EMPTY_IMG``) for every post, at the test split's image size."""
+    from ..data.pipeline import EmptyImageSource, PipelineConfig, SplitPipeline
+    from ..data.prep import prepare_text_data
+
+    size = setup.pipes["test"].cfg.image_size
+    return SplitPipeline(
+        prepare_text_data(C.TDATA5, num_labels=cfg.num_labels, testing=args.testing),
+        PipelineConfig(batch_size=cfg.batch_size, max_length=cfg.max_length,
+                       image_size=size),
+        tokenizer=setup.tokenizer, image_source=EmptyImageSource(C.EMPTY_IMG, size))
 
 
 if __name__ == "__main__":

@@ -56,6 +56,11 @@ IMG_FMT = {
     6: DATA_PATH + "MSD/dataset_image/{}.jpg",
 }
 
+# the text-only MIC eval set and the empty image it is paired with
+# (--eval_txt_test)
+EMPTY_IMG = DATA_PATH + "MIC/empty_image.png"
+TDATA5 = DATA_PATH + "text_data_mic.csv"
+
 CLASSES = {
     2: [
         "image adds and text is represented",

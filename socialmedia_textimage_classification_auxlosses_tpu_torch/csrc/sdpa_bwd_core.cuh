@@ -1079,16 +1079,14 @@ inline bool sdpa_bwd_tc_fits(const SdpaBwdArgs& a) {
 template <int D>
 cudaError_t launch_sdpa_bwd_tc(const SdpaBwdArgs& a, int batch, cudaStream_t stream) {
   const size_t smem_a = sdpa_tc_smem_bytes(a.lk, D);
-  cudaError_t err = cudaFuncSetAttribute(sdpa_bwd_rows_tc_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_a);
+  cudaError_t err = smem_opt_in(sdpa_bwd_rows_tc_kernel<D>, smem_a);
   if (err != cudaSuccess) return err;
   sdpa_bwd_rows_tc_kernel<D><<<dim3((a.lq + kMQ - 1) / kMQ, a.heads, batch), kThreads, smem_a,
                                stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t smem_b = sdpa_bwd_keys_tc_smem_bytes(D);
-  err = cudaFuncSetAttribute(sdpa_bwd_keys_tc_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_b);
+  err = smem_opt_in(sdpa_bwd_keys_tc_kernel<D>, smem_b);
   if (err != cudaSuccess) return err;
   sdpa_bwd_keys_tc_kernel<D><<<dim3((a.lk + kMK - 1) / kMK, a.heads, batch), kThreads, smem_b,
                                stream>>>(a);
@@ -1137,16 +1135,14 @@ template <typename T>
 cudaError_t launch_sdpa_bwd_tiled(const SdpaBwdArgs& a, int batch, cudaStream_t stream) {
   if (a.stats == nullptr || !sdpa_bwd_tiled_fits(a.lk)) return cudaErrorInvalidValue;
   const size_t smem_a = sdpa_smem_bytes(a.lk);
-  cudaError_t err = cudaFuncSetAttribute(sdpa_bwd_rows_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_a);
+  cudaError_t err = smem_opt_in(sdpa_bwd_rows_kernel<T>, smem_a);
   if (err != cudaSuccess) return err;
   sdpa_bwd_rows_kernel<T><<<dim3((a.lq + kBQ - 1) / kBQ, a.heads, batch), kThreads, smem_a,
                             stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t smem_b = sdpa_bwd_keys_smem_bytes();
-  err = cudaFuncSetAttribute(sdpa_bwd_keys_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_b);
+  err = smem_opt_in(sdpa_bwd_keys_kernel<T>, smem_b);
   if (err != cudaSuccess) return err;
   sdpa_bwd_keys_kernel<T><<<dim3((a.lk + kBT - 1) / kBT, a.heads, batch), kBwdThreads, smem_b,
                             stream>>>(a);
@@ -1156,8 +1152,7 @@ cudaError_t launch_sdpa_bwd_tiled(const SdpaBwdArgs& a, int batch, cudaStream_t 
 template <typename T>
 cudaError_t launch_sdpa_bwd_block(const SdpaBwdArgs& a, int batch, cudaStream_t stream) {
   const size_t smem = sdpa_bwd_smem_bytes(a.lq, a.lk);
-  cudaError_t err = cudaFuncSetAttribute(sdpa_bwd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = smem_opt_in(sdpa_bwd_kernel<T>, smem);
   if (err != cudaSuccess) return err;
   sdpa_bwd_kernel<T><<<dim3(a.heads, batch), kBwdThreads, smem, stream>>>(a);
   return cudaGetLastError();
@@ -1185,8 +1180,7 @@ cudaError_t launch_sdpa_bwd_row_pair(const SdpaBwdArgs& a, int batch, cudaStream
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t smem = sdpa_bwd_row_smem_bytes(a.lq, a.lk);
-  err = cudaFuncSetAttribute(sdpa_bwd_row_cols_kernel<T, VEC>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  err = smem_opt_in(sdpa_bwd_row_cols_kernel<T, VEC>, smem);
   if (err != cudaSuccess) return err;
   sdpa_bwd_row_cols_kernel<T, VEC>
       <<<dim3((a.d + kRowCols - 1) / kRowCols, a.heads, batch), kRowThreads, smem, stream>>>(a, sc);

@@ -40,9 +40,33 @@
 #include <stdint.h>
 
 #include <initializer_list>
+#include <map>
+#include <mutex>
 #include <type_traits>
+#include <utility>
 
 namespace smtc {
+
+// A kernel's dynamic shared-memory opt-in on the current device, raised only
+// when a launch needs more than the largest size already set there. So the
+// attribute call is made once per (device, kernel, larger size): a launch adds
+// none to the host's enqueue, and a CUDA graph that captures a step after its
+// warm-up records launches only.
+template <typename Kernel>
+inline cudaError_t smem_opt_in(Kernel* kernel, size_t smem) {
+  static std::mutex mu;
+  static std::map<std::pair<int, const void*>, size_t> set;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const void* key = (const void*)kernel;  // as cudaFuncSetAttribute's own overload casts
+  std::lock_guard<std::mutex> lock(mu);
+  size_t& have = set[{device, key}];
+  if (smem <= have) return cudaSuccess;
+  err = cudaFuncSetAttribute(key, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) have = smem;
+  return err;
+}
 
 constexpr float kNegInf = -1e30f;
 constexpr int kBQ = 32;        // query rows per block
@@ -654,8 +678,7 @@ inline bool sdpa_tc_fits(int d, std::initializer_list<long long> strides,
 template <int D>
 cudaError_t launch_sdpa_tc(const SdpaArgs& a, int batch, cudaStream_t stream) {
   const size_t smem = sdpa_tc_smem_bytes(a.lk, D);
-  cudaError_t err = cudaFuncSetAttribute(sdpa_fwd_tc_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = smem_opt_in(sdpa_fwd_tc_kernel<D>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.lq + kMQ - 1) / kMQ, a.heads, batch);
   sdpa_fwd_tc_kernel<D><<<grid, kThreads, smem, stream>>>(a);
@@ -666,8 +689,7 @@ cudaError_t launch_sdpa_tc(const SdpaArgs& a, int batch, cudaStream_t stream) {
 // memory, or minus the CUDA error.
 template <typename Kernel>
 int blocks_per_sm(Kernel kernel, int threads, size_t smem) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = smem_opt_in(kernel, smem);
   int n = 0;
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, smem);
@@ -689,17 +711,13 @@ cudaError_t launch_sdpa(const SdpaArgs& a, int batch, cudaStream_t stream) {
   }
   if (a.lq <= kRowMaxLq) {
     const size_t smem = sizeof(float) * ((size_t)a.d + a.lk);
-    cudaError_t err = cudaFuncSetAttribute(sdpa_fwd_row_kernel<T>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
+    cudaError_t err = smem_opt_in(sdpa_fwd_row_kernel<T>, smem);
     if (err != cudaSuccess) return err;
     sdpa_fwd_row_kernel<T><<<dim3(a.lq, a.heads, batch), kRowThreads, smem, stream>>>(a);
     return cudaGetLastError();
   }
   const size_t smem = sdpa_smem_bytes(a.lk);
-  cudaError_t err = cudaFuncSetAttribute(sdpa_fwd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+  cudaError_t err = smem_opt_in(sdpa_fwd_kernel<T>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.lq + kBQ - 1) / kBQ, a.heads, batch);
   sdpa_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(a);

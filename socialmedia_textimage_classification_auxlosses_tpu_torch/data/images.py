@@ -88,7 +88,11 @@ def normalize_on_device(pixels_u8: torch.Tensor, mean, std, dtype) -> torch.Tens
     """uint8 NHWC -> (x / 255 - mean) / std in ``dtype``, on the device of
     ``pixels_u8``; the arithmetic is float32, as in the JAX package."""
     dev = pixels_u8.device
-    mean = torch.tensor(mean, dtype=torch.float32, device=dev).reshape(1, 1, 1, 3)
-    std = torch.tensor(std, dtype=torch.float32, device=dev).reshape(1, 1, 1, 3)
+
+    def channels(values):  # made on the device: no host copy for a CUDA graph to refuse
+        return torch.stack([torch.full((), float(v), dtype=torch.float32, device=dev)
+                            for v in values]).reshape(1, 1, 1, 3)
+
+    mean, std = channels(mean), channels(std)
     x = pixels_u8.to(torch.float32) / 255.0
     return ((x - mean) / std).to(dtype)

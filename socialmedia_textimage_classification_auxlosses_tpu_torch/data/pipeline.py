@@ -13,8 +13,11 @@ in the JAX package, so both see the same batches in the same order.
 
 ``to_device`` is the adapter to torch: every array but the host-side
 ``data_id`` becomes a tensor on the device (``pin_memory`` +
-``non_blocking`` on CUDA). Sequence bucketing (``--bucket_seq``), chunked
-dispatch and the multi-host row slicing are not ported.
+``non_blocking`` on CUDA). ``device_iter_chunks`` (``--steps_per_dispatch``)
+stacks K batches and stages them on the device in one copy per array.
+``EmptyImageSource`` gives every id the one empty image (the MIC text-only
+eval, ``--eval_txt_test``). Sequence bucketing (``--bucket_seq``) and the
+multi-host row slicing are not ported.
 """
 
 from __future__ import annotations
@@ -92,6 +95,29 @@ class ExactViltImageSource:
         return frames, grids
 
 
+class EmptyImageSource:
+    """Every id gets the same image: ``path`` decoded and resized once, or a
+    zero frame when it does not open (as the JAX package's lazy source gives
+    an image that fails to load)."""
+
+    def __init__(self, path: str, size: int = 224):
+        self.path = path
+        self.size = size
+        self._px: Optional[np.ndarray] = None
+
+    def gather(self, ids) -> np.ndarray:
+        if self._px is None:
+            from .images import resize_to_u8
+
+            try:
+                from PIL import Image
+
+                self._px = resize_to_u8(Image.open(self.path).convert("RGB"), self.size)
+            except OSError:
+                self._px = np.zeros((self.size, self.size, 3), np.uint8)
+        return np.broadcast_to(self._px, (len(ids),) + self._px.shape).copy()
+
+
 @dataclasses.dataclass
 class PipelineConfig:
     batch_size: int
@@ -125,15 +151,17 @@ class SplitPipeline:
     def num_batches(self):
         return -(-self.n // self.cfg.batch_size) if self.n else 0
 
-    def batches(self, shuffle=False, rng: Optional[np.random.RandomState] = None
-                ) -> Iterator[Dict[str, np.ndarray]]:
+    def batches(self, shuffle=False, rng: Optional[np.random.RandomState] = None,
+                skip: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+        """The padded batches in visit order; ``skip`` leaves out the first
+        ``skip`` batches of that order (a run resumed inside an epoch)."""
         if self.n == 0:
             return
         order = np.arange(self.n)
         if shuffle:
             (rng or np.random.RandomState(0)).shuffle(order)
         bs = self.cfg.batch_size
-        for start in range(0, self.n, bs):
+        for start in range(skip * bs, self.n, bs):
             idx = order[start:start + bs]
             pad = bs - len(idx)
             valid = np.ones(bs, np.float32)
@@ -160,10 +188,30 @@ class SplitPipeline:
                 batch["image_adds"] = np.asarray(self.image_adds, np.int32)[idx]
             yield batch
 
-    def device_iter(self, device, shuffle=False, rng=None):
+    def device_iter(self, device, shuffle=False, rng=None, skip: int = 0):
         """``batches`` through ``to_device``."""
-        for batch in self.batches(shuffle=shuffle, rng=rng):
+        for batch in self.batches(shuffle=shuffle, rng=rng, skip=skip):
             yield to_device(batch, device)
+
+    def device_iter_chunks(self, device, k: int, shuffle=False, rng=None, skip: int = 0):
+        """``(batches, k_real)``: the batches of ``batches`` in chunks of
+        ``k``, each array stacked on a new leading axis and staged on the
+        device in one copy (``data_id`` stays on the host). The last chunk
+        of an epoch holds only its ``k_real < k`` batches: it is not padded
+        (the JAX package pads it and skips the padded steps; here the caller
+        runs ``k_real`` steps)."""
+        chunk = []
+        for batch in self.batches(shuffle=shuffle, rng=rng, skip=skip):
+            chunk.append(batch)
+            if len(chunk) == k:
+                yield _stack_to_device(chunk, device), k
+                chunk = []
+        if chunk:
+            yield _stack_to_device(chunk, device), len(chunk)
+
+
+def _stack_to_device(chunk, device) -> Dict:
+    return to_device({key: np.stack([b[key] for b in chunk]) for key in chunk[0]}, device)
 
 
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict:

@@ -5,7 +5,8 @@ Counterpart of the JAX package's ``data/prep.py``. The data is the table of
 is the JAX package's: split by the ``split`` column, an optional 200-row
 ``--testing`` subsample before splitting, an optional ``--nsamples`` train
 cap, one-hot float labels, sklearn-style balanced class weights (multilabel:
-positive weights). The JAX package's per-task id munging and the
+positive weights). ``prepare_text_data`` reads the text-only MIC eval set
+(``--eval_txt_test``). The JAX package's per-task id munging and the
 random-label and no-weights options have no caller here.
 
 The subsamples pick the rows pandas' ``DataFrame.sample(n, random_state=rng)``
@@ -126,3 +127,20 @@ def prepare_data(
         class_weights = balanced_class_weights(data["label"][train].astype(np.int64),
                                                num_labels)
     return splits["train"], splits["val"], splits["test"], class_weights
+
+
+def prepare_text_data(path: str, num_labels: int = 2, testing: bool = False,
+                      rng: Optional[np.random.RandomState] = None) -> SplitArrays:
+    """The text-only MIC eval set: the CSV at ``path`` (columns id, text,
+    label), all rows, or under ``testing`` a 100-row sample, as the JAX
+    package's ``prepare_text_data`` takes it."""
+    from ..core.config import read_csv
+
+    rng = rng or np.random.RandomState(0)
+    data = read_csv(path)
+    rows = np.arange(len(data["id"]))
+    if testing:
+        rows = rows[sample_rows(len(rows), min(100, len(rows)), rng)]
+    return SplitArrays(ids=data["id"][rows], ids_num=_ids_to_num(data["id"][rows]),
+                       text=data["text"][rows],
+                       labels=vectorize_labels(data["label"][rows], num_labels))

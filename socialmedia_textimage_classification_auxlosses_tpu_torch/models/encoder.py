@@ -27,6 +27,16 @@ training mode, drawing from the explicit ``torch.Generator`` handed down the
 forward (``gen``); under ``model.eval()`` it is the identity. The draws
 differ from JAX's for the same seed, so tests that compare the two run at
 rate 0 or feed both sides the same masks.
+
+``remat`` (``--remat``, the JAX encoders' ``remat``) recomputes each layer
+in the backward instead of keeping its activations
+(``torch.utils.checkpoint``). ``checkpoint``'s RNG preservation covers the
+global generators only, not the explicit ``gen``, so a layer's two dropout
+masks are drawn from ``gen`` before the layer runs, in the order the layer
+would draw them, and handed to both the forward and the recompute
+(``DrawnMasks``): the masks, and so the gradients, are those of the run
+without ``remat``, and no generator state is read or set (a CUDA graph
+captures the step as it is).
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import sdpa
 
@@ -58,6 +69,7 @@ class EncoderConfig:
     ln_style: str = "post"  # "post" (BERT) or "pre" (ViT)
     dtype: str = "float32"
     attn_impl: str = "auto"
+    remat: bool = False  # recompute each layer in the backward
 
     @property
     def head_dim(self) -> int:
@@ -77,15 +89,34 @@ class EncoderConfig:
         raise ValueError(self.hidden_act)
 
 
+class DrawnMasks:
+    """Keep-masks drawn ahead of a rematerialised layer, given out in the
+    order they were drawn; ``dropout`` takes one in place of a draw."""
+
+    def __init__(self, masks):
+        self.masks = list(masks)
+
+    def take(self) -> torch.Tensor:
+        return self.masks.pop(0)
+
+
+def keep_mask(shape, rate: float, gen, device) -> torch.Tensor:
+    """The keep-mask of a dropout at ``rate``: one uniform draw from
+    ``gen`` per value, kept below ``1 - rate``."""
+    return torch.rand(shape, generator=gen, device=device) < 1.0 - rate
+
+
 def dropout(x: torch.Tensor, rate: float, training: bool,
-            gen: torch.Generator = None) -> torch.Tensor:
+            gen=None) -> torch.Tensor:
     """flax ``nn.Dropout``: keep each value with probability ``1 - rate`` and
     scale the kept ones by ``1 / (1 - rate)``; the identity when not training
-    or at rate 0. The mask is drawn from ``gen`` (on x's device)."""
+    or at rate 0. The mask is drawn from ``gen`` (on x's device), or taken
+    from it when it is a ``DrawnMasks``."""
     if not training or rate <= 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    mask = gen.take() if isinstance(gen, DrawnMasks) else keep_mask(x.shape, rate, gen,
+                                                                     x.device)
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -186,14 +217,27 @@ class EncoderLayer(nn.Module):
         return x + self.mlp(layer_norm(self.ln_mlp, x), gen)
 
 
+def _layer_with_masks(layer, x, key_mask, *masks):
+    return layer(x, key_mask, DrawnMasks(masks))
+
+
 class TransformerStack(nn.Module):
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
+        self.cfg = cfg
         self.layers = nn.ModuleList(EncoderLayer(cfg) for _ in range(cfg.layers))
 
     def forward(self, x, key_mask=None, gen=None):
+        remat = self.cfg.remat and self.training and torch.is_grad_enabled()
+        rate = self.cfg.dropout
         for layer in self.layers:
-            x = layer(x, key_mask, gen)
+            if not remat:
+                x = layer(x, key_mask, gen)
+                continue
+            # the attention block's dropout, then the MLP's, both of x's shape
+            masks = [keep_mask(x.shape, rate, gen, x.device) for _ in range(2)] if rate > 0 else []
+            x = checkpoint(_layer_with_masks, layer, x, key_mask, *masks,
+                           use_reentrant=False, preserve_rng_state=False)
         return x
 
 

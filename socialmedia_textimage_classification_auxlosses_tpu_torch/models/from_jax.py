@@ -12,6 +12,8 @@ architecture. The modules use the flax names, so the map is mechanical:
 * ``prefix_tokens``, ``pos_embed``, ViLT's ``image_cls`` and ``image_pos``,
   ``logit_scale`` and biases keep their names
 * ``layer_{i}``                    -> ``layers.{i}``
+* the text-only ``TextClassifier``'s ``tower`` / ``classifier`` keep their
+  names (``models/text.py`` names its modules so)
 * the ``scan_layers`` layout ``layers/layer/...``, whose leaves carry a
   leading layer axis, -> ``layers.{i}.…`` one slice per layer.
 

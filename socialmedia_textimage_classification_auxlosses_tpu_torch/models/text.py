@@ -1,8 +1,11 @@
-"""Text tower configurations.
+"""Text tower configurations and the text-only classifier.
 
-Counterpart of the JAX package's ``models/text.py`` (configuration part).
-Hyperparameters come from the presets below; when a local pretrained
-directory holds a ``config.json`` its dimensions win, as in the JAX package.
+Counterpart of the JAX package's ``models/text.py``. Hyperparameters come
+from the presets below; when a local pretrained directory holds a
+``config.json`` its dimensions win, as in the JAX package.
+``TextClassifier`` is the tower plus a linear head (``cli/run_txt.py``),
+with the JAX module's names (``tower``, ``classifier``), so
+``models/from_jax.py`` carries a JAX ``TextClassifier`` tree across.
 """
 
 from __future__ import annotations
@@ -11,7 +14,10 @@ import json
 import os
 from typing import Optional
 
-from .encoder import EncoderConfig
+import torch
+from torch import nn
+
+from .encoder import BertEncoder, EncoderConfig, dense, dropout
 
 # Architecture presets (dimensions per the public model cards).
 TEXT_PRESETS = {
@@ -64,3 +70,38 @@ def text_encoder_config(
     preset.update(overrides)
     return EncoderConfig(dropout=dropout, ln_style="post", dtype=dtype,
                          attn_impl=attn_impl, **preset)
+
+
+class TextClassifier(nn.Module):
+    """Tower + linear classification head; returns float32 logits.
+
+    ``use_pooled`` selects the RoBERTa head (the pooled output) over the CLS
+    of the last hidden state that bert, bertweet and bernice use. The head's
+    dropout (``--dropout``) acts on that feature, drawing from ``gen``."""
+
+    def __init__(self, cfg: EncoderConfig, num_labels: int, head_dropout: float = 0.1,
+                 use_pooled: bool = False):
+        super().__init__()
+        self.cfg = cfg
+        self.head_dropout = head_dropout
+        self.use_pooled = use_pooled
+        self.tower = BertEncoder(cfg)
+        self.classifier = nn.Linear(cfg.hidden, num_labels)
+
+    def forward(self, ids, attention_mask=None, token_type_ids=None, gen=None):
+        hidden, pooled = self.tower(ids, attention_mask, token_type_ids, gen)
+        feat = pooled if self.use_pooled else hidden[:, 0, :]
+        feat = dropout(feat, self.head_dropout, self.training, gen)
+        return dense(self.classifier, feat.float(), torch.float32)
+
+
+def build_text_classifier(model_name: str, num_labels: int,
+                          model_dir: Optional[str] = None, dropout: float = 0.1,
+                          dtype: str = "float32", attn_impl: str = "auto",
+                          **overrides) -> TextClassifier:
+    """The JAX ``build_text_classifier``: the tower of ``model_name`` and the
+    pooled head for ``roberta``, the CLS head otherwise."""
+    cfg = text_encoder_config(model_name, model_dir, dtype=dtype, attn_impl=attn_impl,
+                              **overrides)
+    return TextClassifier(cfg, num_labels, head_dropout=dropout,
+                          use_pooled=model_name == "roberta")

@@ -16,6 +16,7 @@ Nothing here runs at import: this module is imported on hosts without CUDA.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import hashlib
@@ -24,7 +25,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -35,29 +36,61 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_counters: List["LaunchCounter"] = []  # every counter, in creation order
 
 
 class LaunchCounter:
     """Counts one wrapper's kernel launches, in total and per shape key.
 
     The wrapper adds one where it launches its kernel and nowhere else, so a
-    run can show that its path went through the kernel."""
+    run can show that its path went through the kernel. A launch recorded
+    into a CUDA graph is counted when the graph replays, not when it is
+    captured (``deferred_counts``, ``add_counts``)."""
 
     def __init__(self, name: str):
         self.name = name
         self._lock = threading.Lock()
         self.count = 0
         self.by_key: Dict[tuple, int] = {}
+        _counters.append(self)
 
-    def add(self, key: tuple) -> None:
+    def add(self, key: tuple, n: int = 1) -> None:
         with self._lock:
-            self.count += 1
-            self.by_key[key] = self.by_key.get(key, 0) + 1
+            self.count += n
+            self.by_key[key] = self.by_key.get(key, 0) + n
 
     def reset(self) -> None:
         with self._lock:
             self.count = 0
             self.by_key = {}
+
+
+@contextlib.contextmanager
+def deferred_counts():
+    """For a CUDA graph's capture: the launches the block records go into the
+    dict it yields (counter -> {key: n}) instead of the counters, which leave
+    the block as they entered it. Each replay then adds them
+    (``add_counts``), so the counters keep counting launches that run."""
+    before = {c: (c.count, dict(c.by_key)) for c in _counters}
+    record: Dict[LaunchCounter, Dict[tuple, int]] = {}
+    try:
+        yield record
+    finally:
+        for c in _counters:
+            count, by_key = before.get(c, (0, {}))
+            with c._lock:
+                delta = {k: n - by_key.get(k, 0) for k, n in c.by_key.items()
+                         if n != by_key.get(k, 0)}
+                if delta:
+                    record[c] = delta
+                c.count, c.by_key = count, by_key
+
+
+def add_counts(record: Dict[LaunchCounter, Dict[tuple, int]]) -> None:
+    """Count once the launches a ``deferred_counts`` block recorded."""
+    for counter, delta in record.items():
+        for key, n in delta.items():
+            counter.add(key, n)
 
 
 def build_dir() -> str:

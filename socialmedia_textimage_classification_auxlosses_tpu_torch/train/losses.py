@@ -85,8 +85,9 @@ def loss_correction(T, logits, targets, class_weights=None, mask=None):
     eneg, one_minus_eneg = T[0][1], T[0][0]
     eplus, one_minus_eplus = T[1][0], T[1][1]
     n = logits.shape[0]
-    zeros = torch.tensor([[1.0, 0.0]], device=logits.device).expand(n, 2)
-    ones = torch.tensor([[0.0, 1.0]], device=logits.device).expand(n, 2)
+    # one-hot targets made on the device (no host copy: a CUDA graph captures it)
+    eye = torch.eye(2, device=logits.device)
+    zeros, ones = eye[0].expand(n, 2), eye[1].expand(n, 2)
     loss_zero = weighted_ce(logits, zeros, class_weights, reduction="none")
     loss_one = weighted_ce(logits, ones, class_weights, reduction="none")
     is_one = targets.argmax(dim=1) == 1

@@ -18,6 +18,13 @@ takes the gradient of the total loss with respect to the optimizer's
 trainable parameters and applies ``AdamW``. The eval step runs in eval mode
 without a graph; its TIM swap stays stochastic, as the reference's eval is,
 and it reuses the primary pass's text rows for the TIM rows (exact there).
+
+``make_train_many`` / ``make_eval_many`` (``--steps_per_dispatch K``) run
+the steps of a chunk of K stacked batches. On a CUDA device each step is
+one replay of a CUDA graph of the whole step (``StepGraph``): the host
+enqueues a graph launch instead of the step's thousands of kernels. On the
+CPU the same loop runs the eager steps. ``make_feature_step`` gives the
+fusion head's ``mm_features`` (``--extract_features``).
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from ..ops import _cuda
 from . import losses as L
 from .itm import itm_swap
 from .metrics import confusion_matrix_update, multilabel_counts_update
@@ -173,3 +181,124 @@ class EvalStep:
               else confusion_matrix_update(preds, targets, cfg.num_labels, valid))
         return {**parts, "predictions": preds, "targets": targets, "cm": cm,
                 "correct": correct, "n": n}
+
+
+class StepGraph:
+    """``fn(batch) -> {name: tensor}`` as a CUDA graph, captured once per
+    batch signature (the names, shapes and dtypes of the batch's tensors)
+    and replayed on every call.
+
+    Capture: the batch's tensors are cloned into static inputs,
+    ``warmup(static)`` runs once on a side stream (it must leave the
+    parameters, the optimizer and ``generators`` as they were: it loads the
+    libraries and initialises what the step's kernels need), then
+    ``fn(static)`` is captured with ``generators`` registered, so every
+    replay draws new values from them and advances them as an eager step
+    would. A call copies the batch into the static inputs, replays, counts
+    the kernel launches the capture recorded (``ops/_cuda.py``: a launch is
+    counted when it runs) and returns the static outputs, which the next
+    replay overwrites. A failed capture raises: no step falls back to eager
+    execution.
+    """
+
+    def __init__(self, fn: Callable, warmup: Callable, generators=()):
+        self.fn, self.warmup, self.generators = fn, warmup, tuple(generators)
+        self.graphs: Dict[tuple, tuple] = {}
+
+    def __call__(self, batch: Dict) -> Dict:
+        tensors = {k: v for k, v in batch.items() if torch.is_tensor(v)}
+        sig = tuple(sorted((k, tuple(v.shape), v.dtype) for k, v in tensors.items()))
+        entry = self.graphs.get(sig)
+        if entry is None:
+            entry = self.graphs[sig] = self._capture(tensors)
+        graph, static, out, counts = entry
+        for k, v in static.items():
+            v.copy_(tensors[k])
+        graph.replay()
+        _cuda.add_counts(counts)
+        return out
+
+    def _capture(self, tensors: Dict):
+        static = {k: v.clone() for k, v in tensors.items()}
+        device = next(iter(static.values())).device
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            self.warmup(static)
+        torch.cuda.current_stream(device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        for gen in self.generators:
+            graph.register_generator_state(gen)
+        with _cuda.deferred_counts() as counts:
+            with torch.cuda.graph(graph):
+                out = self.fn(static)
+        return graph, static, out, counts
+
+
+def _run_chunk(step: Callable, batches: Dict, k_real: int) -> Dict:
+    """``step`` over the first ``k_real`` batches of a stacked chunk; each
+    output is copied into slot i of a (k_real, ...) device buffer, which the
+    host reads once per chunk."""
+    outs = None
+    for i in range(k_real):
+        out = step({k: v[i] for k, v in batches.items()})
+        if outs is None:
+            outs = {k: v.new_empty((k_real,) + tuple(v.shape)) for k, v in out.items()}
+        for k, v in out.items():
+            outs[k][i].copy_(v)
+    return outs
+
+
+def _chunk_device(batches: Dict) -> torch.device:
+    return next(v.device for v in batches.values() if torch.is_tensor(v))
+
+
+def _make_many(run: Callable, warmup: Callable) -> Callable:
+    graphs: Dict[torch.Generator, StepGraph] = {}
+
+    def many(batches, k_real, gen):
+        device = _chunk_device(batches)
+        if device.type != "cuda":
+            return _run_chunk(lambda b: run(b, gen), batches, k_real)
+        graph = graphs.get(gen)
+        if graph is None:
+            graph = graphs[gen] = StepGraph(
+                lambda b: run(b, gen),
+                lambda b: warmup(b, torch.Generator(device).manual_seed(0)), (gen,))
+        return _run_chunk(graph, batches, k_real)
+
+    return many
+
+
+def make_train_many(train_step: TrainStep) -> Callable:
+    """The JAX ``make_train_many``: ``many(batches, k_real, gen)`` runs
+    ``train_step`` over the first ``k_real`` batches of a chunk
+    (``SplitPipeline.device_iter_chunks``) and returns each metric as a
+    (k_real,) device tensor. The trajectory is that of ``k_real`` calls of
+    ``train_step(batch, gen)``: on a CUDA device each step replays one CUDA
+    graph of the step (forward, ``autograd.grad``, AdamW; warmed up by the
+    step's gradients drawn from a scratch generator); on the CPU the steps
+    run eagerly."""
+    return _make_many(train_step, train_step.gradients)
+
+
+def make_eval_many(eval_step: EvalStep) -> Callable:
+    """The JAX ``make_eval_many``: ``many(batches, k_real, gen)`` runs
+    ``eval_step`` over the first ``k_real`` batches of a chunk, drawing the
+    TIM swaps from ``gen`` as the per-batch path does, and returns each
+    output stacked as a (k_real, ...) device tensor. On a CUDA device each
+    step replays one CUDA graph of the eval step."""
+    return _make_many(eval_step, eval_step)
+
+
+def make_feature_step(model: torch.nn.Module, forward_fn: Callable) -> Callable:
+    """The JAX ``make_feature_step``: ``step(batch) -> (mm_features, label
+    ids)`` of an eval-mode forward without a graph."""
+
+    @torch.no_grad()
+    def step(batch):
+        model.eval()
+        outputs = forward_fn(batch, None, None, True)
+        return outputs["mm_features"], batch["labels"].argmax(dim=-1)
+
+    return step

@@ -16,7 +16,8 @@ Compared: the metric CSVs of val and test (every metric and epoch within
 1e-4 absolute: float32 through two tiny layers of up to 402 tokens, two AdamW
 steps, summed in another order) and the prediction CSV (the same ids, labels
 and predictions). Besides, the flags and models the port does not carry yet
-exit with ``SystemExit``, and asking for CUDA on a host without it raises.
+exit with ``SystemExit``, the flags it carries are accepted, and asking for
+CUDA on a host without it raises.
 """
 
 import csv
@@ -119,9 +120,11 @@ def test_evaltest_artifacts_match_jax(runs):
 
 REFUSED = [
     ["--model", "lxmert"], ["--model", "mmbt"],
-    ["--remat"], ["--scan_layers"], ["--mesh_pipe", "2"], ["--bucket_seq"],
-    ["--tim_reuse_text"], ["--ckpt_every", "10"], ["--profile", "p"],
+    ["--scan_layers"], ["--mesh_pipe", "2"], ["--bucket_seq"],
+    ["--tim_reuse_text"],
 ]
+# refused until the port carried them; tests/test_torch_run_control.py runs them
+PORTED = [["--remat"], ["--ckpt_every", "10"], ["--profile", "p"]]
 
 
 @pytest.mark.parametrize("extra", REFUSED, ids=lambda e: "_".join(e).lstrip("-"))
@@ -129,6 +132,11 @@ def test_unported_flags_exit(extra):
     args = TRun.parse_args(ARGS + ["--device", "cpu"] + extra)
     with pytest.raises(SystemExit, match="not ported"):
         TRun.check_supported(args)
+
+
+@pytest.mark.parametrize("extra", PORTED, ids=lambda e: "_".join(e).lstrip("-"))
+def test_ported_flags_are_accepted(extra):
+    TRun.check_supported(TRun.parse_args(ARGS + ["--device", "cpu"] + extra))
 
 
 def test_asking_for_cuda_without_it_raises(monkeypatch):

@@ -14,7 +14,8 @@ Compared: the metric CSVs of val and test (every metric and epoch within
 1e-4 absolute: float32 through two tiny towers, two AdamW steps, summed in
 another order) and the prediction CSV (the same ids, labels and
 predictions). Besides, the flags the port does not carry yet exit with
-``SystemExit``, and asking for CUDA on a host without it raises.
+``SystemExit``, those it carries are accepted, and asking for CUDA on a host
+without it raises.
 """
 
 import csv
@@ -115,13 +116,16 @@ def test_prediction_csv_matches_jax(runs):
 
 
 REFUSED = [
-    ["--remat"], ["--scan_layers"], ["--mesh_pipe", "2"], ["--mesh_data", "2"],
-    ["--mesh_model", "2"], ["--steps_per_dispatch", "4"], ["--bucket_seq"],
+    ["--scan_layers"], ["--mesh_pipe", "2"], ["--mesh_data", "2"],
+    ["--mesh_model", "2"], ["--bucket_seq"],
     ["--bucket_group"], ["--opt_impl", "lazy_emb"], ["--tim_reuse_text"],
-    ["--cache_vision"], ["--ckpt_every", "10"], ["--resume"], ["--profile", "p"],
-    ["--quantize", "w8"],
-    ["--extract_features"], ["--eval_txt_test"], ["--img_decoder", "native"],
+    ["--cache_vision"], ["--quantize", "w8"], ["--img_decoder", "native"],
     ["--img_model_name", "beit"],
+]
+# refused until the port carried them; tests/test_torch_run_control.py runs them
+PORTED = [
+    ["--remat"], ["--steps_per_dispatch", "4"], ["--ckpt_every", "10"], ["--resume"],
+    ["--profile", "p"], ["--extract_features"], ["--eval_txt_test"],
 ]
 
 
@@ -130,6 +134,11 @@ def test_unported_flags_exit(extra):
     args = TRun.parse_args(ARGS + ["--device", "cpu"] + extra)
     with pytest.raises(SystemExit, match="not ported"):
         TRun.check_supported(args)
+
+
+@pytest.mark.parametrize("extra", PORTED, ids=lambda e: e[0].lstrip("-"))
+def test_ported_flags_are_accepted(extra):
+    TRun.check_supported(TRun.parse_args(ARGS + ["--device", "cpu"] + extra))
 
 
 def test_asking_for_cuda_without_it_raises(monkeypatch):
