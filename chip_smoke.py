@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving and training paths on one NVIDIA GPU.
+"""Smoke run of the PyTorch port's serving, training and sweep paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -138,9 +138,41 @@ and the CUDA toolkit. It
    and bfloat16 first moments): the kernel launches and copies the profiler
    sees, device ms and ms per step (``python3 chip_smoke.py --optimizer
    ROOT`` runs it alone for the port of another checkout);
-14. prints one JSON line of per-kernel numbers (``launches``: the count over
-   the serving and training runs and the per-head phase's main path; 0 for
-   the check-only shapes), the card line, and last
+14. trains three seeds of the late-fusion model together (``--seeds 30,40,50``)
+   through ``cli/run_seed_sweep.main`` at full width, one epoch, under
+   ``auto`` at K = 1 (each SDPA launch takes the three seeds' rows as its
+   batch: a sweep step launches one seed's count; the S-folded shapes are
+   checked in steps 3 and 6) and ``fused`` at K = 3 (the block kernels once
+   per seed: three times one seed's count), with the same launch, loss,
+   artifact, steady-time, idle-share and memory readings as step 7 beside
+   the single seed's at the same K; each seed's per-step bfloat16 losses
+   within 2e-2 relative of its separate ``run_mm_late`` run, and the first
+   step in float32 (dropout 0, the swap pinned) within 1e-5 (loss) and 1e-3
+   (text-tower attention and fusion-head gradients, relative) of each
+   seed's separate setup (``python3 chip_smoke.py --sweep_profile ROOT``
+   profiles one eager sweep step and one single-seed step under ``auto``
+   and ``fused`` for the port of another checkout, each kernel with the
+   autograd nodes or lines of the port that launched it);
+15. writes the full-width serving model as the JAX package writes its
+   artifact (a flax msgpack, by the port's own encoder: neither flax nor
+   msgpack is imported), unrolled and in the ``--scan_layers`` layout, reads both back
+   through ``load_params`` and serves 4 windows from each: the
+   probabilities equal those served from the port's torch file exactly;
+16. runs ``cli/run_grid.main`` over mm_late (two layers a tower, full width,
+   float32), task 3, two seeds x aux {none, itc+itm}, under
+   ``--seed_backend sequential`` and then ``vmap`` (the seeds of each
+   setting as one sweep, seen in the vision tower's SDPA over both seeds'
+   images): the tables agree within rtol 5e-3 / atol 1e-4, the predictions
+   are equal;
+17. holds every (kernel, shape) that those runs launched and no row of
+   steps 3, 6 and 12 holds (the grid's float32 shapes, eval steps' B rows,
+   the sweep's folded eval batch, the text-only runner's B rows) against
+   its plain version in the same way, a row named by its shape, and fails
+   for a launch that no row can hold;
+18. prints one JSON line of per-kernel numbers (``launches``: the count over
+   the serving, training, sweep, artifact and grid runs and the per-head
+   phase's main path, each read with the counts set to 0 just before it; 0
+   for the check-only shapes), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero without the last line. Without CUDA, or
@@ -174,6 +206,8 @@ DEVICE = "cuda"
 VILT_TEXT, VILT_SIDE = 40, 19  # ViLT's text positions; the 608-px canvas at patch 32
 VILT_LEN = VILT_TEXT + 1 + VILT_SIDE ** 2  # 402, --vilt_exact_resize
 VILT_FIXED_LEN = VILT_TEXT + 1 + 12 ** 2  # 185, the fixed 384-px square
+SWEEP_SEEDS = (30, 40, 50)  # the JAX sweep's default --seeds
+SWEEP_ROWS = len(SWEEP_SEEDS) * BATCH  # a sweep step's rows: the seeds folded into the batch
 # photo sizes (height, width) of 4:3, 3:4, 16:9 and 1:1 for the generated ViLT frames
 VILT_PHOTOS = ((480, 640), (640, 480), (720, 1280), (500, 500), (960, 1280), (1080, 1920))
 
@@ -378,8 +412,7 @@ def time_gemm(torch, AB):
                  "F.linear", device_ms(torch, lambda: F.linear(a, w_cat, b_cat)),
                  2.0 * m * hid * hid * count)
 
-    tn_rows = []
-    for tag, m in (("text", 2 * BATCH * 128), ("vilt_exact", 2 * BATCH * VILT_LEN)):
+    for tag, m in TN_ROWS.items():
         # NN: dctx (one pair) and dx (three), W the Linear (out, in) weight as (K, N)
         for count in (1, 3):
             as_ = [randn(m, hid) for _ in range(count)]
@@ -390,27 +423,44 @@ def time_gemm(torch, AB):
             line("gemm_nn", f"{tag} x{count}", m, err, device_ms(torch, lambda: AB.gemm_nn(as_, ws)),
                  "torch.matmul", device_ms(torch, lambda: torch.matmul(a_cat, w_cat)),
                  2.0 * m * hid * hid * count)
-        # TN: the block's four weight gradients over m token rows
+    return out, tn_rows(torch, AB, TN_ROWS, line)
+
+
+def tn_rows(torch, AB, shapes, line=None):
+    """The TN GEMM (a block backward's four weight gradients over ``m``
+    token rows, ``shapes``: tag -> m) against its plain version and one
+    ``torch.bmm``: its kernels-line rows (and ``time_gemm``'s lines)."""
+    g = torch.Generator(device="cuda").manual_seed(4)
+    hid, rows = 768, []
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device="cuda") * scale).bfloat16()
+
+    for tag, m in shapes.items():
         x, ctx = randn(m, hid), randn(m, hid)
         xs, gs = [x, x, x, ctx], [randn(m, hid, scale=m ** -0.5) for _ in range(4)]
         want = AB.gemm_tn_reference(xs, gs)
-        err = held(f"gemm_tn {tag}", AB.gemm_tn(xs, gs), want)
+        err = max((a.float() - b.float()).abs().max().item()
+                  for a, b in zip(AB.gemm_tn(xs, gs), want))
+        if not err <= 2e-2 * max(1.0, max(y.float().abs().max().item() for y in want)):
+            raise AssertionError(f"gemm_tn {tag}: disagrees with its plain version ({err})")
         x_st, g_st = torch.stack(xs), torch.stack(gs)
         flop = 2.0 * m * hid * hid * 4
         lib_ms = device_ms(torch, lambda: torch.bmm(g_st.transpose(1, 2), x_st))
         ms = device_ms(torch, lambda: AB.gemm_tn(xs, gs))
-        line("gemm_tn", f"{tag} x4", m, err, ms, "torch.bmm", lib_ms, flop)
+        if line is not None:
+            line("gemm_tn", f"{tag} x4", m, err, ms, "torch.bmm", lib_ms, flop)
         # the kernels line: six (m, 768) inputs read once, four (768, 768) written
         bound_ms, bound_by = bound(nbytes(x, ctx, *gs, *want), flop, "bfloat16")
-        tn_rows.append(dict(name=f"gemm_tn/{tag}", kernel="gemm_tn_bf16", key=(m, hid, hid, 4),
-                            max_abs_err=err, ms=ms,
-                            plain_ms=device_ms(torch, lambda: AB.gemm_tn_reference(xs, gs)),
-                            bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms))
-        log(f"time gemm_tn/{tag}: kernel {ms:.4f} ms, plain {tn_rows[-1]['plain_ms']:.4f} ms, "
+        rows.append(dict(name=f"gemm_tn/{tag}", kernel="gemm_tn_bf16", key=(m, hid, hid, 4),
+                         max_abs_err=err, ms=ms,
+                         plain_ms=device_ms(torch, lambda: AB.gemm_tn_reference(xs, gs)),
+                         bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms))
+        log(f"time gemm_tn/{tag}: kernel {ms:.4f} ms, plain {rows[-1]['plain_ms']:.4f} ms, "
             f"library {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
         del x, ctx, xs, gs, want, x_st, g_st
         torch.cuda.empty_cache()
-    return out, tn_rows
+    return rows
 
 
 ENQUEUE_CALLS = 300
@@ -486,7 +536,44 @@ def enqueue_only(root):
     return 0
 
 
-def check_kernels(torch):
+SDPA_FWD_SHAPES = {
+    # TPU kernels 1 and 3: every SDPA of the serving path and of ViLT (the
+    # joint sequence with TIM batched, 2B rows; 402 > 256 is kernel 3's
+    # range; float32 and the fixed square's 185 are checked, not on the paths)
+    "text": (BATCH, 12, 128, 128, 64, "bfloat16", True),
+    "image": (BATCH, 12, 197, 197, 64, "bfloat16", False),
+    "fusion": (BATCH, 1, 1, 197, 768, "float32", False),
+    "vilt_exact": (2 * BATCH, 12, VILT_LEN, VILT_LEN, 64, "bfloat16", "vilt"),
+    "vilt_exact_f32": (2 * BATCH, 12, VILT_LEN, VILT_LEN, 64, "float32", "vilt"),
+    "vilt_fixed": (2 * BATCH, 12, VILT_FIXED_LEN, VILT_FIXED_LEN, 64, "bfloat16", "vilt"),
+    # the seed sweep's S = 3 seeds folded into the batch: its train step's
+    # text tower and fusion head (2B rows a seed with TIM) and its vision tower
+    "text_s3": (2 * SWEEP_ROWS, 12, 128, 128, 64, "bfloat16", True),
+    "image_s3": (SWEEP_ROWS, 12, 197, 197, 64, "bfloat16", False),
+    "fusion_s3": (2 * SWEEP_ROWS, 1, 1, 197, 768, "float32", False)}
+# TPU kernel 7: every self-attention block with --attn_impl fused (rows, length, mask)
+BLOCK_FWD_SHAPES = {"text": (BATCH, 128, True), "image": (BATCH, 197, False),
+                    "vilt_exact": (2 * BATCH, VILT_LEN, "vilt")}
+# TPU kernels 2 and 4: the SDPA backward of the text tower, of the fusion head
+# and of ViLT's joint sequence (the query-tiled pair at 402 and 185; float32
+# and 185 are checked, not on the paths)
+SDPA_BWD_SHAPES = {
+    "text": (2 * BATCH, 12, 128, 128, 64, "bfloat16", True),
+    "fusion": (2 * BATCH, 1, 1, 197, 768, "float32", False),
+    "vilt_exact": (2 * BATCH, 12, VILT_LEN, VILT_LEN, 64, "bfloat16", "vilt"),
+    "vilt_exact_f32": (2 * BATCH, 12, VILT_LEN, VILT_LEN, 64, "float32", "vilt"),
+    "vilt_fixed": (2 * BATCH, 12, VILT_FIXED_LEN, VILT_FIXED_LEN, 64, "bfloat16", "vilt"),
+    # the seed sweep's train step, S = 3 seeds folded into the batch
+    "text_s3": (2 * SWEEP_ROWS, 12, 128, 128, 64, "bfloat16", True),
+    "fusion_s3": (2 * SWEEP_ROWS, 1, 1, 197, 768, "float32", False)}
+# TPU kernel 8: the fused block's backward in the text tower and in ViLT's
+# joint encoder, --attn_impl fused
+BLOCK_BWD_SHAPES = {"text": (2 * BATCH, 128, True), "vilt_exact": (2 * BATCH, VILT_LEN, "vilt")}
+# the weight gradients' TN GEMM of kernel 8 over its token rows
+TN_ROWS = {"text": 2 * BATCH * 128, "vilt_exact": 2 * BATCH * VILT_LEN}
+
+
+def check_kernels(torch, sdpa_shapes=SDPA_FWD_SHAPES, block_shapes=BLOCK_FWD_SHAPES):
     """Each kernel against its plain version at the serving shapes."""
     import torch.nn.functional as F
 
@@ -527,17 +614,7 @@ def check_kernels(torch):
             f"library {row['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
         rows.append(row)
 
-    # TPU kernels 1 and 3: every SDPA of the serving path and of ViLT (the
-    # joint sequence with TIM batched, 2B rows; 402 > 256 is kernel 3's
-    # range; float32 and the fixed square's 185 are checked, not on the paths)
-    for tag, (b, h, lq, lk, d, dtype, masked) in {
-            "text": (BATCH, 12, 128, 128, 64, "bfloat16", True),
-            "image": (BATCH, 12, 197, 197, 64, "bfloat16", False),
-            "fusion": (BATCH, 1, 1, 197, 768, "float32", False),
-            "vilt_exact": (2 * BATCH, 12, VILT_LEN, VILT_LEN, 64, "bfloat16", "vilt"),
-            "vilt_exact_f32": (2 * BATCH, 12, VILT_LEN, VILT_LEN, 64, "float32", "vilt"),
-            "vilt_fixed": (2 * BATCH, 12, VILT_FIXED_LEN, VILT_FIXED_LEN, 64, "bfloat16",
-                           "vilt")}.items():
+    for tag, (b, h, lq, lk, d, dtype, masked) in sdpa_shapes.items():
         dt = getattr(torch, dtype)
         q, k, v = randn(b, h, lq, d, dtype=dt), randn(b, h, lk, d, dtype=dt), randn(b, h, lk, d, dtype=dt)
         mask = (vilt_mask(torch, g, b, lk) if masked == "vilt"
@@ -553,11 +630,8 @@ def check_kernels(torch):
                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask, scale=scale),
                nbytes(q, k, v, mask, out), 4.0 * b * h * lq * lk * d, dtype)
 
-    # TPU kernel 7: every self-attention block with --attn_impl fused
     hid, heads = 768, 12
-    for tag, (b, l, masked) in {"text": (BATCH, 128, True),
-                                "image": (BATCH, 197, False),
-                                "vilt_exact": (2 * BATCH, VILT_LEN, "vilt")}.items():
+    for tag, (b, l, masked) in block_shapes.items():
         dt = torch.bfloat16
         x = randn(b, l, hid, dtype=dt)
         w = [(randn(hid, hid, dtype=torch.float32) * hid ** -0.5).to(dt) for _ in range(4)]
@@ -595,7 +669,7 @@ def check_kernels(torch):
     return rows
 
 
-def check_bwd_kernels(torch):
+def check_bwd_kernels(torch, sdpa_shapes=SDPA_BWD_SHAPES, block_shapes=BLOCK_BWD_SHAPES):
     """Each backward kernel against its plain version at the training shapes."""
     import torch.nn.functional as F
 
@@ -634,16 +708,7 @@ def check_bwd_kernels(torch):
             f"library {row['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
         rows.append(row)
 
-    # TPU kernels 2 and 4: the SDPA backward of the text tower, of the fusion
-    # head and of ViLT's joint sequence (the query-tiled pair at 402 and 185;
-    # float32 and 185 are checked, not on the paths)
-    for tag, (b, h, lq, lk, d, dtype, masked) in {
-            "text": (2 * BATCH, 12, 128, 128, 64, "bfloat16", True),
-            "fusion": (2 * BATCH, 1, 1, 197, 768, "float32", False),
-            "vilt_exact": (2 * BATCH, 12, VILT_LEN, VILT_LEN, 64, "bfloat16", "vilt"),
-            "vilt_exact_f32": (2 * BATCH, 12, VILT_LEN, VILT_LEN, 64, "float32", "vilt"),
-            "vilt_fixed": (2 * BATCH, 12, VILT_FIXED_LEN, VILT_FIXED_LEN, 64, "bfloat16",
-                           "vilt")}.items():
+    for tag, (b, h, lq, lk, d, dtype, masked) in sdpa_shapes.items():
         dt = getattr(torch, dtype)
         q, k, v = randn(b, h, lq, d, dtype=dt), randn(b, h, lk, d, dtype=dt), randn(b, h, lk, d, dtype=dt)
         do = randn(b, h, lq, d, dtype=dt)
@@ -679,19 +744,19 @@ def check_bwd_kernels(torch):
               lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True),
               nbytes(q, k, v, do, mask, *outs), 10.0 * b * h * lq * lk * d, dtype)
 
-    # TPU kernel 8: the fused block's backward in the text tower and in
-    # ViLT's joint encoder, --attn_impl fused
     hid, heads = 768, 12
-    for tag, l in (("text", 128), ("vilt_exact", VILT_LEN)):
-        b, dt = 2 * BATCH, torch.bfloat16
+    for tag, (b, l, masked) in block_shapes.items():
+        dt = torch.bfloat16
         x = randn(b, l, hid, dtype=dt)
         w = [(randn(hid, hid, dtype=torch.float32) * hid ** -0.5).to(dt) for _ in range(4)]
         bias = [randn(hid, dtype=torch.float32).mul(0.1).to(dt) for _ in range(4)]
-        if tag == "text":
+        mask = None
+        if masked == "vilt":
+            mask = vilt_mask(torch, g, b, l)
+        elif masked:
             lens = torch.randint(2, l + 1, (b,), generator=g, device="cuda")
             mask = (torch.arange(l, device="cuda")[None, :] < lens[:, None]).to(torch.int32)
-        else:
-            mask = vilt_mask(torch, g, b, l)
+        masked = mask is not None
         do = randn(b, l, hid, dtype=dt)
         scale = (hid // heads) ** -0.5
         kargs = (x, mask, w[0], bias[0], w[1], bias[1], w[2], bias[2], w[3], do, heads)
@@ -735,10 +800,11 @@ def check_bwd_kernels(torch):
             mha.out_proj.weight.copy_(w[3].t())
             mha.out_proj.bias.copy_(bias[3])
         x_leaf = x.detach().clone().requires_grad_(True)
-        lib_out = mha(x_leaf, x_leaf, x_leaf, key_padding_mask=mask == 0, need_weights=False)[0]
+        lib_out = mha(x_leaf, x_leaf, x_leaf, key_padding_mask=None if mask is None else mask == 0,
+                      need_weights=False)[0]
         m = b * l
         ops = 2.0 * m * hid * hid * 7 + 12.0 * b * l * l * hid
-        timed(f"attn_block_bwd/{tag}", "attn_block_bwd", ("bfloat16", b, l, hid, heads, True),
+        timed(f"attn_block_bwd/{tag}", "attn_block_bwd", ("bfloat16", b, l, hid, heads, masked),
               err, lambda: AB.attn_block_bwd_cuda(*kargs, scale),
               lambda: AB.attn_block_bwd_packed_reference(*kargs, scale),
               lambda: torch.autograd.grad(lib_out, (x_leaf,), do, retain_graph=True),
@@ -749,7 +815,7 @@ def check_bwd_kernels(torch):
         mha_params = [mha.in_proj_weight, mha.in_proj_bias, mha.out_proj.weight,
                       mha.out_proj.bias]
         timed(f"attn_block_bwd_whole/{tag}", "attn_block_bwd_whole",
-              ("bfloat16", b, l, hid, heads, True), err_whole,
+              ("bfloat16", b, l, hid, heads, masked), err_whole,
               lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
               lambda: AB.attn_block_bwd_reference(x, mask, w[0], bias[0], w[1], bias[1], w[2],
                                                   bias[2], w[3], bias[3], do, heads),
@@ -758,6 +824,57 @@ def check_bwd_kernels(torch):
         del lib_out, x_leaf, mha, mha_params, outs, refs, leaves, out, grads
         torch.cuda.empty_cache()
     return rows
+
+
+def held_keys(rows):
+    """The (kernel, key) pairs that kernels-line rows hold (the whole block
+    backward runs once per launch of its kernel)."""
+    return {("attn_block_bwd" if r["kernel"] == "attn_block_bwd_whole" else r["kernel"], r["key"])
+            for r in rows}
+
+
+def rows_for_every_launch(torch, AB, rows, launches):
+    """A kernels-line row for each (kernel, key) that the main paths
+    launched and no row holds yet (the grid's float32 shapes, eval steps'
+    B rows, the sweep's folded eval batch, ...): the kernel against its
+    plain version at that shape, named by it. Fails for a launch that no
+    row can hold."""
+    def kind(masked, length):
+        return "vilt" if masked and length in (VILT_LEN, VILT_FIXED_LEN) else masked
+
+    missing = sorted(pair for pair, n in launches.items() if n and pair not in held_keys(rows))
+    sdpa_fwd, sdpa_bwd, block_fwd, block_bwd, tn = {}, {}, {}, {}, {}
+    for kernel, key in missing:
+        if kernel in ("sdpa_fwd", "sdpa_bwd"):
+            dtype, b, h, lq, lk, d, masked = key
+            tag = (f"{'f32' if dtype == 'float32' else 'bf16'} {b}x{h}x{lq}x{lk}x{d}"
+                   + (" masked" if masked else ""))
+            (sdpa_fwd if kernel == "sdpa_fwd" else sdpa_bwd)[tag] = (
+                b, h, lq, lk, d, dtype, kind(masked, lk))
+        elif kernel in ("attn_block_fwd", "attn_block_bwd") and key[0] == "bfloat16" \
+                and key[3:5] == (768, 12):
+            _, b, l, _, _, masked = key
+            tag = f"bf16 {b}x{l}x768" + (" masked" if masked else "")
+            (block_fwd if kernel == "attn_block_fwd" else block_bwd)[tag] = (
+                b, l, kind(masked, l))
+        elif kernel == "gemm_tn_bf16" and key[1:] == (768, 768, 4):
+            tn[f"{key[0]}x768 x4"] = key[0]
+        else:
+            raise AssertionError(f"{kernel} {key}: launched on a main path, and no row can "
+                                 "hold it against its plain version")
+    log(f"rows for the main paths' other shapes: {len(missing)} (kernel, shape) pairs "
+        f"{missing}")
+    new = []
+    if sdpa_fwd or block_fwd:
+        new += check_kernels(torch, sdpa_fwd, block_fwd)
+    if sdpa_bwd or block_bwd:
+        new += check_bwd_kernels(torch, sdpa_bwd, block_bwd)
+    if tn:
+        new += tn_rows(torch, AB, tn)
+    still = [pair for pair in missing if pair not in held_keys(new)]
+    if still:
+        raise AssertionError(f"launches that no row holds: {still}")
+    return new
 
 
 def check_perhead_kernels(torch):
@@ -1429,6 +1546,113 @@ def optimizer_launches(torch, optim, vilt, encoder):
     return out
 
 
+def launch_origin(event) -> str:
+    """Where a profiled op that launched device kernels came from: the
+    autograd node it ran in (``backward X``), else the first line of the
+    port on its Python stack, else its chain of ops (innermost first); with
+    the op's input shapes."""
+    node, stack, chain, e = None, None, [], event
+    while e is not None:
+        if node is None and e.name.startswith("autograd::engine::evaluate_function: "):
+            node = e.name.split(": ", 1)[1]
+        if stack is None and e.stack:
+            stack = e.stack
+        chain.append(e.name)
+        e = e.cpu_parent
+    shapes = [s for s in (event.input_shapes or []) if s][:2]
+    if node is not None:
+        return f"backward {node} ({event.name} {shapes})"
+    # the port's innermost Python frame (the profiler's own Python events
+    # under verbose stacks, or the op's recorded stack)
+    port = [f for f in chain + list(stack or ()) if PKG + "/" in f]
+    where = port[0].split(PKG + "/")[-1] if port else " < ".join(chain[:4])
+    return f"forward {where} ({event.name} {shapes})"
+
+
+def sweep_profile(root):
+    """``python3 chip_smoke.py --sweep_profile ROOT``: for the port of the
+    checkout at ROOT (an unpacked older commit, to set two versions side by
+    side in one run), one eager train step of the seed sweep at full width
+    (``SWEEP_SEEDS``, as the sweep phase runs it) and of one seed's run
+    (``run_mm_late``), under ``auto`` and ``fused``, each after one epoch
+    and one more step, profiled with the Python stacks of its ops: wall and
+    device-busy ms, the largest kernels each with the autograd nodes or
+    lines of the port that launched them, and the device ms by origin."""
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+    from torch._C._profiler import _ExperimentalConfig
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.cli import (
+        run_mm_late, run_seed_sweep)
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.core import config as C
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.ops import _cuda
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _cuda.build()
+    log(f"sweep_profile: the port at {os.path.dirname(os.path.abspath(C.__file__))}; "
+        f"card: {card_line()}")
+    result = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = make_dataset(tmp)
+        C.DATA_PATH = data
+        C.PATH[3] = data + "data_key_mvsa.csv"
+        C.IMG_FMT[3] = data + "MVSA-Single/data/{}.jpg"
+        C.results_dir_mm_late = os.path.join(tmp, "results") + os.sep
+        for impl in ("auto", "fused"):
+            for run, main, argv in (("sweep", run_seed_sweep.main, sweep_args(impl)),
+                                    ("one seed", run_mm_late.main, train_args(impl))):
+                tag = f"sweep_profile[{run}, {impl}]"
+                trainer, setup = main(argv + ["--steps_per_dispatch", "1"])
+                if run == "sweep":
+                    gens = trainer.gens
+                    batch = next(trainer.device_batches(setup.pipes["train"], False, 1))[0]
+                else:
+                    gens = trainer.gen
+                    batch = next(setup.pipes["train"].device_iter(setup.device))
+                setup.train_step(batch, gens)
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                             record_shapes=True, with_stack=True,
+                             experimental_config=_ExperimentalConfig(verbose=True)) as prof:
+                    t1 = time.perf_counter()
+                    setup.train_step(batch, gens)
+                    torch.cuda.synchronize()
+                    wall = (time.perf_counter() - t1) * 1e3
+                kernels, origins = {}, {}
+                for e in prof.events():
+                    if e.device_type != DeviceType.CPU or not e.kernels:
+                        continue
+                    where = launch_origin(e)
+                    for k in e.kernels:
+                        ms, n, by = kernels.get(k.name, (0.0, 0, {}))
+                        by[where] = by.get(where, 0.0) + k.duration / 1e3
+                        kernels[k.name] = (ms + k.duration / 1e3, n + 1, by)
+                        origins[where] = origins.get(where, 0.0) + k.duration / 1e3
+                busy = sum(ms for ms, _, _ in kernels.values())
+                log(f"{tag}: wall {wall:.3f} ms, device busy {busy:.3f} ms, "
+                    f"{sum(n for _, n, _ in kernels.values())} kernel launches")
+                for name, (ms, n, by) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]:
+                    top = sorted(by.items(), key=lambda kv: -kv[1])[:3]
+                    log(f"{tag}:   {ms:8.3f} ms x{n:<4d} {name[:80]}")
+                    for where, wms in top:
+                        log(f"{tag}:       {wms:8.3f} ms  {where[:220]}")
+                for where, ms in sorted(origins.items(), key=lambda kv: -kv[1])[:16]:
+                    log(f"{tag}: origin {ms:8.3f} ms  {where[:220]}")
+                result[f"{run}/{impl}"] = dict(wall_ms=wall, device_busy_ms=busy,
+                                               top_origins=sorted(origins.items(),
+                                                                  key=lambda kv: -kv[1])[:12])
+                del trainer, setup, batch, prof
+                torch.cuda.empty_cache()
+    log(json.dumps({"sweep_profile": result}))
+    return 0
+
+
 def optimizer_only(root):
     """``python3 chip_smoke.py --optimizer ROOT``: ``optimizer_launches`` alone,
     for the port of the checkout at ROOT (an unpacked older commit, to set
@@ -1562,6 +1786,461 @@ def vilt_first_step(torch, C, run_mm_early, build_early, hub):
         return n.startswith("backbone.encoder.") and ".attention." in n and n.endswith("weight")
 
     return first_step_check(torch, "vilt", make_setup, keep)
+
+
+def sweep_args(attn_impl, extra=()):
+    """``run_seed_sweep`` at full width: the training runs' configuration,
+    three seeds trained together."""
+    return ["--txt_model_name", "bernice", "--img_model_name", "vit",
+            "--fusion_name", "attention", "--task", "3", "--epochs", "1",
+            "--seeds", ",".join(map(str, SWEEP_SEEDS)), "--arch", "base",
+            "--dtype", "bfloat16", "--use_clip_loss", "--use_tim_loss",
+            "--use_saved_features", "--log_every", "1", "--attn_impl", attn_impl, *extra]
+
+
+def sweep_run(torch, sweep_main, argv, tag, counters, expect, results_dir, stem_fmt, k=1):
+    """One epoch of ``run_seed_sweep.main(argv)`` at ``--steps_per_dispatch
+    k`` with the counts set to 0 before and read after: the launch counts
+    per sweep step (under k > 1 per chunk, the first chunk and the evals once
+    more, as ``train_run`` counts them) and per eval step, every seed's loss
+    finite, each seed's metric tables; then the steady ms per sweep step (the
+    split three more times, one sync), one profiled step (the device's idle
+    share, the counters moved by one step's counts) and the peak memory.
+    Returns its numbers, the per-step losses by seed and the launch counts."""
+    import numpy as np
+
+    for c in counters.values():
+        c.reset()
+    s = len(SWEEP_SEEDS)
+    chunks, state = [], {"t": None, "prev": {n: 0 for n in counters}}
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        counts = {n: c.count - state["prev"][n] for n, c in counters.items()}
+        state["prev"] = {n: c.count for n, c in counters.items()}
+        losses = metrics["loss"].float().reshape(-1, s).cpu().numpy()
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"{tag}: step {step} losses not finite: {losses}")
+        chunks.append(dict(seconds=None if state["t"] is None else now - state["t"],
+                           counts=counts, losses=losses.tolist()))
+        state["t"] = now
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer, setup = sweep_main(list(argv) + ["--steps_per_dispatch", str(k)], on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    totals = {n: c.count for n, c in counters.items()}
+    by_key = {n: dict(c.by_key) for n, c in counters.items()}
+    pipes = setup.pipes
+    n_train = min(p.num_batches for p in pipes["train"])
+    n_eval = sum(min(p.num_batches for p in pipes[split]) for split in ("val", "test"))
+    for i, ch in enumerate(chunks):
+        steps = len(ch["losses"]) + (1 if k > 1 and i == 0 else 0)
+        for kernel, n in expect["train"].items():
+            if ch["counts"][kernel] != n * steps:
+                raise AssertionError(f"{tag}: dispatch {i + 1} launched {kernel} "
+                                     f"{ch['counts'][kernel]} times, expected {n} x {steps}")
+    evals = n_eval + (1 if k > 1 else 0)
+    for kernel, n in expect["eval"].items():
+        seen = totals[kernel] - sum(ch["counts"][kernel] for ch in chunks)
+        if seen != n * evals:
+            raise AssertionError(f"{tag}: {evals} eval steps launched {kernel} {seen} times, "
+                                 f"expected {n} each")
+    losses = [row for ch in chunks for row in ch["losses"]]  # (steps, S)
+    if len(losses) != n_train:
+        raise AssertionError(f"{tag}: {len(losses)} sweep steps, expected {n_train}")
+    log(f"{tag}: launches per sweep step of {s} seeds {expect['train']}, per eval step "
+        f"{expect['eval']} over {n_train} train and {n_eval} eval steps: exact")
+    for seed in SWEEP_SEEDS:
+        with open(stem_fmt.format(seed=seed) + "metrics_test.csv") as f:
+            table = f.read().splitlines()
+        if table[0] != "metric,epoch-1" or len(table) != 8:
+            raise AssertionError(f"{tag}: seed {seed} metrics table {table}")
+
+    gens = trainer.gens
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(STEADY_PASSES):
+        for batches, k_real in trainer.device_batches(pipes["train"], False, k):
+            if k == 1:
+                setup.train_step(batches, gens)
+            else:
+                trainer.train_many(batches, k_real, gens)
+    torch.cuda.synchronize()
+    steady_ms = (time.perf_counter() - t1) * 1e3 / (STEADY_PASSES * n_train)
+
+    if k == 1:
+        batch = next(trainer.device_batches(pipes["train"], False, 1))[0]
+
+        def step():
+            setup.train_step(batch, gens)
+    else:
+        from socialmedia_textimage_classification_auxlosses_tpu_torch.data.pipeline import (
+            stage_chunks)
+
+        chunk, _ = next(stage_chunks(trainer.host_batches(pipes["train"], False),
+                                     trainer.device, 1))
+
+        def step():
+            trainer.train_many(chunk, 1, gens)
+    step()
+    before = {n: c.count for n, c in counters.items()}
+    step_wall, busy, idle, events = profile_step(torch, step, tag)
+    moved = {n: c.count - before[n] for n, c in counters.items()}
+    if moved != expect["train"]:
+        raise AssertionError(f"{tag}: the profiled step moved the counters by {moved}, "
+                             f"expected {expect['train']}")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"profile {tag}:   {e.self_device_time_total / 1e3:8.3f} ms x{e.count:<4d} "
+            f"{e.key[:90]}")
+    timed = [ch["seconds"] / len(ch["losses"]) for ch in chunks if ch["seconds"] is not None]
+    ms = 1e3 * sum(timed) / len(timed) if timed else None
+    result = dict(run=tag, seeds=list(SWEEP_SEEDS), steps_per_dispatch=k, train_steps=n_train,
+                  eval_steps=n_eval, ms_per_sweep_step=ms, steady_ms_per_sweep_step=steady_ms,
+                  steady_posts_per_s=s * BATCH / (steady_ms / 1e3),
+                  profiled_step_ms=step_wall, device_busy_ms=busy, idle_share=idle,
+                  idle_share_of_steady_step=(1 - busy / steady_ms) if busy else None,
+                  kernel_launches=sum(e.count for e in events), max_memory_allocated=peak,
+                  run_seconds=wall, losses=losses)
+    log(f"{tag}: {json.dumps(result)}")
+    del trainer, setup
+    torch.cuda.empty_cache()
+    return result, by_key
+
+
+def separate_losses(torch, run_mm_late, seed):
+    """The per-step losses of ``run_mm_late`` under ``auto`` at ``seed``: the
+    separate run a sweep seed stands for."""
+    argv = [a for a in train_args("auto") if a != "--save_model"]
+    argv[argv.index("--seed") + 1] = str(seed)
+    losses = []
+    run_mm_late.main(argv, on_step=lambda step, m: losses.append(float(m["loss"])))
+    torch.cuda.empty_cache()
+    return losses
+
+
+def sweep_against_separate(sweep, separate, tag):
+    """Each seed's per-step bfloat16 losses within 2e-2 relative of its
+    separate run's."""
+    worst = 0.0
+    for i, seed in enumerate(SWEEP_SEEDS):
+        mine = [row[i] for row in sweep["losses"]]
+        if len(mine) != len(separate[seed]):
+            raise AssertionError(f"{tag}: seed {seed}: {len(mine)} steps against "
+                                 f"{len(separate[seed])}")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(mine, separate[seed]))
+        worst = max(worst, rel)
+        log(f"{tag}: seed {seed} losses {mine} vs its separate run {separate[seed]}: worst "
+            f"relative difference {rel:.2e} (tol 2e-2)")
+    if not worst <= 2e-2:
+        raise AssertionError(f"{tag}: a seed's losses left its separate run's")
+    return worst
+
+
+def sweep_first_step(torch, C, run_mm_late, build, sweep, hub):
+    """The sweep's first step in float32 against each seed's separate
+    ``run_mm_late`` setup: the same state dicts from the same seeds, each
+    seed's first batch, dropout 0 and the TIM swap pinned. Each seed's loss
+    within 1e-5 relative and each of its text-tower attention weights' and
+    fusion-head tensors' gradients (but ``fc_k.bias``, whose exact gradient
+    is zero) within 1e-3 relative (Frobenius) of its separate step's."""
+    import numpy as np
+
+    saved = dict(C.MODEL_DIR_DICT)
+    for name in ("bernice", "vit"):
+        d = os.path.join(hub, name)
+        os.makedirs(d, exist_ok=True)
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump({"hidden_dropout_prob": 0.0}, f)
+        C.MODEL_DIR_DICT[name] = d + os.sep
+    extra = ["--dropout", "0", "--dtype", "float32"]
+    device = torch.device(DEVICE)
+    perm = np.random.RandomState(3).permutation(BATCH)
+
+    def pinned(batch, copies):
+        batch["tim_src"] = torch.as_tensor(np.tile(perm, copies), device=DEVICE)
+        batch["tim_labels"] = torch.as_tensor(
+            np.tile((perm == np.arange(BATCH)).astype(np.int32), copies), device=DEVICE)
+        return batch
+
+    def keep(n):
+        return ((n.startswith("dual.text.encoder.") and ".attention." in n
+                 and n.endswith("weight"))
+                or (n.startswith("fusion.") and n != "fusion.fc_k.bias"))
+
+    try:
+        t0 = time.monotonic()
+        args = sweep.parse_args(sweep_args("auto", extra))
+        stacked = sweep.build_sweep_setup(args, C.Config(args),
+                                          sweep.build_seed_setups(args, SWEEP_SEEDS), device)
+        from socialmedia_textimage_classification_auxlosses_tpu_torch.train.ensemble import (
+            EnsembleTrainer)
+
+        trainer = EnsembleTrainer(stacked.train_step, stacked.eval_step, stacked.model, device,
+                                  SWEEP_SEEDS)
+        batch = pinned(next(trainer.device_batches(stacked.pipes["train"], False, 1))[0],
+                       len(SWEEP_SEEDS))
+        grads, parts, _ = stacked.train_step.gradients(batch, trainer.gens)
+        losses = parts["loss"].tolist()
+        kept = [{n: g[i].float().cpu() for n, g in grads.items() if g is not None and keep(n)}
+                for i in range(len(SWEEP_SEEDS))]
+        peak = torch.cuda.max_memory_allocated()
+        del stacked, trainer, grads, parts, batch
+        torch.cuda.empty_cache()
+        result, failed = {}, []
+        for i, seed in enumerate(SWEEP_SEEDS):
+            argv = train_args("auto", extra)
+            argv[argv.index("--seed") + 1] = str(seed)
+            a = run_mm_late.parse_args(argv)
+            single = build.build_mm_late_train_setup(a, C.Config(a), device,
+                                                     torch.Generator().manual_seed(seed))
+            b = pinned(next(single.pipes["train"].device_iter(device, shuffle=False)), 1)
+            g, p, _ = single.train_step.gradients(b, torch.Generator(DEVICE))
+            want = {n: v.float().cpu() for n, v in g.items() if v is not None and keep(n)}
+            loss = float(p["loss"].detach())
+            del single, g, p, b
+            torch.cuda.empty_cache()
+            rel_loss = abs(losses[i] - loss) / abs(loss)
+            rel = {n: (torch.linalg.vector_norm(kept[i][n] - w)
+                       / torch.linalg.vector_norm(w)).item() for n, w in want.items()}
+            if set(rel) != set(kept[i]):
+                raise AssertionError(f"sweep first step: seed {seed} kept other tensors")
+            worst = max(rel, key=rel.get)
+            log(f"sweep first step[seed {seed}, float32]: loss {losses[i]:.6f} vs separate "
+                f"{loss:.6f} (rel {rel_loss:.2e}, tol 1e-5); gradient rel error over "
+                f"{len(rel)} tensors: median {np.median(list(rel.values())):.2e}, worst "
+                f"{rel[worst]:.2e} ({worst}; tol 1e-3)")
+            result[str(seed)] = dict(rel_loss=rel_loss, worst_rel=rel[worst], worst_grad=worst,
+                                     median_rel=float(np.median(list(rel.values()))))
+            if not (rel_loss <= 1e-5 and rel[worst] <= 1e-3):
+                failed.append(seed)
+        if failed:
+            raise AssertionError(f"sweep first step: seeds {failed} left their separate runs")
+        result["stacked_first_step_peak_bytes"] = peak
+        result["seconds"] = time.monotonic() - t0
+        return result
+    finally:
+        C.MODEL_DIR_DICT.clear()
+        C.MODEL_DIR_DICT.update(saved)
+
+
+def sweep_phase(torch, C, run_mm_late, build, sweep, counters, per_step, training, launches,
+                hub):
+    """The seed sweep at full width, ``SWEEP_SEEDS`` trained together
+    (``run_seed_sweep``): under ``auto`` at K = 1 each SDPA launch takes the
+    seeds' rows as its batch, so a sweep step launches one seed's count;
+    under ``fused`` at K = 3 the block kernels run once per seed, S times one
+    seed's count. Each seed's per-step losses against its separate run, the
+    float32 first step against the separate setups, and beside the sweep's
+    ms per step the single run's at the same K."""
+    s = len(SWEEP_SEEDS)
+    per_seed = ("attn_block_fwd", "attn_block_bwd", "gemm_tn_bf16")
+    expect = {"auto": per_step["auto"],
+              "fused": {phase: {n: c * s if n in per_seed else c for n, c in counts.items()}
+                        for phase, counts in per_step["fused"].items()}}
+    stem_fmt = C.results_dir_mm_late + "bernice-vit-attention_task3_seed{seed}_itc0.1itm0.1_"
+    result = {}
+    for impl, k, single in (("auto", 1, "auto"), ("fused", 3, "fused/k3")):
+        tag = f"sweep[{impl}, K={k}]"
+        result[f"{impl}/k{k}"], by_key = sweep_run(torch, sweep.main, sweep_args(impl), tag,
+                                                   counters, expect[impl], C.results_dir_mm_late,
+                                                   stem_fmt, k)
+        count_launches(launches, by_key)
+        one = training[single]
+        mine = result[f"{impl}/k{k}"]
+        log(f"{tag}: steady {mine['steady_ms_per_sweep_step']:.2f} ms a sweep step of {s} "
+            f"seeds ({mine['steady_posts_per_s']:.1f} posts/s), idle "
+            f"{mine['idle_share']}, peak {mine['max_memory_allocated'] / 1e9:.2f} GB; one seed "
+            f"at K = {k}: steady {one['steady_ms_per_step']:.2f} ms a step "
+            f"({one['steady_posts_per_s']:.1f} posts/s), peak "
+            f"{one['max_memory_allocated'] / 1e9:.2f} GB")
+        mine["single_seed_steady_ms_per_step"] = one["steady_ms_per_step"]
+    separate = {SWEEP_SEEDS[0]: training["auto"]["losses"]}
+    for seed in SWEEP_SEEDS[1:]:
+        separate[seed] = separate_losses(torch, run_mm_late, seed)
+    for run in ("auto/k1", "fused/k3"):
+        result[run]["loss_rel_vs_separate"] = sweep_against_separate(
+            result[run], separate, f"sweep[{run}]")
+    result["first_step"] = sweep_first_step(torch, C, run_mm_late, build, sweep, hub)
+    return result
+
+
+def jax_artifact_phase(torch, C, serve, counters, per_window, launches, tmp):
+    """The full-width serving model written as the JAX package writes its
+    artifact, a flax msgpack of the parameter tree (by the port's encoder:
+    flax is not imported), once unrolled and once in the ``--scan_layers`` layout,
+    beside the port's own torch file; each read back through
+    ``load_params`` (bytes and seconds printed), then served for 4 windows
+    of ``BATCH`` requests under ``auto``, the counts set to 0 before and
+    read after (``per_window``: each kernel's launches a window) and added to
+    ``launches``. Both JAX artifacts' probabilities must equal the torch
+    artifact's exactly."""
+    import numpy as np
+
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.cli._build import (
+        build_mm_late_setup)
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.cli._common import (
+        seed_everything)
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.models.from_jax import (
+        jax_tree_from_torch)
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.train import flax_msgpack
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.train.checkpoint import (
+        load_params, save_params)
+
+    t0 = time.monotonic()
+    paths = {name: os.path.join(tmp, f"{name}_net.pth")
+             for name in ("torch", "jax_unrolled", "jax_scan_layers")}
+    args = service_args(serve, paths["torch"], "auto")
+    model = build_mm_late_setup(args, C.serving_config(args),
+                                generator=seed_everything(args.seed)).model
+    save_params(paths["torch"], model)
+    result = {}
+    for name, scan in (("jax_unrolled", False), ("jax_scan_layers", True)):
+        t1 = time.monotonic()
+        nbytes_written = flax_msgpack.write_file(paths[name],
+                                                 jax_tree_from_torch(model, scan_layers=scan))
+        result[name] = dict(bytes=nbytes_written, write_seconds=time.monotonic() - t1)
+    result["torch"] = dict(bytes=os.path.getsize(paths["torch"]))
+    del model
+    reqs = (make_requests() * 2)[:4 * BATCH]
+    probs = {}
+    for name, path in paths.items():
+        extra = ["--scan_layers"] if name == "jax_scan_layers" else []
+        a = service_args(serve, path, "auto", extra)
+        empty = build_mm_late_setup(a, C.serving_config(a)).model
+        t1 = time.monotonic()
+        load_params(path, empty)
+        result[name]["read_seconds"] = time.monotonic() - t1
+        del empty
+        predict, _ = serve.build_service(a)
+        for c in counters.values():
+            c.reset()
+        answers = [r for i in range(0, len(reqs), BATCH) for r in predict(reqs[i:i + BATCH])]
+        torch.cuda.synchronize()
+        count_launches(launches, {n: dict(c.by_key) for n, c in counters.items()})
+        for kernel, n in per_window.items():
+            if counters[kernel].count != n * (len(reqs) // BATCH):
+                raise AssertionError(f"artifact[{name}]: {counters[kernel].count} {kernel} "
+                                     f"launches in 4 windows, expected {n} each")
+        probs[name] = np.array([r["probs"] for r in answers])
+        if not np.isfinite(probs[name]).all():
+            raise AssertionError(f"artifact[{name}]: probabilities not finite")
+        del predict
+        torch.cuda.empty_cache()
+        log(f"artifact[{name}]: {result[name]['bytes']} bytes, read in "
+            f"{result[name]['read_seconds']:.2f} s"
+            + (f", written in {result[name]['write_seconds']:.2f} s" if "write_seconds"
+               in result[name] else "") + f"; served {len(reqs)} requests in 4 windows")
+    for name in ("jax_unrolled", "jax_scan_layers"):
+        if not np.array_equal(probs[name], probs["torch"]):
+            raise AssertionError(f"artifact[{name}]: probabilities differ from the torch "
+                                 f"artifact's (max {np.abs(probs[name] - probs['torch']).max()})")
+    log("artifact: both JAX-layout artifacts serve the torch artifact's probabilities "
+        "exactly")
+    for path in paths.values():
+        os.remove(path)
+    result["seconds"] = time.monotonic() - t0
+    return result
+
+
+GRID_LAYERS = 2  # the grid phase's towers: full width, cut to 2 layers
+
+
+def grid_phase(torch, C, run_grid, counters, launches, tmp):
+    """``run_grid.main`` over mm_late (Bernice + ViT attention fusion, full
+    width cut to ``GRID_LAYERS`` layers a tower, float32), task 3, two seeds
+    x aux {none, itc+itm}, one epoch: once with ``--seed_backend
+    sequential`` and once, the artifacts removed, with ``vmap`` (each aux
+    setting's two seeds as one sweep). The two backends' run and metric
+    tables agree within the JAX grid test's tolerance (rtol 5e-3, atol
+    1e-4), every run's predictions are equal, and the markdown tables exist.
+    The counts are set to 0 before each backend and added to ``launches``
+    after it."""
+    import csv
+
+    import numpy as np
+
+    saved = dict(C.MODEL_DIR_DICT)
+    results_dir = C.results_dir_mm_late
+    t0 = time.monotonic()
+    try:
+        for name in ("bernice", "vit"):
+            d = os.path.join(tmp, "hub_grid", name)
+            os.makedirs(d, exist_ok=True)
+            with open(os.path.join(d, "config.json"), "w") as f:
+                json.dump({"num_hidden_layers": GRID_LAYERS, "hidden_dropout_prob": 0.1}, f)
+            C.MODEL_DIR_DICT[name] = d + os.sep
+        C.results_dir_mm_late = os.path.join(tmp, "results", "grid_runs") + os.sep
+        base = ["--families", "mm_late", "--mm_late", "bernice-vit-attention", "--tasks", "3",
+                "--seeds", ",".join(map(str, SWEEP_SEEDS[:2])), "--aux", "none,itc+itm",
+                "--epochs", "1"]
+        runner = ["--arch", "base", "--dtype", "float32", "--use_saved_features",
+                  "--save_preds", "--log_every", "1", "--attn_impl", "auto"]
+        plan = run_grid.build_plan(run_grid.parse_args(base + ["--"] + runner))
+        tables, preds, seconds = {}, {}, {}
+        for backend in ("sequential", "vmap"):
+            for run in plan:
+                for path in (run.val_csv, run.test_csv):
+                    if os.path.exists(path):
+                        os.remove(path)
+            out = os.path.join(tmp, "grid", backend) + os.sep
+            for c in counters.values():
+                c.reset()
+            t1 = time.monotonic()
+            rc = run_grid.main(base + ["--seed_backend", backend, "--out", out, "--"] + runner)
+            seconds[backend] = time.monotonic() - t1
+            count_launches(launches, {n: dict(c.by_key) for n, c in counters.items()})
+            if rc != 0:
+                raise AssertionError(f"grid[{backend}]: run_grid exited {rc}")
+            # the vision tower's SDPA over two seeds' images at once shows that
+            # the sweep ran (the grid falls back to single runs on a failure)
+            folded = any(key[1] == 2 * BATCH and key[3] == 197
+                         for key in counters["sdpa_fwd"].by_key)
+            if folded != (backend == "vmap"):
+                raise AssertionError(f"grid[{backend}]: seeds folded into a batch: {folded}")
+            tables[backend] = {}
+            for name in ("grid_runs.csv", "grid_table_f1_macro.csv",
+                         "grid_table_f1_weighted.csv"):
+                with open(out + name, newline="") as f:
+                    tables[backend][name] = list(csv.reader(f))
+            for name in ("grid_table_f1_macro.md", "grid_table_f1_weighted.md"):
+                if not os.path.getsize(out + name):
+                    raise AssertionError(f"grid[{backend}]: {name} is empty")
+            for run in plan:
+                with open(run.test_csv.replace("metrics_test.csv", "preds.csv")) as f:
+                    preds[(backend, run.seed, run.aux)] = f.read()
+            log(f"grid[{backend}]: {len(plan)} runs in {seconds[backend]:.1f} s")
+        worst = 0.0
+        for name, rows in tables["sequential"].items():
+            other = tables["vmap"][name]
+            if rows[0] != other[0] or len(rows) != len(other) or len(rows) < 2:
+                raise AssertionError(f"grid: {name} differs in shape between the backends")
+            for ra, rb in zip(rows[1:], other[1:]):
+                for x, y in zip(ra, rb):
+                    try:
+                        fx, fy = float(x), float(y)
+                    except ValueError:
+                        if x != y:
+                            raise AssertionError(f"grid: {name}: {x!r} against {y!r}")
+                        continue
+                    if not abs(fy - fx) <= 1e-4 + 5e-3 * abs(fx):
+                        raise AssertionError(f"grid: {name}: {x} sequential, {y} vmap")
+                    worst = max(worst, abs(fy - fx))
+        for run in plan:
+            if preds[("sequential", run.seed, run.aux)] != preds[("vmap", run.seed, run.aux)]:
+                raise AssertionError(f"grid: {run} predicts otherwise under vmap")
+        log(f"grid: the backends' tables agree (max abs difference {worst:.2e}; rtol 5e-3, "
+            f"atol 1e-4) and every run's predictions are equal")
+        return dict(runs=len(plan), seconds=seconds, max_abs_diff=worst,
+                    total_seconds=time.monotonic() - t0)
+    finally:
+        C.MODEL_DIR_DICT.clear()
+        C.MODEL_DIR_DICT.update(saved)
+        C.results_dir_mm_late = results_dir
 
 
 def spm_model_bytes(pieces):
@@ -1877,12 +2556,12 @@ def make_requests():
     return reqs
 
 
-def service_args(serve, model_path, attn_impl):
+def service_args(serve, model_path, attn_impl, extra=()):
     return serve.parse_args([
         "--task", "3", "--txt_model_name", "bernice", "--img_model_name", "vit",
         "--fusion_name", "attention", "--arch", "base", "--dtype", "bfloat16",
         "--max_batch", str(BATCH), "--batch_window_ms", "20", "--seed", "30",
-        "--attn_impl", attn_impl, "--model_path", model_path, "--port", "0"])
+        "--attn_impl", attn_impl, "--model_path", model_path, "--port", "0", *extra])
 
 
 def profile_window(torch, predict, window, tag):
@@ -1971,6 +2650,7 @@ def run_service(torch, serve, A, AB, args, reqs, http_text):
 def main():
     import torch
 
+    started = time.monotonic()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -2080,7 +2760,7 @@ def main():
     from socialmedia_textimage_classification_auxlosses_tpu_torch.cli import (
         _build_early as build_early)
     from socialmedia_textimage_classification_auxlosses_tpu_torch.cli import (
-        run_mm_early, run_mm_late, run_txt)
+        run_grid, run_mm_early, run_mm_late, run_seed_sweep, run_txt)
 
     counters = {"sdpa_fwd": A.launches, "sdpa_bwd": A.bwd_launches,
                 "attn_block_fwd": AB.launches, "attn_block_bwd": AB.bwd_launches,
@@ -2120,6 +2800,10 @@ def main():
         training["fused/k3"]["loss_rel_vs_k1"] = same_losses(training["fused/k3"],
                                                              training["fused"], tag)
         count_launches(launches, by_key)
+        # the seed sweep: the same model under three seeds in one seed-stacked run
+        training["sweep"] = sweep_phase(torch, C, run_mm_late, build, run_seed_sweep, counters,
+                                        per_step, training, launches,
+                                        os.path.join(tmp, "hub_sweep"))
         # the text-only runner (Bernice-base, CLS head) under fused, K = 1 and 3
         C.results_dir_txt = os.path.join(tmp, "results", "txt") + os.sep
         txt_step = {"train": {**none, "attn_block_fwd": 12, "attn_block_bwd": 12,
@@ -2182,6 +2866,10 @@ def main():
         training["vilt/first_step"] = vilt_first_step(torch, C, run_mm_early, build_early,
                                                       os.path.join(tmp, "hub"))
 
+        # a JAX-layout artifact served, and the paper's grid under both backends
+        training["jax_artifact"] = jax_artifact_phase(
+            torch, C, serve, counters, {**none, **per_window["auto"]}, launches, tmp)
+        training["grid"] = grid_phase(torch, C, run_grid, counters, launches, tmp)
         # the late-fusion towers from checkpoints, and --import_reference_ckpt
         training["pretrained"] = pretrained_start(torch, C, run_mm_late, counters)
     from socialmedia_textimage_classification_auxlosses_tpu_torch.models import encoder, vilt
@@ -2193,6 +2881,8 @@ def main():
     log(json.dumps(gemm_rows))
     log(json.dumps({"enqueue": enqueue}))
     launches.update(perhead_launches)
+    # every shape a main path launched, held against its plain version
+    rows += rows_for_every_launch(torch, AB, rows, launches)
 
     # the TPU kernel each row replaces: the JAX SDPA kernels by query length
     # (above 2 x 128 rows the blocked ones), the fused block's by kernel
@@ -2231,6 +2921,7 @@ def main():
                             max_abs_err=row["max_abs_err"], ms=row["ms"],
                             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                             bound_by=row["bound_by"], library_ms=row["library_ms"]))
+    log(f"chip_smoke: every phase passed in {time.monotonic() - started:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -2245,6 +2936,8 @@ if __name__ == "__main__":
             sys.exit(enqueue_only(sys.argv[2]))
         if sys.argv[1:2] == ["--optimizer"] and len(sys.argv) == 3:
             sys.exit(optimizer_only(sys.argv[2]))
+        if sys.argv[1:2] == ["--sweep_profile"] and len(sys.argv) == 3:
+            sys.exit(sweep_profile(sys.argv[2]))
         sys.exit(main())
     except Exception:
         traceback.print_exc()

@@ -9,7 +9,9 @@ leaves the tower random), as the JAX builder does; ``build_mm_late_train_setup``
 adds what a trainer needs on its device: the vision tower frozen
 (``requires_grad`` off, outside AdamW, as the reference freezes it), the data
 splits and pipelines, AdamW, the loss configuration and the train and eval
-steps; ``import_reference_checkpoint`` loads a reference-trained ``MM_Model``
+steps, from the parts a seed sweep builds once per seed (``build_mm_late_parts``:
+the CPU model, pipelines and class weights; ``mm_late_forward``,
+``mm_late_optimizer``); ``import_reference_checkpoint`` loads a reference-trained ``MM_Model``
 state dict (``--import_reference_ckpt``); ``build_text_setup`` builds the
 text-only classifier of ``cli/run_txt.py`` and its trainer's parts (the JAX
 ``build_text_setup``). No mesh is built: the port runs on one device.
@@ -144,7 +146,7 @@ class TrainSetup:
     feature_step: Optional[Callable] = None
 
 
-def _loss_cfg_from(cfg) -> LossConfig:
+def loss_cfg_from(cfg) -> LossConfig:
     return LossConfig(
         num_labels=cfg.num_labels, multilabel=cfg.multilabel,
         use_clip_loss=cfg.use_clip_loss, use_tim_loss=cfg.use_tim_loss,
@@ -154,20 +156,22 @@ def _loss_cfg_from(cfg) -> LossConfig:
         T=tuple(map(tuple, C.T)))
 
 
-def build_mm_late_train_setup(args, cfg: C.Config, device: torch.device,
-                              generator: torch.Generator,
-                              keep_grads: bool = False) -> TrainSetup:
-    """Everything a late-fusion training run needs, on ``device``: the model
-    initialised from ``generator``, the splits of ``cfg.data`` (subsampled
-    with ``np.random.RandomState(args.seed)``, as the JAX package's
-    ``build_mm_late_setup`` does),
-    the pipelines (the uint8 cache under ``<data>/cache/{task}_u8_{size}``
-    with ``--use_saved_features``), AdamW and the steps."""
-    base = build_mm_late_setup(args, cfg, generator=generator)
-    model = base.model.to(device)
-    for name, p in model.named_parameters():
-        p.requires_grad_(not vision_frozen(name))
+@dataclasses.dataclass
+class RunParts:
+    """What one late-fusion run builds before its device: the model on the
+    CPU, its pipelines and its class weights."""
+    base: Setup
+    pipes: Dict[str, SplitPipeline]
+    class_weights: Optional[np.ndarray]
 
+
+def build_mm_late_parts(args, cfg: C.Config, generator: torch.Generator) -> RunParts:
+    """The model initialised from ``generator`` (then the pretrained towers),
+    the splits of ``cfg.data`` (subsampled with
+    ``np.random.RandomState(args.seed)``, as the JAX package's
+    ``build_mm_late_setup`` does) and the pipelines (the uint8 cache under
+    ``<data>/cache/{task}_u8_{size}`` with ``--use_saved_features``)."""
+    base = build_mm_late_setup(args, cfg, generator=generator)
     rng = np.random.RandomState(args.seed)
     train, val, test, weights = prepare_data(
         cfg.data, cfg.num_labels, testing=args.testing,
@@ -184,8 +188,19 @@ def build_mm_late_train_setup(args, cfg: C.Config, device: torch.device,
             cache_dir=f"{C.DATA_PATH}cache/{cfg.task_name}_u8_{size}")
         pipes[name] = SplitPipeline(split, pipe_cfg, tokenizer=base.tokenizer,
                                     image_source=src)
+    return RunParts(base=base, pipes=pipes, class_weights=weights)
 
-    mean, std = base.image_norm
+
+def freeze_vision(model: torch.nn.Module) -> None:
+    """The vision tower frozen, as the reference freezes it."""
+    for name, p in model.named_parameters():
+        p.requires_grad_(not vision_frozen(name))
+
+
+def mm_late_forward(model, args, cfg, image_norm) -> Callable:
+    """The trainers' ``forward_fn(batch, tim_inputs, gen, deterministic)``
+    over ``model`` (plain or seed-stacked)."""
+    mean, std = image_norm
     dtype = getattr(torch, args.dtype)
     use_tt = args.txt_model_name not in NO_TOKEN_TYPES
 
@@ -204,10 +219,28 @@ def build_mm_late_train_setup(args, cfg: C.Config, device: torch.device,
                      batch.get("token_type_ids") if use_tt else None,
                      iadds_task=cfg.use_iadds_loss, gen=gen, **tim_kw)
 
+    return forward_fn
+
+
+def mm_late_optimizer(model, args, cfg) -> AdamW:
+    """AdamW over the trainable parameters (the vision tower frozen)."""
     mu_dtype = torch.bfloat16 if args.opt_moments == "bf16" else None
-    optimizer = AdamW(model.named_parameters(), cfg.lr, cfg.weight_decay,
-                      mu_dtype=mu_dtype, frozen=vision_frozen)
-    loss_cfg = _loss_cfg_from(cfg)
+    return AdamW(model.named_parameters(), cfg.lr, cfg.weight_decay,
+                 mu_dtype=mu_dtype, frozen=vision_frozen)
+
+
+def build_mm_late_train_setup(args, cfg: C.Config, device: torch.device,
+                              generator: torch.Generator,
+                              keep_grads: bool = False) -> TrainSetup:
+    """Everything a late-fusion training run needs, on ``device``: the parts
+    of ``build_mm_late_parts``, AdamW and the steps."""
+    parts = build_mm_late_parts(args, cfg, generator)
+    base, pipes, weights = parts.base, parts.pipes, parts.class_weights
+    model = base.model.to(device)
+    freeze_vision(model)
+    forward_fn = mm_late_forward(model, args, cfg, base.image_norm)
+    optimizer = mm_late_optimizer(model, args, cfg)
+    loss_cfg = loss_cfg_from(cfg)
     cw = None if weights is None else torch.tensor(weights, device=device)
     n_all = sum(p.numel() for p in model.parameters())
     n_train = sum(p.numel() for _, p in optimizer.params)
@@ -264,7 +297,7 @@ def build_text_setup(args, cfg: C.Config, device: torch.device,
     mu_dtype = torch.bfloat16 if args.opt_moments == "bf16" else None
     optimizer = AdamW(model.named_parameters(), cfg.lr, cfg.weight_decay, mu_dtype=mu_dtype,
                       frozen=frozen)
-    loss_cfg = _loss_cfg_from(cfg)
+    loss_cfg = loss_cfg_from(cfg)
     cw = None if weights is None else torch.tensor(weights, device=device)
     logger.info("text classifier parameters %d (trainable %d)",
                 sum(p.numel() for p in model.parameters()),

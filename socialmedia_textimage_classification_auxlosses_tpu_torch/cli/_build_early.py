@@ -36,7 +36,7 @@ from ..models.vision import IMAGE_NORM, _load_hf_config
 from ..train.optim import AdamW
 from ..train.steps import EvalStep, TrainStep
 from ..utils.logging import get_logger
-from ._build import TrainSetup, _loss_cfg_from
+from ._build import TrainSetup, loss_cfg_from
 from ._common import arch_overrides
 
 logger = get_logger(__name__)
@@ -137,7 +137,7 @@ def build_mm_early_train_setup(args, cfg: C.Config, device: torch.device,
 
     mu_dtype = torch.bfloat16 if args.opt_moments == "bf16" else None
     optimizer = AdamW(model.named_parameters(), cfg.lr, cfg.weight_decay, mu_dtype=mu_dtype)
-    loss_cfg = _loss_cfg_from(cfg)
+    loss_cfg = loss_cfg_from(cfg)
     cw = None if weights is None else torch.tensor(weights, device=device)
     logger.info("ViLT parameters %d (all trainable); joint length %d",
                 sum(p.numel() for p in model.parameters()),

@@ -13,7 +13,8 @@ and ``preds_lm.csv`` / ``metrics_lm.csv`` under ``--load_saved_model``):
 Every attention of the forward and of the backward launches the port's
 hand-written kernels on a CUDA device; ``--device cpu`` runs the plain
 versions on the CPU. The ``net.pth`` artifact is the port's own
-``torch.save`` state dict. The towers start from the checkpoints in their
+``torch.save`` state dict; ``--load_saved_model`` also evaluates a JAX-trained
+one (the flax msgpack, unrolled or in the scanned layout). The towers start from the checkpoints in their
 ``MODEL_DIR_DICT`` directories (``SMTC_BERNICE_DIR``, ``SMTC_VIT_DIR``, ...)
 when those hold one, and ``--import_reference_ckpt`` loads a reference-trained
 ``MM_Model`` state dict over the whole model (AdamW starts afresh after it).

@@ -20,12 +20,16 @@ dropped before answering). Requests without an image run the empty-image
 flow (a zero canvas). Every attention of that forward launches the port's
 hand-written kernels (``ops/``) on a CUDA device.
 
-The artifact is the port's own ``torch.save`` state dict under the trainers'
-name contract, or ``--model_path``; ``--random_init`` serves random weights
-made from ``--seed``. What the port lacks so far raises ``SystemExit``:
+The artifact (under the trainers' name contract, or ``--model_path``) is the
+port's own ``torch.save`` state dict or a JAX-trained one, the flax msgpack
+the JAX package writes (``train/checkpoint.py::load_params`` tells them apart
+by their first bytes, and the layer layout, unrolled or scanned, from the
+tree); ``--scan_layers`` is accepted as the JAX CLI takes it and decides
+nothing here. ``--random_init`` serves random weights made from
+``--seed``. What the port lacks so far raises ``SystemExit``:
 ``--model vilt|lxmert|mmbt``, ``--quantize``, ``--extra_model``,
-``--workers`` > 1, ``--img_decoder native``, ``--scan_layers`` (flax
-artifacts), and the CNN/BEiT towers; ``GET /metrics`` answers 501.
+``--workers`` > 1, ``--img_decoder native`` and the CNN/BEiT towers;
+``GET /metrics`` answers 501.
 """
 
 from __future__ import annotations
@@ -111,7 +115,8 @@ def build_parser():
     parser.add_argument("--arch", type=str, default="base",
                         choices=["base", "small", "tiny"])
     parser.add_argument("--scan_layers", action="store_true",
-                        help="(flax artifacts) stacked scanned-layer layout")
+                        help="the JAX CLI's flag for a scanned-layer artifact; "
+                             "the port reads the layout from the file")
     parser.add_argument("--quantize", type=str, default=None, choices=["w8"])
     parser.add_argument("--host", type=str, default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8473)
@@ -160,10 +165,6 @@ def check_supported(args) -> None:
         raise SystemExit("--workers is not ported to PyTorch yet")
     if args.img_decoder != "pil":
         raise SystemExit("--img_decoder native is not ported to PyTorch yet")
-    if args.scan_layers:
-        raise SystemExit("--scan_layers names a flax artifact layout; reading "
-                         "flax artifacts is not ported yet (the port's own "
-                         "artifacts are unrolled)")
     if args.attn_impl not in SDPA_IMPLS:
         raise SystemExit(f"--attn_impl {args.attn_impl}: expected one of "
                          f"{SDPA_IMPLS}")

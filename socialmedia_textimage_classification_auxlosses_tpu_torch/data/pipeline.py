@@ -13,7 +13,8 @@ in the JAX package, so both see the same batches in the same order.
 
 ``to_device`` is the adapter to torch: every array but the host-side
 ``data_id`` becomes a tensor on the device (``pin_memory`` +
-``non_blocking`` on CUDA). ``device_iter_chunks`` (``--steps_per_dispatch``)
+``non_blocking`` on CUDA). ``stage_chunks`` (``--steps_per_dispatch``: the
+pipeline's ``device_iter_chunks`` and the seed sweep's stacked batches)
 stacks K batches and stages them on the device in one copy per array.
 ``EmptyImageSource`` gives every id the one empty image (the MIC text-only
 eval, ``--eval_txt_test``). Sequence bucketing (``--bucket_seq``) and the
@@ -194,20 +195,24 @@ class SplitPipeline:
             yield to_device(batch, device)
 
     def device_iter_chunks(self, device, k: int, shuffle=False, rng=None, skip: int = 0):
-        """``(batches, k_real)``: the batches of ``batches`` in chunks of
-        ``k``, each array stacked on a new leading axis and staged on the
-        device in one copy (``data_id`` stays on the host). The last chunk
-        of an epoch holds only its ``k_real < k`` batches: it is not padded
-        (the JAX package pads it and skips the padded steps; here the caller
-        runs ``k_real`` steps)."""
-        chunk = []
-        for batch in self.batches(shuffle=shuffle, rng=rng, skip=skip):
-            chunk.append(batch)
-            if len(chunk) == k:
-                yield _stack_to_device(chunk, device), k
-                chunk = []
-        if chunk:
-            yield _stack_to_device(chunk, device), len(chunk)
+        """``stage_chunks`` over ``batches``."""
+        return stage_chunks(self.batches(shuffle=shuffle, rng=rng, skip=skip), device, k)
+
+
+def stage_chunks(batches, device, k: int):
+    """``(batches, k_real)``: host ``batches`` in chunks of ``k``, each array
+    stacked on a new leading axis and staged on the device in one copy
+    (``data_id`` stays on the host). The last chunk of an epoch holds only
+    its ``k_real < k`` batches: it is not padded (the JAX package pads it and
+    skips the padded steps; here the caller runs ``k_real`` steps)."""
+    chunk = []
+    for batch in batches:
+        chunk.append(batch)
+        if len(chunk) == k:
+            yield _stack_to_device(chunk, device), k
+            chunk = []
+    if chunk:
+        yield _stack_to_device(chunk, device), len(chunk)
 
 
 def _stack_to_device(chunk, device) -> Dict:

@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .encoder import BertEncoder, EncoderConfig, ViTEncoder
+from .encoder import BertEncoder, EncoderConfig, ViTEncoder, linear, per_seed
 
 
 class DualEncoder(nn.Module):
@@ -37,12 +37,19 @@ class DualEncoder(nn.Module):
         return self.vision(pixel_values, gen)
 
     def logits_per_text(self, text_pooled, vision_pooled):
-        """Scaled cosine similarity: rows = texts, cols = images (float32)."""
-        t = self.text_proj(text_pooled.float())
-        v = self.visual_proj(vision_pooled.float())
+        """Scaled cosine similarity: rows = texts, cols = images (float32).
+        Seed-stacked: each seed's texts against its own images with its own
+        scale, the S (B, B) blocks stacked as (S·B, B)."""
+        t = linear(self.text_proj, text_pooled.float())
+        v = linear(self.visual_proj, vision_pooled.float())
         t = t / torch.linalg.vector_norm(t, dim=-1, keepdim=True)
         v = v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
-        return torch.exp(self.logit_scale.float()) * (t @ v.T)
+        scale = torch.exp(self.logit_scale.float())
+        if scale.dim() == 0:
+            return scale * (t @ v.T)
+        s = scale.shape[0]
+        sim = torch.bmm(per_seed(t, s), per_seed(v, s).transpose(1, 2))
+        return (scale[:, None, None] * sim).reshape(-1, sim.shape[-1])
 
     def forward(self, ids, attention_mask, pixel_values, token_type_ids=None):
         text_hidden, text_pooled = self.encode_text(ids, attention_mask, token_type_ids)

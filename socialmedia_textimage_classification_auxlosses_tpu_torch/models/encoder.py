@@ -28,6 +28,21 @@ forward (``gen``); under ``model.eval()`` it is the identity. The draws
 differ from JAX's for the same seed, so tests that compare the two run at
 rate 0 or feed both sides the same masks.
 
+Seed-stacked models (``stack_seed_models``; the multi-seed sweep of
+``train/ensemble.py``) carry one more leading axis S on every parameter, one
+slice per seed, and take activations seed-major: S·B rows, seed 0's B rows
+first. The helpers every module shares read S from the parameter and keep
+each seed's rows with its own slice: ``dense`` is one ``bmm`` over (S, rows,
+in) with the product rounded before the bias, as flax rounds; ``linear``
+(torch's Linear) one ``baddbmm``; ``layer_norm`` normalises once and applies
+each seed's scale and bias; ``embed`` gathers from the (S·V, E) view at each
+row's seed offset; the patch projection is one convolution per seed. The
+attention's SDPA takes the S·B rows as its batch; the whole-block kernel
+runs once per seed on that seed's rows and weights. ``dropout`` draws each
+seed's mask from that seed's generator (``gen`` a tuple of S generators),
+in the order the seed's own run draws it. A plain model is the case S = 0:
+every helper is then the call it always was.
+
 ``remat`` (``--remat``, the JAX encoders' ``remat``) recomputes each layer
 in the backward instead of keeping its activations
 (``torch.utils.checkpoint``). ``checkpoint``'s RNG preservation covers the
@@ -102,7 +117,13 @@ class DrawnMasks:
 
 def keep_mask(shape, rate: float, gen, device) -> torch.Tensor:
     """The keep-mask of a dropout at ``rate``: one uniform draw from
-    ``gen`` per value, kept below ``1 - rate``."""
+    ``gen`` per value, kept below ``1 - rate``. With a tuple of S
+    generators, the seed-major rows are S blocks, each drawn from its own
+    seed's generator."""
+    if isinstance(gen, tuple):
+        rows = (shape[0] // len(gen),) + tuple(shape[1:])
+        return torch.cat([torch.rand(rows, generator=g, device=device) < 1.0 - rate
+                          for g in gen])
     return torch.rand(shape, generator=gen, device=device) < 1.0 - rate
 
 
@@ -120,19 +141,100 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+def seed_count(param: torch.Tensor, plain_dims: int) -> int:
+    """S of a seed-stacked parameter (``plain_dims`` + 1 dimensions), 0 for
+    a plain one."""
+    return param.shape[0] if param.dim() == plain_dims + 1 else 0
+
+
+def per_seed(x: torch.Tensor, s: int) -> torch.Tensor:
+    """Seed-major rows (S·B, ...) as (S, B, ...)."""
+    return x.reshape(s, -1, *x.shape[1:])
+
+
+def seed_cat(a: torch.Tensor, b: torch.Tensor, s: int) -> torch.Tensor:
+    """``torch.cat([a, b])`` within each seed: seed i's rows of ``a``, then
+    its rows of ``b`` (``s`` 0 or 1: the plain concatenation)."""
+    if s <= 1:
+        return torch.cat([a, b], 0)
+    return torch.cat([per_seed(a, s), per_seed(b, s)], 1).reshape(-1, *a.shape[1:])
+
+
+def seed_head(x: torch.Tensor, s: int, rows: int) -> torch.Tensor:
+    """``x[:rows]`` within each seed (``rows`` counts all seeds' rows)."""
+    if s <= 1:
+        return x[:rows]
+    return per_seed(x, s)[:, :rows // s].reshape(-1, *x.shape[1:])
+
+
+def seed_tail(x: torch.Tensor, s: int, rows: int) -> torch.Tensor:
+    """``x[rows:]`` within each seed."""
+    if s <= 1:
+        return x[rows:]
+    return per_seed(x, s)[:, rows // s:].reshape(-1, *x.shape[1:])
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``F.linear(x, w)`` without bias; a seed-stacked (S, out, in) weight
+    multiplies each seed's rows of x in one ``bmm``."""
+    if w.dim() == 2:
+        return F.linear(x, w)
+    s = w.shape[0]
+    y = torch.bmm(x.reshape(s, -1, x.shape[-1]), w.transpose(1, 2))
+    return y.reshape(*x.shape[:-1], w.shape[1])
+
+
+def add_bias(y: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """``y + bias`` over the last axis; a seed-stacked (S, n) bias adds each
+    seed's row to that seed's rows."""
+    if bias.dim() == 1:
+        return y + bias
+    return (y.reshape(bias.shape[0], -1, y.shape[-1]) + bias[:, None, :]).reshape(y.shape)
+
+
 def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """flax ``Dense(dtype=dtype)``: input, weight and bias cast to ``dtype``;
     the product is rounded to ``dtype`` before the bias is added."""
-    y = F.linear(x.to(dtype), layer.weight.to(dtype))
+    y = matmul(x.to(dtype), layer.weight.to(dtype))
     if layer.bias is not None:
-        y = y + layer.bias.to(dtype)
+        y = add_bias(y, layer.bias.to(dtype))
     return y
 
 
+def linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``layer(x)`` (one rounding of product plus bias); a seed-stacked
+    layer in one ``baddbmm``."""
+    w = layer.weight
+    if w.dim() == 2:
+        return layer(x)
+    x3 = x.reshape(w.shape[0], -1, x.shape[-1])
+    y = (torch.bmm(x3, w.transpose(1, 2)) if layer.bias is None
+         else torch.baddbmm(layer.bias[:, None, :], x3, w.transpose(1, 2)))
+    return y.reshape(*x.shape[:-1], w.shape[1])
+
+
 def layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
-    """flax ``LayerNorm(dtype=float32)``: statistics and output in float32."""
-    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight.float(),
-                        ln.bias.float(), ln.eps)
+    """flax ``LayerNorm(dtype=float32)``: statistics and output in float32.
+    Seed-stacked: one normalisation, then each seed's scale and bias."""
+    if ln.weight.dim() == 1:
+        return F.layer_norm(x.float(), ln.normalized_shape, ln.weight.float(),
+                            ln.bias.float(), ln.eps)
+    y = F.layer_norm(x.float(), ln.normalized_shape, None, None, ln.eps)
+    s, h = ln.weight.shape
+    return (y.reshape(s, -1, h) * ln.weight.float()[:, None, :]
+            + ln.bias.float()[:, None, :]).reshape(y.shape)
+
+
+def embed(ids: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """``F.embedding``; a seed-stacked (S, V, E) table takes seed-major rows
+    of ids, each read from its seed's table through the (S·V, E) view."""
+    if weight.dim() == 2:
+        return F.embedding(ids, weight)
+    s, v, e = weight.shape
+    rows = ids.shape[0]
+    offset = (torch.arange(rows, device=ids.device) // (rows // s)) * v
+    return F.embedding(ids + offset.view(-1, *([1] * (ids.dim() - 1))),
+                       weight.reshape(s * v, e))
 
 
 class Attention(nn.Module):
@@ -163,14 +265,28 @@ class Attention(nn.Module):
         if cfg.attn_impl in ("fused", "fused_interpret") and q_input is kv_input:
             from ..ops.attn_block import attn_block
 
-            # .t() of a Linear weight is the flax (in, out) layout, as a view
-            w = [lin.weight.to(dt).t() for lin in (self.query, self.key,
-                                                 self.value, self.out)]
-            bias = [lin.bias.to(dt) for lin in (self.query, self.key,
-                                              self.value, self.out)]
-            out = attn_block(q_input.to(dt), key_mask, w[0], bias[0], w[1],
-                             bias[1], w[2], bias[2], w[3], bias[3],
-                             heads=cfg.heads, impl=cfg.attn_impl)
+            lins = (self.query, self.key, self.value, self.out)
+            # the transpose of a Linear weight is the flax (in, out) layout, as a view
+            w = [lin.weight.to(dt).transpose(-1, -2) for lin in lins]
+            bias = [lin.bias.to(dt) for lin in lins]
+            s = seed_count(self.query.weight, 2)
+
+            def block(x, mask, ws, bs):
+                return attn_block(x, mask, ws[0], bs[0], ws[1], bs[1], ws[2], bs[2],
+                                  ws[3], bs[3], heads=cfg.heads, impl=cfg.attn_impl)
+
+            x = q_input.to(dt)
+            if not s:
+                out = block(x, key_mask, w, bias)
+            else:  # one block per seed, on its rows and its weights
+                xs = per_seed(x, s)
+                masks = [None] * s if key_mask is None else per_seed(key_mask, s)
+                # unbind: one stack of the S gradients in the backward (S
+                # selects would sum S zero-filled stacks)
+                ws = [t.unbind(0) for t in w]
+                bs = [t.unbind(0) for t in bias]
+                out = torch.cat([block(xs[i], masks[i], [t[i] for t in ws], [t[i] for t in bs])
+                                 for i in range(s)])
             return dropout(out, cfg.dropout, self.training, gen)
 
         def split(x):
@@ -268,7 +384,7 @@ class TextEmbeddings(nn.Module):
     def forward(self, ids, token_type_ids=None, gen=None):
         cfg = self.cfg
         dt = cfg.torch_dtype
-        emb = F.embedding(ids, self.word.weight).to(dt)
+        emb = embed(ids, self.word.weight).to(dt)
         if cfg.pos_offset:
             # RoBERTa family: positions count non-pad tokens, offset past the
             # pad id (the JAX package's formula, kept as it is)
@@ -276,11 +392,13 @@ class TextEmbeddings(nn.Module):
             pos_ids = torch.cumsum(mask, dim=1) * mask + cfg.pad_token_id
         else:
             pos_ids = torch.arange(ids.shape[1], device=ids.device)[None, :]
-        emb = emb + F.embedding(pos_ids, self.position.weight).to(dt)
+            if seed_count(self.position.weight, 2):
+                pos_ids = pos_ids.expand(ids.shape[0], -1)
+        emb = emb + embed(pos_ids, self.position.weight).to(dt)
         if self.token_type is not None:
             if token_type_ids is None:
                 token_type_ids = torch.zeros_like(ids)
-            emb = emb + F.embedding(token_type_ids, self.token_type.weight).to(dt)
+            emb = emb + embed(token_type_ids, self.token_type.weight).to(dt)
         return dropout(layer_norm(self.ln, emb), cfg.dropout, self.training, gen)
 
 
@@ -325,12 +443,21 @@ class PatchEmbeddings(nn.Module):
         if pixel_values.shape[1] != self.channels:
             pixel_values = pixel_values.permute(0, 3, 1, 2)  # NHWC -> NCHW
         p = self.proj
-        x = F.conv2d(pixel_values.to(dt), p.weight.to(dt), None, p.stride)
-        x = x + p.bias.to(dt)[:, None, None]
-        x = x.flatten(2).transpose(1, 2)  # (B, patches, hidden), row-major
-        prefix = self.prefix_tokens.to(dt).expand(b, -1, -1)
-        x = torch.cat([prefix, x], dim=1) + self.pos_embed.to(dt)
-        return dropout(x, self.cfg.dropout, self.training, gen)
+        s = seed_count(p.weight, 4)
+        if s:  # each seed's pixels through its own convolution, the call its own run makes
+            pixels = per_seed(pixel_values.to(dt), s)
+            weights = p.weight.to(dt).unbind(0)
+            x = torch.cat([F.conv2d(pixels[i], weights[i], None, p.stride)
+                           for i in range(s)])
+        else:
+            x = F.conv2d(pixel_values.to(dt), p.weight.to(dt), None, p.stride)
+        # (B, patches, hidden), row-major
+        x = add_bias(x.flatten(2).transpose(1, 2), p.bias.to(dt))
+        k, h = max(s, 1), x.shape[-1]  # a plain model holds one seed
+        prefix = self.prefix_tokens.to(dt).reshape(k, 1, -1, h).expand(k, b // k, -1, -1)
+        x = torch.cat([prefix.reshape(b, -1, h), x], dim=1)
+        x = x.reshape(k, b // k, -1, h) + self.pos_embed.to(dt).reshape(k, 1, -1, h)
+        return dropout(x.reshape(b, -1, h), self.cfg.dropout, self.training, gen)
 
 
 class ViTEncoder(nn.Module):
@@ -380,3 +507,32 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
             elif isinstance(m, PatchEmbeddings):
                 m.pos_embed.normal_(0.0, 0.02, generator=generator)
                 m.prefix_tokens.zero_()
+
+
+def stack_seed_models(models) -> nn.Module:
+    """S models of one architecture, each built as its own run builds it
+    (its own init, its own pretrained imports), as one seed-stacked model:
+    the first model with each parameter replaced by the ``torch.stack`` of
+    the S models' along a new leading axis (``requires_grad`` kept). The
+    models must hold no buffers."""
+    base = models[0]
+    names = [n for n, _ in base.named_parameters()]
+    if set(base.state_dict()) != set(names):
+        raise ValueError(f"{type(base).__name__} holds buffers; only parameters are stacked")
+    params = [dict(m.named_parameters()) for m in models]
+    if any(set(p) != set(names) for p in params):
+        raise ValueError("the models to stack differ in their parameters")
+    with torch.no_grad():
+        for name in names:
+            owner_name, _, leaf = name.rpartition(".")
+            owner = base.get_submodule(owner_name)
+            old = params[0][name]
+            stacked = torch.stack([p[name].detach() for p in params])
+            setattr(owner, leaf, nn.Parameter(stacked, requires_grad=old.requires_grad))
+    return base
+
+
+def params_for_seed(model: nn.Module, i: int) -> dict:
+    """Seed ``i``'s slice of a seed-stacked model: the state dict its own
+    run would hold, as compact CPU copies."""
+    return {name: p.detach()[i].to("cpu", copy=True) for name, p in model.state_dict().items()}

@@ -18,7 +18,14 @@ architecture. The modules use the flax names, so the map is mechanical:
   leading layer axis, -> ``layers.{i}.…`` one slice per layer.
 
 Any parameter of the module that the tree lacks, any leaf of the tree that
-the module lacks, and any shape that differs raise ``ValueError``.
+the module lacks, and any shape that differs raise ``ValueError``. The
+tree's leaves may be numpy arrays or CPU torch tensors (bfloat16 ones are
+widened to float32, which is exact).
+
+``jax_tree_from_torch`` is the inverse: a module's parameters as the JAX
+package's tree ``{"params": {...}}``, unrolled or in the ``scan_layers``
+layout (JAX ``hf_import.py::stack_scan_layers``), with torch tensors as
+leaves, for ``train/flax_msgpack.py`` to write where flax is absent.
 """
 
 from __future__ import annotations
@@ -40,7 +47,14 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tupl
         if isinstance(value, Mapping):
             yield from _flatten(value, path)
         else:
-            yield path, np.asarray(value)
+            yield path, _as_numpy(value)
+
+
+def _as_numpy(value) -> np.ndarray:
+    if isinstance(value, torch.Tensor):
+        value = value.detach().cpu()
+        return (value.float() if value.dtype == torch.bfloat16 else value).numpy()
+    return np.asarray(value)
 
 
 def _convert_leaf(name: str, array: np.ndarray) -> Tuple[str, np.ndarray]:
@@ -94,3 +108,72 @@ def load_jax_params(module: nn.Module, tree: Mapping) -> nn.Module:
         for key, array in state.items():
             own[key].copy_(torch.tensor(np.asarray(array, np.float32)))
     return module
+
+
+def _jax_leaf(module: nn.Module, name: str, value: torch.Tensor) -> Tuple[str, torch.Tensor]:
+    """A parameter's flax leaf name and layout, from its module's type."""
+    if name != "weight":
+        return name, value
+    if isinstance(module, nn.Linear):
+        return "kernel", value.t().contiguous()
+    if isinstance(module, nn.Conv2d):
+        return "kernel", value.permute(2, 3, 1, 0).contiguous()  # OIHW -> HWIO
+    if isinstance(module, nn.Embedding):
+        return "embedding", value
+    if isinstance(module, nn.LayerNorm):
+        return "scale", value
+    raise ValueError(f"a weight of {type(module).__name__} has no flax name here")
+
+
+def _stack_layers(node: Dict) -> Dict:
+    """Every ``layer_{i}`` run of a subtree as ``layers/layer`` with a
+    leading layer axis (the ``lax.scan`` layout)."""
+    if not isinstance(node, dict):
+        return node
+    node = {k: _stack_layers(v) for k, v in node.items()}
+    found = sorted((int(m.group(1)), k) for k in node if (m := _LAYER.match(k)))
+    if not found:
+        return node
+    if [i for i, _ in found] != list(range(len(found))):
+        raise ValueError(f"layers {[k for _, k in found]} are not numbered 0..n-1")
+
+    def stack(*subtrees):
+        if isinstance(subtrees[0], dict):
+            return {k: stack(*(t[k] for t in subtrees)) for k in subtrees[0]}
+        return torch.stack(subtrees)
+
+    out = {k: v for k, v in node.items() if not _LAYER.match(k)}
+    out["layers"] = {"layer": stack(*(node[k] for _, k in found))}
+    return out
+
+
+def jax_tree_from_torch(module: nn.Module, scan_layers: bool = False) -> Dict:
+    """The inverse of ``torch_state_from_jax``: ``module``'s parameters as
+    the JAX tree ``{"params": {...}}`` (Linear (out, in) -> Dense kernel (in,
+    out), Conv2d OIHW -> HWIO, Embedding / LayerNorm weight -> ``embedding`` /
+    ``scale``, ``layers.{i}`` -> ``layer_{i}``), detached CPU tensors in the
+    parameters' dtypes; with ``scan_layers``, each layer stack stacked as
+    ``layers/layer``. A module with buffers in its state dict raises: the
+    tree holds parameters only."""
+    buffers = [n for n in module.state_dict() if n not in dict(module.named_parameters())]
+    if buffers:
+        raise ValueError(f"{type(module).__name__} has buffers {buffers[:4]}, which a JAX "
+                         "parameter tree does not hold")
+    tree: Dict = {}
+    for mod_name, mod in module.named_modules():
+        segments = mod_name.split(".") if mod_name else []
+        path, i = [], 0
+        while i < len(segments):  # "layers", "3" -> "layer_3"
+            if segments[i] == "layers" and i + 1 < len(segments) and segments[i + 1].isdigit():
+                path.append(f"layer_{segments[i + 1]}")
+                i += 2
+            else:
+                path.append(segments[i])
+                i += 1
+        for leaf, p in mod.named_parameters(recurse=False):
+            name, value = _jax_leaf(mod, leaf, p.detach().cpu())
+            node = tree
+            for seg in path:
+                node = node.setdefault(seg, {})
+            node[name] = value
+    return {"params": _stack_layers(tree) if scan_layers else tree}

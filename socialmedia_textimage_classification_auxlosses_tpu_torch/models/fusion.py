@@ -26,7 +26,8 @@ from torch import nn
 
 from ..ops.attention import sdpa
 from .dual import DualEncoder
-from .encoder import EncoderConfig, dense, dropout
+from .encoder import (EncoderConfig, dense, dropout, linear, seed_cat, seed_count, seed_head,
+                      seed_tail)
 
 FUSION_NAMES = ("concat", "attention", "aspect-att", "gmu")
 
@@ -93,7 +94,13 @@ class MMLateModel(nn.Module):
     ``out_iadds`` and ``mm_features``, as the JAX module does. The TIM rows
     come either from ``tim_ids`` (a second text pass, batched with the first)
     or from ``tim_src`` (rows of the first pass, gathered); the vision
-    features are computed once and shared."""
+    features are computed once and shared.
+
+    Seed-stacked (``models/encoder.py::stack_seed_models``), every input and
+    output is seed-major: S·B rows of ids, pixels and ``tim_*`` (``tim_src``
+    indexing all S·B rows), each seed's TIM rows after its own first-pass
+    rows through the text tower and the fusion head, ``logits_per_text``
+    (S·B, B)."""
 
     def __init__(self, text_cfg: EncoderConfig, vision_cfg: EncoderConfig,
                  num_labels: int, fusion_name: str = "concat",
@@ -124,31 +131,33 @@ class MMLateModel(nn.Module):
                 iadds_task=False, vision_hidden=None, vision_pooled=None,
                 tim_src=None, gen=None):
         b = ids.shape[0]
+        s = seed_count(self.linear_cls.weight, 2)
         use_tim = tim_ids is not None or tim_src is not None
         if tim_ids is not None:
-            ids = torch.cat([ids, tim_ids], 0)
-            attention_mask = torch.cat([attention_mask, tim_mask], 0)
+            ids = seed_cat(ids, tim_ids, s)
+            attention_mask = seed_cat(attention_mask, tim_mask, s)
             if token_type_ids is not None:
-                token_type_ids = torch.cat([token_type_ids, tim_token_type_ids], 0)
+                token_type_ids = seed_cat(token_type_ids, tim_token_type_ids, s)
         text_hidden, text_pooled = self.dual.encode_text(ids, attention_mask,
                                                          token_type_ids, gen)
         if tim_src is not None:
-            text_hidden = torch.cat([text_hidden, text_hidden[tim_src]], 0)
-            text_pooled = torch.cat([text_pooled, text_pooled[tim_src]], 0)
+            text_hidden = seed_cat(text_hidden, text_hidden[tim_src], s)
+            text_pooled = seed_cat(text_pooled, text_pooled[tim_src], s)
         if vision_hidden is None:
             vision_hidden, vision_pooled = self.dual.encode_vision(pixel_values, gen)
-        logits_per_text = self.dual.logits_per_text(text_pooled[:b], vision_pooled)
+        logits_per_text = self.dual.logits_per_text(seed_head(text_pooled, s, b),
+                                                    vision_pooled)
         if use_tim:
-            vh = torch.cat([vision_hidden, vision_hidden], 0)
-            vp = torch.cat([vision_pooled, vision_pooled], 0)
+            vh = seed_cat(vision_hidden, vision_hidden, s)
+            vp = seed_cat(vision_pooled, vision_pooled, s)
         else:
             vh, vp = vision_hidden, vision_pooled
         fused_all = self.fusion(text_hidden, vh, text_pooled, vp)
-        fused = fused_all[:b]
+        fused = seed_head(fused_all, s, b)
         dropped = dropout(fused, self.dropout, self.training, gen)
-        out_cls = self.linear_cls(dropped.float())
-        out_tim = self.linear_tim(fused_all[b:].float()) if use_tim else None
-        out_iadds = self.linear_iadds(dropped.float()) if iadds_task else None
+        out_cls = linear(self.linear_cls, dropped.float())
+        out_tim = linear(self.linear_tim, seed_tail(fused_all, s, b).float()) if use_tim else None
+        out_iadds = linear(self.linear_iadds, dropped.float()) if iadds_task else None
         return {
             "out_cls": out_cls,
             "logits_per_text": logits_per_text,

@@ -14,10 +14,11 @@ cast to float32 before they are copied in.
 Reading needs no package beyond torch and numpy: ``pytorch_model.bin`` /
 ``.pt`` load with ``torch.load(..., weights_only=True)``, and
 ``model.safetensors`` is read by ``read_safetensors`` (an 8-byte
-little-endian header length, the JSON header, then the raw tensors). A
-directory that holds only ``flax_model.msgpack`` is refused: reading it needs
-msgpack (ROADMAP.md Queue 1 item 4). With no checkpoint in the directory the
-module keeps its random weights, as in the JAX package.
+little-endian header length, the JSON header, then the raw tensors), and
+``flax_model.msgpack`` by the port's own msgpack reader
+(``train/flax_msgpack.py``), its tree flattened to dotted keys as the JAX
+``load_state_dict`` does. With no checkpoint in the directory the module
+keeps its random weights, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -84,10 +85,13 @@ def load_state_dict(model_dir: Optional[str]) -> Optional[Dict[str, np.ndarray]]
         path = os.path.join(model_dir, name)
         if os.path.isfile(path):
             return _numpy_state(torch.load(path, map_location="cpu", weights_only=True))
-    if os.path.isfile(os.path.join(model_dir, "flax_model.msgpack")):
-        raise SystemExit(f"{model_dir!r} holds only flax_model.msgpack: reading it needs "
-                         "msgpack, which the PyTorch port does not use (ROADMAP.md Queue 1 "
-                         "item 4); convert it to pytorch_model.bin or model.safetensors")
+    flax_path = os.path.join(model_dir, "flax_model.msgpack")
+    if os.path.isfile(flax_path):
+        from ..train.flax_msgpack import read_file
+        from .from_jax import _flatten
+
+        # dotted keys, bfloat16 widened to float32, as the JAX package's _flatten
+        return {".".join(path): v for path, v in _flatten(read_file(flax_path))}
     return None
 
 

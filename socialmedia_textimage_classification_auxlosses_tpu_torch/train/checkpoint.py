@@ -4,8 +4,11 @@ Counterpart of the JAX package's ``train/checkpoint.py``, in two tiers:
 
 * the final artifact: ``save_params``/``load_params``, one file per trained
   model under the reference's name contract (``...{loss_str}_{N}net.pth``).
-  Here the file is a torch ``state_dict``; reading the JAX package's flax
-  msgpack artifacts is not ported yet.
+  ``save_params`` writes a torch ``state_dict``. ``load_params`` reads that,
+  or the JAX package's artifact under the same name: a flax msgpack of the
+  parameter tree (unrolled or in the ``--scan_layers`` layout), read by
+  ``train/flax_msgpack.py`` and mapped by ``models/from_jax.py``. The two
+  are told apart by their first bytes, never by the name.
 * mid-training checkpoints (``--ckpt_every N`` / ``--resume``):
   ``TrainCheckpointer`` in place of the JAX package's Orbax manager, which
   the port does not have. Every checkpoint is one torch file
@@ -30,16 +33,30 @@ from ..utils.logging import get_logger
 logger = get_logger(__name__)
 
 
-def save_params(path: str, module: nn.Module) -> None:
+def save_params(path: str, module) -> None:
+    """``module``'s state dict (or a state dict) as a torch file on the CPU."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    torch.save({k: v.detach().cpu() for k, v in module.state_dict().items()}, path)
+    state = module if isinstance(module, dict) else module.state_dict()
+    torch.save({k: v.detach().cpu() for k, v in state.items()}, path)
     logger.info("%s saved", path)
 
 
 def load_params(path: str, module: nn.Module) -> nn.Module:
     """Load ``path`` into ``module`` strictly: a missing or unexpected key,
-    or a shape that differs, raises. Returns the module."""
-    state = torch.load(path, map_location="cpu", weights_only=True)
+    or a shape that differs, raises. Returns the module.
+
+    ``path`` is a torch file (``save_params``) or a JAX artifact (a msgpack
+    map; its layout, unrolled or ``layers/layer``, is read from the tree)."""
+    from ..models.from_jax import torch_state_from_jax
+    from . import flax_msgpack
+
+    with open(path, "rb") as f:
+        head = f.read(1)
+    if flax_msgpack.is_msgpack_tree(head):
+        tree = flax_msgpack.read_file(path)
+        state = {k: torch.from_numpy(v) for k, v in torch_state_from_jax(tree).items()}
+    else:
+        state = torch.load(path, map_location="cpu", weights_only=True)
     module.load_state_dict(state, strict=True)
     return module
 

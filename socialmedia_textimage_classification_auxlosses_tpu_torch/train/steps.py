@@ -19,6 +19,16 @@ trainable parameters and applies ``AdamW``. The eval step runs in eval mode
 without a graph; its TIM swap stays stochastic, as the reference's eval is,
 and it reuses the primary pass's text rows for the TIM rows (exact there).
 
+A seed-stacked model (``models/encoder.py::stack_seed_models``, the sweep of
+``train/ensemble.py``) takes ``seeds`` = S: the batch holds S·B seed-major
+rows, ``gen`` is a tuple of S generators, and each seed's TIM swap is drawn
+from its own generator on its own rows, before the dropout masks, as its
+own run draws it. Each seed's loss is ``assemble_loss`` on its rows with its
+class weights; their sum is differentiated once (each parameter slice
+belongs to one seed, so each seed's gradients are those of its loss alone)
+and AdamW steps the stacked tensors. Metrics, predictions and confusion
+counts come per seed: every metric an (S,) tensor.
+
 ``make_train_many`` / ``make_eval_many`` (``--steps_per_dispatch K``) run
 the steps of a chunk of K stacked batches. On a CUDA device each step is
 one replay of a CUDA graph of the whole step (``StepGraph``): the host
@@ -32,6 +42,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..ops import _cuda
@@ -84,24 +95,72 @@ def assemble_loss(cfg: LossConfig, outputs: Dict, batch: Dict, tim_labels,
     return total, parts
 
 
+def step_loss(cfg: LossConfig, outputs: Dict, batch: Dict, tim_labels, class_weights,
+              seeds: int = 0):
+    """``assemble_loss``; for a seed-stacked step (``seeds`` = S) the sum of
+    the seeds' totals and each loss part as an (S,) tensor, ``class_weights``
+    one per seed (or None)."""
+    if not seeds:
+        return assemble_loss(cfg, outputs, batch, tim_labels, class_weights)
+    outs = seed_split({k: v for k, v in outputs.items() if v is not None}, seeds)
+    labels = [None] * seeds if tim_labels is None else tim_labels.reshape(seeds, -1)
+    weights = class_weights or [None] * seeds
+    totals, parts = zip(*(assemble_loss(cfg, o, b, t, w) for o, b, t, w in zip(
+        outs, seed_split(batch, seeds), labels, weights)))
+    return sum(totals), {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
+
+
 def predictions(cfg: LossConfig, out_cls, labels):
     if cfg.multilabel:
         return torch.round(torch.sigmoid(out_cls)).int(), labels.int()
     return out_cls.argmax(dim=-1).int(), labels.argmax(dim=-1).int()
 
 
-def accuracy_counts(cfg: LossConfig, preds, targets, valid):
+def accuracy_counts(cfg: LossConfig, preds, targets, valid, seeds: int = 0):
+    """(correct, counted) over the valid rows; per seed, as (S,) tensors,
+    with ``seeds``."""
     v = torch.ones(preds.shape[0], device=preds.device) if valid is None else valid.float()
-    if cfg.multilabel:
-        return ((preds == targets).float() * v[:, None]).sum(), v.sum() * preds.shape[-1]
-    return ((preds == targets).float() * v).sum(), v.sum()
+    hits = (preds == targets).float() * (v[:, None] if cfg.multilabel else v)
+    n = v * preds.shape[-1] if cfg.multilabel else v
+    if seeds:
+        return hits.reshape(seeds, -1).sum(1), n.reshape(seeds, -1).sum(1)
+    return hits.sum(), n.sum()
 
 
-def maybe_tim(cfg: LossConfig, gen, batch):
+def seed_split(tree: Dict, s: int) -> list:
+    """The S per-seed dicts of a dict of seed-major rows (tensors and host
+    arrays split along their first axis; other values, and None, kept).
+    Tensors split by ``unbind``: its backward stacks the S gradients once,
+    where S selects would each give a zero-filled gradient of the whole."""
+    def parts(v):
+        if torch.is_tensor(v):
+            return v.reshape(s, -1, *v.shape[1:]).unbind(0)
+        if isinstance(v, np.ndarray):
+            return list(v.reshape(s, -1, *v.shape[1:]))
+        return [v] * s
+
+    split = {k: parts(v) for k, v in tree.items()}
+    return [{k: v[i] for k, v in split.items()} for i in range(s)]
+
+
+def seed_merge(trees: list) -> Dict:
+    """The inverse of ``seed_split`` for tensors (None kept)."""
+    return {k: None if trees[0][k] is None else torch.cat([t[k] for t in trees])
+            for k in trees[0]}
+
+
+def maybe_tim(cfg: LossConfig, gen, batch, seeds: int = 0):
     """(tim_inputs, tim_labels): the swapped texts and their row sources,
-    drawn from ``gen`` or injected by the batch."""
+    drawn from ``gen`` or injected by the batch. With ``seeds`` = S, each
+    seed's swap on its rows from its generator ``gen[i]``; ``src`` then
+    indexes all S·B rows."""
     if not cfg.use_tim_loss:
         return None, None
+    if seeds:
+        parts = [maybe_tim(cfg, g, b) for g, b in zip(gen, seed_split(batch, seeds))]
+        rows = batch["ids"].shape[0] // seeds
+        inputs = [dict(t, src=t["src"] + i * rows) for i, (t, _) in enumerate(parts)]
+        return seed_merge(inputs), torch.cat([labels for _, labels in parts])
     if "tim_src" in batch:
         src = batch["tim_src"].long()
         tim_labels = batch["tim_labels"].int()
@@ -124,22 +183,23 @@ class TrainStep:
 
     def __init__(self, model: torch.nn.Module, forward_fn: Callable,
                  loss_cfg: LossConfig, optimizer, class_weights=None,
-                 keep_grads: bool = False):
+                 keep_grads: bool = False, seeds: int = 0):
         self.model = model
         self.forward_fn = forward_fn
         self.loss_cfg = loss_cfg
         self.optimizer = optimizer
-        self.class_weights = class_weights
+        self.class_weights = class_weights  # with seeds: one per seed
         self.keep_grads = keep_grads
+        self.seeds = seeds
         self.last_grads: Optional[Dict] = None
 
     def gradients(self, batch, gen):
         """(grads by name, loss parts, outputs) of one batch, no update."""
         self.model.train()
-        tim_inputs, tim_labels = maybe_tim(self.loss_cfg, gen, batch)
+        tim_inputs, tim_labels = maybe_tim(self.loss_cfg, gen, batch, self.seeds)
         outputs = self.forward_fn(batch, tim_inputs, gen, False)
-        total, parts = assemble_loss(self.loss_cfg, outputs, batch, tim_labels,
-                                     self.class_weights)
+        total, parts = step_loss(self.loss_cfg, outputs, batch, tim_labels,
+                                 self.class_weights, self.seeds)
         names = self.optimizer.names
         params = [p for _, p in self.optimizer.params]
         grads = torch.autograd.grad(total, params, allow_unused=True)
@@ -152,7 +212,8 @@ class TrainStep:
             self.last_grads = grads
         preds, targets = predictions(self.loss_cfg, outputs["out_cls"].detach(),
                                      batch["labels"])
-        correct, n = accuracy_counts(self.loss_cfg, preds, targets, batch.get("valid"))
+        correct, n = accuracy_counts(self.loss_cfg, preds, targets, batch.get("valid"),
+                                     self.seeds)
         return {**{k: v.detach() for k, v in parts.items()}, "correct": correct, "n": n}
 
 
@@ -161,24 +222,34 @@ class EvalStep:
     loss, predictions and the batch's confusion counts on the device."""
 
     def __init__(self, model: torch.nn.Module, forward_fn: Callable,
-                 loss_cfg: LossConfig, class_weights=None):
+                 loss_cfg: LossConfig, class_weights=None, seeds: int = 0):
         self.model = model
         self.forward_fn = forward_fn
         self.loss_cfg = loss_cfg
         self.class_weights = class_weights
+        self.seeds = seeds
 
     @torch.no_grad()
     def __call__(self, batch, gen):
         self.model.eval()
-        cfg = self.loss_cfg
-        tim_inputs, tim_labels = maybe_tim(cfg, gen, batch)
+        cfg, seeds = self.loss_cfg, self.seeds
+        tim_inputs, tim_labels = maybe_tim(cfg, gen, batch, seeds)
         outputs = self.forward_fn(batch, tim_inputs, None, True)
-        _, parts = assemble_loss(cfg, outputs, batch, tim_labels, self.class_weights)
+        _, parts = step_loss(cfg, outputs, batch, tim_labels, self.class_weights, seeds)
         preds, targets = predictions(cfg, outputs["out_cls"], batch["labels"])
         valid = batch.get("valid")
-        correct, n = accuracy_counts(cfg, preds, targets, valid)
-        cm = (multilabel_counts_update(preds, targets, valid) if cfg.multilabel
-              else confusion_matrix_update(preds, targets, cfg.num_labels, valid))
+        correct, n = accuracy_counts(cfg, preds, targets, valid, seeds)
+
+        def counts(p, t, v):
+            return (multilabel_counts_update(p, t, v) if cfg.multilabel
+                    else confusion_matrix_update(p, t, cfg.num_labels, v))
+
+        if seeds:  # (S, ...) per-seed counts
+            rows = [part.reshape(seeds, -1, *part.shape[1:]) for part in (preds, targets)]
+            vs = [None] * seeds if valid is None else valid.reshape(seeds, -1)
+            cm = torch.stack([counts(rows[0][i], rows[1][i], vs[i]) for i in range(seeds)])
+        else:
+            cm = counts(preds, targets, valid)
         return {**parts, "predictions": preds, "targets": targets, "cm": cm,
                 "correct": correct, "n": n}
 
@@ -254,7 +325,7 @@ def _chunk_device(batches: Dict) -> torch.device:
 
 
 def _make_many(run: Callable, warmup: Callable) -> Callable:
-    graphs: Dict[torch.Generator, StepGraph] = {}
+    graphs: Dict[object, StepGraph] = {}
 
     def many(batches, k_real, gen):
         device = _chunk_device(batches)
@@ -262,9 +333,15 @@ def _make_many(run: Callable, warmup: Callable) -> Callable:
             return _run_chunk(lambda b: run(b, gen), batches, k_real)
         graph = graphs.get(gen)
         if graph is None:
-            graph = graphs[gen] = StepGraph(
-                lambda b: run(b, gen),
-                lambda b: warmup(b, torch.Generator(device).manual_seed(0)), (gen,))
+            # a tuple of generators: a seed-stacked step, one per seed
+            gens = gen if isinstance(gen, tuple) else (gen,)
+
+            def scratch():
+                fresh = tuple(torch.Generator(device).manual_seed(0) for _ in gens)
+                return fresh if isinstance(gen, tuple) else fresh[0]
+
+            graph = graphs[gen] = StepGraph(lambda b: run(b, gen),
+                                            lambda b: warmup(b, scratch()), gens)
         return _run_chunk(graph, batches, k_real)
 
     return many

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: every module imports with ``jax`` and
-``flax`` blocked (and with ``pandas`` and ``PIL`` blocked too: the card's
-machine has neither, and the trainers read their data with ``csv`` and the
-pixel cache), no source imports the JAX package or pandas, and asking for
+``flax`` blocked (and with ``pandas``, ``msgpack`` and ``PIL`` blocked too:
+the card's machine has none of them; the trainers read their data with
+``csv`` and the pixel cache, JAX artifacts are read by the port's own msgpack
+codec), no source imports the JAX package, pandas or msgpack, and asking for
 CUDA on a host without it raises instead of falling back to the CPU."""
 
 import os
@@ -61,6 +62,16 @@ def test_every_module_imports_without_pandas_or_pil():
     _import_all_blocking(("jax", "flax", "jaxlib", "pandas", "PIL"))
 
 
+def test_every_module_imports_without_msgpack_or_pandas():
+    """The JAX artifacts are read by the port's own msgpack codec and the
+    grid's tables written with ``csv``: the card's machine has neither
+    msgpack nor pandas."""
+    mods = _modules()
+    for name in ("train.flax_msgpack", "train.ensemble", "cli.run_seed_sweep", "cli.run_grid"):
+        assert f"{port.__name__}.{name}" in mods, name
+    _import_all_blocking(("jax", "flax", "jaxlib", "msgpack", "pandas"))
+
+
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))
 def test_no_source_imports_jax_or_the_jax_package(path):
     with open(path, encoding="utf-8") as f:
@@ -69,7 +80,7 @@ def test_no_source_imports_jax_or_the_jax_package(path):
     imports = [line for line in text.splitlines()
                if re.match(r"\s*(import|from)\s", line) and JAX_PACKAGE.search(line)]
     assert not imports, imports
-    assert not re.search(r"^\s*(import|from)\s+pandas\b", text, re.M), path
+    assert not re.search(r"^\s*(import|from)\s+(pandas|msgpack)\b", text, re.M), path
 
 
 def test_asking_for_cuda_without_it_raises(monkeypatch):

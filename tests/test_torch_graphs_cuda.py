@@ -14,7 +14,9 @@ PyTorch:
   ``--steps_per_dispatch 3`` (a full chunk and a short one per epoch, each
   step a graph replay) against K = 1 (eager steps) from the same seed:
   every step's loss within 1e-5 relative and every parameter within 1e-6 of
-  its scale (the same kernels in the same order, replayed).
+  its scale (the same kernels in the same order, replayed); and the same for
+  ``cli/run_seed_sweep.main`` over two seeds (the seed-stacked step, both
+  seeds' generators registered in the graph).
 * ``--remat`` with dropout on: the first step's gradients equal those
   without it, within 1e-6 of each gradient's scale (the recompute draws the
   masks the forward drew).
@@ -30,7 +32,7 @@ import torch
 
 from socialmedia_textimage_classification_auxlosses_tpu_torch.cli import _build as B
 from socialmedia_textimage_classification_auxlosses_tpu_torch.cli import (
-    run_mm_early, run_mm_late, run_txt)
+    run_mm_early, run_mm_late, run_seed_sweep, run_txt)
 from socialmedia_textimage_classification_auxlosses_tpu_torch.core import config as C
 from socialmedia_textimage_classification_auxlosses_tpu_torch.ops import _cuda
 from socialmedia_textimage_classification_auxlosses_tpu_torch.ops import attention as A
@@ -135,6 +137,17 @@ def test_replayed_steps_follow_the_eager_trajectory(data, family):
     eager_losses, eager = _train(main, SMALL + argv)
     replay_losses, replayed = _train(main, SMALL + argv + ["--steps_per_dispatch", "3"])
     assert len(replay_losses) == len(eager_losses) == 15
+    np.testing.assert_allclose(replay_losses, eager_losses, rtol=1e-5)
+    for name, want in eager.items():
+        err = (replayed[name] - want).abs().max().item()
+        assert err <= 1e-6 * max(want.abs().max().item(), 1e-6), name
+
+
+def test_replayed_sweep_steps_follow_the_eager_sweep(late):
+    argv = late + ["--seeds", "30,40"]
+    eager_losses, eager = _train(run_seed_sweep.main, argv)
+    replay_losses, replayed = _train(run_seed_sweep.main, argv + ["--steps_per_dispatch", "3"])
+    assert len(replay_losses) == len(eager_losses) == 2 * 15
     np.testing.assert_allclose(replay_losses, eager_losses, rtol=1e-5)
     for name, want in eager.items():
         err = (replayed[name] - want).abs().max().item()

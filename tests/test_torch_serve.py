@@ -138,7 +138,7 @@ def test_microbatcher_and_http_round_trip(f32_services):
 
 @pytest.mark.parametrize("extra", [
     ["--model", "vilt"], ["--quantize", "w8"], ["--extra_model", "e:model=vilt"],
-    ["--workers", "2"], ["--img_decoder", "native"], ["--scan_layers"],
+    ["--workers", "2"], ["--img_decoder", "native"], ["--model", "mmbt"],
     ["--img_model_name", "resnet50", "--fusion_name", "concat_cnn"],
     ["--img_model_name", "beit"], ["--attn_impl", "nonsense"],
 ])
