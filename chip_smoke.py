@@ -44,7 +44,10 @@ and the CUDA toolkit. It
    that cancel, the size of their terms), and times them like the forward
    kernels (the library yardstick: the backward alone of
    ``scaled_dot_product_attention`` / ``nn.MultiheadAttention`` over a graph
-   built once); the fused block's backward twice: the kernel alone (to x,
+   built once); also the image-only runner's trained towers, unmasked: the
+   tensor-core pair at 16x12x197x197x64 and 16x12x198x198x64, the fused
+   block's backward at 16x197 and 16x198 x768 and its TN GEMM over 3,152 and
+   3,168 rows; the fused block's backward twice: the kernel alone (to x,
    against ``nn.MultiheadAttention``'s backward to x) and whole, through
    autograd with its weight gradients on the TN GEMM (against
    ``nn.MultiheadAttention``'s backward to x, its weights and biases);
@@ -62,13 +65,31 @@ and the CUDA toolkit. It
    at ``--steps_per_dispatch 3``, every step a CUDA graph replay: the launch
    counts exact per chunk (a launch counts when a replay runs it; the first
    chunk and the first eval add the eager warm-up step run before each
-   capture), one profiled replay running the port's kernels by name as often
-   as the eager step does and moving the counters by one step's counts, each
+   capture), one profiled replay (after one unrecorded warm-up replay)
+   running the port's kernels by name as often as the eager step does, the
+   two moving the counters by two steps' counts, each
    step's loss within 1e-5 relative of the K = 1 run's; every run also times
    three more passes over the train split with one sync at the end (ms per
    step with the host free to run ahead); the text-only runner
    ``cli/run_txt.main`` (Bernice-base, CLS head) the same way under
-   ``fused`` at K = 1 and K = 3;
+   ``fused`` at K = 1 and K = 3; then the image-only runner
+   ``cli/run_img.main`` the same way, each tower trained whole: ViT-B/16
+   under ``auto`` (K = 1) and ``fused`` (K = 1 and 3: #2's tensor-core pair,
+   #8 and its TN GEMM at 16x197 for the first time on a main path), DeiT-B/16
+   (L = 198) under both, BEiT-B/16 (no kernel: its attention with the
+   relative position bias is PyTorch's) started from a ``model.safetensors``
+   written from a seed under Hugging Face's names, ResNet-152 ``--conv_att``
+   at K = 1 and 3 (every BatchNorm buffer moved, updated inside the replayed
+   graphs; K = 3's losses within 1e-5 of K = 1's, as everywhere: cuDNN's
+   convolutions repeated bit for bit on the card) and ResNet-50
+   ``--feature_extract`` started from a torchvision ``.npz`` written from a
+   seed (only ``fc`` trains; the trunk and its
+   BatchNorm buffers stay as imported); ``cli/run_mm_late.main`` with
+   ResNet-152 ``concat_cnn`` and ``xatt`` (the text tower's kernels, the
+   float32 trunk's buffers moved) and with BEiT (ITC + TIM, the frozen tower
+   launching nothing); every imported tensor checked on the device against
+   the file's, and the first step of ViT, DeiT, ``concat_cnn`` and BEiT late
+   fusion held against the plain path as in step 9;
 8. trains full-width ViLT-B/32 (12 pre-LN layers, hidden 768, vocab 30,522,
    40 text positions, patch 32) with ITC + TIM through ``cli/run_mm_early.main``
    under ``--vilt_exact_resize`` on the same posts, one epoch at batch 16 in
@@ -206,6 +227,7 @@ DEVICE = "cuda"
 VILT_TEXT, VILT_SIDE = 40, 19  # ViLT's text positions; the 608-px canvas at patch 32
 VILT_LEN = VILT_TEXT + 1 + VILT_SIDE ** 2  # 402, --vilt_exact_resize
 VILT_FIXED_LEN = VILT_TEXT + 1 + 12 ** 2  # 185, the fixed 384-px square
+DEIT_LEN = 2 + 14 ** 2  # 198: DeiT-B/16's CLS and distillation tokens and 196 patches
 SWEEP_SEEDS = (30, 40, 50)  # the JAX sweep's default --seeds
 SWEEP_ROWS = len(SWEEP_SEEDS) * BATCH  # a sweep step's rows: the seeds folded into the batch
 # photo sizes (height, width) of 4:3, 3:4, 16:9 and 1:1 for the generated ViLT frames
@@ -550,10 +572,12 @@ SDPA_FWD_SHAPES = {
     # text tower and fusion head (2B rows a seed with TIM) and its vision tower
     "text_s3": (2 * SWEEP_ROWS, 12, 128, 128, 64, "bfloat16", True),
     "image_s3": (SWEEP_ROWS, 12, 197, 197, 64, "bfloat16", False),
-    "fusion_s3": (2 * SWEEP_ROWS, 1, 1, 197, 768, "float32", False)}
+    "fusion_s3": (2 * SWEEP_ROWS, 1, 1, 197, 768, "float32", False),
+    # DeiT's tower, CLS + distillation token: the image-only runner
+    "deit": (BATCH, 12, DEIT_LEN, DEIT_LEN, 64, "bfloat16", False)}
 # TPU kernel 7: every self-attention block with --attn_impl fused (rows, length, mask)
 BLOCK_FWD_SHAPES = {"text": (BATCH, 128, True), "image": (BATCH, 197, False),
-                    "vilt_exact": (2 * BATCH, VILT_LEN, "vilt")}
+                    "vilt_exact": (2 * BATCH, VILT_LEN, "vilt"), "deit": (BATCH, DEIT_LEN, False)}
 # TPU kernels 2 and 4: the SDPA backward of the text tower, of the fusion head
 # and of ViLT's joint sequence (the query-tiled pair at 402 and 185; float32
 # and 185 are checked, not on the paths)
@@ -565,12 +589,18 @@ SDPA_BWD_SHAPES = {
     "vilt_fixed": (2 * BATCH, 12, VILT_FIXED_LEN, VILT_FIXED_LEN, 64, "bfloat16", "vilt"),
     # the seed sweep's train step, S = 3 seeds folded into the batch
     "text_s3": (2 * SWEEP_ROWS, 12, 128, 128, 64, "bfloat16", True),
-    "fusion_s3": (2 * SWEEP_ROWS, 1, 1, 197, 768, "float32", False)}
-# TPU kernel 8: the fused block's backward in the text tower and in ViLT's
-# joint encoder, --attn_impl fused
-BLOCK_BWD_SHAPES = {"text": (2 * BATCH, 128, True), "vilt_exact": (2 * BATCH, VILT_LEN, "vilt")}
-# the weight gradients' TN GEMM of kernel 8 over its token rows
-TN_ROWS = {"text": 2 * BATCH * 128, "vilt_exact": 2 * BATCH * VILT_LEN}
+    "fusion_s3": (2 * SWEEP_ROWS, 1, 1, 197, 768, "float32", False),
+    # the image tower trained whole by the image-only runner: ViT and DeiT
+    "image": (BATCH, 12, 197, 197, 64, "bfloat16", False),
+    "deit": (BATCH, 12, DEIT_LEN, DEIT_LEN, 64, "bfloat16", False)}
+# TPU kernel 8: the fused block's backward in the text tower, in ViLT's
+# joint encoder and in the image-only runner's ViT / DeiT, --attn_impl fused
+BLOCK_BWD_SHAPES = {"text": (2 * BATCH, 128, True), "vilt_exact": (2 * BATCH, VILT_LEN, "vilt"),
+                    "image": (BATCH, 197, False), "deit": (BATCH, DEIT_LEN, False)}
+# the weight gradients' TN GEMM of kernel 8 over its token rows (3,152 and
+# 3,168 for the image towers: no multiple of the 128-row tile)
+TN_ROWS = {"text": 2 * BATCH * 128, "vilt_exact": 2 * BATCH * VILT_LEN,
+           "image": BATCH * 197, "deit": BATCH * DEIT_LEN}
 
 
 def check_kernels(torch, sdpa_shapes=SDPA_FWD_SHAPES, block_shapes=BLOCK_FWD_SHAPES):
@@ -1168,18 +1198,29 @@ def is_port_kernel(key: str) -> bool:
 
 
 def profile_step(torch, step, tag):
-    """One call of ``step`` under the profiler: its wall ms, the device's busy
+    """Two calls of ``step`` under the profiler, the first its warm-up (not
+    recorded: the tracer's start can miss the first kernels of a CUDA graph
+    replayed at once), the second recorded: its wall ms, the device's busy
     ms and idle share, and the events on the device."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
+    recorded = []
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: recorded.append(p.key_averages())) as prof:
+        step()
+        torch.cuda.synchronize()
+        prof.step()
         t1 = time.perf_counter()
         step()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t1) * 1e3
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        prof.step()
+    # the schedule's own step range is no kernel
+    events = [e for e in recorded[0] if e.device_type == DeviceType.CUDA
+              and not e.key.startswith("ProfilerStep")]
     busy = sum(e.self_device_time_total for e in events) / 1e3
     if not busy:
         log(f"{tag}: device idle share not measured (the profiler saw no device events)")
@@ -1197,9 +1238,10 @@ def train_run(torch, main, argv, tag, counters, results_dir, stem, expect, check
     replay: a chunk of n steps launches n times a step's kernels, the
     first chunk once more (the step's gradients, run eagerly before the
     capture), and the evals once more than their steps (the eval step run
-    before its capture). A replayed step is profiled: it must run the port's
-    kernels by name as often as the eager step of the same path does
-    (``eager_kernels``), and move the counters by one step's counts."""
+    before its capture). A replayed step is profiled, after one unrecorded
+    warm-up call: it must run the port's kernels by name as often as the
+    eager step of the same path does (``eager_kernels``), and the two calls
+    move the counters by two steps' counts."""
     for c in counters.values():
         c.reset()
     chunks = []
@@ -1288,10 +1330,11 @@ def train_run(torch, main, argv, tag, counters, results_dir, stem, expect, check
             trainer.train_many(batches, 1, gen)
     before = {k: c.count for k, c in counters.items()}
     step_wall, busy, idle, events = profile_step(torch, step, tag)
+    # the profiler's warm-up call and the recorded one
     moved = {k: c.count - before[k] for k, c in counters.items()}
-    if moved != expect["train"]:
-        raise AssertionError(f"{tag}: the profiled step moved the counters by {moved}, "
-                             f"expected {expect['train']}")
+    if moved != {k: 2 * n for k, n in expect["train"].items()}:
+        raise AssertionError(f"{tag}: the profiled steps moved the counters by {moved}, "
+                             f"expected twice {expect['train']}")
     kernels = {e.key: e.count for e in events if is_port_kernel(e.key)}
     if eager_kernels is not None:
         if kernels != eager_kernels:
@@ -1672,8 +1715,8 @@ def optimizer_only(root):
     return 0
 
 
-def first_step_check(torch, tag, make_setup, keep):
-    """The first train step of auto and fused against the plain path: the
+def first_step_check(torch, tag, make_setup, keep, impls=("auto", "fused")):
+    """The first train step of ``impls`` against the plain path: the
     setups from ``make_setup(attn_impl, dtype)`` (the same state dict from
     the same seed), the same first batch, the TIM swap pinned, the gradients
     of the parameters named by ``keep``.
@@ -1698,7 +1741,7 @@ def first_step_check(torch, tag, make_setup, keep):
     ref32 = plain16 = None
     for dtype in ("float32", "bfloat16"):
         plain_loss = None
-        for impl in ("jnp", "auto", "fused"):
+        for impl in ("jnp",) + tuple(impls):
             setup = make_setup(impl, dtype)
             batch = next(setup.pipes["train"].device_iter(setup.device, shuffle=False))
             batch["tim_src"] = torch.as_tensor(perm, device=DEVICE)
@@ -1890,10 +1933,11 @@ def sweep_run(torch, sweep_main, argv, tag, counters, expect, results_dir, stem_
     step()
     before = {n: c.count for n, c in counters.items()}
     step_wall, busy, idle, events = profile_step(torch, step, tag)
+    # the profiler's warm-up call and the recorded one
     moved = {n: c.count - before[n] for n, c in counters.items()}
-    if moved != expect["train"]:
-        raise AssertionError(f"{tag}: the profiled step moved the counters by {moved}, "
-                             f"expected {expect['train']}")
+    if moved != {n: 2 * k for n, k in expect["train"].items()}:
+        raise AssertionError(f"{tag}: the profiled steps moved the counters by {moved}, "
+                             f"expected twice {expect['train']}")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"profile {tag}:   {e.self_device_time_total / 1e3:8.3f} ms x{e.count:<4d} "
             f"{e.key[:90]}")
@@ -2541,6 +2585,362 @@ def pretrained_start(torch, C, run_mm_late, counters):
     return result
 
 
+def img_args(model, attn_impl="auto", extra=()):
+    """``run_img`` at full width on the generated task-3 set."""
+    return ["--model_name", model, "--task", "3", "--epochs", "1", "--seed", "30",
+            "--arch", "base", "--dtype", "bfloat16", "--use_saved_features", "--save_model",
+            "--log_every", "1", "--attn_impl", attn_impl, *extra]
+
+
+def cnn_late_args(fusion, attn_impl="auto"):
+    """``run_mm_late`` with Bernice-base and the ResNet-152 fusion path (no
+    ITC/TIM: the runner refuses them with a ResNet)."""
+    return ["--txt_model_name", "bernice", "--img_model_name", "resnet152",
+            "--fusion_name", fusion, "--task", "3", "--epochs", "1", "--seed", "30",
+            "--arch", "base", "--dtype", "bfloat16", "--use_saved_features", "--save_model",
+            "--log_every", "1", "--attn_impl", attn_impl]
+
+
+class InitialState:
+    """While active, ``owner.attr`` (a runner's setup function) keeps CPU
+    copies of the model's state dict as it was built, in ``state``, and
+    hands the setup to ``check(setup)`` first when one is given."""
+
+    def __init__(self, owner, attr, check=None):
+        self.owner, self.attr, self.check, self.state = owner, attr, check, None
+
+    def __enter__(self):
+        self.real = real = getattr(self.owner, self.attr)
+
+        def build(*a, **k):
+            setup = real(*a, **k)
+            self.state = {n: v.detach().to("cpu", copy=True)
+                          for n, v in setup.model.state_dict().items()}
+            if self.check is not None:
+                self.check(setup)
+            return setup
+
+        setattr(self.owner, self.attr, build)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.attr, self.real)
+
+
+def model_grads_check(torch, tag, unused, initial=None, buffers="moved", fixed=None):
+    """Every parameter AdamW holds has a finite gradient but ``unused`` (read
+    by no loss), AdamW holds every parameter that needs a gradient, and the
+    frozen ones have none. With ``initial`` (an ``InitialState``): the
+    BatchNorm buffers ``moved`` in training or were ``kept``, and the
+    parameters ``fixed(name)`` names equal the built model's."""
+    def check(setup, grads):
+        got = sorted(n for n, gr in grads.items() if gr is None)
+        if got != sorted(unused):
+            raise AssertionError(f"{tag}: parameters without a gradient: {got}")
+        bad = [n for n, gr in grads.items() if gr is not None and not torch.isfinite(gr).all()]
+        if bad:
+            raise AssertionError(f"{tag}: non-finite gradients in {bad[:5]}")
+        named = dict(setup.model.named_parameters())
+        trainable = sorted(n for n, p in named.items() if p.requires_grad)
+        if sorted(setup.optimizer.names) != trainable or sorted(grads) != trainable:
+            raise AssertionError(f"{tag}: AdamW does not hold exactly the trainable parameters")
+        if any(p.grad is not None for p in named.values()):
+            raise AssertionError(f"{tag}: a parameter holds a .grad")
+        note = ""
+        if initial is not None:
+            own = setup.model.state_dict()
+            stats = [n for n in own if n.endswith(("running_mean", "running_var"))]
+            moved = [n for n in stats if not torch.equal(own[n].cpu(), initial.state[n])]
+            if not stats or (buffers == "moved") != bool(moved) or (
+                    buffers == "moved" and len(moved) != len(stats)):
+                raise AssertionError(f"{tag}: {len(moved)} of {len(stats)} BatchNorm buffers "
+                                     f"moved in training, expected {buffers}")
+            held = [n for n in named if fixed is not None and fixed(n)]
+            changed = [n for n in held if not torch.equal(own[n].cpu(), initial.state[n])]
+            if changed:
+                raise AssertionError(f"{tag}: frozen parameters moved: {changed[:4]}")
+            note = (f"; {len(moved)} of {len(stats)} BatchNorm buffers moved"
+                    + (f", {len(held)} frozen parameters as built" if held else ""))
+        log(f"{tag}: {len(trainable) - len(unused)} trainable tensors with finite gradients, "
+            f"{len(unused)} unused by the loss, {len(named) - len(trainable)} frozen{note}")
+
+    return check
+
+
+BEIT_CONFIG = dict(VIT_CONFIG, layer_norm_eps=1e-12)
+
+
+def beit_hf_state(torch, g):
+    """A full-width BEiT-B/16 ``BeitModel`` state dict under Hugging Face's
+    names from ``g`` (relative-position tables of (2 * 14 - 1)^2 + 3 = 732
+    rows, layer scales, no key bias, the mean-pool LayerNorm), on the CPU in
+    float32."""
+    h, m, n_rel = 768, 3072, (2 * 14 - 1) ** 2 + 3
+    state = {}
+
+    def arr(key, *shape, scale=0.02, offset=0.0):
+        state[key] = (offset + scale * torch.randn(*shape, generator=g, device="cuda")).cpu()
+
+    def dense(key, out, inp, bias=True):
+        arr(f"{key}.weight", out, inp, scale=inp ** -0.5)
+        if bias:
+            arr(f"{key}.bias", out)
+
+    def ln(key):
+        arr(f"{key}.weight", h, scale=0.05, offset=1.0)
+        arr(f"{key}.bias", h)
+
+    arr("embeddings.cls_token", 1, 1, h, scale=0.5)
+    arr("embeddings.patch_embeddings.projection.weight", h, 3, 16, 16, scale=768 ** -0.5)
+    arr("embeddings.patch_embeddings.projection.bias", h)
+    ln("pooler.layernorm")
+    for i in range(12):
+        p, att = f"encoder.layer.{i}", f"encoder.layer.{i}.attention.attention"
+        arr(f"{p}.lambda_1", h, scale=0.05, offset=0.1)
+        arr(f"{p}.lambda_2", h, scale=0.05, offset=0.1)
+        dense(f"{att}.query", h, h)
+        dense(f"{att}.key", h, h, bias=False)
+        dense(f"{att}.value", h, h)
+        arr(f"{att}.relative_position_bias.relative_position_bias_table", n_rel, 12, scale=0.5)
+        dense(f"{p}.attention.output.dense", h, h)
+        dense(f"{p}.intermediate.dense", m, h)
+        dense(f"{p}.output.dense", h, m)
+        ln(f"{p}.layernorm_before")
+        ln(f"{p}.layernorm_after")
+    return state
+
+
+def resnet_tv_state(torch, g, sizes):
+    """A torchvision ResNet state dict from ``g`` as numpy (He-normal
+    convolutions, BatchNorm scales near 1 and running statistics, the
+    1000-way ``fc``, ``num_batches_tracked``), as a ``.npz`` stores it."""
+    import numpy as np
+
+    state = {}
+
+    def randn(*shape, scale=1.0, offset=0.0):
+        return (offset + scale * torch.randn(*shape, generator=g, device="cuda")).cpu().numpy()
+
+    def conv(name, o, i, k):
+        state[f"{name}.weight"] = randn(o, i, k, k, scale=(2.0 / (i * k * k)) ** 0.5)
+
+    def bn(name, c):
+        state[f"{name}.weight"] = randn(c, scale=0.05, offset=1.0)
+        state[f"{name}.bias"] = randn(c, scale=0.05)
+        state[f"{name}.running_mean"] = randn(c, scale=0.05)
+        state[f"{name}.running_var"] = 1.0 + 0.2 * torch.rand(c, generator=g,
+                                                             device="cuda").cpu().numpy()
+        state[f"{name}.num_batches_tracked"] = np.array(100, np.int64)
+
+    conv("conv1", 64, 3, 7)
+    bn("bn1", 64)
+    cin = 64
+    for s, blocks in enumerate(sizes):
+        f = 64 * 2 ** s
+        for b in range(blocks):
+            p = f"layer{s + 1}.{b}"
+            conv(f"{p}.conv1", f, cin, 1)
+            bn(f"{p}.bn1", f)
+            conv(f"{p}.conv2", f, f, 3)
+            bn(f"{p}.bn2", f)
+            conv(f"{p}.conv3", 4 * f, f, 1)
+            bn(f"{p}.bn3", 4 * f)
+            if b == 0:
+                conv(f"{p}.downsample.0", 4 * f, cin, 1)
+                bn(f"{p}.downsample.1", 4 * f)
+            cin = 4 * f
+    state["fc.weight"] = randn(1000, cin, scale=cin ** -0.5)
+    state["fc.bias"] = randn(1000, scale=0.0)
+    return state
+
+
+def imported_check(torch, tag, expect):
+    """A setup check: every tensor of ``expect`` (port name -> numpy) is the
+    model's on the device, as the file holds it."""
+    import numpy as np
+
+    def check(setup):
+        own = setup.model.state_dict()
+        for key, want in expect.items():
+            got = own[key]
+            if got.device.type != "cuda" or not torch.equal(
+                    got, torch.as_tensor(np.asarray(want)).to(got)):
+                raise AssertionError(f"{tag}: {key} is not the file's tensor")
+        log(f"{tag}: {len(expect)} imported tensors on the device equal the file's")
+
+    return check
+
+
+def image_first_step(torch, C, run_img, build, model):
+    """``first_step_check`` of the image-only runner (ViT or DeiT, the tower
+    trained whole): every attention weight of the tower's 12 layers."""
+    def make_setup(impl, dtype):
+        args = run_img.parse_args(img_args(model, impl, ["--dropout", "0", "--dtype", dtype]))
+        return build.build_image_setup(args, C.Config(args), torch.device(DEVICE),
+                                       torch.Generator().manual_seed(30))
+
+    def keep(n):
+        return n.startswith("tower.encoder.") and ".attention." in n and n.endswith("weight")
+
+    return first_step_check(torch, f"img {model}", make_setup, keep)
+
+
+def late_variant_first_step(torch, C, run_mm_late, build, argv_of, tag):
+    """``first_step_check`` of a late-fusion variant (``argv_of(impl)``) under
+    ``auto``, the attention mode its runs take here: the text tower's
+    attention weights and the fusion layers' tensors (but a key bias, whose
+    exact gradient is zero)."""
+    def make_setup(impl, dtype):
+        args = run_mm_late.parse_args(argv_of(impl) + ["--dropout", "0", "--dtype", dtype])
+        return build.build_mm_late_train_setup(args, C.Config(args), torch.device(DEVICE),
+                                               torch.Generator().manual_seed(30))
+
+    def keep(n):
+        return ((".encoder." in n and n.split(".")[0] in ("text", "dual")
+                 and ".attention." in n and n.endswith("weight") and ".vision." not in n)
+                or (n.split(".")[0] in ("fusion", "linear_fusion", "conv_proj")
+                    and n != "fusion.fc_k.bias"))
+
+    return first_step_check(torch, tag, make_setup, keep, impls=("auto",))
+
+
+def image_phase(torch, C, run_img, run_mm_late, build, counters, none, launches, tmp):
+    """The image-only runner and the BEiT and ResNet late-fusion paths at
+    full width, bfloat16, batch 16 (3 train and 2 eval steps each), through
+    ``train_run``: ViT under ``auto`` (K = 1) and ``fused`` (K = 1, 3), DeiT
+    under ``auto`` and ``fused``, BEiT started from a ``model.safetensors`` written from a
+    seed, ResNet-152 ``--conv_att`` at K = 1 and 3, ResNet-50
+    ``--feature_extract`` started from a torchvision ``.npz`` written from a
+    seed (its trunk and BatchNorm buffers as imported after training), then
+    ``run_mm_late`` with ResNet-152 ``concat_cnn`` and ``xatt`` and with
+    BEiT (ITC + TIM); then the first step of ViT, DeiT, ``concat_cnn`` and
+    BEiT late fusion against the plain path."""
+    import numpy as np
+
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.models import hf_import as H
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.models.resnet import (
+        STAGE_SIZES)
+
+    t0 = time.monotonic()
+    saved_dirs = dict(C.MODEL_DIR_DICT)
+    C.results_dir_img = os.path.join(tmp, "results", "img") + os.sep
+    late_dir = C.results_dir_mm_late
+    results, eager = {}, {}
+    blocks = {"train": {**none, "attn_block_fwd": 12, "attn_block_bwd": 12, "gemm_tn_bf16": 12},
+              "eval": {**none, "attn_block_fwd": 12}}
+    sdpa = {"train": {**none, "sdpa_fwd": 12, "sdpa_bwd": 12}, "eval": {**none, "sdpa_fwd": 12}}
+    nothing = {"train": none, "eval": none}
+
+    def run(key, main, argv, tag, results_dir, stem, expect, check, k=1, like=None):
+        results[key], by_key, kernels = train_run(
+            torch, main, argv, tag, counters, results_dir, stem, expect, check, k=k,
+            eager_kernels=eager.get(like))
+        eager.setdefault(key, kernels)
+        count_launches(launches, by_key)
+        if like is not None:
+            results[key]["loss_rel_vs_k1"] = same_losses(results[key], results[like], tag)
+
+    vit_unused = ["tower.pooler.dense.bias", "tower.pooler.dense.weight"]
+    for impl, k in (("auto", 1), ("fused", 1), ("fused", 3)):
+        tag = f"img[vit, {impl}" + (f", K={k}]" if k > 1 else "]")
+        run(f"vit/{impl}/k{k}", run_img.main, img_args("vit", impl), tag, C.results_dir_img,
+            "vit_task3_seed30_", sdpa if impl == "auto" else blocks,
+            model_grads_check(torch, tag, vit_unused), k=k,
+            like="vit/fused/k1" if k > 1 else None)
+    for impl in ("auto", "fused"):
+        tag = f"img[deit, {impl}]"
+        run(f"deit/{impl}/k1", run_img.main, img_args("deit", impl), tag, C.results_dir_img,
+            "deit_task3_seed30_", sdpa if impl == "auto" else blocks,
+            model_grads_check(torch, tag, []))
+
+    # BEiT from a full-width model.safetensors under HF's names
+    g = torch.Generator(device="cuda").manual_seed(6)
+    beit_dir = os.path.join(tmp, "hub_img", "beit")
+    os.makedirs(beit_dir)
+    beit_state = beit_hf_state(torch, g)
+    write_safetensors(os.path.join(beit_dir, "model.safetensors"), beit_state)
+    with open(os.path.join(beit_dir, "config.json"), "w") as f:
+        json.dump(BEIT_CONFIG, f)
+    C.MODEL_DIR_DICT["beit"] = beit_dir + os.sep
+    expect = {"tower." + k: v for k, v in H.torch_state_from_jax(H.import_beit_tower(
+        {k: v.numpy() for k, v in beit_state.items()}, 12)).items()}
+    del beit_state
+    with InitialState(run_img, "build_image_setup", imported_check(torch, "img[beit]", expect)):
+        run("beit/k1", run_img.main, img_args("beit"), "img[beit]", C.results_dir_img,
+            "beit_task3_seed30_", nothing, model_grads_check(torch, "img[beit]", []))
+
+    conv_unused = ["trunk.fc.bias", "trunk.fc.weight"]
+    for k in (1, 3):
+        tag = "img[resnet152 conv_att" + (f", K={k}]" if k > 1 else "]")
+        with InitialState(run_img, "build_image_setup") as init:
+            run(f"resnet152_conv_att/k{k}", run_img.main,
+                img_args("resnet152", extra=["--conv_att"]), tag, C.results_dir_img,
+                "resnet152_task3_seed30_", nothing,
+                model_grads_check(torch, tag, conv_unused, init), k=k,
+                like="resnet152_conv_att/k1" if k > 1 else None)
+
+    # ResNet-50 --feature_extract from a torchvision-format .npz
+    npz = os.path.join(tmp, "hub_img", "resnet50.npz")
+    tv_state = resnet_tv_state(torch, g, STAGE_SIZES["resnet50"])
+    np.savez(npz, **tv_state)
+    C.MODEL_DIR_DICT["resnet50"] = npz
+    expect = H.torch_state_from_jax(H.import_resnet(tv_state, STAGE_SIZES["resnet50"]))
+    del tv_state
+    tag = "img[resnet50 feature_extract]"
+    with InitialState(run_img, "build_image_setup", imported_check(torch, tag, expect)) as init:
+        run("resnet50_feature_extract/k1", run_img.main,
+            img_args("resnet50", extra=["--feature_extract"]), tag, C.results_dir_img,
+            "resnet50_task3_seed30_", nothing,
+            model_grads_check(torch, tag, [], init, buffers="kept",
+                              fixed=lambda n: n.split(".")[0] != "fc"))
+
+    cnn_unused = ["cnn.fc.bias", "cnn.fc.weight", "text.pooler.dense.bias",
+                  "text.pooler.dense.weight"]
+    for fusion in ("concat_cnn", "xatt"):
+        tag = f"late[resnet152 {fusion}]"
+        with InitialState(run_mm_late, "build_mm_late_train_setup") as init:
+            run(f"late_resnet152_{fusion}/k1", run_mm_late.main, cnn_late_args(fusion), tag,
+                late_dir, f"bernice-resnet152-{fusion}_task3_seed30__", sdpa,
+                model_grads_check(torch, tag, cnn_unused, init))
+    # BEiT late fusion: the text tower and the fusion row launch kernels, the
+    # frozen BEiT tower none
+    tag = "late[beit attention]"
+    run("late_beit/k1", run_mm_late.main, train_args("auto", ["--img_model_name", "beit"]),
+        tag, late_dir, "bernice-beit-attention_task3_seed30_itc0.1itm0.1_",
+        {"train": {**none, "sdpa_fwd": 13, "sdpa_bwd": 13}, "eval": {**none, "sdpa_fwd": 13}},
+        late_grads_check(torch, tag))
+    results["train_seconds"] = time.monotonic() - t0
+
+    # the first steps against the plain path, dropout 0 in every tower
+    t1 = time.monotonic()
+    hub = os.path.join(tmp, "hub_img_first")
+    for name in ("bernice", "vit", "deit", "beit"):
+        d = os.path.join(hub, name)
+        os.makedirs(d, exist_ok=True)
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump({"hidden_dropout_prob": 0.0}, f)
+        C.MODEL_DIR_DICT[name] = d + os.sep
+    C.MODEL_DIR_DICT["resnet152"] = os.path.join(hub, "absent.npz")
+    first = {}
+    for model in ("vit", "deit"):
+        first[f"img_{model}"] = image_first_step(torch, C, run_img, build, model)
+    first["late_concat_cnn"] = late_variant_first_step(
+        torch, C, run_mm_late, build, lambda impl: cnn_late_args("concat_cnn", impl),
+        "late concat_cnn")
+    first["late_beit"] = late_variant_first_step(
+        torch, C, run_mm_late, build,
+        lambda impl: train_args(impl, ["--img_model_name", "beit"]), "late beit")
+    results["first_step"] = first
+    results["first_step_seconds"] = time.monotonic() - t1
+    C.MODEL_DIR_DICT.clear()
+    C.MODEL_DIR_DICT.update(saved_dirs)
+    results["seconds"] = time.monotonic() - t0
+    log(f"image phases: {results['train_seconds']:.1f} s of runs, "
+        f"{results['first_step_seconds']:.1f} s of first steps")
+    torch.cuda.empty_cache()
+    return results
+
+
 def make_requests():
     import numpy as np
 
@@ -2760,7 +3160,7 @@ def main():
     from socialmedia_textimage_classification_auxlosses_tpu_torch.cli import (
         _build_early as build_early)
     from socialmedia_textimage_classification_auxlosses_tpu_torch.cli import (
-        run_grid, run_mm_early, run_mm_late, run_seed_sweep, run_txt)
+        run_grid, run_img, run_mm_early, run_mm_late, run_seed_sweep, run_txt)
 
     counters = {"sdpa_fwd": A.launches, "sdpa_bwd": A.bwd_launches,
                 "attn_block_fwd": AB.launches, "attn_block_bwd": AB.bwd_launches,
@@ -2819,6 +3219,9 @@ def main():
             count_launches(launches, by_key)
         training["txt/fused/k3"]["loss_rel_vs_k1"] = same_losses(
             training["txt/fused/k3"], training["txt/fused/k1"], "txt[fused, K=3]")
+        # the image-only runner and the BEiT / ResNet late-fusion paths
+        training["image"] = image_phase(torch, C, run_img, run_mm_late, build, counters, none,
+                                        launches, tmp)
         training["first_step"] = late_first_step(torch, C, run_mm_late, build,
                                                  os.path.join(tmp, "hub"))
 

@@ -4,9 +4,9 @@ and the mean±std tables built from their metric CSVs, on CUDA.
 Counterpart of the JAX package's ``cli/run_grid.py``, with the same flags,
 plan, artifact paths and tables, for the runner families the port has:
 ``mm_late`` (``run_mm_late``), ``mm_early`` with ``vilt``
-(``run_mm_early``) and ``txt`` (``run_txt``). ``img`` and ``mm_early``
-``lxmert`` / ``mmbt`` raise ``SystemExit`` (``ROADMAP.md`` Queue 1 items 5
-and 6)::
+(``run_mm_early``), ``txt`` (``run_txt``) and ``img`` (``run_img``).
+``mm_early`` ``lxmert`` / ``mmbt`` raise ``SystemExit`` (``ROADMAP.md``
+Queue 1 item 6)::
 
     python -m socialmedia_textimage_classification_auxlosses_tpu_torch.cli.run_grid \\
         --families mm_late --mm_late bernice-vit-attention \\
@@ -70,7 +70,7 @@ def parse_args(argv=None):
     parser.add_argument("--txt", type=str, default="bernice",
                         help="comma list of text-only models")
     parser.add_argument("--img", type=str, default="vit",
-                        help="comma list of image-only models (not ported)")
+                        help="comma list of image-only models")
     parser.add_argument("--mm_late", type=str, default="bernice-vit-attention",
                         help="comma list of txt-img-fusion triples")
     parser.add_argument("--mm_early", type=str, default="vilt",
@@ -117,9 +117,6 @@ def _csv(s):
 
 def check_family(family: str, model: str) -> None:
     """Refuse, with ``SystemExit``, a runner the port does not have yet."""
-    if family == "img":
-        raise SystemExit("--families img: run_img (the image-only runners) is not ported "
-                         "to PyTorch yet (ROADMAP.md Queue 1 item 5)")
     if family == "mm_early" and model != "vilt":
         raise SystemExit(f"--mm_early {model}: only vilt is ported to PyTorch yet; LXMERT "
                          "and MMBT are ROADMAP.md Queue 1 item 6")
@@ -153,13 +150,14 @@ class Run:
         self.val_csv, self.test_csv = self._artifact_paths(family, model)
 
     def _artifact_paths(self, family, model):
-        from . import run_mm_early, run_mm_late, run_txt
+        from . import run_img, run_mm_early, run_mm_late, run_txt
         from ._common import artifact_stem
 
-        parser = {"txt": run_txt, "mm_late": run_mm_late, "mm_early": run_mm_early}[family]
+        parser = {"txt": run_txt, "img": run_img, "mm_late": run_mm_late,
+                  "mm_early": run_mm_early}[family]
         ns = parser.parse_args(self.argv)
-        if family == "txt":
-            base = C.results_dir_txt
+        if family in ("txt", "img"):
+            base = C.results_dir_txt if family == "txt" else C.results_dir_img
             stem = f"{ns.model_name}_task{ns.task}_seed{ns.seed}_"
         elif family == "mm_late":
             base = C.results_dir_mm_late
@@ -181,9 +179,9 @@ class Run:
 
 
 def build_plan(args):
-    """The grid, deduped: txt has no aux-loss axis (the reference's text
-    runner carries no ITC/ITM flags), so it contributes one run per (model,
-    task, seed) whatever ``--aux`` says."""
+    """The grid, deduped: txt and img have no aux-loss axis (the reference's
+    text and image runners carry no ITC/ITM flags), so they contribute one
+    run per (model, task, seed) whatever ``--aux`` says."""
     plan, seen = [], set()
     for fam in _csv(args.families):
         models = _csv(getattr(args, fam))
@@ -200,9 +198,10 @@ def build_plan(args):
 
 def execute(run: Run) -> str:
     """Run the family's runner ``main`` in this process."""
-    from . import run_mm_early, run_mm_late, run_txt
+    from . import run_img, run_mm_early, run_mm_late, run_txt
 
-    mains = {"txt": run_txt.main, "mm_late": run_mm_late.main, "mm_early": run_mm_early.main}
+    mains = {"txt": run_txt.main, "img": run_img.main, "mm_late": run_mm_late.main,
+             "mm_early": run_mm_early.main}
     try:
         mains[run.family](run.argv)
     except SystemExit as e:  # a runner's refusal or argparse error

@@ -12,7 +12,13 @@ and ``preds_lm.csv`` / ``metrics_lm.csv`` under ``--load_saved_model``):
 
 Every attention of the forward and of the backward launches the port's
 hand-written kernels on a CUDA device; ``--device cpu`` runs the plain
-versions on the CPU. The ``net.pth`` artifact is the port's own
+versions on the CPU. ``--img_model_name beit`` runs the BEiT tower (its
+attention, with the relative position bias, is PyTorch's, as in the JAX
+package it is XLA's); ``resnet50|resnet152`` with ``--fusion_name
+concat_cnn|xatt`` the CNN fusion model, which trains its ResNet (float32,
+BatchNorm statistics in train mode) with the text tower, reads images
+resized to 256 and centre-cropped, and takes no ITC/TIM loss (refused at
+parse time, as by the JAX runner). The ``net.pth`` artifact is the port's own
 ``torch.save`` state dict; ``--load_saved_model`` also evaluates a JAX-trained
 one (the flax msgpack, unrolled or in the scanned layout). The towers start from the checkpoints in their
 ``MODEL_DIR_DICT`` directories (``SMTC_BERNICE_DIR``, ``SMTC_VIT_DIR``, ...)
@@ -25,7 +31,7 @@ when those hold one, and ``--import_reference_ckpt`` loads a reference-trained
 (``--steps_per_dispatch``, ``--ckpt_every`` into ``{stem}ckpt/``,
 ``--resume``, ``--profile``, ``--remat``) act as in the JAX runner. What the
 port lacks raises ``SystemExit`` (``cli/_common.py::check_training_supported``,
-and here ``--quantize``, the CNN and BEiT towers).
+and here ``--quantize``).
 """
 
 from __future__ import annotations
@@ -91,6 +97,9 @@ def check_supported(args) -> None:
     check_training_supported(args)
     if args.quantize:
         raise SystemExit("--quantize is not ported to PyTorch yet")
+    if args.import_reference_ckpt and args.img_model_name in ("resnet50", "resnet152"):
+        raise SystemExit("--import_reference_ckpt takes a transformer image tower: the "
+                         "reference's MM_Model has no ResNet fusion path")
     check_mm_late_supported(args)
 
 

@@ -23,8 +23,8 @@ kernels run once per seed. Each seed trains with its own class weights (the
 JAX sweep applies the first seed's to all; they differ only where the
 subsamples do). ``--steps_per_dispatch`` replays CUDA graphs of the stacked
 step. What the sweep does not carry raises ``SystemExit``: the single-run
-flags ``--ckpt_every``, ``--resume``, ``--profile``, ``--log_jsonl``, and what
-``run_mm_late`` refuses.
+flags ``--ckpt_every``, ``--resume``, ``--profile``, ``--log_jsonl``, the
+BEiT tower, and what ``run_mm_late`` refuses.
 """
 
 from __future__ import annotations
@@ -77,6 +77,10 @@ def check_supported(args) -> None:
             raise SystemExit(f"{flag} is a single-run flag the seed sweep does not carry "
                              "(nor does the JAX package's); run the seeds with run_mm_late")
     check_mm_late_supported(args)
+    if args.img_model_name == "beit":
+        raise SystemExit("--img_model_name beit: the seed sweep does not stack the BEiT "
+                         "tower yet (ROADMAP.md Queue 1 item 5); run the seeds with "
+                         "run_mm_late (the grid's vmap backend does so by itself)")
 
 
 def build_seed_setups(args, seeds):

@@ -26,10 +26,13 @@ the JAX package writes (``train/checkpoint.py::load_params`` tells them apart
 by their first bytes, and the layer layout, unrolled or scanned, from the
 tree); ``--scan_layers`` is accepted as the JAX CLI takes it and decides
 nothing here. ``--random_init`` serves random weights made from
-``--seed``. What the port lacks so far raises ``SystemExit``:
+``--seed``. Every image tower of the late-fusion model is served: ViT,
+DeiT, BEiT, and ResNet-50/152 with ``--fusion_name concat_cnn|xatt`` (their
+request images resized to 256 on the shorter side and centre-cropped, the
+training recipe). What the port lacks so far raises ``SystemExit``:
 ``--model vilt|lxmert|mmbt``, ``--quantize``, ``--extra_model``,
-``--workers`` > 1, ``--img_decoder native`` and the CNN/BEiT towers;
-``GET /metrics`` answers 501.
+``--workers`` > 1 and ``--img_decoder native``; ``GET /metrics`` answers
+501.
 """
 
 from __future__ import annotations
@@ -202,6 +205,7 @@ def build_service(args):
     cast_params_for_eval(setup.model, args.dtype)
     setup.model.to(device)
     tokenizer, image_size, forward = setup.tokenizer, setup.image_size, setup.forward_fn
+    crop = setup.center_crop_from
     b = args.max_batch
 
     def make_batch(requests):
@@ -218,7 +222,8 @@ def build_service(args):
         for i, (_, img) in enumerate(requests):
             if img is None:
                 continue  # empty-image flow
-            pixels[i] = img if isinstance(img, np.ndarray) else resize_to_u8(img, image_size)
+            pixels[i] = (img if isinstance(img, np.ndarray)
+                         else resize_to_u8(img, image_size, center_crop_from=crop))
         batch["pixel_values"] = pixels
         return batch
 
@@ -252,8 +257,10 @@ def build_service(args):
         "model_path": model_path,
         "device": str(device),
         "attn_impl": args.attn_impl,
-        # the HTTP handler resizes images to this size in its own thread
+        # the HTTP handler resizes images to this size (the CNN recipe from
+        # center_crop_from) in its own thread
         "resize_size": image_size,
+        "center_crop_from": crop,
     }
     return predict_batch, meta
 
@@ -459,7 +466,8 @@ def make_server(args, batcher: MicroBatcher, meta):
                     # GIL), not in the one dispatcher thread
                     from ..data.images import resize_to_u8
 
-                    image = resize_to_u8(image, meta["resize_size"])
+                    image = resize_to_u8(image, meta["resize_size"],
+                                         center_crop_from=meta["center_crop_from"])
             except Exception as e:
                 self._send(400, {"error": repr(e)})
                 return

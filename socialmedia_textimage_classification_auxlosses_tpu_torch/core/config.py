@@ -104,6 +104,10 @@ MODEL_DIR_DICT = {
     "beit": os.environ.get("SMTC_BEIT_DIR", DATA_PATH + "hub/BEiT/"),
     "deit": os.environ.get("SMTC_DEIT_DIR", DATA_PATH + "hub/DEiT/"),
     "vilt": os.environ.get("SMTC_VILT_DIR", DATA_PATH + "hub/ViLT/"),
+    # a torchvision state dict (.npz or .pth), or a directory holding one
+    "resnet50": os.environ.get("SMTC_RESNET50_DIR", DATA_PATH + "hub/ConvModels/resnet50.npz"),
+    "resnet152": os.environ.get("SMTC_RESNET152_DIR",
+                                DATA_PATH + "hub/ConvModels/resnet152.npz"),
 }
 
 

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -40,10 +40,13 @@ class ImageCache:
             self.size = meta["size"]
             self.valid = np.asarray(meta["valid"], bool)
 
-    def build(self, ids: Sequence, img_fmt: str):
-        """Add the ids not cached yet (decoded with PIL; an image that does
+    def build(self, ids: Sequence, img_fmt: str, center_crop_from: Optional[int] = None):
+        """Add the ids not cached yet (decoded with PIL, resized or, with
+        ``center_crop_from``, resized and centre-cropped; an image that does
         not open stays a zero row, as in the JAX cache); a cache that holds
-        every id is used as it is. Splits share one cache directory."""
+        every id is used as it is, whatever recipe built it, as in the JAX
+        package (whose cache directory names only the task and the size).
+        Splits share one cache directory."""
         ids = [str(x) for x in ids]
         if self.index and all(i in self.index for i in ids):
             return self
@@ -64,7 +67,8 @@ class ImageCache:
         for k, data_id in enumerate(new_ids):
             row = len(old_index) + k
             try:
-                pixels[row] = load_pixels_u8(img_fmt, data_id, size=self.size)
+                pixels[row] = load_pixels_u8(img_fmt, data_id, size=self.size,
+                                             center_crop_from=center_crop_from)
                 valid[row] = True
             except OSError:  # an image that does not open stays a zero row
                 logger.info("failed id %s", data_id)
@@ -75,7 +79,7 @@ class ImageCache:
             json.dump({"index": self.index, "size": self.size,
                        "valid": valid.tolist(),
                        "decode_opts": {"img_fmt": img_fmt, "empty_image": None,
-                                       "center_crop_from": None,
+                                       "center_crop_from": center_crop_from,
                                        "on_missing": "zeros"}}, f)
         return self
 

@@ -3,12 +3,14 @@
 Counterpart of the JAX package's ``data/images.py``. PIL is imported only
 where an image is decoded or resized, so the module imports without it
 (training on the card reads the uint8 pixel cache of ``data/cache.py`` and
-needs no PIL). The native C++ decoder (``--img_decoder native``), the
-empty-image flow of the text-only MIC eval and the CNN center crop are not
-ported.
+needs no PIL). The CNN paths' recipe (``center_crop_from``: the shorter
+side resized to 256, then a centre crop) is carried; the native C++ decoder
+(``--img_decoder native``) is not ported.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -25,17 +27,33 @@ def open_image(path_fmt: str, data_id):
         return Image.open(path_fmt.replace("jpg", "png").format(data_id)).convert("RGB")
 
 
-def resize_to_u8(img, size: int = 224) -> np.ndarray:
-    """Bilinear resize of a PIL image to (size, size, 3) uint8, as the JAX
-    package does for the square-resize (ViT-family) towers."""
+def resize_to_u8(img, size: int = 224, center_crop_from: Optional[int] = None) -> np.ndarray:
+    """A PIL image as (size, size, 3) uint8: a bilinear resize to the square
+    (the ViT-family towers), or with ``center_crop_from`` the torchvision CNN
+    recipe of the JAX package, the shorter side resized (bilinear) to
+    ``center_crop_from`` keeping the aspect, then the centre
+    ``size`` x ``size`` crop."""
     from PIL import Image
 
-    return np.asarray(img.resize((size, size), Image.BILINEAR), dtype=np.uint8)
+    if center_crop_from:
+        w, h = img.size
+        short = min(w, h)
+        nw = int(round(w * center_crop_from / short))
+        nh = int(round(h * center_crop_from / short))
+        img = img.resize((nw, nh), Image.BILINEAR)
+        left, top = (nw - size) // 2, (nh - size) // 2
+        img = img.crop((left, top, left + size, top + size))
+    else:
+        img = img.resize((size, size), Image.BILINEAR)
+    return np.asarray(img, dtype=np.uint8)
 
 
-def load_pixels_u8(path_fmt: str, data_id, size: int = 224) -> np.ndarray:
-    """Decode and resize one image to (size, size, 3) uint8."""
-    return resize_to_u8(open_image(path_fmt, data_id), size=size)
+def load_pixels_u8(path_fmt: str, data_id, size: int = 224,
+                   center_crop_from: Optional[int] = None) -> np.ndarray:
+    """Decode and resize (or resize and centre-crop) one image to
+    (size, size, 3) uint8."""
+    return resize_to_u8(open_image(path_fmt, data_id), size=size,
+                        center_crop_from=center_crop_from)
 
 
 def vilt_exact_geometry(height: int, width: int, shortest: int = 384,

@@ -37,9 +37,10 @@ from .prep import SplitArrays
 class LazyImageSource:
     """Decode + resize on first touch (PIL), memoised in RAM as uint8."""
 
-    def __init__(self, img_fmt: str, size: int = 224):
+    def __init__(self, img_fmt: str, size: int = 224, center_crop_from: Optional[int] = None):
         self.img_fmt = img_fmt
         self.size = size
+        self.center_crop_from = center_crop_from
         self._memo: Dict[str, np.ndarray] = {}
 
     def gather(self, ids) -> np.ndarray:
@@ -49,7 +50,8 @@ class LazyImageSource:
             px = self._memo.get(key)
             if px is None:
                 try:
-                    px = load_pixels_u8(self.img_fmt, data_id, size=self.size)
+                    px = load_pixels_u8(self.img_fmt, data_id, size=self.size,
+                                        center_crop_from=self.center_crop_from)
                 except OSError:  # an image that does not open is zeros
                     px = np.zeros((self.size, self.size, 3), np.uint8)
                 self._memo[key] = px
@@ -236,9 +238,11 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict:
 
 
 def make_image_source(img_fmt: str, ids=None, size: int = 224,
+                      center_crop_from: Optional[int] = None,
                       cache_dir: Optional[str] = None, use_cache: bool = False):
     """The uint8 cache under ``cache_dir`` when asked (``--use_saved_features``;
-    missing ids are decoded into it), else memoised lazy decoding."""
+    missing ids are decoded into it), else memoised lazy decoding; either
+    with the CNN recipe when ``center_crop_from`` is given."""
     if use_cache and cache_dir and ids is not None:
-        return ImageCache(cache_dir, size=size).build(ids, img_fmt)
-    return LazyImageSource(img_fmt, size=size)
+        return ImageCache(cache_dir, size=size).build(ids, img_fmt, center_crop_from)
+    return LazyImageSource(img_fmt, size=size, center_crop_from=center_crop_from)

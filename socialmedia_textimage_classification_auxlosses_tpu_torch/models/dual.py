@@ -1,8 +1,9 @@
 """Vision-text dual encoder.
 
 Counterpart of the JAX package's ``models/dual.py``: text tower + vision
-tower, CLIP-style projections of the pooled outputs and a learnable
-temperature; ``logits_per_text`` is the scaled cosine similarity.
+tower (ViT/DeiT, or BEiT with ``vision_arch="beit"``), CLIP-style
+projections of the pooled outputs and a learnable temperature;
+``logits_per_text`` is the scaled cosine similarity.
 """
 
 from __future__ import annotations
@@ -20,12 +21,17 @@ class DualEncoder(nn.Module):
                  vision_arch: str = "vit", projection_dim: int = 512,
                  logit_scale_init: float = 2.6592):
         super().__init__()
-        if vision_arch != "vit":
-            raise ValueError(f"vision_arch {vision_arch!r} is not ported yet")
         self.text = BertEncoder(text_cfg)
-        self.vision = ViTEncoder(vision_cfg, patch=patch, image_size=image_size,
-                                 num_prefix_tokens=num_prefix_tokens,
-                                 pooling=vision_pooling)
+        if vision_arch == "beit":
+            from .beit import BeitEncoder
+
+            self.vision = BeitEncoder(vision_cfg, patch=patch, image_size=image_size)
+        elif vision_arch == "vit":
+            self.vision = ViTEncoder(vision_cfg, patch=patch, image_size=image_size,
+                                     num_prefix_tokens=num_prefix_tokens,
+                                     pooling=vision_pooling)
+        else:
+            raise ValueError(f"unknown vision_arch {vision_arch!r}")
         self.text_proj = nn.Linear(text_cfg.hidden, projection_dim, bias=False)
         self.visual_proj = nn.Linear(vision_cfg.hidden, projection_dim, bias=False)
         self.logit_scale = nn.Parameter(torch.tensor(logit_scale_init))

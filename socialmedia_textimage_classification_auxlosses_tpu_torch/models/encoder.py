@@ -490,8 +490,11 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Random init from ``generator``, after flax's initializers: dense and
     conv weights lecun-normal (std 1/sqrt(fan_in)), biases zero, embeddings
     normal with std 1/sqrt(width), LayerNorm scale one, ``pos_embed`` normal
-    0.02, ``prefix_tokens`` zero. The JAX package draws other numbers from
-    the same seed: tests carry weights across with ``models/from_jax.py``."""
+    0.02, ``prefix_tokens`` zero, and the constants a module sets in its own
+    ``init_constants`` (BEiT's tables, tokens and layer scales, BatchNorm's
+    scale and running statistics, the conv attention's gate), as flax
+    initialises them. The JAX package draws other numbers from the same seed:
+    tests carry weights across with ``models/from_jax.py``."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, (nn.Linear, nn.Conv2d)):
@@ -507,6 +510,8 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
             elif isinstance(m, PatchEmbeddings):
                 m.pos_embed.normal_(0.0, 0.02, generator=generator)
                 m.prefix_tokens.zero_()
+            elif hasattr(m, "init_constants"):  # BEiT's, BatchNorm's, ... own constants
+                m.init_constants()
 
 
 def stack_seed_models(models) -> nn.Module:

@@ -15,15 +15,19 @@ architecture. The modules use the flax names, so the map is mechanical:
 * the text-only ``TextClassifier``'s ``tower`` / ``classifier`` keep their
   names (``models/text.py`` names its modules so)
 * the ``scan_layers`` layout ``layers/layer/...``, whose leaves carry a
-  leading layer axis, -> ``layers.{i}.…`` one slice per layer.
+  leading layer axis, -> ``layers.{i}.…`` one slice per layer;
+* flax's ``batch_stats`` collection (a ResNet's BatchNorm ``mean`` /
+  ``var``), beside ``params`` -> the BatchNorm buffers ``running_mean`` /
+  ``running_var`` (``models/resnet.py::BatchNorm``).
 
 Any parameter of the module that the tree lacks, any leaf of the tree that
 the module lacks, and any shape that differs raise ``ValueError``. The
 tree's leaves may be numpy arrays or CPU torch tensors (bfloat16 ones are
 widened to float32, which is exact).
 
-``jax_tree_from_torch`` is the inverse: a module's parameters as the JAX
-package's tree ``{"params": {...}}``, unrolled or in the ``scan_layers``
+``jax_tree_from_torch`` is the inverse: a module's parameters (and BatchNorm
+buffers) as the JAX package's tree ``{"params": {...}}`` (``{"params",
+"batch_stats"}`` for a model with BatchNorm), unrolled or in the ``scan_layers``
 layout (JAX ``hf_import.py::stack_scan_layers``), with torch tensors as
 leaves, for ``train/flax_msgpack.py`` to write where flax is absent.
 """
@@ -37,7 +41,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from .resnet import BatchNorm
+
 _LEAF_NAMES = {"kernel": "weight", "embedding": "weight", "scale": "weight"}
+_STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
 _LAYER = re.compile(r"layer_(\d+)$")
 
 
@@ -69,9 +76,18 @@ def _convert_leaf(name: str, array: np.ndarray) -> Tuple[str, np.ndarray]:
 
 
 def torch_state_from_jax(tree: Mapping) -> Dict[str, np.ndarray]:
-    """The JAX tree as a flat ``{state_dict key: array}`` in torch layouts."""
-    if set(tree) == {"params"}:
-        tree = tree["params"]
+    """The JAX tree as a flat ``{state_dict key: array}`` in torch layouts:
+    ``{"params"}``, ``{"params", "batch_stats"}`` or a bare parameter
+    tree."""
+    if "params" in tree and set(tree) <= {"params", "batch_stats"}:
+        out = _state_of(tree["params"], _convert_leaf)
+        out.update(_state_of(tree.get("batch_stats", {}),
+                             lambda leaf, array: (_STAT_NAMES[leaf], array)))
+        return out
+    return _state_of(tree, _convert_leaf)
+
+
+def _state_of(tree: Mapping, convert) -> Dict[str, np.ndarray]:
     out: Dict[str, np.ndarray] = {}
     for path, array in _flatten(tree):
         *mods, leaf = path
@@ -79,12 +95,12 @@ def torch_state_from_jax(tree: Mapping) -> Dict[str, np.ndarray]:
             if mods[i] == "layers" and mods[i + 1] == "layer":  # scan layout
                 head, tail = mods[:i], mods[i + 2:]
                 for layer, sliced in enumerate(array):
-                    name, conv = _convert_leaf(leaf, np.asarray(sliced))
+                    name, conv = convert(leaf, np.asarray(sliced))
                     out[".".join(head + ["layers", str(layer)] + tail + [name])] = conv
                 break
         else:
             mods = [f"layers.{m.group(1)}" if (m := _LAYER.match(s)) else s for s in mods]
-            name, conv = _convert_leaf(leaf, array)
+            name, conv = convert(leaf, array)
             out[".".join(mods + [name])] = conv
     return out
 
@@ -120,7 +136,7 @@ def _jax_leaf(module: nn.Module, name: str, value: torch.Tensor) -> Tuple[str, t
         return "kernel", value.permute(2, 3, 1, 0).contiguous()  # OIHW -> HWIO
     if isinstance(module, nn.Embedding):
         return "embedding", value
-    if isinstance(module, nn.LayerNorm):
+    if isinstance(module, (nn.LayerNorm, BatchNorm)):
         return "scale", value
     raise ValueError(f"a weight of {type(module).__name__} has no flax name here")
 
@@ -150,16 +166,23 @@ def _stack_layers(node: Dict) -> Dict:
 def jax_tree_from_torch(module: nn.Module, scan_layers: bool = False) -> Dict:
     """The inverse of ``torch_state_from_jax``: ``module``'s parameters as
     the JAX tree ``{"params": {...}}`` (Linear (out, in) -> Dense kernel (in,
-    out), Conv2d OIHW -> HWIO, Embedding / LayerNorm weight -> ``embedding`` /
-    ``scale``, ``layers.{i}`` -> ``layer_{i}``), detached CPU tensors in the
-    parameters' dtypes; with ``scan_layers``, each layer stack stacked as
-    ``layers/layer``. A module with buffers in its state dict raises: the
-    tree holds parameters only."""
-    buffers = [n for n in module.state_dict() if n not in dict(module.named_parameters())]
+    out), Conv2d OIHW -> HWIO, Embedding / LayerNorm / BatchNorm weight ->
+    ``embedding`` / ``scale``, ``layers.{i}`` -> ``layer_{i}``), detached CPU
+    tensors in the parameters' dtypes, and the BatchNorm buffers as
+    ``{"batch_stats": {... {"mean", "var"}}}`` beside them; with
+    ``scan_layers``, each layer stack stacked as ``layers/layer``. Any other
+    buffer in the state dict raises: the tree holds parameters and
+    BatchNorm statistics only."""
+    stat_leaves = {v: k for k, v in _STAT_NAMES.items()}
+    params = dict(module.named_parameters())
+    stats = {f"{n}.{b}" for n, m in module.named_modules() if isinstance(m, BatchNorm)
+             for b in stat_leaves}
+    buffers = [n for n in module.state_dict() if n not in params and n not in stats]
     if buffers:
         raise ValueError(f"{type(module).__name__} has buffers {buffers[:4]}, which a JAX "
                          "parameter tree does not hold")
     tree: Dict = {}
+    batch_stats: Dict = {}
     for mod_name, mod in module.named_modules():
         segments = mod_name.split(".") if mod_name else []
         path, i = [], 0
@@ -170,10 +193,17 @@ def jax_tree_from_torch(module: nn.Module, scan_layers: bool = False) -> Dict:
             else:
                 path.append(segments[i])
                 i += 1
-        for leaf, p in mod.named_parameters(recurse=False):
-            name, value = _jax_leaf(mod, leaf, p.detach().cpu())
-            node = tree
+        leaves = [(tree, *_jax_leaf(mod, leaf, p.detach().cpu()))
+                  for leaf, p in mod.named_parameters(recurse=False)]
+        if isinstance(mod, BatchNorm):
+            leaves += [(batch_stats, stat_leaves[leaf], b.detach().cpu())
+                       for leaf, b in mod.named_buffers(recurse=False)]
+        for root, name, value in leaves:
+            node = root
             for seg in path:
                 node = node.setdefault(seg, {})
             node[name] = value
-    return {"params": _stack_layers(tree) if scan_layers else tree}
+    out = {"params": _stack_layers(tree) if scan_layers else tree}
+    if batch_stats:
+        out["batch_stats"] = _stack_layers(batch_stats) if scan_layers else batch_stats
+    return out

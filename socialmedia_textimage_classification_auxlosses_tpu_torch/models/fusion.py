@@ -14,8 +14,11 @@ four fusion heads + the classification and auxiliary heads.
 The head dropout (rate ``dropout``, the CLI's ``--dropout``) acts on the fused
 feature before ``linear_cls`` and ``linear_iadds``, not before ``linear_tim``,
 as in the JAX module; like the towers' dropout it draws from the forward's
-``gen`` and is the identity in eval mode. ``MMCnnModel`` (the ResNet fusion
-path) is not ported yet.
+``gen`` and is the identity in eval mode.
+
+``MMCnnModel`` is the CNN fusion path (``concat_cnn`` / ``xatt``): a
+BERT-family text tower and a ResNet trunk in float32 whatever the text
+tower's dtype, as the JAX module builds its trunk without one.
 """
 
 from __future__ import annotations
@@ -26,8 +29,9 @@ from torch import nn
 
 from ..ops.attention import sdpa
 from .dual import DualEncoder
-from .encoder import (EncoderConfig, dense, dropout, linear, seed_cat, seed_count, seed_head,
-                      seed_tail)
+from .encoder import (BertEncoder, EncoderConfig, dense, dropout, linear, seed_cat, seed_count,
+                      seed_head, seed_tail)
+from .resnet import STAGE_SIZES, ResNet
 
 FUSION_NAMES = ("concat", "attention", "aspect-att", "gmu")
 
@@ -165,3 +169,47 @@ class MMLateModel(nn.Module):
             "out_iadds": out_iadds,
             "mm_features": fused,
         }
+
+
+class MMCnnModel(nn.Module):
+    """Text tower + ResNet trunk, the JAX ``MMCnnModel``. The final 7x7
+    conv map (float32) is projected to the text width (``conv_proj``, 49
+    tokens); ``concat_cnn`` concatenates the text CLS with the tokens' mean,
+    ``xatt`` with the CLS query's single-head attention over the tokens,
+    computed inline in float32 (the JAX module's ``impl="jnp"``, no
+    kernel); then ``linear_fusion`` + ReLU, the head dropout and
+    ``linear_cls``. ``forward(..., train)`` trains the trunk's BatchNorm
+    statistics (the JAX ``train``; dropout follows the module's mode). The
+    trunk's ``fc`` is built and never read, as in the JAX module, so it
+    decays under AdamW without a gradient."""
+
+    def __init__(self, text_cfg: EncoderConfig, cnn_name: str, num_labels: int,
+                 fusion_name: str = "concat_cnn", dropout: float = 0.05):
+        super().__init__()
+        if fusion_name not in ("concat_cnn", "xatt"):
+            raise ValueError(f"unknown CNN fusion {fusion_name}")
+        self.text_cfg = text_cfg
+        self.fusion_name = fusion_name
+        self.dropout = dropout
+        h = text_cfg.hidden
+        self.text = BertEncoder(text_cfg)
+        self.cnn = ResNet(STAGE_SIZES[cnn_name], num_labels)
+        self.conv_proj = nn.Linear(self.cnn.fc.in_features, h)
+        self.linear_fusion = nn.Linear(2 * h, h)
+        self.linear_cls = nn.Linear(h, num_labels)
+
+    def forward(self, ids, attention_mask, pixel_values, token_type_ids=None,
+                train: bool = False, gen=None):
+        text_hidden, text_pooled = self.text(ids, attention_mask, token_type_ids, gen)
+        _, fmap = self.cnn(pixel_values, train, return_features=True)
+        conv_tokens = self.conv_proj(fmap.flatten(2).transpose(1, 2).float())
+        cls = text_hidden[:, 0, :].float()
+        if self.fusion_name == "xatt":
+            scores = torch.bmm(cls[:, None, :], conv_tokens.transpose(1, 2)) * cls.shape[-1] ** -0.5
+            ctx = torch.bmm(torch.softmax(scores, dim=-1), conv_tokens)[:, 0, :]
+            feat = torch.cat([cls, ctx], -1)
+        else:  # concat_cnn
+            feat = torch.cat([cls, conv_tokens.mean(dim=1)], -1)
+        fused = dropout(F.relu(self.linear_fusion(feat)), self.dropout, self.training, gen)
+        return {"out_cls": self.linear_cls(fused), "text_pooled": text_pooled,
+                "mm_features": fused}

@@ -2,7 +2,9 @@
 
 Counterpart of the JAX package's ``models/hf_import.py`` for the towers the
 port has: a Hugging Face checkpoint directory (BERT / RoBERTa / Bernice, ViT /
-DeiT, ViLT) or a reference-trained ``MM_Model`` / ``ViLT`` state dict is read
+DeiT, BEiT, ViLT), a torchvision ResNet state dict (``.pth`` or ``.npz``; its
+BatchNorm running statistics land in the port's buffers, flax's
+``batch_stats``) or a reference-trained ``MM_Model`` / ``ViLT`` state dict is read
 into numpy, mapped tensor by tensor onto the flax-layout tree the JAX package
 builds (the same functions, copied here), and that tree goes through
 ``models/from_jax.py::torch_state_from_jax`` (dense kernels transposed back,
@@ -199,6 +201,73 @@ def import_vit_tower(state: Dict[str, np.ndarray], num_layers: int,
     return tree
 
 
+def import_beit_tower(state: Dict[str, np.ndarray], num_layers: int) -> dict:
+    """HF BeitModel state dict -> the BeitEncoder tree (per-layer relative
+    position table, layer-scale lambdas, no key bias, the mean-pool
+    LayerNorm pooler)."""
+    state = strip_prefix(state)
+    proj_w = state["embeddings.patch_embeddings.projection.weight"]
+    tree: dict = {
+        "cls_token": state["embeddings.cls_token"].copy(),
+        "proj": {
+            "kernel": np.transpose(proj_w, (2, 3, 1, 0)).copy(),
+            "bias": state["embeddings.patch_embeddings.projection.bias"].copy(),
+        },
+        "pool_ln": _ln(state, "pooler.layernorm"),
+    }
+    for i in range(num_layers):
+        p = f"encoder.layer.{i}"
+        att = f"{p}.attention.attention"
+        tree[f"layer_{i}"] = {
+            "lambda_1": state[f"{p}.lambda_1"].copy(),
+            "lambda_2": state[f"{p}.lambda_2"].copy(),
+            "attention": {
+                "query": _dense(state, f"{att}.query"),
+                "key": _dense_nobias(state, f"{att}.key"),
+                "value": _dense(state, f"{att}.value"),
+                "out": _dense(state, f"{p}.attention.output.dense"),
+                "rel_pos_table": state[
+                    f"{att}.relative_position_bias.relative_position_bias_table"].copy(),
+            },
+            "ln_attn": _ln(state, f"{p}.layernorm_before"),
+            "mlp": _mlp(state, p),
+            "ln_mlp": _ln(state, f"{p}.layernorm_after"),
+        }
+    return tree
+
+
+def _conv(state, key):
+    return {"kernel": np.transpose(state[f"{key}.weight"], (2, 3, 1, 0)).copy()}
+
+
+def _bn(state, key):
+    return ({"scale": state[f"{key}.weight"].copy(), "bias": state[f"{key}.bias"].copy()},
+            {"mean": state[f"{key}.running_mean"].copy(),
+             "var": state[f"{key}.running_var"].copy()})
+
+
+def import_resnet(state: Dict[str, np.ndarray], stage_sizes) -> dict:
+    """torchvision resnet state dict -> the ``{"params", "batch_stats"}``
+    trees of ``models/resnet.py::ResNet``; the ``fc`` head is skipped (the
+    classifier's head is new, of ``num_labels``)."""
+    params: dict = {"stem_conv": _conv(state, "conv1")}
+    stats: dict = {}
+    params["stem_bn"], stats["stem_bn"] = _bn(state, "bn1")
+    for s, blocks in enumerate(stage_sizes):
+        for b in range(blocks):
+            src, dst = f"layer{s + 1}.{b}", f"stage{s}_block{b}"
+            node_p: dict = {}
+            node_s: dict = {}
+            for c in (1, 2, 3):
+                node_p[f"conv{c}"] = _conv(state, f"{src}.conv{c}")
+                node_p[f"bn{c}"], node_s[f"bn{c}"] = _bn(state, f"{src}.bn{c}")
+            if f"{src}.downsample.0.weight" in state:
+                node_p["down_conv"] = _conv(state, f"{src}.downsample.0")
+                node_p["down_bn"], node_s["down_bn"] = _bn(state, f"{src}.downsample.1")
+            params[dst], stats[dst] = node_p, node_s
+    return {"params": params, "batch_stats": stats}
+
+
 def import_vilt(state: Dict[str, np.ndarray], num_layers: int) -> dict:
     """HF ViltModel state dict -> the ViltBackbone tree."""
     state = strip_prefix(state)
@@ -360,3 +429,30 @@ def maybe_import_vilt(module: nn.Module, model_dir: Optional[str], num_layers: i
     if state is None:
         return []
     return merge_into(module, import_vilt(state, num_layers), prefix)
+
+
+def maybe_import_beit_tower(module: nn.Module, model_dir: Optional[str], num_layers: int,
+                            prefix: str = "dual.vision.") -> List[str]:
+    """Import the BEiT tower from ``model_dir`` when it holds a checkpoint;
+    returns the keys written."""
+    state = load_state_dict(model_dir)
+    if state is None:
+        return []
+    return merge_into(module, import_beit_tower(state, num_layers), prefix)
+
+
+def maybe_import_resnet(module: nn.Module, weight_path: Optional[str], model_name: str,
+                        prefix: str = "") -> List[str]:
+    """Import a torchvision ResNet from ``weight_path`` (a ``.pth`` or
+    ``.npz`` file, or a checkpoint directory) into the ResNet below
+    ``prefix`` (``"cnn."`` in ``MMCnnModel``, ``"trunk."`` under
+    ``--conv_att``), its running statistics into the BatchNorm buffers;
+    returns the keys written (none when there is no checkpoint)."""
+    from .resnet import STAGE_SIZES
+
+    state = load_torch_file(weight_path)
+    if state is None and weight_path and os.path.isdir(weight_path):
+        state = load_state_dict(weight_path)
+    if state is None:
+        return []
+    return merge_into(module, import_resnet(state, STAGE_SIZES[model_name]), prefix)

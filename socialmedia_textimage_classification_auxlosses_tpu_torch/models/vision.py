@@ -1,6 +1,18 @@
-"""Image tower configurations and geometry.
+"""Image towers and their classification heads.
 
-Counterpart of the JAX package's ``models/vision.py`` (configuration part).
+Counterpart of the JAX package's ``models/vision.py``: the tower
+configurations, geometry and pixel norms, and the image-only classifiers
+of ``cli/run_img.py``:
+
+* ``vit``  - ViT-B/16, the head a linear layer over the final-LN CLS token;
+* ``deit`` - distilled ViT (CLS + distillation prefix tokens), the head over
+  the tanh CLS pooler;
+* ``beit`` - the BEiT tower of ``models/beit.py``, the head over its pooled
+  output (LayerNorm of the mean patch token);
+* ``resnet50`` / ``resnet152`` - ``models/resnet.py``.
+
+Every head is a float32 linear layer named ``classifier`` (ResNet's ``fc``)
+over a tower named ``tower``, as in the flax tree.
 """
 
 from __future__ import annotations
@@ -9,7 +21,9 @@ import json
 import os
 from typing import Optional
 
-from .encoder import EncoderConfig
+from torch import nn
+
+from .encoder import EncoderConfig, ViTEncoder
 
 VISION_PRESETS = {
     "vit": dict(patch=16, image_size=224, num_prefix_tokens=1, pooling="tanh"),
@@ -68,3 +82,62 @@ def vit_geometry(model_name: str, model_dir: Optional[str] = None) -> dict:
         geo["patch"] = hf.get("patch_size", geo["patch"])
         geo["image_size"] = hf.get("image_size", geo["image_size"])
     return geo
+
+
+class BeitClassifier(nn.Module):
+    """BEiT tower + linear head over the pooled output."""
+
+    def __init__(self, cfg: EncoderConfig, num_labels: int, patch: int = 16,
+                 image_size: int = 224):
+        super().__init__()
+        from .beit import BeitEncoder
+
+        self.cfg = cfg
+        self.tower = BeitEncoder(cfg, patch=patch, image_size=image_size)
+        self.classifier = nn.Linear(cfg.hidden, num_labels)
+
+    def forward(self, pixel_values, gen=None):
+        _, pooled = self.tower(pixel_values, gen)
+        return self.classifier(pooled.float())
+
+
+class VisionClassifier(nn.Module):
+    """ViT/DeiT tower + head; ``head_on`` "cls" reads the final-LN CLS token
+    (ViT), "pooled" the tanh pooler (DeiT). Returns the logits."""
+
+    def __init__(self, cfg: EncoderConfig, num_labels: int, patch: int = 16,
+                 image_size: int = 224, num_prefix_tokens: int = 1,
+                 pooling: str = "tanh", head_on: str = "cls"):
+        super().__init__()
+        self.cfg = cfg
+        self.head_on = head_on
+        self.tower = ViTEncoder(cfg, patch=patch, image_size=image_size,
+                                num_prefix_tokens=num_prefix_tokens, pooling=pooling)
+        self.classifier = nn.Linear(cfg.hidden, num_labels)
+
+    def forward(self, pixel_values, gen=None):
+        hidden, pooled = self.tower(pixel_values, gen)
+        feat = hidden[:, 0, :] if self.head_on == "cls" else pooled
+        return self.classifier(feat.float())
+
+
+def build_vision_classifier(model_name: str, num_labels: int, model_dir: Optional[str] = None,
+                            dtype: str = "float32", attn_impl: str = "auto",
+                            conv_att: bool = False, **overrides) -> nn.Module:
+    """The image-only classifier of ``model_name``; the CNNs through
+    ``models/resnet.py::build_resnet_classifier`` (``conv_att``: the
+    attention-CNN)."""
+    if model_name in CNN_MODELS:
+        from .resnet import build_resnet_classifier
+
+        return build_resnet_classifier(model_name, num_labels, dtype=dtype, conv_att=conv_att)
+    cfg = vision_encoder_config(model_name, model_dir, dtype=dtype, attn_impl=attn_impl,
+                                **overrides)
+    geo = vit_geometry(model_name, model_dir)
+    if model_name == "beit":
+        return BeitClassifier(cfg, num_labels, patch=geo["patch"],
+                              image_size=geo["image_size"])
+    return VisionClassifier(cfg, num_labels, patch=geo["patch"], image_size=geo["image_size"],
+                            num_prefix_tokens=geo["num_prefix_tokens"],
+                            pooling=geo["pooling"],
+                            head_on="cls" if model_name == "vit" else "pooled")

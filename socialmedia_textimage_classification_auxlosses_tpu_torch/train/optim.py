@@ -31,8 +31,10 @@ tensors on every replay. ``reset`` and ``load_state_dict`` write in place
 too.
 
 Frozen parameters (every name with a ``vision`` segment: the dual encoder's
-vision tower, as the reference freezes it) have no optimizer state and never
-move. A trainable parameter that got no gradient (a head the loss does not
+vision tower, as the reference freezes it; under ``--feature_extract`` every
+name without an ``fc`` segment) have no optimizer state and never move.
+BatchNorm running statistics are buffers, not parameters, so they never
+reach AdamW (the JAX ``batch_stats_predicate``). A trainable parameter that got no gradient (a head the loss does not
 use) takes a zero gradient, so it still decays, as under optax.
 """
 
@@ -47,6 +49,12 @@ def vision_frozen(name: str) -> bool:
     """The JAX ``vision_frozen_predicate``: a parameter under any scope
     whose name contains ``vision``."""
     return any("vision" in seg for seg in name.split("."))
+
+
+def feature_extract_frozen(name: str) -> bool:
+    """The JAX ``feature_extract_predicate`` (``--feature_extract``): every
+    parameter but the ``fc`` heads'."""
+    return "fc" not in name.split(".")
 
 
 class AdamW:

@@ -347,16 +347,31 @@ def _make_many(run: Callable, warmup: Callable) -> Callable:
     return many
 
 
+def _buffers_kept(model: torch.nn.Module, fn: Callable) -> Callable:
+    """``fn`` with the model's buffers (BatchNorm running statistics) put
+    back as they were after it: a graph's warm-up step must not move them."""
+    def run(*args):
+        saved = [b.clone() for b in model.buffers()]
+        out = fn(*args)
+        with torch.no_grad():
+            for b, s in zip(model.buffers(), saved):
+                b.copy_(s)
+        return out
+
+    return run
+
+
 def make_train_many(train_step: TrainStep) -> Callable:
     """The JAX ``make_train_many``: ``many(batches, k_real, gen)`` runs
     ``train_step`` over the first ``k_real`` batches of a chunk
     (``SplitPipeline.device_iter_chunks``) and returns each metric as a
     (k_real,) device tensor. The trajectory is that of ``k_real`` calls of
     ``train_step(batch, gen)``: on a CUDA device each step replays one CUDA
-    graph of the step (forward, ``autograd.grad``, AdamW; warmed up by the
-    step's gradients drawn from a scratch generator); on the CPU the steps
-    run eagerly."""
-    return _make_many(train_step, train_step.gradients)
+    graph of the step (forward, ``autograd.grad``, AdamW, and the
+    BatchNorm buffers' updates of a train-mode forward; warmed up by the
+    step's gradients drawn from a scratch generator, the buffers put back
+    after it); on the CPU the steps run eagerly."""
+    return _make_many(train_step, _buffers_kept(train_step.model, train_step.gradients))
 
 
 def make_eval_many(eval_step: EvalStep) -> Callable:

@@ -5,7 +5,9 @@ columns identical and values within 1e-12 relative: pandas' fast CSV float
 parser may round a value's last bit another way), a missing run flagged,
 the runners the port lacks refused, and at fixture scale the same tables
 under ``--seed_backend sequential`` and ``vmap`` (as ``tests/test_grid.py``
-holds the JAX grid runner: floats rtol 5e-3 / atol 1e-4, the rest equal)."""
+holds the JAX grid runner: floats rtol 5e-3 / atol 1e-4, the rest equal);
+the ``img`` family runs through ``run_img`` under both backends (``vmap``
+runs its seeds one by one, as the JAX grid runner does)."""
 
 import csv
 import os
@@ -28,6 +30,9 @@ PLANS = [
      "--aux", "none,itc", "--", "--nsamples", "100", "--testing"],
     ["--families", "mm_early,txt", "--txt", "bert,bernice", "--tasks", "6", "--seeds", "1,2,3",
      "--aux", "itm", "--beta_itm", "0.3", "--epochs", "3", "--", "--testing"],
+    ["--families", "img,mm_late", "--img", "vit,beit,resnet152", "--mm_late",
+     "bernice-resnet50-xatt,bert-beit-gmu", "--tasks", "3,6", "--seeds", "30,40",
+     "--aux", "none", "--", "--testing"],
 ]
 
 
@@ -38,7 +43,7 @@ def results(tmp_path, monkeypatch):
     return tmp_path
 
 
-@pytest.mark.parametrize("argv", PLANS, ids=["families", "runner_args", "txt_early"])
+@pytest.mark.parametrize("argv", PLANS, ids=["families", "runner_args", "txt_early", "img"])
 def test_plan_and_paths_equal_the_jax_plan(results, argv):
     want, got = J.build_plan(J.parse_args(argv)), T.build_plan(T.parse_args(argv))
     assert [(r.family, r.model, r.task, r.seed, r.aux, r.argv, r.val_csv, r.test_csv)
@@ -111,7 +116,7 @@ def test_missing_run_is_flagged(results):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["--families", "img"], "item 5"),
+    (["--families", "img,mm_early", "--mm_early", "mmbt"], "item 6"),
     (["--families", "mm_early", "--mm_early", "vilt,lxmert"], "item 6"),
     (["--families", "mm_early", "--mm_early", "mmbt"], "item 6"),
 ], ids=["img", "lxmert", "mmbt"])
@@ -169,3 +174,24 @@ def test_grid_backends_give_the_same_tables(tmp_path, monkeypatch):
     assert len(runs) == 5 and all(r[5] == "ok" for r in runs[1:])
     md = {k: open(v + "grid_table_f1_macro.md").read() for k, v in outs.items()}
     assert "| bert-vit-concat [mm_late] +ITC+ITM |" in md["vmap"]
+
+
+def test_img_family_runs_under_both_backends(tmp_path, monkeypatch):
+    """Two seeds of a tiny ViT through ``run_img``: ``vmap`` runs them one by
+    one (not a late-fusion family), so both backends write the same tables."""
+    csv_path, img_fmt, _ = make_task_fixture(tmp_path / "data", task=3)
+    patch_task(monkeypatch, TC, 3, csv_path, img_fmt, tmp_path / "results")
+    hub = tmp_path / "hub"
+    hub.mkdir()
+    (hub / "config.json").write_text('{"image_size": 32, "patch_size": 16}')
+    monkeypatch.setitem(TC.MODEL_DIR_DICT, "vit", str(hub) + os.sep)
+    base = ["--families", "img", "--img", "vit", "--tasks", "3", "--seeds", "30,40",
+            "--epochs", "1", "--force"]
+    tables = {}
+    for backend in ("sequential", "vmap"):
+        out = str(tmp_path / backend) + os.sep
+        assert T.main(base + ["--seed_backend", backend, "--out", out, "--"] + FAST) == 0
+        runs = _read(out + "grid_runs.csv")
+        assert [r[:3] + r[5:6] for r in runs[1:]] == [["img", "vit", "3", "ok"]] * 2
+        tables[backend] = open(out + "grid_table_f1_macro.md").read()
+    assert "| vit [img] |" in tables["vmap"] and tables["vmap"] == tables["sequential"]

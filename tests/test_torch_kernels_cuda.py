@@ -26,7 +26,10 @@ hold (296, 185, 402, the longest key row, ragged and wide head dims), the
 tensor-core pair at its edges (Lq != Lk both ways, a fully masked row at
 402, head dims 32 and 128), the query-tiled pair asked for at the block
 kernel's own shape and the block kernel asked for at the pair's, every
-gradient, with the same tolerances against each gradient's scale; and
+gradient, with the same tolerances against each gradient's scale (also
+the image-only runner's trained ViT and DeiT: the tensor-core pair at
+16x12x197x197x64 and 198, unmasked; the fused block's backward at 16x197
+and 16x198 x768, its TN weight gradients over 3,152 and 3,168 rows); and
 autograd round trips through ``sdpa`` and ``attn_block`` (at 128 and at
 ViLT's 402) show that the gradient on the card comes from the backward
 kernels.
@@ -46,7 +49,7 @@ plain version's f32 sum; a shape TMA cannot describe is refused. Its NN
 orientation (dctx and dx of kernel 8, the weight read MN-major) and TN
 orientation (the weight gradients, both operands MN-major, K cut into
 slices) are held the same way at M (NN) or K rows (TN) of 1, 63, 64, 65,
-4,096 and 12,864 and widths 768 and 2,304; two TN runs with the K rows cut
+3,152, 3,168, 4,096 and 12,864 and widths 768 and 2,304; two TN runs with the K rows cut
 into slices agree bit for bit, and misaligned or odd-width operands are
 refused before any launch.
 """
@@ -198,6 +201,9 @@ SDPA_BWD_CASES = {
     "tc_head32": (2, 3, 150, 201, 32, True, True),
     "tc_head128": (2, 3, 150, 201, 128, True, False),
     "tc_five_rows": (2, 2, 5, 130, 64, True, False),
+    # the image-only runner's trained towers, unmasked: ViT-B/16 and DeiT-B/16
+    "tc_image_train": (16, 12, 197, 197, 64, False, False),
+    "tc_deit_train": (16, 12, 198, 198, 64, False, False),
 }
 
 
@@ -269,6 +275,10 @@ BLOCK_BWD_CASES = {
     "row_pair_two_tokens_head768": (4, 2, 768, 1, True),
     "row_pair_one_token": (3, 1, 64, 1, False),
     "row_pair_masked_row": (3, 3, 96, 3, "empty"),
+    # the image-only runner's ViT / DeiT under --attn_impl fused: 3,152 and
+    # 3,168 rows, no multiple of the GEMMs' 128-row tile
+    "image_train": (16, 197, 768, 12, False),
+    "deit_train": (16, 198, 768, 12, False),
 }
 
 
@@ -542,7 +552,7 @@ def test_gemm_nt_refuses_what_tma_cannot_describe(cuda):
     assert AB.gemm_launches.count == before
 
 
-NN_TN_ROWS = [1, 63, 64, 65, 4096, 12864]
+NN_TN_ROWS = [1, 63, 64, 65, 3152, 3168, 4096, 12864]  # 3,152 / 3,168: ViT / DeiT x 16
 
 
 def _within_a_bf16_step(got, want, what):

@@ -120,7 +120,7 @@ REFUSED = [
     ["--mesh_model", "2"], ["--bucket_seq"],
     ["--bucket_group"], ["--opt_impl", "lazy_emb"], ["--tim_reuse_text"],
     ["--cache_vision"], ["--quantize", "w8"], ["--img_decoder", "native"],
-    ["--img_model_name", "beit"],
+    ["--img_model_name", "beit", "--cache_vision"],
 ]
 # refused until the port carried them; tests/test_torch_run_control.py runs them
 PORTED = [

@@ -139,8 +139,8 @@ def test_microbatcher_and_http_round_trip(f32_services):
 @pytest.mark.parametrize("extra", [
     ["--model", "vilt"], ["--quantize", "w8"], ["--extra_model", "e:model=vilt"],
     ["--workers", "2"], ["--img_decoder", "native"], ["--model", "mmbt"],
-    ["--img_model_name", "resnet50", "--fusion_name", "concat_cnn"],
-    ["--img_model_name", "beit"], ["--attn_impl", "nonsense"],
+    ["--img_model_name", "resnet50", "--fusion_name", "attention"],
+    ["--model", "lxmert"], ["--attn_impl", "nonsense"],
 ])
 def test_unported_flags_refuse_to_start(extra):
     args = tserve.parse_args(BASE + ["--device", "cpu", "--random_init"] + extra)
