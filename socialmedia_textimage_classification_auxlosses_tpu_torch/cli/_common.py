@@ -54,7 +54,9 @@ def add_common_args(parser: argparse.ArgumentParser, multimodal: bool = False):
                             help="use the uint8 pixel cache")
     parser.add_argument("--dtype", type=str, default="bfloat16",
                         choices=["bfloat16", "float32"],
-                        help="activation compute dtype")
+                        help="activation compute dtype; float32 is float32 "
+                             "everywhere (no TF32 in matrix products or "
+                             "convolutions, cli/_common.py::set_precision_policy)")
     parser.add_argument("--attn_impl", type=str, default="auto",
                         choices=["auto", "pallas", "pallas_interpret", "jnp",
                                  "fused", "fused_interpret"],
@@ -220,9 +222,22 @@ def seed_everything(seed: int) -> torch.Generator:
     return torch.Generator().manual_seed(seed)
 
 
+def set_precision_policy() -> None:
+    """The port's one float32 policy: float32 means float32 everywhere, so
+    neither cuBLAS's matrix products nor cuDNN's convolutions may round
+    their float32 inputs to TF32 (PyTorch's default leaves cuDNN on TF32).
+    ``--dtype bfloat16`` is unaffected; the float32 parts of a bfloat16 run
+    (a CNN late-fusion trunk, the heads) stay float32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
 def resolve_device(name: str) -> torch.device:
     """``cuda`` (the default of every entry point) or ``cpu``. Asking for
-    CUDA where there is none raises: nothing falls back to the CPU."""
+    CUDA where there is none raises: nothing falls back to the CPU. Every
+    entry point passes here, so here the precision policy is set
+    (``set_precision_policy``)."""
+    set_precision_policy()
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

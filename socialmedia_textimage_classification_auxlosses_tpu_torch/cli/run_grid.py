@@ -2,11 +2,10 @@
 and the mean±std tables built from their metric CSVs, on CUDA.
 
 Counterpart of the JAX package's ``cli/run_grid.py``, with the same flags,
-plan, artifact paths and tables, for the runner families the port has:
-``mm_late`` (``run_mm_late``), ``mm_early`` with ``vilt``
-(``run_mm_early``), ``txt`` (``run_txt``) and ``img`` (``run_img``).
-``mm_early`` ``lxmert`` / ``mmbt`` raise ``SystemExit`` (``ROADMAP.md``
-Queue 1 item 6)::
+plan, artifact paths and tables, for every runner family: ``mm_late``
+(``run_mm_late``), ``mm_early`` with ``vilt``, ``lxmert`` or ``mmbt``
+(``run_mm_early``; MMBT's artifacts under ``results_dir_mmbt``), ``txt``
+(``run_txt``) and ``img`` (``run_img``)::
 
     python -m socialmedia_textimage_classification_auxlosses_tpu_torch.cli.run_grid \\
         --families mm_late --mm_late bernice-vit-attention \\
@@ -19,8 +18,9 @@ metric CSVs exist is skipped unless ``--force``; ``--aggregate_only``
 rebuilds the tables from existing artifacts; ``--dry_run`` prints the plan.
 Runs execute in this process. ``--seed_backend vmap`` runs each ``mm_late``
 configuration's pending seeds as one seed-stacked sweep (``run_seed_sweep``,
-independent per-seed data, the same artifact names); other families, single
-seeds and flag sets the sweep refuses run one by one, as in the JAX package.
+independent per-seed data, the same artifact names); other families (the
+early-fusion models among them), single seeds and flag sets the sweep
+refuses run one by one, as in the JAX package.
 
 The aggregate: for each run, the test column of the epoch with the best
 validation macro-F1 (``--select best_val``) or of the last epoch (``last``);
@@ -74,7 +74,7 @@ def parse_args(argv=None):
     parser.add_argument("--mm_late", type=str, default="bernice-vit-attention",
                         help="comma list of txt-img-fusion triples")
     parser.add_argument("--mm_early", type=str, default="vilt",
-                        help="comma list from {vilt,lxmert,mmbt} (only vilt is ported)")
+                        help="comma list from {vilt,lxmert,mmbt}")
     parser.add_argument("--epochs", type=int, default=7)
     parser.add_argument("--beta_itc", type=float, default=0.1)
     parser.add_argument("--beta_itm", type=float, default=0.1)
@@ -115,18 +115,10 @@ def _csv(s):
     return [t for t in str(s).split(",") if t]
 
 
-def check_family(family: str, model: str) -> None:
-    """Refuse, with ``SystemExit``, a runner the port does not have yet."""
-    if family == "mm_early" and model != "vilt":
-        raise SystemExit(f"--mm_early {model}: only vilt is ported to PyTorch yet; LXMERT "
-                         "and MMBT are ROADMAP.md Queue 1 item 6")
-
-
 class Run:
     """One grid cell: a single runner invocation + its artifact locations."""
 
     def __init__(self, family, model, task, seed, aux, args):
-        check_family(family, model)
         self.family, self.model, self.task = family, model, int(task)
         self.seed, self.aux = int(seed), aux
         use_itc, use_itm = AUX_SETTINGS[aux]
@@ -162,8 +154,8 @@ class Run:
         elif family == "mm_late":
             base = C.results_dir_mm_late
             stem = artifact_stem(ns, C.serving_config(ns), "mm_late")
-        else:
-            base = C.results_dir_mm_early
+        else:  # MMBT's artifacts live in the reference's results_dir_mmbt
+            base = C.results_dir_mmbt if model == "mmbt" else C.results_dir_mm_early
             stem = artifact_stem(ns, C.serving_config(ns, model_name=model), model)
         base += "testing/" if getattr(ns, "testing", False) else ""
         return base + stem + "metrics_val.csv", base + stem + "metrics_test.csv"

@@ -1,25 +1,31 @@
-"""Early-fusion trainer (ViLT) on CUDA.
+"""Early-fusion trainer (ViLT, MMBT, LXMERT) on CUDA.
 
 Counterpart of the JAX package's ``cli/run_mm_early.py``, with the same
 flags plus ``--device``, and the same artifacts under the same names
 (``{model}_task{t}_seed{s}_{loss_str}_`` + ``metrics_val.csv`` /
 ``metrics_test.csv`` / ``net.pth``, and ``preds.csv`` / ``metrics.csv``
-under ``--evaltest``):
+under ``--evaltest``), under ``results_dir_mm_early`` (MMBT: the reference's
+``results_dir_mmbt``):
 
-    python -m socialmedia_textimage_classification_auxlosses_tpu_torch.cli.run_mm_early \\
+    python -m socialmedia_textimage_classification_auxlosses_tpu_torch.cli.run_mm_early \
         --model vilt --task 3 --vilt_exact_resize --use_clip_loss --use_tim_loss
 
-Every attention of the joint encoder, forward and backward, launches the
-port's hand-written kernels on a CUDA device (at L = 402 under
-``--vilt_exact_resize``, the query-tiled backward); ``--device cpu`` runs the
-plain versions on the CPU. The ``net.pth`` artifact is the port's own
-``torch.save`` state dict. The backbone starts from the HF ViLT checkpoint
-in ``SMTC_VILT_DIR`` when it holds one, and ``--import_reference_ckpt`` loads
-a reference-trained ``ViLT`` state dict over the whole model (AdamW starts
-afresh after it). The run-control flags (``--steps_per_dispatch``,
-``--ckpt_every`` into ``{stem}ckpt/``, ``--resume``, ``--profile``,
-``--remat``) act as in the JAX runner. ``--model lxmert|mmbt`` and the flags
-of ``cli/_common.py::check_training_supported`` raise ``SystemExit``.
+Every attention, forward and backward, launches the port's hand-written
+kernels on a CUDA device (ViLT at L = 402 under ``--vilt_exact_resize``, the
+query-tiled backward; MMBT's joint sequence of 132; LXMERT's language,
+vision and cross attentions at 128 and 36); ``--device cpu`` runs the plain
+versions on the CPU. The ``net.pth`` artifact is the port's own
+``torch.save`` state dict. Each model starts from the pretrained checkpoint
+its ``MODEL_DIR_DICT`` entry holds, if any (``cli/_build_early.py``); LXMERT
+reads its ROI features from ``<data>/cache/{task}_roi``, the reference's
+dumps or, without either, grid features it builds there.
+``--import_reference_ckpt`` loads a reference-trained ``ViLT`` or ``Lxmert``
+state dict over the whole model (AdamW starts afresh after it); MMBT has no
+reference format and refuses it. The run-control flags
+(``--steps_per_dispatch``, ``--ckpt_every`` into ``{stem}ckpt/``,
+``--resume``, ``--profile``, ``--remat`` but for LXMERT) act as in the JAX
+runner. The flags of ``cli/_common.py::check_training_supported`` raise
+``SystemExit``.
 """
 
 from __future__ import annotations
@@ -42,11 +48,11 @@ logger = get_logger(__name__)
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description="run early fusion models")
     parser.add_argument("--model", type=str, choices=["vilt", "lxmert", "mmbt"],
-                        help="model name (only vilt is ported)")
+                        help="model name")
     parser.add_argument("--evaltest", action="store_true", help="eval test")
     parser.add_argument("--import_reference_ckpt", type=str, default=None,
-                        help="reference-trained ViLT state dict (torch.save) to import "
-                             "before training")
+                        help="reference-trained ViLT or Lxmert state dict (torch.save) "
+                             "to import before training")
     parser.add_argument("--vilt_exact_resize", action="store_true",
                         help="ViltProcessor geometry per sample: aspect-preserving "
                              "resize onto a fixed masked 608-px canvas (402 joint "
@@ -74,7 +80,9 @@ def main(argv=None, on_step=None, keep_grads=False):
     check_supported(args)
     device = resolve_device(args.device)
     generator = seed_everything(args.seed)
-    results_dir = results_dir_for(C.results_dir_mm_early, args.testing)
+    # MMBT artifacts land in the reference's own directory
+    results_dir = results_dir_for(
+        C.results_dir_mmbt if args.model == "mmbt" else C.results_dir_mm_early, args.testing)
     logger.info(
         "Model: %s, Task: %s, Epochs: %s, ITC loss: %s, TIM loss: %s, beta_itc: %s, "
         "beta_itm: %s, seed: %s, exact resize: %s, device: %s", args.model, args.task,
@@ -84,7 +92,7 @@ def main(argv=None, on_step=None, keep_grads=False):
     cfg = C.Config(args, model_name=args.model)
     setup = build_mm_early_train_setup(args, cfg, device, generator, keep_grads=keep_grads)
     if args.import_reference_ckpt:
-        import_reference_checkpoint(setup.model, args.import_reference_ckpt)
+        import_reference_checkpoint(setup.model, args)
         setup.optimizer.reset()
     stem = artifact_stem(args, cfg, family=args.model)
     trainer = Trainer(setup.train_step, setup.eval_step, setup.model, device,

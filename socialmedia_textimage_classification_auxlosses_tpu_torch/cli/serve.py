@@ -1,7 +1,7 @@
-"""HTTP serving endpoint for the late-fusion model, on CUDA.
+"""HTTP serving endpoint for the late-fusion model, ViLT and MMBT, on CUDA.
 
 Counterpart of the JAX package's ``cli/serve.py`` for ``--model mm_late``,
-with the same flags plus ``--device``:
+``vilt`` and ``mmbt``, with the same flags plus ``--device``:
 
     python -m socialmedia_textimage_classification_auxlosses_tpu_torch.cli.serve \\
         --task 3 --txt_model_name bernice --img_model_name vit \\
@@ -29,10 +29,15 @@ nothing here. ``--random_init`` serves random weights made from
 ``--seed``. Every image tower of the late-fusion model is served: ViT,
 DeiT, BEiT, and ResNet-50/152 with ``--fusion_name concat_cnn|xatt`` (their
 request images resized to 256 on the shorter side and centre-cropped, the
-training recipe). What the port lacks so far raises ``SystemExit``:
-``--model vilt|lxmert|mmbt``, ``--quantize``, ``--extra_model``,
-``--workers`` > 1 and ``--img_decoder native``; ``GET /metrics`` answers
-501.
+training recipe). ``--model vilt`` and ``--model mmbt`` serve the early
+models of ``cli/_build_early.py`` (ViLT's fixed square, 384 px at base, a
+joint sequence of 40 + 1 + 144; MMBT's ResNet-152 at 224 px or
+``--image_size``, 132 tokens), each request image resized to the square,
+their artifacts under the trainers' names in ``results_dir_mm_early`` and
+``results_dir_mmbt``. What the port lacks so far raises ``SystemExit``:
+``--model lxmert`` (it runs the detector on every request: ``ROADMAP.md``
+Queue 1 item 7), ``--quantize``, ``--extra_model``, ``--workers`` > 1 and
+``--img_decoder native``; ``GET /metrics`` answers 501.
 """
 
 from __future__ import annotations
@@ -65,7 +70,7 @@ def build_parser():
     parser = argparse.ArgumentParser(description="serve a trained model")
     parser.add_argument("--model", type=str, default="mm_late",
                         choices=["mm_late", "vilt", "lxmert", "mmbt"],
-                        help="model family (only mm_late is ported)")
+                        help="model family (lxmert is not ported)")
     parser.add_argument("--frcnn_arch", type=str, default="full",
                         choices=["full", "tiny"], help="(--model lxmert)")
     parser.add_argument("--frcnn_ckpt", type=str, default=None,
@@ -157,9 +162,9 @@ def check_supported(args) -> None:
     port does not have yet, rather than ignoring it."""
     from ._build import check_mm_late_supported
 
-    if args.model != "mm_late":
-        raise SystemExit(f"--model {args.model}: only mm_late is ported to "
-                         "PyTorch yet")
+    if args.model == "lxmert":
+        raise SystemExit("--model lxmert is not ported to PyTorch yet: it runs the "
+                         "FRCNN detector on every request (ROADMAP.md Queue 1 item 7)")
     if args.quantize:
         raise SystemExit("--quantize w8 is not ported to PyTorch yet")
     if args.extra_model:
@@ -171,7 +176,8 @@ def check_supported(args) -> None:
     if args.attn_impl not in SDPA_IMPLS:
         raise SystemExit(f"--attn_impl {args.attn_impl}: expected one of "
                          f"{SDPA_IMPLS}")
-    check_mm_late_supported(args)
+    if args.model == "mm_late":
+        check_mm_late_supported(args)
 
 
 def build_service(args):
@@ -185,20 +191,24 @@ def build_service(args):
     from ..train.checkpoint import load_params
     from ..utils.cast import cast_params_for_eval
     from ._build import build_mm_late_setup
+    from ._build_early import build_mm_early_setup
 
     check_supported(args)
     device = resolve_device(args.device)
-    cfg = C.serving_config(args)
+    family = args.model
+    cfg = C.serving_config(args, model_name=family)
     generator = seed_everything(args.seed)
-    setup = build_mm_late_setup(args, cfg,
-                                generator=generator if args.random_init else None)
+    build = build_mm_late_setup if family == "mm_late" else build_mm_early_setup
+    setup = build(args, cfg, generator=generator if args.random_init else None)
     model_path = None
     if args.random_init:
         logger.warning("serving RANDOM-INIT weights (--random_init)")
     else:
+        # the trainers' artifact names (MMBT's in the reference's results_dir_mmbt)
+        base = {"mm_late": C.results_dir_mm_late,
+                "mmbt": C.results_dir_mmbt}.get(family, C.results_dir_mm_early)
         model_path = args.model_path or (
-            results_dir_for(C.results_dir_mm_late, args.testing)
-            + artifact_stem(args, cfg) + "net.pth")
+            results_dir_for(base, args.testing) + artifact_stem(args, cfg, family) + "net.pth")
         load_params(model_path, setup.model)
         logger.info("loaded %s", model_path)
     # the serving pre-cast (utils/cast.py), on the host before the copy
@@ -249,7 +259,8 @@ def build_service(args):
         return out
 
     meta = {
-        "model": f"{args.txt_model_name}-{args.img_model_name}-{args.fusion_name}",
+        "model": (f"{args.txt_model_name}-{args.img_model_name}-{args.fusion_name}"
+                  if family == "mm_late" else family),
         "task": args.task,
         "task_name": cfg.task_name,
         "num_labels": cfg.num_labels,

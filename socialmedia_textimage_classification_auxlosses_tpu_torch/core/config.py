@@ -104,6 +104,9 @@ MODEL_DIR_DICT = {
     "beit": os.environ.get("SMTC_BEIT_DIR", DATA_PATH + "hub/BEiT/"),
     "deit": os.environ.get("SMTC_DEIT_DIR", DATA_PATH + "hub/DEiT/"),
     "vilt": os.environ.get("SMTC_VILT_DIR", DATA_PATH + "hub/ViLT/"),
+    # MMBT's BERT (bert-base-uncased) and LXMERT (unc-nlp/lxmert-base-uncased)
+    "mmbt": os.environ.get("SMTC_MMBT_DIR", DATA_PATH + "hub/BERT-base/"),
+    "lxmert": os.environ.get("SMTC_LXMERT_DIR", DATA_PATH + "hub/LXMERT/"),
     # a torchvision state dict (.npz or .pth), or a directory holding one
     "resnet50": os.environ.get("SMTC_RESNET50_DIR", DATA_PATH + "hub/ConvModels/resnet50.npz"),
     "resnet152": os.environ.get("SMTC_RESNET152_DIR",

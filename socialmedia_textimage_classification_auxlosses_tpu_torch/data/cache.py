@@ -1,11 +1,15 @@
-"""The uint8 pixel cache read under ``--use_saved_features``.
+"""The uint8 pixel cache read under ``--use_saved_features``, and LXMERT's
+ROI-feature cache.
 
-Counterpart of ``ImageCache`` in the JAX package's ``data/cache.py``, in the
-same on-disk format, so either package reads a cache the other built: one
-``pixels.npy`` of shape (N, S, S, 3) uint8 and a ``meta.json`` holding the
-id -> row index, the size and a row-validity list. Reading needs numpy
-alone; building decodes with PIL, imported only then. The multi-host shard
-options of the JAX cache are not ported.
+Counterparts of ``ImageCache`` and ``RoiFeatureCache`` in the JAX package's
+``data/cache.py``, in the same on-disk formats, so either package reads a
+cache the other wrote. ``ImageCache``: one ``pixels.npy`` of shape
+(N, S, S, 3) uint8 and a ``meta.json`` holding the id -> row index, the size
+and a row-validity list. ``RoiFeatureCache``: ``features.npy`` (N, boxes,
+feat_dim), ``boxes.npy`` (N, boxes, 4) float32 and a ``meta.json`` holding
+``index``, ``num_boxes`` and ``feat_dim``. Reading needs numpy alone;
+building an image cache decodes with PIL, imported only then. The
+multi-host shard options of the JAX cache are not ported.
 """
 
 from __future__ import annotations
@@ -95,3 +99,95 @@ class ImageCache:
         cache."""
         rows = np.asarray([self.index[str(i)] for i in ids], np.int64)
         return np.asarray(self.pixels[rows])
+
+
+class RoiFeatureCache:
+    """Precomputed object features for LXMERT: per id, ``num_boxes`` region
+    features of ``feat_dim`` and their normalised boxes (x0, y0, x1, y1).
+
+    Our own extractors write the features in float16 (half the disk);
+    ``import_reference_dumps`` keeps the float32 bits of the reference's
+    per-sample dumps. ``gather`` hands back float32 either way."""
+
+    def __init__(self, cache_dir: str, num_boxes: int = 36, feat_dim: int = 2048,
+                 feat_dtype=np.float16):
+        self.cache_dir = cache_dir
+        self.num_boxes = num_boxes
+        self.feat_dim = feat_dim
+        self.feat_dtype = np.dtype(feat_dtype)
+        self.meta_path = os.path.join(cache_dir, "meta.json")
+        self.feat_path = os.path.join(cache_dir, "features.npy")
+        self.box_path = os.path.join(cache_dir, "boxes.npy")
+        self.index = {}
+        if os.path.isfile(self.meta_path):
+            with open(self.meta_path) as f:
+                meta = json.load(f)
+            self.index = {str(k): v for k, v in meta["index"].items()}
+            self.num_boxes = meta["num_boxes"]
+            self.feat_dim = meta["feat_dim"]
+        self._feats = None
+        self._boxes = None
+
+    def write(self, ids, features: np.ndarray, boxes: np.ndarray) -> None:
+        """Replace the cache with ``features`` / ``boxes`` (row i for
+        ``ids[i]``)."""
+        os.makedirs(self.cache_dir, exist_ok=True)
+        np.save(self.feat_path, np.asarray(features).astype(self.feat_dtype))
+        np.save(self.box_path, np.asarray(boxes).astype(np.float32))
+        self.index = {str(i): row for row, i in enumerate(ids)}
+        self._feats = self._boxes = None
+        with open(self.meta_path, "w") as f:
+            json.dump({"index": self.index, "num_boxes": self.num_boxes,
+                       "feat_dim": self.feat_dim}, f)
+
+    @property
+    def features(self):
+        if self._feats is None:
+            self._feats = np.load(self.feat_path, mmap_mode="r")
+        return self._feats
+
+    @property
+    def boxes(self):
+        if self._boxes is None:
+            self._boxes = np.load(self.box_path, mmap_mode="r")
+        return self._boxes
+
+    def holds(self, ids) -> bool:
+        """Whether every id has a row."""
+        return bool(self.index) and all(str(i) in self.index for i in ids)
+
+    def gather(self, ids):
+        """(features, boxes) of ``ids``, both float32; an id the cache lacks
+        raises KeyError."""
+        rows = np.asarray([self.index[str(i)] for i in ids], np.int64)
+        return (np.asarray(self.features[rows], np.float32),
+                np.asarray(self.boxes[rows], np.float32))
+
+    def import_reference_dumps(self, data_path: str, task_name: str, ids) -> bool:
+        """Ingest the reference's per-sample torch dumps
+        (``{data_path}{task}_img_feats/features/feat_{id}`` and
+        ``.../boxes/nbox_{id}``, each a (1, boxes, ...) tensor) when they
+        are there, read with ``torch.load(..., weights_only=True)`` and kept
+        in their own dtype; ids without both files are left out. Returns
+        whether any was found."""
+        box_dir = os.path.join(data_path, f"{task_name}_img_feats", "boxes")
+        feat_dir = os.path.join(data_path, f"{task_name}_img_feats", "features")
+        if not (os.path.isdir(box_dir) and os.path.isdir(feat_dir)):
+            return False
+        import torch
+
+        feats, boxes, kept = [], [], []
+        for data_id in ids:
+            fp = os.path.join(feat_dir, f"feat_{data_id}")
+            bp = os.path.join(box_dir, f"nbox_{data_id}")
+            if not (os.path.isfile(fp) and os.path.isfile(bp)):
+                continue
+            feats.append(torch.load(fp, map_location="cpu", weights_only=True).squeeze(0).numpy())
+            boxes.append(torch.load(bp, map_location="cpu", weights_only=True).squeeze(0).numpy())
+            kept.append(data_id)
+        if not kept:
+            return False
+        self.num_boxes, self.feat_dim = feats[0].shape
+        self.feat_dtype = np.dtype(feats[0].dtype)
+        self.write(kept, np.stack(feats), np.stack(boxes))
+        return True

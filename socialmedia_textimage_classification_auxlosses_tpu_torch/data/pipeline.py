@@ -17,7 +17,10 @@ in the JAX package, so both see the same batches in the same order.
 pipeline's ``device_iter_chunks`` and the seed sweep's stacked batches)
 stacks K batches and stages them on the device in one copy per array.
 ``EmptyImageSource`` gives every id the one empty image (the MIC text-only
-eval, ``--eval_txt_test``). Sequence bucketing (``--bucket_seq``) and the
+eval, ``--eval_txt_test``). LXMERT's batches carry no pixels
+(``PipelineConfig(with_images=False)``) but each id's ROI features and boxes
+from a ``RoiFeatureCache`` (``roi_features``, ``roi_boxes``, float32).
+Sequence bucketing (``--bucket_seq``) and the
 multi-host row slicing are not ported.
 """
 
@@ -29,7 +32,7 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 import torch
 
-from .cache import ImageCache
+from .cache import ImageCache, RoiFeatureCache
 from .images import load_pixels_u8, vilt_canvas
 from .prep import SplitArrays
 
@@ -126,14 +129,16 @@ class PipelineConfig:
     batch_size: int
     max_length: int = 128
     image_size: int = 224
+    with_images: bool = True
 
 
 class SplitPipeline:
     """One split's tokenised arrays + image source -> padded batches."""
 
     def __init__(self, split: SplitArrays, cfg: PipelineConfig, tokenizer=None,
-                 image_source=None):
+                 image_source=None, roi_cache: Optional[RoiFeatureCache] = None):
         self.cfg = cfg
+        self.roi_cache = roi_cache
         self.n = len(split)
         self.labels = np.asarray(split.labels, np.float32)
         self.data_ids = split.ids
@@ -181,12 +186,15 @@ class SplitPipeline:
                 batch["mask"] = self.mask[idx]
                 if self.token_type_ids is not None:
                     batch["token_type_ids"] = self.token_type_ids[idx]
-            if self.image_source is not None:
+            if self.image_source is not None and self.cfg.with_images:
                 images = self.image_source.gather([self.data_ids[i] for i in idx])
                 if getattr(self.image_source, "returns_grid", False):
                     batch["pixel_values"], batch["grid_hw"] = images
                 else:
                     batch["pixel_values"] = images
+            if self.roi_cache is not None:
+                batch["roi_features"], batch["roi_boxes"] = self.roi_cache.gather(
+                    [self.data_ids[i] for i in idx])
             if self.image_adds is not None:
                 batch["image_adds"] = np.asarray(self.image_adds, np.int32)[idx]
             yield batch

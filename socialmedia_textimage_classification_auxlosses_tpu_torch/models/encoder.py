@@ -370,21 +370,28 @@ class Pooler(nn.Module):
 
 
 class TextEmbeddings(nn.Module):
-    """Word + position + (optional) token-type embeddings, then LayerNorm."""
+    """Word + position + (optional) token-type embeddings, then LayerNorm.
 
-    def __init__(self, cfg: EncoderConfig):
+    ``word_embeds`` (B, L, hidden), when given, takes the place of the word
+    lookup (MMBT's joint sequence, embedded through a table of its own);
+    ``ids`` then only gives the positions' shape. A module built with
+    ``word_table=False`` holds no word table, as the flax module that is
+    only ever called so declares none."""
+
+    def __init__(self, cfg: EncoderConfig, word_table: bool = True):
         super().__init__()
         self.cfg = cfg
-        self.word = nn.Embedding(cfg.vocab_size, cfg.hidden)
+        if word_table:
+            self.word = nn.Embedding(cfg.vocab_size, cfg.hidden)
         self.position = nn.Embedding(cfg.max_positions, cfg.hidden)
         self.token_type = (nn.Embedding(cfg.type_vocab, cfg.hidden)
                            if cfg.type_vocab else None)
         self.ln = nn.LayerNorm(cfg.hidden, eps=cfg.ln_eps)
 
-    def forward(self, ids, token_type_ids=None, gen=None):
+    def forward(self, ids, token_type_ids=None, gen=None, word_embeds=None):
         cfg = self.cfg
         dt = cfg.torch_dtype
-        emb = embed(ids, self.word.weight).to(dt)
+        emb = (embed(ids, self.word.weight) if word_embeds is None else word_embeds).to(dt)
         if cfg.pos_offset:
             # RoBERTa family: positions count non-pad tokens, offset past the
             # pad id (the JAX package's formula, kept as it is)

@@ -11,11 +11,17 @@ architecture. The modules use the flax names, so the map is mechanical:
 * LayerNorm ``scale`` / ``bias``   -> LayerNorm ``weight`` / ``bias``
 * ``prefix_tokens``, ``pos_embed``, ViLT's ``image_cls`` and ``image_pos``,
   ``logit_scale`` and biases keep their names
-* ``layer_{i}``                    -> ``layers.{i}``
+* ``layer_{i}``                    -> ``layers.{i}``; LXMERT's
+  ``lang_layer_{i}`` / ``vis_layer_{i}`` / ``x_layer_{i}`` -> ``lang_layers.{i}``
+  / ``vis_layers.{i}`` / ``x_layers.{i}``
 * the text-only ``TextClassifier``'s ``tower`` / ``classifier`` keep their
   names (``models/text.py`` names its modules so)
-* the ``scan_layers`` layout ``layers/layer/...``, whose leaves carry a
-  leading layer axis, -> ``layers.{i}.…`` one slice per layer;
+* the ``scan_layers`` layout ``layers/layer/...`` (LXMERT's
+  ``lang_layers/layer``, ``vis_layers/layer``, ``x_layers/layer``), whose
+  leaves carry a leading layer axis, -> ``layers.{i}.…`` one slice per
+  layer; slices past the module's own layer count are the JAX package's
+  identity pad slots (``models/lxmert.py::pad_layers``, zeros) and are
+  dropped when the module is known (``load_jax_params``);
 * flax's ``batch_stats`` collection (a ResNet's BatchNorm ``mean`` /
   ``var``), beside ``params`` -> the BatchNorm buffers ``running_mean`` /
   ``running_var`` (``models/resnet.py::BatchNorm``).
@@ -28,14 +34,15 @@ widened to float32, which is exact).
 ``jax_tree_from_torch`` is the inverse: a module's parameters (and BatchNorm
 buffers) as the JAX package's tree ``{"params": {...}}`` (``{"params",
 "batch_stats"}`` for a model with BatchNorm), unrolled or in the ``scan_layers``
-layout (JAX ``hf_import.py::stack_scan_layers``), with torch tensors as
+layout (JAX ``hf_import.py::stack_scan_layers`` and
+``stack_lxmert_scan_layers`` without pad slots), with torch tensors as
 leaves, for ``train/flax_msgpack.py`` to write where flax is absent.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Iterator, Mapping, Tuple
+from typing import Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,7 +52,10 @@ from .resnet import BatchNorm
 
 _LEAF_NAMES = {"kernel": "weight", "embedding": "weight", "scale": "weight"}
 _STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
-_LAYER = re.compile(r"layer_(\d+)$")
+# a layer of a stack: ``layer_{i}`` (module list ``layers``), and LXMERT's
+# ``lang_layer_{i}`` / ``vis_layer_{i}`` / ``x_layer_{i}``
+_LAYER = re.compile(r"((?:lang|vis|x)_)?layer_(\d+)$")
+_STACK = re.compile(r"(?:(?:lang|vis|x)_)?layers$")
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
@@ -75,40 +85,50 @@ def _convert_leaf(name: str, array: np.ndarray) -> Tuple[str, np.ndarray]:
     return _LEAF_NAMES.get(name, name), array
 
 
-def torch_state_from_jax(tree: Mapping) -> Dict[str, np.ndarray]:
+def torch_state_from_jax(tree: Mapping, layer_counts: Optional[Mapping[str, int]] = None
+                         ) -> Dict[str, np.ndarray]:
     """The JAX tree as a flat ``{state_dict key: array}`` in torch layouts:
     ``{"params"}``, ``{"params", "batch_stats"}`` or a bare parameter
-    tree."""
+    tree. ``layer_counts`` (a module list's dotted name -> its length)
+    drops a scanned stack's slices past that length (pad slots)."""
+    counts = layer_counts or {}
     if "params" in tree and set(tree) <= {"params", "batch_stats"}:
-        out = _state_of(tree["params"], _convert_leaf)
+        out = _state_of(tree["params"], _convert_leaf, counts)
         out.update(_state_of(tree.get("batch_stats", {}),
-                             lambda leaf, array: (_STAT_NAMES[leaf], array)))
+                             lambda leaf, array: (_STAT_NAMES[leaf], array), counts))
         return out
-    return _state_of(tree, _convert_leaf)
+    return _state_of(tree, _convert_leaf, counts)
 
 
-def _state_of(tree: Mapping, convert) -> Dict[str, np.ndarray]:
+def _state_of(tree: Mapping, convert, counts: Mapping[str, int]) -> Dict[str, np.ndarray]:
     out: Dict[str, np.ndarray] = {}
     for path, array in _flatten(tree):
         *mods, leaf = path
         for i in range(len(mods) - 1):
-            if mods[i] == "layers" and mods[i + 1] == "layer":  # scan layout
-                head, tail = mods[:i], mods[i + 2:]
-                for layer, sliced in enumerate(array):
+            if _STACK.match(mods[i]) and mods[i + 1] == "layer":  # scan layout
+                head, tail = mods[:i + 1], mods[i + 2:]
+                n = counts.get(".".join(head), len(array))
+                for layer, sliced in enumerate(array[:n]):
                     name, conv = convert(leaf, np.asarray(sliced))
-                    out[".".join(head + ["layers", str(layer)] + tail + [name])] = conv
+                    out[".".join(head + [str(layer)] + tail + [name])] = conv
                 break
         else:
-            mods = [f"layers.{m.group(1)}" if (m := _LAYER.match(s)) else s for s in mods]
+            mods = [f"{m.group(1) or ''}layers.{m.group(2)}" if (m := _LAYER.match(s)) else s
+                    for s in mods]
             name, conv = convert(leaf, array)
             out[".".join(mods + [name])] = conv
     return out
 
 
+def layer_counts(module: nn.Module) -> Dict[str, int]:
+    """Every module list's dotted name and length (the layer stacks)."""
+    return {name: len(m) for name, m in module.named_modules() if isinstance(m, nn.ModuleList)}
+
+
 def load_jax_params(module: nn.Module, tree: Mapping) -> nn.Module:
     """Copy a JAX parameter tree into ``module`` (in place; returns it).
     Each value is cast to the dtype of the parameter it lands in."""
-    state = torch_state_from_jax(tree)
+    state = torch_state_from_jax(tree, layer_counts(module))
     own = module.state_dict()
     missing = sorted(set(own) - set(state))
     extra = sorted(set(state) - set(own))
@@ -142,16 +162,18 @@ def _jax_leaf(module: nn.Module, name: str, value: torch.Tensor) -> Tuple[str, t
 
 
 def _stack_layers(node: Dict) -> Dict:
-    """Every ``layer_{i}`` run of a subtree as ``layers/layer`` with a
-    leading layer axis (the ``lax.scan`` layout)."""
+    """Every ``layer_{i}`` run of a subtree as ``layers/layer`` (LXMERT's
+    ``lang_layer_{i}`` run as ``lang_layers/layer``, ...) with a leading
+    layer axis (the ``lax.scan`` layout)."""
     if not isinstance(node, dict):
         return node
     node = {k: _stack_layers(v) for k, v in node.items()}
-    found = sorted((int(m.group(1)), k) for k in node if (m := _LAYER.match(k)))
-    if not found:
+    runs: Dict[str, list] = {}
+    for k in node:
+        if m := _LAYER.match(k):
+            runs.setdefault(m.group(1) or "", []).append((int(m.group(2)), k))
+    if not runs:
         return node
-    if [i for i, _ in found] != list(range(len(found))):
-        raise ValueError(f"layers {[k for _, k in found]} are not numbered 0..n-1")
 
     def stack(*subtrees):
         if isinstance(subtrees[0], dict):
@@ -159,7 +181,11 @@ def _stack_layers(node: Dict) -> Dict:
         return torch.stack(subtrees)
 
     out = {k: v for k, v in node.items() if not _LAYER.match(k)}
-    out["layers"] = {"layer": stack(*(node[k] for _, k in found))}
+    for prefix, found in runs.items():
+        found.sort()
+        if [i for i, _ in found] != list(range(len(found))):
+            raise ValueError(f"layers {[k for _, k in found]} are not numbered 0..n-1")
+        out[f"{prefix}layers"] = {"layer": stack(*(node[k] for _, k in found))}
     return out
 
 
@@ -186,9 +212,10 @@ def jax_tree_from_torch(module: nn.Module, scan_layers: bool = False) -> Dict:
     for mod_name, mod in module.named_modules():
         segments = mod_name.split(".") if mod_name else []
         path, i = [], 0
-        while i < len(segments):  # "layers", "3" -> "layer_3"
-            if segments[i] == "layers" and i + 1 < len(segments) and segments[i + 1].isdigit():
-                path.append(f"layer_{segments[i + 1]}")
+        while i < len(segments):  # "layers", "3" -> "layer_3"; "x_layers" -> "x_layer_3"
+            if (_STACK.match(segments[i]) and i + 1 < len(segments)
+                    and segments[i + 1].isdigit()):
+                path.append(f"{segments[i][:-1]}_{segments[i + 1]}")
                 i += 2
             else:
                 path.append(segments[i])

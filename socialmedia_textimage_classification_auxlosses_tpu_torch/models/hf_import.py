@@ -2,9 +2,11 @@
 
 Counterpart of the JAX package's ``models/hf_import.py`` for the towers the
 port has: a Hugging Face checkpoint directory (BERT / RoBERTa / Bernice, ViT /
-DeiT, BEiT, ViLT), a torchvision ResNet state dict (``.pth`` or ``.npz``; its
+DeiT, BEiT, ViLT, LXMERT; MMBT's BERT with its word table moved to the
+backbone), a torchvision ResNet state dict (``.pth`` or ``.npz``; its
 BatchNorm running statistics land in the port's buffers, flax's
-``batch_stats``) or a reference-trained ``MM_Model`` / ``ViLT`` state dict is read
+``batch_stats``) or a reference-trained ``MM_Model`` / ``ViLT`` / ``Lxmert``
+state dict is read
 into numpy, mapped tensor by tensor onto the flax-layout tree the JAX package
 builds (the same functions, copied here), and that tree goes through
 ``models/from_jax.py::torch_state_from_jax`` (dense kernels transposed back,
@@ -130,11 +132,23 @@ def _mlp(state, p):
             "mlp_out": _dense(state, f"{p}.output.dense")}
 
 
-def _vit_attention(state, p):
-    return {"query": _dense(state, f"{p}.attention.attention.query"),
-            "key": _dense(state, f"{p}.attention.attention.key"),
-            "value": _dense(state, f"{p}.attention.attention.value"),
-            "out": _dense(state, f"{p}.attention.output.dense")}
+def _attention(state, p, inner):
+    """q, k, v under ``{p}.{inner}`` and the output projection under
+    ``{p}.output.dense`` (BERT: inner ``self``; ViT: ``attention``)."""
+    return {"query": _dense(state, f"{p}.{inner}.query"),
+            "key": _dense(state, f"{p}.{inner}.key"),
+            "value": _dense(state, f"{p}.{inner}.value"),
+            "out": _dense(state, f"{p}.output.dense")}
+
+
+def _bert_layer(state, p):
+    """A BERT-named transformer block -> the EncoderLayer subtree."""
+    return {
+        "attention": _attention(state, f"{p}.attention", "self"),
+        "ln_attn": _ln(state, f"{p}.attention.output.LayerNorm"),
+        "mlp": _mlp(state, p),
+        "ln_mlp": _ln(state, f"{p}.output.LayerNorm"),
+    }
 
 
 def import_bert_tower(state: Dict[str, np.ndarray], num_layers: int) -> dict:
@@ -152,18 +166,7 @@ def import_bert_tower(state: Dict[str, np.ndarray], num_layers: int) -> dict:
     if "embeddings.token_type_embeddings.weight" in state:
         tree["embeddings"]["token_type"] = _emb(state, "embeddings.token_type_embeddings")
     for i in range(num_layers):
-        p = f"encoder.layer.{i}"
-        tree["encoder"][f"layer_{i}"] = {
-            "attention": {
-                "query": _dense(state, f"{p}.attention.self.query"),
-                "key": _dense(state, f"{p}.attention.self.key"),
-                "value": _dense(state, f"{p}.attention.self.value"),
-                "out": _dense(state, f"{p}.attention.output.dense"),
-            },
-            "ln_attn": _ln(state, f"{p}.attention.output.LayerNorm"),
-            "mlp": _mlp(state, p),
-            "ln_mlp": _ln(state, f"{p}.output.LayerNorm"),
-        }
+        tree["encoder"][f"layer_{i}"] = _bert_layer(state, f"encoder.layer.{i}")
     return tree
 
 
@@ -193,7 +196,7 @@ def import_vit_tower(state: Dict[str, np.ndarray], num_layers: int,
     for i in range(num_layers):
         p = f"encoder.layer.{i}"
         tree["encoder"][f"layer_{i}"] = {
-            "attention": _vit_attention(state, p),
+            "attention": _attention(state, f"{p}.attention", "attention"),
             "ln_attn": _ln(state, f"{p}.layernorm_before"),
             "mlp": _mlp(state, p),
             "ln_mlp": _ln(state, f"{p}.layernorm_after"),
@@ -293,10 +296,52 @@ def import_vilt(state: Dict[str, np.ndarray], num_layers: int) -> dict:
     for i in range(num_layers):
         p = f"encoder.layer.{i}"
         tree["encoder"][f"layer_{i}"] = {
-            "attention": _vit_attention(state, p),
+            "attention": _attention(state, f"{p}.attention", "attention"),
             "ln_attn": _ln(state, f"{p}.layernorm_before"),
             "mlp": _mlp(state, p),
             "ln_mlp": _ln(state, f"{p}.layernorm_after"),
+        }
+    return tree
+
+
+def import_lxmert(state: Dict[str, np.ndarray], l_layers: int, r_layers: int,
+                  x_layers: int) -> dict:
+    """HF LxmertModel state dict -> the LxmertBackbone tree (the x-layers'
+    one ``visual_attention`` is the shared cross-attention)."""
+    state = strip_prefix(state)
+    tree: dict = {
+        "embeddings": {
+            "word": _emb(state, "embeddings.word_embeddings"),
+            "position": _emb(state, "embeddings.position_embeddings"),
+            "token_type": _emb(state, "embeddings.token_type_embeddings"),
+            "ln": _ln(state, "embeddings.LayerNorm"),
+        },
+        "visual_embeddings": {
+            "feat_proj": _dense(state, "encoder.visn_fc.visn_fc"),
+            "feat_ln": _ln(state, "encoder.visn_fc.visn_layer_norm"),
+            "pos_proj": _dense(state, "encoder.visn_fc.box_fc"),
+            "pos_ln": _ln(state, "encoder.visn_fc.box_layer_norm"),
+        },
+    }
+    for i in range(l_layers):
+        tree[f"lang_layer_{i}"] = _bert_layer(state, f"encoder.layer.{i}")
+    for i in range(r_layers):
+        tree[f"vis_layer_{i}"] = _bert_layer(state, f"encoder.r_layers.{i}")
+    for i in range(x_layers):
+        p = f"encoder.x_layers.{i}"
+        tree[f"x_layer_{i}"] = {
+            "cross_attention": _attention(state, f"{p}.visual_attention", "att"),
+            "ln_cross": _ln(state, f"{p}.visual_attention.output.LayerNorm"),
+            "lang_self": _attention(state, f"{p}.lang_self_att", "self"),
+            "ln_self_l": _ln(state, f"{p}.lang_self_att.output.LayerNorm"),
+            "vis_self": _attention(state, f"{p}.visn_self_att", "self"),
+            "ln_self_v": _ln(state, f"{p}.visn_self_att.output.LayerNorm"),
+            "lang_mlp": {"mlp_in": _dense(state, f"{p}.lang_inter.dense"),
+                         "mlp_out": _dense(state, f"{p}.lang_output.dense")},
+            "ln_mlp_l": _ln(state, f"{p}.lang_output.LayerNorm"),
+            "vis_mlp": {"mlp_in": _dense(state, f"{p}.visn_inter.dense"),
+                        "mlp_out": _dense(state, f"{p}.visn_output.dense")},
+            "ln_mlp_v": _ln(state, f"{p}.visn_output.LayerNorm"),
         }
     return tree
 
@@ -364,6 +409,22 @@ def import_reference_vilt(state: Dict[str, np.ndarray], num_layers: int) -> dict
                       if k.startswith("model.")}
     return {
         "backbone": import_vilt(backbone_state, num_layers),
+        "linear": _dense(state, "linear"),
+        "linear_tim": _dense(state, "linear_tim"),
+        "logit_scale": np.asarray(state["logit_scale"], np.float32).reshape(()),
+    }
+
+
+def import_reference_lxmert(state: Dict[str, np.ndarray], l_layers: int, r_layers: int,
+                            x_layers: int) -> dict:
+    """A reference-trained ``Lxmert`` wrapper state dict (``model.*`` = HF
+    LxmertModel, plus ``linear_fusion``/``linear``/``linear_tim``/
+    ``logit_scale``) -> the LxmertClassifier tree."""
+    backbone_state = {k[len("model."):]: v for k, v in state.items()
+                      if k.startswith("model.")}
+    return {
+        "backbone": import_lxmert(backbone_state, l_layers, r_layers, x_layers),
+        "linear_fusion": _dense(state, "linear_fusion"),
         "linear": _dense(state, "linear"),
         "linear_tim": _dense(state, "linear_tim"),
         "logit_scale": np.asarray(state["logit_scale"], np.float32).reshape(()),
@@ -456,3 +517,33 @@ def maybe_import_resnet(module: nn.Module, weight_path: Optional[str], model_nam
     if state is None:
         return []
     return merge_into(module, import_resnet(state, STAGE_SIZES[model_name]), prefix)
+
+
+def maybe_import_lxmert(module: nn.Module, model_dir: Optional[str], l_layers: int,
+                        r_layers: int, x_layers: int, prefix: str = "backbone.") -> List[str]:
+    """Import the LXMERT backbone from ``model_dir`` when it holds a
+    checkpoint; returns the keys written."""
+    state = load_state_dict(model_dir)
+    if state is None:
+        return []
+    return merge_into(module, import_lxmert(state, l_layers, r_layers, x_layers), prefix)
+
+
+def maybe_import_mmbt(module: nn.Module, model_dir: Optional[str], num_layers: int,
+                      cnn_weight_path: Optional[str] = None,
+                      cnn_name: str = "resnet152") -> List[str]:
+    """MMBT's pretrained parts: BERT's embeddings, encoder and pooler from
+    ``model_dir`` (its word table into ``backbone.word``, where the joint
+    sequence embeds through it), and a torchvision ResNet from
+    ``cnn_weight_path`` into ``backbone.cnn`` when that holds one;
+    ``img_proj`` and the heads stay as initialised. Returns the keys
+    written."""
+    keys: List[str] = []
+    state = load_state_dict(model_dir)
+    if state is not None:
+        tree = import_bert_tower(state, num_layers)
+        tree["word"] = tree["embeddings"].pop("word")
+        keys += merge_into(module, tree, "backbone.")
+    if cnn_weight_path:
+        keys += maybe_import_resnet(module, cnn_weight_path, cnn_name, prefix="backbone.cnn.")
+    return keys

@@ -46,15 +46,16 @@ def load_params(path: str, module: nn.Module) -> nn.Module:
     or a shape that differs, raises. Returns the module.
 
     ``path`` is a torch file (``save_params``) or a JAX artifact (a msgpack
-    map; its layout, unrolled or ``layers/layer``, is read from the tree)."""
-    from ..models.from_jax import torch_state_from_jax
+    map; its layout, unrolled or ``layers/layer``, is read from the tree,
+    and a scanned stack's pad slots past the module's layers are dropped)."""
+    from ..models.from_jax import layer_counts, torch_state_from_jax
     from . import flax_msgpack
 
     with open(path, "rb") as f:
         head = f.read(1)
     if flax_msgpack.is_msgpack_tree(head):
         tree = flax_msgpack.read_file(path)
-        state = {k: torch.from_numpy(v) for k, v in torch_state_from_jax(tree).items()}
+        state = {k: torch.from_numpy(v) for k, v in torch_state_from_jax(tree, layer_counts(module)).items()}
     else:
         state = torch.load(path, map_location="cpu", weights_only=True)
     module.load_state_dict(state, strict=True)

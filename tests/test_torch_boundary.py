@@ -72,6 +72,16 @@ def test_every_module_imports_without_msgpack_or_pandas():
     _import_all_blocking(("jax", "flax", "jaxlib", "msgpack", "pandas"))
 
 
+def test_early_fusion_modules_import_without_jax():
+    """LXMERT, MMBT, the ROI cache and the grid features: in the walk, and
+    imported with JAX, flax, pandas and PIL blocked."""
+    mods = _modules()
+    for name in ("models.lxmert", "models.mmbt", "cli.obj_features", "cli._build_early",
+                 "data.cache"):
+        assert f"{port.__name__}.{name}" in mods, name
+    _import_all_blocking(("jax", "flax", "jaxlib", "pandas", "PIL"))
+
+
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))
 def test_no_source_imports_jax_or_the_jax_package(path):
     with open(path, encoding="utf-8") as f:

@@ -115,14 +115,26 @@ def test_missing_run_is_flagged(results):
         ["txt", "bert", "3", "none", "30", "missing"]]
 
 
-@pytest.mark.parametrize("argv, item", [
-    (["--families", "img,mm_early", "--mm_early", "mmbt"], "item 6"),
-    (["--families", "mm_early", "--mm_early", "vilt,lxmert"], "item 6"),
-    (["--families", "mm_early", "--mm_early", "mmbt"], "item 6"),
+@pytest.mark.parametrize("argv, plan", [
+    (["--families", "img,mm_early", "--mm_early", "mmbt"],
+     ["img: --task 3 --seed 30 --epochs 7 --model_name vit",
+      "mm_early: --task 3 --seed 30 --epochs 7 --model mmbt"]),
+    (["--families", "mm_early", "--mm_early", "vilt,lxmert"],
+     ["mm_early: --task 3 --seed 30 --epochs 7 --model vilt",
+      "mm_early: --task 3 --seed 30 --epochs 7 --model lxmert"]),
+    (["--families", "mm_early", "--mm_early", "mmbt"],
+     ["mm_early: --task 3 --seed 30 --epochs 7 --model mmbt"]),
 ], ids=["img", "lxmert", "mmbt"])
-def test_unported_families_are_refused(argv, item):
-    with pytest.raises(SystemExit, match=item):
-        T.main(argv + ["--tasks", "3", "--seeds", "30", "--dry_run"])
+def test_early_fusion_families_are_planned(argv, plan, capsys):
+    """LXMERT and MMBT grids plan like ViLT's (refused until the port carried
+    them); MMBT's artifacts are looked for under ``results_dir_mmbt``."""
+    assert T.main(argv + ["--tasks", "3", "--seeds", "30", "--aux", "none", "--dry_run"]) == 0
+    assert capsys.readouterr().out.strip().splitlines() == plan
+    for run in T.build_plan(T.parse_args(argv + ["--tasks", "3", "--seeds", "30",
+                                                 "--aux", "none"])):
+        if run.family == "mm_early":
+            base = TC.results_dir_mmbt if run.model == "mmbt" else TC.results_dir_mm_early
+            assert run.val_csv == f"{base}{run.model}_task3_seed30__metrics_val.csv"
 
 
 def test_dry_run_prints_the_plan(capsys):

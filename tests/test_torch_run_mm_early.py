@@ -15,9 +15,10 @@ same batches in the same order.
 Compared: the metric CSVs of val and test (every metric and epoch within
 1e-4 absolute: float32 through two tiny layers of up to 402 tokens, two AdamW
 steps, summed in another order) and the prediction CSV (the same ids, labels
-and predictions). Besides, the flags and models the port does not carry yet
-exit with ``SystemExit``, the flags it carries are accepted, and asking for
-CUDA on a host without it raises.
+and predictions). Besides, the flags the port does not carry yet exit with
+``SystemExit``, the flags and models it carries are accepted, asking for
+CUDA on a host without it raises, and resolving a device sets the port's
+float32 policy (TF32 off for matrix products and convolutions).
 """
 
 import csv
@@ -119,12 +120,13 @@ def test_evaltest_artifacts_match_jax(runs):
 
 
 REFUSED = [
-    ["--model", "lxmert"], ["--model", "mmbt"],
     ["--scan_layers"], ["--mesh_pipe", "2"], ["--bucket_seq"],
     ["--tim_reuse_text"],
 ]
-# refused until the port carried them; tests/test_torch_run_control.py runs them
-PORTED = [["--remat"], ["--ckpt_every", "10"], ["--profile", "p"]]
+# refused until the port carried them; tests/test_torch_run_control.py runs the
+# flags, tests/test_torch_lxmert.py and tests/test_torch_mmbt.py the models
+PORTED = [["--remat"], ["--ckpt_every", "10"], ["--profile", "p"],
+          ["--model", "lxmert"], ["--model", "mmbt"]]
 
 
 @pytest.mark.parametrize("extra", REFUSED, ids=lambda e: "_".join(e).lstrip("-"))
@@ -143,3 +145,16 @@ def test_asking_for_cuda_without_it_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         TRun.main(ARGS)
+
+
+def test_resolving_a_device_turns_tf32_off(monkeypatch):
+    """Every entry point resolves its device through ``resolve_device``,
+    which sets the float32 policy: TF32 off for cuBLAS and cuDNN."""
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.cli._common import (
+        resolve_device)
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False

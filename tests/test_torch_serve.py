@@ -3,8 +3,10 @@
 into the port's artifact by ``models/from_jax.py``) and the same requests,
 text-only and with images, give the same probabilities (float32 within
 1e-4; bfloat16 within 3e-2, see ``test_torch_from_jax.BF16_TOL``). Then a
-``MicroBatcher`` + HTTP round trip (``/classify``, ``/healthz``), and the
-flags this port does not have yet refuse to start."""
+``MicroBatcher`` + HTTP round trip (``/classify``, ``/healthz``); the early
+models ``--model vilt`` and ``--model mmbt`` against the JAX service the
+same way (float32 within 1e-4); and the flags this port does not have yet
+refuse to start (``--model lxmert`` naming the detector it waits for)."""
 
 import base64
 import io
@@ -20,6 +22,9 @@ from socialmedia_textimage_classification_auxlosses_tpu.cli import serve as jser
 from socialmedia_textimage_classification_auxlosses_tpu_torch.cli import serve as tserve
 from socialmedia_textimage_classification_auxlosses_tpu_torch.cli._build import (
     build_mm_late_setup,
+)
+from socialmedia_textimage_classification_auxlosses_tpu_torch.cli._build_early import (
+    build_mm_early_setup,
 )
 from socialmedia_textimage_classification_auxlosses_tpu_torch.core import config as TC
 from socialmedia_textimage_classification_auxlosses_tpu_torch.models.from_jax import (
@@ -137,8 +142,8 @@ def test_microbatcher_and_http_round_trip(f32_services):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--model", "vilt"], ["--quantize", "w8"], ["--extra_model", "e:model=vilt"],
-    ["--workers", "2"], ["--img_decoder", "native"], ["--model", "mmbt"],
+    ["--quantize", "w8"], ["--extra_model", "e:model=vilt"],
+    ["--workers", "2"], ["--img_decoder", "native"],
     ["--img_model_name", "resnet50", "--fusion_name", "attention"],
     ["--model", "lxmert"], ["--attn_impl", "nonsense"],
 ])
@@ -146,3 +151,44 @@ def test_unported_flags_refuse_to_start(extra):
     args = tserve.parse_args(BASE + ["--device", "cpu", "--random_init"] + extra)
     with pytest.raises(SystemExit):
         tserve.build_service(args)
+
+
+def test_lxmert_names_what_it_waits_for():
+    args = tserve.parse_args(BASE + ["--device", "cpu", "--random_init", "--model", "lxmert"])
+    with pytest.raises(SystemExit, match="detector.*Queue 1 item 7"):
+        tserve.build_service(args)
+
+
+# served since the port carried them (refused before): the early models, each
+# request image resized to the model's square (ViLT 64 px at tiny; MMBT's
+# ResNet-50 at --image_size 32)
+@pytest.mark.parametrize("extra", [["--model", "vilt"], ["--model", "mmbt", "--image_size", "32"]],
+                         ids=["vilt", "mmbt"])
+def test_early_models_serve_as_the_jax_service(tmp_path, extra):
+    """The JAX service's random weights carried into the port's artifact
+    (MMBT's BatchNorm statistics too), the artifact path derived by name
+    under the family's results directory: the same probabilities."""
+    jargs = jserve.parse_args(BASE + extra + ["--dtype", "float32", "--random_init"])
+    info = {}
+    jpredict, jmeta = jserve.build_service(jargs, export_info=info)
+    model = extra[1]
+    base = {"vilt": "results_dir_mm_early", "mmbt": "results_dir_mmbt"}[model]
+    mp = pytest.MonkeyPatch()
+    try:
+        mp.setattr(TC, base, str(tmp_path / model) + "/")
+        targs = tserve.parse_args(BASE + extra + ["--dtype", "float32", "--device", "cpu"])
+        setup = build_mm_early_setup(targs, TC.serving_config(targs, model_name=model))
+        load_jax_params(setup.model, to_numpy_tree(info["params"]))
+        path = tmp_path / model / f"{model}_task3_seed30__net.pth"
+        save_params(str(path), setup.model)
+        tpredict, tmeta = tserve.build_service(targs)
+    finally:
+        mp.undo()
+    assert tmeta["model"] == jmeta["model"] == model and tmeta["model_path"] == str(path)
+    assert tmeta["resize_size"] == jmeta["resize_size"] and tmeta["center_crop_from"] is None
+    reqs = _requests()
+    for window in (reqs, reqs[2:3]):
+        jout, tout = jpredict(window), tpredict(window)
+        for a, b in zip(jout, tout):
+            assert abs(sum(b["probs"]) - 1.0) < 1e-5
+            assert np.abs(np.array(a["probs"]) - np.array(b["probs"])).max() <= 1e-4
