@@ -73,7 +73,20 @@ and the CUDA toolkit. It
    two moving the counters by two steps' counts, each
    step's loss within 1e-5 relative of the K = 1 run's; every run also times
    three more passes over the train split with one sync at the end (ms per
-   step with the host free to run ahead); the text-only runner
+   step with the host free to run ahead); then the headline run's optimizer
+   and workload flags (``lazy_phase``): ``--opt_impl lazy_emb`` under
+   ``auto`` (the word table outside AdamW; step 1 from fresh moments against
+   exact AdamW on the same batch: the row gradient within 1e-5 of the dense
+   table gradient's rows, the touched rows within 1e-5, the untouched rows
+   bit-unchanged; one optimizer step's device ms and launches beside the
+   exact run's, and the busy ms and peak memory of both), under ``fused`` at
+   K = 1 (a checkpoint at step 2) and K = 3 (losses within 1e-5 of K = 1's),
+   ``--resume`` from that checkpoint ending bit for bit where K = 1 ended,
+   ``--cache_vision`` for two epochs (the frozen tower once per batch of
+   epoch 1, train and eval, never in epoch 2, its 12 SDPA launches counted
+   to the step or eval that ran it; an epoch-2 step's busy ms) and
+   ``--tim_reuse_text`` (the text tower's backward at 16 rows, not 32); the
+   text-only runner
    ``cli/run_txt.main`` (Bernice-base, CLS head) the same way under
    ``fused`` at K = 1 and K = 3; then the image-only runner
    ``cli/run_img.main`` the same way, each tower trained whole: ViT-B/16
@@ -187,7 +200,11 @@ and the CUDA toolkit. It
    within 2e-2 relative of its separate ``run_mm_late`` run, and the first
    step in float32 (dropout 0, the swap pinned) within 1e-5 (loss) and 1e-3
    (text-tower attention and fusion-head gradients, relative) of each
-   seed's separate setup (``python3 chip_smoke.py --sweep_profile ROOT``
+   seed's separate setup; after the ``fused`` run, one AdamW step over the
+   stacked gradients of one batch, every weight gradient in its parameter's
+   strides, launching fewer kernels than over the gradients of the stacked
+   product's old backward (transposed views, where ``_foreach_*`` falls back
+   to one launch per tensor) (``python3 chip_smoke.py --sweep_profile ROOT``
    profiles one eager sweep step and one single-seed step under ``auto``
    and ``fused`` for the port of another checkout, each kernel with the
    autograd nodes or lines of the port that launched it);
@@ -1273,11 +1290,16 @@ def profile_step(torch, step, tag):
 
 
 def train_run(torch, main, argv, tag, counters, results_dir, stem, expect, check_grads,
-              k=1, eager_kernels=None):
-    """One epoch through a trainer's ``main(argv)`` at ``--steps_per_dispatch
-    k``; checks the launch counts per train and eval step, the gradients
-    (``check_grads(setup, grads)``) and the artifacts ``stem`` + ...; returns
-    its numbers and the launch counts by (kernel, key).
+              k=1, eager_kernels=None, epochs=1, fills=None, after=None):
+    """``epochs`` epochs (the argv's ``--epochs``) through a trainer's
+    ``main(argv)`` at ``--steps_per_dispatch k``; checks the launch counts
+    per train and eval step, the gradients (``check_grads(setup, grads)``)
+    and the artifacts ``stem`` + ...; returns its numbers and the launch
+    counts by (kernel, key). ``fills`` = (launches of one vision-tower run
+    by kernel, a function giving the ``--cache_vision`` tower runs so far of
+    the train pipe and of the eval pipes): each run adds its launches to the
+    step or eval that triggered it. ``after(trainer, setup)`` is called last,
+    before the setup is let go.
 
     Under k > 1 ``on_step`` comes once per chunk, each step a CUDA graph
     replay: a chunk of n steps launches n times a step's kernels, the
@@ -1287,10 +1309,25 @@ def train_run(torch, main, argv, tag, counters, results_dir, stem, expect, check
     warm-up call: it must run the port's kernels by name as often as the
     eager step of the same path does (``eager_kernels``), and the two calls
     move the counters by two steps' counts."""
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.train.loop import Trainer
+
     for c in counters.values():
         c.reset()
     chunks = []
-    state = {"t": None, "prev": {k: 0 for k in counters}}
+    # the launches of the evals (an epoch's evals run between two steps when
+    # there is a next epoch), kept apart from the steps'
+    evals_seen = {k: 0 for k in counters}
+    state = {"t": None, "prev": {k: 0 for k in counters}, "fills": 0}
+    per_fill, fill_calls = fills if fills else ({}, lambda: (0, 0))
+    real_evaluate = Trainer.evaluate
+
+    def evaluate(self, *a, **kw):
+        before = {k: c.count for k, c in counters.items()}
+        res = real_evaluate(self, *a, **kw)
+        for k, c in counters.items():
+            evals_seen[k] += c.count - before[k]
+            state["prev"][k] += c.count - before[k]
+        return res
 
     def on_step(step, metrics):
         torch.cuda.synchronize()
@@ -1300,9 +1337,11 @@ def train_run(torch, main, argv, tag, counters, results_dir, stem, expect, check
         vals = {k: v.reshape(-1).tolist() for k, v in metrics.items()}
         if not all(x == x and abs(x) != float("inf") for v in vals.values() for x in v):
             raise AssertionError(f"{tag}: step {step} metrics not finite: {vals}")
+        train_fills = fill_calls()[0]
         chunks.append(dict(seconds=None if state["t"] is None else now - state["t"],
-                           counts=counts, losses=vals["loss"]))
-        state["t"] = now
+                           counts=counts, losses=vals["loss"],
+                           fills=train_fills - state["fills"]))
+        state["t"], state["fills"] = now, train_fills
 
     argv = list(argv) + ["--steps_per_dispatch", str(k)]
     torch.cuda.synchronize()
@@ -1310,7 +1349,11 @@ def train_run(torch, main, argv, tag, counters, results_dir, stem, expect, check
     # TF32 on before the run: the runner itself must turn it off
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
     t0 = time.perf_counter()
-    trainer, setup = main(argv, on_step=on_step, keep_grads=True)
+    Trainer.evaluate = evaluate
+    try:
+        trainer, setup = main(argv, on_step=on_step, keep_grads=True)
+    finally:
+        Trainer.evaluate = real_evaluate
     torch.cuda.synchronize()
     precision_check(torch, tag)
     wall = time.perf_counter() - t0
@@ -1320,22 +1363,30 @@ def train_run(torch, main, argv, tag, counters, results_dir, stem, expect, check
 
     losses = [x for ch in chunks for x in ch["losses"]]
     n_train = len(losses)
-    n_eval = setup.pipes["val"].num_batches + setup.pipes["test"].num_batches
+    n_eval = epochs * (setup.pipes["val"].num_batches + setup.pipes["test"].num_batches)
     for i, ch in enumerate(chunks):
         steps = len(ch["losses"]) + (1 if k > 1 and i == 0 else 0)
         for kernel, n in expect["train"].items():
-            if ch["counts"][kernel] != n * steps:
+            want = n * steps + per_fill.get(kernel, 0) * ch["fills"]
+            if ch["counts"][kernel] != want:
                 raise AssertionError(f"{tag}: chunk {i + 1} launched {kernel} "
-                                     f"{ch['counts'][kernel]} times, expected {n} x {steps}")
+                                     f"{ch['counts'][kernel]} times, expected {n} x {steps}"
+                                     f" + {ch['fills']} tower runs")
     evals = n_eval + (1 if k > 1 else 0)
+    eval_fills = fill_calls()[1]
+    if {k: sum(ch["counts"][k] for ch in chunks) + evals_seen[k] for k in counters} != totals:
+        raise AssertionError(f"{tag}: launches outside the steps and the evals")
     for kernel, n in expect["eval"].items():
-        seen = totals[kernel] - sum(ch["counts"][kernel] for ch in chunks)
-        if seen != n * evals:
+        seen = evals_seen[kernel]
+        if seen != n * evals + per_fill.get(kernel, 0) * eval_fills:
             raise AssertionError(f"{tag}: {evals} eval steps launched "
-                                 f"{kernel} {seen} times, expected {n} each")
+                                 f"{kernel} {seen} times, expected {n} each + "
+                                 f"{eval_fills} tower runs")
     log(f"{tag}: launches per train step {expect['train']}, per eval step "
         f"{expect['eval']} over {n_train} train and {n_eval} eval steps in "
-        f"{len(chunks)} dispatches of up to {k}: exact")
+        f"{len(chunks)} dispatches of up to {k}"
+        + (f", and {per_fill} for each of {sum(fill_calls())} vision-tower runs" if fills else "")
+        + ": exact")
 
     check_grads(setup, setup.train_step.last_grads)
 
@@ -1345,7 +1396,8 @@ def train_run(torch, main, argv, tag, counters, results_dir, stem, expect, check
             raise AssertionError(f"{tag}: artifact {path} missing")
     with open(os.path.join(results_dir, stem + "metrics_test.csv")) as f:
         table = f.read().splitlines()
-    if table[0] != "metric,epoch-1" or len(table) != 8:
+    header = "metric," + ",".join(f"epoch-{e + 1}" for e in range(epochs))
+    if table[0] != header or len(table) != 8:
         raise AssertionError(f"{tag}: metrics table {table}")
 
     # the train split STEADY_PASSES times more through the same path, one
@@ -1421,6 +1473,8 @@ def train_run(torch, main, argv, tag, counters, results_dir, stem, expect, check
                   idle_share_of_steady_step=(1 - busy / steady_ms) if busy else None,
                   kernel_launches=sum(e.count for e in events),
                   max_memory_allocated=peak, run_seconds=wall, losses=losses)
+    if after is not None:
+        result.update(after(trainer, setup) or {})
     log(f"{tag}: {json.dumps(result)}")
     del trainer, setup
     torch.cuda.empty_cache()
@@ -1466,6 +1520,18 @@ def late_grads_check(torch, tag):
     gradients, and AdamW holds every trainable parameter."""
     def check(setup, grads):
         names = set(setup.optimizer.names)
+        lazy = setup.train_step.lazy
+        if lazy is not None:  # --opt_impl lazy_emb: the word table's rows
+            grads = dict(grads)
+            uids, rows = grads.pop(lazy.name)
+            vocab, width = lazy.param.shape
+            if (lazy.name != "dual.text.embeddings.word.weight" or lazy.name in names
+                    or rows.shape != (uids.shape[0], width) or not torch.isfinite(rows).all()):
+                raise AssertionError(f"{tag}: the word table's lazy gradient {lazy.name} "
+                                     f"{tuple(rows.shape)}")
+            log(f"{tag}: the word table outside AdamW, its gradient {int((uids < vocab).sum())} "
+                f"batch rows in {uids.shape[0]} slots (of {vocab} rows), finite")
+            names.add(lazy.name)
         unused = sorted(n for n, gr in grads.items() if gr is None)
         if unused != ["linear_iadds.bias", "linear_iadds.weight"]:
             raise AssertionError(f"{tag}: parameters without a gradient: {unused}")
@@ -1900,6 +1966,279 @@ def vilt_first_step(torch, C, run_mm_early, build_early, hub):
     return first_step_check(torch, "vilt", make_setup, keep)
 
 
+def lazy_args(attn_impl, extra=()):
+    """The training runs' configuration under ``--opt_impl lazy_emb``."""
+    return train_args(attn_impl, ["--opt_impl", "lazy_emb", *extra])
+
+
+def optimizer_reading(torch, tag):
+    """An ``after`` hook for ``train_run``: one optimizer step of the run's
+    setup (AdamW, and under ``--opt_impl lazy_emb`` the word table's row
+    update) on the gradients of one train batch: its device ms (CUDA
+    events over 10 steps) and the kernel launches the profiler sees."""
+    def after(trainer, setup):
+        step = setup.train_step
+        batch = next(setup.pipes["train"].device_iter(setup.device, shuffle=False))
+        grads, _, _ = step.gradients(batch, trainer.gen)
+
+        def optimizer_step():
+            step.optimizer.step(grads)
+            if step.lazy is not None:
+                step.lazy.step(grads[step.lazy.name], batch["ids"])
+
+        ms = device_ms(torch, optimizer_step, iters=10)
+        _, busy, _, events = profile_step(torch, optimizer_step, f"{tag} optimizer")
+        out = dict(optimizer_ms=ms, optimizer_busy_ms=busy,
+                   optimizer_launches=sum(e.count for e in events),
+                   optimizer_tensors=len(step.optimizer.params))
+        log(f"{tag}: one optimizer step {ms:.3f} ms on the device ({out['optimizer_launches']} "
+            f"launches, {out['optimizer_tensors']} AdamW tensors"
+            + (f" + the lazy word table)" if step.lazy is not None else ")"))
+        return out
+
+    return after
+
+
+def lazy_first_step_check(torch, trainer, setup, tag):
+    """The lazy update against exact AdamW on one batch, both from fresh
+    moments (step 1): the injected rows' gradient against the exact path's
+    dense table gradient (the same forward with the table read by its
+    lookup, the generator at the same state), then the table after one
+    step of each: the touched rows within 1e-5 (float32 master weights),
+    the untouched rows bit-unchanged under the lazy step (the exact step's
+    decay of them, lr x wd x p, is below float32's step at these weights:
+    whether it moved any is reported)."""
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.train.lazy_emb import (
+        LazyEmb, LazyEmbConfig)
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.train.optim import AdamW
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.train.steps import TrainStep
+
+    step, lazy = setup.train_step, setup.train_step.lazy
+    cfg = lazy.cfg
+    batch = next(setup.pipes["train"].device_iter(setup.device, shuffle=False))
+    state = trainer.gen.get_state()
+    grads, _, _ = step.gradients(batch, trainer.gen)
+    uids, g_rows = grads[lazy.name]
+    trainer.gen.set_state(state)
+    table = [(lazy.name, lazy.param)]
+    only_table = type("TableOnly", (), {"names": [lazy.name], "params": table})()
+    dense = TrainStep(setup.model, step.forward_fn, step.loss_cfg, only_table,
+                      step.class_weights).gradients(batch, trainer.gen)[0][lazy.name]
+    vocab = lazy.param.shape[0]
+    real = uids < vocab
+    rows = uids[real]
+    scale = dense[rows].abs().max().item()
+    grad_err = (g_rows[real] - dense[rows]).abs().max().item() / max(scale, 1e-30)
+    outside = dense.abs().sum(1) > 0
+    outside[rows] = False
+
+    start = lazy.param.detach().clone()
+    exact_table = torch.nn.Parameter(start.clone())
+    AdamW([("t", exact_table)], cfg.lr, cfg.weight_decay).step({"t": dense})
+    lazy_table = torch.nn.Parameter(start.clone())
+    LazyEmb(lazy_table, LazyEmbConfig(name="t", lr=cfg.lr, weight_decay=cfg.weight_decay)).step(
+        (uids, g_rows), batch["ids"])
+    untouched = torch.ones(vocab, dtype=torch.bool, device=start.device)
+    untouched[rows] = False
+    touched_err = (lazy_table[rows] - exact_table[rows]).abs().max().item()
+    kept = torch.equal(lazy_table[untouched], start[untouched])
+    decayed = not torch.equal(exact_table[untouched], start[untouched])
+    out = dict(rows=int(rows.numel()), slots=int(uids.numel()), row_grad_err=grad_err,
+               dense_grad_rows_outside_batch=int(outside.sum()), touched_abs_err=touched_err,
+               untouched_kept=kept, untouched_decayed_by_exact=decayed)
+    log(f"{tag}: step 1 from fresh moments on {out['rows']} touched rows ({out['slots']} "
+        f"slots): row gradient against the dense table gradient {grad_err:.2e} of its scale, "
+        f"touched rows against exact AdamW {touched_err:.2e} (tol 1e-5), untouched rows kept "
+        f"{kept} (exact AdamW's decay moved them: {decayed})")
+    if not (touched_err <= 1e-5 and kept and not out["dense_grad_rows_outside_batch"]
+            and grad_err <= 1e-5):
+        raise AssertionError(f"{tag}: the lazy step is not exact AdamW on the touched rows: {out}")
+    del dense, exact_table, lazy_table, start
+    return {"first_step": out}
+
+
+def cached_fills(run_mm_late, state):
+    """Patch ``run_mm_late.enable_vision_cache`` to keep the cached pipes in
+    ``state``; returns the function giving the tower runs so far (the train
+    pipe's, and the val and test pipes' together) and the patch's undo."""
+    real = run_mm_late.enable_vision_cache
+
+    def enable(setup, args):
+        real(setup, args)
+        state["pipes"] = setup.pipes
+
+    run_mm_late.enable_vision_cache = enable
+
+    def calls():
+        pipes = state.get("pipes")
+        if pipes is None:
+            return 0, 0
+        return pipes["train"].compute_calls, pipes["val"].compute_calls + pipes["test"].compute_calls
+
+    return calls, lambda: setattr(run_mm_late, "enable_vision_cache", real)
+
+
+def lazy_phase(torch, C, run_mm_late, counters, per_step, training, launches, eager_kernels):
+    """The headline run's optimizer and workload flags at full width
+    (Bernice-base + ViT-B/16, attention fusion, ITC + TIM, bf16, batch 16,
+    the 64-post set): ``--opt_impl lazy_emb`` under ``auto`` at K = 1 (its
+    step-1 update against exact AdamW, its optimizer step timed beside the
+    exact run's) and under ``fused`` at K = 1 (a checkpoint at step 2) and
+    K = 3 (every loss within 1e-5 of K = 1's); ``--resume`` from the step-2
+    checkpoint, ending with the K = 1 run's parameters bit for bit;
+    ``--cache_vision`` (with ``lazy_emb``, ``auto``) for two epochs: the
+    frozen tower runs once per batch of epoch 1 (train and eval) and never in
+    epoch 2, and the profiled step after it has no tower; ``--tim_reuse_text``
+    (with ``lazy_emb``, ``auto``): the text tower's kernels at B rows, not
+    2B. Launch counts exact throughout, as ``train_run`` checks them."""
+    stem = "bernice-vit-attention_task3_seed30_itc0.1itm0.1_"
+    results = C.results_dir_mm_late
+    out = {}
+    tag = "lazy[auto]"
+    out["auto"], by_key, _ = train_run(
+        torch, run_mm_late.main, lazy_args("auto"), tag, counters, results, stem,
+        per_step["auto"], late_grads_check(torch, tag),
+        after=lambda trainer, setup: {**lazy_first_step_check(torch, trainer, setup, tag),
+                                      **optimizer_reading(torch, tag)(trainer, setup)})
+    count_launches(launches, by_key)
+    exact = training["auto"]
+    mine = out["auto"]
+    log(f"{tag}: optimizer step {mine['optimizer_ms']:.3f} ms (exact AdamW "
+        f"{exact['optimizer_ms']:.3f}), busy {mine['device_busy_ms']:.2f} ms a step (exact "
+        f"{exact['device_busy_ms']:.2f}), peak {mine['max_memory_allocated'] / 1e9:.2f} GB "
+        f"(exact {exact['max_memory_allocated'] / 1e9:.2f}), steady "
+        f"{mine['steady_ms_per_step']:.2f} ms a step (exact {exact['steady_ms_per_step']:.2f})")
+
+    # fused at K = 1 (a checkpoint at step 2) and at K = 3
+    for k in (1, 3):
+        tag = f"lazy[fused, K={k}]"
+        extra = ["--ckpt_every", "2"] if k == 1 else []
+        out[f"fused/k{k}"], by_key, kernels = train_run(
+            torch, run_mm_late.main, lazy_args("fused", extra), tag, counters, results, stem,
+            per_step["fused"], late_grads_check(torch, tag), k=k,
+            eager_kernels=eager_kernels["fused"] if k > 1 else None)
+        count_launches(launches, by_key)
+        if k == 1:
+            straight = torch.load(os.path.join(results, stem + "net.pth"), map_location="cpu",
+                                  weights_only=True)
+    out["fused/k3"]["loss_rel_vs_k1"] = same_losses(out["fused/k3"], out["fused/k1"],
+                                                    "lazy[fused, K=3]")
+
+    # --resume from the K = 1 run's step-2 checkpoint: its step 3 again
+    import shutil
+
+    ckpt_dir = results + stem + "ckpt"
+    size = os.path.getsize(os.path.join(ckpt_dir, "step_2.pt"))
+    seen = []
+    t0 = time.perf_counter()
+    trainer, setup = run_mm_late.main(lazy_args("fused", ["--ckpt_every", "2", "--resume"]),
+                                      on_step=lambda step, m: seen.append(step))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    count = int(setup.train_step.lazy.state["count"])
+    del trainer, setup
+    torch.cuda.empty_cache()
+    shutil.rmtree(ckpt_dir)
+    resumed = torch.load(os.path.join(results, stem + "net.pth"), map_location="cpu",
+                         weights_only=True)
+    differ = [n for n, v in straight.items() if not torch.equal(resumed[n], v)]
+    equal = len(straight) - len(differ)
+    log(f"lazy resume: checkpoint {size / 1e9:.3f} GB (parameters, AdamW's and the lazy "
+        f"table's moments and counts); the resumed run took steps {seen} in {seconds:.1f} s, "
+        f"lazy count {count}; {equal} of {len(straight)} tensors equal to the straight run's")
+    if seen != [3] or count != 3 or differ or set(resumed) != set(straight):
+        raise AssertionError(f"lazy resume: the resumed run does not end bit for bit where the "
+                             f"straight run ended: {differ}")
+    out["resume"] = dict(checkpoint_bytes=size, tensors_equal=equal, steps=seen)
+    del straight, resumed
+
+    # --cache_vision for two epochs: the tower's 12 SDPA forwards leave the step
+    tag = "lazy[auto, cache_vision]"
+    no_tower = {phase: {**counts, "sdpa_fwd": counts["sdpa_fwd"] - 12}
+                for phase, counts in per_step["auto"].items()}
+    state = {}
+    calls, undo = cached_fills(run_mm_late, state)
+    try:
+        out["cache_vision"], by_key, _ = train_run(
+            torch, run_mm_late.main, lazy_args("auto", ["--cache_vision", "--epochs", "2"]),
+            tag, counters, results, stem, no_tower, late_grads_check(torch, tag), epochs=2,
+            fills=({"sdpa_fwd": 12}, calls))
+    finally:
+        undo()
+    count_launches(launches, by_key)
+    pipes = state["pipes"]
+    per_pipe = {n: (p.compute_calls, p.num_batches) for n, p in pipes.items()}
+    log(f"{tag}: vision-tower runs (runs, batches an epoch) {per_pipe}: one per batch of "
+        f"epoch 1, none in epoch 2; busy {out['cache_vision']['device_busy_ms']:.2f} ms an "
+        f"epoch-2 step against {mine['device_busy_ms']:.2f} uncached")
+    if any(c != n for c, n in per_pipe.values()):
+        raise AssertionError(f"{tag}: the tower ran {per_pipe}")
+    out["cache_vision"]["tower_runs"] = per_pipe
+    del pipes
+    state.clear()
+
+    # --tim_reuse_text: the TIM rows gathered from the first text pass
+    tag = "lazy[auto, tim_reuse_text]"
+    out["tim_reuse"], by_key, _ = train_run(
+        torch, run_mm_late.main, lazy_args("auto", ["--tim_reuse_text"]), tag, counters,
+        results, stem, per_step["auto"], late_grads_check(torch, tag))
+    count_launches(launches, by_key)
+    rows = sorted({key[1] for key in by_key["sdpa_bwd"] if key[3] == 128})
+    log(f"{tag}: the text tower's backward at {rows} rows (without the flag "
+        f"{2 * BATCH}); busy {out['tim_reuse']['device_busy_ms']:.2f} ms a step against "
+        f"{mine['device_busy_ms']:.2f}")
+    if rows != [BATCH]:
+        raise AssertionError(f"{tag}: text backward at {rows} rows, expected {BATCH}")
+    out["tim_reuse"]["text_rows"] = rows
+    return out
+
+
+def old_seed_product(torch):
+    """The seed-stacked product before ``SeedProduct``: autograd's own
+    backward of ``bmm(x, w.transpose(1, 2))``, which leaves each weight
+    gradient as a transposed view."""
+    def product(x3, w, bias):
+        wt = w.transpose(1, 2)
+        return torch.bmm(x3, wt) if bias is None else torch.baddbmm(bias[:, None, :], x3, wt)
+
+    return product
+
+
+def sweep_adamw_check(torch, encoder, tag):
+    """An ``after`` hook for ``sweep_run``: one sweep batch's gradients, every
+    weight gradient in its parameter's strides, and the launches of one
+    AdamW step over them; then the same with the product's old backward
+    (transposed weight gradients, where ``_foreach_*`` falls back to one
+    launch per tensor): the step must launch fewer kernels now."""
+    def after(trainer, setup):
+        batch = next(trainer.device_batches(setup.pipes["train"], False, 1))[0]
+        params = dict(setup.model.named_parameters())
+        reading = {}
+        for name, product in (("now", None), ("before", old_seed_product(torch))):
+            real = encoder.SeedProduct.apply
+            if product is not None:
+                encoder.SeedProduct.apply = product
+            try:
+                grads = setup.train_step.gradients(batch, trainer.gens)[0]
+            finally:
+                encoder.SeedProduct.apply = real
+            odd = [n for n, g in grads.items() if g is not None and g.stride() != params[n].stride()]
+            _, busy, _, events = profile_step(torch, lambda: setup.optimizer.step(grads),
+                                              f"{tag} optimizer[{name}]")
+            reading[name] = dict(launches=sum(e.count for e in events), device_ms=busy,
+                                 gradients_in_other_strides=len(odd))
+            del grads
+        log(f"{tag}: one AdamW step over {len(setup.optimizer.params)} stacked tensors: "
+            f"{json.dumps(reading)}")
+        if reading["now"]["gradients_in_other_strides"] or not (
+                reading["now"]["launches"] < reading["before"]["launches"]):
+            raise AssertionError(f"{tag}: the stacked weight gradients still fall back: "
+                                 f"{reading}")
+        return {"adamw": reading}
+
+    return after
+
+
 def sweep_args(attn_impl, extra=()):
     """``run_seed_sweep`` at full width: the training runs' configuration,
     three seeds trained together."""
@@ -1910,7 +2249,8 @@ def sweep_args(attn_impl, extra=()):
             "--use_saved_features", "--log_every", "1", "--attn_impl", attn_impl, *extra]
 
 
-def sweep_run(torch, sweep_main, argv, tag, counters, expect, results_dir, stem_fmt, k=1):
+def sweep_run(torch, sweep_main, argv, tag, counters, expect, results_dir, stem_fmt, k=1,
+              after=None):
     """One epoch of ``run_seed_sweep.main(argv)`` at ``--steps_per_dispatch
     k`` with the counts set to 0 before and read after: the launch counts
     per sweep step (under k > 1 per chunk, the first chunk and the evals once
@@ -1918,6 +2258,7 @@ def sweep_run(torch, sweep_main, argv, tag, counters, expect, results_dir, stem_
     finite, each seed's metric tables; then the steady ms per sweep step (the
     split three more times, one sync), one profiled step (the device's idle
     share, the counters moved by one step's counts) and the peak memory.
+    ``after(trainer, setup)`` is called last, before the setup is let go.
     Returns its numbers, the per-step losses by seed and the launch counts."""
     import numpy as np
 
@@ -2019,6 +2360,8 @@ def sweep_run(torch, sweep_main, argv, tag, counters, expect, results_dir, stem_
                   idle_share_of_steady_step=(1 - busy / steady_ms) if busy else None,
                   kernel_launches=sum(e.count for e in events), max_memory_allocated=peak,
                   run_seconds=wall, losses=losses)
+    if after is not None:
+        result.update(after(trainer, setup) or {})
     log(f"{tag}: {json.dumps(result)}")
     del trainer, setup
     torch.cuda.empty_cache()
@@ -2149,7 +2492,11 @@ def sweep_phase(torch, C, run_mm_late, build, sweep, counters, per_step, trainin
     under ``fused`` at K = 3 the block kernels run once per seed, S times one
     seed's count. Each seed's per-step losses against its separate run, the
     float32 first step against the separate setups, and beside the sweep's
-    ms per step the single run's at the same K."""
+    ms per step the single run's at the same K; after the ``fused`` run one
+    AdamW step's launches over the stacked gradients, now and with the
+    product's old backward (``sweep_adamw_check``)."""
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.models import encoder
+
     s = len(SWEEP_SEEDS)
     per_seed = ("attn_block_fwd", "attn_block_bwd", "gemm_tn_bf16")
     expect = {"auto": per_step["auto"],
@@ -2159,9 +2506,10 @@ def sweep_phase(torch, C, run_mm_late, build, sweep, counters, per_step, trainin
     result = {}
     for impl, k, single in (("auto", 1, "auto"), ("fused", 3, "fused/k3")):
         tag = f"sweep[{impl}, K={k}]"
-        result[f"{impl}/k{k}"], by_key = sweep_run(torch, sweep.main, sweep_args(impl), tag,
-                                                   counters, expect[impl], C.results_dir_mm_late,
-                                                   stem_fmt, k)
+        result[f"{impl}/k{k}"], by_key = sweep_run(
+            torch, sweep.main, sweep_args(impl), tag, counters, expect[impl],
+            C.results_dir_mm_late, stem_fmt, k,
+            after=sweep_adamw_check(torch, encoder, tag) if impl == "fused" else None)
         count_launches(launches, by_key)
         one = training[single]
         mine = result[f"{impl}/k{k}"]
@@ -3568,7 +3916,8 @@ def main():
             tag = f"train[{impl}]"
             training[impl], by_key, eager_kernels[impl] = train_run(
                 torch, run_mm_late.main, train_args(impl), tag, counters,
-                C.results_dir_mm_late, late_stem, expect, late_grads_check(torch, tag))
+                C.results_dir_mm_late, late_stem, expect, late_grads_check(torch, tag),
+                after=optimizer_reading(torch, tag) if impl == "auto" else None)
             count_launches(launches, by_key)
         no_added_sgemm(training["fused"], training["auto"], "train")
         # the same run at --steps_per_dispatch 3: every step a CUDA graph replay
@@ -3580,6 +3929,9 @@ def main():
         training["fused/k3"]["loss_rel_vs_k1"] = same_losses(training["fused/k3"],
                                                              training["fused"], tag)
         count_launches(launches, by_key)
+        # --opt_impl lazy_emb, --cache_vision and --tim_reuse_text on the same run
+        training["lazy"] = lazy_phase(torch, C, run_mm_late, counters, per_step, training,
+                                      launches, eager_kernels)
         # the seed sweep: the same model under three seeds in one seed-stacked run
         training["sweep"] = sweep_phase(torch, C, run_mm_late, build, run_seed_sweep, counters,
                                         per_step, training, launches,

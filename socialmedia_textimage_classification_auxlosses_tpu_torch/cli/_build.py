@@ -15,7 +15,10 @@ statistics in train mode), the data splits and pipelines (the CNN path's
 images resized to 256 and centre-cropped), AdamW, the loss configuration
 and the train and eval steps, from the parts a seed sweep builds once per
 seed (``build_mm_late_parts``: the CPU model, pipelines and class weights;
-``mm_late_forward``, ``mm_late_optimizer``); ``import_reference_checkpoint``
+``mm_late_forward``, ``build_optimizer``: AdamW, and under ``--opt_impl
+lazy_emb`` the word table's row-sparse AdamW); ``enable_vision_cache``
+(``--cache_vision``) wraps the pipes in ``VisionCachedPipe``;
+``import_reference_checkpoint``
 loads a reference-trained ``MM_Model`` state dict (``--import_reference_ckpt``);
 ``build_text_setup`` builds the text-only classifier of ``cli/run_txt.py``
 and ``build_image_setup`` the image-only classifier of ``cli/run_img.py``
@@ -42,6 +45,7 @@ from ..models.fusion import FUSION_NAMES, MMCnnModel, MMLateModel
 from ..models.text import NO_TOKEN_TYPES, build_text_classifier, text_encoder_config
 from ..models.vision import (CNN_MODELS, IMAGE_NORM, build_vision_classifier,
                              vision_encoder_config, vit_geometry)
+from ..train.lazy_emb import LazyEmb, LazyEmbConfig, find_word_embedding_path
 from ..train.optim import AdamW, feature_extract_frozen, vision_frozen
 from ..train.steps import EvalStep, LossConfig, TrainStep, make_feature_step
 from ..utils.logging import get_logger
@@ -239,46 +243,151 @@ def freeze_vision(model: torch.nn.Module) -> None:
 
 
 def mm_late_forward(model, args, cfg, image_norm) -> Callable:
-    """The trainers' ``forward_fn(batch, tim_inputs, gen, deterministic)``
-    over ``model`` (plain or seed-stacked; ``MMCnnModel``: its BatchNorm
-    statistics trained when not ``deterministic``)."""
+    """The trainers' ``forward_fn(batch, tim_inputs, gen, deterministic,
+    word_embeds=None, tim_word_embeds=None)`` over ``model`` (plain or
+    seed-stacked; ``MMCnnModel``: its BatchNorm statistics trained when not
+    ``deterministic``). A batch of ``VisionCachedPipe`` carries the frozen
+    tower's ``vision_hidden`` / ``vision_pooled`` instead of pixels."""
     mean, std = image_norm
     dtype = getattr(torch, args.dtype)
     use_tt = args.txt_model_name not in NO_TOKEN_TYPES
+    reuse_text = getattr(args, "tim_reuse_text", False)
 
     if isinstance(model, MMCnnModel):
-        def cnn_forward_fn(batch, tim_inputs, gen, deterministic):
+        def cnn_forward_fn(batch, tim_inputs, gen, deterministic, word_embeds=None,
+                           tim_word_embeds=None):
             pixels = normalize_on_device(batch["pixel_values"], mean, std, dtype)
             return model(batch["ids"], batch["mask"], pixels,
                          batch.get("token_type_ids") if use_tt else None,
-                         train=not deterministic, gen=gen)
+                         train=not deterministic, gen=gen, word_embeds=word_embeds)
 
         return cnn_forward_fn
 
-    def forward_fn(batch, tim_inputs, gen, deterministic):
+    def forward_fn(batch, tim_inputs, gen, deterministic, word_embeds=None,
+                   tim_word_embeds=None):
         """The model's output dict; the TIM rows re-encoded in training, taken
-        from the first pass's rows in eval (exact there)."""
-        pixels = normalize_on_device(batch["pixel_values"], mean, std, dtype)
+        from the first pass's rows in eval (exact there) and, under
+        ``--tim_reuse_text``, in training too."""
+        pixels = (normalize_on_device(batch["pixel_values"], mean, std, dtype)
+                  if "pixel_values" in batch else None)
         tim_kw = {}
         if tim_inputs is not None:
-            if deterministic:  # eval: the TIM rows are rows of the first pass
+            if deterministic or reuse_text:  # the TIM rows are rows of the first pass
                 tim_kw = {"tim_src": tim_inputs["src"]}
             else:
                 tim_kw = {"tim_ids": tim_inputs["ids"], "tim_mask": tim_inputs["mask"],
-                          "tim_token_type_ids": tim_inputs["token_type_ids"]}
+                          "tim_token_type_ids": tim_inputs["token_type_ids"],
+                          "tim_word_embeds": tim_word_embeds}
         return model(batch["ids"], batch["mask"], pixels,
                      batch.get("token_type_ids") if use_tt else None,
-                     iadds_task=cfg.use_iadds_loss, gen=gen, **tim_kw)
+                     iadds_task=cfg.use_iadds_loss, gen=gen, word_embeds=word_embeds,
+                     vision_hidden=batch.get("vision_hidden"),
+                     vision_pooled=batch.get("vision_pooled"), **tim_kw)
 
     return forward_fn
 
 
-def mm_late_optimizer(model, args, cfg) -> AdamW:
-    """AdamW over the trainable parameters (a transformer vision tower
-    frozen; the CNN path's BatchNorm statistics are buffers, outside it)."""
+def build_optimizer(model, args, cfg, frozen=None):
+    """``(AdamW, LazyEmb or None)`` over the parameters ``frozen`` leaves
+    trainable, as the JAX ``_finish`` builds them: under ``--opt_impl
+    lazy_emb`` the one trainable word table (``find_word_embedding_path``)
+    leaves AdamW for the row-sparse update; a model with none, or several,
+    trains with exact AdamW and a warning. The lazy moments are float32
+    whatever ``--opt_moments`` says (the JAX ``LazyEmbConfig`` default)."""
+    lazy = None
+    if getattr(args, "opt_impl", "exact") == "lazy_emb":
+        name = find_word_embedding_path(
+            n for n, _ in model.named_parameters() if frozen is None or not frozen(n))
+        if name is None:
+            logger.warning("--opt_impl lazy_emb: no unique word-embedding leaf in this "
+                           "model; using exact AdamW")
+        else:
+            lazy = LazyEmb(model.get_parameter(name),
+                           LazyEmbConfig(name=name, lr=cfg.lr, weight_decay=cfg.weight_decay))
+            logger.info("lazy embedding AdamW on %s", name)
+
+    def frozen_or_lazy(n):  # the table leaves AdamW, as the JAX lazy_emb_predicate freezes it
+        return n == lazy.name or (frozen is not None and frozen(n))
+
     mu_dtype = torch.bfloat16 if args.opt_moments == "bf16" else None
-    return AdamW(model.named_parameters(), cfg.lr, cfg.weight_decay,
-                 mu_dtype=mu_dtype, frozen=vision_frozen)
+    return AdamW(model.named_parameters(), cfg.lr, cfg.weight_decay, mu_dtype=mu_dtype,
+                 frozen=frozen if lazy is None else frozen_or_lazy), lazy
+
+
+class VisionCachedPipe:
+    """``--cache_vision``: a ``SplitPipeline`` whose batches carry the frozen
+    vision tower's ``vision_hidden`` / ``vision_pooled`` instead of
+    ``pixel_values`` (the JAX ``VisionCachedPipe``).
+
+    The tower is frozen (the reference freezes it), so its features of an
+    image are the same all run; the reference recomputes them every epoch
+    and for the TIM pass. Here a batch with an image not seen yet runs
+    ``vision_fn`` once (the tower in eval mode, without a graph) and keeps
+    each image's two features on the host, in the dtypes the tower returns,
+    keyed by data id; later batches read them back, and the train step
+    holds no vision tower. ``compute_calls`` counts the tower's runs.
+    ``device_iter`` / ``device_iter_chunks`` stage the features as any
+    batch array (``data/pipeline.py``), so a chunk's CUDA graph is captured
+    on the cached batch's signature."""
+
+    def __init__(self, inner: SplitPipeline, vision_fn: Callable):
+        self.inner = inner
+        self.cfg = inner.cfg
+        self.vision_fn = vision_fn
+        self._cache: Dict[str, tuple] = {}
+        self.compute_calls = 0
+
+    def __len__(self):
+        return len(self.inner)
+
+    @property
+    def num_batches(self):
+        return self.inner.num_batches
+
+    def _with_features(self, batch):
+        ids = [str(i) for i in batch["data_id"]]
+        if any(i not in self._cache for i in ids):
+            hidden, pooled = self.vision_fn(batch["pixel_values"])
+            self.compute_calls += 1
+            for row, i in enumerate(ids):
+                self._cache[i] = (hidden[row], pooled[row])
+        batch["vision_hidden"] = torch.stack([self._cache[i][0] for i in ids])
+        batch["vision_pooled"] = torch.stack([self._cache[i][1] for i in ids])
+        del batch["pixel_values"]  # the step never reads pixels
+        return batch
+
+    def batches(self, shuffle=False, rng=None, skip: int = 0):
+        for batch in self.inner.batches(shuffle=shuffle, rng=rng, skip=skip):
+            yield self._with_features(batch)
+
+    # SplitPipeline's, over these batches
+    device_iter = SplitPipeline.device_iter
+    device_iter_chunks = SplitPipeline.device_iter_chunks
+
+
+def enable_vision_cache(setup: TrainSetup, args) -> None:
+    """Wrap every split's pipe of a late-fusion ``setup`` in a
+    ``VisionCachedPipe`` over its frozen transformer tower (the JAX
+    ``enable_vision_cache``). Call it after every checkpoint import, so the
+    features come from the final weights."""
+    model, device = setup.model, setup.device
+    mean, std = IMAGE_NORM[args.img_model_name]
+    dt = getattr(torch, args.dtype)
+
+    @torch.no_grad()
+    def vision_fn(pixels_u8):
+        vision = model.dual.vision
+        was_training = vision.training
+        vision.eval()
+        try:
+            px = normalize_on_device(torch.from_numpy(pixels_u8).to(device), mean, std, dt)
+            hidden, pooled = model.encode_vision(px)
+        finally:
+            vision.train(was_training)
+        return hidden.cpu(), pooled.cpu()
+
+    setup.pipes = {k: VisionCachedPipe(v, vision_fn) for k, v in setup.pipes.items()}
+    logger.info("vision-activation cache enabled (frozen tower)")
 
 
 def build_mm_late_train_setup(args, cfg: C.Config, device: torch.device,
@@ -291,7 +400,7 @@ def build_mm_late_train_setup(args, cfg: C.Config, device: torch.device,
     model = base.model.to(device)
     freeze_vision(model)
     forward_fn = mm_late_forward(model, args, cfg, base.image_norm)
-    optimizer = mm_late_optimizer(model, args, cfg)
+    optimizer, lazy = build_optimizer(model, args, cfg, vision_frozen)
     loss_cfg = loss_cfg_from(cfg)
     cw = None if weights is None else torch.tensor(weights, device=device)
     n_all = sum(p.numel() for p in model.parameters())
@@ -300,7 +409,7 @@ def build_mm_late_train_setup(args, cfg: C.Config, device: torch.device,
     return TrainSetup(
         model=model, device=device, optimizer=optimizer, pipes=pipes,
         train_step=TrainStep(model, forward_fn, loss_cfg, optimizer, cw,
-                             keep_grads=keep_grads),
+                             keep_grads=keep_grads, lazy=lazy),
         eval_step=EvalStep(model, forward_fn, loss_cfg, cw), tokenizer=base.tokenizer,
         feature_step=make_feature_step(model, forward_fn))
 
@@ -342,13 +451,13 @@ def build_text_setup(args, cfg: C.Config, device: torch.device,
              for name, split in (("train", train), ("val", val), ("test", test))}
     use_tt = model_name not in NO_TOKEN_TYPES
 
-    def forward_fn(batch, tim_inputs, gen, deterministic):
+    def forward_fn(batch, tim_inputs, gen, deterministic, word_embeds=None,
+                   tim_word_embeds=None):
         return {"out_cls": model(batch["ids"], batch["mask"],
-                                 batch.get("token_type_ids") if use_tt else None, gen=gen)}
+                                 batch.get("token_type_ids") if use_tt else None, gen=gen,
+                                 word_embeds=word_embeds)}
 
-    mu_dtype = torch.bfloat16 if args.opt_moments == "bf16" else None
-    optimizer = AdamW(model.named_parameters(), cfg.lr, cfg.weight_decay, mu_dtype=mu_dtype,
-                      frozen=frozen)
+    optimizer, lazy = build_optimizer(model, args, cfg, frozen)
     loss_cfg = loss_cfg_from(cfg)
     cw = None if weights is None else torch.tensor(weights, device=device)
     logger.info("text classifier parameters %d (trainable %d)",
@@ -357,7 +466,7 @@ def build_text_setup(args, cfg: C.Config, device: torch.device,
     return TrainSetup(
         model=model, device=device, optimizer=optimizer, pipes=pipes,
         train_step=TrainStep(model, forward_fn, loss_cfg, optimizer, cw,
-                             keep_grads=keep_grads),
+                             keep_grads=keep_grads, lazy=lazy),
         eval_step=EvalStep(model, forward_fn, loss_cfg, cw), tokenizer=tokenizer)
 
 
@@ -420,9 +529,7 @@ def build_image_setup(args, cfg: C.Config, device: torch.device,
             return {"out_cls": model(pixels, train=train_bn and not deterministic)}
         return {"out_cls": model(pixels, gen)}
 
-    mu_dtype = torch.bfloat16 if args.opt_moments == "bf16" else None
-    optimizer = AdamW(model.named_parameters(), cfg.lr, cfg.weight_decay, mu_dtype=mu_dtype,
-                      frozen=frozen)
+    optimizer, _ = build_optimizer(model, args, cfg, frozen)  # no word table: exact AdamW
     loss_cfg = loss_cfg_from(cfg)
     cw = None if weights is None else torch.tensor(weights, device=device)
     logger.info("image classifier parameters %d (trainable %d)",

@@ -28,8 +28,10 @@ The backbone's dropout follows the checkpoint's ``hidden_dropout_prob``
 (0.1 without one), as in the JAX builder; ``--dropout`` is the head's. The
 tokenizer is the ``bert`` family's (token types, pad id 0; hashing without a
 vocabulary). AdamW takes every parameter (nothing is frozen in early
-fusion). In training and in eval the TIM rows run through the joint pass
-with their own texts. ``import_reference_checkpoint`` loads a
+fusion); under ``--opt_impl lazy_emb`` the one word table takes the
+row-sparse update from its dense gradient (the forwards take no
+``word_embeds``, as in the JAX package). In training and in eval the TIM
+rows run through the joint pass with their own texts. ``import_reference_checkpoint`` loads a
 reference-trained ``ViLT`` or ``Lxmert`` state dict
 (``--import_reference_ckpt``); the reference has no MMBT.
 ``build_mm_early_setup`` builds the model alone, for serving.
@@ -55,10 +57,9 @@ from ..models.lxmert import LxmertClassifier, LxmertConfig, init_lxmert_weights
 from ..models.mmbt import MmbtClassifier, init_mmbt_weights
 from ..models.vilt import ViltClassifier, init_vilt_weights
 from ..models.vision import IMAGE_NORM, _load_hf_config
-from ..train.optim import AdamW
 from ..train.steps import EvalStep, TrainStep
 from ..utils.logging import get_logger
-from ._build import Setup, TrainSetup, loss_cfg_from
+from ._build import Setup, TrainSetup, build_optimizer, loss_cfg_from
 from ._common import arch_overrides
 
 logger = get_logger(__name__)
@@ -74,6 +75,14 @@ def check_mm_early_supported(args) -> None:
     if args.model == "mmbt" and getattr(args, "import_reference_ckpt", None):
         raise SystemExit("--import_reference_ckpt: the reference ships no MMBT model, "
                          "so no reference checkpoint format exists for it")
+    # the JAX early runner accepts these two and ignores them
+    if args.tim_reuse_text:
+        raise SystemExit("--tim_reuse_text is not ported to early fusion: its TIM rows run "
+                         "through the joint pass with their images, so no text-only rows "
+                         "can be reused (a late-fusion flag)")
+    if getattr(args, "cache_vision", False):
+        raise SystemExit("--cache_vision is not ported to early fusion: it caches a frozen "
+                         "late-fusion vision tower, and early fusion trains every part")
 
 
 def import_reference_checkpoint(model, args) -> None:
@@ -342,12 +351,11 @@ def build_mm_early_train_setup(args, cfg: C.Config, device: torch.device,
         pipes[name] = SplitPipeline(split, pipe_cfg, tokenizer=em.tokenizer, image_source=src,
                                     roi_cache=roi_cache)
 
-    mu_dtype = torch.bfloat16 if args.opt_moments == "bf16" else None
-    optimizer = AdamW(model.named_parameters(), cfg.lr, cfg.weight_decay, mu_dtype=mu_dtype)
+    optimizer, lazy = build_optimizer(model, args, cfg)
     loss_cfg = loss_cfg_from(cfg)
     cw = None if weights is None else torch.tensor(weights, device=device)
     return TrainSetup(
         model=model, device=device, optimizer=optimizer, pipes=pipes,
         train_step=TrainStep(model, em.forward_fn, loss_cfg, optimizer, cw,
-                             keep_grads=keep_grads),
+                             keep_grads=keep_grads, lazy=lazy),
         eval_step=EvalStep(model, em.forward_fn, loss_cfg, cw), tokenizer=em.tokenizer)

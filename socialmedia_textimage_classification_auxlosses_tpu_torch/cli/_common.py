@@ -71,8 +71,14 @@ def add_common_args(parser: argparse.ArgumentParser, multimodal: bool = False):
                         help="AdamW emission in the JAX package; both names "
                              "are the same AdamW here")
     parser.add_argument("--tim_reuse_text", action="store_true",
-                        help="(not ported) reuse the primary text pass for "
-                             "the TIM rows in training")
+                        help="reuse the primary pass's text-tower "
+                             "activations for the TIM rows (a row gather: "
+                             "the swap is an in-batch permutation) instead "
+                             "of re-encoding them. Exact in eval; during "
+                             "training the reused rows share the primary "
+                             "pass's dropout masks where the reference "
+                             "draws fresh ones (mm_late.py:168-182). Late "
+                             "fusion only")
     parser.add_argument("--prng_impl", type=str, default="rbg",
                         choices=["rbg", "threefry"],
                         help="JAX PRNG; logged only: the port draws from "
@@ -102,11 +108,17 @@ def add_common_args(parser: argparse.ArgumentParser, multimodal: bool = False):
                         help="(not ported) scanned layer stack")
     parser.add_argument("--opt_impl", type=str, default="exact",
                         choices=["exact", "lazy_emb"],
-                        help="exact: dense AdamW; lazy_emb: not ported")
+                        help="exact: dense AdamW; lazy_emb: the word "
+                             "table's rows in the batch get AdamW, the "
+                             "others keep their moments and skip decay "
+                             "(row-sparse, train/lazy_emb.py); a model "
+                             "without one word table keeps exact AdamW")
     if multimodal:
         parser.add_argument("--cache_vision", action="store_true",
-                            help="(not ported) cache the frozen vision "
-                                 "tower's activations")
+                            help="cache the frozen vision tower's activations "
+                                 "per image (the first touch computes them in "
+                                 "eval mode, later steps skip the tower; "
+                                 "late-fusion transformer towers only)")
     parser.add_argument("--steps_per_dispatch", type=int, default=1,
                         help="optimizer steps per dispatch: chunks of K batches "
                              "staged together, each step a CUDA graph replay on "
@@ -143,9 +155,6 @@ def check_training_supported(args) -> None:
         ("--mesh_model > 1", args.mesh_model > 1),
         ("--bucket_seq", bool(args.bucket_seq)),
         ("--bucket_group", args.bucket_group),
-        ("--opt_impl lazy_emb", args.opt_impl == "lazy_emb"),
-        ("--tim_reuse_text", args.tim_reuse_text),
-        ("--cache_vision", getattr(args, "cache_vision", False)),
         ("--img_decoder native", args.img_decoder != "pil"),
     ]
     for flag, asked in refused:

@@ -94,6 +94,8 @@ def main(argv=None, on_step=None, keep_grads=False):
     if args.import_reference_ckpt:
         import_reference_checkpoint(setup.model, args)
         setup.optimizer.reset()
+        if setup.train_step.lazy is not None:
+            setup.train_step.lazy.reset()
     stem = artifact_stem(args, cfg, family=args.model)
     trainer = Trainer(setup.train_step, setup.eval_step, setup.model, device,
                       seed=args.seed, multilabel=cfg.multilabel,

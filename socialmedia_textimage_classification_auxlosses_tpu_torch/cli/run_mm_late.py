@@ -29,7 +29,12 @@ when those hold one, and ``--import_reference_ckpt`` loads a reference-trained
 ``--eval_txt_test`` evaluates the text-only MIC set with the empty image
 (``preds_txt.csv``, ``metrics_txt.csv``). The run-control flags
 (``--steps_per_dispatch``, ``--ckpt_every`` into ``{stem}ckpt/``,
-``--resume``, ``--profile``, ``--remat``) act as in the JAX runner. What the
+``--resume``, ``--profile``, ``--remat``) act as in the JAX runner, and so
+do ``--opt_impl lazy_emb`` (the word table's row-sparse AdamW, its state in
+the checkpoints), ``--cache_vision`` (the frozen transformer tower's
+features computed once per image; a CNN tower warns and runs uncached) and
+``--tim_reuse_text`` (the TIM rows gathered from the first text pass in
+training too). What the
 port lacks raises ``SystemExit`` (``cli/_common.py::check_training_supported``,
 and here ``--quantize``).
 """
@@ -46,7 +51,7 @@ from ..train.loop import Trainer
 from ..train.metrics import compute_metrics
 from ..utils.logging import get_logger
 from ._build import (build_mm_late_train_setup, check_mm_late_supported,
-                     import_reference_checkpoint)
+                     enable_vision_cache, import_reference_checkpoint)
 from ._common import (add_common_args, artifact_stem, check_training_supported,
                       resolve_device, results_dir_for, run_control, save_metrics_csv,
                       save_predictions_csv, seed_everything)
@@ -129,6 +134,14 @@ def main(argv=None, on_step=None, keep_grads=False):
     if args.import_reference_ckpt:
         import_reference_checkpoint(setup.model, args)
         setup.optimizer.reset()
+        if setup.train_step.lazy is not None:
+            setup.train_step.lazy.reset()
+    if args.cache_vision:
+        if args.img_model_name in ("resnet50", "resnet152"):
+            logger.warning("--cache_vision requires a (frozen) transformer vision tower; "
+                           "ignoring for the CNN path")
+        else:
+            enable_vision_cache(setup, args)
 
     stem = artifact_stem(args, cfg)
     model_path = (results_dir + stem + "net.pth"

@@ -22,9 +22,12 @@ SDPA kernel launch covers the S seeds' rows; under ``fused`` the block
 kernels run once per seed. Each seed trains with its own class weights (the
 JAX sweep applies the first seed's to all; they differ only where the
 subsamples do). ``--steps_per_dispatch`` replays CUDA graphs of the stacked
-step. What the sweep does not carry raises ``SystemExit``: the single-run
-flags ``--ckpt_every``, ``--resume``, ``--profile``, ``--log_jsonl``, the
-BEiT tower, and what ``run_mm_late`` refuses.
+step; ``--tim_reuse_text`` acts as in ``run_mm_late``. What the sweep does
+not carry raises ``SystemExit``: the single-run flags ``--ckpt_every``,
+``--resume``, ``--profile``, ``--log_jsonl``, the BEiT tower,
+``--opt_impl lazy_emb`` and ``--cache_vision`` (the JAX sweep takes both
+and silently drops them: its step never trains a lazily-updated word
+table, and it never caches), and what ``run_mm_late`` refuses.
 """
 
 from __future__ import annotations
@@ -39,10 +42,11 @@ from ..core import config as C
 from ..models.encoder import stack_seed_models
 from ..train.checkpoint import save_params
 from ..train.ensemble import EnsembleTrainer
+from ..train.optim import vision_frozen
 from ..train.steps import EvalStep, TrainStep, make_eval_many, make_train_many
 from ..utils.logging import get_logger
-from ._build import (TrainSetup, build_mm_late_parts, check_mm_late_supported, freeze_vision,
-                     loss_cfg_from, mm_late_forward, mm_late_optimizer)
+from ._build import (TrainSetup, build_mm_late_parts, build_optimizer, check_mm_late_supported,
+                     freeze_vision, loss_cfg_from, mm_late_forward)
 from ._common import (add_common_args, artifact_stem, check_training_supported, resolve_device,
                       results_dir_for, save_predictions_csv, seed_everything)
 
@@ -77,6 +81,18 @@ def check_supported(args) -> None:
             raise SystemExit(f"{flag} is a single-run flag the seed sweep does not carry "
                              "(nor does the JAX package's); run the seeds with run_mm_late")
     check_mm_late_supported(args)
+    # the JAX sweep takes both flags and drops them: its EnsembleTrainer builds
+    # the step without the lazy config, so the word table (labelled
+    # set_to_zero) never trains, and it never enables the vision cache
+    if args.opt_impl == "lazy_emb":
+        raise SystemExit("--opt_impl lazy_emb is not carried by the seed sweep: the JAX "
+                         "sweep hands its step an optimizer that freezes the word table "
+                         "without the row update, so it never trains the table; run the "
+                         "seeds with run_mm_late")
+    if args.cache_vision:
+        raise SystemExit("--cache_vision is not carried by the seed sweep: the JAX sweep "
+                         "ignores it (it never wraps its pipes in the cache); run the "
+                         "seeds with run_mm_late")
     if args.img_model_name == "beit":
         raise SystemExit("--img_model_name beit: the seed sweep does not stack the BEiT "
                          "tower yet (ROADMAP.md Queue 1 item 5); run the seeds with "
@@ -108,7 +124,7 @@ def build_sweep_setup(args, cfg, parts, device, independent: bool = True,
     model = model.to(device)
     freeze_vision(model)
     forward_fn = mm_late_forward(model, args, cfg, parts[0].base.image_norm)
-    optimizer = mm_late_optimizer(model, args, cfg)
+    optimizer, _ = build_optimizer(model, args, cfg, vision_frozen)  # exact: lazy is refused
     weights = [p.class_weights for p in (parts if independent else parts[:1] * seeds)]
     if independent and weights[0] is not None and not all(
             np.allclose(w, weights[0]) for w in weights[1:]):

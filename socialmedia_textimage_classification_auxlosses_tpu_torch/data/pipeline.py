@@ -226,19 +226,25 @@ def stage_chunks(batches, device, k: int):
 
 
 def _stack_to_device(chunk, device) -> Dict:
-    return to_device({key: np.stack([b[key] for b in chunk]) for key in chunk[0]}, device)
+    def stack(values):
+        return torch.stack(values) if torch.is_tensor(values[0]) else np.stack(values)
+
+    return to_device({key: stack([b[key] for b in chunk]) for key in chunk[0]}, device)
 
 
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict:
     """Numpy batch -> tensors on ``device``; ``data_id`` stays a host int64
-    array (the step never reads it; prediction CSVs need every digit)."""
+    array (the step never reads it; prediction CSVs need every digit). A
+    host tensor (the cached vision features of ``--cache_vision``, in
+    their own dtypes) is staged as it is."""
     device = torch.device(device)
     out = {}
     for key, value in batch.items():
         if key == "data_id":
             out[key] = value
             continue
-        t = torch.from_numpy(np.ascontiguousarray(value))
+        t = (value.contiguous() if torch.is_tensor(value)
+             else torch.from_numpy(np.ascontiguousarray(value)))
         if device.type == "cuda":
             t = t.pin_memory().to(device, non_blocking=True)
         out[key] = t

@@ -36,8 +36,9 @@ class DualEncoder(nn.Module):
         self.visual_proj = nn.Linear(vision_cfg.hidden, projection_dim, bias=False)
         self.logit_scale = nn.Parameter(torch.tensor(logit_scale_init))
 
-    def encode_text(self, ids, attention_mask=None, token_type_ids=None, gen=None):
-        return self.text(ids, attention_mask, token_type_ids, gen)
+    def encode_text(self, ids, attention_mask=None, token_type_ids=None, gen=None,
+                    word_embeds=None):
+        return self.text(ids, attention_mask, token_type_ids, gen, word_embeds)
 
     def encode_vision(self, pixel_values, gen=None):
         return self.vision(pixel_values, gen)

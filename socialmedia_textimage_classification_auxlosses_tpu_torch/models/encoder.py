@@ -34,9 +34,11 @@ slice per seed, and take activations seed-major: S·B rows, seed 0's B rows
 first. The helpers every module shares read S from the parameter and keep
 each seed's rows with its own slice: ``dense`` is one ``bmm`` over (S, rows,
 in) with the product rounded before the bias, as flax rounds; ``linear``
-(torch's Linear) one ``baddbmm``; ``layer_norm`` normalises once and applies
-each seed's scale and bias; ``embed`` gathers from the (S·V, E) view at each
-row's seed offset; the patch projection is one convolution per seed. The
+(torch's Linear) one ``baddbmm``; both through ``SeedProduct``, whose
+backward leaves each weight gradient in its parameter's layout;
+``layer_norm`` normalises once and applies each seed's scale and bias;
+``embed`` gathers from the (S·V, E) view at each row's seed offset; the
+patch projection is one convolution per seed. The
 attention's SDPA takes the S·B rows as its batch; the whole-block kernel
 runs once per seed on that seed's rows and weights. ``dropout`` draws each
 seed's mask from that seed's generator (``gen`` a tuple of S generators),
@@ -174,13 +176,38 @@ def seed_tail(x: torch.Tensor, s: int, rows: int) -> torch.Tensor:
     return per_seed(x, s)[:, rows // s:].reshape(-1, *x.shape[1:])
 
 
+class SeedProduct(torch.autograd.Function):
+    """Each seed's rows times its weight: (S, R, in) x (S, out, in) ->
+    (S, R, out), plus each seed's (S, out) bias when one is given. The
+    backward forms dW = gᵀ x straight in the weight's (S, out, in) layout
+    and dX = g W, as ``F.linear``'s backward does for a plain weight, so a
+    weight gradient has its parameter's strides (autograd's own backward of
+    ``bmm(x, w.transpose(1, 2))`` leaves a transposed view, and AdamW's
+    multi-tensor ops fall back to one launch per tensor on mixed strides)."""
+
+    @staticmethod
+    def forward(ctx, x3, w, bias):
+        ctx.save_for_backward(x3, w)
+        ctx.has_bias = bias is not None
+        wt = w.transpose(1, 2)
+        return torch.bmm(x3, wt) if bias is None else torch.baddbmm(bias[:, None, :], x3, wt)
+
+    @staticmethod
+    def backward(ctx, g):
+        x3, w = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        dx = torch.bmm(g, w) if need[0] else None
+        dw = torch.bmm(g.transpose(1, 2), x3) if need[1] else None
+        db = g.sum(1) if ctx.has_bias and need[2] else None
+        return dx, dw, db
+
+
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``F.linear(x, w)`` without bias; a seed-stacked (S, out, in) weight
-    multiplies each seed's rows of x in one ``bmm``."""
+    multiplies each seed's rows of x in one ``bmm`` (``SeedProduct``)."""
     if w.dim() == 2:
         return F.linear(x, w)
-    s = w.shape[0]
-    y = torch.bmm(x.reshape(s, -1, x.shape[-1]), w.transpose(1, 2))
+    y = SeedProduct.apply(x.reshape(w.shape[0], -1, x.shape[-1]), w, None)
     return y.reshape(*x.shape[:-1], w.shape[1])
 
 
@@ -203,13 +230,11 @@ def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor
 
 def linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     """``layer(x)`` (one rounding of product plus bias); a seed-stacked
-    layer in one ``baddbmm``."""
+    layer in one ``baddbmm`` (``SeedProduct``)."""
     w = layer.weight
     if w.dim() == 2:
         return layer(x)
-    x3 = x.reshape(w.shape[0], -1, x.shape[-1])
-    y = (torch.bmm(x3, w.transpose(1, 2)) if layer.bias is None
-         else torch.baddbmm(layer.bias[:, None, :], x3, w.transpose(1, 2)))
+    y = SeedProduct.apply(x.reshape(w.shape[0], -1, x.shape[-1]), w, layer.bias)
     return y.reshape(*x.shape[:-1], w.shape[1])
 
 
@@ -235,6 +260,23 @@ def embed(ids: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     offset = (torch.arange(rows, device=ids.device) // (rows // s)) * v
     return F.embedding(ids + offset.view(-1, *([1] * (ids.dim() - 1))),
                        weight.reshape(s * v, e))
+
+
+def embed_few(ids: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """``embed`` for a table of a few rows (the token types) as the product
+    of the ids' one-hot rows and the table: the same values (exact in
+    float32 without TF32, the port's policy), and a backward that is one
+    matrix product. The gather's backward, on CUDA, sums the
+    gradients of a row that every token of the batch reads (thousands of
+    them) in no fixed order, so two runs of one step could differ."""
+    if weight.dim() == 3:  # seed-stacked: each seed's rows of ids in its own table
+        s, v, e = weight.shape
+        rows = ids.shape[0]
+        ids = ids + ((torch.arange(rows, device=ids.device) // (rows // s)) * v).view(
+            -1, *([1] * (ids.dim() - 1)))
+        weight = weight.reshape(s * v, e)
+    hot = ids[..., None] == torch.arange(weight.shape[0], device=ids.device)
+    return hot.to(weight.dtype) @ weight
 
 
 class Attention(nn.Module):
@@ -266,24 +308,27 @@ class Attention(nn.Module):
             from ..ops.attn_block import attn_block
 
             lins = (self.query, self.key, self.value, self.out)
-            # the transpose of a Linear weight is the flax (in, out) layout, as a view
-            w = [lin.weight.to(dt).transpose(-1, -2) for lin in lins]
             bias = [lin.bias.to(dt) for lin in lins]
             s = seed_count(self.query.weight, 2)
 
             def block(x, mask, ws, bs):
+                # the transpose of a Linear weight is the flax (in, out)
+                # layout, as a view; the backward's weight gradient is the
+                # view of an (out, in) product, so the Linear's is that product
+                ws = [m.transpose(-1, -2) for m in ws]
                 return attn_block(x, mask, ws[0], bs[0], ws[1], bs[1], ws[2], bs[2],
                                   ws[3], bs[3], heads=cfg.heads, impl=cfg.attn_impl)
 
             x = q_input.to(dt)
             if not s:
-                out = block(x, key_mask, w, bias)
+                out = block(x, key_mask, [lin.weight.to(dt) for lin in lins], bias)
             else:  # one block per seed, on its rows and its weights
                 xs = per_seed(x, s)
                 masks = [None] * s if key_mask is None else per_seed(key_mask, s)
                 # unbind: one stack of the S gradients in the backward (S
-                # selects would sum S zero-filled stacks)
-                ws = [t.unbind(0) for t in w]
+                # selects would sum S zero-filled stacks), each seed's in
+                # its (out, in) layout, so the stack has the parameter's
+                ws = [lin.weight.to(dt).unbind(0) for lin in lins]
                 bs = [t.unbind(0) for t in bias]
                 out = torch.cat([block(xs[i], masks[i], [t[i] for t in ws], [t[i] for t in bs])
                                  for i in range(s)])
@@ -373,8 +418,9 @@ class TextEmbeddings(nn.Module):
     """Word + position + (optional) token-type embeddings, then LayerNorm.
 
     ``word_embeds`` (B, L, hidden), when given, takes the place of the word
-    lookup (MMBT's joint sequence, embedded through a table of its own);
-    ``ids`` then only gives the positions' shape. A module built with
+    lookup (MMBT's joint sequence, embedded through a table of its own; the
+    table's rows a lazy-AdamW step gathers, ``train/steps.py``); ``ids``
+    then only gives the positions. A module built with
     ``word_table=False`` holds no word table, as the flax module that is
     only ever called so declares none."""
 
@@ -405,7 +451,7 @@ class TextEmbeddings(nn.Module):
         if self.token_type is not None:
             if token_type_ids is None:
                 token_type_ids = torch.zeros_like(ids)
-            emb = emb + embed(token_type_ids, self.token_type.weight).to(dt)
+            emb = emb + embed_few(token_type_ids, self.token_type.weight).to(dt)
         return dropout(layer_norm(self.ln, emb), cfg.dropout, self.training, gen)
 
 
@@ -420,10 +466,13 @@ class BertEncoder(nn.Module):
         self.encoder = TransformerStack(cfg)
         self.pooler = Pooler(cfg)
 
-    def forward(self, ids, attention_mask=None, token_type_ids=None, gen=None):
+    def forward(self, ids, attention_mask=None, token_type_ids=None, gen=None,
+                word_embeds=None):
+        """``word_embeds`` (B, L, hidden), when given, replaces the word
+        lookup (``TextEmbeddings``): the rows a lazy-AdamW step injects."""
         if attention_mask is None:
             attention_mask = torch.ones_like(ids)
-        x = self.embeddings(ids, token_type_ids, gen)
+        x = self.embeddings(ids, token_type_ids, gen, word_embeds)
         x = self.encoder(x, attention_mask, gen)
         return x, self.pooler(x)
 

@@ -98,7 +98,10 @@ class MMLateModel(nn.Module):
     ``out_iadds`` and ``mm_features``, as the JAX module does. The TIM rows
     come either from ``tim_ids`` (a second text pass, batched with the first)
     or from ``tim_src`` (rows of the first pass, gathered); the vision
-    features are computed once and shared.
+    features are computed once and shared, or come in as ``vision_hidden``
+    / ``vision_pooled`` (``--cache_vision``). ``word_embeds`` /
+    ``tim_word_embeds`` replace the text tower's word lookup for the first
+    and the TIM texts (a lazy-AdamW step's injected rows).
 
     Seed-stacked (``models/encoder.py::stack_seed_models``), every input and
     output is seed-major: S·B rows of ids, pixels and ``tim_*`` (``tim_src``
@@ -133,7 +136,7 @@ class MMLateModel(nn.Module):
     def forward(self, ids, attention_mask, pixel_values, token_type_ids=None,
                 tim_ids=None, tim_mask=None, tim_token_type_ids=None,
                 iadds_task=False, vision_hidden=None, vision_pooled=None,
-                tim_src=None, gen=None):
+                tim_src=None, gen=None, word_embeds=None, tim_word_embeds=None):
         b = ids.shape[0]
         s = seed_count(self.linear_cls.weight, 2)
         use_tim = tim_ids is not None or tim_src is not None
@@ -142,8 +145,10 @@ class MMLateModel(nn.Module):
             attention_mask = seed_cat(attention_mask, tim_mask, s)
             if token_type_ids is not None:
                 token_type_ids = seed_cat(token_type_ids, tim_token_type_ids, s)
+            if word_embeds is not None:
+                word_embeds = seed_cat(word_embeds, tim_word_embeds, s)
         text_hidden, text_pooled = self.dual.encode_text(ids, attention_mask,
-                                                         token_type_ids, gen)
+                                                         token_type_ids, gen, word_embeds)
         if tim_src is not None:
             text_hidden = seed_cat(text_hidden, text_hidden[tim_src], s)
             text_pooled = seed_cat(text_pooled, text_pooled[tim_src], s)
@@ -199,8 +204,9 @@ class MMCnnModel(nn.Module):
         self.linear_cls = nn.Linear(h, num_labels)
 
     def forward(self, ids, attention_mask, pixel_values, token_type_ids=None,
-                train: bool = False, gen=None):
-        text_hidden, text_pooled = self.text(ids, attention_mask, token_type_ids, gen)
+                train: bool = False, gen=None, word_embeds=None):
+        text_hidden, text_pooled = self.text(ids, attention_mask, token_type_ids, gen,
+                                             word_embeds)
         _, fmap = self.cnn(pixel_values, train, return_features=True)
         conv_tokens = self.conv_proj(fmap.flatten(2).transpose(1, 2).float())
         cls = text_hidden[:, 0, :].float()

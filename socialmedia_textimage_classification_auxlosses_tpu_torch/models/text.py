@@ -88,8 +88,9 @@ class TextClassifier(nn.Module):
         self.tower = BertEncoder(cfg)
         self.classifier = nn.Linear(cfg.hidden, num_labels)
 
-    def forward(self, ids, attention_mask=None, token_type_ids=None, gen=None):
-        hidden, pooled = self.tower(ids, attention_mask, token_type_ids, gen)
+    def forward(self, ids, attention_mask=None, token_type_ids=None, gen=None,
+                word_embeds=None):
+        hidden, pooled = self.tower(ids, attention_mask, token_type_ids, gen, word_embeds)
         feat = pooled if self.use_pooled else hidden[:, 0, :]
         feat = dropout(feat, self.head_dropout, self.training, gen)
         return dense(self.classifier, feat.float(), torch.float32)

@@ -13,9 +13,10 @@ Counterpart of the JAX package's ``train/checkpoint.py``, in two tiers:
   ``TrainCheckpointer`` in place of the JAX package's Orbax manager, which
   the port does not have. Every checkpoint is one torch file
   ``{directory}/step_{step}.pt`` of plain tensors, numbers and dicts (the
-  trainer's state: parameters, AdamW's moments and count, step, epoch, the
-  generators' states), written to a temporary name and renamed, so a
-  checkpoint on disk is always whole; the newest ``max_to_keep`` are kept.
+  trainer's state: parameters, AdamW's moments and count, under
+  ``--opt_impl lazy_emb`` the word table's lazy moments and count beside
+  them, step, epoch, the generators' states), written to a temporary name
+  and renamed, so a checkpoint on disk is always whole; the newest ``max_to_keep`` are kept.
 """
 
 from __future__ import annotations

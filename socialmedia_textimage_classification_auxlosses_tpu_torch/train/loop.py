@@ -110,8 +110,10 @@ class Trainer:
 
     def _state(self, epoch: int, step_in_epoch: int) -> Dict:
         keys, pos, has_gauss, gauss = self._epoch_rng[1:]
+        lazy = getattr(self.train_step, "lazy", None)
         return {"model": {k: v.detach().cpu() for k, v in self.model.state_dict().items()},
                 "optimizer": self.train_step.optimizer.state_dict(),
+                **({"lazy_emb": lazy.state_dict()} if lazy is not None else {}),
                 "step": self.global_step, "epoch": epoch, "step_in_epoch": step_in_epoch,
                 "gen": self.gen.get_state(),
                 "host_rng": {"keys": torch.from_numpy(keys.astype(np.int64)), "pos": int(pos),
@@ -122,7 +124,8 @@ class Trainer:
 
     def maybe_resume(self) -> None:
         """Restore the newest checkpoint, if any, in place: parameters,
-        moments and step count, the generator, the step and epoch, and the
+        moments and step count (the lazy word table's too, under
+        ``--opt_impl lazy_emb``), the generator, the step and epoch, and the
         host generator as it was when that epoch began."""
         if self.checkpointer is None:
             return
@@ -131,6 +134,9 @@ class Trainer:
             return
         self.model.load_state_dict(state["model"])
         self.train_step.optimizer.load_state_dict(state["optimizer"])
+        lazy = getattr(self.train_step, "lazy", None)
+        if lazy is not None:
+            lazy.load_state_dict(state["lazy_emb"])
         self.gen.set_state(state["gen"])
         rng = state["host_rng"]
         self.host_rng.set_state(("MT19937", rng["keys"].numpy().astype(np.uint32), rng["pos"],

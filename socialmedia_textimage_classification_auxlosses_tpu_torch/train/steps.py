@@ -29,6 +29,16 @@ belongs to one seed, so each seed's gradients are those of its loss alone)
 and AdamW steps the stacked tensors. Metrics, predictions and confusion
 counts come per seed: every metric an (S,) tensor.
 
+With a ``LazyEmb`` (``--opt_impl lazy_emb``, ``train/lazy_emb.py``) the
+word table leaves AdamW and takes the row-sparse update. Where
+``forward_fn`` takes ``word_embeds`` the step injects the batch's rows: it
+gathers the N = B·L unique ids' rows once in float32 (``rows``), hands
+``rows[inv]`` to the forward as ``word_embeds`` (the TIM texts' as
+``tim_word_embeds``, looked up from ``rows`` too) and differentiates with
+respect to ``rows`` and the other trainable parameters, so the dense table
+gradient is never formed; otherwise (early fusion) the table's dense gradient is taken
+and its batch rows gathered from it, as in the JAX package.
+
 ``make_train_many`` / ``make_eval_many`` (``--steps_per_dispatch K``) run
 the steps of a chunk of K stacked batches. On a CUDA device each step is
 one replay of a CUDA graph of the whole step (``StepGraph``): the host
@@ -40,14 +50,17 @@ fusion head's ``mm_features`` (``--extract_features``).
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..ops import _cuda
 from . import losses as L
 from .itm import itm_swap
+from .lazy_emb import unique_ids
 from .metrics import confusion_matrix_update, multilabel_counts_update
 
 
@@ -177,13 +190,15 @@ def maybe_tim(cfg: LossConfig, gen, batch, seeds: int = 0):
 
 class TrainStep:
     """``step(batch, gen) -> metrics``: forward in training mode, loss,
-    gradient, AdamW. ``forward_fn(batch, tim_inputs, gen, deterministic)``
-    returns the model's output dict. With ``keep_grads`` the last step's
-    gradients stay in ``last_grads`` (name -> tensor or None)."""
+    gradient, AdamW (and with ``lazy`` the word table's row update).
+    ``forward_fn(batch, tim_inputs, gen, deterministic)`` returns the
+    model's output dict. With ``keep_grads`` the last step's gradients stay
+    in ``last_grads`` (name -> tensor or None; the lazy table's a
+    ``(uids, row gradients)`` pair when its rows were injected)."""
 
     def __init__(self, model: torch.nn.Module, forward_fn: Callable,
                  loss_cfg: LossConfig, optimizer, class_weights=None,
-                 keep_grads: bool = False, seeds: int = 0):
+                 keep_grads: bool = False, seeds: int = 0, lazy=None):
         self.model = model
         self.forward_fn = forward_fn
         self.loss_cfg = loss_cfg
@@ -191,23 +206,45 @@ class TrainStep:
         self.class_weights = class_weights  # with seeds: one per seed
         self.keep_grads = keep_grads
         self.seeds = seeds
+        self.lazy = lazy
+        self.inject = lazy is not None and (
+            "word_embeds" in inspect.signature(forward_fn).parameters)
         self.last_grads: Optional[Dict] = None
 
     def gradients(self, batch, gen):
         """(grads by name, loss parts, outputs) of one batch, no update."""
         self.model.train()
         tim_inputs, tim_labels = maybe_tim(self.loss_cfg, gen, batch, self.seeds)
-        outputs = self.forward_fn(batch, tim_inputs, gen, False)
+        names = self.optimizer.names
+        wrt = [p for _, p in self.optimizer.params]
+        lazy, kw = self.lazy, {}
+        if self.inject:
+            uids, inv = unique_ids(batch["ids"])
+            inv = inv.reshape(batch["ids"].shape)
+            rows = lazy.rows(uids).requires_grad_()
+            # gathers by embedding lookup: its backward sums each row's
+            # gradients in a fixed order (an indexing backward accumulates
+            # with atomics, in no fixed order)
+            kw = {"word_embeds": F.embedding(inv, rows),
+                  "tim_word_embeds": (None if tim_inputs is None
+                                      else F.embedding(inv[tim_inputs["src"]], rows))}
+            wrt = wrt + [rows]
+        elif lazy is not None:
+            wrt = wrt + [lazy.param]
+        outputs = self.forward_fn(batch, tim_inputs, gen, False, **kw)
         total, parts = step_loss(self.loss_cfg, outputs, batch, tim_labels,
                                  self.class_weights, self.seeds)
-        names = self.optimizer.names
-        params = [p for _, p in self.optimizer.params]
-        grads = torch.autograd.grad(total, params, allow_unused=True)
-        return dict(zip(names, grads)), parts, outputs
+        grads = torch.autograd.grad(total, wrt, allow_unused=True)
+        out = dict(zip(names, grads))
+        if lazy is not None:
+            out[lazy.name] = (uids, grads[-1]) if self.inject else grads[-1]
+        return out, parts, outputs
 
     def __call__(self, batch, gen):
         grads, parts, outputs = self.gradients(batch, gen)
         self.optimizer.step(grads)
+        if self.lazy is not None:
+            self.lazy.step(grads[self.lazy.name], batch["ids"])
         if self.keep_grads:
             self.last_grads = grads
         preds, targets = predictions(self.loss_cfg, outputs["out_cls"].detach(),

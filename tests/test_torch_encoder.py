@@ -77,3 +77,20 @@ def test_roberta_positions_follow_the_jax_formula():
         emb.ln.bias.zero_()
         out = emb(torch.tensor([[2, 7, 3, 0, 0]]))
     assert out.argmax(-1).tolist() == [[2, 3, 4, 5, 6]]
+
+
+@pytest.mark.parametrize("seeds", [0, 3], ids=["plain", "seed_stacked"])
+def test_token_type_product_is_the_gather(seeds):
+    """``embed_few`` (the token-type lookup as a one-hot product, whose
+    backward sums in a fixed order) gives the gather's values bit for bit
+    and its table gradient within 1e-6, plain and seed-stacked."""
+    gen = torch.Generator().manual_seed(0)
+    shape = (seeds, 2, 8) if seeds else (2, 8)
+    table = torch.randn(shape, generator=gen, requires_grad=True)
+    ids = torch.randint(0, 2, (max(seeds, 1) * 4, 6), generator=gen)
+    up = torch.randn(ids.shape + (8,), generator=gen)
+    got, want = TE.embed_few(ids, table), TE.embed(ids, table)
+    assert torch.equal(got, want)
+    g_got, = torch.autograd.grad((got * up).sum(), table)
+    g_want, = torch.autograd.grad((want * up).sum(), table)
+    torch.testing.assert_close(g_got, g_want, rtol=0, atol=1e-6)

@@ -23,6 +23,12 @@ from socialmedia_textimage_classification_auxlosses_tpu_torch.models.from_jax im
 
 TINY = dict(hidden=64, layers=2, heads=2, mlp_dim=128)
 
+# The suite runs in several pytest-xdist workers on one host, and each worker
+# imports every test module. At torch's default of one intra-op thread per
+# core in every worker, the workers' OpenMP threads outnumber the cores and
+# spin against each other, so torch computes on at most two threads here.
+torch.set_num_threads(min(2, torch.get_num_threads()))
+
 # bfloat16 whole-model tolerance, relative to the output's scale: every dense
 # layer rounds its product and bias sum to bfloat16 (relative step 3.9e-3),
 # XLA and PyTorch round at different places, and a few layers compound it.

@@ -207,3 +207,28 @@ def test_img_family_runs_under_both_backends(tmp_path, monkeypatch):
         assert [r[:3] + r[5:6] for r in runs[1:]] == [["img", "vit", "3", "ok"]] * 2
         tables[backend] = open(out + "grid_table_f1_macro.md").read()
     assert "| vit [img] |" in tables["vmap"] and tables["vmap"] == tables["sequential"]
+
+
+def test_vmap_runs_seeds_the_sweep_refuses_one_by_one(tmp_path, monkeypatch, caplog):
+    """``--opt_impl lazy_emb``: the seed sweep refuses it (the JAX sweep
+    drops it), so ``vmap`` runs the two seeds through ``run_mm_late`` one by
+    one, as ``sequential`` does, each with the lazy update."""
+    import logging
+
+    csv_path, img_fmt, _ = make_task_fixture(tmp_path / "data", task=3)
+    patch_task(monkeypatch, TC, 3, csv_path, img_fmt, tmp_path / "results")
+    for name in ("bert", "vit"):  # a small vocabulary and 32-px images: seconds a run
+        hub = tmp_path / "hub" / name
+        hub.mkdir(parents=True)
+        (hub / "config.json").write_text(
+            '{"vocab_size": 1000, "image_size": 32, "patch_size": 16}')
+        monkeypatch.setitem(TC.MODEL_DIR_DICT, name, str(hub) + os.sep)
+    argv = ["--families", "mm_late", "--mm_late", "bert-vit-concat", "--tasks", "3",
+            "--seeds", "30,40", "--aux", "none", "--epochs", "1", "--seed_backend", "vmap",
+            "--out", str(tmp_path / "grid") + os.sep, "--"] + FAST + ["--opt_impl", "lazy_emb"]
+    with caplog.at_level(logging.INFO):
+        assert T.main(argv) == 0
+    assert "the seed sweep refused this flag set" in caplog.text
+    assert caplog.text.count("lazy embedding AdamW on dual.text.embeddings.word.weight") == 2
+    runs = _read(str(tmp_path / "grid") + os.sep + "grid_runs.csv")
+    assert [r[5] for r in runs[1:]] == ["ok", "ok"]

@@ -243,25 +243,42 @@ def test_classifier_bf16_matches_jax(data):
         close(got[key].numpy(), want[key], "bfloat16")
 
 
-def _jax_grads(jm, params, batch, loss_kw):
-    jcfg = JS.LossConfig(**loss_kw)
+LOSS_KW = dict(num_labels=LABELS, use_clip_loss=True, use_tim_loss=True, beta_itc=0.1,
+               beta_itm=0.1)
+
+
+@pytest.fixture(scope="module")
+def jax_grads(data):
+    """JAX's first step (loss parts and every gradient, TIM pinned) and its
+    ITC-alone gradients (no TIM rows), in one compiled call."""
+    params, batch = data
+    jm, _ = _pair()
+    jcfg = JS.LossConfig(**LOSS_KW)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     tim, tim_labels = JS._maybe_tim(jcfg, None, jbatch)
     cw = jnp.asarray([1.0, 0.5, 2.0], jnp.float32)
-    (_, jparts), jgrads = jax.jit(jax.value_and_grad(
-        lambda p: JS.assemble_loss(jcfg, _jax_forward(jm, p, jbatch, tim, False), jbatch,
-                                   tim_labels, cw), has_aux=True))(params)
-    return jparts, torch_state_from_jax(to_numpy_tree(jgrads))
+
+    @jax.jit
+    def both(p):
+        (_, parts), grads = jax.value_and_grad(
+            lambda q: JS.assemble_loss(jcfg, _jax_forward(jm, q, jbatch, tim, False), jbatch,
+                                       tim_labels, cw), has_aux=True)(p)
+        itc = jax.grad(lambda q: JLoss.clip_loss(
+            _jax_forward(jm, q, jbatch, None, False)["logits_per_text"], jbatch["valid"]))(p)
+        return parts, grads, itc
+
+    parts, grads, itc = both(params)
+    return (parts, torch_state_from_jax(to_numpy_tree(grads)),
+            torch_state_from_jax(to_numpy_tree(itc)))
 
 
-def test_first_step_gradients_match_jax(data):
+def test_first_step_gradients_match_jax(data, jax_grads):
     """Loss parts and the gradient of every parameter, TIM pinned."""
     params, batch = data
     jm, tm = _pair()
     _carry(params, tm)
-    loss_kw = dict(num_labels=LABELS, use_clip_loss=True, use_tim_loss=True,
-                   beta_itc=0.1, beta_itm=0.1)
-    jparts, jg = _jax_grads(jm, params, batch, loss_kw)
+    loss_kw = LOSS_KW
+    jparts, jg, _ = jax_grads
     opt = TO.AdamW(tm.named_parameters(), 1e-3, 0.01)
     step = TS.TrainStep(tm, lambda bt, tim_, gen, det: _port_forward(tm, bt, tim_, gen),
                         TS.LossConfig(**loss_kw), opt, t(np.array([1.0, 0.5, 2.0], np.float32)))
@@ -275,18 +292,14 @@ def test_first_step_gradients_match_jax(data):
         _scaled_close(np.zeros_like(jg[name]) if g is None else g.numpy(), jg[name], 1e-4, name)
 
 
-def test_itc_gradients_hold_the_detach(data):
+def test_itc_gradients_hold_the_detach(data, jax_grads):
     """ITC alone: the port's gradients equal JAX's, and the parts of the last
     cross layer that only the language states pass through get none (the
     language side of the max-pool is detached, as in the reference)."""
     params, batch = data
-    jm, tm = _pair()
+    _, tm = _pair()
     _carry(params, tm)
-    jb = {k: jnp.asarray(v) for k, v in batch.items()}
-    valid = jnp.asarray(batch["valid"])
-    jgrads = jax.jit(jax.grad(lambda p: JLoss.clip_loss(
-        _jax_forward(jm, p, jb, None, False)["logits_per_text"], valid)))(params)
-    want = torch_state_from_jax(to_numpy_tree(jgrads))
+    want = jax_grads[2]
     named = dict(tm.named_parameters())
     out = _port_forward(tm, {k: t(v) for k, v in batch.items()})
     grads = torch.autograd.grad(TLoss.clip_loss(out["logits_per_text"], t(batch["valid"])),

@@ -118,14 +118,16 @@ def test_prediction_csv_matches_jax(runs):
 REFUSED = [
     ["--scan_layers"], ["--mesh_pipe", "2"], ["--mesh_data", "2"],
     ["--mesh_model", "2"], ["--bucket_seq"],
-    ["--bucket_group"], ["--opt_impl", "lazy_emb"], ["--tim_reuse_text"],
-    ["--cache_vision"], ["--quantize", "w8"], ["--img_decoder", "native"],
-    ["--img_model_name", "beit", "--cache_vision"],
+    ["--bucket_group"], ["--quantize", "w8"], ["--img_decoder", "native"],
 ]
-# refused until the port carried them; tests/test_torch_run_control.py runs them
+# refused until the port carried them; tests/test_torch_run_control.py runs the
+# run-control flags, test_torch_lazy_emb.py, test_torch_vision_cache.py and
+# test_torch_tim_reuse.py the last four
 PORTED = [
     ["--remat"], ["--steps_per_dispatch", "4"], ["--ckpt_every", "10"], ["--resume"],
     ["--profile", "p"], ["--extract_features"], ["--eval_txt_test"],
+    ["--opt_impl", "lazy_emb"], ["--tim_reuse_text"], ["--cache_vision"],
+    ["--img_model_name", "beit", "--cache_vision"],
 ]
 
 

@@ -107,7 +107,7 @@ def test_freeze_keeps_the_tower(txt_runs):
     assert not torch.equal(before["classifier.weight"], after["classifier.weight"])
 
 
-@pytest.mark.parametrize("extra", [["--opt_impl", "lazy_emb"], ["--bucket_seq"],
+@pytest.mark.parametrize("extra", [["--bucket_group"], ["--bucket_seq"],
                                    ["--mesh_data", "2"], ["--scan_layers"]],
                          ids=lambda e: e[0].lstrip("-"))
 def test_unported_flags_exit(extra):

@@ -354,9 +354,58 @@ def test_shared_data_mode_and_independent_batch_orders(task3):
 
 
 @pytest.mark.parametrize("extra", [["--ckpt_every", "5"], ["--resume"], ["--profile", "p"],
-                                   ["--scan_layers"], ["--img_model_name", "beit"]],
+                                   ["--scan_layers"], ["--img_model_name", "beit"],
+                                   ["--opt_impl", "lazy_emb"], ["--cache_vision"]],
                          ids=lambda e: e[0].lstrip("-"))
 def test_sweep_refuses_what_it_does_not_carry(extra):
     args = TSweep.parse_args(BASE + ["--seeds", "7,8"] + extra)
     with pytest.raises(SystemExit, match="not"):
         TSweep.check_supported(args)
+    if extra[0] in ("--opt_impl", "--cache_vision"):  # the JAX sweep drops both silently
+        with pytest.raises(SystemExit, match="the JAX sweep"):
+            TSweep.check_supported(args)
+
+
+def test_sweep_takes_tim_reuse_text():
+    TSweep.check_supported(TSweep.parse_args(BASE + ["--seeds", "7,8", "--tim_reuse_text"]))
+
+
+def _old_seed_product(x3, w, bias):
+    """The product before ``SeedProduct``: autograd's own backward of
+    ``bmm(x, w.transpose(1, 2))``, which leaves dW as a transposed view."""
+    wt = w.transpose(1, 2)
+    return torch.bmm(x3, wt) if bias is None else torch.baddbmm(bias[:, None, :], x3, wt)
+
+
+@pytest.mark.parametrize("impl", ["auto", "fused"])
+def test_stacked_weight_gradients_keep_their_layout(monkeypatch, impl):
+    """After one stacked step's gradients every weight gradient has its
+    parameter's strides (so AdamW's multi-tensor ops take each group at
+    once; under ``fused`` the blocks' too), with the values of autograd's
+    own backward of the stacked product within 1e-6."""
+    models, _ = _port_models(impl=impl, dropout=0.1)
+    stacked = TE.stack_seed_models(models)
+    for n, p in stacked.named_parameters():
+        p.requires_grad_(not TO.vision_frozen(n))
+    opt = TO.AdamW(stacked.named_parameters(), 1e-3, 0.01, frozen=TO.vision_frozen)
+    step = TS.TrainStep(stacked, _forward(stacked), TS.LossConfig(**LOSS_KW), opt,
+                        seeds=len(SEEDS))
+    batch = {k: v for k, v in _batch(4).items() if not k.startswith("tim_")}
+
+    def grads():
+        gens = tuple(torch.Generator().manual_seed(s) for s in SEEDS)
+        return step.gradients(batch, gens)[0]
+
+    new = grads()
+    params = dict(stacked.named_parameters())
+    for name, g in new.items():
+        if g is not None:
+            assert g.stride() == params[name].stride(), name
+    monkeypatch.setattr(TE.SeedProduct, "apply", _old_seed_product)
+    old = grads()
+    transposed = [n for n, g in old.items() if g is not None and g.stride() != params[n].stride()]
+    assert transposed  # what the old backward left
+    for name, g in new.items():
+        if g is not None:
+            np.testing.assert_allclose(g.numpy(), old[name].numpy(), rtol=0, atol=1e-6,
+                                       err_msg=name)

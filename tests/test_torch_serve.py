@@ -15,10 +15,14 @@ import threading
 import urllib.error
 import urllib.request
 
+import jax
 import numpy as np
 import pytest
 
+from socialmedia_textimage_classification_auxlosses_tpu.cli import _build as JBuild
+from socialmedia_textimage_classification_auxlosses_tpu.cli import _build_early as JBuildEarly
 from socialmedia_textimage_classification_auxlosses_tpu.cli import serve as jserve
+from socialmedia_textimage_classification_auxlosses_tpu.models import mmbt as JMmbt
 from socialmedia_textimage_classification_auxlosses_tpu_torch.cli import serve as tserve
 from socialmedia_textimage_classification_auxlosses_tpu_torch.cli._build import (
     build_mm_late_setup,
@@ -50,6 +54,26 @@ def _requests():
             ("storm coming #weather", img(48, 64)),
             ("", img(224, 224)),
             ("I can't believe it!!! so happy", img(30, 90))]
+
+
+def _jitted(real):
+    """``real(model, rng, *arrays, **kw)``, the JAX services' parameter
+    initialiser, as one compiled call (eager, every initialiser compiles on
+    its own). Both services read the weights it returns."""
+    def init(model, rng, *arrays, **kw):
+        return jax.jit(lambda r, *a: real(model, r, *a, **kw))(rng, *arrays)
+
+    return init
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jitted_inits():
+    mp = pytest.MonkeyPatch()
+    for owner, name in ((JBuild, "init_mm_late_params"), (JBuildEarly, "init_vilt_params"),
+                        (JMmbt, "init_mmbt_params")):
+        mp.setattr(owner, name, _jitted(getattr(owner, name)))
+    yield
+    mp.undo()
 
 
 def _services(tmp_path, dtype):

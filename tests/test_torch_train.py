@@ -204,8 +204,9 @@ def tiny_pair():
     jm, tm = _models()
     ids, mask = text_batch(rng, b=4, vocab=1000, pad_id=1)
     px = rng.randn(4, 32, 32, 3).astype(np.float32)
-    params = JF.init_mm_late_params(jm, jax.random.PRNGKey(1), jnp.asarray(ids),
-                                    jnp.asarray(mask), jnp.asarray(px))
+    # one compiled init (eager, every initialiser compiles on its own)
+    params = jax.jit(lambda k, *a: JF.init_mm_late_params(jm, k, *a))(
+        jax.random.PRNGKey(1), jnp.asarray(ids), jnp.asarray(mask), jnp.asarray(px))
     carry(params, tm)
     return jm, tm, params, rng
 
@@ -250,12 +251,17 @@ def test_train_step_matches_jax(tiny_pair):
     jcfg = JS.LossConfig(**loss_kw)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     tim, tim_labels = JS._maybe_tim(jcfg, None, jbatch)
-    (jtotal, jparts), jgrads = jax.value_and_grad(
-        lambda p: JS.assemble_loss(jcfg, jfwd(p, jbatch, tim, jax.random.PRNGKey(0), False),
-                                   jbatch, tim_labels, jnp.asarray(cw)), has_aux=True)(params)
     tx = JO.make_optimizer(lr, wd, JO.vision_frozen_predicate, fused=True)
     step = JS.make_train_step_fn(jfwd, jcfg, tx, class_weights=jnp.asarray(cw))
-    jnew, _, jmetrics = step(params, tx.init(params), jbatch, jax.random.PRNGKey(0))
+
+    @jax.jit
+    def grads_and_step(p, bt):  # one compile for both
+        grads = jax.grad(lambda q: JS.assemble_loss(
+            jcfg, jfwd(q, bt, tim, jax.random.PRNGKey(0), False), bt, tim_labels,
+            jnp.asarray(cw))[0])(p)
+        return grads, step(p, tx.init(p), bt, jax.random.PRNGKey(0))
+
+    jgrads, (jnew, _, jmetrics) = grads_and_step(params, jbatch)
 
     for n, p in tm.named_parameters():
         p.requires_grad_(not TO.vision_frozen(n))

@@ -83,8 +83,9 @@ def models(request):
     rng = np.random.RandomState(7)
     batch = _batch(rng, exact)
     jm, _ = _pair(exact)
-    params = JV.init_vilt_params(
-        jm, jax.random.PRNGKey(3), jnp.asarray(batch["ids"]), jnp.asarray(batch["mask"]),
+    # one compiled init (eager, every initialiser compiles on its own)
+    params = jax.jit(lambda k, *a, grid_hw: JV.init_vilt_params(jm, k, *a, grid_hw=grid_hw))(
+        jax.random.PRNGKey(3), jnp.asarray(batch["ids"]), jnp.asarray(batch["mask"]),
         jnp.asarray(batch["token_type_ids"]), jnp.asarray(batch["pixel_values"]),
         grid_hw=jnp.asarray(batch["grid_hw"]) if exact else None)
     return exact, params, batch
@@ -126,9 +127,8 @@ def test_classifier_outputs_match_jax(models, tim_batched):
     carry(params, tm)
     src = batch["tim_src"]
     jtim = {k: jnp.asarray(batch[k][src]) for k in ("ids", "mask", "token_type_ids")}
-    want = _jax_forward(jm, params, {k: jnp.asarray(v) for k, v in batch.items()},
-                        {"ids": jtim["ids"], "mask": jtim["mask"],
-                         "token_type_ids": jtim["token_type_ids"]})
+    want = jax.jit(lambda p, b, tm_: _jax_forward(jm, p, b, tm_))(
+        params, {k: jnp.asarray(v) for k, v in batch.items()}, jtim)
     tbatch = {k: t(v) for k, v in batch.items()}
     ttim = {k: t(batch[k][src]) for k in ("ids", "mask", "token_type_ids")}
     with torch.no_grad():
@@ -177,9 +177,9 @@ def test_first_step_gradients_match_jax(models):
     jcfg = JS.LossConfig(**loss_kw)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     tim, tim_labels = JS._maybe_tim(jcfg, None, jbatch)
-    (_, jparts), jgrads = jax.value_and_grad(
+    (_, jparts), jgrads = jax.jit(jax.value_and_grad(
         lambda p: JS.assemble_loss(jcfg, _jax_forward(jm, p, jbatch, tim, False), jbatch,
-                                   tim_labels, jnp.asarray(cw)), has_aux=True)(params)
+                                   tim_labels, jnp.asarray(cw)), has_aux=True))(params)
 
     opt = TO.AdamW(tm.named_parameters(), 1e-3, 0.01)
     step = TS.TrainStep(tm, lambda bt, tim_, gen, det: _port_forward(tm, bt, tim_, gen),
