@@ -88,7 +88,21 @@ and the CUDA toolkit. It
    ``--tim_reuse_text`` (the text tower's backward at 16 rows, not 32); the
    text-only runner
    ``cli/run_txt.main`` (Bernice-base, CLS head) the same way under
-   ``fused`` at K = 1 and K = 3; then the image-only runner
+   ``fused`` at K = 1 and K = 3; then sequence bucketing (``bucket_phase``)
+   on 128 generated tweet-like posts whose six train batches take the
+   widths 32, 64, 96 and 128: the headline run's flags unbucketed under
+   ``fused`` at K = 3, then with ``--bucket_seq`` under ``auto`` and
+   ``fused`` at K = 1 (the trained weights' eval logits at the buckets
+   within 2e-2 of their full-pad logits) and under ``fused`` at K = 3 with
+   ``--bucket_group`` (exactly one train graph per width run and one eval
+   graph per eval width; its losses within 1e-5 of the grouped order
+   stepped at K = 1; stopped by SIGTERM after its first chunk and resumed,
+   bit for bit), per width the ms, busy ms, idle share and peak memory of
+   a step beside the full pad's, the text-only runner with ``--bucket_seq``,
+   and the first step at its bucket against full pad in float32 (loss 1e-5,
+   gradients 1e-3, eval logits 1e-5) and bfloat16 (``first_step_check``'s
+   limits against the float32 full pad) (``python3 chip_smoke.py --bucket``
+   runs this phase and the BEiT sweep alone); then the image-only runner
    ``cli/run_img.main`` the same way, each tower trained whole: ViT-B/16
    under ``auto`` (K = 1) and ``fused`` (K = 1 and 3: #2's tensor-core pair,
    #8 and its TN GEMM at 16x197 for the first time on a main path), DeiT-B/16
@@ -204,7 +218,10 @@ and the CUDA toolkit. It
    stacked gradients of one batch, every weight gradient in its parameter's
    strides, launching fewer kernels than over the gradients of the stacked
    product's old backward (transposed views, where ``_foreach_*`` falls back
-   to one launch per tensor) (``python3 chip_smoke.py --sweep_profile ROOT``
+   to one launch per tensor); then BEiT-B/16 late fusion under ``auto``,
+   seeds 30 and 40 stacked (the relative-position tables along the seed
+   axis), each seed's losses within 2e-2 of its separate run's
+   (``python3 chip_smoke.py --sweep_profile ROOT``
    profiles one eager sweep step and one single-seed step under ``auto``
    and ``fused`` for the port of another checkout, each kernel with the
    autograd nodes or lines of the port that launched it);
@@ -234,6 +251,7 @@ Any failed check exits non-zero without the last line. Without CUDA, or
 without the repository beside it, it exits non-zero at once.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -265,6 +283,9 @@ DEIT_LEN = 2 + 14 ** 2  # 198: DeiT-B/16's CLS and distillation tokens and 196 p
 LXMERT_BOXES = 36  # ROI regions a post
 MMBT_LEN = 128 + 4  # [CLS], three image tokens, [SEP] and the 127 sentence tokens
 SWEEP_SEEDS = (30, 40, 50)  # the JAX sweep's default --seeds
+BEIT_SWEEP_SEEDS = (30, 40)
+BUCKET_POSTS = (96, 16, 16)  # train / val / test rows of the bucketing phase's posts
+BUCKET_DATA_SEED = 11  # the bucketing phase's posts: all four widths, the first step at 32
 SWEEP_ROWS = len(SWEEP_SEEDS) * BATCH  # a sweep step's rows: the seeds folded into the batch
 # photo sizes (height, width) of 4:3, 3:4, 16:9 and 1:1 for the generated ViLT frames
 VILT_PHOTOS = ((480, 640), (640, 480), (720, 1280), (500, 500), (960, 1280), (1080, 1920))
@@ -1144,26 +1165,28 @@ def check_perhead_kernels(torch):
     return rows, launches, versus
 
 
-def make_dataset(root):
-    """A task-3 data key (``data_key_mvsa.csv``) and a 224-px uint8 pixel
-    cache in the on-disk format of ``data/cache.py``, made with the csv
-    module and numpy from a seed; returns the data directory."""
+def make_dataset(root, name="data", posts=TRAIN_POSTS, words_of=lambda rng: rng.randint(3, 60),
+                 seed=7):
+    """A task-3 data key (``data_key_mvsa.csv``) of ``posts`` train / val /
+    test rows, each post of ``words_of(rng)`` words, and a 224-px uint8
+    pixel cache in the on-disk format of ``data/cache.py``, made with the
+    csv module and numpy from ``seed`` under ``root/name``; returns the data
+    directory."""
     import csv
 
     import numpy as np
 
-    rng = np.random.RandomState(7)
-    data = os.path.join(root, "data") + os.sep
+    rng = np.random.RandomState(seed)
+    data = os.path.join(root, name) + os.sep
     os.makedirs(data, exist_ok=True)
     words = "rain sun happy sad team win lose love hate coffee city tonight best worst".split()
-    splits = (["train"] * TRAIN_POSTS[0] + ["val"] * TRAIN_POSTS[1]
-              + ["test"] * TRAIN_POSTS[2])
+    splits = ["train"] * posts[0] + ["val"] * posts[1] + ["test"] * posts[2]
     ids = [1000 + i for i in range(len(splits))]
     with open(data + "data_key_mvsa.csv", "w", newline="") as f:
         w = csv.writer(f)
         w.writerow(["tweet_id", "text", "label", "split"])
         for i, split in zip(ids, splits):
-            text = " ".join(rng.choice(words, size=rng.randint(3, 60)))
+            text = " ".join(rng.choice(words, size=words_of(rng)))
             w.writerow([i, text, rng.randint(0, 3), split])
     cache = os.path.join(data, "cache", "mvsa_u8_224")
     os.makedirs(cache)
@@ -1173,6 +1196,17 @@ def make_dataset(root):
         json.dump({"index": {str(i): r for r, i in enumerate(ids)}, "size": 224,
                    "valid": [True] * len(ids)}, f)
     return data
+
+
+def tweet_words(rng):
+    """A tweet-like post length in words: mostly 3-25 (one token a word, plus
+    two: the 32 bucket), some 40-60 (64), a few 70-90 (96) and 100-120 (past
+    the buckets: the full pad of 128)."""
+    u = rng.rand()
+    for below, low, high in ((0.015, 100, 121), (0.04, 70, 91), (0.09, 40, 61)):
+        if u < below:
+            return rng.randint(low, high)
+    return rng.randint(3, 26)
 
 
 def train_args(attn_impl, extra=()):
@@ -1259,34 +1293,40 @@ def is_port_kernel(key: str) -> bool:
     return "smtc::" in key or "namespace)::gemm_" in key
 
 
-def profile_step(torch, step, tag):
+def profile_step(torch, step, tag, attempts=3):
     """Two calls of ``step`` under the profiler, the first its warm-up (not
     recorded: the tracer's start can miss the first kernels of a CUDA graph
     replayed at once), the second recorded: its wall ms, the device's busy
-    ms and idle share, and the events on the device."""
+    ms and idle share, the events on the device and the calls of ``step``
+    made. A profile that records no device event (the tracer missed a whole
+    session once in a long run) is taken again, up to ``attempts`` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    recorded = []
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1),
-                 on_trace_ready=lambda p: recorded.append(p.key_averages())) as prof:
-        step()
+    for attempt in range(1, attempts + 1):
+        recorded = []
         torch.cuda.synchronize()
-        prof.step()
-        t1 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t1) * 1e3
-        prof.step()
-    # the schedule's own step range is no kernel
-    events = [e for e in recorded[0] if e.device_type == DeviceType.CUDA
-              and not e.key.startswith("ProfilerStep")]
-    busy = sum(e.self_device_time_total for e in events) / 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: recorded.append(p.key_averages())) as prof:
+            step()
+            torch.cuda.synchronize()
+            prof.step()
+            t1 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t1) * 1e3
+            prof.step()
+        # the schedule's own step range is no kernel
+        events = [e for e in recorded[0] if e.device_type == DeviceType.CUDA
+                  and not e.key.startswith("ProfilerStep")]
+        busy = sum(e.self_device_time_total for e in events) / 1e3
+        if busy:
+            break
+        log(f"{tag}: the profiler saw no device events (attempt {attempt} of {attempts})")
     if not busy:
         log(f"{tag}: device idle share not measured (the profiler saw no device events)")
-    return wall, busy, (1 - busy / wall) if busy else None, events
+    return wall, busy, (1 - busy / wall) if busy else None, events, 2 * attempt
 
 
 def train_run(torch, main, argv, tag, counters, results_dir, stem, expect, check_grads,
@@ -1302,13 +1342,15 @@ def train_run(torch, main, argv, tag, counters, results_dir, stem, expect, check
     before the setup is let go.
 
     Under k > 1 ``on_step`` comes once per chunk, each step a CUDA graph
-    replay: a chunk of n steps launches n times a step's kernels, the
-    first chunk once more (the step's gradients, run eagerly before the
-    capture), and the evals once more than their steps (the eval step run
-    before its capture). A replayed step is profiled, after one unrecorded
-    warm-up call: it must run the port's kernels by name as often as the
-    eager step of the same path does (``eager_kernels``), and the two calls
-    move the counters by two steps' counts."""
+    replay: a chunk of n steps launches n times a step's kernels, and once
+    more for each graph captured in it (the step's gradients, run eagerly
+    before the capture: the first chunk's, and under ``--bucket_seq`` the
+    first chunk of each width), and the evals once more than their steps
+    for each eval graph captured. A replayed step is profiled, after one
+    unrecorded warm-up call: it must run the port's kernels by name as often
+    as the eager step of the same path does (``eager_kernels``), and the two
+    calls move the counters by two steps' counts."""
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.train import steps
     from socialmedia_textimage_classification_auxlosses_tpu_torch.train.loop import Trainer
 
     for c in counters.values():
@@ -1317,16 +1359,24 @@ def train_run(torch, main, argv, tag, counters, results_dir, stem, expect, check
     # the launches of the evals (an epoch's evals run between two steps when
     # there is a next epoch), kept apart from the steps'
     evals_seen = {k: 0 for k in counters}
-    state = {"t": None, "prev": {k: 0 for k in counters}, "fills": 0}
+    state = {"t": None, "prev": {k: 0 for k in counters}, "fills": 0, "captures": 0,
+             "captured": 0, "eval_captures": 0}
     per_fill, fill_calls = fills if fills else ({}, lambda: (0, 0))
-    real_evaluate = Trainer.evaluate
+    real_evaluate, real_capture = Trainer.evaluate, steps.StepGraph._capture
+
+    def capture(self, tensors):
+        state["captures"] += 1
+        return real_capture(self, tensors)
 
     def evaluate(self, *a, **kw):
         before = {k: c.count for k, c in counters.items()}
+        captured = state["captures"]
         res = real_evaluate(self, *a, **kw)
         for k, c in counters.items():
             evals_seen[k] += c.count - before[k]
             state["prev"][k] += c.count - before[k]
+        state["eval_captures"] += state["captures"] - captured
+        state["captured"] += state["captures"] - captured
         return res
 
     def on_step(step, metrics):
@@ -1340,8 +1390,9 @@ def train_run(torch, main, argv, tag, counters, results_dir, stem, expect, check
         train_fills = fill_calls()[0]
         chunks.append(dict(seconds=None if state["t"] is None else now - state["t"],
                            counts=counts, losses=vals["loss"],
-                           fills=train_fills - state["fills"]))
-        state["t"], state["fills"] = now, train_fills
+                           fills=train_fills - state["fills"],
+                           captures=state["captures"] - state["captured"]))
+        state["t"], state["fills"], state["captured"] = now, train_fills, state["captures"]
 
     argv = list(argv) + ["--steps_per_dispatch", str(k)]
     torch.cuda.synchronize()
@@ -1349,11 +1400,11 @@ def train_run(torch, main, argv, tag, counters, results_dir, stem, expect, check
     # TF32 on before the run: the runner itself must turn it off
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
     t0 = time.perf_counter()
-    Trainer.evaluate = evaluate
+    Trainer.evaluate, steps.StepGraph._capture = evaluate, capture
     try:
         trainer, setup = main(argv, on_step=on_step, keep_grads=True)
     finally:
-        Trainer.evaluate = real_evaluate
+        Trainer.evaluate, steps.StepGraph._capture = real_evaluate, real_capture
     torch.cuda.synchronize()
     precision_check(torch, tag)
     wall = time.perf_counter() - t0
@@ -1365,14 +1416,16 @@ def train_run(torch, main, argv, tag, counters, results_dir, stem, expect, check
     n_train = len(losses)
     n_eval = epochs * (setup.pipes["val"].num_batches + setup.pipes["test"].num_batches)
     for i, ch in enumerate(chunks):
-        steps = len(ch["losses"]) + (1 if k > 1 and i == 0 else 0)
+        n_steps = len(ch["losses"]) + ch["captures"]
         for kernel, n in expect["train"].items():
-            want = n * steps + per_fill.get(kernel, 0) * ch["fills"]
+            want = n * n_steps + per_fill.get(kernel, 0) * ch["fills"]
             if ch["counts"][kernel] != want:
                 raise AssertionError(f"{tag}: chunk {i + 1} launched {kernel} "
-                                     f"{ch['counts'][kernel]} times, expected {n} x {steps}"
+                                     f"{ch['counts'][kernel]} times, expected {n} x {n_steps}"
                                      f" + {ch['fills']} tower runs")
-    evals = n_eval + (1 if k > 1 else 0)
+    if k > 1 and not chunks[0]["captures"]:
+        raise AssertionError(f"{tag}: the first chunk captured no graph")
+    evals = n_eval + state["eval_captures"]
     eval_fills = fill_calls()[1]
     if {k: sum(ch["counts"][k] for ch in chunks) + evals_seen[k] for k in counters} != totals:
         raise AssertionError(f"{tag}: launches outside the steps and the evals")
@@ -1385,6 +1438,8 @@ def train_run(torch, main, argv, tag, counters, results_dir, stem, expect, check
     log(f"{tag}: launches per train step {expect['train']}, per eval step "
         f"{expect['eval']} over {n_train} train and {n_eval} eval steps in "
         f"{len(chunks)} dispatches of up to {k}"
+        + (f", {sum(ch['captures'] for ch in chunks)} train and {state['eval_captures']} "
+           "eval graphs captured" if k > 1 else "")
         + (f", and {per_fill} for each of {sum(fill_calls())} vision-tower runs" if fills else "")
         + ": exact")
 
@@ -1429,12 +1484,12 @@ def train_run(torch, main, argv, tag, counters, results_dir, stem, expect, check
         def step():
             trainer.train_many(batches, 1, gen)
     before = {k: c.count for k, c in counters.items()}
-    step_wall, busy, idle, events = profile_step(torch, step, tag)
-    # the profiler's warm-up call and the recorded one
+    step_wall, busy, idle, events, calls = profile_step(torch, step, tag)
+    # the profiler's warm-up call and the recorded one (of each attempt)
     moved = {k: c.count - before[k] for k, c in counters.items()}
-    if moved != {k: 2 * n for k, n in expect["train"].items()}:
+    if moved != {k: calls * n for k, n in expect["train"].items()}:
         raise AssertionError(f"{tag}: the profiled steps moved the counters by {moved}, "
-                             f"expected twice {expect['train']}")
+                             f"expected {calls} x {expect['train']}")
     kernels = {e.key: e.count for e in events if is_port_kernel(e.key)}
     if eager_kernels is not None:
         if kernels != eager_kernels:
@@ -1696,7 +1751,7 @@ def optimizer_launches(torch, optim, vilt, encoder):
                           mu_dtype=torch.bfloat16 if moments == "bf16" else None)
         for _ in range(3):
             opt.step(grads)
-        _, busy, _, events = profile_step(torch, lambda: opt.step(grads), "optimizer")
+        _, busy, _, events, _ = profile_step(torch, lambda: opt.step(grads), "optimizer")
         copies = sum(e.count for e in events if e.key.startswith("Memcpy"))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1987,7 +2042,7 @@ def optimizer_reading(torch, tag):
                 step.lazy.step(grads[step.lazy.name], batch["ids"])
 
         ms = device_ms(torch, optimizer_step, iters=10)
-        _, busy, _, events = profile_step(torch, optimizer_step, f"{tag} optimizer")
+        _, busy, _, events, _ = profile_step(torch, optimizer_step, f"{tag} optimizer")
         out = dict(optimizer_ms=ms, optimizer_busy_ms=busy,
                    optimizer_launches=sum(e.count for e in events),
                    optimizer_tensors=len(step.optimizer.params))
@@ -2193,6 +2248,400 @@ def lazy_phase(torch, C, run_mm_late, counters, per_step, training, launches, ea
     return out
 
 
+def bucket_args(attn_impl, extra=()):
+    """The headline run's flags (``lazy_args``) with ``--bucket_seq`` at its
+    default buckets (32, 64, 96; the full pad, 128, above them)."""
+    return lazy_args(attn_impl, ["--bucket_seq", *extra])
+
+
+def full_pad(pipe):
+    """``pipe`` without buckets: the same rows padded to ``max_length``, as an
+    unbucketed run pads every batch."""
+    import copy
+    import dataclasses
+
+    full = copy.copy(pipe)
+    full.cfg = dataclasses.replace(pipe.cfg, seq_buckets=None, bucket_group=False)
+    return full
+
+
+def epoch_chunks(pipe, k):
+    """(width, steps) of each dispatch of the first training epoch (the
+    trainer's host generator at its seed, 30): each batch at its bucket at
+    k = 1, each chunk under k > 1 (grouped under ``--bucket_group``)."""
+    import numpy as np
+
+    rng = np.random.RandomState(30)
+    if k == 1:
+        return [(b["ids"].shape[1], 1) for b in pipe.batches(shuffle=True, rng=rng)]
+    return [(b["ids"].shape[-1], n) for b, n in pipe.device_iter_chunks("cpu", k, shuffle=True,
+                                                                          rng=rng)]
+
+
+def eval_logits(torch, setup, pipe):
+    """The classification logits of every batch of ``pipe`` (eval mode, no
+    TIM rows), in float32."""
+    setup.model.eval()
+    with torch.no_grad():
+        return torch.cat([setup.train_step.forward_fn(b, None, None, True)["out_cls"].float()
+                          for b in pipe.device_iter(setup.device)])
+
+
+def same_logits(torch, setup, tag, tol):
+    """The per-example eval logits of the val and test splits at their
+    buckets against the same weights' at full pad: within ``tol`` of their
+    scale."""
+    worst = 0.0
+    for split in ("val", "test"):
+        pipe = setup.pipes[split]
+        got, want = eval_logits(torch, setup, pipe), eval_logits(torch, setup, full_pad(pipe))
+        worst = max(worst, (got - want).abs().max().item() / want.abs().max().item())
+    log(f"{tag}: eval logits at the buckets against full pad, the same weights: "
+        f"{worst:.2e} of their scale (tol {tol})")
+    if not worst <= tol:
+        raise AssertionError(f"{tag}: bucketed eval logits left the full-pad ones: {worst}")
+    return worst
+
+
+def train_widths(setup, tag):
+    """The first epoch's batch widths: at least three distinct, or the
+    phase's posts do not serve."""
+    widths = [w for w, _ in epoch_chunks(setup.pipes["train"], 1)]
+    log(f"{tag}: train batch widths in visit order {widths}")
+    if len(set(widths)) < 3:
+        raise AssertionError(f"{tag}: the posts give the batches {sorted(set(widths))} only")
+    return widths
+
+
+def graphs_per_width(trainer, setup, tag):
+    """Under k > 1: one train graph for each width the grouped epoch ran and
+    one eval graph for each width of the eval chunks, no more."""
+    train = sorted({w for w, _ in epoch_chunks(setup.pipes["train"], 3)})
+    evals = sorted({b["ids"].shape[-1] for split in ("val", "test")
+                    for b, _ in setup.pipes[split].device_iter_chunks("cpu", 3)})
+    got = [sorted(next(shape[-1] for name, shape, _ in sig if name == "ids") for sig in g.graphs)
+           for many in (trainer.train_many, trainer.eval_many) for g in many.graphs.values()]
+    log(f"{tag}: graphs captured by width: train {got[0]} (widths run {train}), eval "
+        f"{got[1]} (widths run {evals})")
+    if got != [train, evals]:
+        raise AssertionError(f"{tag}: graphs {got} for the widths {train} / {evals}")
+    return {"train_graph_widths": train, "eval_graph_widths": evals}
+
+
+def width_readings(torch, trainer, setup, k, tag, steps=10):
+    """Per width of the train split (and, under buckets, at the full pad an
+    unbucketed run gives every batch): ``steps`` steps with one sync (ms a
+    step, the host free to run ahead), the peak memory of one step after a
+    warm-up one, and one profiled step's busy ms and idle share. Under k > 1
+    each step replays its width's graph (the full pad's captured here:
+    after the graphs were counted)."""
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.data.pipeline import (
+        stage_chunks, to_device)
+
+    pipe = setup.pipes["train"]
+    picks = {}
+    for b in pipe.batches():
+        picks.setdefault(str(b["ids"].shape[1]), b)
+    if pipe.cfg.seq_buckets:
+        picks["128 full pad"] = next(full_pad(pipe).batches())
+    gen, out = trainer.gen, {}
+    for width, host in picks.items():
+        if k == 1:
+            batch = to_device(host, setup.device)
+
+            def step():
+                setup.train_step(batch, gen)
+        else:
+            chunk, _ = next(stage_chunks([host], setup.device, 1))
+
+            def step():
+                trainer.train_many(chunk, 1, gen)
+        step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / steps
+        _, busy, idle, _, _ = profile_step(torch, step, f"{tag} width {width}")
+        out[width] = dict(steady_ms=ms, busy_ms=busy, idle_share_profiled=idle,
+                          idle_share_steady=(1 - busy / ms) if busy else None, peak_bytes=peak)
+        log(f"{tag}: width {width}: {ms:.2f} ms a step ({steps} steps, one sync), busy "
+            f"{busy:.2f} ms, idle {out[width]['idle_share_steady']} of the step, "
+            f"{idle} of the profiled one, peak {peak / 1e9:.2f} GB")
+    return out
+
+
+@contextlib.contextmanager
+def grouped_order_at_k1():
+    """A shuffled epoch under ``--bucket_group`` visits the grouped order one
+    batch at a time, for as long as it lasts (the port, as the JAX package,
+    groups chunked epochs only): the K = 1 run a grouped K = 3 run's losses
+    are held against."""
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.data import pipeline as P
+
+    real = P.SplitPipeline.device_iter
+
+    def device_iter(pipe, device, shuffle=False, rng=None, skip=0):
+        order = pipe._grouped_order(shuffle, rng) if pipe.grouping(shuffle) else None
+        for b in pipe.batches(shuffle=shuffle, rng=rng, skip=skip, order=order):
+            yield P.to_device(b, device)
+
+    P.SplitPipeline.device_iter = device_iter
+    try:
+        yield
+    finally:
+        P.SplitPipeline.device_iter = real
+
+
+def grouped_resume_check(torch, run_mm_late, results, stem, straight):
+    """The grouped K = 3 run stopped by SIGTERM after its first chunk (a
+    checkpoint at that chunk's end), then ``--resume``: it ends with the
+    straight run's parameters bit for bit."""
+    import shutil
+    import signal
+
+    argv = bucket_args("fused", ["--bucket_group", "--steps_per_dispatch", "3",
+                                 "--ckpt_every", "100"])
+    stopped, resumed_steps = [], []
+
+    def stop(step, metrics):
+        stopped.append(step)
+        if len(stopped) == 1:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    t0 = time.perf_counter()
+    trainer, setup = run_mm_late.main(argv, on_step=stop)
+    del trainer, setup
+    torch.cuda.empty_cache()
+    trainer, setup = run_mm_late.main(argv + ["--resume"],
+                                      on_step=lambda step, m: resumed_steps.append(step))
+    total = trainer.global_step
+    del trainer, setup
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    shutil.rmtree(results + stem + "ckpt")
+    resumed = torch.load(os.path.join(results, stem + "net.pth"), map_location="cpu",
+                         weights_only=True)
+    differ = [n for n, v in straight.items() if not torch.equal(resumed[n], v)]
+    log(f"bucket resume: stopped after the chunk ending at step {stopped}, resumed at steps "
+        f"{resumed_steps} in {seconds:.1f} s (both runs); {len(straight) - len(differ)} of "
+        f"{len(straight)} tensors equal to the straight grouped run's")
+    if len(stopped) != 1 or not resumed_steps or resumed_steps[0] <= stopped[0] or differ \
+            or set(resumed) != set(straight):
+        raise AssertionError(f"bucket resume: the resumed grouped run does not end where the "
+                             f"straight one ended: {differ}")
+    return dict(stopped_at=stopped[0], resumed_steps=resumed_steps, global_step=total,
+                tensors_equal=len(straight))
+
+
+def bucket_first_step(torch, C, run_mm_late, build, hub):
+    """The first train step (the first batch of the shuffled epoch) at its
+    bucket against the same rows at full pad, under ``auto`` and ``fused``:
+    one setup per dtype and path, the same state dict from seed 30, dropout
+    0, the TIM swap pinned; the text tower's attention weights and the
+    fusion head's tensors but ``fc_k.bias`` (an exact zero). Float32: the
+    loss within 1e-5 relative, each gradient within 1e-3 relative
+    (Frobenius), the eval logits of the val and test splits within 1e-5 of
+    their scale. Bfloat16, held as ``first_step_check`` holds a kernel path:
+    the loss within 2e-2; against the float32 full-pad gradients, the
+    bucketed step's median and worst relative error within the larger of
+    1e-3 and 1.5 times the full-pad step's (a worst limit above 1 is not
+    checked); the eval logits within 2e-2."""
+    import numpy as np
+
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.data.pipeline import to_device
+
+    saved = dict(C.MODEL_DIR_DICT)
+    for name in ("bernice", "vit"):
+        d = os.path.join(hub, name)
+        os.makedirs(d, exist_ok=True)
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump({"hidden_dropout_prob": 0.0}, f)
+        C.MODEL_DIR_DICT[name] = d + os.sep
+    perm = np.random.RandomState(3).permutation(BATCH)
+
+    def pinned(batch):
+        batch["tim_src"] = torch.as_tensor(perm, device=DEVICE)
+        batch["tim_labels"] = torch.as_tensor((perm == np.arange(BATCH)).astype(np.int32),
+                                              device=DEVICE)
+        return batch
+
+    def keep(n):
+        return ((n.startswith("dual.text.encoder.") and ".attention." in n
+                 and n.endswith("weight"))
+                or (n.startswith("fusion.") and n != "fusion.fc_k.bias"))
+
+    def rel(got, want):
+        return {n: (torch.linalg.vector_norm(g - want[n])
+                    / torch.linalg.vector_norm(want[n])).item() for n, g in got.items()}
+
+    results, failed = {}, []
+    try:
+        for impl in ("auto", "fused"):
+            ref = None
+            for dtype in ("float32", "bfloat16"):
+                args = run_mm_late.parse_args(train_args(impl, ["--bucket_seq", "--dropout",
+                                                                "0", "--dtype", dtype]))
+                setup = build.build_mm_late_train_setup(args, C.Config(args),
+                                                        torch.device(DEVICE),
+                                                        torch.Generator().manual_seed(30))
+                pipe = setup.pipes["train"]
+                order = np.random.RandomState(30)  # the trainer's first epoch
+                host = next(pipe.batches(shuffle=True, rng=order))
+                full = next(full_pad(pipe).batches(shuffle=True, rng=np.random.RandomState(30)))
+                if not np.array_equal(host["data_id"], full["data_id"]):
+                    raise AssertionError("bucket first step: the two batches hold other rows")
+                out = {}
+                for name, b in (("bucket", host), ("full", full)):
+                    g, p, _ = setup.train_step.gradients(pinned(to_device(b, setup.device)),
+                                                         torch.Generator(DEVICE))
+                    out[name] = ({n: v.double() for n, v in g.items()
+                                  if v is not None and keep(n)}, float(p["loss"].detach()))
+                tol = 1e-5 if dtype == "float32" else 2e-2
+                logits = same_logits(torch, setup, f"bucket first step[{impl}, {dtype}]", tol)
+                del setup, g, p
+                torch.cuda.empty_cache()
+                (gb, lb), (gf, lf) = out["bucket"], out["full"]
+                rel_loss = abs(lb - lf) / abs(lf)
+                width = host["ids"].shape[1]
+                key = f"{impl}/{dtype}"
+                if dtype == "float32":
+                    ref = gf
+                    r = rel(gb, gf)
+                    worst = max(r, key=r.get)
+                    ok = rel_loss <= 1e-5 and r[worst] <= 1e-3
+                    results[key] = dict(width=width, rel_loss=rel_loss, worst_rel=r[worst],
+                                        worst_grad=worst, median_rel=float(np.median(
+                                            list(r.values()))), logits_rel=logits)
+                    log(f"bucket first step[{impl}, float32]: width {width} against 128: loss "
+                        f"rel {rel_loss:.2e} (tol 1e-5); gradient rel error over {len(r)} "
+                        f"tensors median {results[key]['median_rel']:.2e}, worst "
+                        f"{r[worst]:.2e} ({worst}; tol 1e-3)")
+                else:
+                    rb, rf = rel(gb, ref), rel(gf, ref)
+                    med_b, med_f = np.median(list(rb.values())), np.median(list(rf.values()))
+                    worst = max(rb, key=rb.get)
+                    tol_med, tol_worst = max(1e-3, 1.5 * med_f), max(1e-3, 1.5 * max(rf.values()))
+                    checked = tol_worst <= 1
+                    ok = rel_loss <= 2e-2 and med_b <= tol_med and (
+                        not checked or rb[worst] <= tol_worst)
+                    results[key] = dict(width=width, rel_loss=rel_loss, median_rel=float(med_b),
+                                        full_median_rel=float(med_f), worst_rel=rb[worst],
+                                        worst_grad=worst, full_worst_rel=max(rf.values()),
+                                        worst_checked=checked, logits_rel=logits)
+                    log(f"bucket first step[{impl}, bfloat16]: width {width}: loss against "
+                        f"full pad rel {rel_loss:.2e} (tol 2e-2); gradient rel error against "
+                        f"the float32 full pad: median {med_b:.2e} (full pad {med_f:.2e}, tol "
+                        f"{tol_med:.2e}), worst {rb[worst]:.2e} ({worst}; full pad "
+                        f"{max(rf.values()):.2e}, " + (f"tol {tol_worst:.2e})" if checked else
+                                                        "a limit above 1: not checked)"))
+                if not ok:
+                    failed.append(key)
+    finally:
+        C.MODEL_DIR_DICT.clear()
+        C.MODEL_DIR_DICT.update(saved)
+    if failed:
+        raise AssertionError(f"bucket first step: bucketed against full pad {failed}")
+    return results
+
+
+def bucket_phase(torch, C, run_mm_late, run_txt, build, counters, per_step, txt_step, launches,
+                 eager_kernels, tmp):
+    """Sequence bucketing at full width on tweet-like posts (``tweet_words``:
+    96 train, 16 val, 16 test; each batch sliced to 32, 64, 96 or the full
+    128), the headline run's flags (``--opt_impl lazy_emb``): the unbucketed
+    run on these posts under ``fused`` at K = 3 (the reference for memory and
+    step time); ``--bucket_seq`` under ``auto`` and ``fused`` at K = 1 (at
+    least three widths in the epoch; the trained weights' eval logits at the
+    buckets against full pad within 2e-2; under ``fused`` per width the ms,
+    busy ms, idle share and peak memory of a step); under ``fused`` at K = 3
+    with ``--bucket_group`` (one train graph per width the grouped epoch ran,
+    one eval graph per eval width, counted; per width the replayed step's
+    readings; its losses within 1e-5 of the same grouped order stepped at
+    K = 1; stopped after its first chunk and resumed, bit for bit); the
+    text-only runner with ``--bucket_seq`` under ``fused``; the first step
+    bucketed against full pad (``bucket_first_step``). Launch counts exact
+    throughout, as ``train_run`` checks them."""
+    t0 = time.monotonic()
+    saved = C.DATA_PATH, C.PATH[3]
+    data = make_dataset(tmp, "bucket_data", BUCKET_POSTS, tweet_words, seed=BUCKET_DATA_SEED)
+    C.DATA_PATH, C.PATH[3] = data, data + "data_key_mvsa.csv"
+    results = C.results_dir_mm_late
+    stem = "bernice-vit-attention_task3_seed30_itc0.1itm0.1_"
+    out = {}
+    try:
+        tag = "bucket[unbucketed, fused, K=3]"
+        out["unbucketed/fused/k3"], by_key, _ = train_run(
+            torch, run_mm_late.main, lazy_args("fused"), tag, counters, results, stem,
+            per_step["fused"], late_grads_check(torch, tag), k=3,
+            eager_kernels=eager_kernels["fused"],
+            after=lambda trainer, setup: {"per_width": width_readings(
+                torch, trainer, setup, 3, "bucket[unbucketed, fused, K=3]")})
+        count_launches(launches, by_key)
+        for impl in ("auto", "fused"):
+            tag = f"bucket[{impl}]"
+
+            def after(trainer, setup, tag=tag, impl=impl):
+                res = {"widths": train_widths(setup, tag),
+                       "eval_logits_rel": same_logits(torch, setup, tag, 2e-2)}
+                if impl == "fused":
+                    res["per_width"] = width_readings(torch, trainer, setup, 1, tag)
+                return res
+
+            out[impl], by_key, kernels = train_run(
+                torch, run_mm_late.main, bucket_args(impl), tag, counters, results, stem,
+                per_step[impl], late_grads_check(torch, tag), after=after)
+            count_launches(launches, by_key)
+
+        tag = "bucket[fused, K=3, grouped]"
+        out["grouped/k3"], by_key, _ = train_run(
+            torch, run_mm_late.main, bucket_args("fused", ["--bucket_group"]), tag, counters,
+            results, stem, per_step["fused"], late_grads_check(torch, tag), k=3,
+            eager_kernels=kernels,
+            after=lambda trainer, setup: {
+                **graphs_per_width(trainer, setup, "bucket[fused, K=3, grouped]"),
+                "chunks": epoch_chunks(setup.pipes["train"], 3),
+                "per_width": width_readings(torch, trainer, setup, 3,
+                                            "bucket[fused, K=3, grouped]")})
+        count_launches(launches, by_key)
+        straight = torch.load(os.path.join(results, stem + "net.pth"), map_location="cpu",
+                              weights_only=True)
+        log(f"{tag}: dispatches (width, steps) {out['grouped/k3']['chunks']}; peak "
+            f"{out['grouped/k3']['max_memory_allocated'] / 1e9:.2f} GB with every width "
+            f"captured, unbucketed "
+            f"{out['unbucketed/fused/k3']['max_memory_allocated'] / 1e9:.2f} GB")
+        with grouped_order_at_k1():
+            out["grouped/k1"], by_key, _ = train_run(
+                torch, run_mm_late.main, bucket_args("fused", ["--bucket_group"]),
+                "bucket[fused, K=1, grouped order]", counters, results, stem,
+                per_step["fused"], late_grads_check(torch, "bucket[fused, K=1, grouped order]"))
+        count_launches(launches, by_key)
+        out["grouped/k3"]["loss_rel_vs_k1"] = same_losses(out["grouped/k3"], out["grouped/k1"],
+                                                          tag)
+        out["resume"] = grouped_resume_check(torch, run_mm_late, results, stem, straight)
+        del straight
+
+        tag = "bucket txt[fused]"
+        out["txt/fused"], by_key, _ = train_run(
+            torch, run_txt.main, txt_args("fused", ["--bucket_seq"]), tag, counters,
+            C.results_dir_txt, "bernice_task3_seed30_", txt_step, txt_grads_check(torch, tag),
+            after=lambda trainer, setup: {"widths": train_widths(setup, "bucket txt[fused]")})
+        count_launches(launches, by_key)
+        out["first_step"] = bucket_first_step(torch, C, run_mm_late, build,
+                                              os.path.join(tmp, "hub_bucket"))
+    finally:
+        C.DATA_PATH, C.PATH[3] = saved
+    out["seconds"] = time.monotonic() - t0
+    log(f"bucket phase: {out['seconds']:.1f} s")
+    return out
+
+
 def old_seed_product(torch):
     """The seed-stacked product before ``SeedProduct``: autograd's own
     backward of ``bmm(x, w.transpose(1, 2))``, which leaves each weight
@@ -2223,7 +2672,7 @@ def sweep_adamw_check(torch, encoder, tag):
             finally:
                 encoder.SeedProduct.apply = real
             odd = [n for n, g in grads.items() if g is not None and g.stride() != params[n].stride()]
-            _, busy, _, events = profile_step(torch, lambda: setup.optimizer.step(grads),
+            _, busy, _, events, _ = profile_step(torch, lambda: setup.optimizer.step(grads),
                                               f"{tag} optimizer[{name}]")
             reading[name] = dict(launches=sum(e.count for e in events), device_ms=busy,
                                  gradients_in_other_strides=len(odd))
@@ -2239,18 +2688,18 @@ def sweep_adamw_check(torch, encoder, tag):
     return after
 
 
-def sweep_args(attn_impl, extra=()):
+def sweep_args(attn_impl, extra=(), seeds=SWEEP_SEEDS, image="vit"):
     """``run_seed_sweep`` at full width: the training runs' configuration,
-    three seeds trained together."""
-    return ["--txt_model_name", "bernice", "--img_model_name", "vit",
+    ``seeds`` trained together."""
+    return ["--txt_model_name", "bernice", "--img_model_name", image,
             "--fusion_name", "attention", "--task", "3", "--epochs", "1",
-            "--seeds", ",".join(map(str, SWEEP_SEEDS)), "--arch", "base",
+            "--seeds", ",".join(map(str, seeds)), "--arch", "base",
             "--dtype", "bfloat16", "--use_clip_loss", "--use_tim_loss",
             "--use_saved_features", "--log_every", "1", "--attn_impl", attn_impl, *extra]
 
 
 def sweep_run(torch, sweep_main, argv, tag, counters, expect, results_dir, stem_fmt, k=1,
-              after=None):
+              after=None, seeds=SWEEP_SEEDS):
     """One epoch of ``run_seed_sweep.main(argv)`` at ``--steps_per_dispatch
     k`` with the counts set to 0 before and read after: the launch counts
     per sweep step (under k > 1 per chunk, the first chunk and the evals once
@@ -2264,7 +2713,7 @@ def sweep_run(torch, sweep_main, argv, tag, counters, expect, results_dir, stem_
 
     for c in counters.values():
         c.reset()
-    s = len(SWEEP_SEEDS)
+    s = len(seeds)
     chunks, state = [], {"t": None, "prev": {n: 0 for n in counters}}
 
     def on_step(step, metrics):
@@ -2308,7 +2757,7 @@ def sweep_run(torch, sweep_main, argv, tag, counters, expect, results_dir, stem_
         raise AssertionError(f"{tag}: {len(losses)} sweep steps, expected {n_train}")
     log(f"{tag}: launches per sweep step of {s} seeds {expect['train']}, per eval step "
         f"{expect['eval']} over {n_train} train and {n_eval} eval steps: exact")
-    for seed in SWEEP_SEEDS:
+    for seed in seeds:
         with open(stem_fmt.format(seed=seed) + "metrics_test.csv") as f:
             table = f.read().splitlines()
         if table[0] != "metric,epoch-1" or len(table) != 8:
@@ -2342,18 +2791,18 @@ def sweep_run(torch, sweep_main, argv, tag, counters, expect, results_dir, stem_
             trainer.train_many(chunk, 1, gens)
     step()
     before = {n: c.count for n, c in counters.items()}
-    step_wall, busy, idle, events = profile_step(torch, step, tag)
-    # the profiler's warm-up call and the recorded one
+    step_wall, busy, idle, events, calls = profile_step(torch, step, tag)
+    # the profiler's warm-up call and the recorded one (of each attempt)
     moved = {n: c.count - before[n] for n, c in counters.items()}
-    if moved != {n: 2 * k for n, k in expect["train"].items()}:
+    if moved != {n: calls * k for n, k in expect["train"].items()}:
         raise AssertionError(f"{tag}: the profiled steps moved the counters by {moved}, "
-                             f"expected twice {expect['train']}")
+                             f"expected {calls} x {expect['train']}")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"profile {tag}:   {e.self_device_time_total / 1e3:8.3f} ms x{e.count:<4d} "
             f"{e.key[:90]}")
     timed = [ch["seconds"] / len(ch["losses"]) for ch in chunks if ch["seconds"] is not None]
     ms = 1e3 * sum(timed) / len(timed) if timed else None
-    result = dict(run=tag, seeds=list(SWEEP_SEEDS), steps_per_dispatch=k, train_steps=n_train,
+    result = dict(run=tag, seeds=list(seeds), steps_per_dispatch=k, train_steps=n_train,
                   eval_steps=n_eval, ms_per_sweep_step=ms, steady_ms_per_sweep_step=steady_ms,
                   steady_posts_per_s=s * BATCH / (steady_ms / 1e3),
                   profiled_step_ms=step_wall, device_busy_ms=busy, idle_share=idle,
@@ -2368,10 +2817,10 @@ def sweep_run(torch, sweep_main, argv, tag, counters, expect, results_dir, stem_
     return result, by_key
 
 
-def separate_losses(torch, run_mm_late, seed):
+def separate_losses(torch, run_mm_late, seed, extra=()):
     """The per-step losses of ``run_mm_late`` under ``auto`` at ``seed``: the
     separate run a sweep seed stands for."""
-    argv = [a for a in train_args("auto") if a != "--save_model"]
+    argv = [a for a in train_args("auto", extra) if a != "--save_model"]
     argv[argv.index("--seed") + 1] = str(seed)
     losses = []
     run_mm_late.main(argv, on_step=lambda step, m: losses.append(float(m["loss"])))
@@ -2379,11 +2828,11 @@ def separate_losses(torch, run_mm_late, seed):
     return losses
 
 
-def sweep_against_separate(sweep, separate, tag):
+def sweep_against_separate(sweep, separate, tag, seeds=SWEEP_SEEDS):
     """Each seed's per-step bfloat16 losses within 2e-2 relative of its
     separate run's."""
     worst = 0.0
-    for i, seed in enumerate(SWEEP_SEEDS):
+    for i, seed in enumerate(seeds):
         mine = [row[i] for row in sweep["losses"]]
         if len(mine) != len(separate[seed]):
             raise AssertionError(f"{tag}: seed {seed}: {len(mine)} steps against "
@@ -2494,7 +2943,10 @@ def sweep_phase(torch, C, run_mm_late, build, sweep, counters, per_step, trainin
     float32 first step against the separate setups, and beside the sweep's
     ms per step the single run's at the same K; after the ``fused`` run one
     AdamW step's launches over the stacked gradients, now and with the
-    product's old backward (``sweep_adamw_check``)."""
+    product's old backward (``sweep_adamw_check``). Then BEiT-B/16 late
+    fusion under ``auto`` at K = 1, ``BEIT_SWEEP_SEEDS`` stacked (its
+    relative-position tables along the seed axis; the tower launches no
+    kernel), each seed's losses against its separate run."""
     from socialmedia_textimage_classification_auxlosses_tpu_torch.models import encoder
 
     s = len(SWEEP_SEEDS)
@@ -2527,6 +2979,30 @@ def sweep_phase(torch, C, run_mm_late, build, sweep, counters, per_step, trainin
         result[run]["loss_rel_vs_separate"] = sweep_against_separate(
             result[run], separate, f"sweep[{run}]")
     result["first_step"] = sweep_first_step(torch, C, run_mm_late, build, sweep, hub)
+    result["beit/auto/k1"] = beit_sweep(torch, C, run_mm_late, sweep, counters, per_step,
+                                        launches)
+    return result
+
+
+def beit_sweep(torch, C, run_mm_late, sweep, counters, per_step, launches):
+    """BEiT-B/16 late fusion under ``auto`` at K = 1, ``BEIT_SWEEP_SEEDS``
+    stacked (the relative-position tables along the seed axis): the text
+    tower's 12 SDPA launches and the fusion head's a sweep step, none in the
+    frozen tower; each seed's losses against its separate run."""
+    beit = ("--img_model_name", "beit")
+    tag = "sweep[beit, auto, K=1]"
+    text_only = {phase: {**counts, "sdpa_fwd": counts["sdpa_fwd"] - 12}
+                 for phase, counts in per_step["auto"].items()}
+    result, by_key = sweep_run(
+        torch, sweep.main, sweep_args("auto", seeds=BEIT_SWEEP_SEEDS, image="beit"), tag,
+        counters, text_only, C.results_dir_mm_late,
+        C.results_dir_mm_late + "bernice-beit-attention_task3_seed{seed}_itc0.1itm0.1_",
+        seeds=BEIT_SWEEP_SEEDS)
+    count_launches(launches, by_key)
+    separate = {seed: separate_losses(torch, run_mm_late, seed, beit)
+                for seed in BEIT_SWEEP_SEEDS}
+    result["loss_rel_vs_separate"] = sweep_against_separate(result, separate, tag,
+                                                            BEIT_SWEEP_SEEDS)
     return result
 
 
@@ -3774,6 +4250,70 @@ def run_service(torch, serve, A, AB, args, reqs, http_text):
     return answers + [http_answer], health, counts, seconds
 
 
+def training_counts(A, AB):
+    """The launch counters by kernel, the zero counts, and the expected
+    launches per train and eval step of late fusion (``auto``, ``fused``)
+    and of the text-only runner (``fused``)."""
+    counters = {"sdpa_fwd": A.launches, "sdpa_bwd": A.bwd_launches,
+                "attn_block_fwd": AB.launches, "attn_block_bwd": AB.bwd_launches,
+                "gemm_tn_bf16": AB.wgrad_launches}
+    none = {k: 0 for k in counters}
+    per_step = {
+        # text tower (2B rows, one call) 12 + vision 12 + fusion head 1;
+        # backward: text 12 + fusion 1 (the vision tower is frozen); under
+        # fused each block backward's weight gradients are one TN launch
+        "auto": {"train": {**none, "sdpa_fwd": 25, "sdpa_bwd": 13},
+                 "eval": {**none, "sdpa_fwd": 25}},
+        "fused": {"train": {**none, "attn_block_fwd": 24, "sdpa_fwd": 1,
+                            "attn_block_bwd": 12, "sdpa_bwd": 1, "gemm_tn_bf16": 12},
+                  "eval": {**none, "attn_block_fwd": 24, "sdpa_fwd": 1}}}
+    txt_step = {"train": {**none, "attn_block_fwd": 12, "attn_block_bwd": 12,
+                          "gemm_tn_bf16": 12},
+                "eval": {**none, "attn_block_fwd": 12}}
+    return counters, none, per_step, txt_step
+
+
+def bucket_only():
+    """``python3 chip_smoke.py --bucket``: the kernels built, then the
+    bucketing phase and the BEiT sweep alone on the generated posts, every
+    (kernel, shape) they launched held against its plain version, without
+    the last line: a quick run of these phases while they change."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.cli import _build as build
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.cli import (
+        run_mm_late, run_seed_sweep, run_txt)
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.cli._common import (
+        set_precision_policy)
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.core import config as C
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.ops import _cuda
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.ops import attention as A
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.ops import attn_block as AB
+
+    set_precision_policy()
+    log(card_line())
+    log(f"build: per source {_cuda.build()}")
+    counters, _, per_step, txt_step = training_counts(A, AB)
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = make_dataset(tmp)
+        C.DATA_PATH, C.PATH[3] = data, data + "data_key_mvsa.csv"
+        C.results_dir_mm_late = os.path.join(tmp, "results", "mm_late") + os.sep
+        C.results_dir_txt = os.path.join(tmp, "results", "txt") + os.sep
+        out = {"beit_sweep": beit_sweep(torch, C, run_mm_late, run_seed_sweep, counters,
+                                        per_step, launches),
+               "bucket": bucket_phase(torch, C, run_mm_late, run_txt, build, counters,
+                                      per_step, txt_step, launches,
+                                      {"fused": None}, tmp)}
+    log(json.dumps({"training": out}))
+    rows = rows_for_every_launch(torch, AB, [], launches)
+    log(json.dumps({"kernels": [{k: v for k, v in r.items() if k != "key"} for r in rows]}))
+    return 0
+
+
 def main():
     import torch
 
@@ -3890,19 +4430,7 @@ def main():
     from socialmedia_textimage_classification_auxlosses_tpu_torch.cli import (
         run_grid, run_img, run_mm_early, run_mm_late, run_seed_sweep, run_txt)
 
-    counters = {"sdpa_fwd": A.launches, "sdpa_bwd": A.bwd_launches,
-                "attn_block_fwd": AB.launches, "attn_block_bwd": AB.bwd_launches,
-                "gemm_tn_bf16": AB.wgrad_launches}
-    none = {k: 0 for k in counters}
-    per_step = {
-        # text tower (2B rows, one call) 12 + vision 12 + fusion head 1;
-        # backward: text 12 + fusion 1 (the vision tower is frozen); under
-        # fused each block backward's weight gradients are one TN launch
-        "auto": {"train": {**none, "sdpa_fwd": 25, "sdpa_bwd": 13},
-                 "eval": {**none, "sdpa_fwd": 25}},
-        "fused": {"train": {**none, "attn_block_fwd": 24, "sdpa_fwd": 1,
-                            "attn_block_bwd": 12, "sdpa_bwd": 1, "gemm_tn_bf16": 12},
-                  "eval": {**none, "attn_block_fwd": 24, "sdpa_fwd": 1}}}
+    counters, none, per_step, txt_step = training_counts(A, AB)
     training = {}
     with tempfile.TemporaryDirectory() as tmp:
         data = make_dataset(tmp)
@@ -3938,9 +4466,6 @@ def main():
                                         os.path.join(tmp, "hub_sweep"))
         # the text-only runner (Bernice-base, CLS head) under fused, K = 1 and 3
         C.results_dir_txt = os.path.join(tmp, "results", "txt") + os.sep
-        txt_step = {"train": {**none, "attn_block_fwd": 12, "attn_block_bwd": 12,
-                              "gemm_tn_bf16": 12},
-                    "eval": {**none, "attn_block_fwd": 12}}
         for k in (1, 3):
             tag = f"txt[fused, K={k}]"
             training[f"txt/fused/k{k}"], by_key, kernels = train_run(
@@ -3951,6 +4476,9 @@ def main():
             count_launches(launches, by_key)
         training["txt/fused/k3"]["loss_rel_vs_k1"] = same_losses(
             training["txt/fused/k3"], training["txt/fused/k1"], "txt[fused, K=3]")
+        # sequence bucketing on tweet-like posts: one CUDA graph per width
+        training["bucket"] = bucket_phase(torch, C, run_mm_late, run_txt, build, counters,
+                                          per_step, txt_step, launches, eager_kernels, tmp)
         # the image-only runner and the BEiT / ResNet late-fusion paths
         training["image"] = image_phase(torch, C, run_img, run_mm_late, build, counters, none,
                                         launches, tmp)
@@ -4079,6 +4607,8 @@ if __name__ == "__main__":
             sys.exit(optimizer_only(sys.argv[2]))
         if sys.argv[1:2] == ["--sweep_profile"] and len(sys.argv) == 3:
             sys.exit(sweep_profile(sys.argv[2]))
+        if sys.argv[1:] == ["--bucket"]:
+            sys.exit(bucket_only())
         sys.exit(main())
     except Exception:
         traceback.print_exc()

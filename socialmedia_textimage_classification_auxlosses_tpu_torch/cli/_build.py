@@ -49,7 +49,7 @@ from ..train.lazy_emb import LazyEmb, LazyEmbConfig, find_word_embedding_path
 from ..train.optim import AdamW, feature_extract_frozen, vision_frozen
 from ..train.steps import EvalStep, LossConfig, TrainStep, make_feature_step
 from ..utils.logging import get_logger
-from ._common import arch_overrides
+from ._common import arch_overrides, seq_buckets_from
 
 logger = get_logger(__name__)
 
@@ -213,7 +213,9 @@ def build_mm_late_parts(args, cfg: C.Config, generator: torch.Generator) -> RunP
         nsamples=getattr(args, "nsamples", -1),
         load_image_adds=cfg.use_iadds_loss, multilabel=cfg.multilabel, rng=rng)
     pipe_cfg = PipelineConfig(batch_size=cfg.batch_size, max_length=cfg.max_length,
-                              image_size=base.image_size)
+                              image_size=base.image_size,
+                              seq_buckets=seq_buckets_from(args),
+                              bucket_group=getattr(args, "bucket_group", False))
     pipes = image_pipes(args, cfg, (train, val, test), pipe_cfg, base.image_size,
                         base.center_crop_from, base.tokenizer)
     return RunParts(base=base, pipes=pipes, class_weights=weights)
@@ -328,7 +330,8 @@ class VisionCachedPipe:
     holds no vision tower. ``compute_calls`` counts the tower's runs.
     ``device_iter`` / ``device_iter_chunks`` stage the features as any
     batch array (``data/pipeline.py``), so a chunk's CUDA graph is captured
-    on the cached batch's signature."""
+    on the cached batch's signature; bucketing and grouping are the inner
+    pipe's (``chunk_plan``: its order, its chunk widths)."""
 
     def __init__(self, inner: SplitPipeline, vision_fn: Callable):
         self.inner = inner
@@ -356,9 +359,14 @@ class VisionCachedPipe:
         del batch["pixel_values"]  # the step never reads pixels
         return batch
 
-    def batches(self, shuffle=False, rng=None, skip: int = 0):
-        for batch in self.inner.batches(shuffle=shuffle, rng=rng, skip=skip):
+    def batches(self, shuffle=False, rng=None, skip: int = 0, bucket: bool = True, order=None):
+        for batch in self.inner.batches(shuffle=shuffle, rng=rng, skip=skip, bucket=bucket,
+                                        order=order):
             yield self._with_features(batch)
+
+    def chunk_plan(self, shuffle=False, rng=None, skip: int = 0):
+        batches, width, grouped = self.inner.chunk_plan(shuffle=shuffle, rng=rng, skip=skip)
+        return (self._with_features(b) for b in batches), width, grouped
 
     # SplitPipeline's, over these batches
     device_iter = SplitPipeline.device_iter
@@ -446,7 +454,9 @@ def build_text_setup(args, cfg: C.Config, device: torch.device,
     train, val, test, weights = prepare_data(
         cfg.data, cfg.num_labels, testing=args.testing, multilabel=cfg.multilabel,
         rng=np.random.RandomState(args.seed))
-    pipe_cfg = PipelineConfig(batch_size=cfg.batch_size, max_length=cfg.max_length)
+    pipe_cfg = PipelineConfig(batch_size=cfg.batch_size, max_length=cfg.max_length,
+                              seq_buckets=seq_buckets_from(args),
+                              bucket_group=getattr(args, "bucket_group", False))
     pipes = {name: SplitPipeline(split, pipe_cfg, tokenizer=tokenizer)
              for name, split in (("train", train), ("val", val), ("test", test))}
     use_tt = model_name not in NO_TOKEN_TYPES

@@ -60,7 +60,7 @@ from ..models.vision import IMAGE_NORM, _load_hf_config
 from ..train.steps import EvalStep, TrainStep
 from ..utils.logging import get_logger
 from ._build import Setup, TrainSetup, build_optimizer, loss_cfg_from
-from ._common import arch_overrides
+from ._common import arch_overrides, seq_buckets_from
 
 logger = get_logger(__name__)
 
@@ -335,7 +335,9 @@ def build_mm_early_train_setup(args, cfg: C.Config, device: torch.device,
 
     pipe_cfg = PipelineConfig(batch_size=cfg.batch_size, max_length=cfg.max_length,
                               image_size=em.image_size or 0,
-                              with_images=em.image_size is not None)
+                              with_images=em.image_size is not None,
+                              seq_buckets=seq_buckets_from(args),
+                              bucket_group=getattr(args, "bucket_group", False))
     if em.exact and args.use_saved_features:
         logger.warning("--vilt_exact_resize decodes per sample (memoised); the "
                        "fixed-square uint8 cache of --use_saved_features does not apply")

@@ -10,10 +10,11 @@ plan, artifact paths and tables, for every runner family: ``mm_late``
     python -m socialmedia_textimage_classification_auxlosses_tpu_torch.cli.run_grid \\
         --families mm_late --mm_late bernice-vit-attention \\
         --tasks 2,3 --seeds 30,40,50 --aux none,itc,itm,itc+itm \\
-        --epochs 7 --out results/grid/ -- --steps_per_dispatch 8
+        --epochs 7 --out results/grid/ -- --bucket_seq --steps_per_dispatch 8
 
 Everything after a literal ``--`` goes verbatim to every runner (``--arch``,
-``--dtype``, ``--attn_impl``, ``--testing``, ``--device`` ...). A run whose
+``--dtype``, ``--attn_impl``, ``--testing``, ``--device``, ``--bucket_seq``
+...). A run whose
 metric CSVs exist is skipped unless ``--force``; ``--aggregate_only``
 rebuilds the tables from existing artifacts; ``--dry_run`` prints the plan.
 Runs execute in this process. ``--seed_backend vmap`` runs each ``mm_late``

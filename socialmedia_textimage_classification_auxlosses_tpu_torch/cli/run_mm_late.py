@@ -34,7 +34,9 @@ do ``--opt_impl lazy_emb`` (the word table's row-sparse AdamW, its state in
 the checkpoints), ``--cache_vision`` (the frozen transformer tower's
 features computed once per image; a CNN tower warns and runs uncached) and
 ``--tim_reuse_text`` (the TIM rows gathered from the first text pass in
-training too). What the
+training too), ``--bucket_seq`` and ``--bucket_group`` (``data/pipeline.py``:
+each batch's text sliced to its bucket; under ``--steps_per_dispatch`` one
+CUDA graph per width). What the
 port lacks raises ``SystemExit`` (``cli/_common.py::check_training_supported``,
 and here ``--quantize``).
 """
@@ -54,7 +56,7 @@ from ._build import (build_mm_late_train_setup, check_mm_late_supported,
                      enable_vision_cache, import_reference_checkpoint)
 from ._common import (add_common_args, artifact_stem, check_training_supported,
                       resolve_device, results_dir_for, run_control, save_metrics_csv,
-                      save_predictions_csv, seed_everything)
+                      save_predictions_csv, seed_everything, seq_buckets_from)
 
 logger = get_logger(__name__)
 
@@ -201,7 +203,7 @@ def _txt_test_pipe(args, cfg, setup):
     return SplitPipeline(
         prepare_text_data(C.TDATA5, num_labels=cfg.num_labels, testing=args.testing),
         PipelineConfig(batch_size=cfg.batch_size, max_length=cfg.max_length,
-                       image_size=size),
+                       image_size=size, seq_buckets=seq_buckets_from(args)),
         tokenizer=setup.tokenizer, image_source=EmptyImageSource(C.EMPTY_IMG, size))
 
 

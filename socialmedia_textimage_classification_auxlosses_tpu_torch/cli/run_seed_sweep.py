@@ -24,10 +24,15 @@ JAX sweep applies the first seed's to all; they differ only where the
 subsamples do). ``--steps_per_dispatch`` replays CUDA graphs of the stacked
 step; ``--tim_reuse_text`` acts as in ``run_mm_late``. What the sweep does
 not carry raises ``SystemExit``: the single-run flags ``--ckpt_every``,
-``--resume``, ``--profile``, ``--log_jsonl``, the BEiT tower,
-``--opt_impl lazy_emb`` and ``--cache_vision`` (the JAX sweep takes both
-and silently drops them: its step never trains a lazily-updated word
-table, and it never caches), and what ``run_mm_late`` refuses.
+``--resume``, ``--profile``, ``--log_jsonl``, ``--opt_impl lazy_emb`` and
+``--cache_vision`` (the JAX sweep takes both and silently drops them: its
+step never trains a lazily-updated word table, and it never caches),
+``--bucket_seq`` without ``--shared_data`` (the JAX sweep stacks each
+seed's batch sliced to its own bucket, and fails when two differ), and
+what ``run_mm_late`` refuses. Under ``--shared_data`` every seed reads one
+stream, so a step has one width: ``--bucket_seq`` and ``--bucket_group``
+act as in ``run_mm_late``. The BEiT tower is stacked like the others, its
+relative-position tables too (``models/beit.py``).
 """
 
 from __future__ import annotations
@@ -93,10 +98,15 @@ def check_supported(args) -> None:
         raise SystemExit("--cache_vision is not carried by the seed sweep: the JAX sweep "
                          "ignores it (it never wraps its pipes in the cache); run the "
                          "seeds with run_mm_late")
-    if args.img_model_name == "beit":
-        raise SystemExit("--img_model_name beit: the seed sweep does not stack the BEiT "
-                         "tower yet (ROADMAP.md Queue 1 item 5); run the seeds with "
-                         "run_mm_late (the grid's vmap backend does so by itself)")
+    # the JAX sweep stacks the seeds' batches of one step (train/ensemble.py
+    # _stack_batches): each is sliced to its own bucket, so two seeds whose
+    # batches fall in different buckets stop it with a shape error
+    if args.bucket_seq and not args.shared_data:
+        raise SystemExit("--bucket_seq without --shared_data is not carried by the seed "
+                         "sweep: each seed's batch of a step is sliced to its own bucket, "
+                         "and the JAX sweep fails with a shape error when two seeds' "
+                         "buckets differ; pass --shared_data (one stream, one width a "
+                         "step) or run the seeds with run_mm_late")
 
 
 def build_seed_setups(args, seeds):

@@ -33,7 +33,7 @@ from ..utils.logging import get_logger
 from ._build import build_text_setup
 from ._common import (add_common_args, check_training_supported, resolve_device,
                       results_dir_for, run_control, save_metrics_csv, save_predictions_csv,
-                      seed_everything)
+                      seed_everything, seq_buckets_from)
 
 logger = get_logger(__name__)
 
@@ -90,7 +90,8 @@ def main(argv=None, on_step=None, keep_grads=False):
     if args.eval_txt_test:
         pipe = SplitPipeline(
             prepare_text_data(C.TDATA5, num_labels=cfg.num_labels, testing=args.testing),
-            PipelineConfig(batch_size=cfg.batch_size, max_length=cfg.max_length),
+            PipelineConfig(batch_size=cfg.batch_size, max_length=cfg.max_length,
+                           seq_buckets=seq_buckets_from(args)),
             tokenizer=setup.tokenizer)
         predictions = trainer.evaluate(pipe)
         metrics = compute_metrics(predictions, cfg.num_labels)

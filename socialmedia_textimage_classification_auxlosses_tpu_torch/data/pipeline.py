@@ -20,8 +20,18 @@ stacks K batches and stages them on the device in one copy per array.
 eval, ``--eval_txt_test``). LXMERT's batches carry no pixels
 (``PipelineConfig(with_images=False)``) but each id's ROI features and boxes
 from a ``RoiFeatureCache`` (``roi_features``, ``roi_boxes``, float32).
-Sequence bucketing (``--bucket_seq``) and the
-multi-host row slicing are not ported.
+
+Sequence bucketing (``--bucket_seq``, ``PipelineConfig.seq_buckets``) slices
+each batch's text arrays to the smallest bucket that holds its longest row
+(the full ``max_length`` when none does). Under masked attention this is
+exact: every dropped column is padding in every row. A chunk of K batches
+is sliced to the bucket of its longest row; under ``--bucket_group`` a
+shuffled epoch's full batches are first regrouped, stably, by their bucket
+(``_grouped_order``; the partial tail batch stays last), and a chunk ends
+where the width changes, so each chunk holds batches of one width. Batch
+composition and contents are unchanged; only the visit order of a grouped
+epoch differs. Evaluation is never regrouped, so prediction rows keep
+their order. The multi-host row slicing is not ported.
 """
 
 from __future__ import annotations
@@ -130,6 +140,11 @@ class PipelineConfig:
     max_length: int = 128
     image_size: int = 224
     with_images: bool = True
+    # --bucket_seq: the bucket lengths a batch's text arrays are sliced to
+    seq_buckets: Optional[tuple] = None
+    # --bucket_group: regroup a shuffled epoch's batches by bucket width, so
+    # that each chunk of --steps_per_dispatch batches holds one width
+    bucket_group: bool = False
 
 
 class SplitPipeline:
@@ -159,15 +174,83 @@ class SplitPipeline:
     def num_batches(self):
         return -(-self.n // self.cfg.batch_size) if self.n else 0
 
-    def batches(self, shuffle=False, rng: Optional[np.random.RandomState] = None,
-                skip: int = 0) -> Iterator[Dict[str, np.ndarray]]:
-        """The padded batches in visit order; ``skip`` leaves out the first
-        ``skip`` batches of that order (a run resumed inside an epoch)."""
-        if self.n == 0:
-            return
+    def _bucket_for(self, lmax: int, width: int) -> Optional[int]:
+        """The smallest bucket that holds ``lmax`` tokens (None: none does,
+        the arrays keep their width)."""
+        for b in sorted(self.cfg.seq_buckets or ()):
+            if b >= lmax:
+                return min(b, width)
+        return None
+
+    def _bucket_len(self, mask_rows) -> Optional[int]:
+        """The bucket of a batch's mask rows (None without buckets)."""
+        if not self.cfg.seq_buckets:
+            return None
+        return self._bucket_for(int(mask_rows.sum(axis=-1).max()), mask_rows.shape[-1])
+
+    def bucket_width(self, lmax: int) -> int:
+        """The width of a batch or chunk whose longest row has ``lmax``
+        tokens: its bucket, or the full width."""
+        width = self.mask.shape[-1]
+        return self._bucket_for(lmax, width) or width
+
+    @staticmethod
+    def bucket_slice(batch: Dict[str, np.ndarray], length: Optional[int]) -> Dict:
+        """The text arrays of a batch (or of a stacked chunk) sliced to
+        ``length`` columns; None leaves them whole."""
+        if length is None:
+            return batch
+        out = dict(batch)
+        for key in ("ids", "mask", "token_type_ids"):
+            if key in out:
+                out[key] = out[key][..., :length]
+        return out
+
+    @property
+    def bucketed(self) -> bool:
+        """Buckets are set and the batches carry text."""
+        return bool(self.cfg.seq_buckets) and self.mask is not None
+
+    def grouping(self, shuffle: bool) -> bool:
+        """Whether an epoch's chunks are regrouped by width: under
+        ``--bucket_group``, bucketed, in a shuffled epoch."""
+        return bool(self.cfg.bucket_group and self.bucketed and shuffle)
+
+    def _grouped_order(self, shuffle, rng) -> np.ndarray:
+        """The visit order with the full batches stably sorted by bucket
+        width; the partial tail batch stays last, so every batch keeps its
+        rows (the order is cut at ``batch_size`` again downstream). The
+        shuffle draws from ``rng`` once, as the plain epoch's does."""
         order = np.arange(self.n)
         if shuffle:
             (rng or np.random.RandomState(0)).shuffle(order)
+        bs = self.cfg.batch_size
+        lens = self.mask.sum(axis=-1)
+
+        def width_of(start):
+            return self.bucket_width(int(lens[order[start:start + bs]].max()))
+
+        starts = range(0, self.n, bs)
+        full = sorted((s for s in starts if s + bs <= self.n), key=width_of)  # stable
+        tail = [s for s in starts if s + bs > self.n]
+        return np.concatenate([order[s:s + bs] for s in full + tail])
+
+    def batches(self, shuffle=False, rng: Optional[np.random.RandomState] = None,
+                skip: int = 0, bucket: bool = True,
+                order: Optional[np.ndarray] = None) -> Iterator[Dict[str, np.ndarray]]:
+        """The padded batches in visit order; ``skip`` leaves out the first
+        ``skip`` batches of that order (a run resumed inside an epoch).
+        ``order`` gives the visit order itself (``shuffle`` and ``rng`` are
+        then not used). With buckets, ``bucket`` slices each batch to its
+        own bucket; without it the batch stays whole and carries its longest
+        row's token count as ``_max_len``, for ``stage_chunks`` to slice the
+        chunk by."""
+        if self.n == 0:
+            return
+        if order is None:
+            order = np.arange(self.n)
+            if shuffle:
+                (rng or np.random.RandomState(0)).shuffle(order)
         bs = self.cfg.batch_size
         for start in range(skip * bs, self.n, bs):
             idx = order[start:start + bs]
@@ -186,6 +269,10 @@ class SplitPipeline:
                 batch["mask"] = self.mask[idx]
                 if self.token_type_ids is not None:
                     batch["token_type_ids"] = self.token_type_ids[idx]
+            if self.bucketed and bucket:
+                batch = self.bucket_slice(batch, self._bucket_len(batch["mask"]))
+            elif self.bucketed:
+                batch["_max_len"] = int(batch["mask"].sum(axis=-1).max())
             if self.image_source is not None and self.cfg.with_images:
                 images = self.image_source.gather([self.data_ids[i] for i in idx])
                 if getattr(self.image_source, "returns_grid", False):
@@ -199,37 +286,63 @@ class SplitPipeline:
                 batch["image_adds"] = np.asarray(self.image_adds, np.int32)[idx]
             yield batch
 
+    def chunk_plan(self, shuffle=False, rng=None, skip: int = 0):
+        """``(batches, width, grouped)`` for ``stage_chunks``: the host
+        batches of an epoch whole (each with ``_max_len`` under buckets), in
+        the grouped order when ``grouping(shuffle)``, ``skip`` batches of
+        that order left out; ``width`` maps a longest row to its width (None
+        without buckets)."""
+        grouped = self.grouping(shuffle)
+        order = self._grouped_order(shuffle, rng) if grouped else None
+        width = self.bucket_width if self.bucketed else None
+        return (self.batches(shuffle=shuffle, rng=rng, skip=skip, bucket=False, order=order),
+                width, grouped)
+
     def device_iter(self, device, shuffle=False, rng=None, skip: int = 0):
-        """``batches`` through ``to_device``."""
+        """``batches`` (each sliced to its bucket) through ``to_device``."""
         for batch in self.batches(shuffle=shuffle, rng=rng, skip=skip):
             yield to_device(batch, device)
 
     def device_iter_chunks(self, device, k: int, shuffle=False, rng=None, skip: int = 0):
-        """``stage_chunks`` over ``batches``."""
-        return stage_chunks(self.batches(shuffle=shuffle, rng=rng, skip=skip), device, k)
+        """``stage_chunks`` over ``chunk_plan``."""
+        batches, width, grouped = self.chunk_plan(shuffle=shuffle, rng=rng, skip=skip)
+        return stage_chunks(batches, device, k, width, grouped)
 
 
-def stage_chunks(batches, device, k: int):
+def stage_chunks(batches, device, k: int, width=None, grouped: bool = False):
     """``(batches, k_real)``: host ``batches`` in chunks of ``k``, each array
     stacked on a new leading axis and staged on the device in one copy
     (``data_id`` stays on the host). The last chunk of an epoch holds only
     its ``k_real < k`` batches: it is not padded (the JAX package pads it and
-    skips the padded steps; here the caller runs ``k_real`` steps)."""
-    chunk = []
+    skips the padded steps; here the caller runs ``k_real`` steps). With
+    ``width`` (buckets: the batches carry ``_max_len``), each chunk's text
+    arrays are sliced to ``width`` of its longest row; with ``grouped`` a
+    chunk also ends where the batches' width changes, so each chunk holds
+    one width (the steps of an epoch stay as many)."""
+    chunk, current = [], None
     for batch in batches:
+        w = width(batch["_max_len"]) if grouped else None
+        if chunk and w != current:
+            yield _stack_to_device(chunk, device, width), len(chunk)
+            chunk = []
+        current = w
         chunk.append(batch)
         if len(chunk) == k:
-            yield _stack_to_device(chunk, device), k
+            yield _stack_to_device(chunk, device, width), k
             chunk = []
     if chunk:
-        yield _stack_to_device(chunk, device), len(chunk)
+        yield _stack_to_device(chunk, device, width), len(chunk)
 
 
-def _stack_to_device(chunk, device) -> Dict:
+def _stack_to_device(chunk, device, width=None) -> Dict:
     def stack(values):
         return torch.stack(values) if torch.is_tensor(values[0]) else np.stack(values)
 
-    return to_device({key: stack([b[key] for b in chunk]) for key in chunk[0]}, device)
+    lmax = [b["_max_len"] for b in chunk if "_max_len" in b]
+    out = {key: stack([b[key] for b in chunk]) for key in chunk[0] if key != "_max_len"}
+    if lmax:
+        out = SplitPipeline.bucket_slice(out, width(max(lmax)))
+    return to_device(out, device)
 
 
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict:

@@ -14,6 +14,13 @@ take no additive bias, so BEiT launches none of them.
 
 Names follow the flax tree (``layer_{i}`` becomes ``layers.{i}``), so
 ``models/from_jax.py`` carries a JAX parameter tree across.
+
+Seed-stacked (``models/encoder.py::stack_seed_models``, the seed sweep):
+every parameter has a leading seed axis S and the rows come seed-major, as
+in the other towers. The patch projection is one convolution per seed, the
+cls token and the layer-scale gains each seed's own, and each seed's
+(S, T, heads) relative-position table is gathered with the one index and
+added to that seed's scores.
 """
 
 from __future__ import annotations
@@ -23,7 +30,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .encoder import EncoderConfig, Mlp, add_bias, dense, dropout, layer_norm
+from .encoder import (EncoderConfig, Mlp, add_bias, dense, dropout, layer_norm, per_seed,
+                      seed_count)
 
 
 def beit_relative_position_index(grid: int) -> np.ndarray:
@@ -81,12 +89,23 @@ class BeitAttention(nn.Module):
         index = self._index_on.get(x.device)
         if index is None:
             index = self._index_on[x.device] = self.index.to(x.device)
-        bias = self.rel_pos_table[index]  # (N, N, heads)
-        bias = bias.permute(2, 0, 1)[None]
+        table = self.rel_pos_table
+        s = seed_count(table, 2)
+        # (seeds, N, N, heads) -> (seeds, 1, heads, N, N): one per seed, or the one
+        bias = (table[:, index] if s else table[index][None]).permute(0, 3, 1, 2)[:, None]
         scores = torch.matmul(q, k.transpose(-1, -2)) * cfg.head_dim ** -0.5
-        probs = torch.softmax(scores.float() + bias.float(), dim=-1).to(q.dtype)
+        logits = (per_seed(scores.float(), max(s, 1)) + bias.float()).reshape(scores.shape)
+        probs = torch.softmax(logits, dim=-1).to(q.dtype)
         ctx = torch.matmul(probs, v).transpose(1, 2).reshape(b, n, cfg.hidden)
         return dropout(dense(self.out, ctx, dt), cfg.dropout, self.training, gen)
+
+
+def layer_scale(gain: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``gain * y`` over the last axis; a seed-stacked (S, hidden) gain
+    scales each seed's rows."""
+    if gain.dim() == 1:
+        return gain * y
+    return (gain[:, None, None, :] * per_seed(y, gain.shape[0])).reshape(y.shape)
 
 
 class BeitLayer(nn.Module):
@@ -106,8 +125,9 @@ class BeitLayer(nn.Module):
         self.lambda_2.fill_(self.layer_scale_init)
 
     def forward(self, x, gen=None):
-        x = x + self.lambda_1.to(x.dtype) * self.attention(layer_norm(self.ln_attn, x), gen)
-        return x + self.lambda_2.to(x.dtype) * self.mlp(layer_norm(self.ln_mlp, x), gen)
+        x = x + layer_scale(self.lambda_1.to(x.dtype),
+                            self.attention(layer_norm(self.ln_attn, x), gen))
+        return x + layer_scale(self.lambda_2.to(x.dtype), self.mlp(layer_norm(self.ln_mlp, x), gen))
 
 
 class BeitEncoder(nn.Module):
@@ -134,12 +154,20 @@ class BeitEncoder(nn.Module):
         if pixel_values.shape[1] != 3:
             pixel_values = pixel_values.permute(0, 3, 1, 2)  # NHWC -> NCHW
         p = self.proj
-        x = F.conv2d(pixel_values.to(dt), p.weight.to(dt), None, p.stride)
+        s = seed_count(p.weight, 4)
+        if s:  # each seed's pixels through its own convolution
+            pixels = per_seed(pixel_values.to(dt), s)
+            weights = p.weight.to(dt).unbind(0)
+            x = torch.cat([F.conv2d(pixels[i], weights[i], None, p.stride) for i in range(s)])
+        else:
+            x = F.conv2d(pixel_values.to(dt), p.weight.to(dt), None, p.stride)
         if len(self.layers) and x.shape[-1] != self.layers[0].attention.grid:
             raise ValueError(f"a {x.shape[-1]}-patch grid side for a tower built for "
                              f"{self.layers[0].attention.grid}")
         x = add_bias(x.flatten(2).transpose(1, 2), p.bias.to(dt))
-        x = torch.cat([self.cls_token.to(dt).expand(b, -1, -1), x], dim=1)
+        k, h = max(s, 1), x.shape[-1]  # a plain model holds one seed
+        cls = self.cls_token.to(dt).reshape(k, 1, 1, h).expand(k, b // k, 1, h)
+        x = torch.cat([cls.reshape(b, 1, h), x], dim=1)
         x = dropout(x, cfg.dropout, self.training, gen)
         for layer in self.layers:
             x = layer(x, gen)

@@ -25,7 +25,9 @@ Two data modes:
   batch count, with a warning.
 * **shared** (one pipeline per split): every seed sees the batches of the
   first seed's stream, shuffled by the first seed's host generator; only the
-  init, dropout and TIM draws differ.
+  init, dropout and TIM draws differ. A step then has one width, so
+  ``--bucket_seq`` / ``--bucket_group`` slice and group the stream as they
+  do a single run's (independent data refuses them, ``cli/run_seed_sweep.py``).
 
 ``--steps_per_dispatch K`` goes through the chunked steps of
 ``train/steps.py`` (``make_train_many`` with the S generators registered in
@@ -82,14 +84,19 @@ class EnsembleTrainer:
 
     # -- batches ---------------------------------------------------------------
 
+    def _repeat(self, batch):
+        """A shared batch's rows once per seed, seed-major (its ``_max_len``
+        kept as it is)."""
+        s = len(self.seeds)
+        return {k: v if k == "_max_len" else np.concatenate([v] * s) for k, v in batch.items()}
+
     def host_batches(self, pipes, shuffle: bool):
         """Stacked host batches: one batch per seed, concatenated seed-major.
         ``pipes``: one pipeline per seed (independent data) or one for all."""
         s = len(self.seeds)
         if not self.independent:
             rng = self.host_rngs[0] if shuffle else None
-            for b in pipes.batches(shuffle=shuffle, rng=rng):
-                yield {k: np.concatenate([v] * s) for k, v in b.items()}
+            yield from map(self._repeat, pipes.batches(shuffle=shuffle, rng=rng))
             return
         counts = [p.num_batches for p in pipes]
         if len(set(counts)) > 1:
@@ -107,6 +114,11 @@ class EnsembleTrainer:
         if k == 1:
             for b in self.host_batches(pipes, shuffle):
                 yield to_device(b, self.device), 1
+            return
+        if not self.independent:  # one stream: bucketed and grouped as one run's chunks
+            batches, width, grouped = pipes.chunk_plan(
+                shuffle=shuffle, rng=self.host_rngs[0] if shuffle else None)
+            yield from stage_chunks(map(self._repeat, batches), self.device, k, width, grouped)
             return
         yield from stage_chunks(self.host_batches(pipes, shuffle), self.device, k)
 

@@ -307,6 +307,11 @@ class StepGraph:
     counted when it runs) and returns the static outputs, which the next
     replay overwrites. A failed capture raises: no step falls back to eager
     execution.
+
+    Under ``--bucket_seq`` each width is a signature of its own, so each
+    width a run meets is captured once; each capture keeps its own private
+    memory pool (PyTorch vouches for a pool shared between graphs only when
+    they replay in capture order, and bucketed widths come in any order).
     """
 
     def __init__(self, fn: Callable, warmup: Callable, generators=()):
@@ -362,6 +367,9 @@ def _chunk_device(batches: Dict) -> torch.device:
 
 
 def _make_many(run: Callable, warmup: Callable) -> Callable:
+    """``many(batches, k_real, gen)``; ``many.graphs`` holds, on a CUDA
+    device, the ``StepGraph`` of each generator (its ``graphs``: one
+    capture per batch signature)."""
     graphs: Dict[object, StepGraph] = {}
 
     def many(batches, k_real, gen):
@@ -381,6 +389,7 @@ def _make_many(run: Callable, warmup: Callable) -> Callable:
                                             lambda b: warmup(b, scratch()), gens)
         return _run_chunk(graph, batches, k_real)
 
+    many.graphs = graphs
     return many
 
 

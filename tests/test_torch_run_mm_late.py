@@ -117,9 +117,12 @@ def test_prediction_csv_matches_jax(runs):
 
 REFUSED = [
     ["--scan_layers"], ["--mesh_pipe", "2"], ["--mesh_data", "2"],
-    ["--mesh_model", "2"], ["--bucket_seq"],
+    ["--mesh_model", "2"], ["--bucket_seq", "1"],
     ["--bucket_group"], ["--quantize", "w8"], ["--img_decoder", "native"],
 ]
+# the bucketing flags are ported: what they refuse is a bad value, with the
+# JAX package's messages
+REFUSED_AS = {"--bucket_seq": "buckets must be >= 2", "--bucket_group": "requires --bucket_seq"}
 # refused until the port carried them; tests/test_torch_run_control.py runs the
 # run-control flags, test_torch_lazy_emb.py, test_torch_vision_cache.py and
 # test_torch_tim_reuse.py the last four
@@ -128,13 +131,14 @@ PORTED = [
     ["--profile", "p"], ["--extract_features"], ["--eval_txt_test"],
     ["--opt_impl", "lazy_emb"], ["--tim_reuse_text"], ["--cache_vision"],
     ["--img_model_name", "beit", "--cache_vision"],
+    ["--bucket_seq"], ["--bucket_group", "--bucket_seq", "16,32"],
 ]
 
 
 @pytest.mark.parametrize("extra", REFUSED, ids=lambda e: e[0].lstrip("-"))
 def test_unported_flags_exit(extra):
     args = TRun.parse_args(ARGS + ["--device", "cpu"] + extra)
-    with pytest.raises(SystemExit, match="not ported"):
+    with pytest.raises(SystemExit, match=REFUSED_AS.get(extra[0], "not ported")):
         TRun.check_supported(args)
 
 

@@ -107,9 +107,12 @@ def test_freeze_keeps_the_tower(txt_runs):
     assert not torch.equal(before["classifier.weight"], after["classifier.weight"])
 
 
-@pytest.mark.parametrize("extra", [["--bucket_group"], ["--bucket_seq"],
-                                   ["--mesh_data", "2"], ["--scan_layers"]],
-                         ids=lambda e: e[0].lstrip("-"))
-def test_unported_flags_exit(extra):
-    with pytest.raises(SystemExit, match="not ported"):
+# the bucketing flags are ported: what they refuse is a bad value, with the
+# JAX package's messages
+@pytest.mark.parametrize("extra,message", [
+    pytest.param(extra, message, id=extra[0].lstrip("-")) for extra, message in (
+        (["--bucket_group"], "requires --bucket_seq"), (["--bucket_seq", "1"], "must be >= 2"),
+        (["--mesh_data", "2"], "not ported"), (["--scan_layers"], "not ported"))])
+def test_unported_flags_exit(extra, message):
+    with pytest.raises(SystemExit, match=message):
         run_txt.main(ARGS + extra)

@@ -8,7 +8,12 @@ vmapped step on the same per-seed parameters (losses 1e-5 relative,
 parameters as ``test_torch_train.py`` holds one step); ``run_seed_sweep``
 against separate ``run_mm_late`` runs (metrics rtol 5e-3 / atol 1e-4,
 predictions exact, as ``tests/test_ensemble.py`` holds the JAX sweep); the
-shared-data mode, and independent seeds seeing different batch orders."""
+shared-data mode, and independent seeds seeing different batch orders. The
+BEiT tower stacked (its relative-position tables, layer scales, cls token
+and patch projection along the seed axis) against each seed's own tower,
+and its sweep against separate runs; under ``--bucket_seq`` the JAX
+independent sweep's shape error that the port's refusal cites, and the
+shared-data sweep bucketed and grouped as its first seed's own run."""
 
 import copy
 import csv
@@ -354,20 +359,174 @@ def test_shared_data_mode_and_independent_batch_orders(task3):
 
 
 @pytest.mark.parametrize("extra", [["--ckpt_every", "5"], ["--resume"], ["--profile", "p"],
-                                   ["--scan_layers"], ["--img_model_name", "beit"],
+                                   ["--scan_layers"], ["--bucket_seq", "8,16"],
                                    ["--opt_impl", "lazy_emb"], ["--cache_vision"]],
                          ids=lambda e: e[0].lstrip("-"))
 def test_sweep_refuses_what_it_does_not_carry(extra):
     args = TSweep.parse_args(BASE + ["--seeds", "7,8"] + extra)
     with pytest.raises(SystemExit, match="not"):
         TSweep.check_supported(args)
-    if extra[0] in ("--opt_impl", "--cache_vision"):  # the JAX sweep drops both silently
-        with pytest.raises(SystemExit, match="the JAX sweep"):
+    if extra[0] in ("--opt_impl", "--cache_vision", "--bucket_seq"):  # what the JAX sweep
+        with pytest.raises(SystemExit, match="the JAX sweep"):       # drops or fails on
             TSweep.check_supported(args)
 
 
 def test_sweep_takes_tim_reuse_text():
     TSweep.check_supported(TSweep.parse_args(BASE + ["--seeds", "7,8", "--tim_reuse_text"]))
+
+
+@pytest.mark.parametrize("extra", [["--img_model_name", "beit"],
+                                   ["--shared_data", "--bucket_seq", "--bucket_group"]],
+                         ids=lambda e: e[-1].lstrip("-"))
+def test_sweep_takes(extra):
+    TSweep.check_supported(TSweep.parse_args(BASE + ["--seeds", "7,8"] + extra))
+
+
+def test_independent_sweep_under_bucketing_fails_in_jax():
+    """Why the independent-data sweep refuses ``--bucket_seq``: the JAX
+    sweep stacks the seeds' batches of a step (``_stack_batches``), each
+    sliced to its own bucket, and two widths do not stack. Its CLI run at
+    ``--arch tiny`` on posts that put two seeds' batches in different
+    buckets stops with this ValueError."""
+    from socialmedia_textimage_classification_auxlosses_tpu.data import pipeline as JP
+    from socialmedia_textimage_classification_auxlosses_tpu.data.prep import SplitArrays
+    from socialmedia_textimage_classification_auxlosses_tpu.data.tokenizers import (
+        build_tokenizer)
+
+    tok = build_tokenizer("bert", None, max_length=32, vocab_size=512)
+    cfg = JP.PipelineConfig(batch_size=2, max_length=32, with_images=False,
+                            seq_buckets=(8, 16))
+    batches = []
+    for words in (2, 12):  # one seed's batch of short posts, the other's of long ones
+        texts = np.asarray([" ".join(["w"] * words)] * 2, object)
+        split = SplitArrays(ids=np.asarray(["1", "2"]), ids_num=np.arange(2, dtype=np.int64),
+                            text=texts, labels=np.eye(LABELS, dtype=np.float32)[:2])
+        batches.append(next(JP.SplitPipeline(split, cfg, tokenizer=tok).batches()))
+    assert [b["ids"].shape[1] for b in batches] == [8, 16]
+    with pytest.raises(ValueError, match="same shape"):
+        JE.EnsembleTrainer._stack_batches(batches)
+
+
+def _bimodal_fixture(root):
+    """The task-3 fixture with short posts and one long one."""
+    csv_path, img_fmt, _ = make_task_fixture(root / "data", task=3, n=40)
+    with open(csv_path, newline="") as f:
+        rows = list(csv.reader(f))
+    for i, row in enumerate(rows[1:]):
+        row[1] = " ".join(f"w{i}x{j}" for j in range(20 if i == 3 else 2 + i % 4))
+    with open(csv_path, "w", newline="") as f:
+        csv.writer(f).writerows(rows)
+    return csv_path, img_fmt
+
+
+def test_shared_data_sweep_buckets_as_the_first_seeds_run(tmp_path, monkeypatch):
+    """``--shared_data --bucket_seq --bucket_group`` at K = 2: every seed
+    reads the first seed's stream, one width a step; the first seed's
+    artifacts are its own ``run_mm_late`` run's under the same flags."""
+    csv_path, img_fmt = _bimodal_fixture(tmp_path)
+    monkeypatch.setitem(TC.PATH, 3, csv_path)
+    monkeypatch.setitem(TC.IMG_FMT, 3, img_fmt)
+    monkeypatch.setattr(TC, "DATA_PATH", str(tmp_path / "data") + os.sep)
+    flags = ["--bucket_seq", "8,16", "--bucket_group", "--steps_per_dispatch", "2"]
+    out = {}
+    for kind in ("separate", "sweep"):
+        monkeypatch.setattr(TC, "results_dir_mm_late", str(tmp_path / kind) + os.sep)
+        steps = []
+        if kind == "separate":
+            TRun.main(BASE + flags + ["--seed", "7"])
+        else:
+            trainer, setup = TSweep.main(BASE + flags + ["--seeds", "7,8", "--shared_data"],
+                                         on_step=lambda step, m: steps.append(step))
+            assert steps == [1, 2]  # one chunk a width: 32 train posts, batch 16
+            chunks = setup.pipes["train"].device_iter_chunks("cpu", 2, shuffle=True,
+                                                             rng=np.random.RandomState(7))
+            assert [b["ids"].shape[-1] for b, _ in chunks] == [8, 128]
+        out[kind] = str(tmp_path / kind) + os.sep
+    stem = STEM.format(7)
+    assert _read(out["sweep"] + stem + "preds.csv") == _read(out["separate"] + stem + "preds.csv")
+    for table in ("metrics_val.csv", "metrics_test.csv"):
+        got, want = _read(out["sweep"] + stem + table), _read(out["separate"] + stem + table)
+        np.testing.assert_allclose(np.array([r[1:] for r in got[1:]], float),
+                                   np.array([r[1:] for r in want[1:]], float),
+                                   rtol=5e-3, atol=1e-4, err_msg=table)
+
+
+def test_stacked_beit_tower_is_each_seeds_own():
+    """The BEiT tower seed-stacked (its relative-position tables, layer
+    scales, cls token and patch projection along the seed axis): forward
+    and the gradient of every parameter per seed, against each seed's own
+    tower, float32, within 1e-6 of the scale."""
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.models.beit import (
+        BeitEncoder)
+
+    cfg = TE.EncoderConfig(hidden=32, layers=2, heads=2, mlp_dim=64, dropout=0.0,
+                           ln_style="pre", ln_eps=1e-12)
+    towers = []
+    for seed in SEEDS:
+        m = BeitEncoder(cfg, patch=8, image_size=32)
+        TE.init_weights(m, torch.Generator().manual_seed(seed))
+        with torch.no_grad():  # BEiT's constants drawn too, so the seeds differ there
+            for layer in m.layers:
+                layer.attention.rel_pos_table.normal_(generator=torch.Generator().manual_seed(
+                    seed + 100))
+                layer.lambda_1.uniform_(0.05, 0.2)
+            m.cls_token.normal_()
+        towers.append(m)
+    singles = [copy.deepcopy(m) for m in towers]
+    stacked = TE.stack_seed_models(towers)
+    px = t(np.random.RandomState(5).randn(B * len(SEEDS), 32, 32, 3).astype(np.float32))
+    w = np.random.RandomState(6)
+    weights = (t(w.randn(B, 17, 32).astype(np.float32)), t(w.randn(B, 32).astype(np.float32)))
+
+    def loss(hidden, pooled):
+        return (hidden * weights[0].repeat(len(hidden) // B, 1, 1)).sum() + (
+            pooled * weights[1].repeat(len(pooled) // B, 1)).sum()
+
+    hidden, pooled = stacked(px)
+    params = dict(stacked.named_parameters())
+    grads = dict(zip(params, torch.autograd.grad(loss(hidden, pooled), list(params.values()))))
+    for i, single in enumerate(singles):
+        h, p = single(px[i * B:(i + 1) * B])
+        _close(hidden[i * B:(i + 1) * B].detach(), h.detach(), f"seed {i} hidden")
+        _close(pooled[i * B:(i + 1) * B].detach(), p.detach(), f"seed {i} pooled")
+        own = dict(single.named_parameters())
+        mine = dict(zip(own, torch.autograd.grad(loss(h, p), list(own.values()))))
+        for name, g in grads.items():
+            _close(g[i], mine[name], f"seed {i} {name}")
+
+
+def test_beit_sweep_matches_separate_runs(task3):
+    """``run_seed_sweep --img_model_name beit`` (attention fusion, dropout and
+    TIM on) against two ``run_mm_late`` runs, at the ViT sweep's tolerances."""
+    root, mp = task3
+    base = [a for a in BASE]
+    base[base.index("vit")] = "beit"
+    base[base.index("concat")] = "attention"
+    stem = "bert-beit-attention_task3_seed{}_itc0.1itm0.1_"
+    out = {}
+    for kind in ("beit_separate", "beit_sweep"):
+        mp.setattr(TC, "results_dir_mm_late", str(root / kind) + os.sep)
+        if kind == "beit_separate":
+            for s in (7, 8):
+                TRun.main(base + ["--seed", str(s)])
+        else:
+            TSweep.main(base + ["--seeds", "7,8"])
+        out[kind] = str(root / kind) + os.sep
+    for s in (7, 8):
+        for table in ("metrics_val.csv", "metrics_test.csv"):
+            got = _read(out["beit_sweep"] + stem.format(s) + table)
+            want = _read(out["beit_separate"] + stem.format(s) + table)
+            np.testing.assert_allclose(np.array([r[1:] for r in got[1:]], float),
+                                       np.array([r[1:] for r in want[1:]], float),
+                                       rtol=5e-3, atol=1e-4, err_msg=f"seed {s} {table}")
+        assert _read(out["beit_sweep"] + stem.format(s) + "preds.csv") == _read(
+            out["beit_separate"] + stem.format(s) + "preds.csv")
+        got = torch.load(out["beit_sweep"] + stem.format(s) + "net.pth", weights_only=True)
+        want = torch.load(out["beit_separate"] + stem.format(s) + "net.pth", weights_only=True)
+        assert set(got) == set(want)
+        for k in want:
+            np.testing.assert_allclose(got[k].numpy(), want[k].numpy(), rtol=0, atol=1e-5,
+                                       err_msg=k)
 
 
 def _old_seed_product(x3, w, bias):
