@@ -63,8 +63,9 @@ and the CUDA toolkit. It
    launch counts per train step and per eval step (under ``fused`` one TN
    weight-gradient launch per block backward); it prints ms per train
    step, posts/s, the device idle share of one profiled step, its largest
-   kernels, copies and float32 sgemm launches (``fused`` may launch no more
-   of these than ``auto``) and the peak device memory; then ``fused`` again
+   kernels, copies and float32 sgemm launches, the float32 matrix products
+   dispatched in a step (``fused`` may dispatch no more of these than
+   ``auto``) and the peak device memory; then ``fused`` again
    at ``--steps_per_dispatch 3``, every step a CUDA graph replay: the launch
    counts exact per chunk (a launch counts when a replay runs it; the first
    chunk and the first eval add the eager warm-up step run before each
@@ -236,6 +237,31 @@ and the CUDA toolkit. It
    setting as one sweep, seen in the vision tower's SDPA over both seeds'
    images): the tables agree within rtol 5e-3 / atol 1e-4, the predictions
    are equal;
+16b. runs the Faster R-CNN (``models/frcnn.py``) at its published geometry
+   (R101-C4, 6,000 / 1,000 RPN candidates, 1,600 classes, the 800 x 1,333
+   canvas) over 16 generated photos of mixed size and orientation, from a
+   checkpoint written from a seed in the published key layout and read by
+   ``load_frcnn`` (``seeded_frcnn_checkpoint``: frozen batch norms set from
+   their inputs, Detectron2's small head inits, one template class a
+   photo under which its per-class NMS keeps 1-35 regions): the card
+   against the
+   port's CPU path stage by stage (1e-3 of each output's scale), the
+   device RPN NMS against ``greedy_nms`` on every photo's candidates
+   (identical prefixes, 1,000 kept, candidates suppressed), fused against
+   staged ``detect_batch`` (classes exact, boxes 1e-5, features 1e-4) with
+   36 live, distinct regions and both branches of the final selection on
+   every photo; then ``cli/obj_features.main --mode obj --obj_source
+   frcnn`` over 48 posts (three batches) in float32 and ``--frcnn_dtype
+   bfloat16``, each with ``pil``, ``device``, ``device`` and ``pil`` ingest
+   (the set-up, the first batch and the images/s of the batches after it
+   apart, peak memory, the device ms of each stage in a batch of the 16
+   photos from its ``record_function`` span; no post without
+   features; ``ensure_roi_cache`` returns the cache untouched), and
+   ``serve --model lxmert`` with the early phase's LXMERT artifact and the
+   checkpoint under ``auto`` and ``fused`` (34 SDPA launches / 24 blocks a
+   window, probabilities within ``PROB_TOL`` of the plain path's;
+   ``python3 chip_smoke.py --detector`` runs this phase alone over a random
+   LXMERT, without the last line);
 17. holds every (kernel, shape) that those runs launched and no row of
    steps 3, 6 and 12 holds (the grid's float32 shapes, eval steps' B rows,
    the sweep's folded eval batch, the text-only runner's B rows) against
@@ -253,6 +279,7 @@ without the repository beside it, it exits non-zero at once.
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -301,17 +328,29 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
+# torch.cuda._sleep counts SM clock cycles: at no more than 2e9 a second
+# (the H100's top clock is 1.98 GHz) a sleep lasts at least the seconds asked
+SLEEP_CYCLES_PER_S = 2e9
+SLEEP_CAP_S = 1.0
+
+
 def device_ms(torch, fn, iters=30, warmup=3):
-    """Device milliseconds per call of ``fn``. A long sleep kernel is queued
+    """Device milliseconds per call of ``fn``. A sleep kernel is queued
     first so the host enqueues every call before the card reaches the start
-    event: the events then time the device, not the host's launch loop."""
+    event: the events then time the device, not the host's launch loop. The
+    sleep lasts three times what the host took to enqueue the last warm-up
+    call, ``iters`` times over (5 ms at least); where the host still lags
+    behind the card, once more at the cap, about a second."""
     for _ in range(warmup):
+        t0 = time.perf_counter()
         fn()
+        host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    for sleep in (200_000_000, 2_000_000_000):
-        torch.cuda._sleep(sleep)
+    sleep_s = min(max(3 * iters * host_s, 0.005), SLEEP_CAP_S)
+    while True:
+        torch.cuda._sleep(int(sleep_s * SLEEP_CYCLES_PER_S))
         start.record()
         for _ in range(iters):
             fn()
@@ -320,6 +359,9 @@ def device_ms(torch, fn, iters=30, warmup=3):
         torch.cuda.synchronize()
         if not host_bound:
             return start.elapsed_time(end) / iters
+        if sleep_s >= SLEEP_CAP_S:
+            break
+        sleep_s = SLEEP_CAP_S
     # still host-bound: the events' span includes the card waiting for the
     # host, an upper bound on the device time
     log(f"timing: {getattr(fn, '__name__', 'call')} stayed host-bound; its time is "
@@ -1293,13 +1335,21 @@ def is_port_kernel(key: str) -> bool:
     return "smtc::" in key or "namespace)::gemm_" in key
 
 
+# the idle host time on each side of a profiled step (profile_step)
+PROFILE_MARGIN_S = 0.05
+
+
 def profile_step(torch, step, tag, attempts=3):
     """Two calls of ``step`` under the profiler, the first its warm-up (not
     recorded: the tracer's start can miss the first kernels of a CUDA graph
     replayed at once), the second recorded: its wall ms, the device's busy
     ms and idle share, the events on the device and the calls of ``step``
-    made. A profile that records no device event (the tracer missed a whole
-    session once in a long run) is taken again, up to ``attempts`` times."""
+    made. The recorded window opens ``PROFILE_MARGIN_S`` before the step
+    and closes as long after it: the tracer drops a kernel whose device
+    timestamp, mapped onto the host's clock, falls outside the window, and
+    a step begun just as it opened lost its first kernels that way. A
+    profile that records no device event (the tracer missed a whole session
+    once in a long run) is taken again, up to ``attempts`` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -1312,10 +1362,12 @@ def profile_step(torch, step, tag, attempts=3):
             step()
             torch.cuda.synchronize()
             prof.step()
+            time.sleep(PROFILE_MARGIN_S)
             t1 = time.perf_counter()
             step()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t1) * 1e3
+            time.sleep(PROFILE_MARGIN_S)
             prof.step()
         # the schedule's own step range is no kernel
         events = [e for e in recorded[0] if e.device_type == DeviceType.CUDA
@@ -1327,6 +1379,33 @@ def profile_step(torch, step, tag, attempts=3):
     if not busy:
         log(f"{tag}: device idle share not measured (the profiler saw no device events)")
     return wall, busy, (1 - busy / wall) if busy else None, events, 2 * attempt
+
+
+# aten's matrix products: a float32 operand makes one a float32 GEMM
+GEMM_OPS = frozenset({"mm", "addmm", "bmm", "baddbmm", "addbmm", "_addmm_activation", "mv",
+                      "addmv", "dot"})
+
+
+def count_f32_gemms(torch, fn):
+    """The float32 matrix products that ``fn`` dispatches, forward and
+    backward, by aten op: counted where they are dispatched, so neither the
+    name of the kernel cuBLAS picks nor an event the profiler drops moves
+    the count."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    counts = {}
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func.overloadpacket.__name__
+            if name in GEMM_OPS and any(isinstance(a, torch.Tensor)
+                                        and a.dtype == torch.float32 for a in args):
+                counts[name] = counts.get(name, 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return counts
 
 
 def train_run(torch, main, argv, tag, counters, results_dir, stem, expect, check_grads,
@@ -1472,9 +1551,10 @@ def train_run(torch, main, argv, tag, counters, results_dir, stem, expect, check
     steady_ms = (time.perf_counter() - t1) * 1e3 / (STEADY_PASSES * pipe.num_batches)
 
     # one more step under the profiler: the device's idle share
+    f32_gemms = None
     if k == 1:
         batch = next(pipe.device_iter(dev, shuffle=False))
-        setup.train_step(batch, gen)
+        f32_gemms = count_f32_gemms(torch, lambda: setup.train_step(batch, gen))
 
         def step():
             setup.train_step(batch, gen)
@@ -1507,6 +1587,9 @@ def train_run(torch, main, argv, tag, counters, results_dir, stem, expect, check
     # copies and casts (PyTorch's copy kernels), e.g. float32 copies made for
     # products, or a transpose copy of a gradient
     copies = [e for e in events if "copy_kernel" in e.key]
+    if f32_gemms is not None:
+        log(f"profile {tag}: f32 GEMMs dispatched in a step {f32_gemms}; f32 sgemm kernels "
+            f"{ {e.key[:60]: e.count for e in sgemm} }")
     log(f"profile {tag}: f32 sgemm {sgemm_ms:.3f} ms x{sgemm_calls}; copies "
         f"{sum(e.self_device_time_total for e in copies) / 1e3:.3f} ms "
         f"x{sum(e.count for e in copies)}; {sum(e.count for e in events)} kernel launches")
@@ -1524,6 +1607,7 @@ def train_run(torch, main, argv, tag, counters, results_dir, stem, expect, check
                   steady_ms_per_step=steady_ms, steady_posts_per_s=BATCH / (steady_ms / 1e3),
                   profiled_step_ms=step_wall, device_busy_ms=busy,
                   idle_share=idle, sgemm_calls=sgemm_calls, sgemm_ms=sgemm_ms,
+                  f32_gemm_ops=f32_gemms,
                   idle_share_of_mean_step=(1 - busy / ms) if busy and ms else None,
                   idle_share_of_steady_step=(1 - busy / steady_ms) if busy else None,
                   kernel_launches=sum(e.count for e in events),
@@ -1559,14 +1643,24 @@ def same_losses(replayed, eager, tag):
     return rel
 
 
-def no_added_sgemm(fused, auto, tag):
-    """The fused path's profiled step launches no more float32 sgemm than
-    the auto path's: the block's weight gradients run on the TN GEMM."""
-    if fused["sgemm_calls"] > auto["sgemm_calls"]:
-        raise AssertionError(f"{tag}[fused]: {fused['sgemm_calls']} f32 sgemm launches in a "
-                             f"step, {auto['sgemm_calls']} under auto")
-    log(f"{tag}: f32 sgemm a step, fused {fused['sgemm_calls']} ({fused['sgemm_ms']:.3f} ms), "
-        f"auto {auto['sgemm_calls']} ({auto['sgemm_ms']:.3f} ms)")
+def no_added_f32_gemm(fused, auto, tag):
+    """The fused path's step dispatches no more float32 matrix products than
+    the auto path's: the block's weight gradients run on the TN GEMM. The
+    products are counted as aten dispatches them (``count_f32_gemms``); the
+    profiler's sgemm kernels are logged beside them, since their names are
+    cuBLAS's choice and the tracer can miss one."""
+    n_fused, n_auto = sum(fused["f32_gemm_ops"].values()), sum(auto["f32_gemm_ops"].values())
+    for name, run in (("fused", fused), ("auto", auto)):
+        if run["sgemm_calls"] and not run["f32_gemm_ops"]:
+            raise AssertionError(f"{tag}[{name}]: the profile saw {run['sgemm_calls']} f32 "
+                                 "sgemm launches, the dispatch count none")
+    if n_fused > n_auto:
+        raise AssertionError(f"{tag}[fused]: {n_fused} f32 GEMMs in a step "
+                             f"{fused['f32_gemm_ops']}, {n_auto} under auto "
+                             f"{auto['f32_gemm_ops']}")
+    log(f"{tag}: f32 GEMMs a step, fused {n_fused} {fused['f32_gemm_ops']}, auto {n_auto} "
+        f"{auto['f32_gemm_ops']}; profiled sgemm kernels fused {fused['sgemm_calls']} "
+        f"({fused['sgemm_ms']:.3f} ms), auto {auto['sgemm_calls']} ({auto['sgemm_ms']:.3f} ms)")
 
 
 def late_grads_check(torch, tag):
@@ -4043,7 +4137,7 @@ def early_phase(torch, C, run_mm_early, build_early, counters, none, launches, t
                 raise AssertionError("lxmert: the ROI cache does not hold the dumps' float32 bits")
             log(f"lxmert: the runner imported the {len(ids)} reference dumps into "
                 f"{cache.cache_dir} (float32 kept bit for bit)")
-        no_added_sgemm(results[f"{model}/fused"], results[f"{model}/auto"], model)
+        no_added_f32_gemm(results[f"{model}/fused"], results[f"{model}/auto"], model)
     hub = os.path.join(tmp, "hub_early")
 
     def lxmert_keep(n):
@@ -4144,6 +4238,672 @@ def early_serve_phase(torch, C, serve, A, AB, launches, tmp):
     return result
 
 
+# ---- the Faster R-CNN detector, the cacher and serve --model lxmert ----------------
+
+DETECTOR_PHOTOS = ((480, 640), (640, 480), (720, 1280), (1280, 720), (500, 500), (375, 500),
+                   (600, 400), (768, 1024), (1080, 1920), (24, 32), (300, 800), (800, 300),
+                   (427, 640), (640, 427), (960, 720), (333, 333))
+DETECTOR_POSTS = (24, 12, 12)  # the detector phase's posts: each of the photos three times
+FRCNN_CKPT_SEED = 14
+LXMERT_STEM = "lxmert_task3_seed30_itc0.1itm0.1_"
+
+
+def detector_photos():
+    """16 generated RGB photos of mixed orientation and size (numpy only): a
+    shaded background with 3-9 rectangles of solid colour, and noise. The
+    1080 x 1920 one is large enough to take the PIL path under
+    ``ingest="device"``; the 24 x 32 one is tiny."""
+    import numpy as np
+
+    rng = np.random.RandomState(21)
+    photos = []
+    for h, w in DETECTOR_PHOTOS:
+        xx = np.linspace(0.4, 1.0, w)[None, :, None]
+        yy = np.linspace(1.0, 0.6, h)[:, None, None]
+        img = rng.rand(3)[None, None, :] * 200 * xx * yy
+        for _ in range(rng.randint(3, 10)):
+            y0, x0 = rng.randint(0, h), rng.randint(0, w)
+            y1 = min(h, y0 + max(2, int(rng.rand() * h * 0.6)))
+            x1 = min(w, x0 + max(2, int(rng.rand() * w * 0.6)))
+            img[y0:y1, x0:x1] = rng.rand(3) * 255
+        img = img + rng.randn(h, w, 3) * 8
+        photos.append(np.clip(img, 0, 255).astype(np.uint8))
+    return photos
+
+
+def orientation_groups(FR, cfg, photos):
+    """The photos' PIL canvases by orientation: [(indices, (B, H, W, 3)
+    uint8, (B, 2) sizes)]."""
+    import numpy as np
+
+    pre = [FR.preprocess_image(p, cfg) for p in photos]
+    groups = {}
+    for i, (canvas, _, _) in enumerate(pre):
+        groups.setdefault(canvas.shape, []).append(i)
+    return [(idxs, np.stack([pre[i][0] for i in idxs]),
+             np.asarray([pre[i][1] for i in idxs], np.float32)) for idxs in groups.values()]
+
+
+def photo_heads(torch, det, groups):
+    """Per photo, what the final selection starts from: its proposals'
+    res5 features (N, 2048), the proposals (N, 4) and its size, from stage 1,
+    the device RPN and stage 2's pooling (the fused path's calls on the
+    fused path's batches)."""
+    out = {}
+    with torch.inference_mode():
+        for idxs, canv, sizes in groups:
+            sizes_d = torch.from_numpy(sizes).to(DEVICE)
+            fmap, logits, deltas = det.stage1(torch.from_numpy(canv).to(DEVICE), sizes_d)
+            props, cnt = det._rpn_device(logits, deltas, sizes_d)
+            for j, i in enumerate(idxs):
+                boxes = props[j, :int(cnt[j])]
+                out[i] = (det.stage2.pooled_features(fmap[j], boxes), boxes, sizes_d[j])
+    return [out[i] for i in sorted(out)]
+
+
+def kept_counts(torch, FR, det, heads):
+    """Per photo, (proposals whose best class reaches ``box_score_thresh``,
+    regions the per-class greedy NMS keeps of them) under ``det``'s box
+    predictor: the staged path's selection before its backfill."""
+    import numpy as np
+
+    cfg = det.cfg
+    counts = []
+    with torch.inference_mode():
+        for feats, boxes, size in heads:
+            scores, deltas = det.stage2.roi_heads.box_predictor(feats)
+            best, cls = torch.softmax(scores, -1)[:, :-1].max(-1)
+            rows = torch.nonzero(best >= cfg.box_score_thresh).flatten()
+            if not len(rows):
+                counts.append((0, 0))
+                continue
+            dsel = deltas[rows].reshape(len(rows), cfg.num_classes, 4)[
+                torch.arange(len(rows), device=rows.device), cls[rows]]
+            det_boxes = FR.clip_boxes(FR.decode_boxes(boxes[rows], dsel, cfg.box_bbox_weights),
+                                      float(size[0]), float(size[1])).cpu().numpy()
+            b, c = best[rows].cpu().numpy(), cls[rows].cpu().numpy()
+            kept = sum(len(FR.greedy_nms(det_boxes[c == k], b[c == k], cfg.box_nms_thresh))
+                       for k in np.unique(c))
+            counts.append((len(rows), kept))
+    return counts
+
+
+def damp_class_scores(torch, heads, pred, most):
+    """Scale the class scores down (bisection) until no proposal's best
+    class reaches probability ``most``: res5 features of some proposals
+    have norms far above the rest, and at std 0.01 those alone would pass
+    ``box_score_thresh`` in a class of their own. Returns the factor."""
+    x = torch.cat([f for f, _, _ in heads])
+    with torch.no_grad():
+        w = pred.cls_score.weight.clone()
+        lo, hi = 0.0, 1.0
+
+        def peak(scale):
+            return float(torch.softmax(x @ (w * scale).T, -1)[:, :-1].max())
+
+        if peak(hi) >= most:
+            for _ in range(30):
+                mid = (lo + hi) / 2
+                lo, hi = (mid, hi) if peak(mid) < most else (lo, mid)
+            pred.cls_score.weight.copy_(w * lo)
+            return lo
+    return 1.0
+
+
+def lift_template_classes(torch, heads, pred, classes):
+    """Give each of ``classes`` (one a photo) the score row of a template:
+    the photo's proposal whose res5 feature, centred, has the fewest
+    proposals anywhere at or above its own score along it (the widest gap
+    below it breaking ties), the class's logit 1.5 over probability 0.2 at
+    that proposal and 1.5 under at the next lower one (each proposal's other
+    logits as they are at the template). Every photo then has its template
+    and the few proposals scoring above it at ``box_score_thresh``, none of
+    them near saturation (distinct scores). Returns, per class, how many
+    proposals reach its template's score."""
+    feats = [f.double() for f, _, _ in heads]
+    x = torch.cat(feats)
+    mu = x.mean(0)
+    xc = x - mu
+    starts = [0] + torch.tensor([len(f) for f in feats]).cumsum(0).tolist()
+    low = math.log(0.25)  # p = 0.2: the class's logit this far over the others' log-sum-exp
+    reach = []
+    with torch.no_grad():
+        for p, cls in enumerate(classes):
+            lo, hi = starts[p], starts[p + 1]
+            s = xc[lo:hi] @ xc.T                                  # (n_p, N)
+            own = s[torch.arange(hi - lo), torch.arange(lo, hi)]
+            above = (s >= own[:, None]).sum(1)
+            below = torch.where(s < own[:, None], s, float("-inf")).max(1).values
+            gap = (own - below) / xc[lo:hi].norm(dim=1)
+            r = int(torch.argmin(above.double() * 1e6 - gap))
+            d, t = xc[lo + r], float(own[r] + below[r]) / 2
+            alpha = 3.0 / float(own[r] - below[r])
+            others = pred.cls_score(x[lo + r:lo + r + 1].float()).double()
+            others[:, cls] = float("-inf")
+            rest = float(torch.logsumexp(others, -1))
+            pred.cls_score.weight[cls] = (alpha * d).float()
+            pred.cls_score.bias[cls] = low + rest - alpha * (t + float(d @ mu))
+            reach.append(int(above[r]))
+    return reach
+
+
+def seeded_frcnn_checkpoint(torch, FR, cfg, photos, path):
+    """A full-geometry detector checkpoint that makes the checks mean
+    something, written in the published key layout as ``{"model": state}``
+    to ``path``. A random detector at full geometry is degenerate (activations
+    grow through 33 blocks, every RPN box decodes off the canvas, no class of
+    1,601 near-uniform ones reaches 0.2), so from seed ``FRCNN_CKPT_SEED``:
+    flax's initializers, then every frozen batch norm's statistics set from
+    its input on the photos (in one pass, layer by layer: res2-res4 over four
+    canvases, res5 over the pooled proposals of two photos), the heads
+    Detectron2's small inits (RPN std 0.01, ``cls_score`` 0.01 scaled down
+    until no proposal reaches probability 0.05, ``bbox_pred`` 0.001, zero
+    biases) and one class a photo lifted to a template of one of
+    its proposals (``lift_template_classes``), under which every photo's
+    per-class NMS keeps 1 to 35 regions and the backfill adds the rest.
+    Returns the per-photo (confident proposals, NMS-kept regions)."""
+    det = FR.FrcnnDetector(cfg, generator=torch.Generator().manual_seed(FRCNN_CKPT_SEED),
+                           device=DEVICE)
+    g = torch.Generator().manual_seed(FRCNN_CKPT_SEED + 1)
+    rpn = det.stage1.proposal_generator.rpn_head
+    pred = det.stage2.roi_heads.box_predictor
+    with torch.no_grad():
+        for layer, std in ((rpn.conv, 0.01), (rpn.objectness_logits, 0.01),
+                           (rpn.anchor_deltas, 0.01), (pred.cls_score, 0.01),
+                           (pred.bbox_pred, 0.001)):
+            layer.weight.copy_(torch.randn(layer.weight.shape, generator=g) * std)
+            layer.bias.zero_()
+
+    def calibrate(module, run):
+        def set_stats(m, args):
+            x = args[0].float()
+            m.running_mean.copy_(x.mean(dim=(0, 2, 3)))
+            m.running_var.copy_(x.var(dim=(0, 2, 3), unbiased=False))
+
+        hooks = [m.register_forward_pre_hook(set_stats) for m in module.modules()
+                 if isinstance(m, FR.FrozenBN)]
+        try:
+            with torch.no_grad():
+                run()
+        finally:
+            for h in hooks:
+                h.remove()
+
+    groups = orientation_groups(FR, cfg, photos)
+    _, canv, sizes = groups[0]
+    canv_d, sizes_d = torch.from_numpy(canv[:4]).to(DEVICE), torch.from_numpy(sizes[:4]).to(DEVICE)
+    calibrate(det.stage1.backbone, lambda: det.stage1(canv_d, sizes_d))
+    with torch.inference_mode():
+        fmap, logits, deltas = det.stage1(canv_d, sizes_d)
+        props, _ = det._rpn_device(logits, deltas, sizes_d)
+    calibrate(det.stage2.roi_heads.res5, lambda: torch.cat(
+        [det.stage2.pooled_features(fmap[i], props[i, :256]) for i in range(2)]))
+    heads = photo_heads(torch, det, groups)
+    damp = damp_class_scores(torch, heads, pred, cfg.box_score_thresh / 4)
+    lifted = [(7 + 97 * p) % cfg.num_classes for p in range(len(photos))]
+    reach = lift_template_classes(torch, heads, pred, lifted)
+    counts = kept_counts(torch, FR, det, heads)
+    if not all(1 <= kept < cfg.max_detections for _, kept in counts):
+        raise AssertionError(f"detector checkpoint: the template classes leave (confident, "
+                             f"NMS-kept) per photo {counts}, not 1-{cfg.max_detections - 1} "
+                             f"kept on every one (proposals at each template {reach})")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    state = {k: v.detach().cpu() for k, v in det.state_dict().items()}
+    torch.save({"model": state}, path)
+    log(f"detector checkpoint: R101-C4, {len(state)} tensors in the published layout "
+        f"({sum(v.numel() for v in state.values())} values), batch-norm statistics from the "
+        f"photos, class scores x{damp:.4f} (none at {cfg.box_score_thresh / 4}), one "
+        f"template class a photo ({lifted[:3]}..., proposals at each template {reach}): "
+        f"(confident proposals, NMS-kept regions) per photo {counts}")
+    del det, heads
+    torch.cuda.empty_cache()
+    return counts
+
+
+def scale_err(torch, got, want):
+    """max |got - want| over max |want| (float64)."""
+    want = want.double().cpu()
+    return ((got.double().cpu() - want).abs().max() / want.abs().max().clamp_min(1e-12)).item()
+
+
+def card_against_cpu(torch, FR, cfg, path, photo, tol=1e-3):
+    """The card against the port's CPU path stage by stage on one photo,
+    each stage fed the same inputs on both: stage 1 (map, logits, deltas),
+    stage 2 over the card's first 64 proposals from the card's map
+    (features, best score, class, box), each within ``tol`` of its scale in
+    float32 (TF32 off). Decisions are discrete and 1,600 classes near-tie,
+    so a class may differ only where the CPU's two best probabilities are
+    within ``tol`` of each other."""
+    card = FR.load_frcnn(path, cfg, device=DEVICE)
+    cpu = FR.load_frcnn(path, cfg, device="cpu")
+    canvas, size_hw, _ = FR.preprocess_image(photo, cfg)
+    canv, sizes = torch.from_numpy(canvas[None]), torch.tensor([size_hw], dtype=torch.float32)
+    errs, failed = {}, []
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        c1 = card.stage1(canv.to(DEVICE), sizes.to(DEVICE))
+        props, cnt = card._rpn_device(c1[1], c1[2], sizes.to(DEVICE))
+        h1 = cpu.stage1(canv, sizes)
+        for name, a, b in zip(("fmap", "logits", "deltas"), c1, h1):
+            errs[f"stage1 {name}"] = scale_err(torch, a, b)
+        boxes = props[:, :64]
+        c2 = card.stage2(c1[0], boxes, sizes.to(DEVICE))
+        h2 = cpu.stage2(c1[0].cpu(), boxes.cpu(), sizes)
+        cpu_seconds = time.perf_counter() - t0
+        for name, a, b in zip(("features", "best", "box"), (c2[0], c2[1], c2[3]),
+                              (h2[0], h2[1], h2[3])):
+            errs[f"stage2 {name}"] = scale_err(torch, a, b)
+        probs = torch.softmax(cpu.stage2.roi_heads.box_predictor(h2[0])[0], -1)[..., :-1]
+        top2 = probs.topk(2, dim=-1).values
+        flipped = (c2[2].cpu() != h2[2]) & ((top2[..., 0] - top2[..., 1]) > tol)
+    for k, e in errs.items():
+        if not e <= tol:
+            failed.append(f"{k} {e:.3e}")
+    if int(cnt[0]) < 64:
+        failed.append(f"only {int(cnt[0])} proposals")
+    if flipped.any():
+        failed.append(f"{int(flipped.sum())} classes differ away from a near tie")
+    log(f"detector card vs CPU (one {photo.shape[0]}x{photo.shape[1]} photo, canvas "
+        f"{canvas.shape[0]}x{canvas.shape[1]}, 64 proposals; the CPU side {cpu_seconds:.1f} s): "
+        + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
+        + f" of each scale (tol {tol}); classes equal on "
+        f"{int((c2[2].cpu() == h2[2]).sum())}/64")
+    if failed:
+        raise AssertionError(f"detector card vs CPU: {failed}")
+    del card, cpu
+    torch.cuda.empty_cache()
+    return errs
+
+
+def detector_nms_check(torch, FR, det, photos):
+    """The device RPN NMS against ``greedy_nms`` on every photo's real
+    candidates: the surfaced prefix identical, 1,000 kept, and candidates
+    suppressed on the way (the 1,000th kept row sits past row 1,000)."""
+    import numpy as np
+
+    cfg = det.cfg
+    report, failed = [], []
+    for idxs, canv, sizes in orientation_groups(FR, cfg, photos):
+        sizes_d = torch.from_numpy(sizes).to(DEVICE)
+        with torch.inference_mode():
+            _, logits, deltas = det.stage1(torch.from_numpy(canv).to(DEVICE), sizes_d)
+            bx, alive = det._rpn_candidates(logits, deltas, sizes_d)
+            keep, cnt = FR.nms_keep_device(bx, alive, cfg.rpn_nms_thresh, cfg.rpn_post_nms_topk)
+        bx, alive, keep = bx.cpu().numpy(), alive.cpu().numpy(), keep.cpu().numpy()
+        for j, i in enumerate(idxs):
+            live = int(alive[j].sum())
+            want = FR.greedy_nms(bx[j, :live], -np.arange(live, dtype=np.float32),
+                                 cfg.rpn_nms_thresh, max_out=cfg.rpn_post_nms_topk)
+            got = np.nonzero(keep[j])[0][:int(cnt[j])]
+            last = int(got[-1]) if len(got) else -1
+            report.append((i, live, int(cnt[j]), last + 1 - int(cnt[j])))
+            if not np.array_equal(got, want):
+                failed.append(f"photo {i}: the device keeps {len(got)}, greedy {len(want)}, "
+                              f"first difference at {np.argmax(got[:len(want)] != want[:len(got)])}")
+            elif int(cnt[j]) != cfg.rpn_post_nms_topk or last + 1 <= int(cnt[j]):
+                failed.append(f"photo {i}: {int(cnt[j])} kept, {last + 1 - int(cnt[j])} "
+                              "suppressed before the cut")
+    log("detector RPN NMS, device against greedy_nms (photo, live candidates, kept, "
+        f"suppressed before the 1,000th): {sorted(report)}; the surfaced prefixes "
+        f"{'identical' if not failed else 'DIFFER'}")
+    if failed:
+        raise AssertionError(f"detector NMS: {failed}")
+    return report
+
+
+def detector_selection_check(torch, FR, det, photos, counts):
+    """Fused against staged ``detect_batch`` on the card (classes exact,
+    boxes within 1e-5, features within 1e-4 of their scale, scores within
+    1e-5), and the seeded checkpoint's outcome on every photo: 36 live,
+    distinct regions and both branches of the final selection: from the
+    loaded detector (``kept_counts``; ``counts`` are the calibration's) 1 to
+    35 regions kept by the per-class NMS, ranked first (at or above the
+    threshold, in score order), and the backfill after them."""
+    import numpy as np
+
+    cfg = det.cfg
+    fused = det.detect_batch(photos, fused=True)
+    staged = det.detect_batch(photos, fused=False)
+    loaded = kept_counts(torch, FR, det, photo_heads(torch, det, orientation_groups(
+        FR, cfg, photos)))
+    failed, branches = [], []
+    for i, (a, b) in enumerate(zip(fused, staged)):
+        if not np.array_equal(a["classes"], b["classes"]):
+            failed.append(f"photo {i}: classes {a['classes'][:6]} vs {b['classes'][:6]}")
+        for k, tol in (("normalized_boxes", 1e-5), ("scores", 1e-5)):
+            if not np.abs(a[k] - b[k]).max() <= tol:
+                failed.append(f"photo {i}: {k} {np.abs(a[k] - b[k]).max():.2e}")
+        e = np.abs(a["roi_features"] - b["roi_features"]).max() / np.abs(b["roi_features"]).max()
+        if not e <= 1e-4:
+            failed.append(f"photo {i}: features {e:.2e} of their scale")
+        live = int((a["classes"] >= 0).sum())
+        distinct = len({tuple(r) for r in a["normalized_boxes"].round(6).tolist()})
+        kept = loaded[i][1]
+        branches.append((i, live, distinct) + tuple(loaded[i]))
+        if live != cfg.max_detections or distinct != cfg.max_detections:
+            failed.append(f"photo {i}: {live} live, {distinct} distinct regions")
+        head = a["scores"][:kept]
+        if (not 1 <= kept < cfg.max_detections or not (head >= cfg.box_score_thresh).all()
+                or (np.diff(head) > 0).any()):
+            failed.append(f"photo {i}: (confident, kept) {loaded[i]}, calibrated {counts[i]}, "
+                          f"the first {kept} scores {head}")
+    log("detector fused vs staged on the card: classes, boxes, scores and features "
+        f"{'agree' if not failed else 'DIFFER'}; (photo, live, distinct, confident, kept by "
+        f"the NMS) {branches}: the kept regions first, the backfill after them")
+    if failed:
+        raise AssertionError(f"detector selection: {failed}")
+    return branches
+
+
+def cacher_run(torch, obj_features, argv, n_posts):
+    """One ``obj_features.main`` run: wall seconds, images/s of the whole
+    command and peak memory, with the cacher's own timing
+    (``extract_frcnn_features``'s last record): its set-up (the checkpoint's
+    load), its first batch (the kernels' first use, its decode not
+    overlapped) and the images/s of the batches after it."""
+    import logging
+
+    class Timing(logging.Handler):
+        def emit(self, record):
+            if hasattr(record, "frcnn_timing"):
+                self.timing = record.frcnn_timing
+
+    handler = Timing()
+    obj_features.logger.addHandler(handler)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        obj_features.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        obj_features.logger.removeHandler(handler)
+    seconds = time.perf_counter() - t0
+    timing = handler.timing
+    after = timing["batch_s"][1:]
+    return dict(seconds=seconds, images_per_s=n_posts / seconds,
+                setup_s=timing["setup_s"], first_batch_s=timing["batch_s"][0],
+                steady_images_per_s=timing["images_per_s_after_first"],
+                steady_ms_per_batch=1e3 * sum(after) / len(after),
+                host_ms_per_batch=1e3 * sum(timing["host_s"]) / len(timing["host_s"]),
+                wait_ms_after_first=1e3 * sum(timing["wait_s"][1:]),
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def stage_ms(torch, det, photos, ingest):
+    """The device ms of each detector stage (its ``record_function`` span)
+    and of all kernels in one profiled batch of the photos, the cacher's
+    calls (after a cacher run: warm); a whole command's trace takes the
+    profiler tens of seconds to read."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        det.detect_batch(photos, ingest=ingest)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    spans = {e.key[6:]: e.self_device_time_total / 1e3 for e in events
+             if e.device_type == DeviceType.CUDA and e.key.startswith("frcnn.")}
+    busy = sum(e.self_device_time_total for e in events if e.device_type == DeviceType.CUDA
+               and not e.key.startswith("frcnn.")) / 1e3
+    return spans, busy
+
+
+def write_detector_posts(data, ids, photos):
+    """Each post's photo as a JPEG where the data key's image format finds
+    it (post i takes photo i mod 16)."""
+    from PIL import Image
+
+    d = os.path.join(data, "MVSA-Single", "data")
+    os.makedirs(d, exist_ok=True)
+    for i, data_id in enumerate(ids):
+        Image.fromarray(photos[i % len(photos)]).save(os.path.join(d, f"{data_id}.jpg"),
+                                                      quality=95)
+    return os.path.join(d, "{}.jpg")
+
+
+def detector_cacher(torch, C, FR, obj_features, build_early, ckpt, ids, photos):
+    """``obj_features.main(["--mode", "obj", "--obj_source", "frcnn", ...])``
+    over the posts in float32 and ``--frcnn_dtype bfloat16``, each run with
+    ``pil``, ``device``, ``device`` and ``pil`` ingest (so the order cannot
+    decide the comparison): the set-up (the checkpoint's load), the first
+    batch and the images/s of the batches after it apart (``cacher_run``),
+    peak memory, and the device ms a batch of each stage from one profiled
+    batch of the 16 photos per dtype and ingest (``stage_ms``), whose busy
+    ms against a steady batch's wall ms give the card's idle share in the
+    cacher. Every post gets a non-zero row; ``ensure_roi_cache`` then
+    returns the built cache untouched."""
+    import dataclasses
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    base = ["--task", "3", "--mode", "obj", "--obj_source", "frcnn", "--frcnn_ckpt", ckpt]
+    results, reference = {}, None
+    for dtype in ("float32", "bfloat16"):
+        det = FR.load_frcnn(ckpt, dataclasses.replace(FR.FrcnnConfig(), dtype=dtype),
+                            device=DEVICE)
+        for turn, ingest in enumerate(("pil", "device", "device", "pil")):
+            tag = f"{dtype}/{ingest}"
+            res = cacher_run(torch, obj_features, base + ["--frcnn_dtype", dtype,
+                                                          "--frcnn_ingest", ingest], len(ids))
+            cache = obj_features.RoiFeatureCache(os.path.join(C.DATA_PATH, "cache", "mvsa_roi"))
+            feats, boxes = cache.gather(ids)
+            empty = [i for i, f, b in zip(ids, feats, boxes) if not f.any() or not b.any()]
+            if empty or not np.isfinite(feats).all():
+                raise AssertionError(f"cacher[{tag}]: zero rows for {empty}, or non-finite")
+            if reference is None:
+                reference = feats
+            res["mean_abs_vs_first_f32_pil"] = float(
+                np.abs(feats - reference).mean() / np.abs(reference).max())
+            entry = results.setdefault(tag, {"runs": []})
+            entry["runs"].append(res)
+            if turn < 2:
+                spans, busy = stage_ms(torch, det, photos, ingest)
+                entry.update(device_ms_per_batch=spans, kernels_busy_ms_per_batch=busy)
+            busy = entry["kernels_busy_ms_per_batch"]
+            log(f"cacher[{tag}, run {len(entry['runs'])}]: {len(ids)} posts in "
+                f"{res['seconds']:.2f} s ({res['images_per_s']:.1f} images/s, the command): "
+                f"set-up {res['setup_s']:.2f} s, first batch {res['first_batch_s']:.2f} s, then "
+                f"{res['steady_images_per_s']:.2f} images/s ({res['steady_ms_per_batch']:.1f} ms "
+                f"a batch of 16; decode and resize {res['host_ms_per_batch']:.1f} ms a batch in "
+                f"the thread, waited for {res['wait_ms_after_first']:.1f} ms after the first; "
+                + (f"kernels busy {busy:.1f} ms a batch, so the card "
+                   f"{100 * max(0.0, 1 - busy / res['steady_ms_per_batch']):.0f}% idle), peak "
+                   if busy else "the card's idle share not measured), peak ")
+                + f"{res['peak_gb']:.2f} GB")
+        for ingest in ("pil", "device"):
+            entry = results[f"{dtype}/{ingest}"]
+            entry["steady_images_per_s"] = [r["steady_images_per_s"] for r in entry["runs"]]
+            spans = entry["device_ms_per_batch"]
+            stages = (", ".join(f"{k} {v:.1f}" for k, v in sorted(spans.items()))
+                      if spans else "not measured (the profiler saw no device spans)")
+            log(f"cacher[{dtype}/{ingest}]: device ms of a batch of the {len(photos)} photos: "
+                f"{stages}; kernels busy {entry['kernels_busy_ms_per_batch']:.1f} ms; images/s "
+                f"after the first batch, runs in order: {entry['steady_images_per_s']}")
+        del det
+        torch.cuda.empty_cache()
+    # the LXMERT builder finds every id in the cache and reads it as built
+    path = os.path.join(C.DATA_PATH, "cache", "mvsa_roi", "features.npy")
+    stamp = os.path.getmtime(path)
+    cache = build_early.ensure_roi_cache(SimpleNamespace(arch="base"),
+                                         SimpleNamespace(task_name="mvsa"),
+                                         [SimpleNamespace(ids=np.asarray(ids))],
+                                         torch.device(DEVICE))
+    got = cache.gather(ids)[0]
+    want = obj_features.RoiFeatureCache(os.path.dirname(path)).gather(ids)[0]
+    if os.path.getmtime(path) != stamp or not np.array_equal(got, want):
+        raise AssertionError("cacher: ensure_roi_cache did not return the built cache untouched")
+    log(f"cacher: ensure_roi_cache returned the built cache untouched ({len(ids)} posts x "
+        f"{cache.num_boxes} x {cache.feat_dim})")
+    return results
+
+
+def lxmert_service_args(serve, model_path, ckpt, attn_impl):
+    return serve.parse_args([
+        "--task", "3", "--model", "lxmert", "--arch", "base", "--dtype", "bfloat16",
+        "--max_batch", str(BATCH), "--batch_window_ms", "20", "--seed", "30",
+        "--attn_impl", attn_impl, "--model_path", model_path, "--frcnn_ckpt", ckpt,
+        "--port", "0"])
+
+
+def lxmert_serve(torch, serve, A, AB, launches, model_path, ckpt, photos):
+    """``serve --model lxmert`` at full width (9 / 5 / 5 layers, bfloat16)
+    with the seeded detector checkpoint, ``N_REQUESTS`` requests (every other
+    with a photo) from ``N_CLIENTS`` clients and one HTTP request, under
+    ``auto`` and ``fused``: each window's launches exact (``auto``: 34 SDPA
+    forwards, the cross layers included; ``fused``: 24 blocks, the 10 cross
+    attentions on the plain SDPA), every probability within ``PROB_TOL`` of
+    the plain path's (``jnp``) on the same requests, requests/s and the mean
+    window printed."""
+    import numpy as np
+
+    http_text = "an http request about the #weather @user"
+    reqs = [(text, None if image is None else photos[i % len(photos)])
+            for i, (text, image) in enumerate(make_requests(8))]
+    every = reqs + [(http_text, None)]
+    plain_predict, _ = serve.build_service(lxmert_service_args(serve, model_path, ckpt, "jnp"))
+    A.launches.reset()
+    AB.launches.reset()
+    plain = [r for i in range(0, len(every), BATCH) for r in plain_predict(every[i:i + BATCH])]
+    if A.launches.count or AB.launches.count:
+        raise AssertionError("serve[lxmert jnp]: the plain path launched a kernel")
+    del plain_predict
+    torch.cuda.empty_cache()
+    plain_probs = np.array([p["probs"] for p in plain])
+    result = {}
+    for impl, expect in (("auto", {"sdpa_fwd": 34, "attn_block_fwd": 0}),
+                         ("fused", {"sdpa_fwd": 0, "attn_block_fwd": 24})):
+        tag = f"serve[lxmert {impl}]"
+        # no window profile: the detector's stages are profiled in the cacher, and reading
+        # a window's trace takes the profiler seconds
+        answers, health, counts, seconds = run_service(
+            torch, serve, A, AB, lxmert_service_args(serve, model_path, ckpt, impl), reqs,
+            http_text, profile=False)
+        windows = health["windows"]
+        if health["errors"] or health["requests"] != len(reqs) + 1:
+            raise AssertionError(f"{tag}: {health}")
+        probs = np.array([a["probs"] for a in answers])
+        if probs.shape != plain_probs.shape or not np.isfinite(probs).all():
+            raise AssertionError(f"{tag}: bad probabilities {probs.shape}")
+        err = np.abs(probs - plain_probs).max()
+        log(f"{tag}: {health['requests']} requests in {windows} windows, "
+            f"{len(reqs) / seconds:.1f} requests/s from {N_CLIENTS} clients (half with a "
+            f"photo), mean window {health['mean_dispatch_ms']} ms; max |p - p_plain| "
+            f"{err:.3e} (tol {PROB_TOL}); launches {dict(counts['sdpa_fwd'])} "
+            f"{dict(counts['attn_block_fwd'])}")
+        if not err <= PROB_TOL:
+            raise AssertionError(f"{tag}: disagrees with the plain path")
+        for kernel, n in expect.items():
+            total = sum(counts[kernel].values())
+            if total != n * windows:
+                raise AssertionError(f"{tag}: {kernel} launched {total} times, expected "
+                                     f"{n} x {windows}")
+        count_launches(launches, counts)
+        result[impl] = dict(requests_per_s=len(reqs) / seconds,
+                            mean_window_ms=health["mean_dispatch_ms"],
+                            max_abs_prob_err=float(err), windows=windows)
+    return result
+
+
+def detector_phase(torch, C, serve, build_early, A, AB, launches, tmp, lxmert_path):
+    """The Faster R-CNN at its published geometry (R101-C4, 6,000 / 1,000 RPN
+    candidates, 1,600 classes, the 800 x 1,333 canvas): a seeded checkpoint
+    (``seeded_frcnn_checkpoint``) read through ``load_frcnn``, the card
+    against the CPU stage by stage, device NMS against ``greedy_nms``, fused
+    against staged with the checkpoint's outcome, the cacher over 48 posts
+    in float32 and bfloat16 with ``pil`` and ``device`` ingest, and ``serve
+    --model lxmert`` with the LXMERT artifact at ``lxmert_path``. The data
+    key, image format and data path are the phase's own, restored after."""
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.cli import obj_features
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.models import frcnn as FR
+
+    t0 = time.monotonic()
+    cfg = FR.FrcnnConfig()
+    photos = detector_photos()
+    ckpt = os.path.join(tmp, "hub_frcnn", "pytorch_model.bin")
+    result = {"confident_and_kept": seeded_frcnn_checkpoint(torch, FR, cfg, photos, ckpt)}
+    result["card_vs_cpu"] = card_against_cpu(torch, FR, cfg, ckpt, photos[0])
+    det = FR.load_frcnn(ckpt, cfg, device=DEVICE)
+    result["nms"] = detector_nms_check(torch, FR, det, photos)
+    result["selection"] = detector_selection_check(torch, FR, det, photos,
+                                                   result["confident_and_kept"])
+    del det
+    torch.cuda.empty_cache()
+    saved = (C.DATA_PATH, C.PATH[3], C.IMG_FMT[3])
+    try:
+        data = make_dataset(tmp, name="detector_data", posts=DETECTOR_POSTS)
+        with open(data + "data_key_mvsa.csv", newline="") as f:
+            import csv
+
+            ids = [row["tweet_id"] for row in csv.DictReader(f)]
+        C.DATA_PATH, C.PATH[3] = data, data + "data_key_mvsa.csv"
+        C.IMG_FMT[3] = write_detector_posts(data, ids, photos)
+        result["cacher"] = detector_cacher(torch, C, FR, obj_features, build_early, ckpt, ids,
+                                           photos)
+    finally:
+        C.DATA_PATH, C.PATH[3], C.IMG_FMT[3] = saved
+    result["serve"] = lxmert_serve(torch, serve, A, AB, launches, lxmert_path, ckpt, photos)
+    result["seconds"] = time.monotonic() - t0
+    log(f"detector phase: {result['seconds']:.1f} s")
+    torch.cuda.empty_cache()
+    return result
+
+
+def random_lxmert_artifact(torch, C, serve, path, feat_dim=2048):
+    """A full-width LXMERT (9 / 5 / 5 layers over 36 x 2,048 regions) from
+    seed 30, saved at ``path``: ``--detector``'s stand-in for the artifact
+    that the early phase trains."""
+    from types import SimpleNamespace
+
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.cli._build_early import (
+        build_mm_early_setup)
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.cli._common import (
+        seed_everything)
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.train.checkpoint import (
+        save_params)
+
+    args = lxmert_service_args(serve, path, "unused", "auto")
+    save_params(path, build_mm_early_setup(
+        args, C.serving_config(args, model_name="lxmert"), generator=seed_everything(30),
+        roi_cache=SimpleNamespace(num_boxes=LXMERT_BOXES, feat_dim=feat_dim)).model)
+
+
+def detector_only():
+    """``python3 chip_smoke.py --detector``: the kernels built, then the
+    detector phase alone over a random LXMERT artifact, every (kernel, shape)
+    that its services launched held against its plain version, without the
+    last line: a quick run of this phase while it changes."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.cli import (
+        _build_early as build_early)
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.cli import serve
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.cli._common import (
+        set_precision_policy)
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.core import config as C
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.ops import _cuda
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.ops import attention as A
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.ops import attn_block as AB
+
+    set_precision_policy()
+    log(card_line())
+    log(f"build: per source {_cuda.build()}")
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        lxmert_path = os.path.join(tmp, "lxmert_random_net.pth")
+        random_lxmert_artifact(torch, C, serve, lxmert_path)
+        out = detector_phase(torch, C, serve, build_early, A, AB, launches, tmp, lxmert_path)
+    log(json.dumps({"detector": out}, default=str))
+    rows = rows_for_every_launch(torch, AB, [], launches)
+    log(json.dumps({"kernels": [{k: v for k, v in r.items() if k != "key"} for r in rows]}))
+    return 0
+
+
 def make_requests(size=224):
     import numpy as np
 
@@ -4202,9 +4962,10 @@ def profile_window(torch, predict, window, tag):
             f"{e.key[:90]}")
 
 
-def run_service(torch, serve, A, AB, args, reqs, http_text):
+def run_service(torch, serve, A, AB, args, reqs, http_text, profile=True):
     """Serve ``reqs`` from several client threads plus one HTTP request;
-    returns (answers, batcher stats, launch counts, seconds)."""
+    returns (answers, batcher stats, launch counts, seconds). ``profile``:
+    ``profile_window`` after."""
     predict, meta = serve.build_service(args)
     serve.warm_service(args, predict)
     torch.cuda.synchronize()
@@ -4244,7 +5005,8 @@ def run_service(torch, serve, A, AB, args, reqs, http_text):
         server.server_close()
         thread.join(timeout=30)
     counts = {"sdpa_fwd": dict(A.launches.by_key), "attn_block_fwd": dict(AB.launches.by_key)}
-    profile_window(torch, predict, reqs[:BATCH], args.attn_impl)
+    if profile:
+        profile_window(torch, predict, reqs[:BATCH], args.attn_impl)
     del predict
     torch.cuda.empty_cache()
     return answers + [http_answer], health, counts, seconds
@@ -4447,7 +5209,7 @@ def main():
                 C.results_dir_mm_late, late_stem, expect, late_grads_check(torch, tag),
                 after=optimizer_reading(torch, tag) if impl == "auto" else None)
             count_launches(launches, by_key)
-        no_added_sgemm(training["fused"], training["auto"], "train")
+        no_added_f32_gemm(training["fused"], training["auto"], "train")
         # the same run at --steps_per_dispatch 3: every step a CUDA graph replay
         tag = "train[fused, K=3]"
         training["fused/k3"], by_key, _ = train_run(
@@ -4522,7 +5284,7 @@ def main():
                 raise AssertionError(f"{tag}: attention at lengths {sorted(lengths)}, "
                                      f"expected only {VILT_LEN}")
             count_launches(launches, by_key)
-        no_added_sgemm(training["vilt/fused"], training["vilt/auto"], "vilt")
+        no_added_f32_gemm(training["vilt/fused"], training["vilt/auto"], "vilt")
         training["vilt/resume"] = vilt_resume_check(torch, C, run_mm_early)
         training["vilt/remat"] = vilt_remat_check(torch, C, run_mm_early, build_early,
                                                   os.path.join(tmp, "hub_remat"))
@@ -4533,6 +5295,11 @@ def main():
         training["early"] = early_phase(torch, C, run_mm_early, build_early, counters, none,
                                         launches, tmp, data, ids, eager_kernels)
         training["early_serve"] = early_serve_phase(torch, C, serve, A, AB, launches, tmp)
+        # the Faster R-CNN, the cacher and serve --model lxmert over the
+        # LXMERT artifact the early phase left
+        training["detector"] = detector_phase(
+            torch, C, serve, build_early, A, AB, launches, tmp,
+            os.path.join(C.results_dir_mm_early, LXMERT_STEM + "net.pth"))
 
         # a JAX-layout artifact served, and the paper's grid under both backends
         training["jax_artifact"] = jax_artifact_phase(
@@ -4609,6 +5376,8 @@ if __name__ == "__main__":
             sys.exit(sweep_profile(sys.argv[2]))
         if sys.argv[1:] == ["--bucket"]:
             sys.exit(bucket_only())
+        if sys.argv[1:] == ["--detector"]:
+            sys.exit(detector_only())
         sys.exit(main())
     except Exception:
         traceback.print_exc()

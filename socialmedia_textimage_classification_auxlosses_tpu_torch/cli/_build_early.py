@@ -34,7 +34,8 @@ row-sparse update from its dense gradient (the forwards take no
 rows run through the joint pass with their own texts. ``import_reference_checkpoint`` loads a
 reference-trained ``ViLT`` or ``Lxmert`` state dict
 (``--import_reference_ckpt``); the reference has no MMBT.
-``build_mm_early_setup`` builds the model alone, for serving.
+``build_mm_early_setup`` builds the model alone, for serving (LXMERT's sized
+to the service's detector).
 """
 
 from __future__ import annotations
@@ -274,12 +275,16 @@ def build_early_model(args, cfg, generator: Optional[torch.Generator],
 
 
 def build_mm_early_setup(args, cfg: C.ServingConfig,
-                         generator: Optional[torch.Generator] = None) -> Setup:
-    """The serving setup of ViLT (the fixed square) or MMBT: the model on
-    the CPU in eval mode and ``forward_fn(batch) -> outputs``."""
-    if args.model not in ("vilt", "mmbt"):
-        raise ValueError(f"no serving setup for --model {args.model}")
-    em = build_early_model(args, cfg, generator)
+                         generator: Optional[torch.Generator] = None,
+                         roi_cache=None) -> Setup:
+    """The serving setup of ViLT (the fixed square), MMBT or LXMERT: the
+    model on the CPU in eval mode and ``forward_fn(batch) -> outputs``.
+    LXMERT's visual projection takes ``roi_cache``'s feature width (the
+    service's detector's, ``cli/serve.py::_serving_roi_cache``)."""
+    if args.model == "lxmert" and roi_cache is None:
+        raise ValueError("--model lxmert serves with a roi_cache that sizes its visual "
+                         "projection")
+    em = build_early_model(args, cfg, generator, roi_cache)
     forward = em.forward_fn
 
     def forward_fn(batch):

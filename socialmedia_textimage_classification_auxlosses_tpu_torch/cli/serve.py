@@ -1,7 +1,8 @@
-"""HTTP serving endpoint for the late-fusion model, ViLT and MMBT, on CUDA.
+"""HTTP serving endpoint for the late-fusion model, ViLT, MMBT and LXMERT, on
+CUDA.
 
 Counterpart of the JAX package's ``cli/serve.py`` for ``--model mm_late``,
-``vilt`` and ``mmbt``, with the same flags plus ``--device``:
+``vilt``, ``mmbt`` and ``lxmert``, with the same flags plus ``--device``:
 
     python -m socialmedia_textimage_classification_auxlosses_tpu_torch.cli.serve \\
         --task 3 --txt_model_name bernice --img_model_name vit \\
@@ -34,10 +35,15 @@ models of ``cli/_build_early.py`` (ViLT's fixed square, 384 px at base, a
 joint sequence of 40 + 1 + 144; MMBT's ResNet-152 at 224 px or
 ``--image_size``, 132 tokens), each request image resized to the square,
 their artifacts under the trainers' names in ``results_dir_mm_early`` and
-``results_dir_mmbt``. What the port lacks so far raises ``SystemExit``:
-``--model lxmert`` (it runs the detector on every request: ``ROADMAP.md``
-Queue 1 item 7), ``--quantize``, ``--extra_model``, ``--workers`` > 1 and
-``--img_decoder native``; ``GET /metrics`` answers 501.
+``results_dir_mmbt``. ``--model lxmert`` runs the Faster R-CNN
+(``models/frcnn.py``, fused path) on the images of every window: each image
+becomes 36 regions of 2,048 features and their boxes, a request without an
+image zeros; ``--frcnn_arch``, ``--frcnn_ckpt``, ``--frcnn_ingest``,
+``--rpn_pre_topk`` and ``--rpn_post_topk`` set it up, and its missing
+weights raise ``SystemExit`` unless ``--random_init`` (which makes the
+detector random too). What the port lacks so far raises ``SystemExit``:
+``--quantize``, ``--extra_model``, ``--workers`` > 1 and ``--img_decoder
+native``; ``GET /metrics`` answers 501.
 """
 
 from __future__ import annotations
@@ -47,9 +53,11 @@ import base64
 import io
 import json
 import os
+import pickle
 import queue
 import threading
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -70,17 +78,24 @@ def build_parser():
     parser = argparse.ArgumentParser(description="serve a trained model")
     parser.add_argument("--model", type=str, default="mm_late",
                         choices=["mm_late", "vilt", "lxmert", "mmbt"],
-                        help="model family (lxmert is not ported)")
+                        help="model family; lxmert runs the FRCNN detector per window "
+                             "(raw image -> ROI features -> classify)")
     parser.add_argument("--frcnn_arch", type=str, default="full",
-                        choices=["full", "tiny"], help="(--model lxmert)")
+                        choices=["full", "tiny"], help="(--model lxmert) detector geometry")
     parser.add_argument("--frcnn_ckpt", type=str, default=None,
-                        help="(--model lxmert)")
+                        help="(--model lxmert) detector checkpoint (default "
+                             "MODEL_DIR_DICT['frcnn'])")
     parser.add_argument("--frcnn_ingest", type=str, default="pil",
-                        choices=["pil", "device"], help="(--model lxmert)")
+                        choices=["pil", "device"],
+                        help="(--model lxmert) device = ship the ORIGINAL uint8 request "
+                             "pixels and resize on the device (torch bilinear); pil = the "
+                             "reference's uint8/PIL resize (parity default)")
     parser.add_argument("--rpn_pre_topk", type=int, default=None,
-                        help="(--model lxmert)")
+                        help="(--model lxmert) RPN pre-NMS proposal count (default 6000); "
+                             "a recall trade")
     parser.add_argument("--rpn_post_topk", type=int, default=None,
-                        help="(--model lxmert)")
+                        help="(--model lxmert) RPN post-NMS ROI count fed to res5 (default "
+                             "1000): the per-window device-time lever, a recall trade")
     parser.add_argument("--image_size", type=int, default=None,
                         help="(CNN towers) input image size")
     parser.add_argument("--img_decoder", type=str, default="pil",
@@ -135,7 +150,8 @@ def build_parser():
                              "confined to; image_path requests are REFUSED "
                              "unless this is set (image_b64 always works)")
     parser.add_argument("--fast_start", action="store_true",
-                        help="(--model lxmert)")
+                        help="(--model lxmert) warm only the first window shape (a "
+                             "landscape image), not a portrait one too")
     parser.add_argument("--max_batch", type=int, default=16,
                         help="serving batch (one fixed shape)")
     parser.add_argument("--batch_window_ms", type=float, default=5.0,
@@ -162,9 +178,6 @@ def check_supported(args) -> None:
     port does not have yet, rather than ignoring it."""
     from ._build import check_mm_late_supported
 
-    if args.model == "lxmert":
-        raise SystemExit("--model lxmert is not ported to PyTorch yet: it runs the "
-                         "FRCNN detector on every request (ROADMAP.md Queue 1 item 7)")
     if args.quantize:
         raise SystemExit("--quantize w8 is not ported to PyTorch yet")
     if args.extra_model:
@@ -180,13 +193,54 @@ def check_supported(args) -> None:
         check_mm_late_supported(args)
 
 
-def build_service(args):
+def _make_detector(args, device, cache: dict = None):
+    """The FRCNN detector of ``--model lxmert`` on ``device``. ``cache``
+    shares one detector between services of the same (arch, ckpt,
+    random_init, pre, post). ``--random_init`` makes it random; otherwise
+    weights that do not load raise ``SystemExit``: a service must not
+    answer from noise ROI features."""
+    from ..models import frcnn as FR
+    from .obj_features import frcnn_config
+
+    pre, post = args.rpn_pre_topk, args.rpn_post_topk
+    key = (args.frcnn_arch, args.frcnn_ckpt, args.random_init, pre, post)
+    if cache is not None and key in cache:
+        logger.info("sharing the %s FRCNN detector across models", args.frcnn_arch)
+        return cache[key]
+    cfg = frcnn_config(args.frcnn_arch == "tiny", rpn_pre_topk=pre, rpn_post_topk=post)
+    weight_path = args.frcnn_ckpt or C.MODEL_DIR_DICT.get("frcnn", "")
+    if args.random_init:
+        det = FR.FrcnnDetector(cfg, device=device)
+    else:
+        try:
+            det = FR.load_frcnn(weight_path, cfg, device=device)
+        except (OSError, RuntimeError, pickle.UnpicklingError) as e:
+            raise SystemExit(
+                f"serve: cannot load FRCNN detector weights from {weight_path!r}"
+                f" ({e!r}); pass --frcnn_ckpt (unc-nlp/frcnn-vg-finetuned "
+                "pytorch_model.bin) or --random_init for smoke runs") from e
+    if cache is not None:
+        cache[key] = det
+    return det
+
+
+def _serving_roi_cache(detector):
+    """What the LXMERT build reads of a ROI cache: the detector's region
+    count and feature width, which size the visual projection (requests
+    carry live detector features; no rows are stored)."""
+    return SimpleNamespace(num_boxes=detector.cfg.max_detections,
+                           feat_dim=detector.cfg.feat_dim)
+
+
+def build_service(args, detector_cache: dict = None):
     """Model + fixed-shape predict + request preprocessing.
 
     Returns ``(predict_batch, meta)`` where ``predict_batch(requests) ->
     list of response dicts`` runs one forward for up to ``max_batch``
     requests of ``(text, image-or-None)``; an image is a PIL image or an
-    already resized (S, S, 3) uint8 array."""
+    already resized (S, S, 3) uint8 array (for ``--model lxmert`` the raw
+    RGB array, which the detector resizes). ``detector_cache`` shares
+    detectors between services (``_make_detector``)."""
     from ..data.images import resize_to_u8
     from ..train.checkpoint import load_params
     from ..utils.cast import cast_params_for_eval
@@ -198,8 +252,16 @@ def build_service(args):
     family = args.model
     cfg = C.serving_config(args, model_name=family)
     generator = seed_everything(args.seed)
-    build = build_mm_late_setup if family == "mm_late" else build_mm_early_setup
-    setup = build(args, cfg, generator=generator if args.random_init else None)
+    detector = None
+    if family == "mm_late":
+        setup = build_mm_late_setup(args, cfg, generator=generator if args.random_init else None)
+    else:
+        roi_cache = None
+        if family == "lxmert":
+            detector = _make_detector(args, device, detector_cache)
+            roi_cache = _serving_roi_cache(detector)
+        setup = build_mm_early_setup(args, cfg, generator=generator if args.random_init else None,
+                                     roi_cache=roi_cache)
     model_path = None
     if args.random_init:
         logger.warning("serving RANDOM-INIT weights (--random_init)")
@@ -228,6 +290,22 @@ def build_service(args):
         batch = {"ids": enc["ids"], "mask": enc["mask"]}
         if "token_type_ids" in enc:
             batch["token_type_ids"] = enc["token_type_ids"]
+        if detector is not None:
+            dc = detector.cfg
+            feats = np.zeros((b, dc.max_detections, dc.feat_dim), np.float32)
+            boxes = np.zeros((b, dc.max_detections, 4), np.float32)
+            with_img = [(i, img) for i, (_, img) in enumerate(requests) if img is not None]
+            if with_img:
+                # unpadded: the JAX service pads to a power of two for its
+                # compiled shapes, and a padded row changes no result
+                outs = detector.detect_batch([im for _, im in with_img],
+                                             ingest=args.frcnn_ingest)
+                for (i, _), out in zip(with_img, outs):
+                    feats[i] = out["roi_features"]
+                    boxes[i] = out["normalized_boxes"]
+            batch["roi_features"] = feats
+            batch["roi_boxes"] = boxes
+            return batch
         pixels = np.zeros((b, image_size, image_size, 3), np.uint8)
         for i, (_, img) in enumerate(requests):
             if img is None:
@@ -269,7 +347,7 @@ def build_service(args):
         "device": str(device),
         "attn_impl": args.attn_impl,
         # the HTTP handler resizes images to this size (the CNN recipe from
-        # center_crop_from) in its own thread
+        # center_crop_from) in its own thread; the detector resizes its own
         "resize_size": image_size,
         "center_crop_from": crop,
     }
@@ -427,10 +505,26 @@ def _decode_image(payload, image_root=None):
 
 def warm_service(args, predict_batch):
     """Run one window before accepting traffic: builds the kernels and
-    brings the weights' first use out of a live request."""
+    brings the weights' first use out of a live request. ``--model lxmert``
+    also runs the detector: one window of a landscape image and one of a
+    portrait image (the two canvases), or only the first with
+    ``--fast_start``. The JAX service warms every pad size of each
+    orientation because XLA compiles one program per shape; torch compiles
+    nothing, so one window per orientation is enough."""
     t0 = time.time()
-    predict_batch([("warmup", None)])
-    logger.info("warmed serving shape (batch %d) in %.1fs", args.max_batch,
+    if args.model != "lxmert":
+        predict_batch([("warmup", None)])
+        logger.info("warmed serving shape (batch %d) in %.1fs", args.max_batch,
+                    time.time() - t0)
+        return
+    shapes = [("landscape", (240, 320)), ("portrait", (320, 240))]
+    if args.fast_start:
+        shapes = shapes[:1]
+    for orient, hw in shapes:
+        ts = time.time()
+        predict_batch([("warmup", np.zeros(hw + (3,), np.uint8))])
+        logger.info("warm: detector %s in %.1fs", orient, time.time() - ts)
+    logger.info("warmed serving + detector (batch %d) in %.1fs", args.max_batch,
                 time.time() - t0)
 
 
@@ -472,7 +566,7 @@ def make_server(args, batcher: MicroBatcher, meta):
                 payload = json.loads(self.rfile.read(length) or b"{}")
                 text = payload.get("text", "")
                 image = _decode_image(payload, args.image_root)
-                if image is not None:
+                if image is not None and meta["resize_size"]:
                     # resize here, in the handler thread (PIL releases the
                     # GIL), not in the one dispatcher thread
                     from ..data.images import resize_to_u8

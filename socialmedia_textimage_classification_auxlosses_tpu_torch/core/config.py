@@ -111,6 +111,8 @@ MODEL_DIR_DICT = {
     "resnet50": os.environ.get("SMTC_RESNET50_DIR", DATA_PATH + "hub/ConvModels/resnet50.npz"),
     "resnet152": os.environ.get("SMTC_RESNET152_DIR",
                                 DATA_PATH + "hub/ConvModels/resnet152.npz"),
+    # the Faster R-CNN's pytorch_model.bin (unc-nlp/frcnn-vg-finetuned), or its directory
+    "frcnn": os.environ.get("SMTC_FRCNN_DIR", DATA_PATH + "hub/FRCNN/"),
 }
 
 

@@ -31,6 +31,17 @@ the module lacks, and any shape that differs raise ``ValueError``. The
 tree's leaves may be numpy arrays or CPU torch tensors (bfloat16 ones are
 widened to float32, which is exact).
 
+The JAX Faster R-CNN's tree ``{"stage1": {"params": {"backbone", "rpn_head"}},
+"stage2": {"params": {"res5_head", "box_predictor"}}}`` has names of its own,
+and ``frcnn_state_from_jax`` maps it to the published Detectron2 layout the
+port's detector carries (``models/frcnn.py``): ``stem_conv1`` / ``stem_norm1``
+-> ``backbone.stem.conv1`` / ``.conv1.norm``, ``res{s}_{b}`` ->
+``backbone.res{s}.{b}`` (``conv{i}`` and ``norm{i}`` -> ``conv{i}`` and
+``conv{i}.norm``, ``shortcut_norm`` -> ``shortcut.norm``), ``rpn_head`` ->
+``proposal_generator.rpn_head``, ``res5_head/res5_{b}`` -> ``roi_heads.res5.{b}``,
+``box_predictor`` -> ``roi_heads.box_predictor``; kernels change layout as
+above and frozen batch norm's four leaves keep their names.
+
 ``jax_tree_from_torch`` is the inverse: a module's parameters (and BatchNorm
 buffers) as the JAX package's tree ``{"params": {...}}`` (``{"params",
 "batch_stats"}`` for a model with BatchNorm), unrolled or in the ``scan_layers``
@@ -234,3 +245,64 @@ def jax_tree_from_torch(module: nn.Module, scan_layers: bool = False) -> Dict:
     if batch_stats:
         out["batch_stats"] = _stack_layers(batch_stats) if scan_layers else batch_stats
     return out
+
+
+_FRCNN_BLOCK = re.compile(r"res(\d+)_(\d+)$")
+
+
+def _frcnn_bottleneck(prefix: str, node: Mapping) -> Dict[str, str]:
+    """A Caffe bottleneck's flax module names -> Detectron2 module paths."""
+    names = {}
+    for key in node:
+        if key.startswith("conv") or key == "shortcut":
+            names[key] = f"{prefix}.{key}"
+        elif key.startswith("norm"):
+            names[key] = f"{prefix}.conv{key[4:]}.norm"
+        elif key == "shortcut_norm":
+            names[key] = f"{prefix}.shortcut.norm"
+        else:
+            raise ValueError(f"{prefix}: unknown bottleneck module {key!r}")
+    return names
+
+
+def frcnn_state_from_jax(tree: Mapping) -> Dict[str, np.ndarray]:
+    """The JAX detector's ``{"stage1", "stage2"}`` parameter tree as a flat
+    state dict in the published layout (module docstring), HWIO -> OIHW for
+    convs, (in, out) -> (out, in) for Dense, the frozen batch norms' four
+    leaves as they are."""
+    s1, s2 = tree["stage1"]["params"], tree["stage2"]["params"]
+    modules: Dict[str, Mapping] = {}
+    for key, node in s1["backbone"].items():
+        if key == "stem_conv1":
+            modules["backbone.stem.conv1"] = node
+        elif key == "stem_norm1":
+            modules["backbone.stem.conv1.norm"] = node
+        elif m := _FRCNN_BLOCK.match(key):
+            prefix = f"backbone.res{m.group(1)}.{m.group(2)}"
+            modules.update({path: node[k] for k, path in _frcnn_bottleneck(prefix, node).items()})
+        else:
+            raise ValueError(f"unknown backbone module {key!r}")
+    for key, node in s1["rpn_head"].items():
+        modules[f"proposal_generator.rpn_head.{key}"] = node
+    for key, node in s2["res5_head"].items():
+        m = _FRCNN_BLOCK.match(key)
+        if m is None or m.group(1) != "5":
+            raise ValueError(f"unknown res5 module {key!r}")
+        prefix = f"roi_heads.res5.{m.group(2)}"
+        modules.update({path: node[k] for k, path in _frcnn_bottleneck(prefix, node).items()})
+    for key, node in s2["box_predictor"].items():
+        modules[f"roi_heads.box_predictor.{key}"] = node
+    out = {}
+    for path, node in modules.items():
+        for leaf, value in node.items():
+            name, array = _convert_leaf(leaf, _as_numpy(value))
+            out[f"{path}.{name}"] = array
+    return out
+
+
+def load_jax_frcnn(detector, tree: Mapping):
+    """Copy the JAX detector's tree into the port's ``FrcnnDetector``
+    (strictly; returns it)."""
+    detector.load_state_dict({k: torch.from_numpy(np.array(v, np.float32))
+                              for k, v in frcnn_state_from_jax(tree).items()})
+    return detector

@@ -73,11 +73,11 @@ def test_every_module_imports_without_msgpack_or_pandas():
 
 
 def test_early_fusion_modules_import_without_jax():
-    """LXMERT, MMBT, the ROI cache and the grid features: in the walk, and
-    imported with JAX, flax, pandas and PIL blocked."""
+    """LXMERT, MMBT, the ROI cache, the grid features, the detector and the
+    demo: in the walk, and imported with JAX, flax, pandas and PIL blocked."""
     mods = _modules()
     for name in ("models.lxmert", "models.mmbt", "cli.obj_features", "cli._build_early",
-                 "data.cache"):
+                 "data.cache", "models.frcnn", "cli.demo_lxmert"):
         assert f"{port.__name__}.{name}" in mods, name
     _import_all_blocking(("jax", "flax", "jaxlib", "pandas", "PIL"))
 

@@ -5,8 +5,11 @@ text-only and with images, give the same probabilities (float32 within
 1e-4; bfloat16 within 3e-2, see ``test_torch_from_jax.BF16_TOL``). Then a
 ``MicroBatcher`` + HTTP round trip (``/classify``, ``/healthz``); the early
 models ``--model vilt`` and ``--model mmbt`` against the JAX service the
-same way (float32 within 1e-4); and the flags this port does not have yet
-refuse to start (``--model lxmert`` naming the detector it waits for)."""
+same way (float32 within 1e-4); ``--model lxmert`` with the detector on every
+window (``--frcnn_arch tiny``, one detector checkpoint written from the torch
+twin ``tests/ref_frcnn.py``, a JAX-format LXMERT artifact written by flax and
+read through ``train/flax_msgpack.py``) against the JAX service within 1e-4;
+and the flags this port does not have yet refuse to start."""
 
 import base64
 import io
@@ -22,6 +25,7 @@ import pytest
 from socialmedia_textimage_classification_auxlosses_tpu.cli import _build as JBuild
 from socialmedia_textimage_classification_auxlosses_tpu.cli import _build_early as JBuildEarly
 from socialmedia_textimage_classification_auxlosses_tpu.cli import serve as jserve
+from socialmedia_textimage_classification_auxlosses_tpu.models import frcnn as JFrcnn
 from socialmedia_textimage_classification_auxlosses_tpu.models import mmbt as JMmbt
 from socialmedia_textimage_classification_auxlosses_tpu_torch.cli import serve as tserve
 from socialmedia_textimage_classification_auxlosses_tpu_torch.cli._build import (
@@ -169,7 +173,7 @@ def test_microbatcher_and_http_round_trip(f32_services):
     ["--quantize", "w8"], ["--extra_model", "e:model=vilt"],
     ["--workers", "2"], ["--img_decoder", "native"],
     ["--img_model_name", "resnet50", "--fusion_name", "attention"],
-    ["--model", "lxmert"], ["--attn_impl", "nonsense"],
+    ["--model", "lxmert", "--quantize", "w8"], ["--attn_impl", "nonsense"],
 ])
 def test_unported_flags_refuse_to_start(extra):
     args = tserve.parse_args(BASE + ["--device", "cpu", "--random_init"] + extra)
@@ -177,9 +181,12 @@ def test_unported_flags_refuse_to_start(extra):
         tserve.build_service(args)
 
 
-def test_lxmert_names_what_it_waits_for():
-    args = tserve.parse_args(BASE + ["--device", "cpu", "--random_init", "--model", "lxmert"])
-    with pytest.raises(SystemExit, match="detector.*Queue 1 item 7"):
+def test_lxmert_names_what_it_waits_for(tmp_path):
+    """Without ``--random_init`` a service whose detector weights do not
+    load exits with the JAX service's words."""
+    args = tserve.parse_args(BASE + ["--device", "cpu", "--model", "lxmert", "--frcnn_arch",
+                                     "tiny", "--frcnn_ckpt", str(tmp_path / "none.bin")])
+    with pytest.raises(SystemExit, match="cannot load FRCNN detector weights.*--frcnn_ckpt"):
         tserve.build_service(args)
 
 
@@ -216,3 +223,96 @@ def test_early_models_serve_as_the_jax_service(tmp_path, extra):
         for a, b in zip(jout, tout):
             assert abs(sum(b["probs"]) - 1.0) < 1e-5
             assert np.abs(np.array(a["probs"]) - np.array(b["probs"])).max() <= 1e-4
+
+
+LXMERT = ["--model", "lxmert", "--frcnn_arch", "tiny", "--dtype", "float32"]
+
+
+@pytest.fixture(scope="module")
+def lxmert_services(tmp_path_factory):
+    """The JAX and the port's LXMERT services over one detector checkpoint
+    (the twin's) and one JAX-format artifact (flax's msgpack of the JAX
+    builder's random LXMERT), and the port's under ``--frcnn_ingest
+    device``."""
+    from types import SimpleNamespace
+
+    import flax.serialization
+    import torch
+
+    from socialmedia_textimage_classification_auxlosses_tpu.core import config as JC
+    from ref_frcnn import TwinFrcnn
+
+    tmp = tmp_path_factory.mktemp("serve_lxmert")
+    ckpt = tmp / "pytorch_model.bin"
+    torch.save(TwinFrcnn(JFrcnn.TINY).state_dict(), ckpt)
+    art = tmp / "lxmert_net.pth"
+    argv = BASE + LXMERT + ["--frcnn_ckpt", str(ckpt), "--model_path", str(art)]
+    jargs = jserve.parse_args(argv)
+    mp = pytest.MonkeyPatch()
+    mp.setattr(JBuildEarly, "init_lxmert_params", _jitted(JBuildEarly.init_lxmert_params))
+    try:
+        setup = JBuildEarly.build_mm_early_setup(
+            jargs, JC.serving_config(jargs),
+            roi_cache=SimpleNamespace(num_boxes=JFrcnn.TINY.max_detections,
+                                      feat_dim=JFrcnn.TINY.feat_dim))
+        art.write_bytes(flax.serialization.to_bytes(
+            jax.tree_util.tree_map(np.asarray, setup.params)))
+        jpredict, jmeta = jserve.build_service(jargs)
+    finally:
+        mp.undo()
+    tpredict, tmeta = tserve.build_service(tserve.parse_args(argv + ["--device", "cpu"]))
+    dpredict, _ = tserve.build_service(tserve.parse_args(
+        argv + ["--device", "cpu", "--frcnn_ingest", "device"]))
+    assert tmeta["model"] == jmeta["model"] == "lxmert" and tmeta["resize_size"] is None
+    return jpredict, tpredict, dpredict
+
+
+def _lxmert_requests():
+    rng = np.random.RandomState(3)
+    arr = lambda h, w: rng.randint(0, 256, (h, w, 3), np.uint8)
+    return _requests()[:2] + [("portrait photo", arr(90, 40)), ("", arr(40, 56))]
+
+
+def test_lxmert_serves_as_the_jax_service(lxmert_services):
+    jpredict, tpredict, _ = lxmert_services
+    reqs = _lxmert_requests()
+    for window in (reqs, reqs[:1], reqs[1:3]):
+        for a, b in zip(jpredict(window), tpredict(window)):
+            assert abs(sum(b["probs"]) - 1.0) < 1e-5 and b["prediction"] == a["prediction"]
+            assert np.abs(np.array(a["probs"]) - np.array(b["probs"])).max() <= 1e-4
+
+
+def test_lxmert_image_changes_the_answer(lxmert_services):
+    tpredict = lxmert_services[1]
+    text, image = _lxmert_requests()[1]
+    with_image, without = tpredict([(text, image), (text, None)])
+    assert np.abs(np.array(with_image["probs"]) - np.array(without["probs"])).max() > 1e-3
+
+
+def test_lxmert_device_ingest_stays_near_pil(lxmert_services):
+    _, tpredict, dpredict = lxmert_services
+    reqs = _lxmert_requests()
+    for a, b in zip(tpredict(reqs), dpredict(reqs)):
+        assert np.abs(np.array(a["probs"]) - np.array(b["probs"])).max() <= 0.05
+
+
+def test_lxmert_warms_each_orientation_and_shares_its_detector(tmp_path):
+    """The warm-up runs one window an orientation (one with
+    ``--fast_start``); services with the same detector flags share one
+    detector."""
+    argv = BASE + LXMERT + ["--random_init", "--device", "cpu"]
+    cache = {}
+    first, _ = tserve.build_service(tserve.parse_args(argv), detector_cache=cache)
+    tserve.build_service(tserve.parse_args(argv), detector_cache=cache)
+    assert len(cache) == 1
+    windows = []
+
+    def counting(requests):
+        windows.append([None if im is None else im.shape[:2] for _, im in requests])
+        return first(requests)
+
+    tserve.warm_service(tserve.parse_args(argv), counting)
+    assert windows == [[(240, 320)], [(320, 240)]]
+    windows.clear()
+    tserve.warm_service(tserve.parse_args(argv + ["--fast_start"]), counting)
+    assert windows == [[(240, 320)]]
