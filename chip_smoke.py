@@ -29,7 +29,21 @@ and the CUDA toolkit. It
    launch counts set to 0 before and read after each run; then
    ``--model vilt`` (the fixed 384-px square, L = 185) and ``--model mmbt``
    (ResNet-152 at 224 px, L = 132) the same way, each held to 2e-2 of its
-   plain-path service;
+   plain-path service; between them, the serving extras over the same
+   weights (``serve_extras_phase``): ``/metrics`` of the ``auto`` run
+   against its ``/healthz``, ``--quantize w8`` under both modes (within 6e-3
+   of the plain path under w8, the launches a window unchanged, the resident
+   bytes by dtype, window ms and the device memory (the build's peak, what
+   stays after it, the windows' peak) beside the bf16 service's),
+   ``--extra_model e:attn_impl=fused`` (each route equal to its single-model
+   service, both labels in ``/metrics``), ``--workers 2`` against one worker
+   as subprocesses over HTTP (both pids answer, SIGTERM gives 0 and reaps
+   them), ``--img_decoder native`` (whether ``imgdec.cpp`` builds; if it
+   does, against PIL and served; if not, the PIL fallback and its warning)
+   and ``cli/export.py`` for ``cuda`` (the loaded program's probabilities
+   within 1e-5 of the live predict, its ``smtc::sdpa_fwd`` nodes launching
+   the kernel as often as a live window) (``python3 chip_smoke.py
+   --serve_extras`` runs the serving phase and these alone);
 5. checks that no request failed, that each answer's probabilities sum to 1,
    that every kernel of the path launched the expected number of times per
    window, and that the probabilities match a plain-path service built from
@@ -268,8 +282,8 @@ and the CUDA toolkit. It
    its plain version in the same way, a row named by its shape, and fails
    for a launch that no row can hold;
 18. prints one JSON line of per-kernel numbers (``launches``: the count over
-   the serving, training, sweep, artifact and grid runs and the per-head
-   phase's main path, each read with the counts set to 0 just before it; 0
+   the serving (and its extras), training, sweep, artifact and grid runs and
+   the per-head phase's main path, each read with the counts set to 0 just before it; 0
    for the check-only shapes), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -278,6 +292,7 @@ without the repository beside it, it exits non-zero at once.
 """
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -300,6 +315,10 @@ BATCH = 16
 N_REQUESTS = 48
 N_CLIENTS = 16
 PROB_TOL = 2e-2
+# serve --quantize w8 against the plain path under w8: the same int8 weights, so only the
+# kernels' rounding is left (2.9e-3 read on the H100); the unquantized service lies 1.58e-2
+# from it, so a service that skipped the quantization fails
+W8_TOL = 6e-3
 TRAIN_POSTS = (48, 8, 8)  # train / val / test rows of the generated dataset
 STEADY_PASSES = 3  # passes over the train split timed after each training run
 DEVICE = "cuda"
@@ -4919,12 +4938,15 @@ def make_requests(size=224):
     return reqs
 
 
+def service_argv(model_path, attn_impl, extra=()):
+    return ["--task", "3", "--txt_model_name", "bernice", "--img_model_name", "vit",
+            "--fusion_name", "attention", "--arch", "base", "--dtype", "bfloat16",
+            "--max_batch", str(BATCH), "--batch_window_ms", "20", "--seed", "30",
+            "--attn_impl", attn_impl, "--model_path", model_path, "--port", "0", *extra]
+
+
 def service_args(serve, model_path, attn_impl, extra=()):
-    return serve.parse_args([
-        "--task", "3", "--txt_model_name", "bernice", "--img_model_name", "vit",
-        "--fusion_name", "attention", "--arch", "base", "--dtype", "bfloat16",
-        "--max_batch", str(BATCH), "--batch_window_ms", "20", "--seed", "30",
-        "--attn_impl", attn_impl, "--model_path", model_path, "--port", "0", *extra])
+    return serve.parse_args(service_argv(model_path, attn_impl, extra))
 
 
 def profile_window(torch, predict, window, tag):
@@ -4962,11 +4984,26 @@ def profile_window(torch, predict, window, tag):
             f"{e.key[:90]}")
 
 
-def run_service(torch, serve, A, AB, args, reqs, http_text, profile=True):
+def run_service(torch, serve, A, AB, args, reqs, http_text, profile=True, info=None):
     """Serve ``reqs`` from several client threads plus one HTTP request;
-    returns (answers, batcher stats, launch counts, seconds). ``profile``:
-    ``profile_window`` after."""
-    predict, meta = serve.build_service(args)
+    returns (answers, batcher stats with the ``/metrics`` text under
+    ``metrics`` and the device memory under ``memory``, launch counts,
+    seconds). The memory, in GiB: what was allocated before the build
+    (after a collection: an earlier server's handler class holds its model
+    in a reference cycle until one), the build's peak, what stays
+    allocated after it, and the peak of the windows (the warm-up's and the
+    requests'). ``profile``: ``profile_window`` after; ``info``: the
+    service's ``export_info``."""
+    gib = 2 ** 30
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    memory = {"before": torch.cuda.memory_allocated() / gib}
+    predict, meta = serve.build_service(args, export_info=info)
+    torch.cuda.synchronize()
+    memory.update(build_peak=torch.cuda.max_memory_allocated() / gib,
+                  after_build=torch.cuda.memory_allocated() / gib)
+    torch.cuda.reset_peak_memory_stats()
     serve.warm_service(args, predict)
     torch.cuda.synchronize()
     A.launches.reset()
@@ -4999,6 +5036,9 @@ def run_service(torch, serve, A, AB, args, reqs, http_text, profile=True):
             http_answer = json.loads(r.read())
         with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=60) as r:
             health = json.loads(r.read())
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=60) as r:
+            health["metrics"] = r.read().decode()
+        health["memory"] = dict(memory, windows_peak=torch.cuda.max_memory_allocated() / gib)
     finally:
         server.shutdown()
         batcher.close()
@@ -5010,6 +5050,708 @@ def run_service(torch, serve, A, AB, args, reqs, http_text, profile=True):
     del predict
     torch.cuda.empty_cache()
     return answers + [http_answer], health, counts, seconds
+
+
+# the serving model's launches a window: text 12 + vision 12 + the fusion head's SDPA
+SERVE_PER_WINDOW = {"auto": {"sdpa_fwd": 25, "attn_block_fwd": 0},
+                    "fused": {"sdpa_fwd": 1, "attn_block_fwd": 24}}
+
+
+def serving_phase(torch, serve, A, AB, tmp, reqs, http_text):
+    """The serving path at full width: random weights from a seed saved
+    under ``tmp``, the plain path's answers, then ``serve[auto]`` and
+    ``serve[fused]`` held against them with exact launches a window.
+    Returns (the weights' path, the launches by (kernel, key), each run's
+    probabilities and stats by impl, the launches expected a window)."""
+    import numpy as np
+
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.cli._build import (
+        build_mm_late_setup)
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.cli._common import (
+        seed_everything)
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.core import config as C
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.train.checkpoint import (
+        save_params)
+
+    model_path = os.path.join(tmp, "random_weights.pth")
+    args = service_args(serve, model_path, "auto")
+    t0 = time.monotonic()
+    setup = build_mm_late_setup(args, C.serving_config(args),
+                                generator=seed_everything(args.seed))
+    save_params(model_path, setup.model)
+    n_params = sum(p.numel() for p in setup.model.parameters())
+    del setup
+    log(f"weights: {n_params} random parameters (seed {args.seed}) in "
+        f"{time.monotonic() - t0:.1f} s")
+
+    # the plain path: every attention through the plain PyTorch version
+    plain_args = service_args(serve, model_path, "jnp")
+    plain_predict, _ = serve.build_service(plain_args)
+    A.launches.reset()
+    AB.launches.reset()
+    every = reqs + [(http_text, None)]
+    plain = []
+    for i in range(0, len(every), BATCH):
+        plain += plain_predict(every[i:i + BATCH])
+    if A.launches.count or AB.launches.count:
+        raise AssertionError("the plain path launched a kernel")
+    del plain_predict
+    torch.cuda.empty_cache()
+    plain_probs = np.array([p["probs"] for p in plain])
+
+    per_window = SERVE_PER_WINDOW
+    launches, served = {}, {}
+    for impl, expect in per_window.items():
+        answers, health, counts, seconds = run_service(
+            torch, serve, A, AB, service_args(serve, model_path, impl), reqs, http_text)
+        windows = health["windows"]
+        log(f"serve[{impl}]: {health['requests']} requests in {windows} windows, "
+            f"{len(reqs) / seconds:.1f} requests/s from {N_CLIENTS} clients, "
+            f"mean window {health['mean_dispatch_ms']} ms, errors {health['errors']}, "
+            f"{memory_text(health['memory'])}")
+        if health["errors"] or health["requests"] != len(reqs) + 1:
+            raise AssertionError(f"serve[{impl}]: {health}")
+        probs = np.array([a["probs"] for a in answers])
+        if probs.shape != plain_probs.shape or not np.isfinite(probs).all():
+            raise AssertionError(f"serve[{impl}]: bad probabilities {probs.shape}")
+        if np.abs(probs.sum(-1) - 1).max() > 1e-4:
+            raise AssertionError(f"serve[{impl}]: probabilities do not sum to 1")
+        err = np.abs(probs - plain_probs).max()
+        log(f"serve[{impl}]: max |p - p_plain| {err:.3e} (tol {PROB_TOL})")
+        if not err <= PROB_TOL:
+            raise AssertionError(f"serve[{impl}]: disagrees with the plain path")
+        for kernel, n in expect.items():
+            total = sum(counts[kernel].values())
+            log(f"serve[{impl}]: {kernel} launches {total} = {windows} windows x "
+                f"{total / windows:g} {counts[kernel]}")
+            if total != n * windows:
+                raise AssertionError(f"serve[{impl}]: {kernel} launched {total} "
+                                     f"times, expected {n} x {windows}")
+        count_launches(launches, counts)
+        served[impl] = {"probs": probs, "health": health, "metrics": health["metrics"]}
+    return model_path, launches, served, per_window
+
+
+# ---- the serving extras: /metrics, --quantize w8, --extra_model, --workers,
+# ---- --img_decoder native, cli/export.py ------------------------------------------
+
+WORKER_REQUESTS = 48  # HTTP requests of the --workers comparison, from N_CLIENTS clients
+# (h, w) of the JPEG photos: libjpeg decodes at 1/2^k while both sides stay >= 2^k x 224,
+# so the first is decoded at full size and the others DCT-scaled (the last >= 2,000 px)
+NATIVE_PHOTOS = ((300, 400), (480, 640), (720, 1280), (1800, 2400))
+
+
+def metrics_check(health, body, tag):
+    """The Prometheus exposition of a finished run against its /healthz:
+    cumulative buckets, +Inf = count = windows, requests = /healthz's."""
+    m = {}
+    for line in body.splitlines():
+        if line.strip() and not line.startswith("#"):
+            key, value = line.rsplit(" ", 1)
+            m[key] = float(value)
+    buckets = [v for k, v in m.items() if k.startswith("smtc_serving_dispatch_seconds_bucket")]
+    if any(b > a for a, b in zip(buckets[1:], buckets)) or not buckets:
+        raise AssertionError(f"{tag}: buckets not cumulative {buckets}")
+    inf = m['smtc_serving_dispatch_seconds_bucket{le="+Inf"}']
+    if not inf == m["smtc_serving_dispatch_seconds_count"] == m["smtc_serving_windows_total"] \
+            == health["windows"]:
+        raise AssertionError(f"{tag}: +Inf {inf}, count, windows and /healthz disagree: {m}")
+    if m["smtc_serving_requests_total"] != health["requests"] or m["smtc_serving_errors_total"]:
+        raise AssertionError(f"{tag}: requests {m['smtc_serving_requests_total']} vs /healthz "
+                             f"{health['requests']}, errors {m['smtc_serving_errors_total']}")
+    log(f"{tag}: /metrics: {int(inf)} windows in the histogram {[int(b) for b in buckets]}, "
+        f"sum {m['smtc_serving_dispatch_seconds_sum']:.3f} s, {int(m['smtc_serving_requests_total'])}"
+        " requests, as /healthz")
+
+
+def check_window_counts(counts, windows, expect, tag):
+    for kernel, n in expect.items():
+        total = sum(counts[kernel].values())
+        if total != n * windows:
+            raise AssertionError(f"{tag}: {kernel} launched {total} times, expected "
+                                 f"{n} x {windows}")
+
+
+def window_allocations(torch, predict, window, tag, top=8):
+    """The device allocations live at the peak of one ``predict(window)``,
+    from the allocator's own trace (``torch.cuda.memory._record_memory_history``,
+    Python frames): the window's peak above what was allocated before it and
+    the largest live blocks, each with the port's innermost frame that made
+    it. Informational: it checks nothing, and says so when the trace is
+    unavailable. Returns {"peak_bytes": ..., "top": [(bytes, frame), ...]}."""
+    mem = torch.cuda.memory
+    predict(window)
+    torch.cuda.synchronize()
+    try:
+        mem._record_memory_history(enabled="all", context="alloc", stacks="python",
+                                   max_entries=200000)
+        predict(window)
+        torch.cuda.synchronize()
+        snap = mem._snapshot()
+    except Exception as e:  # noqa: BLE001 - an API of the allocator that may differ by version
+        log(f"alloc[{tag}]: not measured ({type(e).__name__}: {e})")
+        return None
+    finally:
+        try:
+            mem._record_memory_history(enabled=None)
+        except Exception:  # noqa: BLE001
+            pass
+    try:
+        return _peak_allocations(snap, tag, top)
+    except (KeyError, TypeError, ValueError) as e:
+        log(f"alloc[{tag}]: not measured (the trace reads {type(e).__name__}: {e})")
+        return None
+
+
+def _peak_allocations(snap, tag, top):
+    events = [e for trace in snap.get("device_traces", []) for e in trace]
+
+    def where(frames):
+        for f in frames or []:
+            if "socialmedia_textimage" in f.get("filename", ""):
+                name = f["filename"].split("socialmedia_textimage_classification_auxlosses_tpu_torch/")[-1]
+                return f"{name}:{f.get('line')} {f.get('name')}"
+        return "(outside the port)"
+
+    live, cur, peak, at = {}, 0, 0, -1
+    for i, e in enumerate(events):
+        if e["action"] == "alloc":
+            live[e["addr"]] = e["size"]
+            cur += e["size"]
+            if cur > peak:
+                peak, at = cur, i
+        elif e["action"] in ("free_requested", "free_completed") and e["addr"] in live:
+            cur -= live.pop(e["addr"])
+    blocks = {}
+    for e in events[:at + 1]:
+        if e["action"] == "alloc":
+            blocks[e["addr"]] = (e["size"], where(e.get("frames")))
+        elif e["action"] in ("free_requested", "free_completed"):
+            blocks.pop(e["addr"], None)
+    by_frame = {}
+    for size, frame in blocks.values():
+        by_frame[frame] = by_frame.get(frame, 0) + size
+    ranked = sorted(by_frame.items(), key=lambda kv: -kv[1])[:top]
+    log(f"alloc[{tag}]: a window's peak {peak / 2 ** 20:.1f} MiB above what was allocated "
+        f"before it, {len(blocks)} blocks live there; largest by the port's frame: "
+        + "; ".join(f"{b / 2 ** 20:.1f} MiB {f}" for f, b in ranked))
+    return {"peak_bytes": peak, "top": [(b, f) for f, b in ranked]}
+
+
+def memory_text(memory) -> str:
+    over = {k: memory[k] - memory["before"] for k in ("build_peak", "after_build",
+                                                        "windows_peak")}
+    return (f"over the {memory['before']:.3f} GiB allocated before it: build peak "
+            f"+{over['build_peak']:.3f} GiB, +{over['after_build']:.3f} GiB after it, windows "
+            f"peak +{over['windows_peak']:.3f} GiB")
+
+
+def resident_bytes(module) -> dict:
+    """Bytes of ``module``'s parameters and buffers by dtype name."""
+    out = {}
+    for t in list(module.parameters()) + list(module.buffers()):
+        key = str(t.dtype).removeprefix("torch.")
+        out[key] = out.get(key, 0) + t.numel() * t.element_size()
+    return out
+
+
+def w8_phase(torch, serve, A, AB, launches, model_path, reqs, http_text, served, per_window):
+    """``--quantize w8`` under ``auto`` and ``fused``: probabilities within
+    ``W8_TOL`` of the plain path under w8 (``jnp`` + w8), max |dp| from the
+    unquantized service, each timed service's quantized weights int8 and its
+    resident weight bytes by dtype, the window ms and the device memory
+    (``run_service``) beside the bfloat16 service's, the allocations live at
+    one window's peak (``window_allocations``), and the launches per window
+    those of the unquantized service."""
+    import numpy as np
+
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.ops import quant
+
+    w8 = ("--quantize", "w8")
+    every = reqs + [(http_text, None)]
+    info = {}
+    plain_predict, _ = serve.build_service(service_args(serve, model_path, "jnp", w8),
+                                           export_info=info)
+    A.launches.reset()
+    AB.launches.reset()
+    plain = [r for i in range(0, len(every), BATCH) for r in plain_predict(every[i:i + BATCH])]
+    if A.launches.count or AB.launches.count:
+        raise AssertionError("serve[jnp, w8]: the plain path launched a kernel")
+    resident = resident_bytes(info["model"])
+    qbytes, f32bytes = quant.quantized_bytes(info["w8"])
+    n_quant = len(info["w8"].names)
+    del plain_predict, info
+    torch.cuda.empty_cache()
+    plain_probs = np.array([p["probs"] for p in plain])
+    log(f"serve[w8]: {n_quant} Dense kernels int8 ({qbytes} bytes; {f32bytes} in float32); "
+        f"resident weight bytes by dtype {resident} (the other leaves stay float32, not cast)")
+    out = {"quantized_kernels": n_quant, "int8_bytes": qbytes, "their_float32_bytes": f32bytes,
+           "resident_bytes_by_dtype": resident}
+    for impl, expect in per_window.items():
+        tag = f"serve[{impl}, w8]"
+        info = {}
+        answers, health, counts, seconds = run_service(
+            torch, serve, A, AB, service_args(serve, model_path, impl, w8), reqs, http_text,
+            profile=False, info=info)
+        w8_now, params = info["w8"], dict(info["model"].named_parameters())
+        if (w8_now is None or len(w8_now.names) != n_quant
+                or any(q.dtype != torch.int8 for q in w8_now.qs())
+                or any(n in params for n in w8_now.names)):
+            raise AssertionError(f"{tag}: the service's Dense kernels are not int8")
+        resident_now = resident_bytes(info["model"])
+        window = info["make_batch"](reqs[:BATCH])
+        device_batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in window.items()}
+        with torch.inference_mode():
+            allocations = window_allocations(torch, info["predict"], device_batch, tag)
+        del info, w8_now, params, device_batch
+        torch.cuda.empty_cache()
+        log(f"{tag}: {n_quant} Dense kernels int8; resident weight bytes by dtype "
+            f"{resident_now}")
+        windows = health["windows"]
+        if health["errors"] or health["requests"] != len(reqs) + 1:
+            raise AssertionError(f"{tag}: {health}")
+        probs = np.array([a["probs"] for a in answers])
+        if probs.shape != plain_probs.shape or not np.isfinite(probs).all():
+            raise AssertionError(f"{tag}: bad probabilities {probs.shape}")
+        err = float(np.abs(probs - plain_probs).max())
+        drift = float(np.abs(probs - served[impl]["probs"]).max())
+        log(f"{tag}: {health['requests']} requests in {windows} windows, "
+            f"{len(reqs) / seconds:.1f} requests/s, mean window {health['mean_dispatch_ms']} ms "
+            f"(bf16 service {served[impl]['health']['mean_dispatch_ms']} ms); "
+            f"{memory_text(health['memory'])} (bf16 service "
+            f"{memory_text(served[impl]['health']['memory'])}); max |p - "
+            f"p_plain(w8)| {err:.3e} (tol {W8_TOL}), max |p - "
+            f"p_unquantized| {drift:.3e}")
+        if not err <= W8_TOL:
+            raise AssertionError(f"{tag}: disagrees with the plain path under w8")
+        check_window_counts(counts, windows, expect, tag)
+        count_launches(launches, counts)
+        out[impl] = dict(requests_per_s=len(reqs) / seconds,
+                         mean_window_ms=health["mean_dispatch_ms"],
+                         bf16_mean_window_ms=served[impl]["health"]["mean_dispatch_ms"],
+                         memory_gib=health["memory"],
+                         bf16_memory_gib=served[impl]["health"]["memory"],
+                         resident_bytes_by_dtype=resident_now,
+                         window_allocations=allocations, max_abs_prob_err=err,
+                         max_abs_dp_vs_unquantized=drift)
+    return out
+
+
+def extra_model_phase(torch, serve, A, AB, launches, model_path, reqs, served, per_window):
+    """One server, ``default`` (``auto``) and ``--extra_model e:attn_impl=fused``
+    over the same weights: ``N_CLIENTS`` clients split across the two
+    batchers and one HTTP request a route; each route's answers equal that
+    model's single-model service's, ``/metrics`` carries both labels, and
+    each model's windows launch its kernels."""
+    import numpy as np
+
+    args = service_args(serve, model_path, "auto", ("--extra_model", "e:attn_impl=fused"))
+    predict, meta = serve.build_service(args)
+    serve.warm_service(args, predict)
+    name, margs = serve.parse_model_spec(args, args.extra_model[0])
+    predict_e, meta_e = serve.build_service(margs)
+    serve.warm_service(margs, predict_e)
+    torch.cuda.synchronize()
+    A.launches.reset()
+    AB.launches.reset()
+    batchers = {"auto": serve.MicroBatcher(predict, args.max_batch, args.batch_window_ms),
+                "fused": serve.MicroBatcher(predict_e, margs.max_batch, margs.batch_window_ms)}
+    server = serve.make_server(args, batchers["auto"], meta, {name: (batchers["fused"], meta_e)})
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    answers = [None] * len(reqs)
+    try:
+        def client(c):
+            for i in range(c, len(reqs), N_CLIENTS):
+                answers[i] = batchers["auto" if c % 2 else "fused"].submit(*reqs[i])
+
+        t0 = time.monotonic()
+        clients = [threading.Thread(target=client, args=(c,)) for c in range(N_CLIENTS)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=600)
+            if c.is_alive():
+                raise AssertionError("extra_model: a client thread did not finish")
+        seconds = time.monotonic() - t0
+        http = {route: http_post(port, route, {"text": "a route request #weather"})
+                for route in ("/classify", f"/classify/{name}")}
+        health = http_get(port, "/healthz")
+        body = http_get(port, "/metrics", raw=True)
+    finally:
+        server.shutdown()
+        for b in batchers.values():
+            b.close()
+        server.server_close()
+        thread.join(timeout=30)
+    counts = {"sdpa_fwd": dict(A.launches.by_key), "attn_block_fwd": dict(AB.launches.by_key)}
+    routes = {"auto": health, "fused": health["models"][name]}
+    for impl, h in routes.items():
+        if h["errors"] or h["requests"] != len(reqs) // 2 + 1:
+            raise AssertionError(f"extra_model[{impl}]: {h}")
+    windows = {impl: h["windows"] for impl, h in routes.items()}
+    for kernel in ("sdpa_fwd", "attn_block_fwd"):
+        want = sum(per_window[impl][kernel] * w for impl, w in windows.items())
+        if sum(counts[kernel].values()) != want:
+            raise AssertionError(f"extra_model: {kernel} launched {sum(counts[kernel].values())}"
+                                 f" times, expected {want} over windows {windows}")
+    count_launches(launches, counts)
+    err = 0.0
+    for i, ans in enumerate(answers):
+        impl = "auto" if (i % N_CLIENTS) % 2 else "fused"
+        err = max(err, float(np.abs(np.array(ans["probs"]) - served[impl]["probs"][i]).max()))
+    for label in ("default", name):
+        if f'smtc_serving_requests_total{{model="{label}"}} {len(reqs) // 2 + 1}' not in body:
+            raise AssertionError(f"extra_model: /metrics lacks model={label!r}:\n{body}")
+    log(f"extra_model: {len(reqs)} requests split over /classify (auto) and /classify/{name} "
+        f"(fused) in {seconds:.2f} s, windows {windows}; max |p - p_single-model service| "
+        f"{err:.3e}; /metrics labels default and {name}; HTTP answers "
+        f"{[len(a['probs']) for a in http.values()]} classes")
+    if not err <= 1e-5:
+        raise AssertionError("extra_model: a route disagrees with its single-model service")
+    del predict, predict_e
+    torch.cuda.empty_cache()
+    return dict(windows=windows, max_abs_dp_vs_single=err, seconds=seconds)
+
+
+def http_post(port, path, payload, timeout=120):
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def http_get(port, path, raw=False, timeout=60):
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=timeout) as r:
+        body = r.read()
+    return body.decode() if raw else json.loads(body)
+
+
+def png_payloads(reqs):
+    """Requests as HTTP bodies: text, and the uint8 image as a base64 PNG
+    (lossless, so the server decodes the same pixels)."""
+    import base64
+    import io
+
+    from PIL import Image
+
+    out = []
+    for text, img in reqs:
+        body = {"text": text}
+        if img is not None:
+            buf = io.BytesIO()
+            Image.fromarray(img).save(buf, format="PNG")
+            body["image_b64"] = base64.b64encode(buf.getvalue()).decode()
+        out.append(body)
+    return out
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http_load(port, payloads):
+    """``payloads`` from ``N_CLIENTS`` HTTP clients -> (requests/s, answers)."""
+    answers = [None] * len(payloads)
+
+    def client(c):
+        for i in range(c, len(payloads), N_CLIENTS):
+            answers[i] = http_post(port, "/classify", payloads[i])
+
+    t0 = time.monotonic()
+    clients = [threading.Thread(target=client, args=(c,)) for c in range(N_CLIENTS)]
+    for c in clients:
+        c.start()
+    for c in clients:
+        c.join(timeout=600)
+        if c.is_alive():
+            raise AssertionError("a client did not finish")
+    return len(payloads) / (time.monotonic() - t0), answers
+
+
+def healthz_pids(port, want, tries=200):
+    """The pids that answer ``/healthz`` over fresh connections (the kernel
+    spreads them over the workers), until they are ``want``."""
+    pids = set()
+    for _ in range(tries):
+        pids.add(http_get(port, "/healthz")["pid"])
+        if pids == want:
+            break
+    return pids
+
+
+def start_workers(model_path):
+    """``serve --workers 2`` as a subprocess (its own process group) on an
+    explicit port over the saved weights -> (process, its stderr lines as
+    they come, port)."""
+    port = free_port()
+    argv = [sys.executable, "-m", f"{PKG}.cli.serve",
+            *service_argv(model_path, "auto", ("--port", str(port), "--workers", "2"))]
+    proc = subprocess.Popen(argv, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    lines = []
+    threading.Thread(target=lambda: lines.extend(iter(proc.stderr.readline, "")),
+                     daemon=True).start()
+    return proc, lines, port
+
+
+def stop_group(proc):
+    """Kill ``proc``'s process group if it still runs."""
+    import signal
+
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def workers_phase(proc, lines, port, reqs, served, deadline_s=600):
+    """``start_workers``' supervisor: wait until both workers log that they
+    serve, send the requests (PNG images) from ``N_CLIENTS`` HTTP clients
+    and see both pids answer; then SIGTERM the first worker alone (it drains
+    and exits 0, the supervisor reaps it), send the same load to the one left
+    (requests/s of one worker, the same process and port), and SIGTERM the
+    supervisor: rc 0 within the bound, every worker reaped. The answers
+    match the in-process ``auto`` service."""
+    import re
+    import signal
+
+    import numpy as np
+
+    payloads = png_payloads(reqs)
+    want = served["auto"]["probs"][:len(reqs)]
+    serving = re.compile(r" - serving .* on 127\.0\.0\.1:\d+ \(pid (\d+),")
+    deadline = time.monotonic() + deadline_s
+    out = {}
+    while len(serving.findall("".join(lines))) < 2:
+        if proc.poll() is not None or time.monotonic() > deadline:
+            raise AssertionError(f"workers: not serving (rc {proc.poll()}):\n"
+                                 + "".join(lines)[-3000:])
+        time.sleep(0.5)
+    started = {int(p) for p in serving.findall("".join(lines))}
+    spawned = [int(p) for p in re.findall(r"worker \d+/2 pid=(\d+)", "".join(lines))]
+    for n, alive in ((2, started), (1, started - {spawned[0]})):
+        if n == 1:  # the first worker drains and exits; the supervisor reaps it
+            os.kill(spawned[0], signal.SIGTERM)
+            while os.path.exists(f"/proc/{spawned[0]}"):
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"workers: worker {spawned[0]} not reaped")
+                time.sleep(0.1)
+        else:  # each worker's first requests (decoders, lazy imports) out of the timing
+            http_load(port, payloads[:2 * N_CLIENTS])
+        rate, answers = http_load(port, payloads)
+        pids = healthz_pids(port, alive)
+        err = float(np.abs(np.array([a["probs"] for a in answers]) - want).max())
+        log(f"workers[{n}]: {len(payloads)} HTTP requests from {N_CLIENTS} clients at "
+            f"{rate:.1f} requests/s; pids answering /healthz {sorted(pids)} of serving "
+            f"{sorted(alive)}; max |p - p_in-process| {err:.3e}")
+        if pids != alive or set(spawned) != started:
+            raise AssertionError(f"workers[{n}]: spawned {spawned}, serving {started}, "
+                                 f"answered {pids}")
+        if not err <= PROB_TOL:
+            raise AssertionError(f"workers[{n}]: answers disagree with the in-process service")
+        out[n] = dict(requests_per_s=rate, max_abs_dp=err)
+    t0 = time.monotonic()
+    proc.send_signal(signal.SIGTERM)
+    rc = proc.wait(timeout=120)
+    stop_s = time.monotonic() - t0
+    alive = [p for p in spawned if os.path.exists(f"/proc/{p}")]
+    log(f"workers: 2 workers {out[2]['requests_per_s']:.1f} requests/s against 1 worker "
+        f"{out[1]['requests_per_s']:.1f} (x{out[2]['requests_per_s'] / out[1]['requests_per_s']:.2f}"
+        f"); SIGTERM to the supervisor -> rc {rc} in {stop_s:.2f} s; workers not reaped {alive}")
+    if rc != 0 or stop_s > 60 or alive:
+        raise AssertionError(f"workers: rc {rc} after {stop_s:.1f} s, alive {alive}")
+    out["stop_s"] = stop_s
+    return out
+
+
+def photo_bytes(h, w, seed, fmt):
+    """A photo-like image (a smooth field upscaled from a coarse grid) as
+    encoded bytes."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    base = rng.randint(0, 256, (max(2, h // 60), max(2, w // 60), 3), np.uint8)
+    img = Image.fromarray(base).resize((w, h), Image.BILINEAR)
+    buf = io.BytesIO()
+    img.save(buf, format=fmt, **({"quality": 90} if fmt == "JPEG" else {}))
+    return buf.getvalue()
+
+
+def native_phase(torch, serve, model_path, tmp):
+    """``--img_decoder native``: whether ``imgdec.cpp`` built here (the
+    compiler's message if not). Built: PNG and JPEG (one 2400 x 1800, the
+    DCT-scaled path) against PIL at the JAX package's bounds, decode ms an
+    image native against PIL, and photo requests served with the native
+    decoder within ``PROB_TOL`` of the same service fed PIL's pixels. Not
+    built: the JAX warning is logged and PIL's answer is served."""
+    import base64
+    import io
+    import logging
+
+    import numpy as np
+    from PIL import Image
+
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.data import images, native
+
+    built = native.imgdec_available()
+    log(f"native: imgdec.cpp built: {built}"
+        + ("" if built else f"; the compiler said: {native.build_error()}"))
+    records = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+
+    keep = Keep()
+    logging.getLogger(f"{PKG}.cli.serve").addHandler(keep)
+    try:
+        args = service_args(serve, model_path, "auto", ("--img_decoder", "native"))
+        predict, meta = serve.build_service(args)
+    finally:
+        logging.getLogger(f"{PKG}.cli.serve").removeHandler(keep)
+    size = 224
+    photos = [(h, w, "JPEG") for h, w in NATIVE_PHOTOS] + [(300, 400, "PNG")]
+    encoded = [photo_bytes(h, w, i, fmt) for i, (h, w, fmt) in enumerate(photos)]
+    payloads = [{"image_b64": base64.b64encode(e).decode()} for e in encoded]
+    pil_px = [images.resize_to_u8(serve._decode_image(p), size) for p in payloads]
+    out = {"built": built}
+    if not built:
+        if meta["native_size"] is not None or not any(
+                "imgdec build unavailable; serving with PIL decode" in r for r in records):
+            raise AssertionError("native: no PIL fallback warning")
+        got = serve._decode_image(payloads[0], None, meta["native_size"])
+        if isinstance(got, np.ndarray):
+            raise AssertionError("native: a decoder that did not build decoded")
+        log("native: the PIL fallback and its warning (as the JAX service)")
+        out["error"] = native.build_error()
+        del predict
+        return out
+    if meta["native_size"] != size:
+        raise AssertionError(f"native: native_size {meta['native_size']}")
+    nat_px = [serve._decode_image(p, None, size) for p in payloads]
+    for (h, w, fmt), e, nat, pil in zip(photos, encoded, nat_px, pil_px):
+        path = os.path.join(tmp, f"photo_{h}x{w}.{fmt.lower()}")
+        with open(path, "wb") as f:
+            f.write(e)
+        diff = np.abs(nat.astype(int) - pil.astype(int))
+        if fmt == "JPEG" and min(h, w) // 2 >= size:  # the DCT-scaled decode: PSNR
+            mse = float((diff.astype(float) ** 2).mean())
+            psnr = 10 * math.log10(255.0 ** 2 / max(mse, 1e-9))
+            if psnr < 45.0:
+                raise AssertionError(f"native: {h}x{w} PSNR {psnr:.1f} dB < 45")
+            log(f"native: {w}x{h} JPEG (DCT-scaled) PSNR {psnr:.1f} dB against PIL")
+        else:
+            if diff.max() > 2:
+                raise AssertionError(f"native: {h}x{w} {fmt} resize {diff.max()} LSB from PIL")
+            full = native.native_decode_full(path)
+            pil_full = np.asarray(Image.open(io.BytesIO(e)).convert("RGB"))
+            if not np.array_equal(full, pil_full):
+                raise AssertionError(f"native: {h}x{w} {fmt} full decode differs from PIL")
+    t_nat, t_pil = [], []
+    for e in encoded:
+        t0 = time.perf_counter()
+        native.native_decode_resize_mem(e, size)
+        t_nat.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        images.resize_to_u8(Image.open(io.BytesIO(e)).convert("RGB"), size)
+        t_pil.append((time.perf_counter() - t0) * 1e3)
+    texts = [f"a photo {i} #weather" for i in range(len(photos))]
+    a = predict(list(zip(texts, nat_px)))
+    b = predict(list(zip(texts, pil_px)))
+    err = float(np.abs(np.array([x["probs"] for x in a]) - np.array([x["probs"] for x in b])).max())
+    log("native: decode + resize ms an image, native / PIL: " + ", ".join(
+        f"{w}x{h} {fmt} {n:.2f} / {p:.2f}" for (h, w, fmt), n, p in zip(photos, t_nat, t_pil))
+        + f"; served photos max |p_native - p_PIL| {err:.3e} (tol {PROB_TOL})")
+    if not err <= PROB_TOL:
+        raise AssertionError("native: the native decoder's answers are not PIL's")
+    del predict
+    torch.cuda.empty_cache()
+    out.update(decode_ms_native=t_nat, decode_ms_pil=t_pil, max_abs_dp_vs_pil=err)
+    return out
+
+
+def export_phase(torch, serve, A, AB, launches, model_path, per_window, tmp):
+    """``cli/export.py`` of the ``auto`` service for ``cuda`` at full width:
+    the program holds the ``torch.library`` op nodes, is saved, loaded and
+    run; its probabilities within 1e-5 of the live predict, and its run
+    launches the hand-written kernels as many times as one live window."""
+    import numpy as np
+
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.cli import export
+
+    args = service_args(serve, model_path, "auto")
+    t0 = time.monotonic()
+    exported, sidecar, _, info, sample = export.export_service(args, ["cuda"])["cuda"]
+    export_s = time.monotonic() - t0
+    ops = {}
+    for node in exported.graph.nodes:
+        if node.op == "call_function" and str(node.target).startswith("smtc."):
+            ops[str(node.target)] = ops.get(str(node.target), 0) + 1
+    path = os.path.join(tmp, "serving.cuda.pt2")
+    torch.export.save(exported, path)
+    size = os.path.getsize(path)
+    t0 = time.monotonic()
+    program = torch.export.load(path).module()
+    load_s = time.monotonic() - t0
+    with torch.no_grad():
+        live = info["predict"](dict(sample)).float().cpu().numpy()
+        program(*sample.values())  # first run out of the count
+        torch.cuda.synchronize()
+        A.launches.reset()
+        AB.launches.reset()
+        back = program(*sample.values()).float().cpu().numpy()
+    counts = {"sdpa_fwd": dict(A.launches.by_key), "attn_block_fwd": dict(AB.launches.by_key)}
+    err = float(np.abs(live - back).max())
+    log(f"export[cuda]: {export_s:.1f} s to export, {size} bytes, loaded in {load_s:.1f} s; "
+        f"op nodes {ops}; launches of one run {counts}; max |p - p_live| {err:.3e} "
+        f"(bit-equal: {np.array_equal(live, back)})")
+    if ops.get("smtc.sdpa_fwd.default", 0) != per_window["auto"]["sdpa_fwd"]:
+        raise AssertionError(f"export: the program holds op nodes {ops}")
+    check_window_counts(counts, 1, per_window["auto"], "export[cuda]")
+    if not err <= 1e-5:
+        raise AssertionError("export: the loaded program disagrees with the live predict")
+    count_launches(launches, counts)
+    if sidecar["platforms"] != ["cuda"] or "smtc::sdpa_fwd" not in sidecar["format"]:
+        raise AssertionError(f"export: sidecar {sidecar}")
+    del exported, program, info
+    torch.cuda.empty_cache()
+    return dict(export_s=export_s, bytes=size, load_s=load_s, op_nodes=ops,
+                max_abs_dp=err, bit_equal=bool(np.array_equal(live, back)))
+
+
+def serve_extras_phase(torch, serve, A, AB, launches, model_path, reqs, http_text, served,
+                       per_window, tmp):
+    """The serving extras over the serving phase's weights and runs, in
+    order: ``/metrics`` of ``serve[auto]``, w8, ``--extra_model``,
+    ``--img_decoder native``, ``cli/export.py`` (these three while the
+    ``--workers 2`` subprocess starts), ``--workers 2``."""
+    t0 = time.monotonic()
+    metrics_check(served["auto"]["health"], served["auto"]["metrics"], "serve[auto]")
+    out = {"w8": w8_phase(torch, serve, A, AB, launches, model_path, reqs, http_text, served,
+                          per_window)}
+    # the two workers come up (load, cast, warm-up) beside the next three checks, whose
+    # timings are informational
+    proc, lines, port = start_workers(model_path)
+    try:
+        out["extra_model"] = extra_model_phase(torch, serve, A, AB, launches, model_path, reqs,
+                                               served, per_window)
+        out["native"] = native_phase(torch, serve, model_path, tmp)
+        out["export"] = export_phase(torch, serve, A, AB, launches, model_path, per_window, tmp)
+        out["workers"] = workers_phase(proc, lines, port, reqs, served)
+    finally:
+        stop_group(proc)
+    out["seconds"] = time.monotonic() - t0
+    log(f"serve_extras: every check passed in {out['seconds']:.1f} s")
+    return out
 
 
 def training_counts(A, AB):
@@ -5076,26 +5818,61 @@ def bucket_only():
     return 0
 
 
+def serve_extras_only():
+    """``python3 chip_smoke.py --serve_extras``: the kernels built, the
+    serving phase and the serving extras alone at full width, every
+    (kernel, shape) they launched held against its plain version, without
+    the last line: a quick run of these phases while they change."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.cli import serve
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.cli._common import (
+        set_precision_policy)
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.ops import _cuda
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.ops import attention as A
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.ops import attn_block as AB
+
+    set_precision_policy()
+    log(card_line())
+    log(f"build: per source {_cuda.build()}")
+    reqs = make_requests()
+    http_text = "an http request about the #weather @user"
+    with tempfile.TemporaryDirectory() as tmp:
+        model_path, launches, served, per_window = serving_phase(torch, serve, A, AB, tmp, reqs,
+                                                                 http_text)
+        extras = serve_extras_phase(torch, serve, A, AB, launches, model_path, reqs, http_text,
+                                    served, per_window, tmp)
+    log(json.dumps({"serve_extras": extras}, default=str))
+    rows = rows_for_every_launch(torch, AB, [], launches)
+    log(json.dumps({"kernels": [{k: v for k, v in r.items() if k != "key"} for r in rows]}))
+    return 0
+
+
 def main():
     import torch
 
     started = time.monotonic()
+    clock = [started]
+
+    def lap(name):
+        """Log the seconds since the last lap: where the script's time goes."""
+        now = time.monotonic()
+        log(f"phase {name}: {now - clock[0]:.1f} s")
+        clock[0] = now
+
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    import numpy as np
-
     from socialmedia_textimage_classification_auxlosses_tpu_torch.cli import serve
-    from socialmedia_textimage_classification_auxlosses_tpu_torch.cli._build import (
-        build_mm_late_setup)
     from socialmedia_textimage_classification_auxlosses_tpu_torch.cli._common import (
-        seed_everything, set_precision_policy)
+        set_precision_policy)
     from socialmedia_textimage_classification_auxlosses_tpu_torch.core import config as C
     from socialmedia_textimage_classification_auxlosses_tpu_torch.ops import _cuda
     from socialmedia_textimage_classification_auxlosses_tpu_torch.ops import attention as A
     from socialmedia_textimage_classification_auxlosses_tpu_torch.ops import attn_block as AB
-    from socialmedia_textimage_classification_auxlosses_tpu_torch.train.checkpoint import (
-        save_params)
 
     if any(m == JAX_PKG or m.startswith(JAX_PKG + ".") or m.split(".")[0] in ("jax", "flax")
            for m in sys.modules):
@@ -5121,67 +5898,19 @@ def main():
     perhead_rows, perhead_launches, perhead_vs_packed = check_perhead_kernels(torch)
     rows += perhead_rows
 
+    lap("kernels")
     reqs = make_requests()
     http_text = "an http request about the #weather @user"
     with tempfile.TemporaryDirectory() as tmp:
-        model_path = os.path.join(tmp, "random_weights.pth")
-        args = service_args(serve, model_path, "auto")
-        t0 = time.monotonic()
-        setup = build_mm_late_setup(args, C.serving_config(args),
-                                    generator=seed_everything(args.seed))
-        save_params(model_path, setup.model)
-        n_params = sum(p.numel() for p in setup.model.parameters())
-        del setup
-        log(f"weights: {n_params} random parameters (seed {args.seed}) in "
-            f"{time.monotonic() - t0:.1f} s")
+        model_path, launches, served, per_window = serving_phase(torch, serve, A, AB, tmp, reqs,
+                                                                 http_text)
+        lap("serving")
+        # /metrics, --quantize w8, --extra_model, --workers 2, --img_decoder
+        # native and cli/export.py over the same weights
+        extras = serve_extras_phase(torch, serve, A, AB, launches, model_path, reqs, http_text,
+                                    served, per_window, tmp)
 
-        # the plain path: every attention through the plain PyTorch version
-        plain_args = service_args(serve, model_path, "jnp")
-        plain_predict, _ = serve.build_service(plain_args)
-        A.launches.reset()
-        AB.launches.reset()
-        every = reqs + [(http_text, None)]
-        plain = []
-        for i in range(0, len(every), BATCH):
-            plain += plain_predict(every[i:i + BATCH])
-        if A.launches.count or AB.launches.count:
-            raise AssertionError("the plain path launched a kernel")
-        del plain_predict
-        torch.cuda.empty_cache()
-        plain_probs = np.array([p["probs"] for p in plain])
-
-        per_window = {"auto": {"sdpa_fwd": 25, "attn_block_fwd": 0},
-                      "fused": {"sdpa_fwd": 1, "attn_block_fwd": 24}}
-        launches = {}
-        for impl, expect in per_window.items():
-            answers, health, counts, seconds = run_service(
-                torch, serve, A, AB, service_args(serve, model_path, impl), reqs, http_text)
-            windows = health["windows"]
-            log(f"serve[{impl}]: {health['requests']} requests in {windows} windows, "
-                f"{len(reqs) / seconds:.1f} requests/s from {N_CLIENTS} clients, "
-                f"mean window {health['mean_dispatch_ms']} ms, errors {health['errors']}")
-            if health["errors"] or health["requests"] != len(reqs) + 1:
-                raise AssertionError(f"serve[{impl}]: {health}")
-            probs = np.array([a["probs"] for a in answers])
-            if probs.shape != plain_probs.shape or not np.isfinite(probs).all():
-                raise AssertionError(f"serve[{impl}]: bad probabilities {probs.shape}")
-            if np.abs(probs.sum(-1) - 1).max() > 1e-4:
-                raise AssertionError(f"serve[{impl}]: probabilities do not sum to 1")
-            err = np.abs(probs - plain_probs).max()
-            log(f"serve[{impl}]: max |p - p_plain| {err:.3e} (tol {PROB_TOL})")
-            if not err <= PROB_TOL:
-                raise AssertionError(f"serve[{impl}]: disagrees with the plain path")
-            for kernel, n in expect.items():
-                total = sum(counts[kernel].values())
-                log(f"serve[{impl}]: {kernel} launches {total} = {windows} windows x "
-                    f"{total / windows:g} {counts[kernel]}")
-                if total != n * windows:
-                    raise AssertionError(f"serve[{impl}]: {kernel} launched {total} "
-                                         f"times, expected {n} x {windows}")
-            for kernel, by_key in counts.items():
-                for key, n in by_key.items():
-                    launches[(kernel, key)] = launches.get((kernel, key), 0) + n
-
+    lap("serve extras")
     # the training paths: one-epoch runs of run_mm_late and of run_mm_early
     # (ViLT) under auto and fused, and their first-step checks
     import csv
@@ -5219,13 +5948,16 @@ def main():
         training["fused/k3"]["loss_rel_vs_k1"] = same_losses(training["fused/k3"],
                                                              training["fused"], tag)
         count_launches(launches, by_key)
+        lap("train late")
         # --opt_impl lazy_emb, --cache_vision and --tim_reuse_text on the same run
         training["lazy"] = lazy_phase(torch, C, run_mm_late, counters, per_step, training,
                                       launches, eager_kernels)
+        lap("lazy")
         # the seed sweep: the same model under three seeds in one seed-stacked run
         training["sweep"] = sweep_phase(torch, C, run_mm_late, build, run_seed_sweep, counters,
                                         per_step, training, launches,
                                         os.path.join(tmp, "hub_sweep"))
+        lap("sweep")
         # the text-only runner (Bernice-base, CLS head) under fused, K = 1 and 3
         C.results_dir_txt = os.path.join(tmp, "results", "txt") + os.sep
         for k in (1, 3):
@@ -5238,15 +5970,19 @@ def main():
             count_launches(launches, by_key)
         training["txt/fused/k3"]["loss_rel_vs_k1"] = same_losses(
             training["txt/fused/k3"], training["txt/fused/k1"], "txt[fused, K=3]")
+        lap("txt")
         # sequence bucketing on tweet-like posts: one CUDA graph per width
         training["bucket"] = bucket_phase(torch, C, run_mm_late, run_txt, build, counters,
                                           per_step, txt_step, launches, eager_kernels, tmp)
+        lap("bucket")
         # the image-only runner and the BEiT / ResNet late-fusion paths
         training["image"] = image_phase(torch, C, run_img, run_mm_late, build, counters, none,
                                         launches, tmp)
+        lap("image")
         training["first_step"] = late_first_step(torch, C, run_mm_late, build,
                                                  os.path.join(tmp, "hub"))
 
+        lap("late first step")
         # ViLT early fusion under --vilt_exact_resize: every attention is the
         # joint sequence, L = 402, 2B rows with TIM batched
         with open(C.PATH[3], newline="") as f:
@@ -5290,35 +6026,45 @@ def main():
                                                   os.path.join(tmp, "hub_remat"))
         training["vilt/first_step"] = vilt_first_step(torch, C, run_mm_early, build_early,
                                                       os.path.join(tmp, "hub"))
+        lap("vilt")
         # LXMERT and MMBT early fusion, the grid ROI fallback, and the
         # services of ViLT and MMBT
         training["early"] = early_phase(torch, C, run_mm_early, build_early, counters, none,
                                         launches, tmp, data, ids, eager_kernels)
+        lap("early")
         training["early_serve"] = early_serve_phase(torch, C, serve, A, AB, launches, tmp)
+        lap("early serve")
         # the Faster R-CNN, the cacher and serve --model lxmert over the
         # LXMERT artifact the early phase left
         training["detector"] = detector_phase(
             torch, C, serve, build_early, A, AB, launches, tmp,
             os.path.join(C.results_dir_mm_early, LXMERT_STEM + "net.pth"))
 
+        lap("detector")
         # a JAX-layout artifact served, and the paper's grid under both backends
         training["jax_artifact"] = jax_artifact_phase(
             torch, C, serve, counters, {**none, **per_window["auto"]}, launches, tmp)
+        lap("jax artifact")
         training["grid"] = grid_phase(torch, C, run_grid, counters, launches, tmp)
+        lap("grid")
         # the late-fusion towers from checkpoints, and --import_reference_ckpt
         training["pretrained"] = pretrained_start(torch, C, run_mm_late, counters)
+    lap("pretrained")
     from socialmedia_textimage_classification_auxlosses_tpu_torch.models import encoder, vilt
     from socialmedia_textimage_classification_auxlosses_tpu_torch.train import optim
 
     training["optimizer"] = optimizer_launches(torch, optim, vilt, encoder)
+    log(json.dumps({"serve_extras": extras}, default=str))
     log(json.dumps({"training": training}))
     log(json.dumps({"perhead_vs_packed": perhead_vs_packed}))
     log(json.dumps(gemm_rows))
     log(json.dumps({"enqueue": enqueue}))
     launches.update(perhead_launches)
+    lap("optimizer")
     # every shape a main path launched, held against its plain version
     rows += rows_for_every_launch(torch, AB, rows, launches)
 
+    lap("rows")
     # the TPU kernel each row replaces: the JAX SDPA kernels by query length
     # (above 2 x 128 rows the blocked ones), the fused block's by kernel
     sources = {"sdpa_fwd": (f"{PKG}/csrc/sdpa_fwd.cu", f"{JAX_PKG}/ops/attention.py:81",
@@ -5378,6 +6124,8 @@ if __name__ == "__main__":
             sys.exit(bucket_only())
         if sys.argv[1:] == ["--detector"]:
             sys.exit(detector_only())
+        if sys.argv[1:] == ["--serve_extras"]:
+            sys.exit(serve_extras_only())
         sys.exit(main())
     except Exception:
         traceback.print_exc()

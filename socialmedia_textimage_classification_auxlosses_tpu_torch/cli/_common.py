@@ -151,7 +151,10 @@ def add_common_args(parser: argparse.ArgumentParser, multimodal: bool = False):
                         help="append structured per-step/epoch records to this JSONL file")
     parser.add_argument("--img_decoder", type=str, default="pil",
                         choices=["pil", "native"],
-                        help="image decoder (only pil is ported)")
+                        help="image ingest path: pil (the reference's decode, "
+                             "default) or native (C++ libjpeg/libpng with "
+                             "DCT-scaled JPEG decode, data/native.py; faster "
+                             "cache builds, ~1 LSB resize deviation)")
     parser.add_argument("--device", type=str, default="cuda",
                         choices=["cuda", "cpu"],
                         help="where the run happens; cuda unless cpu is asked "
@@ -161,18 +164,28 @@ def add_common_args(parser: argparse.ArgumentParser, multimodal: bool = False):
 
 def check_training_supported(args) -> None:
     """Raise ``SystemExit`` for every flag value that selects something the
-    port's trainers do not have yet, rather than ignoring it."""
+    port's trainers do not have yet, rather than ignoring it; then publish
+    ``--img_decoder`` (``publish_img_decoder``)."""
     refused = [
         ("--scan_layers", args.scan_layers),
         ("--mesh_pipe > 1", args.mesh_pipe > 1),
         ("--mesh_data > 1", (args.mesh_data or 1) > 1),
         ("--mesh_model > 1", args.mesh_model > 1),
-        ("--img_decoder native", args.img_decoder != "pil"),
     ]
     for flag, asked in refused:
         if asked:
             raise SystemExit(f"{flag} is not ported to PyTorch yet")
     seq_buckets_from(args)  # a bad --bucket_seq / --bucket_group exits before any build
+    publish_img_decoder(args)
+
+
+def publish_img_decoder(args) -> None:
+    """Publish ``--img_decoder`` to the ingest layer as ``SMTC_IMG_DECODER``
+    (``data/images.py::load_pixels_u8`` runs deep inside cache builds and
+    pipelines), as the JAX package does. Every entry point calls it, always:
+    the ``pil`` default resets the variable, so a ``native`` run cannot leak
+    into a later ``main()`` in the same process."""
+    os.environ["SMTC_IMG_DECODER"] = getattr(args, "img_decoder", None) or "pil"
 
 
 def seq_buckets_from(args):

@@ -34,7 +34,8 @@ first 10 ids, ``--shard I:N`` every N-th from the I-th (its own ROI cache
 ``{task}_roi_shard{I}``; the image caches decode their slice now and the
 rest at first use, as in the JAX package). Features go into the cache in
 float16. The runs are on the card unless ``--device cpu``.
-``--img_decoder native`` (the C++ decoder) is not ported and exits.
+``--img_decoder native`` decodes the mm/vilt cache builds' square resizes
+with the C++ decoder of ``data/native.py`` (PIL where it is unavailable).
 """
 
 from __future__ import annotations
@@ -275,7 +276,8 @@ def build_parser():
                              "device (torch bilinear); pil = the reference's uint8/PIL "
                              "resize (parity default)")
     parser.add_argument("--img_decoder", type=str, default="pil", choices=["pil", "native"],
-                        help="image decoder of the mm/vilt cache builds (only pil is ported)")
+                        help="image decoder of the mm/vilt cache builds (pil = parity "
+                             "default; native = C++ libjpeg/libpng, data/native.py)")
     parser.add_argument("--testing", action="store_true")
     parser.add_argument("--shard", type=str, default=None, metavar="I:N",
                         help="process this 1/N round-robin slice of the ids (one shard per "
@@ -286,13 +288,11 @@ def build_parser():
 
 
 def main(argv=None):
-    from ._common import resolve_device
+    from ._common import publish_img_decoder, resolve_device
 
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.img_decoder != "pil":
-        raise SystemExit("--img_decoder native is not ported to PyTorch yet "
-                         "(ROADMAP.md Queue 1 item 8)")
+    publish_img_decoder(args)
     shard = None
     if args.shard:
         i, n = (int(x) for x in args.shard.split(":"))

@@ -36,9 +36,11 @@ features computed once per image; a CNN tower warns and runs uncached) and
 ``--tim_reuse_text`` (the TIM rows gathered from the first text pass in
 training too), ``--bucket_seq`` and ``--bucket_group`` (``data/pipeline.py``:
 each batch's text sliced to its bucket; under ``--steps_per_dispatch`` one
-CUDA graph per width). What the
-port lacks raises ``SystemExit`` (``cli/_common.py::check_training_supported``,
-and here ``--quantize``).
+CUDA graph per width). ``--load_saved_model --quantize w8`` evaluates
+with the weight-only int8 weights of ``ops/quant.py`` (dequantized to
+bfloat16 in each forward; the other weights are not pre-cast), as the JAX
+runner does. What the port lacks raises ``SystemExit``
+(``cli/_common.py::check_training_supported``).
 """
 
 from __future__ import annotations
@@ -84,7 +86,8 @@ def parse_args(argv=None):
     parser.add_argument("--load_saved_model", action="store_true",
                         help="load saved model")
     parser.add_argument("--quantize", type=str, default=None, choices=["w8"],
-                        help="(not ported) weight-only int8 serving")
+                        help="with --load_saved_model: evaluate with weight-only int8 "
+                             "Dense kernels (ops/quant.py)")
     parser.add_argument("--import_reference_ckpt", type=str, default=None,
                         help="reference-trained MM_Model state dict (torch.save) to "
                              "import before training")
@@ -102,8 +105,6 @@ def parse_args(argv=None):
 
 def check_supported(args) -> None:
     check_training_supported(args)
-    if args.quantize:
-        raise SystemExit("--quantize is not ported to PyTorch yet")
     if args.import_reference_ckpt and args.img_model_name in ("resnet50", "resnet152"):
         raise SystemExit("--import_reference_ckpt takes a transformer image tower: the "
                          "reference's MM_Model has no ResNet fusion path")
@@ -183,7 +184,13 @@ def main(argv=None, on_step=None, keep_grads=False):
 
         load_params(model_path, setup.model)
         logger.info("model loaded")
-        cast_params_for_eval(setup.model, args.dtype)
+        if args.quantize == "w8":
+            from ..ops.quant import quantize_w8
+
+            quantize_w8(setup.model, compute_dtype=args.dtype)
+            logger.info("w8 serving quantization enabled")
+        else:
+            cast_params_for_eval(setup.model, args.dtype)
         predictions = trainer.evaluate(setup.pipes["test"])
         save_predictions_csv(predictions, results_dir + stem + "preds_lm.csv")
         metrics = compute_metrics(predictions, cfg.num_labels, multilabel=cfg.multilabel)

@@ -4,16 +4,27 @@ Counterpart of the JAX package's ``data/images.py``. PIL is imported only
 where an image is decoded or resized, so the module imports without it
 (training on the card reads the uint8 pixel cache of ``data/cache.py`` and
 needs no PIL). The CNN paths' recipe (``center_crop_from``: the shorter
-side resized to 256, then a centre crop) is carried; the native C++ decoder
-(``--img_decoder native``) is not ported.
+side resized to 256, then a centre crop) is carried. ``--img_decoder native``
+(published by the entry points as ``SMTC_IMG_DECODER``, as in the JAX
+package) sends ``load_pixels_u8``'s square resizes through the C++ decoder of
+``data/native.py``; the CNN recipe stays PIL, and a file the decoder cannot
+read falls back to PIL.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
 import torch
+
+
+def native_enabled() -> bool:
+    """Whether ``--img_decoder native`` was published (``SMTC_IMG_DECODER``):
+    the decoder is opt-in because its DCT-scaled JPEG decode is not
+    bit-identical to PIL's full decode and resize."""
+    return os.environ.get("SMTC_IMG_DECODER", "pil") == "native"
 
 
 def open_image(path_fmt: str, data_id):
@@ -51,7 +62,19 @@ def resize_to_u8(img, size: int = 224, center_crop_from: Optional[int] = None) -
 def load_pixels_u8(path_fmt: str, data_id, size: int = 224,
                    center_crop_from: Optional[int] = None) -> np.ndarray:
     """Decode and resize (or resize and centre-crop) one image to
-    (size, size, 3) uint8."""
+    (size, size, 3) uint8. Under ``--img_decoder native`` a square resize
+    goes through the C++ decoder, trying the jpg path then the png one, as
+    ``open_image`` does; the first file that exists decides, and a decode
+    failure there falls back to PIL."""
+    if native_enabled() and center_crop_from is None:
+        from .native import native_decode_resize
+
+        for path in (path_fmt.format(data_id), path_fmt.replace("jpg", "png").format(data_id)):
+            if os.path.isfile(path):
+                px = native_decode_resize(path, size)
+                if px is not None:
+                    return px
+                break
     return resize_to_u8(open_image(path_fmt, data_id), size=size,
                         center_crop_from=center_crop_from)
 

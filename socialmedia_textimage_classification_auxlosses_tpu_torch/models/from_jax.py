@@ -200,6 +200,35 @@ def _stack_layers(node: Dict) -> Dict:
     return out
 
 
+def _flax_path(mod_name: str) -> list:
+    """A module's dotted name as the JAX tree's path: ``layers.3`` ->
+    ``layer_3``, LXMERT's ``x_layers.3`` -> ``x_layer_3``."""
+    segments = mod_name.split(".") if mod_name else []
+    path, i = [], 0
+    while i < len(segments):
+        if _STACK.match(segments[i]) and i + 1 < len(segments) and segments[i + 1].isdigit():
+            path.append(f"{segments[i][:-1]}_{segments[i + 1]}")
+            i += 2
+        else:
+            path.append(segments[i])
+            i += 1
+    return path
+
+
+def dense_kernels(module: nn.Module, scan_layers: bool = False) -> Dict[str, int]:
+    """The parameters that ``jax_tree_from_torch(module, scan_layers)`` writes
+    as flax Dense ``kernel`` leaves (the ``nn.Linear`` weights), each with
+    the rank of that leaf: 2, or 3 for a layer of a stack in the
+    ``scan_layers`` layout (``_stack_layers`` stacks every ``layer_{i}``
+    run, at any depth). Keys are state-dict names."""
+    out = {}
+    for mod_name, mod in module.named_modules():
+        if isinstance(mod, nn.Linear):
+            stacked = scan_layers and any(_LAYER.match(s) for s in _flax_path(mod_name))
+            out[f"{mod_name}.weight" if mod_name else "weight"] = 3 if stacked else 2
+    return out
+
+
 def jax_tree_from_torch(module: nn.Module, scan_layers: bool = False) -> Dict:
     """The inverse of ``torch_state_from_jax``: ``module``'s parameters as
     the JAX tree ``{"params": {...}}`` (Linear (out, in) -> Dense kernel (in,
@@ -221,16 +250,7 @@ def jax_tree_from_torch(module: nn.Module, scan_layers: bool = False) -> Dict:
     tree: Dict = {}
     batch_stats: Dict = {}
     for mod_name, mod in module.named_modules():
-        segments = mod_name.split(".") if mod_name else []
-        path, i = [], 0
-        while i < len(segments):  # "layers", "3" -> "layer_3"; "x_layers" -> "x_layer_3"
-            if (_STACK.match(segments[i]) and i + 1 < len(segments)
-                    and segments[i + 1].isdigit()):
-                path.append(f"{segments[i][:-1]}_{segments[i + 1]}")
-                i += 2
-            else:
-                path.append(segments[i])
-                i += 1
+        path = _flax_path(mod_name)
         leaves = [(tree, *_jax_leaf(mod, leaf, p.detach().cpu()))
                   for leaf, p in mod.named_parameters(recurse=False)]
         if isinstance(mod, BatchNorm):

@@ -26,6 +26,12 @@ a plain path is built to check the kernels against.
 Semantics kept from the JAX package: key mask 1 = keep; masked scores are
 -1e30, not -inf, so a fully masked row is uniform rather than NaN; softmax in
 float32; probabilities cast to the input dtype before the P.V product.
+
+Under ``torch.export`` (``cli/export.py``) ``sdpa`` records the forward
+kernel as the ``torch.library`` op ``smtc::sdpa_fwd`` (``sdpa_fwd_op``),
+whose CUDA implementation is ``sdpa_fwd_cuda``; a program exported for the
+CPU holds the plain forward. Eager calls and CUDA-graph captures do not go
+through the op.
 """
 
 from __future__ import annotations
@@ -277,6 +283,21 @@ class _SdpaFunction(torch.autograd.Function):
         return (*grads, None, None)
 
 
+@torch.library.custom_op("smtc::sdpa_fwd", mutates_args=(), device_types="cuda")
+def sdpa_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                key_mask: Optional[torch.Tensor], scale: float) -> torch.Tensor:
+    """``sdpa_fwd_cuda`` as the ``torch.library`` op ``smtc::sdpa_fwd``, the
+    node ``torch.export`` records for the forward kernel (a traced tensor
+    has no ``data_ptr``). Its CUDA implementation launches the kernel (and
+    counts it); it has no CPU one."""
+    return sdpa_fwd_cuda(q, k, v, key_mask, scale)
+
+
+@sdpa_fwd_op.register_fake
+def _sdpa_fwd_fake(q, k, v, key_mask, scale):
+    return torch.empty_like(q)
+
+
 def sdpa(q, k, v, key_mask=None, scale: Optional[float] = None,
          impl: str = "auto"):
     """Fused SDPA. ``impl``: one of ``IMPLS``, the JAX package's names.
@@ -296,6 +317,12 @@ def sdpa(q, k, v, key_mask=None, scale: Optional[float] = None,
     if key_mask is not None:
         key_mask = key_mask.to(torch.int32).contiguous()
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if torch.compiler.is_exporting():
+        # torch.export (cli/export.py): the kernel as its op node on CUDA,
+        # the plain forward on the CPU
+        if q.device.type == "cuda":
+            return sdpa_fwd_op(q, k, v, key_mask, scale)
+        return sdpa_reference(q, k, v, key_mask, scale)
     if (q.device.type == "cuda" and torch.is_grad_enabled()
             and any(t.requires_grad for t in (q, k, v))
             and not backward_fits(q.shape[2], k.shape[2], q.shape[3])):

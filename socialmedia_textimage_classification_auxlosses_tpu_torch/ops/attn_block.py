@@ -36,6 +36,12 @@ head by head in order, dx over heads and within a head over q, k, v, and the
 backward returns dq, dk, dv and ctx head-banked, (B, heads, L, d). The
 per-head kernels read Wq, Wk and Wv in the Linear (out, in) layout and Wo in
 the flax (in, out) layout, where each head's block is a contiguous row block.
+
+Under ``torch.export`` (``cli/export.py``) ``attn_block`` records kernel 7 as
+the ``torch.library`` op ``smtc::attn_block_fwd`` (``attn_block_fwd_op``,
+whose CUDA implementation is ``attn_block_cuda``); a program exported for the
+CPU holds the plain forward. ``serve`` offers no per-head block, so the
+per-head kernels have no op.
 """
 
 from __future__ import annotations
@@ -705,6 +711,23 @@ class _AttnBlockPerheadFunction(torch.autograd.Function):
         return (*grads, None, None)
 
 
+@torch.library.custom_op("smtc::attn_block_fwd", mutates_args=(), device_types="cuda")
+def attn_block_fwd_op(x: torch.Tensor, key_mask: Optional[torch.Tensor], wq: torch.Tensor,
+                      bq: torch.Tensor, wk: torch.Tensor, bk: torch.Tensor, wv: torch.Tensor,
+                      bv: torch.Tensor, wo: torch.Tensor, bo: torch.Tensor, heads: int,
+                      scale: float) -> torch.Tensor:
+    """``attn_block_cuda`` as the ``torch.library`` op
+    ``smtc::attn_block_fwd``, the node ``torch.export`` records for kernel 7.
+    Its CUDA implementation launches the kernel (and counts it); it has no
+    CPU one."""
+    return attn_block_cuda(x, key_mask, wq, bq, wk, bk, wv, bv, wo, bo, heads, scale)
+
+
+@attn_block_fwd_op.register_fake
+def _attn_block_fwd_fake(x, key_mask, wq, bq, wk, bk, wv, bv, wo, bo, heads, scale):
+    return torch.empty_like(x)
+
+
 def attn_block(x, key_mask, wq, bq, wk, bk, wv, bv, wo, bo, heads: int,
                scale: Optional[float] = None, impl: str = "fused"):
     """Fused self-attention block.
@@ -735,5 +758,12 @@ def attn_block(x, key_mask, wq, bq, wk, bk, wv, bv, wo, bo, heads: int,
             and not backward_fits(l, l, h // heads)):
         raise ValueError(f"attn_block: a gradient is needed at L={l}, which the "
                          "backward kernel does not take")
-    fn = _AttnBlockPerheadFunction if impl.startswith("fused_perhead") else _AttnBlockFunction
+    perhead = impl.startswith("fused_perhead")
+    if torch.compiler.is_exporting() and not perhead:
+        # torch.export (cli/export.py): kernel 7 as its op node on CUDA, the
+        # plain forward on the CPU (serve offers no per-head block)
+        if x.device.type == "cuda":
+            return attn_block_fwd_op(x, key_mask, *params, heads, scale)
+        return attn_block_reference(x, key_mask, *params, heads, scale)
+    fn = _AttnBlockPerheadFunction if perhead else _AttnBlockFunction
     return fn.apply(x, key_mask, *params, heads, scale)

@@ -214,9 +214,24 @@ def test_ids_come_from_the_task_id_column(tmp_path, monkeypatch):
         assert TObj.read_ids(task) == [str(v) for v in pd.read_csv(path)[column].values]
 
 
-def test_native_decoder_exits_naming_its_item():
-    with pytest.raises(SystemExit, match="Queue 1 item 8"):
-        TObj.main(["--task", "3", "--img_decoder", "native", "--device", "cpu"])
+def test_native_decoder_exits_naming_its_item(task, monkeypatch):
+    """``--img_decoder native`` no longer exits: the image cache build goes
+    through the port's C++ decoder and equals the JAX package's native build
+    byte for byte (one decoder source)."""
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.data import native
+
+    if not native.imgdec_available():
+        pytest.skip(f"the C++ decoder did not build here: {native.build_error()}")
+    ids, _, data, _ = task
+    monkeypatch.setenv("SMTC_IMG_DECODER", "pil")  # main() publishes the flag
+    argv = ["--task", "3", "--mode", "mm", "--image_size", "40", "--img_decoder", "native"]
+    JObj.main(argv)
+    path = os.path.join(data, "cache", "mvsa_u8_40")
+    os.rename(path, path + "_jax")
+    TObj.main(argv + ["--device", "cpu"])
+    assert os.environ["SMTC_IMG_DECODER"] == "native"
+    port, jax_cache = TCache.ImageCache(path), JCache.ImageCache(path + "_jax")
+    np.testing.assert_array_equal(port.gather(ids), np.asarray(jax_cache.gather(ids)))
 
 
 def test_ensure_roi_cache_returns_the_built_cache(task):

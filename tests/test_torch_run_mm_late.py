@@ -118,20 +118,22 @@ def test_prediction_csv_matches_jax(runs):
 REFUSED = [
     ["--scan_layers"], ["--mesh_pipe", "2"], ["--mesh_data", "2"],
     ["--mesh_model", "2"], ["--bucket_seq", "1"],
-    ["--bucket_group"], ["--quantize", "w8"], ["--img_decoder", "native"],
+    ["--bucket_group"],
 ]
 # the bucketing flags are ported: what they refuse is a bad value, with the
 # JAX package's messages
 REFUSED_AS = {"--bucket_seq": "buckets must be >= 2", "--bucket_group": "requires --bucket_seq"}
 # refused until the port carried them; tests/test_torch_run_control.py runs the
 # run-control flags, test_torch_lazy_emb.py, test_torch_vision_cache.py and
-# test_torch_tim_reuse.py the last four
+# test_torch_tim_reuse.py the next four, test_torch_quant.py and
+# test_torch_imgdec.py the last two
 PORTED = [
     ["--remat"], ["--steps_per_dispatch", "4"], ["--ckpt_every", "10"], ["--resume"],
     ["--profile", "p"], ["--extract_features"], ["--eval_txt_test"],
     ["--opt_impl", "lazy_emb"], ["--tim_reuse_text"], ["--cache_vision"],
     ["--img_model_name", "beit", "--cache_vision"],
     ["--bucket_seq"], ["--bucket_group", "--bucket_seq", "16,32"],
+    ["--quantize", "w8"], ["--img_decoder", "native"],
 ]
 
 
@@ -143,7 +145,8 @@ def test_unported_flags_exit(extra):
 
 
 @pytest.mark.parametrize("extra", PORTED, ids=lambda e: e[0].lstrip("-"))
-def test_ported_flags_are_accepted(extra):
+def test_ported_flags_are_accepted(extra, monkeypatch):
+    monkeypatch.setenv("SMTC_IMG_DECODER", "pil")  # the check publishes --img_decoder
     TRun.check_supported(TRun.parse_args(ARGS + ["--device", "cpu"] + extra))
 
 

@@ -9,13 +9,13 @@ same way (float32 within 1e-4); ``--model lxmert`` with the detector on every
 window (``--frcnn_arch tiny``, one detector checkpoint written from the torch
 twin ``tests/ref_frcnn.py``, a JAX-format LXMERT artifact written by flax and
 read through ``train/flax_msgpack.py``) against the JAX service within 1e-4;
-and the flags this port does not have yet refuse to start."""
+and the flag values the JAX service refuses refuse to start here too
+(``tests/test_torch_serve_extras.py`` serves the extras)."""
 
 import base64
 import io
 import json
 import threading
-import urllib.error
 import urllib.request
 
 import jax
@@ -60,12 +60,26 @@ def _requests():
             ("I can't believe it!!! so happy", img(30, 90))]
 
 
+# the parameters each initialiser returned, by its model and inputs: a test
+# module that builds a service of the same model again (this one's or
+# another's in the same run) reuses them instead of compiling the init anew
+_INITS = {}
+
+
 def _jitted(real):
     """``real(model, rng, *arrays, **kw)``, the JAX services' parameter
     initialiser, as one compiled call (eager, every initialiser compiles on
-    its own). Both services read the weights it returns."""
+    its own), its result kept in ``_INITS``. Both services read the weights
+    it returns."""
     def init(model, rng, *arrays, **kw):
-        return jax.jit(lambda r, *a: real(model, r, *a, **kw))(rng, *arrays)
+        key = (real.__module__, real.__qualname__, repr(model), repr(sorted(kw.items())),
+               np.asarray(jax.random.key_data(rng) if jax.dtypes.issubdtype(
+                   rng.dtype, jax.dtypes.prng_key) else rng).tobytes(),
+               tuple((np.shape(a), str(np.asarray(a).dtype), np.asarray(a).tobytes())
+                     for a in arrays))
+        if key not in _INITS:
+            _INITS[key] = jax.jit(lambda r, *a: real(model, r, *a, **kw))(rng, *arrays)
+        return _INITS[key]
 
     return init
 
@@ -159,9 +173,14 @@ def test_microbatcher_and_http_round_trip(f32_services):
         health = _get(port, "/healthz")
         assert health["status"] == "ok" and health["device"] == "cpu"
         assert health["errors"] == 0 and health["requests"] == len(reqs) + 1
-        with pytest.raises(urllib.error.HTTPError) as err:
-            _get(port, "/metrics")
-        assert err.value.code == 501
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=60) as r:
+            assert r.headers["Content-Type"] == "text/plain; version=0.0.4"
+            body = r.read().decode()
+        m = dict(line.rsplit(" ", 1) for line in body.splitlines() if not line.startswith("#"))
+        assert int(m["smtc_serving_requests_total"]) == health["requests"]
+        assert (int(m['smtc_serving_dispatch_seconds_bucket{le="+Inf"}'])
+                == int(m["smtc_serving_dispatch_seconds_count"])
+                == int(m["smtc_serving_windows_total"]) == health["windows"])
     finally:
         server.shutdown()
         batcher.close()
@@ -169,16 +188,36 @@ def test_microbatcher_and_http_round_trip(f32_services):
         thread.join(timeout=10)
 
 
+# each case: the function the JAX service raises it from, and its arguments
+# (served since the port carried them, and so no longer here: --quantize w8,
+# also with --model lxmert, --extra_model, --workers 2, --img_decoder native)
 @pytest.mark.parametrize("extra", [
-    ["--quantize", "w8"], ["--extra_model", "e:model=vilt"],
-    ["--workers", "2"], ["--img_decoder", "native"],
-    ["--img_model_name", "resnet50", "--fusion_name", "attention"],
-    ["--model", "lxmert", "--quantize", "w8"], ["--attn_impl", "nonsense"],
+    ("parse_model_spec", "default:model=vilt"),
+    ("parse_model_spec", "e:no_such_flag=1"),
+    ("main", ["--workers", "2", "--port", "0"]),
+    ("main", ["--extra_model", "e:seed=31", "--extra_model", "e:seed=32"]),
+    ("build_service", ["--img_model_name", "resnet50", "--fusion_name", "attention"]),
+    ("parse_model_spec", "e:model=nonsense"),
+    ("build_service", ["--attn_impl", "nonsense"]),
 ])
-def test_unported_flags_refuse_to_start(extra):
-    args = tserve.parse_args(BASE + ["--device", "cpu", "--random_init"] + extra)
+def test_unported_flags_refuse_to_start(extra, monkeypatch):
+    """Flag values the JAX service refuses exit here too: the reserved name
+    ``default``, an unknown key, a bad value, ``--workers`` without an
+    explicit port, a duplicate ``--extra_model`` name, a fusion head the
+    tower does not take, an unknown attention impl."""
+    import signal
+
+    monkeypatch.setenv("SMTC_IMG_DECODER", "pil")  # main() publishes the decoder flag
+    monkeypatch.setattr(signal, "signal", lambda *a: None)  # main() keeps pytest's SIGTERM
+    fn, arg = extra
+    argv = BASE + ["--device", "cpu", "--random_init", "--port", "0"]
     with pytest.raises(SystemExit):
-        tserve.build_service(args)
+        if fn == "parse_model_spec":
+            tserve.parse_model_spec(tserve.parse_args(argv), arg)
+        elif fn == "main":
+            tserve.main(argv + arg)
+        else:
+            tserve.build_service(tserve.parse_args(argv + arg))
 
 
 def test_lxmert_names_what_it_waits_for(tmp_path):
