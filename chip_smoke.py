@@ -87,7 +87,7 @@ and the CUDA toolkit. It
    running the port's kernels by name as often as the eager step does, the
    two moving the counters by two steps' counts, each
    step's loss within 1e-5 relative of the K = 1 run's; every run also times
-   three more passes over the train split with one sync at the end (ms per
+   two more passes over the train split with one sync at the end (ms per
    step with the host free to run ahead); then the headline run's optimizer
    and workload flags (``lazy_phase``): ``--opt_impl lazy_emb`` under
    ``auto`` (the word table outside AdamW; step 1 from fresh moments against
@@ -194,7 +194,21 @@ and the CUDA toolkit. It
    ``--import_reference_ckpt`` with a reference-format ``MM_Model`` state
    dict, its classification logits equal to those of a model loaded from
    the converted state dict; no transformers, safetensors, msgpack or flax
-   imported;
+   imported; then RoBERTa-base (``roberta_phase``): the tokenizer layouts on
+   the host (a tiny BERT ``vocab.txt``, a BERT ``tokenizer.json`` and a
+   byte-level ``vocab.json`` + ``merges.txt`` written by the script, their
+   ids on ten texts equal to those the JAX package's Rust path gives, pasted
+   here), the port's C++ tokenizer library built on this machine (its build
+   seconds; hash, SentencePiece-BPE and fastBPE ids equal to the Python
+   paths'), then a directory as roberta-base ships it, written from a seed
+   (``model.safetensors`` at the published widths, vocabulary 50,265 and 514
+   positions; ``vocab.json`` + ``merges.txt`` of 50,000 merges) and
+   ``cli/run_txt.main --model_name roberta`` from it, one epoch of 48
+   tweet-like posts in bfloat16 under ``auto``: the byte-level BPE with pad
+   id 1, every id under 50,265, the imported tensors on the device equal to
+   the file's, exact launch counts, the tokenizer's load and encode seconds,
+   and the first step against the plain path as in step 9
+   (``python3 chip_smoke.py --roberta`` runs the phase alone);
 12. logs the ptxas registers and spills of every kernel, the resident
    blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) of the
    tensor-core SDPA kernels at ViLT's 402 keys, of the fusion head's row
@@ -269,7 +283,7 @@ and the CUDA toolkit. It
    bfloat16``, each with ``pil``, ``device``, ``device`` and ``pil`` ingest
    (the set-up, the first batch and the images/s of the batches after it
    apart, peak memory, the device ms of each stage in a batch of the 16
-   photos from its ``record_function`` span; no post without
+   photos between CUDA events at its ``record_function`` ranges; no post without
    features; ``ensure_roi_cache`` returns the cache untouched), and
    ``serve --model lxmert`` with the early phase's LXMERT artifact and the
    checkpoint under ``auto`` and ``fused`` (34 SDPA launches / 24 blocks a
@@ -320,7 +334,7 @@ PROB_TOL = 2e-2
 # from it, so a service that skipped the quantization fails
 W8_TOL = 6e-3
 TRAIN_POSTS = (48, 8, 8)  # train / val / test rows of the generated dataset
-STEADY_PASSES = 3  # passes over the train split timed after each training run
+STEADY_PASSES = 2  # passes over the train split timed after each training run
 DEVICE = "cuda"
 VILT_TEXT, VILT_SIDE = 40, 19  # ViLT's text positions; the 608-px canvas at patch 32
 VILT_LEN = VILT_TEXT + 1 + VILT_SIDE ** 2  # 402, --vilt_exact_resize
@@ -358,8 +372,12 @@ def device_ms(torch, fn, iters=30, warmup=3):
     first so the host enqueues every call before the card reaches the start
     event: the events then time the device, not the host's launch loop. The
     sleep lasts three times what the host took to enqueue the last warm-up
-    call, ``iters`` times over (5 ms at least); where the host still lags
-    behind the card, once more at the cap, about a second."""
+    call, ``iters`` times over (5 ms at least, a second at most); ``iters``
+    is cut (3 at least) until such a sleep covers the host's loop. Where
+    the host still lags behind the card, the calls are timed again with a
+    quarter of them: the host's launches wait once the card's queue of
+    pending launches is full, and a call of many kernels fills it in a few
+    dozen calls however long the sleep."""
     for _ in range(warmup):
         t0 = time.perf_counter()
         fn()
@@ -367,24 +385,28 @@ def device_ms(torch, fn, iters=30, warmup=3):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    sleep_s = min(max(3 * iters * host_s, 0.005), SLEEP_CAP_S)
+    iters = max(3, min(iters, int(SLEEP_CAP_S / (4 * host_s))))
     while True:
+        sleep_s = min(max(3 * iters * host_s, 0.005), SLEEP_CAP_S)
         torch.cuda._sleep(int(sleep_s * SLEEP_CYCLES_PER_S))
+        t0 = time.perf_counter()
         start.record()
         for _ in range(iters):
             fn()
         end.record()
+        loop_s = time.perf_counter() - t0
         host_bound = start.query()  # the card got past the sleep before the host was done
         torch.cuda.synchronize()
         if not host_bound:
             return start.elapsed_time(end) / iters
-        if sleep_s >= SLEEP_CAP_S:
+        if iters == 3:
             break
-        sleep_s = SLEEP_CAP_S
+        iters = max(3, iters // 4)
     # still host-bound: the events' span includes the card waiting for the
     # host, an upper bound on the device time
-    log(f"timing: {getattr(fn, '__name__', 'call')} stayed host-bound; its time is "
-        "the events' span, an upper bound")
+    log(f"timing: {getattr(fn, '__name__', 'call')} stayed host-bound ({iters} calls enqueued "
+        f"in {loop_s * 1e3:.1f} ms after a {sleep_s * 1e3:.0f} ms sleep); its time is the "
+        "events' span, an upper bound")
     return start.elapsed_time(end) / iters
 
 
@@ -499,9 +521,26 @@ def log_sass(_cuda):
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
     tool = shutil.which("cuobjdump") or os.path.join(home, "bin", "cuobjdump")
     names = {0: "NT", 1: "NN", 2: "TN"}
-    for lib in _cuda.SOURCES:
-        sass = subprocess.run([tool, "--dump-sass", _cuda.library_path(lib)], capture_output=True,
-                              text=True, check=True, timeout=300).stdout
+    # one cuobjdump per library, all at once, each into a file of its own
+    dumps, procs = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            for lib in _cuda.SOURCES:
+                with open(os.path.join(tmp, lib), "w") as out:
+                    procs.append(subprocess.Popen(
+                        [tool, "--dump-sass", _cuda.library_path(lib)], stdout=out))
+            for proc in procs:
+                if proc.wait(timeout=300):
+                    raise subprocess.CalledProcessError(proc.returncode, proc.args)
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        for lib in _cuda.SOURCES:
+            with open(os.path.join(tmp, lib)) as f:
+                dumps[lib] = f.read()
+    for lib, sass in dumps.items():
         parts = re.split(r"Function : (\S+)", sass)
         seen = set()
         for fn, body in zip(parts[1::2], parts[2::2]):
@@ -1226,10 +1265,14 @@ def check_perhead_kernels(torch):
     return rows, launches, versus
 
 
+POST_WORDS = tuple("rain sun happy sad team win lose love hate coffee city tonight best worst"
+                   .split())
+
+
 def make_dataset(root, name="data", posts=TRAIN_POSTS, words_of=lambda rng: rng.randint(3, 60),
-                 seed=7):
+                 seed=7, words=POST_WORDS):
     """A task-3 data key (``data_key_mvsa.csv``) of ``posts`` train / val /
-    test rows, each post of ``words_of(rng)`` words, and a 224-px uint8
+    test rows, each post of ``words_of(rng)`` of ``words``, and a 224-px uint8
     pixel cache in the on-disk format of ``data/cache.py``, made with the
     csv module and numpy from ``seed`` under ``root/name``; returns the data
     directory."""
@@ -1240,7 +1283,7 @@ def make_dataset(root, name="data", posts=TRAIN_POSTS, words_of=lambda rng: rng.
     rng = np.random.RandomState(seed)
     data = os.path.join(root, name) + os.sep
     os.makedirs(data, exist_ok=True)
-    words = "rain sun happy sad team win lose love hate coffee city tonight best worst".split()
+    words = list(words)
     splits = ["train"] * posts[0] + ["val"] * posts[1] + ["test"] * posts[2]
     ids = [1000 + i for i in range(len(splits))]
     with open(data + "data_key_mvsa.csv", "w", newline="") as f:
@@ -1368,14 +1411,16 @@ def profile_step(torch, step, tag, attempts=3):
     timestamp, mapped onto the host's clock, falls outside the window, and
     a step begun just as it opened lost its first kernels that way. A
     profile that records no device event (the tracer missed a whole session
-    once in a long run) is taken again, up to ``attempts`` times."""
+    once in a long run) is taken again, up to ``attempts`` times. Only the
+    card's activity is traced: the host's op events, thousands a step, took
+    the profiler most of a second a step to read, and nothing reads them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
     for attempt in range(1, attempts + 1):
         recorded = []
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+        with profile(activities=[ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1),
                      on_trace_ready=lambda p: recorded.append(p.key_averages())) as prof:
             step()
@@ -1425,6 +1470,63 @@ def count_f32_gemms(torch, fn):
     with Count():
         fn()
     return counts
+
+
+INIT_MEMO_BYTES = 24 << 30  # host bytes the random-init memo may hold
+
+
+def memoize_init(torch):
+    """Make every builder's ``init_weights`` (the port's random init on the
+    CPU, drawn one number at a time from a CPU generator: about 2.8 s for
+    the 368 M parameters of Bernice + ViT) give a module it has seen before
+    the tensors it gave it then: the key is the module's class, each
+    parameter's and buffer's name, shape, dtype and device, and the
+    generator's state before the draw. A first build runs the real init and
+    keeps a CPU copy of every tensor and the generator's state after it; a
+    later build with the same key copies those in and sets the generator to
+    that state, so the module and every later draw are what the real init
+    gives. The least recently used entries go past ``INIT_MEMO_BYTES``.
+    Returns the hit and miss counts."""
+    import importlib
+    from collections import OrderedDict
+
+    encoder = importlib.import_module(f"{PKG}.models.encoder")
+    real = encoder.init_weights
+    memo, stats = OrderedDict(), {"hits": 0, "misses": 0, "bytes": 0}
+
+    def init_weights(module, generator):
+        tensors = dict(module.named_parameters())
+        tensors.update(module.named_buffers())
+        key = (type(module).__qualname__, generator.device.type,
+               tuple((n, tuple(t.shape), t.dtype, t.device.type) for n, t in tensors.items()),
+               generator.get_state().numpy().tobytes())
+        hit = memo.get(key)
+        if hit is None:
+            stats["misses"] += 1
+            real(module, generator)
+            saved = {n: t.detach().to("cpu", copy=True) for n, t in tensors.items()}
+            size = sum(t.numel() * t.element_size() for t in saved.values())
+            memo[key] = (saved, generator.get_state(), size)
+            stats["bytes"] += size
+            while stats["bytes"] > INIT_MEMO_BYTES and len(memo) > 1:
+                stats["bytes"] -= memo.popitem(last=False)[1][2]
+            return
+        stats["hits"] += 1
+        memo.move_to_end(key)
+        saved, after, _ = hit
+        with torch.no_grad():
+            for n, t in tensors.items():
+                t.copy_(saved[n])
+        generator.set_state(after)
+
+    users = [importlib.import_module(f"{PKG}.{name}")
+             for name in ("models.encoder", "models.vilt", "models.mmbt", "models.lxmert",
+                          "cli._build", "cli.obj_features")]
+    for module in users:
+        if getattr(module, "init_weights", None) is not real:
+            raise AssertionError(f"{module.__name__} has no init_weights of models/encoder.py")
+        module.init_weights = init_weights
+    return stats
 
 
 def train_run(torch, main, argv, tag, counters, results_dir, stem, expect, check_grads,
@@ -2441,7 +2543,7 @@ def graphs_per_width(trainer, setup, tag):
     return {"train_graph_widths": train, "eval_graph_widths": evals}
 
 
-def width_readings(torch, trainer, setup, k, tag, steps=10):
+def width_readings(torch, trainer, setup, k, tag, steps=5):
     """Per width of the train split (and, under buckets, at the full pad an
     unbucketed run gives every batch): ``steps`` steps with one sync (ms a
     step, the host free to run ahead), the peak memory of one step after a
@@ -3344,11 +3446,12 @@ VIT_CONFIG = {"hidden_size": 768, "num_hidden_layers": 12, "num_attention_heads"
               "layer_norm_eps": 1e-12, "hidden_dropout_prob": 0.0}
 
 
-def hf_tower_state(torch, g, kind):
-    """A full-width Hugging Face-named state dict from ``g``: Bernice-base
-    (XLM-R naming, 250,002 x 768 word embeddings) or ViT-B/16. Linear weights
-    (out, in), LayerNorm scales near 1, on the CPU in float32."""
-    cfg = BERNICE_CONFIG if kind == "text" else VIT_CONFIG
+def hf_tower_state(torch, g, kind, cfg=None):
+    """A full-width Hugging Face-named state dict from ``g``: a text tower
+    (XLM-R / RoBERTa naming; ``cfg`` by default Bernice-base, 250,002 x 768
+    word embeddings) or ViT-B/16. Linear weights (out, in), LayerNorm scales
+    near 1, on the CPU in float32."""
+    cfg = cfg or (BERNICE_CONFIG if kind == "text" else VIT_CONFIG)
     h, m = cfg["hidden_size"], cfg["intermediate_size"]
     state = {}
 
@@ -3589,6 +3692,441 @@ def pretrained_start(torch, C, run_mm_late, counters):
     result["seconds"] = time.monotonic() - t0
     torch.cuda.empty_cache()
     return result
+
+
+# -- RoBERTa-base from its checkpoint directory, the tokenizer layouts -------------------
+
+ROBERTA_CONFIG = dict(BERNICE_CONFIG, vocab_size=50265)  # roberta-base's published widths
+ROBERTA_MERGES = 50000
+ROBERTA_POSTS = (32, 8, 8)  # one short epoch: two train steps
+# tweet-like words for the RoBERTa phase's posts: hashtags, mentions, links, emoji,
+# accents, contractions, numbers, CJK and Greek (the tweet normalizer rewrites some)
+ROBERTA_WORDS = ("rain sun happy sad team win lose love hate coffee city tonight best worst "
+                 "#NewMusic @user https://t.co/x1 \U0001f602 \U0001f469‍\U0001f4bb café "
+                 "don't it's 1,000 3.14 ΑΣ 世界 <s> [CLS]").split()
+
+# The host checks: tiny layouts written by ``write_tiny_layouts`` and the texts below,
+# each encoded at max_length 12 without the tweet normalizer; the ids are those of the
+# JAX package's Rust path (``tokenizers`` 0.22.2) on the same files.
+HOST_TEXTS = ["hello\U0001f600 world", "café news", "a_b", "hello 世界", "check\xadout",
+              "", "Hello world's <s> tweet", "İstanbul ΑΣ é ​x\xa0y",
+              "[CLS] hello [MASK] world!!", "  hello\tworld  \U0001f469‍\U0001f4bb 42"]
+WP_VOCAB = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "hello", "world", "the", "tw", "##ee", "##t", "@",
+            "user", "#", "news", "!", ".", "love", "this", "check", "out", "cafe", "_", "a", "b",
+            "[MASK]", "istanbul", "##s", "'", "s", "e", "x", "y", "42"]
+TINY_MERGES = [("Ġ", "w"), ("h", "e"), ("l", "l"), ("he", "ll"), ("hell", "o"),
+               ("Ġw", "o"), ("r", "l"), ("Ġwo", "rl"), ("Ġworl", "d"), ("'", "s"),
+               ("Ġ", "t"), ("Ġt", "w"), ("e", "e"), ("Ġtw", "ee"), ("Ġtwee", "t"),
+               ("Ġ", "<"), ("s", ">"), ("Ġ<", "s>"), ("Ġ", "h"), ("Ġh", "e"),
+               ("Ġhe", "ll"), ("Ġhell", "o"), ("4", "2"), ("Ġ", "42")]
+_WP_IDS = [[2, 1, 5, 3], [2, 20, 13, 3], [2, 22, 21, 23, 3], [2, 4, 1, 1, 3], [2, 1, 3], [2, 3],
+           [2, 4, 5, 27, 28, 1, 28, 1, 7, 8, 9, 3], [2, 25, 1, 29, 30, 31, 3],
+           [2, 2, 4, 24, 5, 14, 14, 3], [2, 4, 5, 1, 32, 3]]
+HOST_IDS = {  # the rows before their padding (0 for BERT, 1 for the byte-level BPE)
+    "vocab.txt": _WP_IDS,
+    "tokenizer.json": _WP_IDS,
+    "vocab.json + merges.txt": [
+        [0, 264, 176, 257, 250, 226, 268, 2], [0, 70, 68, 73, 131, 106, 224, 81, 72, 90, 86, 2],
+        [0, 68, 66, 69, 2], [0, 264, 224, 164, 120, 248, 167, 247, 238, 2],
+        [0, 70, 261, 70, 78, 130, 259, 82, 88, 87, 2], [0, 2],
+        [0, 43, 72, 262, 82, 268, 269, 275, 86, 33, 274, 2],
+        [0, 132, 112, 86, 87, 68, 81, 69, 88, 79, 224, 2],
+        [0, 62, 38, 47, 54, 64, 224, 264, 224, 62, 48, 2],
+        [0, 224, 224, 264, 201, 90, 82, 266, 71, 224, 224, 2]],
+}
+
+
+def write_tiny_layouts(root):
+    """A BERT ``vocab.txt``, a BERT ``tokenizer.json`` (BertNormalizer,
+    BertPreTokenizer, WordPiece, ``[CLS] $A [SEP]``, the specials added
+    tokens) over ``WP_VOCAB``, and a byte-level ``vocab.json`` +
+    ``merges.txt`` (``<s> <pad> </s> <unk>``, the 256 byte symbols,
+    ``TINY_MERGES``), each in its own directory under ``root``."""
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.data.hf_layouts import (
+        bytes_to_unicode)
+
+    dirs = {name: os.path.join(root, name.replace(" ", "").replace("+", "_"))
+            for name in HOST_IDS}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    with open(os.path.join(dirs["vocab.txt"], "vocab.txt"), "w") as f:
+        f.write("\n".join(WP_VOCAB) + "\n")
+    vocab = {t: i for i, t in enumerate(WP_VOCAB)}
+    specials = [t for t in WP_VOCAB if t.startswith("[")]
+    spec = {"version": "1.0", "truncation": None, "padding": None,
+            "added_tokens": [{"id": vocab[t], "content": t, "single_word": False,
+                              "lstrip": False, "rstrip": False, "normalized": False,
+                              "special": True} for t in specials],
+            "normalizer": {"type": "BertNormalizer", "clean_text": True,
+                           "handle_chinese_chars": True, "strip_accents": None,
+                           "lowercase": True},
+            "pre_tokenizer": {"type": "BertPreTokenizer"},
+            "post_processor": {"type": "TemplateProcessing",
+                               "single": [{"SpecialToken": {"id": "[CLS]", "type_id": 0}},
+                                          {"Sequence": {"id": "A", "type_id": 0}},
+                                          {"SpecialToken": {"id": "[SEP]", "type_id": 0}}],
+                               "pair": [],
+                               "special_tokens": {t: {"id": t, "ids": [vocab[t]], "tokens": [t]}
+                                                  for t in ("[CLS]", "[SEP]")}},
+            "decoder": None,
+            "model": {"type": "WordPiece", "unk_token": "[UNK]",
+                      "continuing_subword_prefix": "##", "max_input_chars_per_word": 100,
+                      "vocab": vocab}}
+    with open(os.path.join(dirs["tokenizer.json"], "tokenizer.json"), "w") as f:
+        json.dump(spec, f)
+    bpe = {t: i for i, t in enumerate(["<s>", "<pad>", "</s>", "<unk>"])}
+    for c in bytes_to_unicode().values():
+        bpe[c] = len(bpe)
+    for a, b in TINY_MERGES:
+        bpe.setdefault(a + b, len(bpe))
+    d = dirs["vocab.json + merges.txt"]
+    with open(os.path.join(d, "vocab.json"), "w") as f:
+        json.dump(bpe, f)
+    with open(os.path.join(d, "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in TINY_MERGES))
+    return dirs
+
+
+def host_layout_checks(root):
+    """No device work: the port's ``build_tokenizer`` on ``write_tiny_layouts``
+    gives the Rust path's ``HOST_IDS`` for ``HOST_TEXTS``."""
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.data.tokenizers import (
+        build_tokenizer)
+
+    backends = {}
+    for name, d in write_tiny_layouts(root).items():
+        model, pad = ("roberta", 1) if name.startswith("vocab.json") else ("bert", 0)
+        tok = build_tokenizer(model, d, 12, ROBERTA_CONFIG["vocab_size"], normalize=False)
+        got = tok(HOST_TEXTS)["ids"].tolist()
+        want = [row + [pad] * (12 - len(row)) for row in HOST_IDS[name]]
+        if got != want:
+            raise AssertionError(f"host check[{name}]: {type(tok.backend).__name__} gives "
+                                 f"{got}, the Rust path {want}")
+        backends[name] = type(tok.backend).__name__
+    log(f"roberta: host checks: {len(HOST_TEXTS)} texts through {backends} give the ids of the "
+        "JAX package's Rust path (tokenizers 0.22.2)")
+    return backends
+
+
+def native_encoder_checks(root, texts):
+    """The port's C++ tokenizer library built on this machine, and its hash,
+    SentencePiece-BPE and fastBPE ids and masks equal to the Python paths'
+    on ``texts``."""
+    import numpy as np
+
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.data import bpe_backends as B
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.data import native
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.data.tokenizers import (
+        HashTokenizer)
+
+    if not native.tokenizer_available():
+        raise AssertionError(f"native: the tokenizer library did not build: "
+                             f"{native.TOKENIZER.error}")
+    os.makedirs(root, exist_ok=True)
+    pieces = [("<unk>", 0.0, 2), ("<s>", 0.0, 3), ("</s>", 0.0, 3)]
+    pieces += [(c, -10.0, 1) for c in sorted(set("".join(POST_WORDS))) + ["▁"]]
+    pieces += [(p, float(len(p)), 1) for p in sorted(
+        {"▁" + w[:n] for w in POST_WORDS for n in range(1, len(w) + 1)})]
+    spm = os.path.join(root, "sentencepiece.bpe.model")
+    with open(spm, "wb") as f:
+        f.write(spm_model_bytes(pieces))
+    codes, vocab = os.path.join(root, "bpe.codes"), os.path.join(root, "vocab.txt")
+    with open(codes, "w") as f:
+        f.write("r a 90\nra in</w> 80\nc o 70\nco ff 60\nf f 50\ncoff ee</w> 40\n")
+    with open(vocab, "w") as f:
+        f.write("rain 9\ncoffee 8\ncoff 7\nra 6\nco 5\nff 4\nin 3\nee 2\n")
+    encoders = {"hash": (HashTokenizer(ROBERTA_CONFIG["vocab_size"], 64, False), None),
+                "spbpe": (B.SentencePieceBPE(spm, 64),
+                          B.SentencePieceBPE(spm, 64, use_native=False)),
+                "fastbpe": (B.FastBPE(vocab, codes, 64), B.FastBPE(vocab, codes, 64,
+                                                                   use_native=False))}
+    real_hash = native.hash_encode_batch
+    for name, (built, python) in encoders.items():
+        if name != "hash" and built._native is None:
+            raise AssertionError(f"native: {name} took the Python path")
+        got = built.encode_batch(texts)
+        native.hash_encode_batch = lambda *a: None  # the hashing tokenizer's Python path
+        try:
+            want = (python or built).encode_batch(texts)
+        finally:
+            native.hash_encode_batch = real_hash
+        for a, b, what in ((got[0], want[0], "ids"), (got[1], want[1], "mask")):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"native: {name} {what} differ from the Python path's")
+    out = dict(library=native.TOKENIZER.path(), build_seconds=native.TOKENIZER.build_seconds,
+               texts=len(texts))
+    log(f"native: the tokenizer library built in "
+        + (f"{out['build_seconds']:.2f} s" if out["build_seconds"] is not None else
+           "an earlier process")
+        + f" ({os.path.basename(out['library'])}); hash, SP-BPE and fastBPE ids and masks equal "
+        f"the Python paths' on {len(texts)} texts")
+    return out
+
+
+def roberta_vocabulary(texts, d, seed=16):
+    """``vocab.json`` + ``merges.txt`` of a byte-level BPE at roberta-base's
+    size in ``d``: ``<s> <pad> </s> <unk>`` as 0-3, the 256 byte symbols, then
+    ``ROBERTA_MERGES`` merges: those a BPE trainer learns from ``texts`` (the
+    most frequent adjacent pair, while one occurs twice), then pairs of
+    entries drawn from ``seed``. Returns the vocabulary's size."""
+    from collections import Counter
+
+    import numpy as np
+
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.data.hf_layouts import (
+        ByteLevel, bytes_to_unicode)
+
+    vocab = {t: i for i, t in enumerate(["<s>", "<pad>", "</s>", "<unk>"])}
+    for c in bytes_to_unicode().values():
+        vocab[c] = len(vocab)
+    pre = ByteLevel()
+    words = Counter(w for text in texts for w in pre(text))
+    seqs = {w: list(w) for w in words}
+    merges = []
+    while len(merges) < ROBERTA_MERGES:
+        pairs = Counter()
+        for w, n in words.items():
+            for pair in zip(seqs[w], seqs[w][1:]):
+                pairs[pair] += n
+        if not pairs:
+            break
+        (a, b), n = max(pairs.items(), key=lambda kv: (kv[1], kv[0]))
+        if n < 2:
+            break
+        merges.append((a, b))
+        vocab.setdefault(a + b, len(vocab))
+        for w, seq in seqs.items():
+            i, out = 0, []
+            while i < len(seq):
+                if i + 1 < len(seq) and (seq[i], seq[i + 1]) == (a, b):
+                    out.append(a + b)
+                    i += 2
+                else:
+                    out.append(seq[i])
+                    i += 1
+            seqs[w] = out
+    learned = len(merges)
+    rng = np.random.RandomState(seed)
+    short = [t for t in list(vocab)[4:] if len(t) <= 6]  # the parts drawn: up to 12 characters
+    while len(merges) < ROBERTA_MERGES:
+        a, b = short[rng.randint(len(short))], short[rng.randint(len(short))]
+        if a + b in vocab:
+            continue
+        merges.append((a, b))
+        vocab[a + b] = len(vocab)
+        if len(a + b) <= 6:
+            short.append(a + b)
+    with open(os.path.join(d, "vocab.json"), "w") as f:
+        json.dump(vocab, f)
+    with open(os.path.join(d, "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+    log(f"roberta: vocabulary of {len(vocab)} entries, {len(merges)} merges ({learned} learned "
+        "from the posts)")
+    return len(vocab)
+
+
+def roberta_args(attn_impl, extra=()):
+    """``run_txt --model_name roberta`` at full width on the phase's posts."""
+    return ["--model_name", "roberta", "--task", "3", "--epochs", "1", "--seed", "30",
+            "--arch", "base", "--dtype", "bfloat16", "--save_model", "--log_every", "1",
+            "--attn_impl", attn_impl, *extra]
+
+
+def roberta_grads_check(torch, tag):
+    """RoBERTa's pooled head reads the pooler: every parameter has a finite
+    gradient."""
+
+    def check(setup, grads):
+        missing = sorted(n for n, gr in grads.items() if gr is None)
+        bad = [n for n, gr in grads.items() if gr is not None and not torch.isfinite(gr).all()]
+        if missing or bad:
+            raise AssertionError(f"{tag}: no gradient for {missing}, non-finite for {bad[:5]}")
+        log(f"{tag}: {len(grads)} tensors with finite gradients")
+
+    return check
+
+
+def roberta_phase(torch, C, run_txt, build, counters, none, launches, tmp):
+    """RoBERTa-base from its checkpoint directory, and the tokenizer layouts.
+
+    First the host checks (``host_layout_checks``) and the native encoders
+    (``native_encoder_checks``) on the phase's posts: tweet-like texts of
+    ``ROBERTA_WORDS``. Then a directory as roberta-base ships it, written from
+    a seed: ``model.safetensors`` at the published widths (12 layers, hidden
+    768, 12 heads, vocabulary 50,265, 514 positions; ``roberta.``-scoped
+    names), its ``config.json``, and ``vocab.json`` + ``merges.txt``
+    (``roberta_vocabulary``). ``run_txt --model_name roberta`` from it on the
+    card, bf16, batch 16, ``--attn_impl auto``, one epoch of the posts
+    (``train_run``: exact launch counts, every gradient finite): the backend
+    is the byte-level BPE with pad id 1, every id under 50,265, padding
+    present, the imported tensors on the device equal the file's. The
+    tokenizer's load and its encoding of the posts are timed. Last the first
+    step against the plain path in float64 (``first_step_check``, ``auto``;
+    the same files with dropout 0)."""
+    import csv
+
+    import numpy as np
+
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.data.tokenizers import (
+        build_tokenizer)
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.models import hf_import as H
+
+    t0 = time.monotonic()
+    vocab_size = ROBERTA_CONFIG["vocab_size"]
+    result = {"host": host_layout_checks(os.path.join(tmp, "layouts"))}
+    saved = (C.DATA_PATH, C.PATH[3], dict(C.MODEL_DIR_DICT))
+    data = make_dataset(tmp, "roberta_data", posts=ROBERTA_POSTS, words_of=tweet_words, seed=16,
+                        words=ROBERTA_WORDS)
+    C.DATA_PATH, C.PATH[3] = data, data + "data_key_mvsa.csv"
+    try:
+        with open(C.PATH[3], newline="") as f:
+            texts = [row["text"] for row in csv.DictReader(f)]
+        result["native"] = native_encoder_checks(os.path.join(tmp, "native"), texts + HOST_TEXTS)
+
+        d = os.path.join(tmp, "roberta")
+        os.makedirs(d)
+        t1 = time.monotonic()
+        g = torch.Generator(device="cuda").manual_seed(16)
+        state = hf_tower_state(torch, g, "text", ROBERTA_CONFIG)
+        del state["embeddings.position_ids"]
+        write_safetensors(os.path.join(d, "model.safetensors"),
+                          {f"roberta.{k}": v for k, v in state.items()})
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(ROBERTA_CONFIG, f)
+        entries = roberta_vocabulary(texts, d)
+        result["write_s"] = time.monotonic() - t1
+        mib = os.path.getsize(os.path.join(d, "model.safetensors")) / 2 ** 20
+        log(f"roberta: checkpoint ({mib:.0f} MiB), config and vocabulary written in "
+            f"{result['write_s']:.1f} s")
+
+        t1 = time.monotonic()
+        tok = build_tokenizer("roberta", d, 128, vocab_size)
+        result["tokenizer_load_s"] = time.monotonic() - t1
+        t1 = time.monotonic()
+        enc = tok(texts)
+        result["tokenize_s"] = time.monotonic() - t1
+        ids = enc["ids"]
+        if (type(tok.backend).__name__ != "ByteLevelBPE" or tok.pad_token_id != 1
+                or int(ids.max()) >= vocab_size or not (ids == 1).any()):
+            raise AssertionError(f"roberta: backend {type(tok.backend).__name__}, pad id "
+                                 f"{tok.pad_token_id}, ids up to {int(ids.max())}")
+        log(f"roberta: tokenizer {type(tok.backend).__name__} loaded in "
+            f"{result['tokenizer_load_s']:.2f} s; {len(texts)} posts in "
+            f"{result['tokenize_s']:.3f} s, {int(enc['mask'].sum())} tokens, ids up to "
+            f"{int(ids.max())}, pad id {tok.pad_token_id}")
+
+        C.MODEL_DIR_DICT["roberta"] = d + os.sep
+        last = ROBERTA_CONFIG["num_hidden_layers"] - 1
+        expect = {"tower." + k: v for k, v in H.torch_state_from_jax(H.import_bert_tower(
+            {k: v.numpy() for k, v in state.items()}, last + 1)).items()}
+        by_hand = {"tower.embeddings.word.weight": state["embeddings.word_embeddings.weight"],
+                   "tower.embeddings.position.weight":
+                       state["embeddings.position_embeddings.weight"],
+                   f"tower.encoder.layers.{last}.attention.value.weight":
+                       state[f"encoder.layer.{last}.attention.self.value.weight"]}
+        del state
+        real_build, checked = run_txt.build_text_setup, {}
+
+        def build_and_check(*a, **k):
+            setup = real_build(*a, **k)
+            own = setup.model.state_dict()
+            for key, want in list(expect.items()) + list(by_hand.items()):
+                got = own[key]
+                if got.device.type != DEVICE or not torch.equal(
+                        got, torch.as_tensor(np.asarray(want)).to(got)):
+                    raise AssertionError(f"roberta: {key} is not the file's tensor")
+            backend = setup.tokenizer.backend
+            top = max(int(pipe.ids.max()) for pipe in setup.pipes.values())
+            if (type(backend).__name__ != "ByteLevelBPE" or setup.tokenizer.pad_token_id != 1
+                    or top >= vocab_size):
+                raise AssertionError(f"roberta: the run's backend {type(backend).__name__}, pad "
+                                     f"id {setup.tokenizer.pad_token_id}, ids up to {top}")
+            checked.update(tensors=len(expect), by_hand=len(by_hand), top_id=top)
+            return setup
+
+        expect_step = {"train": {**none, "sdpa_fwd": 12, "sdpa_bwd": 12},
+                       "eval": {**none, "sdpa_fwd": 12}}
+        run_txt.build_text_setup = build_and_check
+        try:
+            result["run"], by_key, _ = train_run(
+                torch, run_txt.main, roberta_args("auto"), "roberta[auto]", counters,
+                C.results_dir_txt, "roberta_task3_seed30_", expect_step,
+                roberta_grads_check(torch, "roberta[auto]"))
+        finally:
+            run_txt.build_text_setup = real_build
+        if not checked:
+            raise AssertionError("roberta: the run did not build its setup through the check")
+        count_launches(launches, by_key)
+        log(f"roberta: {checked['tensors']} imported tensors on the device equal the file's "
+            f"({checked['by_hand']} also by name by hand); the run's ids up to {checked['top_id']}")
+        del expect, by_hand
+        result["imported"] = checked
+
+        # the first step against the plain path: the same files, dropout 0
+        fs = os.path.join(tmp, "roberta_first_step")
+        os.makedirs(fs)
+        for name in ("model.safetensors", "vocab.json", "merges.txt"):
+            os.symlink(os.path.join(d, name), os.path.join(fs, name))
+        with open(os.path.join(fs, "config.json"), "w") as f:
+            json.dump(dict(ROBERTA_CONFIG, hidden_dropout_prob=0.0), f)
+        C.MODEL_DIR_DICT["roberta"] = fs + os.sep
+
+        def make_setup(impl, dtype):
+            args = run_txt.parse_args(roberta_args(impl, ["--dropout", "0"]))
+            args.dtype = dtype  # float64 too, which the command line does not offer
+            cfg = C.Config(args)
+            cfg.use_loss_correction = args.use_loss_correction
+            return build.build_text_setup(args, cfg, torch.device(DEVICE),
+                                          torch.Generator().manual_seed(30))
+
+        def keep(n):
+            return n.startswith("tower.encoder.") and ".attention." in n and n.endswith("weight")
+
+        result["first_step"] = first_step_check(torch, "roberta", make_setup, keep,
+                                                impls=("auto",))
+    finally:
+        C.DATA_PATH, C.PATH[3] = saved[0], saved[1]
+        C.MODEL_DIR_DICT.clear()
+        C.MODEL_DIR_DICT.update(saved[2])
+    result["seconds"] = time.monotonic() - t0
+    torch.cuda.empty_cache()
+    return result
+
+
+def roberta_only():
+    """``python3 chip_smoke.py --roberta``: the kernels built, then the
+    RoBERTa phase alone, every (kernel, shape) it launched held against its
+    plain version, without the last line: a quick run of this phase while it
+    changes."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.cli import _build as build
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.cli import run_txt
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.cli._common import (
+        set_precision_policy)
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.core import config as C
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.ops import _cuda
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.ops import attention as A
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.ops import attn_block as AB
+
+    set_precision_policy()
+    init_memo = memoize_init(torch)
+    log(card_line())
+    log(f"build: per source {_cuda.build()}")
+    counters, none, _, _ = training_counts(A, AB)
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        C.results_dir_txt = os.path.join(tmp, "results", "txt") + os.sep
+        out = roberta_phase(torch, C, run_txt, build, counters, none, launches, tmp)
+    log(json.dumps({"roberta": out}, default=str))
+    rows = rows_for_every_launch(torch, AB, [], launches)
+    log(json.dumps({"kernels": [{k: v for k, v in r.items() if k != "key"} for r in rows]}))
+    log(f"init memo: {init_memo['hits']} builds copied, {init_memo['misses']} drawn, "
+        f"{init_memo['bytes'] / 2 ** 30:.2f} GiB held")
+    return 0
 
 
 def img_args(model, attn_impl="auto", extra=()):
@@ -4650,22 +5188,42 @@ def cacher_run(torch, obj_features, argv, n_posts):
 
 
 def stage_ms(torch, det, photos, ingest):
-    """The device ms of each detector stage (its ``record_function`` span)
-    and of all kernels in one profiled batch of the photos, the cacher's
-    calls (after a cacher run: warm); a whole command's trace takes the
-    profiler tens of seconds to read."""
+    """The device ms of each detector stage and of all kernels in one batch
+    of the photos, the cacher's calls (after a cacher run: warm). A stage's
+    ms: the span between CUDA events recorded where each of its
+    ``record_function`` ranges opens and closes, summed over its ranges;
+    the kernels' busy ms: the profiler, tracing only the card (the host's op
+    events of a batch took it about ten seconds to read)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    real, marks = torch.profiler.record_function, []
+
+    @contextlib.contextmanager
+    def record_function(name):
+        opened, closed = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        opened.record()
+        try:
+            with real(name):
+                yield
+        finally:
+            closed.record()
+            marks.append((name, opened, closed))
+
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        det.detect_batch(photos, ingest=ingest)
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    spans = {e.key[6:]: e.self_device_time_total / 1e3 for e in events
-             if e.device_type == DeviceType.CUDA and e.key.startswith("frcnn.")}
-    busy = sum(e.self_device_time_total for e in events if e.device_type == DeviceType.CUDA
-               and not e.key.startswith("frcnn.")) / 1e3
+    torch.profiler.record_function = record_function
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            det.detect_batch(photos, ingest=ingest)
+            torch.cuda.synchronize()
+    finally:
+        torch.profiler.record_function = real
+    spans = {}
+    for name, opened, closed in marks:
+        if name.startswith("frcnn."):
+            spans[name[6:]] = spans.get(name[6:], 0.0) + opened.elapsed_time(closed)
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
     return spans, busy
 
 
@@ -4910,6 +5468,7 @@ def detector_only():
     from socialmedia_textimage_classification_auxlosses_tpu_torch.ops import attn_block as AB
 
     set_precision_policy()
+    init_memo = memoize_init(torch)
     log(card_line())
     log(f"build: per source {_cuda.build()}")
     launches = {}
@@ -4920,6 +5479,8 @@ def detector_only():
     log(json.dumps({"detector": out}, default=str))
     rows = rows_for_every_launch(torch, AB, [], launches)
     log(json.dumps({"kernels": [{k: v for k, v in r.items() if k != "key"} for r in rows]}))
+    log(f"init memo: {init_memo['hits']} builds copied, {init_memo['misses']} drawn, "
+        f"{init_memo['bytes'] / 2 ** 30:.2f} GiB held")
     return 0
 
 
@@ -5798,6 +6359,7 @@ def bucket_only():
     from socialmedia_textimage_classification_auxlosses_tpu_torch.ops import attn_block as AB
 
     set_precision_policy()
+    init_memo = memoize_init(torch)
     log(card_line())
     log(f"build: per source {_cuda.build()}")
     counters, _, per_step, txt_step = training_counts(A, AB)
@@ -5815,6 +6377,8 @@ def bucket_only():
     log(json.dumps({"training": out}))
     rows = rows_for_every_launch(torch, AB, [], launches)
     log(json.dumps({"kernels": [{k: v for k, v in r.items() if k != "key"} for r in rows]}))
+    log(f"init memo: {init_memo['hits']} builds copied, {init_memo['misses']} drawn, "
+        f"{init_memo['bytes'] / 2 ** 30:.2f} GiB held")
     return 0
 
 
@@ -5836,6 +6400,7 @@ def serve_extras_only():
     from socialmedia_textimage_classification_auxlosses_tpu_torch.ops import attn_block as AB
 
     set_precision_policy()
+    init_memo = memoize_init(torch)
     log(card_line())
     log(f"build: per source {_cuda.build()}")
     reqs = make_requests()
@@ -5848,6 +6413,8 @@ def serve_extras_only():
     log(json.dumps({"serve_extras": extras}, default=str))
     rows = rows_for_every_launch(torch, AB, [], launches)
     log(json.dumps({"kernels": [{k: v for k, v in r.items() if k != "key"} for r in rows]}))
+    log(f"init memo: {init_memo['hits']} builds copied, {init_memo['misses']} drawn, "
+        f"{init_memo['bytes'] / 2 ** 30:.2f} GiB held")
     return 0
 
 
@@ -5880,6 +6447,7 @@ def main():
     # the port's float32 policy (TF32 off) for the kernel comparisons; every
     # runner sets it again when it resolves its device (train_run checks)
     set_precision_policy()
+    init_memo = memoize_init(torch)
     card = card_line()
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
@@ -5887,14 +6455,19 @@ def main():
     t0 = time.monotonic()
     secs = _cuda.build()
     log(f"build: {time.monotonic() - t0:.1f} s wall; per source {secs}")
+    lap("kernels: imports and build")
     for name in _cuda.SOURCES:
         log_ptxas(name, _cuda.build_log(name))
     log_occupancy(A, AB)
     log_sass(_cuda)
+    lap("kernels: ptxas, occupancy and SASS")
     gemm_rows, tn_rows = time_gemm(torch, AB)
     enqueue = time_enqueue(torch, AB)
-
-    rows = check_kernels(torch) + check_bwd_kernels(torch) + tn_rows
+    lap("kernels: GEMM and enqueue timings")
+    rows = check_kernels(torch)
+    lap("kernels: forward checks")
+    rows += check_bwd_kernels(torch) + tn_rows
+    lap("kernels: backward checks")
     perhead_rows, perhead_launches, perhead_vs_packed = check_perhead_kernels(torch)
     rows += perhead_rows
 
@@ -6049,7 +6622,12 @@ def main():
         lap("grid")
         # the late-fusion towers from checkpoints, and --import_reference_ckpt
         training["pretrained"] = pretrained_start(torch, C, run_mm_late, counters)
-    lap("pretrained")
+        lap("pretrained")
+        # RoBERTa-base from its vocab.json + merges.txt and model.safetensors, the
+        # tokenizer layouts on the host, the native encoders
+        training["roberta"] = roberta_phase(torch, C, run_txt, build, counters, none, launches,
+                                            tmp)
+    lap("roberta")
     from socialmedia_textimage_classification_auxlosses_tpu_torch.models import encoder, vilt
     from socialmedia_textimage_classification_auxlosses_tpu_torch.train import optim
 
@@ -6102,6 +6680,8 @@ def main():
                             max_abs_err=row["max_abs_err"], ms=row["ms"],
                             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                             bound_by=row["bound_by"], library_ms=row["library_ms"]))
+    log(f"init memo: {init_memo['hits']} builds copied, {init_memo['misses']} drawn, "
+        f"{init_memo['bytes'] / 2 ** 30:.2f} GiB held")
     precision_check(torch, "the end of the run")
     log(f"chip_smoke: every phase passed in {time.monotonic() - started:.1f} s")
     log(json.dumps({"kernels": kernels}))
@@ -6126,6 +6706,8 @@ if __name__ == "__main__":
             sys.exit(detector_only())
         if sys.argv[1:] == ["--serve_extras"]:
             sys.exit(serve_extras_only())
+        if sys.argv[1:] == ["--roberta"]:
+            sys.exit(roberta_only())
         sys.exit(main())
     except Exception:
         traceback.print_exc()

@@ -1,9 +1,10 @@
 """BPE tokenizer backends for the text models whose directories ship no
 ``tokenizer.json``.
 
-Counterpart of the JAX package's ``data/bpe_backends.py`` (its Python paths;
-the native C++ encoder of the JAX package is not ported, and its ids equal
-these):
+Counterpart of the JAX package's ``data/bpe_backends.py``. With
+``use_native`` (the default) each encodes in the port's C++ library
+(``csrc/tokenizer.cpp``, ``data/native.py``) when it builds, with the ids of
+the Python path, which runs otherwise:
 
 * ``SentencePieceBPE``: Bernice / XLM-R layout, a ``sentencepiece.bpe.model``
   protobuf. ``read_spm_pieces`` decodes the ModelProto's wire format itself
@@ -30,6 +31,8 @@ import unicodedata
 from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
+
+from . import native
 
 SPM_NORMAL = 1
 SPM_UNKNOWN = 2
@@ -88,6 +91,10 @@ def read_spm_pieces(model_path: str) -> List[Tuple[str, float, int]]:
     return pieces
 
 
+def _token_types(n: int, max_length: int, use_token_types: bool):
+    return np.zeros((n, max_length), np.int32) if use_token_types else None
+
+
 def _pad_rows(rows: List[List[int]], max_length: int, pad_id: int, use_token_types: bool):
     n = len(rows)
     ids = np.full((n, max_length), pad_id, np.int32)
@@ -95,17 +102,18 @@ def _pad_rows(rows: List[List[int]], max_length: int, pad_id: int, use_token_typ
     for i, row in enumerate(rows):
         ids[i, :len(row)] = row
         mask[i, :len(row)] = 1
-    tt = np.zeros((n, max_length), np.int32) if use_token_types else None
-    return ids, mask, tt
+    return ids, mask, _token_types(n, max_length, use_token_types)
 
 
 class SentencePieceBPE:
     """SentencePiece-BPE encoder over a parsed ModelProto (XLM-R family)."""
 
-    def __init__(self, model_path: str, max_length: int, use_token_types: bool = False):
+    def __init__(self, model_path: str, max_length: int, use_token_types: bool = False,
+                 use_native: bool = True):
+        pieces = read_spm_pieces(model_path)
         self.scores = {}
         self.sp_ids = {}
-        for i, (piece, score, typ) in enumerate(read_spm_pieces(model_path)):
+        for i, (piece, score, typ) in enumerate(pieces):
             self.sp_ids[piece] = i
             if typ == SPM_NORMAL:
                 self.scores[piece] = score
@@ -114,6 +122,10 @@ class SentencePieceBPE:
         # fairseq alignment (XLMRobertaTokenizer): sp ids shift by +1, specials pinned
         self.bos_id, self.pad_token_id, self.eos_id, self.unk_id = 0, 1, 2, 3
         self.offset = 1
+        lib = native.TOKENIZER.get() if use_native else None
+        self._native = None if lib is None else native.NativeSpBpe(
+            lib, [p for p, _, _ in pieces], np.float32([s for _, s, _ in pieces]),
+            np.uint8([t == SPM_NORMAL for _, _, t in pieces]))
 
     def _normalize(self, text: str) -> str:
         # The JAX package's approximation of the nmt_nfkc normalizer: NFKC,
@@ -142,11 +154,14 @@ class SentencePieceBPE:
             symbols[best_i:best_i + 2] = [symbols[best_i] + symbols[best_i + 1]]
         return symbols
 
-    def tokenize(self, text: str) -> List[str]:
+    def _marked(self, text: str) -> str:
+        """Normalized, with the dummy prefix and the word markers."""
         text = self._normalize(text)
-        if not text:
-            return []
-        return self._bpe("▁" + text.replace(" ", "▁"))  # dummy prefix + marker
+        return "▁" + text.replace(" ", "▁") if text else ""
+
+    def tokenize(self, text: str) -> List[str]:
+        marked = self._marked(text)
+        return self._bpe(marked) if marked else []
 
     def _token_id(self, token: str) -> int:
         sp = self.sp_ids.get(token)
@@ -156,6 +171,9 @@ class SentencePieceBPE:
 
     def encode_batch(self, texts: List[str]):
         L = self.max_length
+        if self._native is not None:
+            ids, mask = self._native.encode_batch([self._marked(str(t)) for t in texts], L)
+            return ids, mask, _token_types(len(texts), L, self.use_token_types)
         rows = [[self.bos_id] + [self._token_id(t) for t in self.tokenize(str(text))][:L - 2]
                 + [self.eos_id] for text in texts]
         return _pad_rows(rows, L, self.pad_token_id, self.use_token_types)
@@ -165,7 +183,7 @@ class FastBPE:
     """fastBPE encoder over BERTweet's vocab.txt + bpe.codes."""
 
     def __init__(self, vocab_path: str, merges_path: str, max_length: int,
-                 use_token_types: bool = False):
+                 use_token_types: bool = False, use_native: bool = True):
         self.encoder = {"<s>": 0, "<pad>": 1, "</s>": 2, "<unk>": 3}
         with open(vocab_path, encoding="utf-8") as f:
             for line in f:
@@ -185,6 +203,8 @@ class FastBPE:
         self.max_length = max_length
         self.use_token_types = use_token_types
         self.bos_id, self.pad_token_id, self.eos_id, self.unk_id = 0, 1, 2, 3
+        lib = native.TOKENIZER.get() if use_native else None
+        self._native = None if lib is None else native.NativeFastBpe(lib, vocab_path, merges_path)
 
     def _bpe(self, token: str) -> str:
         if token in self.cache:
@@ -231,6 +251,9 @@ class FastBPE:
 
     def encode_batch(self, texts: List[str]):
         L = self.max_length
+        if self._native is not None:
+            ids, mask = self._native.encode_batch([str(t) for t in texts], L)
+            return ids, mask, _token_types(len(texts), L, self.use_token_types)
         rows = [[self.bos_id] + [self.encoder.get(t, self.unk_id)
                                  for t in self.tokenize(text)][:L - 2] + [self.eos_id]
                 for text in texts]

@@ -1,21 +1,22 @@
-"""The FNV-1a hash of the hashing tokenizer, and the native image decoder.
+"""The port's native host code: the tokenizer encoders and the image decoder.
 
-Counterpart of ``fnv1a`` and of the image-decoder bindings in the JAX
-package's ``data/native.py``. The tokenizer takes the pure-Python path and
-loads no native library.
+Counterpart of the JAX package's ``data/native.py``. Each library is the
+port's own copy of a C++ source under ``csrc/``, compiled at first use with
+the host's C++ compiler into ``build/<name>/`` at the repository root
+(``SMTC_TORCH_KERNEL_DIR``'s sibling ``<name>`` when that is set) and bound
+with ``ctypes``. The file name carries a digest of the source and the flags.
+When a build fails, ``get()`` is None, ``error`` holds the compiler's message,
+and every caller keeps its Python path, as in the JAX package:
 
-The image decoder is the port's own copy of the C++ source,
-``csrc/imgdec.cpp``: JPEG (libjpeg, DCT-scaled on downscale, so a large
-photo never decodes at full size) and PNG (libpng), then PIL's triangle
-resize, in one call. It is compiled at first use with the host's C++
-compiler (``-O3 -march=native ... -ljpeg -lpng``) into ``build/imgdec/`` at
-the repository root (``SMTC_TORCH_KERNEL_DIR``'s sibling ``imgdec`` when that
-is set). The file name carries a digest of the source and the flags, and the
-host CPU's tag: a library built with ``-march=native`` on another CPU is a
-cache miss, never a load. When the build fails (no compiler, no libjpeg or
-libpng headers) the decoder is unavailable, ``build_error()`` holds the
-compiler's message, and every caller keeps the PIL path, as in the JAX
-package.
+* ``csrc/tokenizer.cpp`` (``-O3 -shared -fPIC -std=c++17``): the FNV-1a hashing
+  tokenizer, SentencePiece-BPE's merge loop and fastBPE, with the ids of the
+  Python encoders (``data/tokenizers.py::HashTokenizer``,
+  ``data/bpe_backends.py``);
+* ``csrc/imgdec.cpp`` (``-O3 -march=native ... -ljpeg -lpng``): JPEG (libjpeg,
+  DCT-scaled on downscale, so a large photo never decodes at full size) and
+  PNG (libpng), then PIL's triangle resize, in one call. Built with
+  ``-march=native``, its file name also carries the host CPU's tag: a library
+  built on another CPU is a cache miss, never a load.
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ import os
 import platform
 import subprocess
 import threading
-from typing import Optional
+import time
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -35,13 +37,11 @@ from ..utils.logging import get_logger
 logger = get_logger(__name__)
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TOKENIZER_SOURCE = os.path.join(_PKG, "csrc", "tokenizer.cpp")
+TOKENIZER_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 IMGDEC_SOURCE = os.path.join(_PKG, "csrc", "imgdec.cpp")
 IMGDEC_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
 IMGDEC_LIBS = ("-ljpeg", "-lpng")
-
-_imgdec_lock = threading.Lock()
-_imgdec_lib = None
-_imgdec_error: Optional[str] = None
 
 
 def fnv1a(token: str) -> int:
@@ -67,62 +67,210 @@ def host_cpu_tag() -> str:
     return f"{platform.machine()}-{hashlib.sha1(feats.encode()).hexdigest()[:8]}"
 
 
+class NativeLibrary:
+    """A C++ source built with ``g++`` at the first ``get()`` and loaded with
+    ``ctypes``; ``bind`` declares the functions' types. The outcome is logged
+    once; ``error`` holds the compiler's (or the loader's) message when it
+    failed, ``build_seconds`` the compile time when this process built it."""
+
+    def __init__(self, name: str, source: str, flags: Sequence[str], libs: Sequence[str] = (),
+                 cpu_tag: bool = False, bind: Optional[Callable[[ctypes.CDLL], None]] = None):
+        self.name, self.source, self.flags, self.libs = name, source, tuple(flags), tuple(libs)
+        self.cpu_tag, self.bind = cpu_tag, bind
+        self.error: Optional[str] = None
+        self.build_seconds: Optional[float] = None
+        self._lib: Optional[ctypes.CDLL] = None
+        self._lock = threading.Lock()
+
+    def path(self) -> str:
+        """Where the library is (or will be) built."""
+        kernels = os.environ.get("SMTC_TORCH_KERNEL_DIR")
+        root = (os.path.join(os.path.dirname(kernels.rstrip(os.sep)), self.name) if kernels
+                else os.path.join(os.path.dirname(_PKG), "build", self.name))
+        h = hashlib.sha256(" ".join(self.flags + self.libs).encode())
+        with open(self.source, "rb") as f:
+            h.update(f.read())
+        tag = f".{host_cpu_tag()}" if self.cpu_tag else ""
+        return os.path.join(root, f"libsmtc_{self.name}-{h.hexdigest()[:16]}{tag}.so")
+
+    def _build(self, out: str) -> Optional[str]:
+        """Compile into ``out``; returns the error text, or None."""
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = ["g++", *self.flags, self.source, "-o", tmp, *self.libs]
+        t0 = time.monotonic()
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True, timeout=120)
+        except (OSError, subprocess.TimeoutExpired) as e:
+            return repr(e)
+        if proc.returncode != 0:
+            return (proc.stderr or proc.stdout or f"g++ exited {proc.returncode}").strip()
+        os.replace(tmp, out)
+        self.build_seconds = time.monotonic() - t0
+        return None
+
+    def get(self) -> Optional[ctypes.CDLL]:
+        """The loaded library, built at the first call; None when it does not
+        build or load (the reason in ``error``)."""
+        with self._lock:
+            if self._lib is not None or self.error is not None:
+                return self._lib
+            path = self.path()
+            if not os.path.isfile(path):
+                self.error = self._build(path)
+            if self.error is None:
+                try:
+                    lib = ctypes.CDLL(path)
+                    if self.bind is not None:
+                        self.bind(lib)
+                    self._lib = lib
+                except (OSError, AttributeError) as e:
+                    self.error = repr(e)
+            if self._lib is not None:
+                logger.info("native %s: %s", self.name, path)
+            else:
+                logger.warning("native %s: unavailable (%s); the Python path runs", self.name,
+                               self.error.splitlines()[-1] if self.error else "")
+            return self._lib
+
+
+def _bind_tokenizer(lib: ctypes.CDLL) -> None:
+    i32, i64, i32p, i64p = ctypes.c_int32, ctypes.c_int64, ctypes.POINTER(ctypes.c_int32), \
+        ctypes.POINTER(ctypes.c_int64)
+    lib.hash_encode_batch.restype = None
+    lib.hash_encode_batch.argtypes = [ctypes.c_char_p, i64p, i64, i32, i32, i32, i32, i32,
+                                      i32p, i32p]
+    lib.spbpe_load.restype = ctypes.c_void_p
+    lib.spbpe_load.argtypes = [ctypes.c_char_p, i64p, ctypes.POINTER(ctypes.c_float),
+                               ctypes.POINTER(ctypes.c_uint8), i64]
+    lib.spbpe_free.restype = None
+    lib.spbpe_free.argtypes = [ctypes.c_void_p]
+    lib.fastbpe_load.restype = ctypes.c_void_p
+    lib.fastbpe_load.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
+    lib.fastbpe_free.restype = None
+    lib.fastbpe_free.argtypes = [ctypes.c_void_p]
+    for fn in (lib.spbpe_encode_batch, lib.fastbpe_encode_batch):
+        fn.restype = None
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_char_p, i64p, i64, i32, i32p, i32p]
+
+
+def _bind_imgdec(lib: ctypes.CDLL) -> None:
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    lib.smtc_decode_resize.restype = ctypes.c_int
+    lib.smtc_decode_resize.argtypes = [ctypes.c_char_p, ctypes.c_int, u8p]
+    lib.smtc_decode_full.restype = ctypes.c_int
+    lib.smtc_decode_full.argtypes = [ctypes.c_char_p, u8p, ctypes.c_long,
+                                     ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    lib.smtc_decode_resize_mem.restype = ctypes.c_int
+    lib.smtc_decode_resize_mem.argtypes = [u8p, ctypes.c_long, ctypes.c_int, u8p]
+
+
+TOKENIZER = NativeLibrary("tokenizer", TOKENIZER_SOURCE, TOKENIZER_FLAGS, bind=_bind_tokenizer)
+IMGDEC = NativeLibrary("imgdec", IMGDEC_SOURCE, IMGDEC_FLAGS, IMGDEC_LIBS, cpu_tag=True,
+                       bind=_bind_imgdec)
+
+
+# -- the tokenizer encoders -----------------------------------------------------
+
+
+def tokenizer_available() -> bool:
+    return TOKENIZER.get() is not None
+
+
+def _pack(texts: List[str]) -> Tuple[bytes, np.ndarray]:
+    """The texts' UTF-8 bytes back to back, and the n + 1 offsets that delimit them."""
+    enc = [t.encode("utf-8") for t in texts]
+    offsets = np.zeros(len(enc) + 1, np.int64)
+    np.cumsum([len(b) for b in enc], out=offsets[1:])
+    return b"".join(enc), offsets
+
+
+def _ptr(a: np.ndarray, ctype):
+    return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def hash_encode_batch(texts: List[str], max_len: int, vocab_size: int, pad_id: int,
+                      cls_id: int, sep_id: int) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """The hashing tokenizer's (ids, mask) in C++; None without the library."""
+    lib = TOKENIZER.get()
+    if lib is None:
+        return None
+    buf, offsets = _pack(texts)
+    ids = np.empty((len(texts), max_len), np.int32)
+    mask = np.empty((len(texts), max_len), np.int32)
+    lib.hash_encode_batch(buf, _ptr(offsets, ctypes.c_int64), len(texts), max_len, vocab_size,
+                          pad_id, cls_id, sep_id, _ptr(ids, ctypes.c_int32),
+                          _ptr(mask, ctypes.c_int32))
+    return ids, mask
+
+
+class _Encoder:
+    """A handle on an encoder built inside the library, freed with the object."""
+
+    _free = ""
+
+    def __init__(self, lib: ctypes.CDLL, handle):
+        if not handle:
+            raise RuntimeError(f"{type(self).__name__}: the library refused the vocabulary")
+        self._lib, self._handle = lib, handle
+
+    def _encode(self, fn, texts: List[str], max_length: int):
+        buf, offsets = _pack(texts)
+        ids = np.empty((len(texts), max_length), np.int32)
+        mask = np.empty((len(texts), max_length), np.int32)
+        fn(self._handle, buf, _ptr(offsets, ctypes.c_int64), len(texts), max_length,
+           _ptr(ids, ctypes.c_int32), _ptr(mask, ctypes.c_int32))
+        return ids, mask
+
+    def __del__(self):
+        handle = getattr(self, "_handle", None)
+        if handle:
+            getattr(self._lib, self._free)(handle)
+
+
+class NativeSpBpe(_Encoder):
+    """SentencePiece-BPE's merge loop in C++. The ModelProto is read by
+    ``data/bpe_backends.py``; the texts given to ``encode_batch`` are already
+    normalized, with the ``▁`` word markers."""
+
+    _free = "spbpe_free"
+
+    def __init__(self, lib: ctypes.CDLL, pieces: List[str], scores, is_normal):
+        buf, offsets = _pack(pieces)
+        scores = np.ascontiguousarray(scores, np.float32)
+        is_normal = np.ascontiguousarray(is_normal, np.uint8)
+        super().__init__(lib, lib.spbpe_load(buf, _ptr(offsets, ctypes.c_int64),
+                                             _ptr(scores, ctypes.c_float),
+                                             _ptr(is_normal, ctypes.c_uint8), len(pieces)))
+
+    def encode_batch(self, marked_texts: List[str], max_length: int):
+        return self._encode(self._lib.spbpe_encode_batch, marked_texts, max_length)
+
+
+class NativeFastBpe(_Encoder):
+    """fastBPE in C++ over BERTweet's fairseq ``vocab.txt`` and ``bpe.codes``."""
+
+    _free = "fastbpe_free"
+
+    def __init__(self, lib: ctypes.CDLL, vocab_path: str, codes_path: str):
+        super().__init__(lib, lib.fastbpe_load(os.fsencode(vocab_path), os.fsencode(codes_path)))
+
+    def encode_batch(self, texts: List[str], max_length: int):
+        return self._encode(self._lib.fastbpe_encode_batch, texts, max_length)
+
+
+# -- the image decoder --------------------------------------------------------------
+
+
 def imgdec_library_path() -> str:
     """Where the decoder's library is (or will be) built."""
-    kernels = os.environ.get("SMTC_TORCH_KERNEL_DIR")
-    root = (os.path.join(os.path.dirname(kernels.rstrip(os.sep)), "imgdec") if kernels
-            else os.path.join(os.path.dirname(_PKG), "build", "imgdec"))
-    h = hashlib.sha256(" ".join(IMGDEC_FLAGS + IMGDEC_LIBS).encode())
-    with open(IMGDEC_SOURCE, "rb") as f:
-        h.update(f.read())
-    return os.path.join(root, f"libsmtc_imgdec-{h.hexdigest()[:16]}.{host_cpu_tag()}.so")
-
-
-def _build_imgdec(out: str) -> Optional[str]:
-    """Compile the decoder into ``out``; returns the error text, or None."""
-    os.makedirs(os.path.dirname(out), exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = ["g++", *IMGDEC_FLAGS, IMGDEC_SOURCE, "-o", tmp, *IMGDEC_LIBS]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=120)
-    except (OSError, subprocess.TimeoutExpired) as e:
-        return repr(e)
-    if proc.returncode != 0:
-        return (proc.stderr or proc.stdout or f"g++ exited {proc.returncode}").strip()
-    os.replace(tmp, out)
-    return None
+    return IMGDEC.path()
 
 
 def get_imgdec_lib() -> Optional[ctypes.CDLL]:
     """The decoder's library, built at the first call; None when it does
     not build or load (the reason in ``build_error()``)."""
-    global _imgdec_lib, _imgdec_error
-    with _imgdec_lock:
-        if _imgdec_lib is not None or _imgdec_error is not None:
-            return _imgdec_lib
-        path = imgdec_library_path()
-        if not os.path.isfile(path):
-            _imgdec_error = _build_imgdec(path)
-            if _imgdec_error is not None:
-                logger.info("native imgdec build failed (%s); using the PIL path",
-                            _imgdec_error.splitlines()[-1] if _imgdec_error else "")
-                return None
-        try:
-            lib = ctypes.CDLL(path)
-        except OSError as e:
-            _imgdec_error = repr(e)
-            return None
-        u8p = ctypes.POINTER(ctypes.c_uint8)
-        lib.smtc_decode_resize.restype = ctypes.c_int
-        lib.smtc_decode_resize.argtypes = [ctypes.c_char_p, ctypes.c_int, u8p]
-        lib.smtc_decode_full.restype = ctypes.c_int
-        lib.smtc_decode_full.argtypes = [ctypes.c_char_p, u8p, ctypes.c_long,
-                                         ctypes.POINTER(ctypes.c_int),
-                                         ctypes.POINTER(ctypes.c_int)]
-        lib.smtc_decode_resize_mem.restype = ctypes.c_int
-        lib.smtc_decode_resize_mem.argtypes = [u8p, ctypes.c_long, ctypes.c_int, u8p]
-        _imgdec_lib = lib
-        return lib
+    return IMGDEC.get()
 
 
 def imgdec_available() -> bool:
@@ -132,7 +280,7 @@ def imgdec_available() -> bool:
 def build_error() -> Optional[str]:
     """The compiler's (or the loader's) message when the decoder did not
     build; None when it built or was not asked for yet."""
-    return _imgdec_error
+    return IMGDEC.error
 
 
 def native_decode_resize(path: str, size: int) -> Optional[np.ndarray]:

@@ -2,8 +2,10 @@
 ``flax`` blocked (and with ``pandas``, ``msgpack`` and ``PIL`` blocked too:
 the card's machine has none of them; the trainers read their data with
 ``csv`` and the pixel cache, JAX artifacts are read by the port's own msgpack
-codec), no source imports the JAX package, pandas or msgpack, and asking for
-CUDA on a host without it raises instead of falling back to the CPU."""
+codec), no source imports the JAX package, pandas or msgpack, the tokenizer
+layouts the JAX package reads through the Rust ``tokenizers`` package are read
+with ``tokenizers`` and ``regex`` blocked, and asking for CUDA on a host
+without it raises instead of falling back to the CPU."""
 
 import os
 import pkgutil
@@ -34,13 +36,14 @@ def _sources():
     return files
 
 
-def _import_all_blocking(blocked):
+def _import_all_blocking(blocked, then=""):
     code = ("import sys\n"
             f"for name in {blocked!r}:\n"
             "    sys.modules[name] = None\n"
             "import importlib\n"
             f"for m in {_modules()!r}:\n"
             "    importlib.import_module(m)\n"
+            + then +
             "bad = [m for m in sys.modules if m.startswith("
             "'socialmedia_textimage_classification_auxlosses_tpu.') or "
             "m == 'socialmedia_textimage_classification_auxlosses_tpu']\n"
@@ -60,6 +63,33 @@ def test_every_module_imports_without_jax():
 
 def test_every_module_imports_without_pandas_or_pil():
     _import_all_blocking(("jax", "flax", "jaxlib", "pandas", "PIL"))
+
+
+def test_tokenizer_layouts_read_without_tokenizers_or_regex(tmp_path):
+    """The card's machine has neither ``tokenizers`` nor ``regex``: with both
+    blocked (and JAX), ``build_tokenizer`` reads a BERT ``vocab.txt``,
+    RoBERTa's ``vocab.json`` + ``merges.txt`` and a ``tokenizer.json``."""
+    import json
+
+    for name in ("bert", "roberta", "tokjson"):
+        (tmp_path / name).mkdir()
+    (tmp_path / "bert" / "vocab.txt").write_text("[PAD]\n[UNK]\n[CLS]\n[SEP]\nhello\n##s\n")
+    byte_level = {"<s>": 0, "<pad>": 1, "</s>": 2, "h": 3, "i": 4, "hi": 5, "\u0120": 6}
+    (tmp_path / "roberta" / "vocab.json").write_text(json.dumps(byte_level))
+    (tmp_path / "roberta" / "merges.txt").write_text("#version: 0.2\nh i\n")
+    (tmp_path / "tokjson" / "tokenizer.json").write_text(json.dumps({
+        "normalizer": {"type": "BertNormalizer"}, "pre_tokenizer": {"type": "BertPreTokenizer"},
+        "post_processor": None, "added_tokens": [],
+        "model": {"type": "WordPiece", "vocab": {"[UNK]": 0, "[CLS]": 1, "[SEP]": 2, "hi": 3}}}))
+    then = ("from socialmedia_textimage_classification_auxlosses_tpu_torch.data.tokenizers "
+            "import build_tokenizer\n"
+            f"root = {str(tmp_path)!r}\n"
+            "got = [build_tokenizer(m, root + '/' + d, 8, 100, normalize=False)(['hi hellos'])"
+            "['ids'][0].tolist() for m, d in (('bert', 'bert'), ('roberta', 'roberta'), "
+            "('bert', 'tokjson'))]\n"
+            "assert got == [[2, 1, 4, 5, 3, 0, 0, 0], [0, 5, 6, 3, 2, 1, 1, 1], "
+            "[1, 3, 0, 2, 0, 0, 0, 0]], got\n")
+    _import_all_blocking(("jax", "flax", "jaxlib", "tokenizers", "regex", "transformers"), then)
 
 
 def test_every_module_imports_without_msgpack_or_pandas():

@@ -1,13 +1,22 @@
 """PyTorch port's tokenizers + tweet normalizer against the JAX package's:
-identical ids and masks on tweet-like strings with emoji, URLs, @-mentions,
-hashtags and HTML, for the hashing tokenizer (the JAX one may run its native
-C++ encoder) and for the vocabulary backends (WordPiece, fastBPE,
-SentencePiece-BPE; the JAX Python paths) on the fixture layouts of the JAX
-package's tokenizer tests; the probe order (BERTweet's fairseq ``vocab.txt``
-is not read as WordPiece); the refusal of layouts only the Rust backend
-reads; and the port's own ModelProto reader against the protobuf schema."""
+identical ids, masks and token types on tweet-like strings with emoji, URLs,
+@-mentions, hashtags and HTML, for the hashing tokenizer (the JAX one may run
+its native C++ encoder) and for the vocabulary backends on the fixture
+layouts of the JAX package's tokenizer tests: fastBPE and SentencePiece-BPE
+(the JAX Python paths), and the layouts the JAX package reads through the
+Rust ``tokenizers`` backend, held against that backend on this host: a BERT
+``vocab.txt`` (``BertWordPieceTokenizer``), RoBERTa's ``vocab.json`` +
+``merges.txt`` and ``tokenizer.json`` with WordPiece and with byte-level BPE
+(vocabularies trained here as the JAX package's
+``tests/test_rust_tokenizer_paths.py`` trains them), each also on a few
+hundred seeded strings of tricky code points. Also: the probe order
+(BERTweet's fairseq ``vocab.txt`` is not read as WordPiece); a
+``tokenizer.json`` component the port does not read (a warning and the next
+layout, or ``SystemExit``); and the port's own ModelProto reader against the
+protobuf schema."""
 
 import os
+import re
 
 import numpy as np
 import pytest
@@ -63,17 +72,6 @@ def test_normalized_text_matches_jax():
     assert [tn.normalize(s) for s in TWEETS] == [jn.normalize(s) for s in TWEETS]
 
 
-@pytest.mark.parametrize("files", [("tokenizer.json",), ("vocab.json", "merges.txt")],
-                         ids=["tokenizer_json", "vocab_json_merges"])
-def test_vocabulary_directory_is_refused(tmp_path, files):
-    """A layout only the Rust ``tokenizers`` backend reads is refused, not
-    hashed."""
-    for name in files:
-        (tmp_path / name).write_text("{}")
-    with pytest.raises(SystemExit, match="Rust"):
-        TT.build_tokenizer("roberta", str(tmp_path), 16, 50265)
-
-
 SPM_PIECES = [("<unk>", 0.0, 2), ("<s>", 0.0, 3), ("</s>", 0.0, 3)] + [
     (p, s, 1) for p, s in [
         ("▁", -10.0), ("h", -9.0), ("e", -8.0), ("l", -7.0), ("o", -6.0), ("▁h", -4.0),
@@ -112,24 +110,100 @@ def bertweet_dir(tmp_path):
     return str(d)
 
 
+WP_VOCAB = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "hello", "world", "the", "tw", "##ee", "##t",
+            "@", "user", "#", "news", "!", ".", "love", "this", "check", "out", "cafe", "_", "a",
+            "b"]
+# where the JAX package's Rust BertWordPieceTokenizer and a lowercase + \w+ split differ:
+# (text, the Rust ids at max_length 12, normalize=False; tokenizers 0.22.2)
+WP_TABLE = [("hello\U0001f600 world", [2, 1, 5, 3]), ("caf\u00e9 news", [2, 20, 13, 3]),
+            ("a_b", [2, 22, 21, 23, 3]), ("hello \u4e16\u754c", [2, 4, 1, 1, 3]),
+            ("check\xadout", [2, 1, 3])]
+
+
 @pytest.fixture
 def wordpiece_dir(tmp_path):
     d = tmp_path / "bert_model"
     d.mkdir()
-    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "hello", "world", "the", "tw", "##ee",
-             "##t", "@", "user", "#", "news", "!", ".", "love", "this", "check", "out"]
-    (d / "vocab.txt").write_text("\n".join(vocab) + "\n")
+    (d / "vocab.txt").write_text("\n".join(WP_VOCAB) + "\n")
     return str(d)
 
 
-def _same_encoding(name, model_dir, max_length, vocab):
-    jt = JT.build_tokenizer(name, model_dir, max_length, vocab)
-    tt = TT.build_tokenizer(name, model_dir, max_length, vocab)
-    je, te = jt(TEXTS), tt(TEXTS)
+# tricky code points for the seeded strings: emoji and a ZWJ sequence, skin tone and
+# flag, NBSP, U+200B, U+FEFF, \x1c, soft hyphen, combining and precomposed accents,
+# CJK, dotted I, final sigma, underscore, contractions, digits and numerals, the
+# layouts' special tokens written out, control and private-use characters, scripts
+# with marks, code points whose class changed between Unicode versions
+FUZZ_ALPHABET = [
+    "\U0001f600", "\U0001f469\u200d\U0001f4bb", "\U0001f44d\U0001f3fd", "\U0001f1fa\U0001f1f8",
+    "\u200d", "\xa0", "\u200b", "\ufeff", "\x1c", "\xad", "\u0301", "e\u0301", "\u00e9",
+    "\u4e16\u754c", "\U00020000", "\u0130", "\u0391\u03a3", "_", "'s", "'S", "'ll", "0", "42",
+    "\u2460", "\u216b", "<s>", "</s>", "[CLS]", "[SEP]", "[MASK]", "<mask>", "<pad>", "[cls]",
+    "\t", "\n", "\r", "\x0b", "\u2028", "\u3000", "\ue000", "\ufffd", "\x00", '"', "!", "#",
+    "@", "\u2026", "\u2019", "\u20ac", "\u2211", "\uff21", "\u00df", "\u01c5", "\u24b6",
+    "\U0001f170", "\u0645\u0631\u062d\u0628\u0627", "\u0e2a\u0e27\u0e31\u0e2a\u0e14\u0e35",
+    "\u0928\u092e\u0938\u094d\u0924\u0947", "\ud55c\uad6d\uc5b4", "\u1734", "\u166d",
+    "\u0890", "\u2e43", " ", "  ", "hello", "world", "tweet", "the", "caf\u00e9", "a", "b", "x",
+    "HTTPURL", "@USER", "don't", "'", "-", ".", ","]
+CORPUS = ["hello world this is a tweet", "another tweet about the world",
+          "hello hello hello twitter world"] * 10
+
+
+def fuzz_texts(seed, n=300):
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        picks = rng.randint(0, len(FUZZ_ALPHABET), rng.randint(0, 25))
+        out.append("".join(FUZZ_ALPHABET[i] + ("", " ", "  ")[rng.randint(0, 3)] for i in picks))
+    return out
+
+
+@pytest.fixture(scope="module")
+def rust_layouts(tmp_path_factory):
+    """Directories of the layouts the JAX package reads through the Rust
+    backend, from vocabularies trained on ``CORPUS`` and seeded strings:
+    ``bert_vocab_txt``, ``vocab_json_merges`` (RoBERTa), ``tokenizer_json``
+    (the byte-level BPE with ``RobertaProcessing`` and ``<mask>`` added with
+    ``lstrip``, as roberta-base's file) and ``tokenizer_json_wordpiece``."""
+    from tokenizers import AddedToken, BertWordPieceTokenizer, ByteLevelBPETokenizer
+    from tokenizers.processors import RobertaProcessing
+
+    root = tmp_path_factory.mktemp("rust_layouts")
+    corpus = CORPUS + fuzz_texts(1, 100)
+    dirs = {name: root / name for name in ("bert_vocab_txt", "vocab_json_merges",
+                                          "tokenizer_json", "tokenizer_json_wordpiece")}
+    for d in dirs.values():
+        d.mkdir()
+    wp = BertWordPieceTokenizer(lowercase=True)
+    wp.train_from_iterator(corpus, vocab_size=300, min_frequency=1,
+                           special_tokens=["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"])
+    wp.save_model(str(dirs["bert_vocab_txt"]))
+    wp.save(str(dirs["tokenizer_json_wordpiece"] / "tokenizer.json"))
+    bpe = ByteLevelBPETokenizer()
+    bpe.train_from_iterator(corpus, vocab_size=500, min_frequency=1,
+                            special_tokens=["<s>", "<pad>", "</s>", "<unk>"])
+    bpe.save_model(str(dirs["vocab_json_merges"]))
+    bpe._tokenizer.post_processor = RobertaProcessing(("</s>", bpe.token_to_id("</s>")),
+                                                      ("<s>", bpe.token_to_id("<s>")))
+    bpe.add_special_tokens([AddedToken("<mask>", lstrip=True, normalized=True)])
+    bpe.save(str(dirs["tokenizer_json"] / "tokenizer.json"))
+    return {name: str(d) for name, d in dirs.items()}
+
+
+LAYOUT_BACKENDS = {"bert_vocab_txt": ("bert", "BertWordPiece"),
+                   "vocab_json_merges": ("roberta", "ByteLevelBPE"),
+                   "tokenizer_json": ("roberta", "TokenizerJson"),
+                   "tokenizer_json_wordpiece": ("bert", "TokenizerJson")}
+
+
+def _same_encoding(name, model_dir, max_length, vocab, texts=TEXTS, normalize=True):
+    jt = JT.build_tokenizer(name, model_dir, max_length, vocab, normalize=normalize)
+    tt = TT.build_tokenizer(name, model_dir, max_length, vocab, normalize=normalize)
+    je, te = jt(texts), tt(texts)
     assert set(je) == set(te)
+    assert tt.pad_token_id == jt.pad_token_id
     for key in je:
         np.testing.assert_array_equal(te[key], je[key], err_msg=key)
-    return tt
+    return tt, te
 
 
 def test_sentencepiece_bpe_matches_jax(spm_dir, monkeypatch):
@@ -138,7 +212,7 @@ def test_sentencepiece_bpe_matches_jax(spm_dir, monkeypatch):
     real = JB.SentencePieceBPE.__init__
     monkeypatch.setattr(JB.SentencePieceBPE, "__init__",  # the JAX Python path
                         lambda self, *a, **k: real(self, *a, **{**k, "use_native": False}))
-    tt = _same_encoding("bernice", spm_dir, 16, 300)
+    tt, _ = _same_encoding("bernice", spm_dir, 16, 300)
     assert type(tt.backend).__name__ == "SentencePieceBPE"
 
 
@@ -150,21 +224,94 @@ def test_fastbpe_matches_jax(bertweet_dir, monkeypatch):
     real = JB.FastBPE.__init__
     monkeypatch.setattr(JB.FastBPE, "__init__",
                         lambda self, *a, **k: real(self, *a, **{**k, "use_native": False}))
-    tt = _same_encoding("bertweet", bertweet_dir, 16, 300)
+    tt, _ = _same_encoding("bertweet", bertweet_dir, 16, 300)
     assert type(tt.backend).__name__ == "FastBPE"
 
 
-def test_wordpiece_matches_jax(wordpiece_dir, monkeypatch):
-    from socialmedia_textimage_classification_auxlosses_tpu.data import native as JN
-
-    def no_native(*a, **k):
-        raise RuntimeError("the Python WordPiece is the reference here")
-
-    monkeypatch.setattr(JN, "NativeWordPiece", no_native)
-    monkeypatch.setattr(JT, "_try_rust_backend", lambda *a: None)
-    tt = _same_encoding("bert", wordpiece_dir, 24, 30522)
-    assert type(tt.backend).__name__ == "PyWordPiece"
+def test_wordpiece_matches_jax(wordpiece_dir):
+    """A BERT ``vocab.txt`` against the JAX package's Rust
+    ``BertWordPieceTokenizer``: the tweets, normalized, and the texts on which
+    a lowercase + ``\\w+`` split differs from it, raw."""
+    tt, _ = _same_encoding("bert", wordpiece_dir, 24, 30522)
+    assert type(tt.backend).__name__ == "BertWordPiece"
     assert "token_type_ids" in tt(["hello"])
+    _, te = _same_encoding("bert", wordpiece_dir, 12, 30522,
+                           texts=[t for t, _ in WP_TABLE], normalize=False)
+    for row, (text, want) in zip(te["ids"], WP_TABLE):
+        assert row[:len(want)].tolist() == want and not row[len(want):].any(), text
+
+
+@pytest.mark.parametrize("layout", ["tokenizer_json", "vocab_json_merges",
+                                    "tokenizer_json_wordpiece"])
+def test_vocabulary_directory_matches_jax(rust_layouts, layout):
+    """RoBERTa's two layouts and a BERT ``tokenizer.json`` give the JAX
+    package's Rust ids, masks and token types, and its pad id."""
+    name, backend = LAYOUT_BACKENDS[layout]
+    tt, te = _same_encoding(name, rust_layouts[layout], 24, 50265)
+    assert type(tt.backend).__name__ == backend
+    assert ("token_type_ids" in te) == (name == "bert")
+    if name == "roberta":
+        assert tt.pad_token_id == 1 and te["ids"][0, 0] == 0
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUT_BACKENDS))
+def test_tricky_code_points_match_jax(rust_layouts, layout):
+    """300 seeded strings of ``FUZZ_ALPHABET``, unnormalized, against the Rust
+    backend; truncation at 16 tokens and empty strings among them."""
+    name, backend = LAYOUT_BACKENDS[layout]
+    tt, _ = _same_encoding(name, rust_layouts[layout], 16, 50265,
+                           texts=fuzz_texts(7) + ["", "<s>", "[CLS] x"], normalize=False)
+    assert type(tt.backend).__name__ == backend
+
+
+def _unread_tokenizer_json(d):
+    """XLM-R's components: Precompiled, Metaspace, Unigram."""
+    import json
+
+    d.mkdir()
+    (d / "tokenizer.json").write_text(json.dumps({
+        "normalizer": {"type": "Precompiled", "precompiled_charsmap": ""},
+        "pre_tokenizer": {"type": "Metaspace"}, "post_processor": None, "added_tokens": [],
+        "model": {"type": "Unigram", "vocab": [["<unk>", 0.0]], "unk_id": 0}}))
+
+
+def test_unread_tokenizer_json_component_falls_through_or_exits(tmp_path, spm_dir, caplog):
+    """A ``tokenizer.json`` the port does not read (XLM-R's ``Precompiled``
+    normalizer) is named in a warning and the next layout is read; with no
+    other layout the probe exits naming it."""
+    import logging
+    import shutil
+
+    _unread_tokenizer_json(tmp_path / "alone")
+    with pytest.raises(SystemExit, match="normalizer Precompiled"):
+        TT.build_tokenizer("bernice", str(tmp_path / "alone"), 16, 300)
+    _unread_tokenizer_json(tmp_path / "with_spm")
+    shutil.copy(os.path.join(spm_dir, "sentencepiece.bpe.model"), tmp_path / "with_spm")
+    with caplog.at_level(logging.WARNING):
+        tok = TT.build_tokenizer("bernice", str(tmp_path / "with_spm"), 16, 300)
+    assert type(tok.backend).__name__ == "SentencePieceBPE"
+    assert any("normalizer Precompiled" in r.message for r in caplog.records)
+
+
+@pytest.mark.parametrize("layout,missing", [("vocab_json_merges", "<s>"),
+                                            ("bert_vocab_txt", "[CLS]")])
+def test_layout_without_its_template_token_exits(rust_layouts, tmp_path, layout, missing):
+    """A vocabulary without a token of its template exits naming it (the JAX
+    package falls back to another encoder there)."""
+    import json
+    import shutil
+
+    d = tmp_path / layout
+    shutil.copytree(rust_layouts[layout], d)
+    if layout == "vocab_json_merges":
+        vocab = json.loads((d / "vocab.json").read_text())
+        del vocab[missing]
+        (d / "vocab.json").write_text(json.dumps(vocab))
+    else:
+        lines = (d / "vocab.txt").read_text().split("\n")
+        (d / "vocab.txt").write_text("\n".join(t for t in lines if t != missing))
+    with pytest.raises(SystemExit, match=re.escape(missing)):
+        TT.build_tokenizer(LAYOUT_BACKENDS[layout][0], str(d), 16, 50265)
 
 
 def test_spm_reader_matches_the_protobuf_schema(spm_dir):
