@@ -290,6 +290,21 @@ and the CUDA toolkit. It
    window, probabilities within ``PROB_TOL`` of the plain path's;
    ``python3 chip_smoke.py --detector`` runs this phase alone over a random
    LXMERT, without the last line);
+16c. trains the headline run with ``--scan_layers`` (``fused``, K = 1, its
+   launches counted) and holds its losses and saved state to the unrolled
+   ``train[fused]`` run's, bit for bit (where they differ, a second unrolled
+   run measures how far two unrolled runs lie apart, and the scanned run is
+   held to that); serves its artifact with ``serve --scan_layers`` beside the
+   unrolled one (the same probabilities, the launches a window exact); and
+   runs ``cli/export.py --model lxmert --export_detector --platforms cuda``
+   at ``--detector_batch`` 16 with the detector phase's checkpoint: each
+   orientation's program, loaded, gives the live detector's boxes, classes
+   and counts on the photos of that orientation (padded to 16) exactly and
+   its features and scores within rtol 1e-5, atol 1e-4, holding two
+   ``smtc::nms_keep`` nodes; the export, load and call times logged
+   (``python3 chip_smoke.py --scan_export`` runs this phase alone after one
+   unrolled run, a seeded detector checkpoint and a random LXMERT, without
+   the last line);
 17. holds every (kernel, shape) that those runs launched and no row of
    steps 3, 6 and 12 holds (the grid's float32 shapes, eval steps' B rows,
    the sweep's folded eval batch, the text-only runner's B rows) against
@@ -310,6 +325,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -5317,12 +5333,15 @@ def detector_cacher(torch, C, FR, obj_features, build_early, ckpt, ids, photos):
     return results
 
 
+def lxmert_service_argv(model_path, ckpt, attn_impl):
+    return ["--task", "3", "--model", "lxmert", "--arch", "base", "--dtype", "bfloat16",
+            "--max_batch", str(BATCH), "--batch_window_ms", "20", "--seed", "30",
+            "--attn_impl", attn_impl, "--model_path", model_path, "--frcnn_ckpt", ckpt,
+            "--port", "0"]
+
+
 def lxmert_service_args(serve, model_path, ckpt, attn_impl):
-    return serve.parse_args([
-        "--task", "3", "--model", "lxmert", "--arch", "base", "--dtype", "bfloat16",
-        "--max_batch", str(BATCH), "--batch_window_ms", "20", "--seed", "30",
-        "--attn_impl", attn_impl, "--model_path", model_path, "--frcnn_ckpt", ckpt,
-        "--port", "0"])
+    return serve.parse_args(lxmert_service_argv(model_path, ckpt, attn_impl))
 
 
 def lxmert_serve(torch, serve, A, AB, launches, model_path, ckpt, photos):
@@ -5422,6 +5441,7 @@ def detector_phase(torch, C, serve, build_early, A, AB, launches, tmp, lxmert_pa
     finally:
         C.DATA_PATH, C.PATH[3], C.IMG_FMT[3] = saved
     result["serve"] = lxmert_serve(torch, serve, A, AB, launches, lxmert_path, ckpt, photos)
+    result["checkpoint"] = ckpt
     result["seconds"] = time.monotonic() - t0
     log(f"detector phase: {result['seconds']:.1f} s")
     torch.cuda.empty_cache()
@@ -5481,6 +5501,321 @@ def detector_only():
     log(json.dumps({"kernels": [{k: v for k, v in r.items() if k != "key"} for r in rows]}))
     log(f"init memo: {init_memo['hits']} builds copied, {init_memo['misses']} drawn, "
         f"{init_memo['bytes'] / 2 ** 30:.2f} GiB held")
+    return 0
+
+
+# ---- --scan_layers and export --export_detector ----------------------------------------
+
+
+def state_diff(torch, a_path, b_path):
+    """Two saved state dicts: (the largest |a - b| over every tensor, the
+    names of the tensors that differ)."""
+    a, b = (torch.load(p, map_location="cpu", weights_only=True) for p in (a_path, b_path))
+    if list(a) != list(b):
+        raise AssertionError(f"state dicts hold other names: {sorted(set(a) ^ set(b))[:4]}")
+    worst, differ = 0.0, []
+    for k in a:
+        if not torch.equal(a[k], b[k]):
+            differ.append(k)
+            worst = max(worst, float((a[k].float() - b[k].float()).abs().max()))
+    return worst, differ
+
+
+def loss_diff(a, b):
+    if len(a) != len(b):
+        raise AssertionError(f"runs of {len(a)} and {len(b)} steps")
+    return max(abs(x - y) for x, y in zip(a, b))
+
+
+def scan_layers_run(torch, C, run_mm_late, counters, per_step, training, launches, tmp,
+                    unrolled_net):
+    """``run_mm_late --scan_layers`` of the headline run under ``fused``,
+    K = 1 (its init through ``memoize_init``, its launches counted), against
+    the unrolled ``train[fused]`` run of the same seed (``training["fused"]``,
+    its ``net.pth`` kept at ``unrolled_net``): the losses and the saved state
+    equal bit for bit. Where they are not, a second unrolled run says how
+    far two unrolled runs of one seed lie apart on the card, and the
+    scanned run is held to the larger of its differences (losses, state)
+    from the two. The caller restores the model directories of the
+    unrolled run (``same_model_dirs``). Returns (the result, the scanned
+    ``net.pth``)."""
+    saved = C.results_dir_mm_late
+    C.results_dir_mm_late = os.path.join(tmp, "results", "mm_late_scan") + os.sep
+    late_stem = "bernice-vit-attention_task3_seed30_itc0.1itm0.1_"
+    tag = "train[fused, scan_layers]"
+    try:
+        result, by_key, _ = train_run(
+            torch, run_mm_late.main, train_args("fused", ["--scan_layers"]), tag, counters,
+            C.results_dir_mm_late, late_stem, per_step["fused"], late_grads_check(torch, tag))
+        count_launches(launches, by_key)
+        scan_net = os.path.join(C.results_dir_mm_late, late_stem + "net.pth")
+        d_loss = loss_diff(result["losses"], training["fused"]["losses"])
+        d_state, differ = state_diff(torch, scan_net, unrolled_net)
+        out = dict(run_seconds=result["run_seconds"], steady_ms=result["steady_ms_per_step"],
+                   loss_diff=d_loss, state_diff=d_state, tensors_differing=len(differ))
+        if d_loss == 0 and not differ:
+            log(f"{tag}: losses and saved state equal the unrolled run's bit for bit "
+                f"({len(result['losses'])} steps)")
+            return out, scan_net
+        # a second unrolled run: how far two unrolled runs of one seed lie apart here
+        C.results_dir_mm_late = os.path.join(tmp, "results", "mm_late_again") + os.sep
+        again, by_key, _ = train_run(
+            torch, run_mm_late.main, train_args("fused"), "train[fused, again]", counters,
+            C.results_dir_mm_late, late_stem, per_step["fused"],
+            late_grads_check(torch, "train[fused, again]"))
+        count_launches(launches, by_key)
+        again_net = os.path.join(C.results_dir_mm_late, late_stem + "net.pth")
+        uu_loss = loss_diff(again["losses"], training["fused"]["losses"])
+        uu_state, uu_differ = state_diff(torch, again_net, unrolled_net)
+        su_loss = max(d_loss, loss_diff(result["losses"], again["losses"]))
+        su_state = max(d_state, state_diff(torch, scan_net, again_net)[0])
+        out.update(unrolled_pair_loss_diff=uu_loss, unrolled_pair_state_diff=uu_state)
+        log(f"{tag}: differs from the unrolled run (losses {d_loss:.3e}, state {d_state:.3e} "
+            f"over {len(differ)} tensors); two unrolled runs differ by losses {uu_loss:.3e}, "
+            f"state {uu_state:.3e} over {len(uu_differ)} tensors; the scanned run against "
+            f"either: losses {su_loss:.3e}, state {su_state:.3e}")
+        if su_loss > uu_loss or su_state > uu_state:
+            raise AssertionError(f"{tag}: farther from the unrolled runs than they are from "
+                                 "each other")
+        return out, scan_net
+    finally:
+        C.results_dir_mm_late = saved
+
+
+def scan_layers_serve(torch, serve, counters, per_window, launches, paths, same_state):
+    """``serve --scan_layers`` of the scanned run's artifact beside the
+    unrolled run's ``serve`` under ``auto``: two windows of requests each,
+    the counts set to 0 before and read after each, the probabilities equal
+    (within ``PROB_TOL`` where the two artifacts' states differ)."""
+    import numpy as np
+
+    reqs = make_requests()[:2 * BATCH]
+    probs = {}
+    for name, extra in (("unrolled", []), ("scan_layers", ["--scan_layers"])):
+        args = service_args(serve, paths[name], "auto",
+                            ["--use_clip_loss", "--use_tim_loss", *extra])
+        predict, _ = serve.build_service(args)
+        for c in counters.values():
+            c.reset()
+        answers = [r for i in range(0, len(reqs), BATCH) for r in predict(reqs[i:i + BATCH])]
+        torch.cuda.synchronize()
+        for kernel, n in per_window.items():
+            if counters[kernel].count != 2 * n:
+                raise AssertionError(f"serve[{name}]: {counters[kernel].count} {kernel} "
+                                     f"launches in 2 windows, expected {n} each")
+        count_launches(launches, {n: dict(c.by_key) for n, c in counters.items()})
+        probs[name] = np.array([r["probs"] for r in answers])
+        if not np.isfinite(probs[name]).all():
+            raise AssertionError(f"serve[{name}]: probabilities not finite")
+        del predict
+        torch.cuda.empty_cache()
+    err = float(np.abs(probs["scan_layers"] - probs["unrolled"]).max())
+    log(f"serve[scan_layers]: {len(reqs)} requests; max |p - p_unrolled| {err:.3e} "
+        f"(bit-equal: {np.array_equal(probs['scan_layers'], probs['unrolled'])})")
+    if same_state and err != 0:
+        raise AssertionError("serve --scan_layers: the same state served other probabilities")
+    if not err <= PROB_TOL:
+        raise AssertionError("serve --scan_layers: disagrees with the unrolled artifact")
+    return dict(max_abs_prob_diff=err)
+
+
+def timed_call(torch, fn, *args):
+    """(fn(*args), its wall ms between two synchronisations)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def detector_export_check(torch, tmp, ckpt, lxmert_path):
+    """``cli/export.py --model lxmert --export_detector --platforms cuda`` at
+    ``--detector_batch`` 16 with the seeded full-geometry checkpoint: the two
+    orientations' programs written, each loaded and run on the photos of its
+    orientation (``orientation_groups``, padded to 16 with zero canvases of
+    size 1 x 1, as the JAX dispatch pads) and held to the live detector on the
+    same batch: boxes, classes and counts equal, features and scores within
+    rtol 1e-5, atol 1e-4. Logs the export seconds, the bytes, the load
+    seconds, the program's ms (its second call) beside the live detector's
+    and its ``smtc::nms_keep`` nodes."""
+    import io
+
+    import numpy as np
+
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.cli import export
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.models import frcnn as FR
+
+    out = os.path.join(tmp, "export_detector", "lxmert.pt2")
+    kept, seconds = {}, {}
+    real_service, real_detector = export.export_service, export.export_detector
+
+    def service(args, platforms=None):
+        t0 = time.monotonic()
+        kept.update(real_service(args, platforms))
+        seconds["service"] = time.monotonic() - t0
+        return kept
+
+    def detector(det, batch, platform):
+        t0 = time.monotonic()
+        programs = real_detector(det, batch, platform)
+        seconds["detector_export"] = time.monotonic() - t0
+        return programs
+
+    argv = (["--out", out, "--platforms", "cuda", "--export_detector", "--detector_batch",
+             str(BATCH)] + lxmert_service_argv(lxmert_path, ckpt, "auto"))
+    printed = io.StringIO()
+    t0 = time.monotonic()
+    export.export_service, export.export_detector = service, detector
+    try:
+        with contextlib.redirect_stdout(printed):
+            export.main(argv)
+    finally:
+        export.export_service, export.export_detector = real_service, real_detector
+    seconds["main"] = time.monotonic() - t0
+    line = json.loads(printed.getvalue().strip().splitlines()[-1])
+    det = kept["cuda"][3]["detector"]
+    live_program = FR.FusedDetectProgram(det)
+    result = dict(seconds=seconds, orientations={})
+    for idxs, canv, sizes in orientation_groups(FR, det.cfg, detector_photos()):
+        ph, pw = canv.shape[1:3]
+        orient = "landscape" if ph < pw else "portrait"
+        canvases = np.zeros((BATCH, ph, pw, 3), np.uint8)
+        size_hw = np.ones((BATCH, 2), np.float32)
+        canvases[:len(idxs)], size_hw[:len(idxs)] = canv, sizes
+        batch = (torch.from_numpy(canvases).to(DEVICE), torch.from_numpy(size_hw).to(DEVICE))
+        path = f"{line['out']}.detector.{orient}.pt2"
+        if path not in line["detectors"]:
+            raise AssertionError(f"export: no {orient} program in {line}")
+        sidecar = json.load(open(path + ".json"))
+        if sidecar["canvas"] != [BATCH, ph, pw, 3] or sidecar["platforms"] != ["cuda"]:
+            raise AssertionError(f"export[{orient}]: sidecar {sidecar}")
+        t1 = time.monotonic()
+        exported = torch.export.load(path)
+        program = exported.module()
+        load_s = time.monotonic() - t1
+        nms_nodes = sum(1 for n in exported.graph.nodes if n.op == "call_function"
+                        and str(n.target) == "smtc.nms_keep.default")
+        with torch.no_grad():  # the live detector is warm: the program's second call is timed
+            got = program(*batch)
+            want, live_ms = timed_call(torch, live_program, *batch)
+            _, program_ms = timed_call(torch, program, *batch)
+        got, want = ([t.cpu().numpy() for t in outs] for outs in (got, want))
+        failed = [name for name, i in (("boxes", 1), ("classes", 3), ("counts", 4))
+                  if not np.array_equal(got[i], want[i])]
+        errs = {name: float(np.abs(got[i] - want[i]).max()) for name, i in
+                (("features", 0), ("boxes", 1), ("scores", 2))}
+        for name, i in (("features", 0), ("scores", 2)):
+            if not np.allclose(got[i], want[i], rtol=1e-5, atol=1e-4):
+                failed.append(name)
+        size = os.path.getsize(path)
+        log(f"export[detector {orient}]: {len(idxs)} photos padded to {BATCH} at {ph}x{pw}; "
+            f"{size} bytes, loaded in {load_s:.1f} s; {nms_nodes} smtc::nms_keep nodes; "
+            f"program {program_ms:.1f} ms, live detector {live_ms:.1f} ms a batch; counts "
+            f"{got[4][:len(idxs)].tolist()}; max |diff| {errs}")
+        if nms_nodes != 2 or failed:
+            raise AssertionError(f"export[detector {orient}]: {nms_nodes} NMS nodes; "
+                                 f"disagrees with the live detector in {failed}")
+        result["orientations"][orient] = dict(
+            photos=len(idxs), bytes=size, load_s=load_s, nms_nodes=nms_nodes,
+            program_ms=program_ms, live_ms=live_ms, max_abs_diff=errs)
+        del exported, program
+    log(f"export --export_detector: main {seconds['main']:.1f} s (the LXMERT service's "
+        f"export {seconds['service']:.1f} s, both detector programs "
+        f"{seconds['detector_export']:.1f} s)")
+    if sorted(result["orientations"]) != ["landscape", "portrait"]:
+        raise AssertionError(f"export: the photos cover {sorted(result['orientations'])}")
+    del kept, det, live_program
+    torch.cuda.empty_cache()
+    return result
+
+
+@contextlib.contextmanager
+def same_model_dirs(C, model_dirs):
+    """``C.MODEL_DIR_DICT`` set to ``model_dirs`` (what a run of an earlier
+    phase saw: later phases point the towers at directories of their own),
+    restored on exit."""
+    saved = dict(C.MODEL_DIR_DICT)
+    C.MODEL_DIR_DICT.clear()
+    C.MODEL_DIR_DICT.update(model_dirs)
+    try:
+        yield
+    finally:
+        C.MODEL_DIR_DICT.clear()
+        C.MODEL_DIR_DICT.update(saved)
+
+
+def scan_export_phase(torch, C, serve, run_mm_late, counters, per_step, per_window, training,
+                      launches, tmp, unrolled, ckpt, lxmert_path):
+    """The headline run with ``--scan_layers`` against the unrolled one
+    (``unrolled``: its ``net.pth`` and the model directories it saw),
+    ``serve --scan_layers`` of its artifact, and ``export --export_detector``
+    of the seeded full-geometry detector, each logging its seconds."""
+    unrolled_net, model_dirs = unrolled
+    t0 = time.monotonic()
+    result = {}
+    with same_model_dirs(C, model_dirs):
+        result["train"], scan_net = scan_layers_run(torch, C, run_mm_late, counters, per_step,
+                                                    training, launches, tmp, unrolled_net)
+        t1 = time.monotonic()
+        result["serve"] = scan_layers_serve(
+            torch, serve, counters, per_window, launches,
+            {"unrolled": unrolled_net, "scan_layers": scan_net},
+            same_state=result["train"]["tensors_differing"] == 0)
+    t2 = time.monotonic()
+    result["export"] = detector_export_check(torch, tmp, ckpt, lxmert_path)
+    t3 = time.monotonic()
+    result["seconds"] = dict(train=t1 - t0, serve=t2 - t1, export=t3 - t2, total=t3 - t0)
+    log(f"scan_layers and detector export phase: {t3 - t0:.1f} s (training {t1 - t0:.1f}, "
+        f"serving {t2 - t1:.1f}, export {t3 - t2:.1f})")
+    return result
+
+
+def scan_export_only():
+    """``python3 chip_smoke.py --scan_export``: the kernels built, the
+    headline run's unrolled ``fused`` run, a seeded detector checkpoint and
+    a random LXMERT artifact, then the ``--scan_layers`` and detector export
+    phase, without the last line: a quick run of this phase while it
+    changes."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.cli import run_mm_late, serve
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.cli._common import (
+        set_precision_policy)
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.core import config as C
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.models import frcnn as FR
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.ops import _cuda
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.ops import attention as A
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.ops import attn_block as AB
+
+    set_precision_policy()
+    memoize_init(torch)
+    log(card_line())
+    log(f"build: per source {_cuda.build()}")
+    counters, none, per_step, _ = training_counts(A, AB)
+    per_window = {**none, **SERVE_PER_WINDOW["auto"]}
+    launches, training = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = make_dataset(tmp)
+        C.DATA_PATH, C.PATH[3] = data, data + "data_key_mvsa.csv"
+        C.IMG_FMT[3] = data + "MVSA-Single/data/{}.jpg"
+        C.results_dir_mm_late = os.path.join(tmp, "results", "mm_late") + os.sep
+        late_stem = "bernice-vit-attention_task3_seed30_itc0.1itm0.1_"
+        training["fused"], by_key, _ = train_run(
+            torch, run_mm_late.main, train_args("fused"), "train[fused]", counters,
+            C.results_dir_mm_late, late_stem, per_step["fused"],
+            late_grads_check(torch, "train[fused]"))
+        unrolled = (os.path.join(tmp, "unrolled_fused_net.pth"), dict(C.MODEL_DIR_DICT))
+        shutil.copyfile(os.path.join(C.results_dir_mm_late, late_stem + "net.pth"), unrolled[0])
+        ckpt = os.path.join(tmp, "hub_frcnn", "pytorch_model.bin")
+        seeded_frcnn_checkpoint(torch, FR, FR.FrcnnConfig(), detector_photos(), ckpt)
+        lxmert_path = os.path.join(tmp, "lxmert_random_net.pth")
+        random_lxmert_artifact(torch, C, serve, lxmert_path)
+        out = scan_export_phase(torch, C, serve, run_mm_late, counters, per_step, per_window,
+                                training, launches, tmp, unrolled, ckpt, lxmert_path)
+    log(json.dumps({"scan_export": out}, default=str))
     return 0
 
 
@@ -6511,6 +6846,11 @@ def main():
                 C.results_dir_mm_late, late_stem, expect, late_grads_check(torch, tag),
                 after=optimizer_reading(torch, tag) if impl == "auto" else None)
             count_launches(launches, by_key)
+            if impl == "fused":  # the unrolled run the --scan_layers run is held to
+                unrolled = (os.path.join(tmp, "unrolled_fused_net.pth"),
+                            dict(C.MODEL_DIR_DICT))
+                shutil.copyfile(os.path.join(C.results_dir_mm_late, late_stem + "net.pth"),
+                                unrolled[0])
         no_added_f32_gemm(training["fused"], training["auto"], "train")
         # the same run at --steps_per_dispatch 3: every step a CUDA graph replay
         tag = "train[fused, K=3]"
@@ -6614,6 +6954,13 @@ def main():
             os.path.join(C.results_dir_mm_early, LXMERT_STEM + "net.pth"))
 
         lap("detector")
+        # --scan_layers: the headline run against the unrolled one, and its service;
+        # export --export_detector of the detector phase's checkpoint
+        training["scan_export"] = scan_export_phase(
+            torch, C, serve, run_mm_late, counters, per_step, {**none, **per_window["auto"]},
+            training, launches, tmp, unrolled, training["detector"]["checkpoint"],
+            os.path.join(C.results_dir_mm_early, LXMERT_STEM + "net.pth"))
+        lap("scan layers and detector export")
         # a JAX-layout artifact served, and the paper's grid under both backends
         training["jax_artifact"] = jax_artifact_phase(
             torch, C, serve, counters, {**none, **per_window["auto"]}, launches, tmp)
@@ -6704,6 +7051,8 @@ if __name__ == "__main__":
             sys.exit(bucket_only())
         if sys.argv[1:] == ["--detector"]:
             sys.exit(detector_only())
+        if sys.argv[1:] == ["--scan_export"]:
+            sys.exit(scan_export_only())
         if sys.argv[1:] == ["--serve_extras"]:
             sys.exit(serve_extras_only())
         if sys.argv[1:] == ["--roberta"]:

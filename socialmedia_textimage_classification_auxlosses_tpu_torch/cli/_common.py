@@ -7,6 +7,21 @@ line for one package parses for the other; ``check_training_supported``
 refuses, with ``SystemExit``, every value that selects something the port
 does not have yet. ``--prng_impl`` is accepted and logged only: the port's
 draws come from ``torch.Generator``.
+
+``--scan_layers`` is accepted by every trainer. In the JAX package it changes
+only the parameter layout: ``nn.scan`` over one stacked ``layers/layer``
+tree computes what the unrolled stack computes. The port always trains its
+unrolled modules, so a run with the flag is the run without it, bit for bit,
+and writes the same ``net.pth`` (the port's torch state dict); it still reads
+a JAX artifact in either layout (``train/checkpoint.py::load_params``), and
+under ``--load_saved_model --quantize w8`` the flag keeps the stacked layer
+kernels out of the quantization, as in JAX (``ops/quant.py``). Two JAX
+quirks are not copied: JAX's scanned branch ignores ``--remat`` (its
+``nn.remat`` wraps the unrolled branch only), where the port recomputes each
+layer under ``--remat`` with or without the flag, which gives the same
+numbers; and JAX's scanned random init and dropout draw other streams
+(``split_rngs``) than its unrolled ones, which the port never matched
+(it draws from ``torch.Generator``).
 """
 
 from __future__ import annotations
@@ -119,7 +134,10 @@ def add_common_args(parser: argparse.ArgumentParser, multimodal: bool = False):
                         help="rematerialise encoder layers (recompute each in "
                              "the backward)")
     parser.add_argument("--scan_layers", action="store_true",
-                        help="(not ported) scanned layer stack")
+                        help="the JAX package's scanned layer layout; the port "
+                             "trains its unrolled layers either way (the same "
+                             "run, bit for bit) and keeps the stacked kernels "
+                             "out of --quantize w8, as JAX does")
     parser.add_argument("--opt_impl", type=str, default="exact",
                         choices=["exact", "lazy_emb"],
                         help="exact: dense AdamW; lazy_emb: the word "
@@ -167,7 +185,6 @@ def check_training_supported(args) -> None:
     port's trainers do not have yet, rather than ignoring it; then publish
     ``--img_decoder`` (``publish_img_decoder``)."""
     refused = [
-        ("--scan_layers", args.scan_layers),
         ("--mesh_pipe > 1", args.mesh_pipe > 1),
         ("--mesh_data > 1", (args.mesh_data or 1) > 1),
         ("--mesh_model > 1", args.mesh_model > 1),

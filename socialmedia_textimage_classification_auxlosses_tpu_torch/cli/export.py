@@ -38,7 +38,20 @@ with torch alone.
 
 ``--check`` loads the written program and holds it against the live predict
 at the JAX package's tolerance (rtol 1e-5, atol 1e-7).
-``--export_detector`` is refused: see ``DETECTOR_REFUSAL``.
+
+``--export_detector`` (``--model lxmert``) also writes the fused Faster R-CNN
+(``models/frcnn.py::FusedDetectProgram``) as one program per canvas
+orientation at ``--detector_batch``, as the JAX package does: landscape
+``rup(min_size) x rup(max_size)`` and portrait the other way round, rounded
+up to the stride divisor, in ``<program>.detector.{landscape,portrait}.pt2``
+with a ``.json`` sidecar of the JAX keys (``canvas``, ``inputs``,
+``outputs``, ``platforms``). A program takes (batch, Hp, Wp, 3) uint8 RAW RGB
+canvases (``preprocess_image``) and (batch, 2) float32 valid sizes and
+gives the fused detector's 36-region tensors. Its greedy NMS is the op node
+``smtc::nms_keep`` (registered by ``models/frcnn.py``, which is imported
+before such a program is loaded, on either platform). As in the JAX package,
+``--check`` holds the serving program only; ``tests/test_torch_export.py``
+and ``chip_smoke.py`` hold the detector programs against the live detector.
 """
 
 from __future__ import annotations
@@ -57,11 +70,6 @@ from . import serve as _serve
 logger = get_logger(__name__)
 
 PLATFORMS = ("cpu", "cuda")
-DETECTOR_REFUSAL = (
-    "--export_detector is not available in the PyTorch port: its RPN NMS "
-    "(models/frcnn.py::nms_keep_device) reads a flag on the host at every block "
-    "step, and a traced program cannot hold that host loop. ROADMAP.md Queue 1, "
-    "'--export_detector' (a fixed-trip NMS or an NMS custom op), will port it")
 
 
 def parse_args(argv=None):
@@ -78,9 +86,14 @@ def parse_args(argv=None):
                     help="load the written program and hold it against the live "
                          "predict (rtol 1e-5, atol 1e-7)")
     ap.add_argument("--export_detector", action="store_true",
-                    help="(--model lxmert) refused in the port: " + DETECTOR_REFUSAL)
+                    help="(--model lxmert) also export the fused FRCNN "
+                         "detector program per canvas orientation at "
+                         "--detector_batch: raw padded uint8 canvases + "
+                         "per-image valid sizes in, 36-region tensors out "
+                         "(<out>.detector.{landscape,portrait}.pt2)")
     ap.add_argument("--detector_batch", type=int, default=16,
-                    help="(with --export_detector) the detector programs' batch")
+                    help="fixed batch of the exported detector programs "
+                         "(the cacher's dispatch group size)")
     export_args, serve_argv = ap.parse_known_args(argv)
     return export_args, _serve.parse_args(serve_argv)
 
@@ -166,6 +179,35 @@ def export_one(args, platform: str):
     return exported, sidecar, check, info, sample
 
 
+def export_detector(detector, batch: int, platform: str):
+    """The fused detector (``models/frcnn.py::FusedDetectProgram``) exported
+    once per canvas orientation, as the JAX package's ``export_detector``:
+    landscape ``rup(min_size) x rup(max_size)`` and portrait the other way
+    round, rounded up to the stride divisor -> {orientation:
+    (ExportedProgram, sidecar)}."""
+    from ..models.frcnn import FusedDetectProgram
+
+    cfg = detector.cfg
+    short, long = (-(-v // cfg.size_divisibility) * cfg.size_divisibility
+                   for v in (cfg.min_size, cfg.max_size))
+    program = FusedDetectProgram(detector)
+    out = {}
+    for orient, (ph, pw) in (("landscape", (short, long)), ("portrait", (long, short))):
+        spec = (torch.zeros((batch, ph, pw, 3), dtype=torch.uint8, device=detector.device),
+                torch.ones((batch, 2), dtype=torch.float32, device=detector.device))
+        with torch.no_grad():
+            exported = torch.export.export(program, spec, strict=False)
+        out[orient] = (exported, {
+            "canvas": [batch, ph, pw, 3],
+            "inputs": "canvases uint8 RAW RGB (preprocess_image), "
+                      "size_hw float32 (batch, 2) valid resized dims",
+            "outputs": "roi_features (batch, 36, feat), normalized_boxes, "
+                       "scores, classes, valid counts",
+            "platforms": [platform],
+        })
+    return out
+
+
 def export_service(args, platforms=None):
     """One export per platform (default: ``args.device``) ->
     {platform: (ExportedProgram, sidecar, check_fn, info, sample)}."""
@@ -185,12 +227,12 @@ def default_out(args) -> str:
 
 def main(argv=None):
     export_args, args = parse_args(argv)
-    if export_args.export_detector:
-        raise SystemExit(DETECTOR_REFUSAL)
+    if export_args.export_detector and args.model != "lxmert":
+        raise SystemExit("--export_detector needs --model lxmert")
     platforms = export_args.platforms.split(",") if export_args.platforms else [args.device]
     out = export_args.out or default_out(args)
     stem, ext = os.path.splitext(out)
-    for platform, (exported, sidecar, check, _, _) in export_service(args, platforms).items():
+    for platform, (exported, sidecar, check, info, _) in export_service(args, platforms).items():
         path = out if len(platforms) == 1 else f"{stem}.{platform}{ext or '.pt2'}"
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
         torch.export.save(exported, path)
@@ -202,8 +244,18 @@ def main(argv=None):
             check(path)
             logger.info("round-trip check passed: the loaded program matches the live "
                         "predict")
+        detector_files = []
+        if export_args.export_detector:
+            dets = export_detector(info["detector"], export_args.detector_batch, platform)
+            for orient, (dexported, dmeta) in dets.items():
+                dpath = f"{path}.detector.{orient}.pt2"
+                torch.export.save(dexported, dpath)
+                with open(dpath + ".json", "w") as f:
+                    json.dump(dmeta, f, indent=1)
+                detector_files.append(dpath)
+                logger.info("wrote %s (%.1f MB)", dpath, os.path.getsize(dpath) / 2 ** 20)
         print(json.dumps({"out": path, "bytes": size, "platforms": sidecar["platforms"],
-                          "detectors": [], "checked": bool(export_args.check)}))
+                          "detectors": detector_files, "checked": bool(export_args.check)}))
     return 0
 
 

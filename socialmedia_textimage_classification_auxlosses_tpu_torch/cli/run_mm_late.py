@@ -39,7 +39,9 @@ each batch's text sliced to its bucket; under ``--steps_per_dispatch`` one
 CUDA graph per width). ``--load_saved_model --quantize w8`` evaluates
 with the weight-only int8 weights of ``ops/quant.py`` (dequantized to
 bfloat16 in each forward; the other weights are not pre-cast), as the JAX
-runner does. What the port lacks raises ``SystemExit``
+runner does; ``--scan_layers`` (the JAX layout flag) trains the same run and,
+there, keeps the stacked layer kernels in float (``cli/_common.py``). What
+the port lacks raises ``SystemExit``
 (``cli/_common.py::check_training_supported``).
 """
 
@@ -187,7 +189,7 @@ def main(argv=None, on_step=None, keep_grads=False):
         if args.quantize == "w8":
             from ..ops.quant import quantize_w8
 
-            quantize_w8(setup.model, compute_dtype=args.dtype)
+            quantize_w8(setup.model, scan_layers=args.scan_layers, compute_dtype=args.dtype)
             logger.info("w8 serving quantization enabled")
         else:
             cast_params_for_eval(setup.model, args.dtype)

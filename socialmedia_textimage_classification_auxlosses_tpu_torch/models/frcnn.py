@@ -36,7 +36,14 @@ Two ways through, as in the JAX package:
 * the fused path (default): the RPN and the per-class NMS on the device
   (``nms_keep_device``, a blocked greedy scan over boxes sorted by score, with
   all the images of a window in lockstep, one host read of a flag per block
-  step for the whole window), only the 36 regions copied to the host.
+  step for the whole window), only the 36 regions copied to the host. The
+  path calls the scan as the ``torch.library`` op ``smtc::nms_keep``
+  (``nms_keep``), whose implementation is ``nms_keep_device`` itself and
+  whose fake gives the output shapes, so ``torch.export`` records the scan as
+  one node and the rest of the path around it (``FusedDetectProgram``,
+  ``cli/export.py --export_detector``); under export stage 2's per-image
+  pass is recorded once and mapped over the batch (``torch``'s ``map``
+  higher-order op), where the live path loops.
   ``prepare_batch`` (numpy and PIL only) and ``detect_prepared_async``
   split the host's work from the card's, so that the offline cacher
   prepares its next chunk in a thread while the card works on this one; a
@@ -182,6 +189,20 @@ def apply_topk_overrides(cfg: "FrcnnConfig", pre_topk=None, post_topk=None):
 # ---------------------------------------------------------------------------
 
 
+def _cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` in ``dtype``: ``t`` itself where it is in ``dtype`` already, as
+    ``Tensor.to`` returns it, but without the cast nodes that ``torch.export``
+    would record for each convolution's input and weight and each frozen
+    batch norm's scale and shift (the exported detector's size and its save
+    and load times)."""
+    return t if t.dtype == dtype else t.to(dtype)
+
+
+def _channels(t: torch.Tensor) -> torch.Tensor:
+    """A per-channel (C,) vector as (C, 1, 1), to broadcast over (..., C, H, W)."""
+    return t.view(-1, 1, 1)
+
+
 class FrozenBN(nn.Module):
     """Inference-frozen batch norm: Detectron2's four buffers, never trained.
     ``x * scale + shift`` with scale and shift formed in float32 and cast to
@@ -204,7 +225,7 @@ class FrozenBN(nn.Module):
     def forward(self, x):
         scale = self.weight * torch.rsqrt(self.running_var + self.eps)
         shift = self.bias - self.running_mean * scale
-        return x * scale.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
+        return x * _channels(_cast(scale, x.dtype)) + _channels(_cast(shift, x.dtype))
 
 
 class Conv(nn.Conv2d):
@@ -220,9 +241,9 @@ class Conv(nn.Conv2d):
 
     def forward(self, x):
         dt = self.compute_dtype
-        y = F.conv2d(x.to(dt), self.weight.to(dt), None, self.stride, self.padding)
+        y = F.conv2d(_cast(x, dt), _cast(self.weight, dt), None, self.stride, self.padding)
         if self.bias is not None:
-            y = y + self.bias.to(dt)[:, None, None]
+            y = y + _channels(_cast(self.bias, dt))
         return self.norm(y) if self.norm is not None else y
 
 
@@ -284,7 +305,7 @@ class C4Backbone(nn.Module):
         self.compute_dtype = dt
 
     def forward(self, x):  # (B, 3, H, W) BGR, mean-subtracted, float32
-        x = self.stem(x.to(self.compute_dtype))
+        x = self.stem(_cast(x, self.compute_dtype))
         for name in self.stages:
             x = getattr(self, name)(x)
         return x
@@ -325,7 +346,7 @@ class Res5Head(nn.Sequential):
                            for b in range(cfg.res5_blocks)])
 
     def forward(self, rois):  # (N, C4, P, P)
-        return super().forward(rois).mean(dim=(2, 3)).float()
+        return _cast(super().forward(rois).mean(dim=(2, 3)), torch.float32)
 
 
 class BoxPredictor(nn.Module):
@@ -406,7 +427,15 @@ class FrcnnStage2(nn.Module):
     def forward(self, fmap, boxes, size_hw):
         cfg = self.cfg
         b, n = boxes.shape[:2]
-        feats = torch.stack([self.pooled_features(fmap[i], boxes[i]) for i in range(b)])
+        if torch.compiler.is_exporting():
+            # one traced copy of the per-image pass, mapped over the batch: the loop
+            # below, unrolled, would put B copies of it in the program (the same
+            # operations on the same slices either way)
+            from torch._higher_order_ops.map import map as map_images
+
+            feats = map_images(lambda pair: self.pooled_features(*pair), (fmap, boxes))
+        else:
+            feats = torch.stack([self.pooled_features(fmap[i], boxes[i]) for i in range(b)])
         scores, deltas = self.roi_heads.box_predictor(feats)
         probs = torch.softmax(scores, dim=-1)[..., :-1]   # background LAST
         best, cls = probs.max(dim=-1)
@@ -586,6 +615,23 @@ def nms_keep_device(boxes, alive, thresh: float, max_out: int, group=None,
     return (keep[0], cnt[0]) if single else (keep, cnt)
 
 
+@torch.library.custom_op("smtc::nms_keep", mutates_args=())
+def nms_keep(boxes: torch.Tensor, alive: torch.Tensor, thresh: float, max_out: int,
+             group: Optional[torch.Tensor] = None, block: int = 64
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``nms_keep_device`` as the ``torch.library`` op ``smtc::nms_keep``, on
+    every device: the node ``torch.export`` records for the scan, whose host
+    reads a traced program cannot hold. Its results are
+    ``nms_keep_device``'s, bit for bit."""
+    return nms_keep_device(boxes, alive, thresh, max_out, group, block)
+
+
+@nms_keep.register_fake
+def _nms_keep_fake(boxes, alive, thresh, max_out, group=None, block=64):
+    return (torch.empty_like(alive, dtype=torch.bool),
+            alive.new_empty(alive.shape[:-1], dtype=torch.int64))
+
+
 def _roi_sample_coords(bx, p, s, spatial_scale):
     """Per-ROI bilinear sample coordinates (torchvision aligned=False legacy
     semantics, fixed ``sampling_ratio``): (ys, xs), each (n, P, S). The grid
@@ -642,7 +688,7 @@ def roi_align(fmap, boxes, *, output_size: int, spatial_scale: float,
     into Ky / Kx (the sample grid is a Cartesian product, so this is the
     sampled average up to float32 summation order). ``impl="gather"``
     gathers the four corners of every sample instead."""
-    fmap = fmap.float()
+    fmap = _cast(fmap, torch.float32)
     c, h, w = fmap.shape
     p = output_size
     s = sampling_ratio
@@ -672,7 +718,7 @@ def roi_align(fmap, boxes, *, output_size: int, spatial_scale: float,
         return val.mean(dim=(3, 5)).permute(1, 0, 2, 3)      # (n,C,P,P)
 
     pool_chunk = pool_chunk_mm if impl == "mm" else pool_chunk_gather
-    boxes = boxes.float()
+    boxes = _cast(boxes, torch.float32)
     if boxes.shape[0] == 0:
         return fmap.new_zeros((0, c, p, p))
     return torch.cat([pool_chunk(boxes[i:i + chunk]) for i in range(0, boxes.shape[0], chunk)])
@@ -868,6 +914,8 @@ class FrcnnDetector:
 
     def _anchors_on_device(self, grid_h, grid_w):
         key = (grid_h, grid_w)
+        if torch.compiler.is_exporting():  # a constant of the program, not a cached tensor
+            return torch.from_numpy(self._anchors(grid_h, grid_w)).to(self.device)
         if key not in self._anchor_dev:
             self._anchor_dev[key] = torch.from_numpy(self._anchors(grid_h, grid_w)).to(self.device)
         return self._anchor_dev[key]
@@ -946,7 +994,7 @@ class FrcnnDetector:
         n_post = self.cfg.rpn_post_nms_topk
         bx, alive = self._rpn_candidates(logits, deltas, size_hw)
         b = bx.shape[0]
-        keep, cnt = nms_keep_device(bx, alive, self.cfg.rpn_nms_thresh, n_post)
+        keep, cnt = nms_keep(bx, alive, self.cfg.rpn_nms_thresh, n_post)
         sel = torch.sort((~keep).to(torch.uint8), dim=1, stable=True).indices[:, :n_post]
         mask = torch.arange(sel.shape[1], device=sel.device)[None] < cnt[:, None]
         props = torch.gather(bx, 1, sel[..., None].expand(b, sel.shape[1], 4))
@@ -966,7 +1014,7 @@ class FrcnnDetector:
         conf = row_ok & (best >= cfg.box_score_thresh)
         inf = torch.full((), float("inf"), device=dev)
         order = torch.sort(torch.where(conf, -best, inf), dim=1, stable=True).indices
-        keep_s, _ = nms_keep_device(
+        keep_s, _ = nms_keep(
             torch.gather(det, 1, order[..., None].expand(b, n, 4)), torch.gather(conf, 1, order),
             cfg.box_nms_thresh, n, group=torch.gather(cls, 1, order))
         kept = torch.zeros_like(keep_s).scatter(1, order, keep_s)
@@ -1153,6 +1201,28 @@ class FrcnnDetector:
                         out[key] = np.concatenate([v2, pad - (key == "classes")])
                 results[i] = out
         return results
+
+
+class FusedDetectProgram(nn.Module):
+    """The fused path of ``detector`` over one batch of padded canvases as a
+    module, for ``torch.export``: ``forward(canvases, size_hw)`` with (B, Hp,
+    Wp, 3) uint8 RGB canvases (``preprocess_image``) and (B, 2) float32
+    valid (resized_h, resized_w) -> the 36-region tensors of
+    ``_select_device`` (features, normalized boxes, scores, classes, counts).
+    It runs the detector's own stages and methods, so it gives what
+    ``detect_batch`` gives; the stages are its submodules (the program's
+    weights)."""
+
+    def __init__(self, detector: FrcnnDetector):
+        super().__init__()
+        self.stage1, self.stage2 = detector.stage1, detector.stage2
+        self.detector = detector
+
+    def forward(self, canvases, size_hw):
+        fmap, logits, deltas = self.stage1(canvases, size_hw)
+        props, nvalid = self.detector._rpn_device(logits, deltas, size_hw)
+        feats, best, cls, det = self.stage2(fmap, props, size_hw)
+        return self.detector._select_device(feats, best, cls, det, nvalid, size_hw)
 
 
 def import_frcnn_state_dict(sd, cfg: FrcnnConfig, device="cuda") -> FrcnnDetector:

@@ -320,6 +320,26 @@ def frcnn_state_from_jax(tree: Mapping) -> Dict[str, np.ndarray]:
     return out
 
 
+def frcnn_flax_path(mod_name: str) -> list:
+    """A detector stage's convolution or dense layer, named in the published
+    layout, as its path in the JAX stage's ``params`` tree (the inverse of
+    ``frcnn_state_from_jax``'s names): ``backbone.stem.conv1`` ->
+    ``backbone/stem_conv1``, ``backbone.res{s}.{b}.x`` ->
+    ``backbone/res{s}_{b}/x``, ``proposal_generator.rpn_head.x`` ->
+    ``rpn_head/x``, ``roi_heads.res5.{b}.x`` -> ``res5_head/res5_{b}/x``,
+    ``roi_heads.box_predictor.x`` -> ``box_predictor/x``."""
+    parts = mod_name.split(".")
+    if parts == ["backbone", "stem", "conv1"]:
+        return ["backbone", "stem_conv1"]
+    if parts[:2] in (["proposal_generator", "rpn_head"], ["roi_heads", "box_predictor"]):
+        return parts[1:]
+    if parts[0] == "backbone" and len(parts) > 3:
+        return ["backbone", f"{parts[1]}_{parts[2]}", *parts[3:]]
+    if parts[:2] == ["roi_heads", "res5"] and len(parts) > 3:
+        return ["res5_head", f"res5_{parts[2]}", *parts[3:]]
+    raise ValueError(f"{mod_name!r} is not a layer of the detector's layout")
+
+
 def load_jax_frcnn(detector, tree: Mapping):
     """Copy the JAX detector's tree into the port's ``FrcnnDetector``
     (strictly; returns it)."""

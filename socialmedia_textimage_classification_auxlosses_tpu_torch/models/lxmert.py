@@ -1,8 +1,9 @@
 """LXMERT early fusion over precomputed ROI features.
 
 Counterpart of the JAX package's ``models/lxmert.py`` in its unrolled form
-(the ``scan_layers`` / pipeline layouts are not ported; their parameter
-trees load through ``models/from_jax.py``): a language branch of post-LN
+(a ``--scan_layers`` run trains these modules too, and the scanned and
+pipeline-padded parameter trees load through ``models/from_jax.py``; the
+pipeline schedule is not ported): a language branch of post-LN
 self-attention layers over the text, a vision branch over the ROI features
 (``VisualFeatEmbeddings``: the features' and the boxes' projections, each
 LayerNorm'd, averaged), then cross-modality layers in which each modality

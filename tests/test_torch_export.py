@@ -10,7 +10,13 @@ package's tolerance (rtol 1e-5, atol 1e-7), with ``--quantize w8``, whose
 int8 weights the loaded program holds; each ``torch.library`` op the ``cuda``
 programs hold (``smtc::sdpa_fwd``, ``smtc::attn_block_fwd``) has a fake
 implementation that gives its plain version's shape and dtype, and no CPU
-implementation; ``--export_detector`` refuses, naming why.
+implementation. ``--export_detector`` writes the tiny fused detector for the
+CPU at ``--detector_batch 2``, one program per canvas orientation, each
+loaded and held against the live detector's fused path on preprocessed
+images (rtol 1e-5, atol 1e-4, the JAX package's ``test_detector_export_
+matches_live``); its greedy NMS is the op ``smtc::nms_keep``, which equals
+``nms_keep_device`` and the host ``greedy_nms`` on seeded boxes, and whose
+fake gives its outputs' shapes and dtypes under ``torch.export``.
 """
 
 import ast
@@ -26,6 +32,7 @@ import torch
 
 import socialmedia_textimage_classification_auxlosses_tpu.cli.export as jexport_module
 from socialmedia_textimage_classification_auxlosses_tpu_torch.cli import export as TExport
+from socialmedia_textimage_classification_auxlosses_tpu_torch.models import frcnn as FR
 from socialmedia_textimage_classification_auxlosses_tpu_torch.ops import attention as A
 from socialmedia_textimage_classification_auxlosses_tpu_torch.ops import attn_block as AB
 
@@ -173,6 +180,109 @@ def test_custom_op_fake_matches_the_plain_version(op):
         fn(*args)
 
 
-def test_export_detector_refuses():
-    with pytest.raises(SystemExit, match="nms_keep_device.*ROADMAP"):
-        TExport.main(["--export_detector", "--model", "lxmert"] + FLAGS)
+def _sorted_boxes(n, seed, grouped):
+    """``n`` seeded boxes sorted by score, the dead ones at the back (the
+    scan's input contract), and their groups."""
+    r = np.random.RandomState(seed)
+    centers = r.rand(n, 2) * 20
+    boxes = np.concatenate([centers, centers + 5 + r.rand(n, 2) * 4], 1).astype(np.float32)
+    scores, alive = r.rand(n), r.rand(n) > 0.15
+    group = r.randint(0, 3, n) if grouped else np.zeros(n, np.int64)
+    order = np.argsort(np.where(alive, -scores, np.inf), kind="stable")
+    return boxes[order], alive[order], group[order]
+
+
+@pytest.mark.parametrize("grouped", [False, True], ids=["plain", "grouped"])
+def test_nms_keep_op_equals_the_scan_and_greedy(grouped):
+    """Two images in lockstep: the op's mask and counts are
+    ``nms_keep_device``'s, and the kept rows are the host greedy scan's, one
+    scan a group."""
+    cases = [_sorted_boxes(70, s, grouped) for s in (1, 2)]
+    boxes, alive, group = (torch.from_numpy(np.stack([c[i] for c in cases])) for i in range(3))
+    g = group if grouped else None
+    keep, cnt = FR.nms_keep(boxes, alive, 0.5, 70, g, 16)
+    want_keep, want_cnt = FR.nms_keep_device(boxes, alive, 0.5, 70, g, 16)
+    assert torch.equal(keep, want_keep) and torch.equal(cnt, want_cnt)
+    for i, (b, a, gr) in enumerate(cases):
+        kept = []
+        for label in np.unique(gr[a]):
+            rows = np.nonzero(a & (gr == label))[0]
+            kept += rows[FR.greedy_nms(b[rows], -rows.astype(np.float32), 0.5)].tolist()
+        assert np.nonzero(keep[i].numpy())[0].tolist() == sorted(kept)
+        assert int(cnt[i]) == len(kept)
+
+
+def test_nms_keep_fake_gives_the_shapes_under_export():
+    class Scan(torch.nn.Module):
+        def forward(self, boxes, alive, group):
+            return FR.nms_keep(boxes, alive, 0.5, 9, group, 8)
+
+    boxes, alive, group = (torch.from_numpy(np.stack([c[i] for c in (
+        _sorted_boxes(30, 3, True), _sorted_boxes(30, 4, True))])) for i in range(3))
+    with torch.no_grad():
+        exported = torch.export.export(Scan(), (boxes, alive, group), strict=False)
+    nodes = [n for n in exported.graph.nodes if str(n.target) == "smtc.nms_keep.default"]
+    assert len(nodes) == 1
+    keep, cnt = nodes[0].meta["val"]
+    assert (keep.shape, keep.dtype, cnt.shape, cnt.dtype) == (
+        (2, 30), torch.bool, (2,), torch.int64)
+    for got, want in zip(exported.module()(boxes, alive, group),
+                         FR.nms_keep_device(boxes, alive, 0.5, 9, group, 8)):
+        assert torch.equal(got, want)
+
+
+LXMERT = ["--task", "3", "--model", "lxmert", "--arch", "tiny", "--frcnn_arch", "tiny",
+          "--max_batch", "2", "--random_init", "--device", "cpu"]
+
+
+@pytest.fixture(scope="module")
+def detector_programs(tmp_path_factory):
+    """``export --export_detector --detector_batch 2`` of the tiny LXMERT
+    service for the CPU: (the printed line, the live detector the CLI
+    exported)."""
+    import contextlib
+    import io
+
+    out = str(tmp_path_factory.mktemp("export_detector") / "lx.pt2")
+    live = {}
+    real = TExport.export_service
+
+    def keep(args, platforms=None):
+        live.update(real(args, platforms))
+        return live
+
+    printed = io.StringIO()
+    with pytest.MonkeyPatch.context() as m, contextlib.redirect_stdout(printed):
+        m.setattr(TExport, "export_service", keep)
+        TExport.main(["--out", out, "--platforms", "cpu", "--export_detector",
+                      "--detector_batch", "2"] + LXMERT)
+    return json.loads(printed.getvalue().strip().splitlines()[-1]), live["cpu"][3]["detector"]
+
+
+@pytest.mark.parametrize("orient", ["landscape", "portrait"])
+def test_exported_detector_matches_live(detector_programs, orient):
+    """The loaded program of each orientation gives the live fused
+    detector's 36-region tensors on two preprocessed images."""
+    line, det = detector_programs
+    path = line["out"] + f".detector.{orient}.pt2"
+    assert path in line["detectors"] and len(line["detectors"]) == 2
+    meta = json.load(open(path + ".json"))
+    assert set(meta) == {"canvas", "inputs", "outputs", "platforms"}
+    batch, ph, pw, _ = meta["canvas"]
+    assert batch == 2 and (ph < pw) == (orient == "landscape") and meta["platforms"] == ["cpu"]
+    rng = np.random.RandomState(5)
+    pre = [FR.preprocess_image(rng.randint(0, 255, hw + (3,), np.uint8), det.cfg)
+           for hw in ((48, 80), (40, 72))]
+    if orient == "portrait":
+        pre = [FR.preprocess_image(rng.randint(0, 255, (80, 48, 3), np.uint8), det.cfg)
+               for _ in range(2)]
+    canvases = torch.from_numpy(np.stack([p[0] for p in pre]))
+    sizes = torch.tensor([p[1] for p in pre], dtype=torch.float32)
+    assert tuple(canvases.shape) == (batch, ph, pw, 3)
+    with torch.no_grad():
+        want = det._select_device(*det._dispatch(canvases, sizes))
+        got = torch.export.load(path).module()(canvases, sizes)
+    assert len(got) == 5
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-4)

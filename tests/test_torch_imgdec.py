@@ -12,9 +12,18 @@ follows ``SMTC_IMG_DECODER`` with the jpg -> png order; a flag published by
 one invocation does not leak into the next; a decode failure is ``None``;
 ``serve --img_decoder native`` decodes request images as the JAX service
 does and answers as it does (float32 within 1e-4).
+
+The JAX package's decoder is built once per module into a directory of this
+module's own (``private_jax_decoder``): the JAX package compiles its library
+with ``g++ -o`` straight onto one shared path, from whichever process finds it
+missing or older than its source, and falls back to PIL without a word when
+the build or the load fails. Under ``pytest -n`` another worker (this file,
+``test_torch_obj_features.py``, ``test_native_imgdec.py``, ``test_serve.py``)
+could then overwrite the library or hand over a half-written one.
 """
 
 import base64
+import contextlib
 import io
 import os
 
@@ -44,6 +53,27 @@ from test_torch_from_jax import to_numpy_tree
 from test_torch_serve import BASE, _services, jitted_inits  # noqa: F401 (autouse)
 
 
+@contextlib.contextmanager
+def private_jax_decoder(directory):
+    """The JAX package's ``data/native.py`` pointed at a library under
+    ``directory``, its loaded library and failure flag reset, and the library
+    built and loaded there once; everything restored on exit. No JAX file
+    changes: only the module's globals are patched."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JN, "_IMGDEC_LIB_PATH",
+                   os.path.join(directory, os.path.basename(JN._IMGDEC_LIB_PATH)))
+        mp.setattr(JN, "_imgdec_lib", None)
+        mp.setattr(JN, "_imgdec_failed", False)
+        JN.get_imgdec_lib()
+        yield JN
+
+
+@pytest.fixture(scope="module")
+def jax_decoder(tmp_path_factory):
+    with private_jax_decoder(str(tmp_path_factory.mktemp("jax_imgdec"))) as jax_native:
+        yield jax_native
+
+
 @pytest.fixture(scope="module")
 def port_decoder():
     if not TN.imgdec_available():
@@ -52,10 +82,10 @@ def port_decoder():
 
 
 @pytest.fixture(scope="module")
-def both(port_decoder):
-    if not JN.imgdec_available():
-        pytest.skip("the JAX package's native decoder is unavailable here")
-    return port_decoder, JN
+def both(port_decoder, jax_decoder):
+    if not jax_decoder.imgdec_available():
+        pytest.skip("the JAX package's native decoder did not build here")
+    return port_decoder, jax_decoder
 
 
 @pytest.fixture(scope="module")

@@ -31,6 +31,7 @@ from socialmedia_textimage_classification_auxlosses_tpu_torch.models import frcn
 sys.path.insert(0, os.path.dirname(__file__))
 from fixtures import make_task_fixture, patch_task  # noqa: E402
 from ref_frcnn import TwinFrcnn  # noqa: E402
+from test_torch_imgdec import private_jax_decoder  # noqa: E402
 
 TINY = TF.TINY
 
@@ -214,14 +215,25 @@ def test_ids_come_from_the_task_id_column(tmp_path, monkeypatch):
         assert TObj.read_ids(task) == [str(v) for v in pd.read_csv(path)[column].values]
 
 
-def test_native_decoder_exits_naming_its_item(task, monkeypatch):
-    """``--img_decoder native`` no longer exits: the image cache build goes
-    through the port's C++ decoder and equals the JAX package's native build
-    byte for byte (one decoder source)."""
+@pytest.fixture(scope="module")
+def jax_decoder(tmp_path_factory):
+    """The JAX package's decoder built into this module's own directory
+    (``test_torch_imgdec.py::private_jax_decoder`` says why)."""
+    with private_jax_decoder(str(tmp_path_factory.mktemp("jax_imgdec"))) as jax_native:
+        yield jax_native
+
+
+def test_native_decoder_cache_equals_jax(task, jax_decoder, monkeypatch):
+    """``--img_decoder native``: the image cache build goes through the
+    port's C++ decoder and equals the JAX package's native build byte for
+    byte (one decoder source). Both decoders must be loaded first, so a
+    silent fall-back to PIL on either side fails here, by name."""
     from socialmedia_textimage_classification_auxlosses_tpu_torch.data import native
 
-    if not native.imgdec_available():
-        pytest.skip(f"the C++ decoder did not build here: {native.build_error()}")
+    assert native.imgdec_available(), (
+        f"the port's C++ decoder did not load ({native.build_error()}): its cache would be PIL's")
+    assert jax_decoder.get_imgdec_lib() is not None, (
+        "the JAX package's native decoder did not load: its cache would be PIL's")
     ids, _, data, _ = task
     monkeypatch.setenv("SMTC_IMG_DECODER", "pil")  # main() publishes the flag
     argv = ["--task", "3", "--mode", "mm", "--image_size", "40", "--img_decoder", "native"]

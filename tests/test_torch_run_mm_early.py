@@ -120,16 +120,18 @@ def test_evaltest_artifacts_match_jax(runs):
 
 
 REFUSED = [
-    ["--scan_layers"], ["--mesh_pipe", "2"], ["--bucket_seq", "1"],
+    ["--mesh_pipe", "2"], ["--bucket_seq", "1"],
     ["--tim_reuse_text"], ["--cache_vision"],  # late-fusion flags the JAX runner ignores
 ]
 # --bucket_seq is ported: what it refuses is a bad value, with the JAX package's message
 REFUSED_AS = {"--bucket_seq": "buckets must be >= 2"}
 # refused until the port carried them; tests/test_torch_run_control.py runs the
-# flags, tests/test_torch_lxmert.py and tests/test_torch_mmbt.py the models
+# flags, tests/test_torch_lxmert.py and tests/test_torch_mmbt.py the models,
+# tests/test_torch_scan_layers.py --scan_layers
 PORTED = [["--remat"], ["--ckpt_every", "10"], ["--profile", "p"],
           ["--model", "lxmert"], ["--model", "mmbt"], ["--opt_impl", "lazy_emb"],
-          ["--bucket_seq"], ["--bucket_seq", "--bucket_group", "--steps_per_dispatch", "2"]]
+          ["--bucket_seq"], ["--bucket_seq", "--bucket_group", "--steps_per_dispatch", "2"],
+          ["--scan_layers"]]
 
 
 @pytest.mark.parametrize("extra", REFUSED, ids=lambda e: "_".join(

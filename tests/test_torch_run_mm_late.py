@@ -116,7 +116,7 @@ def test_prediction_csv_matches_jax(runs):
 
 
 REFUSED = [
-    ["--scan_layers"], ["--mesh_pipe", "2"], ["--mesh_data", "2"],
+    ["--mesh_pipe", "2"], ["--mesh_data", "2"],
     ["--mesh_model", "2"], ["--bucket_seq", "1"],
     ["--bucket_group"],
 ]
@@ -126,14 +126,14 @@ REFUSED_AS = {"--bucket_seq": "buckets must be >= 2", "--bucket_group": "require
 # refused until the port carried them; tests/test_torch_run_control.py runs the
 # run-control flags, test_torch_lazy_emb.py, test_torch_vision_cache.py and
 # test_torch_tim_reuse.py the next four, test_torch_quant.py and
-# test_torch_imgdec.py the last two
+# test_torch_imgdec.py the two after them, test_torch_scan_layers.py the last
 PORTED = [
     ["--remat"], ["--steps_per_dispatch", "4"], ["--ckpt_every", "10"], ["--resume"],
     ["--profile", "p"], ["--extract_features"], ["--eval_txt_test"],
     ["--opt_impl", "lazy_emb"], ["--tim_reuse_text"], ["--cache_vision"],
     ["--img_model_name", "beit", "--cache_vision"],
     ["--bucket_seq"], ["--bucket_group", "--bucket_seq", "16,32"],
-    ["--quantize", "w8"], ["--img_decoder", "native"],
+    ["--quantize", "w8"], ["--img_decoder", "native"], ["--scan_layers"],
 ]
 
 

@@ -8,7 +8,7 @@
   ``_metrics_val.csv``, ``_metrics_test.csv``, ``_net.pth``, ``_preds.csv``,
   ``_preds_txt.csv``, ``_metrics_txt.csv``, checkpoints in ``..._ckpt/``);
   ``--freeze`` leaves the tower as it started; the flags the port does not
-  carry exit with ``SystemExit``.
+  carry exit with ``SystemExit``, those it carries are accepted.
 """
 
 import csv
@@ -112,7 +112,17 @@ def test_freeze_keeps_the_tower(txt_runs):
 @pytest.mark.parametrize("extra,message", [
     pytest.param(extra, message, id=extra[0].lstrip("-")) for extra, message in (
         (["--bucket_group"], "requires --bucket_seq"), (["--bucket_seq", "1"], "must be >= 2"),
-        (["--mesh_data", "2"], "not ported"), (["--scan_layers"], "not ported"))])
+        (["--mesh_data", "2"], "not ported"))])
 def test_unported_flags_exit(extra, message):
     with pytest.raises(SystemExit, match=message):
         run_txt.main(ARGS + extra)
+
+
+# refused until the port carried it; tests/test_torch_scan_layers.py runs it
+@pytest.mark.parametrize("extra", [["--scan_layers"]], ids=lambda e: e[0].lstrip("-"))
+def test_ported_flags_are_accepted(extra, monkeypatch):
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.cli._common import (
+        check_training_supported)
+
+    monkeypatch.setenv("SMTC_IMG_DECODER", "pil")  # the check publishes --img_decoder
+    check_training_supported(run_txt.parse_args(ARGS + extra))

@@ -359,7 +359,7 @@ def test_shared_data_mode_and_independent_batch_orders(task3):
 
 
 @pytest.mark.parametrize("extra", [["--ckpt_every", "5"], ["--resume"], ["--profile", "p"],
-                                   ["--scan_layers"], ["--bucket_seq", "8,16"],
+                                   ["--bucket_seq", "8,16"],
                                    ["--opt_impl", "lazy_emb"], ["--cache_vision"]],
                          ids=lambda e: e[0].lstrip("-"))
 def test_sweep_refuses_what_it_does_not_carry(extra):
@@ -376,7 +376,8 @@ def test_sweep_takes_tim_reuse_text():
 
 
 @pytest.mark.parametrize("extra", [["--img_model_name", "beit"],
-                                   ["--shared_data", "--bucket_seq", "--bucket_group"]],
+                                   ["--shared_data", "--bucket_seq", "--bucket_group"],
+                                   ["--scan_layers"]],
                          ids=lambda e: e[-1].lstrip("-"))
 def test_sweep_takes(extra):
     TSweep.check_supported(TSweep.parse_args(BASE + ["--seeds", "7,8"] + extra))

@@ -200,7 +200,7 @@ def test_microbatcher_and_http_round_trip(f32_services):
     ("parse_model_spec", "e:model=nonsense"),
     ("build_service", ["--attn_impl", "nonsense"]),
 ])
-def test_unported_flags_refuse_to_start(extra, monkeypatch):
+def test_flags_jax_refuses_exit_here_too(extra, monkeypatch):
     """Flag values the JAX service refuses exit here too: the reserved name
     ``default``, an unknown key, a bad value, ``--workers`` without an
     explicit port, a duplicate ``--extra_model`` name, a fusion head the
