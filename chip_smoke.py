@@ -186,29 +186,39 @@ and the CUDA toolkit. It
    its bound and the packed kernels 7 and 8 at the same shape;
 11. starts the late-fusion towers from checkpoints written from a seed under
    Hugging Face's names at full width (Bernice-base ``pytorch_model.bin``
-   with a hand-encoded ``sentencepiece.bpe.model``, ViT-B/16
-   ``model.safetensors`` written by hand): one epoch of
+   with its tokenizer as an XLM-R-family directory ships it: a hand-encoded
+   ``sentencepiece.bpe.model`` and the converter's ``tokenizer.json`` over
+   the same pieces, Precompiled over a seeded charsmap, Metaspace, Unigram;
+   ViT-B/16 ``model.safetensors`` written by hand): one epoch of
    ``cli/run_mm_late.main``, every imported tensor on the device checked
-   against the file's, the tokenizer's ids against the file's vocabulary,
-   the vision tower frozen as the file's, finite losses; then
+   against the file's, the tokenizer the ``tokenizer.json`` with the ids the
+   JAX package's Rust path gives on the same file (pasted here), the vision
+   tower frozen as the file's, finite losses; then
    ``--import_reference_ckpt`` with a reference-format ``MM_Model`` state
    dict, its classification logits equal to those of a model loaded from
-   the converted state dict; no transformers, safetensors, msgpack or flax
+   the converted state dict; a 250,002-piece Unigram ``tokenizer.json``
+   generated from a seed, its load and encode seconds and its first ids
+   against the Rust path's; no transformers, safetensors, msgpack or flax
    imported; then RoBERTa-base (``roberta_phase``): the tokenizer layouts on
-   the host (a tiny BERT ``vocab.txt``, a BERT ``tokenizer.json`` and a
-   byte-level ``vocab.json`` + ``merges.txt`` written by the script, their
-   ids on ten texts equal to those the JAX package's Rust path gives, pasted
-   here), the port's C++ tokenizer library built on this machine (its build
-   seconds; hash, SentencePiece-BPE and fastBPE ids equal to the Python
-   paths'), then a directory as roberta-base ships it, written from a seed
-   (``model.safetensors`` at the published widths, vocabulary 50,265 and 514
-   positions; ``vocab.json`` + ``merges.txt`` of 50,000 merges) and
+   the host (a tiny BERT ``vocab.txt``, a BERT ``tokenizer.json``, a
+   byte-level ``vocab.json`` + ``merges.txt``, a ``sentencepiece.bpe.model``
+   alone and beside its XLM-R ``tokenizer.json``, a byte-fallback BPE
+   ``tokenizer.json`` and a ``vocab.txt`` without ``[CLS]`` / ``[SEP]``
+   written by the script, their ids on ten texts equal to those the JAX
+   package's paths give, pasted here, the last through the port's C++
+   WordPiece), the port's C++ tokenizer library built on this machine (its
+   build seconds; hash, SentencePiece-BPE and fastBPE ids equal to the
+   Python paths'), then a directory as roberta-base ships it, written from a
+   seed (``model.safetensors`` at the published widths, vocabulary 50,265
+   and 514 positions; ``vocab.json`` + ``merges.txt`` of 50,000 merges) and
    ``cli/run_txt.main --model_name roberta`` from it, one epoch of 48
    tweet-like posts in bfloat16 under ``auto``: the byte-level BPE with pad
    id 1, every id under 50,265, the imported tensors on the device equal to
    the file's, exact launch counts, the tokenizer's load and encode seconds,
    and the first step against the plain path as in step 9
-   (``python3 chip_smoke.py --roberta`` runs the phase alone);
+   (``python3 chip_smoke.py --roberta`` runs the phase alone;
+   ``--tokenizers`` the pretrained start, the host checks and the native
+   encoders alone);
 12. logs the ptxas registers and spills of every kernel, the resident
    blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) of the
    tensor-core SDPA kernels at ViLT's 402 keys, of the fusion head's row
@@ -3434,6 +3444,189 @@ def spm_model_bytes(pieces):
     return bytes(buf)
 
 
+def charsmap_bytes(pairs):
+    """A SentencePiece precompiled charsmap of ``pairs`` (key -> normalized
+    string), as the ``spm_precompiled`` crate reads one: the trie's size (a
+    little-endian u32), a Darts-clone double array of u32 units over the
+    keys' bytes (a node's children at ``base ^ label``, each base used once,
+    a leaf under label 0 holding its string's offset), then the NUL-ended
+    strings."""
+    import struct
+
+    blob, offsets = bytearray(), {}
+    for key in sorted(pairs):
+        offsets[key] = len(blob)
+        blob += pairs[key].encode() + b"\0"
+    trie = {}
+    for key in pairs:
+        node = trie
+        for b in key.encode():
+            node = node.setdefault(b, {})
+        node[0] = offsets[key]
+    units, used, bases, queue = [0] * 256, {0}, set(), [(0, trie)]
+    while queue:
+        pos, node = queue.pop(0)
+        base = 1
+        while base in bases or any((base ^ label) in used for label in node):
+            base += 1
+        bases.add(base)
+        units[pos] |= (pos ^ base) << 10
+        units += [0] * ((base | 255) + 1 - len(units))
+        for label, child in node.items():
+            used.add(base ^ label)
+            if label:
+                units[base ^ label] = label
+                queue.append((base ^ label, child))
+            else:
+                units[base] = child | (1 << 31)
+                units[pos] |= 1 << 8
+    return struct.pack(f"<I{len(units)}I", 4 * len(units), *units) + bytes(blob)
+
+
+def bernice_charsmap(seed=18):
+    """A charsmap with the rules an ``nmt_nfkc`` one holds and its quirks:
+    NFKC pairs drawn from ``seed`` (fullwidth forms, ligatures, circled
+    digits, odd spaces), deletions (zero width, soft hyphen, BOM), and prefix
+    pairs (``e`` beside ``e`` + U+0301: the shortest key's string replaces a
+    whole short grapheme cluster)."""
+    import unicodedata
+
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    nfkc = [c for c in map(chr, [*range(0xFF01, 0xFF5F), *range(0x2460, 0x2474), 0xFB01,
+                                 0xFB02, 0x3000, 0xA0, 0xB2, 0x2167])
+            if unicodedata.normalize("NFKC", c) != c]
+    pairs = {c: unicodedata.normalize("NFKC", c) for c in rng.choice(nfkc, 80, replace=False)}
+    pairs.update({"\uff32": "R", "\uff43": "c", "\u200b": "", "\xad": "", "\ufeff": "",
+                  "e": "e", "e\u0301": "\u00e9", "a": "a"})
+    return charsmap_bytes(pairs)
+
+
+def xlmr_tokenizer_json(pieces, charsmap):
+    """The ``tokenizer.json`` that ``transformers``' XLM-R converter wrote for
+    an XLM-R-family ``sentencepiece.bpe.model`` of ``pieces`` (spm order:
+    ``<unk> <s> </s>`` first): ``Sequence[Replace, Replace, Precompiled,
+    Replace]``, the legacy ``Metaspace``, ``Unigram`` over fairseq's ids
+    (``<s> <pad> </s> <unk>``, the pieces past the first three, ``<mask>``)
+    and ``<s> $A </s>``."""
+    import base64
+
+    vocab = [["<s>", 0.0], ["<pad>", 0.0], ["</s>", 0.0], ["<unk>", 0.0]]
+    vocab += [[p, s] for p, s, _ in pieces[3:]] + [["<mask>", 0.0]]
+    added = [{"id": i, "content": t, "single_word": False, "lstrip": t == "<mask>",
+              "rstrip": False, "normalized": False, "special": True}
+             for i, t in ((0, "<s>"), (1, "<pad>"), (2, "</s>"), (3, "<unk>"),
+                          (len(vocab) - 1, "<mask>"))]
+    metaspace = {"type": "Metaspace", "replacement": "▁", "add_prefix_space": True}
+    specials = [{"SpecialToken": {"id": "<s>", "type_id": 0}},
+                {"Sequence": {"id": "A", "type_id": 0}},
+                {"SpecialToken": {"id": "</s>", "type_id": 0}}]
+    return {
+        "version": "1.0", "truncation": None, "padding": None, "added_tokens": added,
+        "normalizer": {"type": "Sequence", "normalizers": [
+            {"type": "Replace", "pattern": {"String": "``"}, "content": '"'},
+            {"type": "Replace", "pattern": {"String": "''"}, "content": '"'},
+            {"type": "Precompiled", "precompiled_charsmap": base64.b64encode(charsmap).decode()},
+            {"type": "Replace", "pattern": {"Regex": " {2,}"}, "content": " "}]},
+        "pre_tokenizer": metaspace,
+        "post_processor": {"type": "TemplateProcessing", "single": specials,
+                           "pair": specials + specials[2:] + specials[1:],
+                           "special_tokens": {t: {"id": t, "ids": [i], "tokens": [t]}
+                                              for t, i in (("<s>", 0), ("</s>", 2))}},
+        "decoder": metaspace,
+        "model": {"type": "Unigram", "unk_id": 3, "vocab": vocab}}
+
+
+def bernice_pieces(words):
+    """Bernice's SentencePiece pieces over ``words``: ``<unk> <s> </s>``, each
+    character and the word marker at -10, each marked prefix at its length."""
+    pieces = [("<unk>", 0.0, 2), ("<s>", 0.0, 3), ("</s>", 0.0, 3)]
+    pieces += [(c, -10.0, 1) for c in sorted(set("".join(words))) + ["▁"]]
+    marked = sorted({"▁" + w[:n] for w in words for n in range(1, len(w) + 1)})
+    return pieces + [(p, float(len(p)), 1) for p in marked]
+
+
+def write_bernice_tokenizer(d, pieces, charsmap=None):
+    """``sentencepiece.bpe.model`` of ``pieces`` and its converted
+    ``tokenizer.json`` (``bernice_charsmap`` by default) in ``d``."""
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "sentencepiece.bpe.model"), "wb") as f:
+        f.write(spm_model_bytes(pieces))
+    with open(os.path.join(d, "tokenizer.json"), "w") as f:
+        json.dump(xlmr_tokenizer_json(pieces, charsmap or bernice_charsmap()), f)
+
+
+UNIGRAM_PIECES = 250000  # with <pad> and <mask>: Bernice's 250,002 ids
+UNIGRAM_POSTS = 1024
+
+
+def unigram_vocabulary(root, seed=250002):
+    """Bernice's vocabulary size from ``seed``: ``UNIGRAM_PIECES`` pieces (the
+    word marker and 30 letters, then random strings of them, marked or not)
+    with random scores, in the converted ``tokenizer.json`` under ``root``;
+    and ``UNIGRAM_POSTS`` posts of random words. Returns (directory, posts)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz\u00e9\u00f1\u00fc\u00df"))
+    pieces = [("<unk>", 0.0, 2), ("<s>", 0.0, 3), ("</s>", 0.0, 3), ("\u2581", -2.0, 1)]
+    pieces += [(c, -8.0, 1) for c in letters]
+
+    def strings(n, low, high):
+        ends = np.cumsum(rng.randint(low, high, n))
+        chars = letters[rng.randint(0, len(letters), ends[-1])].tolist()
+        return ["".join(chars[a:b]) for a, b in zip([0, *ends[:-1]], ends)]
+
+    marks = np.where(rng.rand(2 * UNIGRAM_PIECES) < 0.6, "\u2581", "").tolist()
+    seen = {p for p, _, _ in pieces}
+    for p in map("".join, zip(marks, strings(2 * UNIGRAM_PIECES, 2, 11))):
+        if p not in seen:
+            seen.add(p)
+            pieces.append((p, 0.0, 1))
+            if len(pieces) == UNIGRAM_PIECES:
+                break
+    scores = (-rng.uniform(3, 18, len(pieces))).astype(np.float32).tolist()
+    pieces = pieces[:len(letters) + 4] + [(p, s, t) for (p, _, t), s in
+                                         zip(pieces[len(letters) + 4:], scores)]
+    words = strings(UNIGRAM_POSTS * 40, 2, 9)
+    posts = [" ".join(words[40 * i:40 * i + tweet_words(rng) % 40 + 1])
+             for i in range(UNIGRAM_POSTS)]
+    d = os.path.join(root, "bernice_250k")
+    write_bernice_tokenizer(d, pieces)
+    os.remove(os.path.join(d, "sentencepiece.bpe.model"))
+    return d, posts
+
+
+def unigram_timing(root):
+    """The port's ``build_tokenizer`` on ``unigram_vocabulary``: its load
+    seconds, its encode seconds over the posts, and the first three posts'
+    ids against those of the JAX package's Rust path on the same file
+    (``UNIGRAM_IDS``)."""
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.data.tokenizers import (
+        build_tokenizer)
+
+    d, posts = unigram_vocabulary(root)
+    t0 = time.monotonic()
+    tok = build_tokenizer("bernice", d, 128, UNIGRAM_PIECES + 2)
+    load_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    ids = tok(posts)["ids"]
+    encode_s = time.monotonic() - t0
+    if type(tok.backend).__name__ != "TokenizerJson" or ids.max() >= UNIGRAM_PIECES + 2:
+        raise AssertionError(f"unigram: backend {type(tok.backend).__name__}, top id "
+                             f"{ids.max()}")
+    got = [row[:len(want)].tolist() for row, want in zip(ids, UNIGRAM_IDS)]
+    if got != UNIGRAM_IDS:
+        raise AssertionError(f"unigram: ids {got}, the Rust path's {UNIGRAM_IDS}")
+    out = dict(pieces=UNIGRAM_PIECES + 2, load_s=load_s, encode_s=encode_s, posts=len(posts),
+               tokens=int((ids != tok.pad_token_id).sum()))
+    log(f"unigram: a {out['pieces']:,}-piece Unigram tokenizer.json loads in {load_s:.3f} s and "
+        f"encodes {len(posts)} posts ({out['tokens']} tokens) in {encode_s:.3f} s; the first "
+        "three posts' ids are the Rust path's")
+    return out
+
+
 def write_safetensors(path, tensors):
     """``tensors`` as a ``.safetensors`` file, written by hand: the header's
     length (little-endian uint64), the JSON header, the raw float32 bytes."""
@@ -3514,19 +3707,25 @@ def hf_tower_state(torch, g, kind, cfg=None):
 
 def pretrained_start(torch, C, run_mm_late, counters):
     """The towers start from checkpoints: a full-width Bernice-base
-    ``pytorch_model.bin`` (``torch.save``) with its ``config.json`` and a
-    small ``sentencepiece.bpe.model`` (protobuf written by hand), a ViT-B/16
-    ``model.safetensors`` (written by hand) with its ``config.json``, and a
-    reference-format ``MM_Model`` state dict, all from a seed into temporary
-    directories. One epoch of ``run_mm_late.main`` with ``MODEL_DIR_DICT``
-    there (the path that used to train on a random vision tower): every
-    imported tensor on the device equals the file's (a Linear's (out, in)
-    weight is the file's as it is: the import transposes to the flax layout
-    and back), the tokenizer is the file's SentencePiece-BPE, the vision tower
-    gets no gradient and stays the file's, the losses are finite. Then
-    ``--import_reference_ckpt``: the model's classification logits on a batch
-    equal (exactly) those of a model loaded from the converted state dict.
-    No transformers, safetensors, msgpack or flax is imported."""
+    ``pytorch_model.bin`` (``torch.save``) with its ``config.json``, its
+    tokenizer as an XLM-R-family directory ships it (a small
+    ``sentencepiece.bpe.model``, protobuf written by hand, and the
+    converter's ``tokenizer.json`` over the same pieces: Precompiled over a
+    seeded charsmap, Metaspace, Unigram), a ViT-B/16 ``model.safetensors``
+    (written by hand) with its ``config.json``, and a reference-format
+    ``MM_Model`` state dict, all from a seed into temporary directories. One
+    epoch of ``run_mm_late.main`` with ``MODEL_DIR_DICT`` there (the path that
+    used to train on a random vision tower): every imported tensor on the
+    device equals the file's (a Linear's (out, in) weight is the file's as it
+    is: the import transposes to the flax layout and back), the tokenizer is
+    the file's ``tokenizer.json`` (``TokenizerJson``, not the SentencePiece-BPE
+    beside it) and gives ``BERNICE_IDS``, the JAX package's Rust ids, on
+    ``BERNICE_TEXTS``, the vision tower gets no gradient and stays the file's,
+    the losses are finite. Then ``--import_reference_ckpt``: the model's
+    classification logits on a batch equal (exactly) those of a model loaded
+    from the converted state dict. Last ``unigram_timing``: a 250,002-piece
+    ``tokenizer.json`` loaded and encoding posts, timed. No transformers,
+    safetensors, msgpack or flax is imported."""
     import numpy as np
 
     from socialmedia_textimage_classification_auxlosses_tpu_torch.data.tokenizers import (
@@ -3546,13 +3745,8 @@ def pretrained_start(torch, C, run_mm_late, counters):
         vit_state = hf_tower_state(torch, g, "vision")
         torch.save(text_state, os.path.join(text_dir, "pytorch_model.bin"))
         write_safetensors(os.path.join(vit_dir, "model.safetensors"), vit_state)
-        words = "rain sun happy sad team win lose love hate coffee city tonight best worst"
-        pieces = [("<unk>", 0.0, 2), ("<s>", 0.0, 3), ("</s>", 0.0, 3)]
-        pieces += [(c, -10.0, 1) for c in sorted(set(words.replace(" ", ""))) + ["\u2581"]]
-        marked = sorted({"\u2581" + w[:n] for w in words.split() for n in range(1, len(w) + 1)})
-        pieces += [(p, float(len(p)), 1) for p in marked]
-        with open(os.path.join(text_dir, "sentencepiece.bpe.model"), "wb") as f:
-            f.write(spm_model_bytes(pieces))
+        pieces = bernice_pieces(POST_WORDS)
+        write_bernice_tokenizer(text_dir, pieces)
         for d, cfg in ((text_dir, BERNICE_CONFIG), (vit_dir, VIT_CONFIG)):
             with open(os.path.join(d, "config.json"), "w") as f:
                 json.dump(cfg, f)
@@ -3585,21 +3779,20 @@ def pretrained_start(torch, C, run_mm_late, counters):
                 if got.device.type != "cuda" or not torch.equal(
                         got, torch.as_tensor(np.asarray(want)).to(got)):
                     raise AssertionError(f"pretrained: {key} is not the file's tensor")
-            tok = build_tokenizer("bernice", text_dir, 128, 250002).backend
-            ids = tok.encode_batch(["rain sun"])[0][0][:4].tolist()
-            want_ids = [0] + [1 + [p for p, _, _ in pieces].index("\u2581" + w)
-                              for w in ("rain", "sun")] + [2]
-            if type(tok).__name__ != "SentencePieceBPE" or ids != want_ids:
+            tok = build_tokenizer("bernice", text_dir, 24, 250002, normalize=False).backend
+            ids = [row[:len(want)].tolist()
+                   for row, want in zip(tok.encode_batch(BERNICE_TEXTS)[0], BERNICE_IDS)]
+            if type(tok).__name__ != "TokenizerJson" or ids != BERNICE_IDS:
                 raise AssertionError(f"pretrained: tokenizer {type(tok).__name__} gives {ids}, "
-                                     f"expected {want_ids}")
+                                     f"the Rust path {BERNICE_IDS}")
             # the pipelines' ids come from the file's vocabulary (hashed ids
             # would spread over all 250,002)
             top = max(int(pipe.ids.max()) for pipe in setup.pipes.values())
             if top > len(pieces):
                 raise AssertionError(f"pretrained: token id {top} is outside the vocabulary")
             log(f"pretrained: {len(expect)} imported tensors on the device equal the files' "
-                f"({len(by_hand)} also by name by hand); tokenizer {type(tok).__name__} "
-                f"{ids}, every pipeline id <= {top}")
+                f"({len(by_hand)} also by name by hand); tokenizer {type(tok).__name__}, the "
+                f"Rust path's ids on {len(BERNICE_TEXTS)} posts, every pipeline id <= {top}")
 
         real_build = run_mm_late.build_mm_late_train_setup
 
@@ -3702,6 +3895,7 @@ def pretrained_start(torch, C, run_mm_late, counters):
             f"logits equal the converted state dict's (max |diff| {checked['max_abs_diff']}), "
             f"{len(losses)} finite losses")
         result["reference_ckpt"] = dict(checked, losses=list(losses))
+        result["unigram"] = unigram_timing(tmp)
     for name in ("transformers", "safetensors", "msgpack", "flax", "jax"):
         if name in sys.modules:
             raise AssertionError(f"pretrained: the import pulled in {name}")
@@ -3721,6 +3915,30 @@ ROBERTA_WORDS = ("rain sun happy sad team win lose love hate coffee city tonight
                  "#NewMusic @user https://t.co/x1 \U0001f602 \U0001f469‍\U0001f4bb café "
                  "don't it's 1,000 3.14 ΑΣ 世界 <s> [CLS]").split()
 
+# Bernice's tokenizer.json in the pretrained phase (max_length 24, no tweet normalizer):
+# posts over ``POST_WORDS`` with fullwidth letters, zero widths, runs of spaces, an
+# accent the charsmap drops, quotes the converter rewrites, emoji and added tokens; the
+# ids are those of the JAX package's Rust path (``tokenizers`` 0.22.2) on the same file
+BERNICE_TEXTS = ["rain sun", "\uff32ain\u200b  sun!! \U0001f600", "happy team wine\u0301",
+                 "\uff43offee city tonight", "love ``hate'' city", "best\xa0worst \uff21\u0301",
+                 "sad\r\nteam \U0001f44d\U0001f3fd", "<s> rain <mask> sun", "",
+                 "coffee   coffee    lose", "RAIN Sun caf\u00e9 \u2460\ufb01"]
+BERNICE_IDS = [
+    [0, 55, 60, 2], [0, 25, 3, 4, 12, 15, 60, 3, 25, 3, 2], [0, 43, 64, 73, 8, 2],
+    [0, 38, 33, 70, 2], [0, 51, 25, 3, 11, 4, 20, 8, 3, 33, 2], [0, 29, 77, 25, 3, 2],
+    [0, 58, 3, 20, 8, 4, 14, 25, 3, 2], [0, 0, 55, 78, 60, 2], [0, 2], [0, 38, 38, 49, 2],
+    [0, 25, 3, 25, 3, 21, 15, 30, 4, 9, 3, 25, 3, 9, 12, 2]]
+# the first three posts of ``unigram_vocabulary`` through the JAX package's Rust path
+UNIGRAM_IDS = [
+    [0, 125299, 63528, 49734, 122682, 5018, 4, 208332, 2011, 4058, 55693, 14918, 4, 21, 128415,
+     140598, 25, 4305, 26821, 14, 54547, 33517, 19, 60867, 23, 4, 17, 9447, 114792, 26651, 207,
+     17, 4, 8681, 3748, 33, 232602, 8618, 41776, 4, 3719, 131479, 32, 1972, 47172, 21, 3902, 4,
+     1821, 4, 15528, 10643, 1166, 10155, 10887, 5121, 15315, 237226, 24, 4, 17557, 199092, 10962,
+     19, 32, 4, 93207, 11, 4, 17808, 68918, 47405, 13759, 2],
+    [0, 137752, 14871, 7, 2249, 31683, 228876, 22, 109739, 6, 2],
+    [0, 4, 156530, 14918, 4, 27, 161821, 215347, 10831, 210199, 26, 22547, 31737, 5371, 6332,
+     9031, 25, 75642, 93001, 92420, 28004, 24656, 25772, 34, 4, 22, 99624, 26821, 33, 2]]
+
 # The host checks: tiny layouts written by ``write_tiny_layouts`` and the texts below,
 # each encoded at max_length 12 without the tweet normalizer; the ids are those of the
 # JAX package's Rust path (``tokenizers`` 0.22.2) on the same files.
@@ -3738,7 +3956,7 @@ TINY_MERGES = [("Ġ", "w"), ("h", "e"), ("l", "l"), ("he", "ll"), ("hell", "o"),
 _WP_IDS = [[2, 1, 5, 3], [2, 20, 13, 3], [2, 22, 21, 23, 3], [2, 4, 1, 1, 3], [2, 1, 3], [2, 3],
            [2, 4, 5, 27, 28, 1, 28, 1, 7, 8, 9, 3], [2, 25, 1, 29, 30, 31, 3],
            [2, 2, 4, 24, 5, 14, 14, 3], [2, 4, 5, 1, 32, 3]]
-HOST_IDS = {  # the rows before their padding (0 for BERT, 1 for the byte-level BPE)
+HOST_IDS = {  # the rows before their padding (``HOST_LAYOUTS``)
     "vocab.txt": _WP_IDS,
     "tokenizer.json": _WP_IDS,
     "vocab.json + merges.txt": [
@@ -3749,24 +3967,64 @@ HOST_IDS = {  # the rows before their padding (0 for BERT, 1 for the byte-level 
         [0, 132, 112, 86, 87, 68, 81, 69, 88, 79, 224, 2],
         [0, 62, 38, 47, 54, 64, 224, 264, 224, 62, 48, 2],
         [0, 224, 224, 264, 201, 90, 82, 266, 71, 224, 224, 2]],
+    "sentencepiece.bpe.model": [
+        [0, 34, 3, 61, 2], [0, 24, 3, 46, 2], [0, 21, 4, 3, 5, 2], [0, 34, 21, 3, 3, 2],
+        [0, 29, 49, 2], [0, 2], [0, 21, 3, 8, 13, 13, 15, 61, 3, 17, 21, 2],
+        [0, 21, 3, 17, 18, 4, 14, 5, 19, 13, 21, 2], [0, 21, 3, 3, 3, 3, 3, 34, 21, 3, 3, 2],
+        [0, 34, 61, 21, 3, 21, 3, 21, 3, 3, 2]],
+    "tokenizer.json (XLM-R)": [
+        [0, 34, 3, 61, 2], [0, 24, 3, 46, 2], [0, 21, 4, 3, 5, 2], [0, 34, 21, 3, 2],
+        [0, 29, 15, 19, 18, 2], [0, 2], [0, 21, 3, 8, 13, 13, 15, 61, 3, 17, 21, 2],
+        [0, 21, 3, 17, 18, 4, 14, 5, 19, 13, 21, 2], [0, 21, 3, 34, 21, 3, 61, 3, 2],
+        [0, 34, 3, 20, 15, 16, 13, 7, 21, 3, 21, 2]],
+    "tokenizer.json (BPE byte_fallback)": [
+        [1, 281, 243, 162, 155, 131, 286],
+        [1, 259, 262, 260, 265, 198, 172, 259, 270, 264, 276, 273], [1, 259, 260, 98, 261],
+        [1, 281, 259, 231, 187, 153, 234, 152, 143],
+        [1, 259, 262, 266, 264, 262, 268, 197, 176, 271, 275, 274], [1],
+        [1, 259, 75, 264, 279, 271, 286, 42, 273, 259, 1, 259],
+        [1, 259, 199, 179, 273, 274, 260, 270, 261, 275, 269, 259],
+        [1, 259, 94, 70, 79, 86, 96, 281, 259, 94, 80, 68],
+        [1, 259, 259, 281, 12, 276, 283, 285, 259, 259, 243, 162]],
+    "vocab.txt without [CLS] / [SEP]": [
+        [101, 1, 3, 102], [101, 1, 11, 102], [101, 20, 19, 21, 102], [101, 2, 1, 102],
+        [101, 1, 102], [101, 102], [101, 2, 3, 25, 26, 1, 26, 1, 5, 6, 7, 102],
+        [101, 1, 1, 1, 1, 29, 102], [101, 1, 1, 1, 2, 1, 1, 1, 3, 12, 12, 102],
+        [101, 2, 3, 1, 30, 102]],
 }
+# each layout's model name (the token types, the tweet normalizer's choice) and the id
+# its rows are padded with
+HOST_LAYOUTS = {"vocab.txt": ("bert", 0), "tokenizer.json": ("bert", 0),
+                "vocab.json + merges.txt": ("roberta", 1),
+                "sentencepiece.bpe.model": ("bernice", 1),
+                "tokenizer.json (XLM-R)": ("bernice", 1),
+                "tokenizer.json (BPE byte_fallback)": ("bernice", 0),
+                "vocab.txt without [CLS] / [SEP]": ("bert", 0)}
+HOST_WORDS = ("hello", "world", "tweet", "news", "check", "out", "cafe", "istanbul", "the")
 
 
 def write_tiny_layouts(root):
     """A BERT ``vocab.txt``, a BERT ``tokenizer.json`` (BertNormalizer,
     BertPreTokenizer, WordPiece, ``[CLS] $A [SEP]``, the specials added
-    tokens) over ``WP_VOCAB``, and a byte-level ``vocab.json`` +
-    ``merges.txt`` (``<s> <pad> </s> <unk>``, the 256 byte symbols,
-    ``TINY_MERGES``), each in its own directory under ``root``."""
+    tokens) over ``WP_VOCAB``, a byte-level ``vocab.json`` + ``merges.txt``
+    (``<s> <pad> </s> <unk>``, the 256 byte symbols, ``TINY_MERGES``), a
+    ``sentencepiece.bpe.model`` alone (SentencePiece-BPE) and beside its
+    converted ``tokenizer.json`` (Precompiled, Metaspace, Unigram) over
+    ``HOST_WORDS``, a ``tokenizer.json`` BPE with ``byte_fallback`` (a
+    prepended and replaced word marker, ``<0xAB>`` tokens, ``<s> $A``), and
+    ``WP_VOCAB`` without ``[CLS]`` / ``[SEP]`` (the C++ WordPiece), each in
+    its own directory under ``root``."""
     from socialmedia_textimage_classification_auxlosses_tpu_torch.data.hf_layouts import (
         bytes_to_unicode)
 
-    dirs = {name: os.path.join(root, name.replace(" ", "").replace("+", "_"))
+    dirs = {name: os.path.join(root, "".join(c for c in name if c.isalnum() or c == "."))
             for name in HOST_IDS}
     for d in dirs.values():
         os.makedirs(d, exist_ok=True)
     with open(os.path.join(dirs["vocab.txt"], "vocab.txt"), "w") as f:
         f.write("\n".join(WP_VOCAB) + "\n")
+    with open(os.path.join(dirs["vocab.txt without [CLS] / [SEP]"], "vocab.txt"), "w") as f:
+        f.write("\n".join(t for t in WP_VOCAB if t not in ("[CLS]", "[SEP]")) + "\n")
     vocab = {t: i for i, t in enumerate(WP_VOCAB)}
     specials = [t for t in WP_VOCAB if t.startswith("[")]
     spec = {"version": "1.0", "truncation": None, "padding": None,
@@ -3800,27 +4058,66 @@ def write_tiny_layouts(root):
         json.dump(bpe, f)
     with open(os.path.join(d, "merges.txt"), "w") as f:
         f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in TINY_MERGES))
+    pieces = bernice_pieces(HOST_WORDS)
+    write_bernice_tokenizer(dirs["tokenizer.json (XLM-R)"], pieces)
+    with open(os.path.join(dirs["sentencepiece.bpe.model"], "sentencepiece.bpe.model"),
+              "wb") as f:
+        f.write(spm_model_bytes(pieces))
+    # a byte_fallback BPE in Llama's layout: the marker prepended and for each space
+    fallback = {t: i for i, t in enumerate(["<unk>", "<s>", "</s>"])}
+    fallback.update({f"<0x{b:02X}>": 3 + b for b in range(256)})
+    merges = [("\u2581", "h"), ("\u2581h", "e"), ("l", "l"), ("\u2581he", "ll"),
+              ("\u2581hell", "o"), ("\u2581", "w"), ("o", "r"), ("\u2581w", "or"), ("l", "d"),
+              ("\u2581wor", "ld")]
+    for t in ["\u2581", *sorted(set("".join(HOST_WORDS)))] + [a + b for a, b in merges]:
+        fallback.setdefault(t, len(fallback))
+    spec = {"version": "1.0", "truncation": None, "padding": None,
+            "added_tokens": [{"id": i, "content": t, "single_word": False, "lstrip": False,
+                              "rstrip": False, "normalized": False, "special": True}
+                             for i, t in enumerate(["<unk>", "<s>", "</s>"])],
+            "normalizer": {"type": "Sequence", "normalizers": [
+                {"type": "Prepend", "prepend": "\u2581"},
+                {"type": "Replace", "pattern": {"String": " "}, "content": "\u2581"}]},
+            "pre_tokenizer": None,
+            "post_processor": {"type": "TemplateProcessing",
+                               "single": [{"SpecialToken": {"id": "<s>", "type_id": 0}},
+                                          {"Sequence": {"id": "A", "type_id": 0}}],
+                               "pair": [], "special_tokens": {
+                                   "<s>": {"id": "<s>", "ids": [1], "tokens": ["<s>"]}}},
+            "decoder": None,
+            "model": {"type": "BPE", "dropout": None, "unk_token": "<unk>",
+                      "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                      "fuse_unk": True, "byte_fallback": True, "ignore_merges": False,
+                      "vocab": fallback, "merges": [list(m) for m in merges]}}
+    with open(os.path.join(dirs["tokenizer.json (BPE byte_fallback)"], "tokenizer.json"),
+              "w") as f:
+        json.dump(spec, f)
     return dirs
 
 
 def host_layout_checks(root):
     """No device work: the port's ``build_tokenizer`` on ``write_tiny_layouts``
-    gives the Rust path's ``HOST_IDS`` for ``HOST_TEXTS``."""
+    gives the Rust path's ``HOST_IDS`` for ``HOST_TEXTS`` (SentencePiece-BPE's
+    and the C++ WordPiece's: the JAX package's ids for them), the WordPiece
+    through the port's C++ library built on this machine."""
     from socialmedia_textimage_classification_auxlosses_tpu_torch.data.tokenizers import (
         build_tokenizer)
 
+    t0 = time.monotonic()
     backends = {}
     for name, d in write_tiny_layouts(root).items():
-        model, pad = ("roberta", 1) if name.startswith("vocab.json") else ("bert", 0)
+        model, pad = HOST_LAYOUTS[name]
         tok = build_tokenizer(model, d, 12, ROBERTA_CONFIG["vocab_size"], normalize=False)
         got = tok(HOST_TEXTS)["ids"].tolist()
         want = [row + [pad] * (12 - len(row)) for row in HOST_IDS[name]]
         if got != want:
             raise AssertionError(f"host check[{name}]: {type(tok.backend).__name__} gives "
-                                 f"{got}, the Rust path {want}")
+                                 f"{got}, the JAX package's {want}")
+        if name.startswith("vocab.txt without") and tok.backend._native is None:
+            raise AssertionError("host check: the C++ WordPiece took its Python twin")
         backends[name] = type(tok.backend).__name__
     log(f"roberta: host checks: {len(HOST_TEXTS)} texts through {backends} give the ids of the "
-        "JAX package's Rust path (tokenizers 0.22.2)")
+        f"JAX package's paths (tokenizers 0.22.2), in {time.monotonic() - t0:.2f} s")
     return backends
 
 
@@ -6753,6 +7050,46 @@ def serve_extras_only():
     return 0
 
 
+def tokenizers_only():
+    """``python3 chip_smoke.py --tokenizers``: the kernels built, then the
+    pretrained start (Bernice's ``tokenizer.json``, the 250,002-piece
+    Unigram), the host layout checks and the native encoders, without the
+    last line: a quick run of this slice's paths while they change."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.cli import run_mm_late
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.cli._common import (
+        set_precision_policy)
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.core import config as C
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.ops import _cuda
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.ops import attention as A
+    from socialmedia_textimage_classification_auxlosses_tpu_torch.ops import attn_block as AB
+
+    t0 = time.monotonic()
+    set_precision_policy()
+    memoize_init(torch)
+    log(card_line())
+    log(f"build: per source {_cuda.build()}")
+    counters, _, _, _ = training_counts(A, AB)
+    with tempfile.TemporaryDirectory() as tmp:
+        data = make_dataset(tmp)
+        C.DATA_PATH, C.PATH[3] = data, data + "data_key_mvsa.csv"
+        C.results_dir_mm_late = os.path.join(tmp, "results", "mm_late") + os.sep
+        t1 = time.monotonic()
+        out = {"pretrained": pretrained_start(torch, C, run_mm_late, counters)}
+        log(f"phase pretrained: {time.monotonic() - t1:.1f} s")
+        t1 = time.monotonic()
+        out["host"] = host_layout_checks(os.path.join(tmp, "layouts"))
+        out["native"] = native_encoder_checks(os.path.join(tmp, "native"), HOST_TEXTS)
+        log(f"phase host checks and native encoders: {time.monotonic() - t1:.1f} s")
+    log(json.dumps({"tokenizers": out}, default=str))
+    log(f"tokenizers: {time.monotonic() - t0:.1f} s in all")
+    return 0
+
+
 def main():
     import torch
 
@@ -7047,6 +7384,8 @@ if __name__ == "__main__":
             sys.exit(optimizer_only(sys.argv[2]))
         if sys.argv[1:2] == ["--sweep_profile"] and len(sys.argv) == 3:
             sys.exit(sweep_profile(sys.argv[2]))
+        if sys.argv[1:] == ["--tokenizers"]:
+            sys.exit(tokenizers_only())
         if sys.argv[1:] == ["--bucket"]:
             sys.exit(bucket_only())
         if sys.argv[1:] == ["--detector"]:

@@ -96,7 +96,8 @@ def build_mm_late_setup(args, cfg: C.ServingConfig,
     overrides = dict(arch_overrides(args), remat=getattr(args, "remat", False))
     text_cfg = text_encoder_config(txt_name, txt_dir, dtype=args.dtype,
                                    attn_impl=args.attn_impl, **overrides)
-    tokenizer = build_tokenizer(txt_name, txt_dir, cfg.max_length, text_cfg.vocab_size)
+    tokenizer = build_tokenizer(txt_name, txt_dir, cfg.max_length, text_cfg.vocab_size,
+                                seed=getattr(args, "seed", None))
     is_cnn = img_name in CNN_MODELS
     with torch.device("meta"):  # no default init: it is replaced anyway
         if is_cnn:
@@ -450,7 +451,8 @@ def build_text_setup(args, cfg: C.Config, device: torch.device,
 
     for name, p in model.named_parameters():
         p.requires_grad_(not frozen(name))
-    tokenizer = build_tokenizer(model_name, model_dir, cfg.max_length, model.cfg.vocab_size)
+    tokenizer = build_tokenizer(model_name, model_dir, cfg.max_length, model.cfg.vocab_size,
+                                seed=getattr(args, "seed", None))
     train, val, test, weights = prepare_data(
         cfg.data, cfg.num_labels, testing=args.testing, multilabel=cfg.multilabel,
         rng=np.random.RandomState(args.seed))

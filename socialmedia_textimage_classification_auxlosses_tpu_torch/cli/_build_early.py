@@ -270,7 +270,8 @@ def build_early_model(args, cfg, generator: Optional[torch.Generator],
         em = _mmbt(args, cfg, hf, vocab, overrides, generator)
     else:
         em = _lxmert(args, cfg, hf, vocab, overrides, generator, roi_cache)
-    em.tokenizer = build_tokenizer("bert", model_dir, cfg.max_length, vocab)
+    em.tokenizer = build_tokenizer("bert", model_dir, cfg.max_length, vocab,
+                                   seed=getattr(args, "seed", None))
     return em
 
 

@@ -9,11 +9,13 @@
 //     in Python (data/bpe_backends.py) and the pieces and scores arrive as
 //     flat arrays; semantics as SentencePieceBPE._bpe;
 //   * fastBPE (BERTweet) over a fairseq vocab.txt and bpe.codes; semantics as
-//     FastBPE._bpe, the single-character quirk included.
-// The JAX copy's WordPiece (wp_*) is left out: its lowercasing and ASCII
-// punctuation split are not the BERT normalization that the JAX package runs
-// (the Rust BertWordPieceTokenizer) and that the port runs in Python
-// (data/hf_layouts.py BertWordPiece).
+//     FastBPE._bpe, the single-character quirk included;
+//   * the JAX copy's greedy WordPiece (wp_*), which the JAX package reaches
+//     only for a vocab.txt that its Rust BertWordPieceTokenizer refuses (no
+//     [CLS] or no [SEP]): ASCII-only lowercasing, a split at the whitespace of
+//     ws_len and at ASCII punctuation, words measured in bytes, missing
+//     specials taken as [UNK] 100, [CLS] 101, [SEP] 102, [PAD] 0 (its Python
+//     twin: data/native.py NativeWordPiece).
 
 #include <cstdint>
 #include <cstring>
@@ -21,6 +23,7 @@
 #include <unordered_map>
 #include <vector>
 #include <fstream>
+#include <cctype>
 #include <limits>
 
 // Byte length of a Unicode whitespace character starting at p (0 if none) —
@@ -134,6 +137,105 @@ void hash_encode_batch(const char* buf, const int64_t* offsets, int64_t n,
       }
     }
     ids[pos] = sep_id; mask[pos] = 1;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// WordPiece
+// ---------------------------------------------------------------------------
+
+struct WordPiece {
+  std::unordered_map<std::string, int32_t> vocab;
+  int32_t unk = 100, cls = 101, sep = 102, pad = 0;
+  int32_t max_chars_per_word = 100;
+};
+
+void* wp_load(const char* vocab_path) {
+  auto* wp = new WordPiece();
+  std::ifstream in(vocab_path);
+  if (!in) { delete wp; return nullptr; }
+  std::string line;
+  int32_t idx = 0;
+  while (std::getline(in, line)) {
+    if (!line.empty() && line.back() == '\r') line.pop_back();
+    wp->vocab.emplace(line, idx++);
+  }
+  auto get = [&](const char* t, int32_t dflt) {
+    auto it = wp->vocab.find(t);
+    return it == wp->vocab.end() ? dflt : it->second;
+  };
+  wp->unk = get("[UNK]", 100);
+  wp->cls = get("[CLS]", 101);
+  wp->sep = get("[SEP]", 102);
+  wp->pad = get("[PAD]", 0);
+  return wp;
+}
+
+void wp_free(void* handle) { delete (WordPiece*)handle; }
+
+static void wp_word(const WordPiece& wp, const std::string& word,
+                    std::vector<int32_t>& out) {
+  if ((int32_t)word.size() > wp.max_chars_per_word) { out.push_back(wp.unk); return; }
+  size_t start = 0;
+  std::vector<int32_t> pieces;
+  while (start < word.size()) {
+    size_t end = word.size();
+    int32_t cur = -1;
+    while (start < end) {
+      std::string sub = word.substr(start, end - start);
+      if (start > 0) sub = "##" + sub;
+      auto it = wp.vocab.find(sub);
+      if (it != wp.vocab.end()) { cur = it->second; break; }
+      --end;
+    }
+    if (cur < 0) { out.push_back(wp.unk); return; }
+    pieces.push_back(cur);
+    start = end;
+  }
+  out.insert(out.end(), pieces.begin(), pieces.end());
+}
+
+// Basic tokenization (lowercase, split on space + punctuation) then WordPiece.
+void wp_encode_batch(void* handle, const char* buf, const int64_t* offsets,
+                     int64_t n, int32_t max_len, int32_t* out_ids,
+                     int32_t* out_mask, int32_t* out_type_ids) {
+  const WordPiece& wp = *(WordPiece*)handle;
+  std::vector<int32_t> toks;
+  std::string word;
+  for (int64_t i = 0; i < n; ++i) {
+    const char* s = buf + offsets[i];
+    const char* end = buf + offsets[i + 1];
+    toks.clear();
+    word.clear();
+    auto flush = [&]() {
+      if (!word.empty()) { wp_word(wp, word, toks); word.clear(); }
+    };
+    for (const char* c = s; c < end; ++c) {
+      unsigned char ch = (unsigned char)*c;
+      size_t w = ws_len(c, end);
+      if (w) { flush(); c += w - 1; }
+      else if (ch < 128 && std::ispunct(ch)) {
+        flush();
+        word.assign(1, (char)ch);
+        flush();
+      } else {
+        word.push_back(ch < 128 ? (char)std::tolower(ch) : (char)ch);
+      }
+    }
+    flush();
+    int32_t* ids = out_ids + i * max_len;
+    int32_t* mask = out_mask + i * max_len;
+    int32_t* tts = out_type_ids ? out_type_ids + i * max_len : nullptr;
+    for (int32_t j = 0; j < max_len; ++j) {
+      ids[j] = wp.pad; mask[j] = 0;
+      if (tts) tts[j] = 0;
+    }
+    int32_t pos = 0;
+    ids[pos] = wp.cls; mask[pos] = 1; ++pos;
+    for (size_t t = 0; t < toks.size() && pos < max_len - 1; ++t) {
+      ids[pos] = toks[t]; mask[pos] = 1; ++pos;
+    }
+    ids[pos] = wp.sep; mask[pos] = 1;
   }
 }
 

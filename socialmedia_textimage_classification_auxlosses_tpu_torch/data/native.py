@@ -9,9 +9,10 @@ When a build fails, ``get()`` is None, ``error`` holds the compiler's message,
 and every caller keeps its Python path, as in the JAX package:
 
 * ``csrc/tokenizer.cpp`` (``-O3 -shared -fPIC -std=c++17``): the FNV-1a hashing
-  tokenizer, SentencePiece-BPE's merge loop and fastBPE, with the ids of the
-  Python encoders (``data/tokenizers.py::HashTokenizer``,
-  ``data/bpe_backends.py``);
+  tokenizer, SentencePiece-BPE's merge loop, fastBPE and the JAX package's
+  greedy WordPiece, with the ids of the Python encoders
+  (``data/tokenizers.py::HashTokenizer``, ``data/bpe_backends.py``,
+  ``NativeWordPiece``'s twin here);
 * ``csrc/imgdec.cpp`` (``-O3 -march=native ... -ljpeg -lpng``): JPEG (libjpeg,
   DCT-scaled on downscale, so a large photo never decodes at full size) and
   PNG (libpng), then PIL's triangle resize, in one call. Built with
@@ -28,7 +29,7 @@ import platform
 import subprocess
 import threading
 import time
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -152,6 +153,13 @@ def _bind_tokenizer(lib: ctypes.CDLL) -> None:
     for fn in (lib.spbpe_encode_batch, lib.fastbpe_encode_batch):
         fn.restype = None
         fn.argtypes = [ctypes.c_void_p, ctypes.c_char_p, i64p, i64, i32, i32p, i32p]
+    lib.wp_load.restype = ctypes.c_void_p
+    lib.wp_load.argtypes = [ctypes.c_char_p]
+    lib.wp_free.restype = None
+    lib.wp_free.argtypes = [ctypes.c_void_p]
+    lib.wp_encode_batch.restype = None
+    lib.wp_encode_batch.argtypes = [ctypes.c_void_p, ctypes.c_char_p, i64p, i64, i32, i32p, i32p,
+                                    i32p]
 
 
 def _bind_imgdec(lib: ctypes.CDLL) -> None:
@@ -257,6 +265,111 @@ class NativeFastBpe(_Encoder):
 
     def encode_batch(self, texts: List[str], max_length: int):
         return self._encode(self._lib.fastbpe_encode_batch, texts, max_length)
+
+
+class _WordPieceHandle(_Encoder):
+    _free = "wp_free"
+
+    def __init__(self, lib: ctypes.CDLL, vocab_path: str):
+        super().__init__(lib, lib.wp_load(os.fsencode(vocab_path)))
+
+    def encode(self, texts: List[str], max_length: int):
+        buf, offsets = _pack(texts)
+        ids = np.empty((len(texts), max_length), np.int32)
+        mask = np.empty((len(texts), max_length), np.int32)
+        self._lib.wp_encode_batch(self._handle, buf, _ptr(offsets, ctypes.c_int64), len(texts),
+                                  max_length, _ptr(ids, ctypes.c_int32),
+                                  _ptr(mask, ctypes.c_int32), None)
+        return ids, mask
+
+
+# csrc/tokenizer.cpp ws_len: ASCII whitespace with \x1c-\x1f, and U+0085, U+00A0,
+# U+1680, U+2000-U+200A, U+2028, U+2029, U+202F, U+205F, U+3000
+_WP_SPACE = frozenset(" \t\n\x0b\x0c\r\x1c\x1d\x1e\x1f\x85\xa0\u1680\u2028\u2029\u202f\u205f\u3000"
+                      + "".join(map(chr, range(0x2000, 0x200B))))
+_ASCII_PUNCT = frozenset(b"!\"#$%&'()*+,-./:;<=>?@[\\]^_`{|}~")
+
+
+class WordPieceTwin:
+    """The C++ ``wp_*`` in Python, on bytes as it runs: ``vocab.txt`` lines
+    split at ``\\n``, one ``\\r`` dropped, the first of equal lines kept; text
+    split at ``_WP_SPACE`` and at each ASCII punctuation byte, ASCII
+    lowercased; a word over 100 bytes, or one that does not split, is
+    ``[UNK]``; ``[CLS]`` words ``[SEP]``, the words cut to ``max_length`` - 2."""
+
+    def __init__(self, vocab_path: str):
+        with open(vocab_path, "rb") as f:
+            lines = f.read().split(b"\n")
+        if lines and lines[-1] == b"":
+            lines.pop()
+        self.vocab: Dict[bytes, int] = {}
+        for i, line in enumerate(lines):
+            self.vocab.setdefault(line[:-1] if line.endswith(b"\r") else line, i)
+        self.unk, self.cls, self.sep, self.pad = (self.vocab.get(t, d) for t, d in (
+            (b"[UNK]", 100), (b"[CLS]", 101), (b"[SEP]", 102), (b"[PAD]", 0)))
+
+    def _word(self, word: bytes) -> List[int]:
+        if len(word) > 100:
+            return [self.unk]
+        pieces, start = [], 0
+        while start < len(word):
+            for end in range(len(word), start, -1):
+                tid = self.vocab.get(word[start:end] if start == 0 else b"##" + word[start:end])
+                if tid is not None:
+                    pieces.append(tid)
+                    start = end
+                    break
+            else:
+                return [self.unk]
+        return pieces
+
+    def words(self, text: str) -> List[bytes]:
+        out, word = [], bytearray()
+        for c in text:
+            if c in _WP_SPACE or (ord(c) < 128 and ord(c) in _ASCII_PUNCT):
+                if word:
+                    out.append(bytes(word))
+                    word.clear()
+                if c not in _WP_SPACE:
+                    out.append(c.encode())
+            else:
+                word += c.lower().encode() if c.isascii() else c.encode("utf-8")
+        if word:
+            out.append(bytes(word))
+        return out
+
+    def encode(self, texts: List[str], max_length: int):
+        ids = np.full((len(texts), max_length), self.pad, np.int32)
+        mask = np.zeros((len(texts), max_length), np.int32)
+        for i, text in enumerate(texts):
+            toks = [t for w in self.words(text) for t in self._word(w)]
+            row = [self.cls] + toks[:max_length - 2] + [self.sep]
+            ids[i, :len(row)] = row
+            mask[i, :len(row)] = 1
+        return ids, mask
+
+
+class NativeWordPiece:
+    """The JAX package's C++ WordPiece over a ``vocab.txt`` (its
+    ``data/native.py::NativeWordPiece``), which it reaches where its Rust
+    ``BertWordPieceTokenizer`` refuses the file (no ``[CLS]`` or ``[SEP]``):
+    the port's library when it builds (and ``use_native``), else
+    ``WordPieceTwin``, with the same ids. As in the JAX package the rows are
+    padded with ``[PAD]``'s id (0 without one) while ``pad_token_id`` is 0."""
+
+    def __init__(self, vocab_path: str, max_length: int, use_token_types: bool,
+                 use_native: bool = True):
+        self.max_length = max_length
+        self.use_token_types = use_token_types
+        self.pad_token_id = 0
+        lib = TOKENIZER.get() if use_native else None
+        self._native = _WordPieceHandle(lib, vocab_path) if lib is not None else None
+        self._python = WordPieceTwin(vocab_path) if self._native is None else None
+
+    def encode_batch(self, texts: Sequence[str]):
+        texts = [str(t) for t in texts]
+        ids, mask = (self._native or self._python).encode(texts, self.max_length)
+        return ids, mask, (np.zeros_like(ids) if self.use_token_types else None)
 
 
 # -- the image decoder --------------------------------------------------------------

@@ -4,10 +4,14 @@ Counterpart of the JAX package's ``data/tokenizers.py``. ``build_tokenizer``
 probes a model directory in the JAX package's order:
 
   1. ``tokenizer.json``            -> the pipeline it describes
-                                      (``data/hf_layouts.py::TokenizerJson``);
-                                      a component the port does not read is
-                                      named in a warning and the next layout
-                                      is used, or, with none, ``SystemExit``
+                                      (``data/hf_layouts.py::TokenizerJson``:
+                                      XLM-R's Precompiled, Metaspace and
+                                      Unigram among the components); one the
+                                      port does not read (``UnicodeScripts``,
+                                      a regex Python may read otherwise, a
+                                      file the Rust library refuses) is named
+                                      in a warning and the next layout is
+                                      used, or, with none, ``SystemExit``
   2. ``sentencepiece.bpe.model``   -> SentencePiece-BPE (Bernice / XLM-R,
                                       ``data/bpe_backends.py``)
   3. ``bpe.codes`` + ``vocab.txt`` -> fastBPE (BERTweet); probed before plain
@@ -15,22 +19,25 @@ probes a model directory in the JAX package's order:
                                       vocabulary would be misread as
   4. ``vocab.txt``                 -> BERT WordPiece, as the JAX package's Rust
                                       ``BertWordPieceTokenizer``
-                                      (``hf_layouts.BertWordPiece``); else
+                                      (``hf_layouts.BertWordPiece``); one
+                                      without ``[CLS]`` or ``[SEP]``, which
+                                      that refuses, goes to the JAX package's
+                                      C++ WordPiece (``native.NativeWordPiece``),
+                                      as there; else
      ``vocab.json`` + ``merges.txt`` -> RoBERTa's byte-level BPE
                                       (``hf_layouts.ByteLevelBPE``)
   5. no vocabulary at all          -> the deterministic FNV-1a hashing
                                       tokenizer, with a loud warning, as in the
                                       JAX package (hermetic runs).
 
-The hashing tokenizer, SentencePiece-BPE and fastBPE encode in the port's C++
-library (``csrc/tokenizer.cpp`` through ``data/native.py``) when it builds,
-else in Python, with the same ids. A layout the JAX package would read through
-the Rust backend but that lacks a token of its template (``[CLS]``, ``<s>``,
-...) raises ``SystemExit``: the JAX package falls back to another encoder
-there, whose ids the pretrained model was not trained on. Every backend emits
-the triple (ids, mask, token_type_ids or None) in its family's special-token
-layout (BERT: ``[CLS] x [SEP]``; RoBERTa-likes: ``<s> x </s>`` and no token
-types).
+The hashing tokenizer, SentencePiece-BPE, fastBPE and the C++ WordPiece encode
+in the port's C++ library (``csrc/tokenizer.cpp`` through ``data/native.py``)
+when it builds, else in Python, with the same ids. RoBERTa's two files without
+``<s>`` or ``</s>`` raise ``SystemExit``: the JAX package falls back to the
+hashing tokenizer there, whose ids the pretrained model was not trained on.
+Every backend emits the triple (ids, mask, token_type_ids or None) in its
+family's special-token layout (BERT: ``[CLS] x [SEP]``; RoBERTa-likes:
+``<s> x </s>`` and no token types).
 """
 
 from __future__ import annotations
@@ -112,11 +119,16 @@ class TweetTokenizerFrontend:
 
 
 def _try_rust_layouts(model_dir: str, max_length: int, use_tt: bool):
-    """The JAX package's Rust-backend step: ``vocab.txt``, else ``vocab.json``
-    + ``merges.txt``."""
+    """The JAX package's Rust-backend step: ``vocab.txt`` (the C++ WordPiece
+    where it lacks ``[CLS]`` or ``[SEP]``), else ``vocab.json`` +
+    ``merges.txt``."""
     vt = os.path.join(model_dir, "vocab.txt")
     if os.path.isfile(vt):
-        return BertWordPiece(vt, max_length, use_tt)
+        try:
+            return BertWordPiece(vt, max_length, use_tt)
+        except MissingToken as e:
+            logger.info("build_tokenizer: %s; the JAX package's C++ WordPiece reads it", e)
+            return native.NativeWordPiece(vt, max_length, use_tt)
     vj, mg = os.path.join(model_dir, "vocab.json"), os.path.join(model_dir, "merges.txt")
     if os.path.isfile(vj) and os.path.isfile(mg):
         return ByteLevelBPE(vj, mg, max_length, use_tt)
@@ -129,7 +141,10 @@ def build_tokenizer(
     max_length: int,
     vocab_size: int,
     normalize: bool = True,
+    seed: Optional[int] = None,
 ) -> TweetTokenizerFrontend:
+    """The directory's tokenizer (see the module's docstring); ``seed`` seeds
+    a ``tokenizer.json`` BPE's dropout."""
     from ..models.text import NO_TOKEN_TYPES
 
     use_tt = model_name not in NO_TOKEN_TYPES
@@ -140,7 +155,7 @@ def build_tokenizer(
         try:
             if os.path.isfile(tj):
                 try:
-                    backend = TokenizerJson(tj, max_length, use_tt)
+                    backend = TokenizerJson(tj, max_length, use_tt, seed)
                 except UnreadComponent as e:
                     unread = e
             backend = (backend or try_sp_bpe(model_dir, max_length, use_tt)

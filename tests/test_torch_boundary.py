@@ -66,12 +66,19 @@ def test_every_module_imports_without_pandas_or_pil():
 
 
 def test_tokenizer_layouts_read_without_tokenizers_or_regex(tmp_path):
-    """The card's machine has neither ``tokenizers`` nor ``regex``: with both
-    blocked (and JAX), ``build_tokenizer`` reads a BERT ``vocab.txt``,
-    RoBERTa's ``vocab.json`` + ``merges.txt`` and a ``tokenizer.json``."""
+    """The card's machine has neither ``tokenizers``, ``regex`` nor
+    ``sentencepiece``: with them blocked (and JAX), ``build_tokenizer`` reads
+    a BERT ``vocab.txt``, RoBERTa's ``vocab.json`` + ``merges.txt``, a
+    ``tokenizer.json``, an XLM-R-family directory (its ``tokenizer.json``:
+    Precompiled, Metaspace, Unigram) and a ``vocab.txt`` without ``[CLS]`` /
+    ``[SEP]`` (the C++ WordPiece), with the ids of the JAX package's paths."""
     import json
+    import sys
 
-    for name in ("bert", "roberta", "tokjson"):
+    sys.path.insert(0, os.path.dirname(__file__))
+    import test_torch_hf_components as HC
+
+    for name in ("bert", "roberta", "tokjson", "wp"):
         (tmp_path / name).mkdir()
     (tmp_path / "bert" / "vocab.txt").write_text("[PAD]\n[UNK]\n[CLS]\n[SEP]\nhello\n##s\n")
     byte_level = {"<s>": 0, "<pad>": 1, "</s>": 2, "h": 3, "i": 4, "hi": 5, "\u0120": 6}
@@ -81,15 +88,22 @@ def test_tokenizer_layouts_read_without_tokenizers_or_regex(tmp_path):
         "normalizer": {"type": "BertNormalizer"}, "pre_tokenizer": {"type": "BertPreTokenizer"},
         "post_processor": None, "added_tokens": [],
         "model": {"type": "WordPiece", "vocab": {"[UNK]": 0, "[CLS]": 1, "[SEP]": 2, "hi": 3}}}))
+    HC.write_xlmr_dir(tmp_path / "xlmr", HC.xlmr_pieces(["hi", "hello"], 1),
+                      HC.build_charsmap({"\uff28": "H", "\u200b": ""}))
+    (tmp_path / "wp" / "vocab.txt").write_text("[UNK]\n[PAD]\nhello\n##s\nhi\n")
     then = ("from socialmedia_textimage_classification_auxlosses_tpu_torch.data.tokenizers "
             "import build_tokenizer\n"
             f"root = {str(tmp_path)!r}\n"
             "got = [build_tokenizer(m, root + '/' + d, 8, 100, normalize=False)(['hi hellos'])"
             "['ids'][0].tolist() for m, d in (('bert', 'bert'), ('roberta', 'roberta'), "
-            "('bert', 'tokjson'))]\n"
+            "('bert', 'tokjson'), ('bernice', 'xlmr'), ('bert', 'wp'))]\n"
+            "got.append(build_tokenizer('bernice', root + '/xlmr', 8, 100, normalize=False)("
+            "['\\uff28i\\u200b  hello'])['ids'][0].tolist())\n"
             "assert got == [[2, 1, 4, 5, 3, 0, 0, 0], [0, 5, 6, 3, 2, 1, 1, 1], "
-            "[1, 3, 0, 2, 0, 0, 0, 0]], got\n")
-    _import_all_blocking(("jax", "flax", "jaxlib", "tokenizers", "regex", "transformers"), then)
+            "[1, 3, 0, 2, 0, 0, 0, 0], [0, 10, 7, 14, 3, 2, 1, 1], [101, 4, 2, 3, 102, 1, 1, 1], "
+            "[0, 4, 3, 7, 14, 2, 1, 1]], got\n")
+    _import_all_blocking(("jax", "flax", "jaxlib", "tokenizers", "regex", "transformers",
+                          "sentencepiece"), then)
 
 
 def test_every_module_imports_without_msgpack_or_pandas():

@@ -13,7 +13,10 @@
   backend is the byte-level BPE with ``<pad>``'s id 1, the pipelines' ids are
   the JAX runner's, and on the JAX runner's initial parameters (carried with
   ``models/from_jax.py``, dropout 0) the first step's loss equals the JAX
-  runner's within 1e-5 relative.
+  runner's within 1e-5 relative. The same for ``--model_name bernice`` from
+  an XLM-R-family directory (``sentencepiece.bpe.model`` and the converter's
+  ``tokenizer.json``: Precompiled, Metaspace, Unigram), read through the
+  ``tokenizer.json``.
 """
 
 import json
@@ -35,6 +38,7 @@ from socialmedia_textimage_classification_auxlosses_tpu_torch.data import native
 from socialmedia_textimage_classification_auxlosses_tpu_torch.data import tokenizers as TT
 
 sys.path.insert(0, os.path.dirname(__file__))
+import test_torch_hf_components as HC  # noqa: E402
 from fixtures import make_task_fixture  # noqa: E402
 from test_torch_from_jax import carry, to_numpy_tree  # noqa: E402
 
@@ -117,21 +121,10 @@ ROBERTA = ["--model_name", "roberta", "--task", "3", "--epochs", "1", "--arch", 
            "--dtype", "float32", "--log_every", "1", "--dropout", "0", "--seed", "30"]
 
 
-@pytest.fixture(scope="module")
-def roberta_runs(tmp_path_factory):
-    from tokenizers import ByteLevelBPETokenizer
-
-    root = tmp_path_factory.mktemp("roberta_run")
-    csv_path, _, frame = make_task_fixture(root / "data", task=3, n=40)
-    hub = root / "hub"
-    hub.mkdir()
-    bpe = ByteLevelBPETokenizer()
-    bpe.train_from_iterator(list(frame["text"]) * 3 + ["café \U0001f600 news"],
-                            vocab_size=400, min_frequency=1,
-                            special_tokens=["<s>", "<pad>", "</s>", "<unk>"])
-    bpe.save_model(str(hub))
-    (hub / "config.json").write_text(json.dumps({"hidden_dropout_prob": 0.0,
-                                                 "vocab_size": bpe.get_vocab_size()}))
+def _runs(root, csv_path, model, hub, argv):
+    """``run_txt.main(argv)`` of the JAX package, then of the port on the JAX
+    runner's initial parameters; each side's first-step loss, training ids
+    and pad id (and the port's backend)."""
     jax_side, port_side = {}, {}
     real_jax, real_port = jax_run_txt.build_text_setup, run_txt.build_text_setup
 
@@ -159,19 +152,37 @@ def roberta_runs(tmp_path_factory):
     mp = pytest.MonkeyPatch()
     for mod, results in ((JC, "jax"), (C, "port")):
         mp.setitem(mod.PATH, 3, csv_path)
-        mp.setitem(mod.MODEL_DIR_DICT, "roberta", str(hub) + os.sep)
+        mp.setitem(mod.MODEL_DIR_DICT, model, str(hub) + os.sep)
         mp.setattr(mod, "results_dir_txt", str(root / results) + os.sep)
     mp.setattr(jax_run_txt, "build_text_setup", jax_build)
     mp.setattr(run_txt, "build_text_setup", port_build)
     try:
-        jax_run_txt.main(ROBERTA)
+        jax_run_txt.main(argv)
         losses = []
-        run_txt.main(ROBERTA + ["--device", "cpu"],
+        run_txt.main(argv + ["--device", "cpu"],
                      on_step=lambda step, m: losses.append(float(m["loss"])))
     finally:
         mp.undo()
     port_side["loss"] = losses[0]
     return jax_side, port_side
+
+
+@pytest.fixture(scope="module")
+def roberta_runs(tmp_path_factory):
+    from tokenizers import ByteLevelBPETokenizer
+
+    root = tmp_path_factory.mktemp("roberta_run")
+    csv_path, _, frame = make_task_fixture(root / "data", task=3, n=40)
+    hub = root / "hub"
+    hub.mkdir()
+    bpe = ByteLevelBPETokenizer()
+    bpe.train_from_iterator(list(frame["text"]) * 3 + ["café \U0001f600 news"],
+                            vocab_size=400, min_frequency=1,
+                            special_tokens=["<s>", "<pad>", "</s>", "<unk>"])
+    bpe.save_model(str(hub))
+    (hub / "config.json").write_text(json.dumps({"hidden_dropout_prob": 0.0,
+                                                 "vocab_size": bpe.get_vocab_size()}))
+    return _runs(root, csv_path, "roberta", hub, ROBERTA)
 
 
 def test_roberta_run_from_its_vocabulary_matches_jax(roberta_runs):
@@ -180,4 +191,27 @@ def test_roberta_run_from_its_vocabulary_matches_jax(roberta_runs):
     assert port_side["pad"] == jax_side["pad"] == 1
     np.testing.assert_array_equal(port_side["ids"], jax_side["ids"])
     assert (port_side["ids"] == 1).any()  # padding with <pad>'s id reached the model
+    np.testing.assert_allclose(port_side["loss"], jax_side["loss"], rtol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def bernice_runs(tmp_path_factory):
+    root = tmp_path_factory.mktemp("bernice_run")
+    csv_path, _, frame = make_task_fixture(root / "data", task=3, n=40)
+    words = sorted({w for t in frame["text"] for w in str(t).lower().split()})
+    pieces = HC.xlmr_pieces(words[::2], 7)  # half the words: unknowns and splits
+    hub = root / "hub"
+    HC.write_xlmr_dir(hub, pieces)
+    (hub / "config.json").write_text(json.dumps({"hidden_dropout_prob": 0.0,
+                                                 "vocab_size": len(pieces) + 2}))
+    argv = [("bernice" if a == "roberta" else a) for a in ROBERTA]
+    return _runs(root, csv_path, "bernice", hub, argv)
+
+
+def test_bernice_run_from_its_tokenizer_json_matches_jax(bernice_runs):
+    jax_side, port_side = bernice_runs
+    assert type(port_side["backend"]).__name__ == "TokenizerJson"
+    assert port_side["pad"] == jax_side["pad"] == 1
+    np.testing.assert_array_equal(port_side["ids"], jax_side["ids"])
+    assert (port_side["ids"] == 1).any() and (port_side["ids"] == 3).any()  # padding, <unk>
     np.testing.assert_allclose(port_side["loss"], jax_side["loss"], rtol=1e-5)

@@ -23,6 +23,7 @@ import json
 import os
 import sys
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -72,8 +73,8 @@ def runs(tmp_path_factory):
     captured = {}
     real_init = JBuild.init_mm_late_params
 
-    def capture_init(*a, **k):
-        params = real_init(*a, **k)
+    def capture_init(model, *a, **k):  # jitted: one compile instead of one per initialiser
+        params = jax.jit(lambda *arrays: real_init(model, *arrays, **k))(*a)
         captured["tree"] = to_numpy_tree(params)
         return params
 

@@ -9,20 +9,33 @@ Rust ``tokenizers`` backend, held against that backend on this host: a BERT
 ``merges.txt`` and ``tokenizer.json`` with WordPiece and with byte-level BPE
 (vocabularies trained here as the JAX package's
 ``tests/test_rust_tokenizer_paths.py`` trains them), each also on a few
-hundred seeded strings of tricky code points. Also: the probe order
-(BERTweet's fairseq ``vocab.txt`` is not read as WordPiece); a
-``tokenizer.json`` component the port does not read (a warning and the next
-layout, or ``SystemExit``); and the port's own ModelProto reader against the
-protobuf schema."""
+hundred seeded strings of tricky code points; an XLM-R-family directory
+(Bernice's layout: ``sentencepiece.bpe.model`` and the converter's
+``tokenizer.json`` with Precompiled, Metaspace and Unigram), read through the
+``tokenizer.json`` as the JAX package's Rust path reads it; a ``vocab.txt``
+without ``[CLS]`` or ``[SEP]``, which the JAX package's C++ WordPiece reads
+(the port's library and its Python twin against the JAX library, built
+privately here). Also: the probe order (BERTweet's fairseq ``vocab.txt`` is
+not read as WordPiece); a ``tokenizer.json`` component the port does not read
+(a warning and the next layout, or ``SystemExit``); and the port's own
+ModelProto reader against the protobuf schema."""
 
+import logging
 import os
 import re
+import shutil
+import sys
 
 import numpy as np
 import pytest
 
+from socialmedia_textimage_classification_auxlosses_tpu.data import native as JN
 from socialmedia_textimage_classification_auxlosses_tpu.data import tokenizers as JT
+from socialmedia_textimage_classification_auxlosses_tpu_torch.data import native as TN
 from socialmedia_textimage_classification_auxlosses_tpu_torch.data import tokenizers as TT
+
+sys.path.insert(0, os.path.dirname(__file__))
+import test_torch_hf_components as HC  # noqa: E402
 
 TWEETS = [
     "I love this!!!! 😍😍 https://t.co/abc123 @someone",
@@ -49,7 +62,7 @@ TWEETS = [
 
 
 @pytest.mark.parametrize("model_name", ["bernice", "bert"])
-def test_hash_tokenizer_matches_jax(model_name):
+def test_hash_tokenizer_matches_jax(jax_native, model_name):
     vocab = 250002 if model_name == "bernice" else 30522
     jt = JT.build_tokenizer(model_name, None, 128, vocab)
     tt = TT.build_tokenizer(model_name, None, 128, vocab)
@@ -265,41 +278,64 @@ def test_tricky_code_points_match_jax(rust_layouts, layout):
 
 
 def _unread_tokenizer_json(d):
-    """XLM-R's components: Precompiled, Metaspace, Unigram."""
+    """A Unigram file with a ``UnicodeScripts`` pre-tokenizer, which the port
+    does not read."""
     import json
 
     d.mkdir()
     (d / "tokenizer.json").write_text(json.dumps({
-        "normalizer": {"type": "Precompiled", "precompiled_charsmap": ""},
-        "pre_tokenizer": {"type": "Metaspace"}, "post_processor": None, "added_tokens": [],
+        "normalizer": None, "pre_tokenizer": {"type": "UnicodeScripts"},
+        "post_processor": None, "added_tokens": [],
         "model": {"type": "Unigram", "vocab": [["<unk>", 0.0]], "unk_id": 0}}))
 
 
 def test_unread_tokenizer_json_component_falls_through_or_exits(tmp_path, spm_dir, caplog):
-    """A ``tokenizer.json`` the port does not read (XLM-R's ``Precompiled``
-    normalizer) is named in a warning and the next layout is read; with no
+    """A ``tokenizer.json`` the port does not read (a ``UnicodeScripts``
+    pre-tokenizer) is named in a warning and the next layout is read; with no
     other layout the probe exits naming it."""
-    import logging
-    import shutil
-
     _unread_tokenizer_json(tmp_path / "alone")
-    with pytest.raises(SystemExit, match="normalizer Precompiled"):
+    with pytest.raises(SystemExit, match="pre_tokenizer UnicodeScripts"):
         TT.build_tokenizer("bernice", str(tmp_path / "alone"), 16, 300)
     _unread_tokenizer_json(tmp_path / "with_spm")
     shutil.copy(os.path.join(spm_dir, "sentencepiece.bpe.model"), tmp_path / "with_spm")
     with caplog.at_level(logging.WARNING):
         tok = TT.build_tokenizer("bernice", str(tmp_path / "with_spm"), 16, 300)
     assert type(tok.backend).__name__ == "SentencePieceBPE"
-    assert any("normalizer Precompiled" in r.message for r in caplog.records)
+    assert any("pre_tokenizer UnicodeScripts" in r.message for r in caplog.records)
+
+
+@pytest.fixture(scope="module")
+def jax_native(tmp_path_factory):
+    """The JAX package's ``data/native.py`` pointed at a tokenizer library
+    built under a directory of this module's own, its loaded library and
+    failure flag reset, so that no other test process's build of the shared
+    ``csrc/libsmtc_tokenizer.so`` can be read half written (its
+    ``NativeWordPiece`` would fall back to another encoder); restored on
+    exit. Only the module's globals are patched."""
+    d = str(tmp_path_factory.mktemp("jax_tokenizer"))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JN, "_LIB_PATH", os.path.join(d, "libsmtc_tokenizer.so"))
+        mp.setattr(JN, "_lib", None)
+        mp.setattr(JN, "_build_failed", False)
+        yield JN
+
+
+@pytest.fixture
+def jax_wordpiece(jax_native):
+    if jax_native.get_lib() is None:
+        pytest.skip("the JAX package's C++ WordPiece did not build here (no g++)")
+    return jax_native
 
 
 @pytest.mark.parametrize("layout,missing", [("vocab_json_merges", "<s>"),
                                             ("bert_vocab_txt", "[CLS]")])
-def test_layout_without_its_template_token_exits(rust_layouts, tmp_path, layout, missing):
-    """A vocabulary without a token of its template exits naming it (the JAX
-    package falls back to another encoder there)."""
+def test_layout_without_its_template_token_exits(rust_layouts, jax_wordpiece, tmp_path, layout,
+                                                 missing):
+    """RoBERTa's vocabulary without ``<s>`` exits naming it (the JAX package
+    hashes there); a BERT ``vocab.txt`` without ``[CLS]``, which the JAX
+    package's Rust ``BertWordPieceTokenizer`` refuses, gives the ids of the
+    JAX package's C++ WordPiece, which it reads instead."""
     import json
-    import shutil
 
     d = tmp_path / layout
     shutil.copytree(rust_layouts[layout], d)
@@ -307,11 +343,67 @@ def test_layout_without_its_template_token_exits(rust_layouts, tmp_path, layout,
         vocab = json.loads((d / "vocab.json").read_text())
         del vocab[missing]
         (d / "vocab.json").write_text(json.dumps(vocab))
+        with pytest.raises(SystemExit, match=re.escape(missing)):
+            TT.build_tokenizer(LAYOUT_BACKENDS[layout][0], str(d), 16, 50265)
+        return
+    lines = (d / "vocab.txt").read_text().split("\n")
+    (d / "vocab.txt").write_text("\n".join(t for t in lines if t != missing))
+    tt, _ = _same_encoding("bert", str(d), 16, 50265, texts=fuzz_texts(7), normalize=False)
+    assert type(tt.backend).__name__ == "NativeWordPiece"
+
+
+# words for a C++ WordPiece vocabulary: non-ASCII pieces (matched byte for byte,
+# never lowercased), a continuation of a multibyte character, punctuation
+NATIVE_WP_VOCAB = ["hello", "world", "caf", "##\u00e9", "\u00c9cole", "tw", "##ee", "##t", "!",
+                   "#", "@", "user", "\u4e16", "\U0001f600", "'", "s", "don", "t", "42", "a",
+                   "##b", "[MASK]"]
+
+
+@pytest.mark.parametrize("library", ["cpp", "python"])
+@pytest.mark.parametrize("missing", ["[CLS]", "[SEP]", "[CLS] [SEP]"])
+def test_vocab_without_template_tokens_reads_as_jax_native_wordpiece(
+        jax_wordpiece, tmp_path, monkeypatch, library, missing):
+    """The JAX package's C++ WordPiece ids through the port's library and
+    through its Python twin: ASCII-only lowercasing, words at whitespace and
+    ASCII punctuation, a word over 100 bytes ``[UNK]``, missing specials as
+    ``[CLS]`` 101 / ``[SEP]`` 102, rows padded with ``[PAD]``'s id (5 here)
+    while the pad id reported is 0, as in the JAX package."""
+    specials = ["[UNK]", "[CLS]", "[SEP]", "x", "y", "[PAD]"]
+    vocab = [t for t in specials if t not in missing.split()] + NATIVE_WP_VOCAB
+    (tmp_path / "vocab.txt").write_text("\n".join(vocab) + "\n")
+    if library == "cpp":
+        if not TN.tokenizer_available():
+            pytest.skip(f"the port's tokenizer library did not build: {TN.TOKENIZER.error}")
     else:
-        lines = (d / "vocab.txt").read_text().split("\n")
-        (d / "vocab.txt").write_text("\n".join(t for t in lines if t != missing))
-    with pytest.raises(SystemExit, match=re.escape(missing)):
-        TT.build_tokenizer(LAYOUT_BACKENDS[layout][0], str(d), 16, 50265)
+        monkeypatch.setattr(TN.TOKENIZER, "get", lambda: None)
+    texts = fuzz_texts(8) + TWEETS + [
+        "Hello WORLD caf\u00e9 CAF\u00c9 \u00c9cole \u00e9cole", "a" * 101, "ab" * 50,
+        "hello\x1cworld\x85!!", "don't #tw@user \u4e16\u754c\U0001f600", ""]
+    tt, te = _same_encoding("bert", str(tmp_path), 24, 30522, texts=texts, normalize=False)
+    assert type(tt.backend).__name__ == "NativeWordPiece"
+    assert (tt.backend._native is None) == (library == "python")
+    assert tt.pad_token_id == 0 and (te["ids"][-1, 2:] == vocab.index("[PAD]")).all()
+
+
+@pytest.fixture(scope="module")
+def xlmr_dir(tmp_path_factory):
+    words = sorted({w for t in TWEETS + CORPUS + HC.CORPUS for w in t.lower().split()})
+    return HC.write_xlmr_dir(tmp_path_factory.mktemp("xlmr") / "bernice",
+                             HC.xlmr_pieces(words, 6))
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+def test_xlmr_directory_matches_jax(xlmr_dir, caplog, normalize):
+    """Bernice's layout reads through its ``tokenizer.json``, as the JAX
+    package's Rust path does, not the SentencePiece-BPE beside it: equal ids,
+    masks and pad id (``<pad>``'s, 1) on tweets and seeded strings, and no
+    warning."""
+    with caplog.at_level(logging.WARNING):
+        tt, te = _same_encoding("bernice", xlmr_dir, 24, 250002,
+                                texts=TEXTS + fuzz_texts(9) + HC.TEXTS, normalize=normalize)
+    assert type(tt.backend).__name__ == "TokenizerJson"
+    assert tt.pad_token_id == 1 and "token_type_ids" not in te
+    assert not [r for r in caplog.records if r.levelno >= logging.WARNING]
 
 
 def test_spm_reader_matches_the_protobuf_schema(spm_dir):
