@@ -10,8 +10,8 @@ and the CUDA toolkit. It
 2. builds the port's CUDA kernels from ``csrc/`` (one ``nvcc`` per source,
    all at once) and prints the build seconds;
 3. calls each kernel's wrapper at every shape the serving path and ViLT's
-   joint encoder give it (every bf16 SDPA in the tensor-core kernel of
-   ``sdpa_core.cuh``, P in registers; ViLT: 32x12x402x402x64 bf16 with
+   joint encoder give it (every bf16 SDPA in the wgmma kernel of
+   ``sdpa_core.cuh``, fed by TMA, P in registers; ViLT: 32x12x402x402x64 bf16 with
    ViLT's mask of text padding and canvas area past each image's extent,
    and the fused block at 32x402x768; also checked, though no path runs
    them, 402 in float32 and the fixed square's 185) and holds the result
@@ -225,7 +225,9 @@ and the CUDA toolkit. It
    pair and of the bf16 GEMM in each orientation, and the count of HGMMA
    (wgmma), UTMALDG (TMA load) and HMMA (mma.sync) instructions in each
    kernel function's SASS (``cuobjdump --dump-sass``), failing if a bf16
-   GEMM function (NT, NN or TN) has none of the first two; then holds the
+   GEMM function (NT, NN or TN) has none of the first two, or if the bf16
+   SDPA forward or either backward pass lacks wgmma or TMA loads or issues
+   mma.sync, or a library lacks one of them it should hold; then holds the
    bf16 GEMM alone against its plain version and times it beside one cuBLAS
    call over the same operands (a yardstick the port never calls), with the
    TFLOP/s of each: NT at row 7's shapes (M = 2048, 3152, 12864; three
@@ -500,22 +502,27 @@ def log_ptxas(source, text):
 
 def log_occupancy(A, AB):
     """Resident blocks per SM, from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
-    with shared memory and registers as launched: the tensor-core SDPA
-    kernels at ViLT's 402 keys, head dim 64 (128 threads a block), the row
-    pair of the fusion head's backward at 197 keys in float32 (256 threads)
-    and the bf16 GEMM in its three orientations (384 threads, its 4-stage
-    ring and output staging)."""
+    with shared memory and registers as launched: the bf16 SDPA forward
+    (wgmma, 128 threads a block) at the image tower's 197 keys (one 256-key
+    window), the text tower's 128 and ViLT's 402 (128-key windows), the
+    backward's two passes at 402 (a warpgroup each), head dim 64, the row pair of the fusion head's backward at 197
+    keys in float32 (256 threads) and the bf16 GEMM in its three
+    orientations (384 threads, its 4-stage ring and output staging)."""
     import ctypes
 
     fwd, bwd, gemm = A._lib(), A._bwd_lib(), AB._bwd_lib()
     fwd.smtc_sdpa_fwd_blocks_per_sm.argtypes = [ctypes.c_int] * 2
     bwd.smtc_sdpa_bwd_blocks_per_sm.argtypes = [ctypes.c_int] * 3
     for kernel, n, what in (
-            ("sdpa_fwd_tc_kernel<64>", fwd.smtc_sdpa_fwd_blocks_per_sm(64, VILT_LEN),
+            ("sdpa_fwd_wg_kernel<64, 256>", fwd.smtc_sdpa_fwd_blocks_per_sm(64, 197),
+             "128 threads at Lk = 197"),
+            ("sdpa_fwd_wg_kernel<64, 128>", fwd.smtc_sdpa_fwd_blocks_per_sm(64, 128),
+             "128 threads at Lk = 128"),
+            ("sdpa_fwd_wg_kernel<64, 128>", fwd.smtc_sdpa_fwd_blocks_per_sm(64, VILT_LEN),
              f"128 threads at Lk = {VILT_LEN}"),
-            ("sdpa_bwd_rows_tc_kernel<64> (pass A)",
+            ("sdpa_bwd_rows_wg_kernel<64> (pass A)",
              bwd.smtc_sdpa_bwd_blocks_per_sm(0, 64, VILT_LEN), f"128 threads at Lk = {VILT_LEN}"),
-            ("sdpa_bwd_keys_tc_kernel<64> (pass B)",
+            ("sdpa_bwd_keys_wg_kernel<64> (pass B)",
              bwd.smtc_sdpa_bwd_blocks_per_sm(1, 64, VILT_LEN), f"128 threads at Lk = {VILT_LEN}"),
             ("sdpa_bwd_row_scores_kernel<float> (row pair, score pass)",
              bwd.smtc_sdpa_bwd_blocks_per_sm(2, 768, 197), "256 threads"),
@@ -532,6 +539,14 @@ def log_occupancy(A, AB):
 # the bf16 GEMM's orientations (gemm_core.cuh::GemmMode) each library must hold
 GEMM_MODES = {"attn_block_fwd": {0}, "attn_block_bwd": {0, 1, 2},
               "attn_block_perhead_fwd": {0}, "attn_block_perhead_bwd": {0}}
+# the bf16 SDPA kernels on wgmma fed by TMA (sdpa_core.cuh, sdpa_bwd_core.cuh)
+# and the libraries that must hold them: every forward's, and with the
+# backward passes every backward's (which runs the forward for ctx and stats)
+SDPA_WG = {"sdpa_fwd_wg_kernel": "forward", "sdpa_bwd_rows_wg_kernel": "backward pass A",
+           "sdpa_bwd_keys_wg_kernel": "backward pass B"}
+SDPA_WG_LIBS = {lib: ({"sdpa_fwd_wg_kernel"} if lib.endswith("fwd") else set(SDPA_WG))
+                for lib in ("sdpa_fwd", "attn_block_fwd", "attn_block_perhead_fwd",
+                            "sdpa_bwd", "attn_block_bwd", "attn_block_perhead_bwd")}
 
 
 def log_sass(_cuda):
@@ -540,7 +555,9 @@ def log_sass(_cuda):
     UTMALDG (TMA loads) and HMMA (mma.sync). Fails if a library lacks a
     bf16 GEMM orientation it should hold (``GEMM_MODES``: NT, and in the
     block backward's library NN and TN too), or if one of those functions
-    issues no wgmma or no TMA load."""
+    issues no wgmma or no TMA load; and, by name, if a library lacks one of
+    the bf16 SDPA kernels it should hold (``SDPA_WG_LIBS``) or one of those
+    issues no wgmma, no TMA load or any mma.sync."""
     import re
     import shutil
 
@@ -568,7 +585,7 @@ def log_sass(_cuda):
                 dumps[lib] = f.read()
     for lib, sass in dumps.items():
         parts = re.split(r"Function : (\S+)", sass)
-        seen = set()
+        seen, seen_wg = set(), set()
         for fn, body in zip(parts[1::2], parts[2::2]):
             n = {op: len(re.findall(rf"\b{op}\.", body)) for op in ("HGMMA", "UTMALDG", "HMMA")}
             mode = re.search(r"gemm_bf16_tmaILi(\d)E", fn)
@@ -578,9 +595,20 @@ def log_sass(_cuda):
                 seen.add(int(mode.group(1)))
                 if not (n["HGMMA"] and n["UTMALDG"]):
                     raise AssertionError(f"{lib}: {tag} issues no wgmma or no TMA load")
+            wg = next((k for k in SDPA_WG if k in fn), None)
+            if wg:
+                seen_wg.add(wg)
+                if not (n["HGMMA"] and n["UTMALDG"]) or n["HMMA"]:
+                    raise AssertionError(
+                        f"{lib}: {fn}: the bf16 SDPA {SDPA_WG[wg]} must issue wgmma and TMA "
+                        f"loads and no mma.sync: HGMMA {n['HGMMA']}, UTMALDG {n['UTMALDG']}, "
+                        f"HMMA {n['HMMA']}")
         if not GEMM_MODES.get(lib, set()) <= seen:
             raise AssertionError(f"{lib}: bf16 GEMM orientations {sorted(seen)}, expected "
                                  f"{sorted(GEMM_MODES[lib])}")
+        missing = SDPA_WG_LIBS.get(lib, set()) - seen_wg
+        if missing:
+            raise AssertionError(f"{lib}: no SASS of the bf16 SDPA kernel(s) {sorted(missing)}")
 
 
 def time_gemm(torch, AB):
@@ -968,6 +996,16 @@ def check_bwd_kernels(torch, sdpa_shapes=SDPA_BWD_SHAPES, block_shapes=BLOCK_BWD
         refs = A.sdpa_bwd_reference(q, k, v, mask, do, scale)
         err = close(f"sdpa_bwd/{tag}", outs, refs, [r.float().abs().max().item() for r in refs],
                     dtype)
+        stats = None
+        if A.tc_pair_takes(q, k, v):
+            # as the autograd function calls it: the forward kernel's row
+            # stats handed to the pair, whose gradients must be those it
+            # forms alone (running the forward for them), bit for bit
+            _, stats = A.sdpa_fwd_cuda(q, k, v, mask, scale, with_stats=True)
+            given = A.sdpa_bwd_cuda(q, k, v, mask, do, scale, stats=stats)
+            if not all(torch.equal(x, y) for x, y in zip(given, outs)):
+                raise AssertionError(f"sdpa_bwd/{tag}: the forward's row stats change the "
+                                     "gradients")
         if tag == "text":
             # the block kernel, asked for, where the tensor-core pair runs:
             # which is faster
@@ -983,7 +1021,7 @@ def check_bwd_kernels(torch, sdpa_shapes=SDPA_BWD_SHAPES, block_shapes=BLOCK_BWD
         attn_mask = None if mask is None else (mask > 0)[:, None, None, :]
         lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=attn_mask, scale=scale)
         timed(f"sdpa_bwd/{tag}", "sdpa_bwd", (dtype, b, h, lq, lk, d, masked), err,
-              lambda: A.sdpa_bwd_cuda(q, k, v, mask, do, scale),
+              lambda: A.sdpa_bwd_cuda(q, k, v, mask, do, scale, stats=stats),
               lambda: A.sdpa_bwd_reference(q, k, v, mask, do, scale),
               lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True),
               nbytes(q, k, v, do, mask, *outs), 10.0 * b * h * lq * lk * d, dtype)

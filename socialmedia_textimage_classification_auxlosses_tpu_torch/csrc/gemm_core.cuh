@@ -30,13 +30,26 @@
 #pragma once
 
 #include <atomic>
-#include <cuda.h>  // CUtensorMap and its enums; the driver is reached through the runtime
 #include <stdint.h>
 #include <string.h>
 
 #include "sdpa_core.cuh"
 
 namespace {
+
+// the Hopper building blocks (hopper_core.cuh)
+using smtc::EncodeTiledFn;
+using smtc::encode_tiled;
+using smtc::fence_acc;
+using smtc::mbar_arrive;
+using smtc::mbar_expect_tx;
+using smtc::mbar_init;
+using smtc::mbar_wait;
+using smtc::named_sync;
+using smtc::tma_load_2d;
+using smtc::wgmma_commit;
+using smtc::wgmma_fence;
+using smtc::wgmma_wait;
 
 enum GemmMode : int { kNT = 0, kNN = 1, kTN = 2 };
 
@@ -145,43 +158,6 @@ struct GemmMaps {
   CUtensorMap w[4];
 };
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// spin until the barrier's phase of this parity has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred done;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// the box at (c0 along the contiguous dimension, c1 along rows) of `map`
-// into shared memory at dst
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
 // One stage's operand tile: rows r0.. r0 + 127 of M or N at k-steps from kc.
 // K-major: one box of 128 rows x 64 k; MN-major: two boxes of 64 k-rows x 64
 // columns, the halves r0 and r0 + 64, 8 KB apart.
@@ -217,22 +193,6 @@ __device__ __forceinline__ uint64_t tile_desc(uint32_t addr) {
 template <bool kMN>
 constexpr uint64_t kK16Step = kMN ? 2048 >> 4 : 32 >> 4;
 
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Orders the accumulators against the asynchronous wgmma: no read or write of
-// them moves across this point.
-// barrier among the 128 threads of one warpgroup (ids 1 and 2; 0 is __syncthreads)
-__device__ __forceinline__ void named_sync(int id) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
-}
-
 // the hand-over between the two consumer warpgroups (ids 3 and 4): one
 // arrives, the other waits, 256 threads in all
 __device__ __forceinline__ void handover_arrive(int id) {
@@ -240,12 +200,6 @@ __device__ __forceinline__ void handover_arrive(int id) {
 }
 __device__ __forceinline__ void handover_wait(int id) {
   asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void fence_acc(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d (64 x 128, f32) += A (64 x 16) . B (16 x 128), or = when accumulate is
@@ -523,31 +477,6 @@ __global__ void __launch_bounds__(256) gemm_split_sum(const GemmArgs g, int tile
     C[0] = __floats2bfloat162_rn(acc.x, acc.y);
     C[1] = __floats2bfloat162_rn(acc.z, acc.w);
   }
-}
-
-// cuTensorMapEncodeTiled, looked up once through the runtime, so the library
-// needs no link to the driver library
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-inline EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                            cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
 }
 
 // The tensor map of a (rows, cols) row-major bf16 matrix under the 128-byte

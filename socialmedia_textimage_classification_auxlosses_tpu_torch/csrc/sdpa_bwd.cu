@@ -6,8 +6,9 @@
 // the custom VJP _sdpa_pallas. The TPU kernels held one batch element's
 // Q/K/V/dO for all heads in VMEM and recomputed P there. Here bf16 at head
 // dims 32 and 64 (every training path) runs the tensor-core query-tiled pair:
-// pass A writes dQ and per-row statistics, pass B sums dK and dV per key tile
-// over every query row, without atomics, every product on mma.sync. The
+// pass A writes dQ and per-row statistics from the forward's row max and sum,
+// pass B sums dK and dV per key tile over every query row, without atomics,
+// every product on wgmma fed by TMA. The
 // fusion head's single query runs in the row pair (a score pass per key, then
 // a gradient pass per 64 head-dim columns), and float32 in the block
 // kernel where the whole (Lq, Lk) problem fits a block's shared memory, else
@@ -25,12 +26,15 @@ extern "C" {
 // one dtype (0 = float32, 1 = bfloat16); mask: (B, Lk) int32 or nullptr;
 // stats: float32 scratch of sdpa_bwd_stats_floats(B, H, Lq) floats (the
 // query-tiled pair's per-row stats), followed, for Lq <= 4, by the row pair's
-// (B, H, Lq, Lk, 2) scores and dP; kernel: 0 = chosen by shape, 1 = a
-// query-tiled pair (the tensor-core one where it fits), 2 = the block kernel.
+// (B, H, Lq, Lk, 2) scores and dP; fwd_stats: nullptr, or the forward's
+// (B, H, Lq, 2) float32 row max and sum (smtc_sdpa_fwd's stats), which only
+// the tensor-core pair reads (cudaErrorInvalidValue where another kernel
+// would run); kernel: 0 = chosen by shape, 1 = a query-tiled pair (the
+// tensor-core one where it fits), 2 = the block kernel.
 int smtc_sdpa_bwd(const void* q, const void* k, const void* v, const int* mask,
-                  const void* dout, void* dq, void* dk, void* dv, float* stats, int batch,
-                  int heads, int lq, int lk, int d, float scale, int dtype, int kernel,
-                  int device, void* stream) {
+                  const void* dout, void* dq, void* dk, void* dv, float* stats,
+                  const float* fwd_stats, int batch, int heads, int lq, int lk, int d,
+                  float scale, int dtype, int kernel, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   smtc::SdpaBwdArgs a = {};
@@ -44,6 +48,7 @@ int smtc_sdpa_bwd(const void* q, const void* k, const void* v, const int* mask,
   a.dv = dv;
   a.o = nullptr;
   a.stats = stats;
+  a.fwd_stats = fwd_stats;
   a.heads = heads;
   a.lq = lq;
   a.lk = lk;

@@ -19,48 +19,64 @@
 // Kernels, chosen by launch_sdpa_bwd from the arguments alone:
 //   * the tensor-core pair, for bf16 with a head dim of 32 or 64, 16-byte
 //     aligned rows and more than kRowMaxLq query rows: every bf16 attention
-//     of the training paths (text L = 128, ViLT 185 and 402, the fused
-//     blocks' column slices). It replaces TPU kernel 4
+//     of the training paths (text L = 128, image 197, ViLT 185 and 402, the
+//     fused blocks' column slices). It replaces TPU kernel 4
 //     (ops/attention.py::_bwd_kernel_blocked, whose grid walks 128-row query
 //     tiles in order and sums dK and dV across them in an f32 output block)
 //     and TPU kernel 2 (::_bwd_kernel) at those shapes. Hopper blocks run in
 //     no order, so the sum over query tiles moves into a second pass
-//     (FlashAttention-2's shape, no atomics). Both passes are 4 warps of 16
-//     rows, every product mma.sync.m16n8k16 with bf16 operands and f32
-//     accumulators, operands through ldmatrix, the streamed tiles through
-//     sdpa_core.cuh's cp.async ring (kRing stages of two 64-row tiles, 18 KB
-//     at D = 64); nothing score-shaped lives in shared memory.
-//       pass A (sdpa_bwd_rows_tc_kernel), one block per (64 query rows,
-//       head, batch): Q and dO fragments in registers, K and V streaming.
-//       Sweep 1: S = Q K^T for the row max m and sum l, online, as the
-//       forward. Sweep 2: S and dP = dO V^T together, 32 keys at a time; the
-//       f32 P from the final m and l; rowsum(dP P) from the unrounded P;
-//       ctx += round(P) V when asked for. Sweep 3: S and dP again, dS =
-//       round(P (dP - rowsum)) packed from C fragments into A fragments,
-//       dQ += dS K with K through ldmatrix.trans. It writes dQ * scale,
-//       ctx, and per query row the max, the sum and the rowsum to `stats`.
-//       pass B (sdpa_bwd_keys_tc_kernel), one block per (64 keys, head,
-//       batch): K and V fragments in registers as A operands; Q, dO and the
-//       stats of each 64-row query tile streaming. S^T = K Q^T and dP^T =
-//       V dO^T in registers, P^T from the stored m and l, dS^T =
-//       round(P^T (dP^T - rowsum)); dV += round(P^T) dO and dK += dS^T Q,
-//       dO and Q read from the same shared tiles through ldmatrix.trans,
-//       summed in f32 registers over every query tile and rounded once.
-//       Query rows past Lq add exactly zero: their P and dS are set to 0
-//       (pass A writes no stats for them; the JAX kernel pads dO with zeros
-//       for the same reason).
+//     (FlashAttention-2's shape, no atomics). Both passes are one warpgroup
+//     (64 rows, wgmma's M; three blocks an SM) whose thread 0 keeps a ring of
+//     kTcBwdStages stages in flight by TMA (64-row tiles under the 64- or
+//     128-byte swizzle, each stage behind an mbarrier that takes the copy's
+//     bytes), a stage's next load issued once the products that read it are
+//     done; every product is wgmma.mma_async with bf16 operands and f32
+//     accumulators, the score tiles A operands straight from registers (the
+//     accumulator layout of two 8-column groups is the A layout of a k16
+//     step), nothing score-shaped in shared memory; the outputs leave through
+//     a staging tile in whole 16-byte rows.
+//       the row stats: each query row's max m and sum l, as the forward
+//       kernel formed them (sdpa_core.cuh). ops/attention.py's autograd
+//       function keeps the forward's (B, H, Lq, 2) and passes them in
+//       (fwd_stats). The fused and per-head blocks recompute q, k and v and
+//       have none, and they want ctx = round(P) V for the out-projection's
+//       weight gradient: for them (and for any caller without stats) the
+//       launch runs the forward kernel first, which writes ctx as its output
+//       (the forward's, bit for bit) and the stats into the scratch. So pass
+//       A never sweeps for stats, and the stats it reads are the forward's
+//       own whichever way they came: a backward given the forward's stats and
+//       one that forms them agree bit for bit.
+//       pass A (sdpa_bwd_rows_wg_kernel), one block per (64 query rows,
+//       head, batch): Q and dO tiles, the (K, V) chunks of 64 keys streaming
+//       twice. Sweep 1: S = Q K^T and dP = dO V^T (both operands K-major),
+//       P = exp(s - m) * (1 / l) in f32, rowsum(dP P) from the unrounded P.
+//       Sweep 2: S and dP again, dS = round(P (dP - rowsum)), dQ += dS K with
+//       K read MN-major. It writes dQ * scale and per query row (m, l,
+//       rowsum, 0) to `stats` (16 bytes a row, one TMA box row for pass B).
+//       That is S and dP twice each, two exponentials per score.
+//       pass B (sdpa_bwd_keys_wg_kernel), one block per (64 keys, head,
+//       batch): K and V tiles as the A operands; Q, dO and the stats of each
+//       64-row query chunk streaming. S^T = K Q^T and dP^T = V dO^T, P^T from
+//       the stats, dS^T = round(P^T (dP^T - rowsum)); dV += round(P^T) dO
+//       and dK += dS^T Q, dO and Q read MN-major from the same tiles; summed
+//       in f32 registers over the query chunks in order, rounded once, so two
+//       runs agree bit for bit. Query rows past Lq add exactly zero: their P
+//       and dS are set to 0 (TMA reads them as zeros; the JAX kernel pads dO
+//       with zeros for the same reason).
 //     Pass B forms P and dS with pass A's formulas from pass A's m, l and
-//     rowsum; its S^T and dP^T are pass A's products with the mma operands
-//     swapped, the same bf16 pairs summed in the same k order. They equal
-//     pass A's P and dS bit for bit only where the tensor cores sum a k16
-//     step the same way whichever operand is A, which is not documented and
-//     was not checked; nothing relies on it: each output is held to its
-//     plain version on the card.
-//     What changes against the JAX kernels: the order of the f32 sums, the
-//     online row sum (about 1e-7 relative) and p = e * (1 / l).
-//     Occupancy at D = 64, Lk = 402: pass A 3 blocks per SM (168 registers),
-//     pass B 3 (bounded to 168 registers); D = 128 would hold 64 more f32
-//     accumulators per thread and is left to the FMA kernels below.
+//     rowsum; its S^T and dP^T are pass A's products with the operands
+//     swapped, which need not round alike; nothing relies on it: each output
+//     is held to its plain version on the card.
+//     What changes against the JAX kernels: the order of the f32 sums (the
+//     tensor cores' k16 steps, the row sums per thread then across the quad,
+//     the forward's as its note says) and p = e * (1 / l).
+//     What bounds it: the CUDA cores' share, as in the forward. A score takes
+//     about 25 instructions in pass A (two accurate exponentials) and 16 in
+//     pass B, beside 1.6x the products; clock counts (tools/sdpa_clocks.py,
+//     PERF.md): a pass A block at 16x12x197 27,800 cycles, 750 of them
+//     waiting for its loads, a pass B block 28,710 and 1,370.
+//     D = 128 would hold 64 more f32 accumulators per thread in pass B and is
+//     left to the FMA kernels below.
 //   * the row pair, for at most kRowMaxLq query rows (the fusion head's one
 //     query of width 768 over 197 image keys, 605 KB of f32 K or V per batch
 //     row, far beyond shared memory): a score pass with one warp per key
@@ -89,11 +105,13 @@
 // bf16; fusion 32x1x1x768 over 197 keys in f32) the least time is set by the
 // bytes of q, k, v, dO and the three gradients (about 13 us and 23 us at
 // 3.35 TB/s); the row pair moves K twice (once per pass, the second mostly
-// from L2) and V once more than that bound counts. ViLT's 32x12x402x402x64 in bf16 is 40 GFLOP of the five
-// products (41 us at 989 TFLOP/s) against 41 us for its bytes; the
-// tensor-core pair does twice the products (S three times in pass A and once
-// in pass B, dP twice and once) plus three exponentials per score, so it is
-// bound by mma.sync issue and the softmax arithmetic, not by device memory.
+// from L2) and V once more than that bound counts. The image tower's
+// 16x12x197x197x64 in bf16 is 3.0 GFLOP of the five products (3.0 us at
+// 989 TFLOP/s) against 10 us for its bytes; ViLT's 32x12x402x402x64 is 40
+// GFLOP (41 us) against 41 us. The tensor-core pair does 1.6x the products
+// (S and dP twice in pass A, once each in pass B) and three exponentials per
+// score (two in pass A, one in pass B), so at 402 its products and the
+// softmax arithmetic, not device memory, bound it.
 // f32 runs on the CUDA cores at 67 TFLOP/s.
 
 #pragma once
@@ -112,19 +130,24 @@ struct SdpaBwdArgs {
   void* dk;
   void* dv;
   void* o;  // ctx = round(P) V, or nullptr
-  float* stats;  // (B, H, Lq, kStats) scratch of the query-tiled pair
+  float* stats;  // the f32 scratch (sdpa_bwd_scratch_floats)
   int heads, lq, lk, d;
   // element strides of batch, head and position; the head dim has stride 1.
   // q, dout, dq and o share q's; k, v, dk and dv share k's.
   long long q_sb, q_sh, q_sl;
   long long k_sb, k_sh, k_sl;
   float scale;
+  // (B, H, Lq, 2) f32, the forward kernel's max and sum of each query row, or
+  // nullptr; only the tensor-core pair reads them (a launch that cannot,
+  // refuses)
+  const float* fwd_stats = nullptr;
 };
 
 constexpr int kBwdThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
 constexpr int kBT = 64;           // output tile rows and columns, staging depth
 constexpr int kBTLd = kBT + 4;    // staging row stride (floats)
 constexpr int kStats = 3;         // per query row: max, sum, rowsum(dP P)
+constexpr int kTcStats = 4;       // the tensor-core pair's: the same and a 0 (16 bytes)
 
 __host__ __device__ inline int sdpa_bwd_rows(int lq) { return (lq + kBT - 1) / kBT * kBT; }
 
@@ -331,10 +354,13 @@ constexpr int kRowColLanes = 2;             // column pass: lanes per key row, 4
 constexpr int kRowKeyGroups = 32 / kRowColLanes;  // keys a warp holds at once
 constexpr int kRowCols = kRowThreads / 32 * kRowColLanes * 4;  // columns per block: 64
 
-// Floats of the backward's f32 scratch that the query-tiled pair's stats take,
-// rounded up to 16 bytes; the row pair's (s, dP) pairs follow.
+// Floats of the backward's f32 scratch that the query-tiled pairs' stats take
+// (kTcStats a query row; the FMA pair uses kStats of them), then the
+// forward's max and sum of each query row, which the tensor-core pair forms
+// there when its caller gives none; rounded up to 16 bytes. The row pair's
+// (s, dP) pairs follow.
 __host__ __device__ inline size_t sdpa_bwd_stats_floats(int batch, int heads, int lq) {
-  return ((size_t)batch * heads * lq * kStats + 3) / 4 * 4;
+  return ((size_t)batch * heads * lq * (kTcStats + 2) + 3) / 4 * 4;
 }
 
 // Floats of the whole scratch the caller allocates (exported to
@@ -833,263 +859,368 @@ __global__ void __launch_bounds__(kBwdThreads) sdpa_bwd_keys_kernel(SdpaBwdArgs 
   }
 }
 
-// ---- the tensor-core pair (bf16) -------------------------------------------------
+// ---- the tensor-core pair (bf16): wgmma fed by TMA ---------------------------
 
-// Pass A's P (f32, from the final row max and sum) and dP = dO V^T of the
-// warp's 16 rows against keys hk .. hk + 31 of a (K, V) stage
+struct SdpaBwdMaps {
+  CUtensorMap q, k, v, dout;  // boxes of 64 rows of one head
+  CUtensorMap st;             // pass A's (B * H, Lq, 4) f32 stats, boxes of 64 rows
+};
+
+constexpr int kTcBwdStages = 3;  // ring stages of both passes
+// a pass's block: one warpgroup, whose thread 0 issues the loads (a producer
+// warp beside it measured 1.2x slower: three blocks of five warps put four in
+// a register partition, which caps a thread at 128 registers, so only two fit)
+constexpr int kTcThreads = 128;
+
+// Pass A's shared memory from a 1024-byte aligned base: Q, dO (64 rows), the
+// ring's (K, V) chunks of 64 keys, the barriers, then the column map.
 template <int D>
-__device__ __forceinline__ void probs_and_dp(float (&p)[4][4], float (&dp)[4][4],
-                                             const uint32_t (&qf)[D / 16][4],
-                                             const uint32_t (&dof)[D / 16][4],
-                                             const __nv_bfloat16* st, int hk, const float* cm,
-                                             float scale, const float (&m)[2],
-                                             const float (&rl)[2]) {
-  nt_tile<D, 32>(p, qf, st + hk * tc_ld(D));
-  nt_tile<D, 32>(dp, dof, st + tc_tile(D) + hk * tc_ld(D));
-  scale_mask<32>(p, cm + hk, scale);
-  probs<32>(p, m, rl);
+struct RowsLayout {
+  static constexpr int kT = tc_tile_bytes<D>(64);
+  static constexpr int q = 0, dout = kT, ring = 2 * kT, stage = 2 * kT;
+  static constexpr int bars = ring + kTcBwdStages * stage, cols = bars + (1 + kTcBwdStages) * 8;
+};
+template <int D>
+__host__ inline size_t rows_smem_bytes(int lk) {
+  return 1024 + RowsLayout<D>::cols + sizeof(float) * (size_t)((lk + 63) / 64 * 64);
 }
 
-// Pass A: one block per (kMQ query rows, head, batch). Shared memory as the
-// forward's: the ring, then the column map of the key mask.
+// Pass B's: K, V (64 keys), the ring's (Q, dO, stats) chunks of 64 query
+// rows, the barriers.
 template <int D>
-__global__ void __launch_bounds__(kThreads) sdpa_bwd_rows_tc_kernel(SdpaBwdArgs a) {
-  extern __shared__ float4 smem4[];
-  constexpr int kTile = tc_tile(D), kLd = tc_ld(D);
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem4);  // kRing x 2 tiles
-  float* cm = reinterpret_cast<float*>(ring + kRing * 2 * kTile);  // [tc_cols(lk)]
-  const int q0 = blockIdx.x * kMQ, h = blockIdx.y, b = blockIdx.z;
-  const long long qo = b * a.q_sb + h * a.q_sh, ko = b * a.k_sb + h * a.k_sh;
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q) + qo;
-  const __nv_bfloat16* dout = static_cast<const __nv_bfloat16*>(a.dout) + qo;
-  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(a.k) + ko;
-  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(a.v) + ko;
-  float* stats = a.stats + ((long long)b * a.heads + h) * a.lq * kStats;
-  const int lq = a.lq, lk = a.lk, nt = (lk + kMK - 1) / kMK, n1 = (nt + 1) / 2;
-  const int lane = threadIdx.x % 32, row0 = (threadIdx.x / 32) * 16;
-  const int grp = lane >> 2, t4 = lane & 3;
+struct KeysLayout {
+  static constexpr int kT = tc_tile_bytes<D>(64);
+  static constexpr int k = 0, v = kT, ring = 2 * kT, stage = 2 * kT + 64 * kTcStats * 4;
+  static constexpr int bars = ring + kTcBwdStages * stage, end = bars + (1 + kTcBwdStages) * 8;
+};
+template <int D>
+__host__ inline size_t keys_smem_bytes() {
+  return 1024 + KeysLayout<D>::end;
+}
 
-  __nv_bfloat16* last = ring + (kRing - 1) * 2 * kTile;
-  tile_async<D>(last, q, a.q_sl, q0, lq);
-  tile_async<D>(last + kTile, dout, a.q_sl, q0, lq);
-  cp_async_commit();
-  fill_cols(cm, a.mask ? a.mask + (long long)b * lk : nullptr, lk);
-  // stage s: two K tiles (sweep 1, s < n1), then a (K, V) pair per key tile
-  // for sweep 2 and again for sweep 3
-  auto issue = [&](int s) {
-    __nv_bfloat16* dst = ring + (s % kRing) * 2 * kTile;
-    if (s < n1) {
-      tile_async<D>(dst, k, a.k_sl, 2 * s * kMK, lk);
-      if ((2 * s + 1) * kMK < lk) tile_async<D>(dst + kTile, k, a.k_sl, (2 * s + 1) * kMK, lk);
-    } else if (s < n1 + 2 * nt) {
-      const int kt = (s - n1) % nt * kMK;
-      tile_async<D>(dst, k, a.k_sl, kt, lk);
-      tile_async<D>(dst + kTile, v, a.k_sl, kt, lk);
-    }
-    cp_async_commit();
+// the 64 x 64 f32 accumulators of a product over one chunk, rounded to bf16
+// as wgmma's A fragments (window_pack's layout)
+__device__ __forceinline__ void pack_tile(uint32_t (&f)[16], const float (&x)[32]) {
+#pragma unroll
+  for (int g = 0; g < 8; ++g) {
+    f[2 * g] = pack_bf16(x[4 * g], x[4 * g + 1]);
+    f[2 * g + 1] = pack_bf16(x[4 * g + 2], x[4 * g + 3]);
+  }
+}
+
+// c = A B^T over the head dim for a 64-row tile a and a 64-row tile b, both
+// K-major (issued, not waited on)
+template <int D>
+__device__ __forceinline__ void nt_chunk(float (&c)[32], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss<64>(c, kmajor<D>(a, 64, 0, kk), kmajor<D>(b, 64, 0, kk), kk);
+}
+
+// acc += F B over a chunk's 64 rows: F the packed A fragments, B the chunk's
+// 64-row tile read MN-major (issued, not waited on)
+template <int D>
+__device__ __forceinline__ void nn_chunk(float (&acc)[D / 2], const uint32_t (&f)[16], uint32_t b) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) wgmma_rs<D>(acc, f + 4 * j, mnmajor<D>(b, 64, 16 * j));
+}
+
+// Pass A: one block per (64 query rows, head, batch). Thread 0 loads Q and
+// dO, then the (K, V) chunks twice over (a sweep each) through the ring, each
+// stage's next load as soon as the warpgroup is done with it; the warpgroup
+// reads the forward's max and sum of its rows.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 3)
+    sdpa_bwd_rows_wg_kernel(const __grid_constant__ SdpaBwdMaps maps, const SdpaBwdArgs a,
+                            const float* fs, int head_inner) {
+  using L = RowsLayout<D>;
+  extern __shared__ __align__(1024) unsigned char tsmem[];
+  const uint32_t raw = smem_addr(tsmem), pad = ((raw + 1023) & ~1023u) - raw;
+  const uint32_t base = raw + pad, bars = base + L::bars;
+  float* cm = reinterpret_cast<float*>(tsmem + pad + L::cols);
+  const uint32_t full_qd = bars;
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z, lq = a.lq, lk = a.lk;
+  const int nc = (lk + 63) / 64;
+  const int* mask = a.mask ? a.mask + (long long)b * lk : nullptr;
+
+  for (int j = threadIdx.x; j < nc * 64; j += kTcThreads) cm[j] = col_map(mask, j, lk);
+  // step i of the ring: chunk i % nc's K and V into stage i % kTcBwdStages
+  auto issue = [&](int i) {
+    if (threadIdx.x != 0 || i >= 2 * nc) return;
+    const int s = i % kTcBwdStages;
+    const uint32_t st = base + L::ring + s * L::stage;
+    mbar_expect_tx(full(s), 2 * L::kT);
+    tma_rows<D>(st, &maps.k, full(s), 64, i % nc * 64, h, b, head_inner);
+    tma_rows<D>(st + L::kT, &maps.v, full(s), 64, i % nc * 64, h, b, head_inner);
   };
-  ring_start(issue);
-  uint32_t qf[D / 16][4], dof[D / 16][4];
-  a_frags<D>(qf, last, row0);
-  a_frags<D>(dof, last + kTile, row0);
-  int s = 0;
-  auto next = [&]() {
-    return static_cast<const __nv_bfloat16*>(ring + ring_next(s, issue) * 2 * kTile);
-  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 1 + kTcBwdStages; ++i) mbar_init(bars + 8 * i, 1);
+    mbar_init_fence();
+    mbar_expect_tx(full_qd, 2 * L::kT);
+    tma_rows<D>(base + L::q, &maps.q, full_qd, 64, qt * 64, h, b, head_inner);
+    tma_rows<D>(base + L::dout, &maps.dout, full_qd, 64, qt * 64, h, b, head_inner);
+    for (int i = 0; i < kTcBwdStages; ++i) issue(i);
+  }
+  __syncthreads();
 
-  // 1. row max and sum
-  float m[2], l[2];
-  row_stats<D>(m, l, qf, next, cm, lk, a.scale);
-  const float rl[2] = {1.f / l[0], 1.f / l[1]};
-
-  // 2. rowsum(dP P) from the f32 P, and ctx = round(P) V when asked for;
-  //    32 keys at a time keep the score fragments few
+  const int t4 = threadIdx.x & 3, r = 16 * (threadIdx.x / 32) + (threadIdx.x & 31) / 4;
+  const long long row0 = ((long long)b * a.heads + h) * lq + qt * 64;
+  // the forward's max and 1 / sum of the thread's two rows (0 past Lq: P = 0)
+  float m[2], l[2], rl[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const bool in = qt * 64 + r + 8 * e < lq;
+    const float2 x = in ? *reinterpret_cast<const float2*>(fs + (row0 + r + 8 * e) * 2)
+                        : make_float2(0.f, 0.f);
+    m[e] = x.x;
+    l[e] = x.y;
+    rl[e] = in ? 1.f / x.y : 0.f;
+  }
+  const uint32_t qs = base + L::q, ds = base + L::dout;
+  float sc[32], dp[32], dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
   float rs[2] = {0.f, 0.f};
-  {
-    float cacc[D / 8][4] = {};
-    for (int t = 0; t < nt; ++t) {
-      const __nv_bfloat16* st = next();
+  mbar_wait(full_qd, 0);
+  for (int i = 0; i < 2 * nc; ++i) {
+    const int s = i % kTcBwdStages, c = i % nc;
+    const uint32_t kst = base + L::ring + s * L::stage;
+    mbar_wait(full(s), (i / kTcBwdStages) & 1);
+    // S and dP of the rows against the chunk's 64 keys
+    wgmma_fence();
+    nt_chunk<D>(sc, qs, kst);
+    nt_chunk<D>(dp, ds, kst + L::kT);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(sc);
+    fence_acc(dp);
+    if (i < nc) issue(i + kTcBwdStages);  // the stage is free: sweep 1 reads it no more
+    // P in f32 from the forward's max and sum
 #pragma unroll
-      for (int hk = 0; hk < kMK; hk += 32) {
-        float p[4][4], dp[4][4];
-        probs_and_dp<D>(p, dp, qf, dof, st, hk, cm + t * kMK, a.scale, m, rl);
+    for (int g = 0; g < 8; ++g) {
+      const float2 cc = *reinterpret_cast<const float2*>(cm + c * 64 + 8 * g + 2 * t4);
 #pragma unroll
-        for (int nb = 0; nb < 4; ++nb)
+      for (int e = 0; e < 4; ++e) {
+        const float x = fmaf(sc[4 * g + e], a.scale, e & 1 ? cc.y : cc.x);
+        sc[4 * g + e] = expf(x - m[e >> 1]) * rl[e >> 1];
+      }
+    }
+    if (i < nc) {
+      // sweep 1: rowsum(dP P) from the unrounded P, in key order
 #pragma unroll
-          for (int e = 0; e < 4; ++e) rs[e >> 1] += dp[nb][e] * p[nb][e];
-        if (a.o != nullptr) {
-          uint32_t pf[2][4];
-          pack_a<32>(pf, p);
-          nn_tile<D, 32>(cacc, pf, st + kTile + hk * kLd);
+      for (int j = 0; j < 32; ++j) rs[(j >> 1) & 1] += dp[j] * sc[j];
+      if (i + 1 == nc) {
+        rs[0] = quad_sum(rs[0]);
+        rs[1] = quad_sum(rs[1]);
+        if (t4 == 0)  // pass B's stats: max, sum, rowsum
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (qt * 64 + r + 8 * e < lq)
+              *reinterpret_cast<float4*>(a.stats + (row0 + r + 8 * e) * kTcStats) =
+                  make_float4(m[e], l[e], rs[e], 0.f);
+      }
+    } else {
+      // sweep 2: dS = round(P (dP - rowsum)), dQ += dS K
+      uint32_t df[16];
+#pragma unroll
+      for (int j = 0; j < 32; ++j) dp[j] = sc[j] * (dp[j] - rs[(j >> 1) & 1]);
+      pack_tile(df, dp);
+      wgmma_fence();
+      nn_chunk<D>(dq, df, kst);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(dq);
+      fence_regs(df);
+      issue(i + kTcBwdStages);
+    }
+  }
+  // dQ * scale, staged in the ring's first stage (every load into it has landed
+  // and every product that reads it is done)
+  __nv_bfloat16* staged = reinterpret_cast<__nv_bfloat16*>(tsmem + pad + L::ring);
+  stage_tile<D>(staged, dq, a.scale);
+  __syncthreads();
+  copy_tile_out<D>(static_cast<__nv_bfloat16*>(a.dq) + b * a.q_sb + h * a.q_sh, a.q_sl, qt * 64,
+                   lq, staged);
+}
+
+// Pass B: one block per (64 keys, head, batch); dV and dK of the block's keys
+// summed over every query chunk in f32 registers, in chunk order. Thread 0
+// loads K and V, then each query chunk's Q, dO and stats through the ring.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 3)
+    sdpa_bwd_keys_wg_kernel(const __grid_constant__ SdpaBwdMaps maps, const SdpaBwdArgs a,
+                            int head_inner) {
+  using L = KeysLayout<D>;
+  extern __shared__ __align__(1024) unsigned char tsmem[];
+  const uint32_t raw = smem_addr(tsmem), pad = ((raw + 1023) & ~1023u) - raw;
+  const uint32_t base = raw + pad, bars = base + L::bars;
+  const uint32_t full_kv = bars;
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z, lq = a.lq, lk = a.lk;
+  const int nqc = (lq + 63) / 64;
+  // step i of the ring: query chunk i's Q, dO and stats into stage i % kTcBwdStages
+  auto issue = [&](int i) {
+    if (threadIdx.x != 0 || i >= nqc) return;
+    const int s = i % kTcBwdStages;
+    const uint32_t st = base + L::ring + s * L::stage;
+    mbar_expect_tx(full(s), L::stage);
+    tma_rows<D>(st, &maps.q, full(s), 64, i * 64, h, b, head_inner);
+    tma_rows<D>(st + L::kT, &maps.dout, full(s), 64, i * 64, h, b, head_inner);
+    tma_load_3d(st + 2 * L::kT, &maps.st, full(s), 0, i * 64, b * a.heads + h);
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 1 + kTcBwdStages; ++i) mbar_init(bars + 8 * i, 1);
+    mbar_init_fence();
+    mbar_expect_tx(full_kv, 2 * L::kT);
+    tma_rows<D>(base + L::k, &maps.k, full_kv, 64, kt * 64, h, b, head_inner);
+    tma_rows<D>(base + L::v, &maps.v, full_kv, 64, kt * 64, h, b, head_inner);
+    for (int i = 0; i < kTcBwdStages; ++i) issue(i);
+  }
+  __syncthreads();
+
+  const int t4 = threadIdx.x & 3, r = 16 * (threadIdx.x / 32) + (threadIdx.x & 31) / 4;
+  // the column map of the thread's two key rows (rows past Lk are never written)
+  float cmap[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+    cmap[e] = col_map(a.mask ? a.mask + (long long)b * lk : nullptr, kt * 64 + r + 8 * e, lk);
+  const uint32_t ks = base + L::k, vs = base + L::v;
+  float sc[32], dp[32], dv[D / 2], dk[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dv[i] = dk[i] = 0.f;
+  mbar_wait(full_kv, 0);
+  for (int i = 0; i < nqc; ++i) {
+    const int s = i % kTcBwdStages;
+    const uint32_t qst = base + L::ring + s * L::stage, dst = qst + L::kT;
+    const float4* st = reinterpret_cast<const float4*>(tsmem + pad + L::ring + s * L::stage +
+                                                       2 * L::kT);
+    mbar_wait(full(s), (i / kTcBwdStages) & 1);
+    // S^T = K Q^T and dP^T = V dO^T of the block's keys against the chunk
+    wgmma_fence();
+    nt_chunk<D>(sc, ks, qst);
+    nt_chunk<D>(dp, vs, dst);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(sc);
+    fence_acc(dp);
+    // P^T and dS^T = P^T (dP^T - rowsum) from pass A's stats; query rows past
+    // Lq give 0
+#pragma unroll
+    for (int g = 0; g < 8; ++g)
+#pragma unroll
+      for (int cc = 0; cc < 2; ++cc) {
+        const int qi = 8 * g + 2 * t4 + cc;
+        const float4 x = st[qi];
+        const bool valid = i * 64 + qi < lq;
+        const float rlq = valid ? 1.f / x.y : 0.f;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = 4 * g + 2 * e + cc;
+          const float pv = valid ? expf(fmaf(sc[j], a.scale, cmap[e]) - x.x) * rlq : 0.f;
+          dp[j] = valid ? pv * (dp[j] - x.z) : 0.f;
+          sc[j] = pv;
         }
       }
-    }
-    if (a.o != nullptr)
-      store_rows<D>(static_cast<__nv_bfloat16*>(a.o) + qo, a.q_sl, q0 + row0, lq, cacc, 1.f);
+    uint32_t pf[16], df[16];
+    pack_tile(pf, sc);
+    pack_tile(df, dp);
+    wgmma_fence();
+    nn_chunk<D>(dv, pf, dst);  // dV += round(P^T) dO
+    nn_chunk<D>(dk, df, qst);  // dK += round(dS^T) Q
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(dv);
+    fence_acc(dk);
+    fence_regs(pf);
+    fence_regs(df);
+    issue(i + kTcBwdStages);
   }
-  rs[0] = quad_sum(rs[0]);
-  rs[1] = quad_sum(rs[1]);
-  if (t4 == 0)
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int i = q0 + row0 + grp + 8 * r;
-      if (i < lq) {
-        stats[i * kStats] = m[r];
-        stats[i * kStats + 1] = l[r];
-        stats[i * kStats + 2] = rs[r];
-      }
-    }
-
-  // 3. dS = round(P (dP - rowsum)), dQ += dS K
-  float qacc[D / 8][4] = {};
-  for (int t = 0; t < nt; ++t) {
-    const __nv_bfloat16* st = next();
-#pragma unroll
-    for (int hk = 0; hk < kMK; hk += 32) {
-      float p[4][4], dp[4][4];
-      probs_and_dp<D>(p, dp, qf, dof, st, hk, cm + t * kMK, a.scale, m, rl);
-#pragma unroll
-      for (int nb = 0; nb < 4; ++nb)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dp[nb][e] = p[nb][e] * (dp[nb][e] - rs[e >> 1]);
-      uint32_t df[2][4];
-      pack_a<32>(df, dp);
-      nn_tile<D, 32>(qacc, df, st + hk * kLd);
-    }
-  }
-  cp_async_wait<0>();
-  store_rows<D>(static_cast<__nv_bfloat16*>(a.dq) + qo, a.q_sl, q0 + row0, lq, qacc, a.scale);
-}
-
-// Pass B stage: a Q tile, a dO tile, then the tile's stats as f32
-template <int D>
-__host__ __device__ constexpr int keys_tc_stage_bytes() {
-  return 2 * tc_tile(D) * (int)sizeof(__nv_bfloat16) + kMQ * kStats * (int)sizeof(float);
-}
-
-// Pass B: one block per (kMK keys, head, batch); dV and dK of the block's
-// keys summed over every query tile. Bounded to 168 registers so 3 blocks
-// share an SM: at D = 64 that spills a few bytes (ptxas: 64 B stored, 104 B
-// loaded) and beat the unbounded 186 registers (2 blocks) by 9-13% (PERF.md).
-template <int D>
-__global__ void __launch_bounds__(kThreads, 3) sdpa_bwd_keys_tc_kernel(SdpaBwdArgs a) {
-  extern __shared__ float4 smem4[];
-  constexpr int kTile = tc_tile(D), kLd = tc_ld(D), kStage = keys_tc_stage_bytes<D>();
-  char* ring = reinterpret_cast<char*>(smem4);  // kRing stages of kStage bytes
-  const int k0 = blockIdx.x * kMK, h = blockIdx.y, b = blockIdx.z;
-  const long long qo = b * a.q_sb + h * a.q_sh, ko = b * a.k_sb + h * a.k_sh;
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q) + qo;
-  const __nv_bfloat16* dout = static_cast<const __nv_bfloat16*>(a.dout) + qo;
-  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(a.k) + ko;
-  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(a.v) + ko;
-  const float* stats = a.stats + ((long long)b * a.heads + h) * a.lq * kStats;
-  const int lq = a.lq, lk = a.lk, nqt = (lq + kMQ - 1) / kMQ;
-  const int lane = threadIdx.x % 32, row0 = (threadIdx.x / 32) * 16;
-  const int grp = lane >> 2, t4 = lane & 3;
-  const float scale = a.scale;
-  auto stage = [&](int s) {
-    return reinterpret_cast<__nv_bfloat16*>(ring + s % kRing * kStage);
-  };
-
-  __nv_bfloat16* last = stage(kRing - 1);
-  tile_async<D>(last, k, a.k_sl, k0, lk);
-  tile_async<D>(last + kTile, v, a.k_sl, k0, lk);
-  cp_async_commit();
-  // the key mask of the warp's two rows (rows past lk are never written)
-  bool keep[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int j = k0 + row0 + grp + 8 * r;
-    keep[r] = j < lk && (a.mask == nullptr || a.mask[(long long)b * lk + j] > 0);
-  }
-  // stage s: query tile s's Q, dO and stats (rows past lq zero-filled)
-  auto issue = [&](int s) {
-    if (s < nqt) {
-      __nv_bfloat16* dst = stage(s);
-      const int r0 = s * kMQ;
-      tile_async<D>(dst, q, a.q_sl, r0, lq);
-      tile_async<D>(dst + kTile, dout, a.q_sl, r0, lq);
-      float* st = reinterpret_cast<float*>(dst + 2 * kTile);
-      for (int e = threadIdx.x; e < kMQ * kStats; e += kThreads) {
-        const bool ok = r0 * kStats + e < lq * kStats;
-        cp_async4(st + e, ok ? stats + r0 * kStats + e : stats, ok);
-      }
-    }
-    cp_async_commit();
-  };
-  ring_start(issue);
-  uint32_t kf[D / 16][4], vf[D / 16][4];
-  a_frags<D>(kf, last, row0);
-  a_frags<D>(vf, last + kTile, row0);
-  int s = 0;
-  auto next = [&]() { return static_cast<const __nv_bfloat16*>(stage(ring_next(s, issue))); };
-
-  float vacc[D / 8][4] = {}, kacc[D / 8][4] = {};
-  for (int t = 0; t < nqt; ++t) {
-    const __nv_bfloat16* st = next();
-    const float* sts = reinterpret_cast<const float*>(st + 2 * kTile);
-#pragma unroll
-    for (int hq = 0; hq < kMQ; hq += 32) {
-      // S^T and dP^T of the warp's 16 keys against 32 query rows
-      float p[4][4], dp[4][4];
-      nt_tile<D, 32>(p, kf, st + hq * kLd);
-      nt_tile<D, 32>(dp, vf, st + kTile + hq * kLd);
-#pragma unroll
-      for (int nb = 0; nb < 4; ++nb)
-#pragma unroll
-        for (int cc = 0; cc < 2; ++cc) {
-          const int i = hq + nb * 8 + 2 * t4 + cc;  // query row within the tile
-          const bool valid = t * kMQ + i < lq;
-          const float mq = sts[i * kStats], rl = 1.f / sts[i * kStats + 1];
-          const float rsq = sts[i * kStats + 2];
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const float x = keep[r] ? p[nb][2 * r + cc] * scale : kNegInf;
-            const float pv = valid ? expf(x - mq) * rl : 0.f;
-            dp[nb][2 * r + cc] = valid ? pv * (dp[nb][2 * r + cc] - rsq) : 0.f;
-            p[nb][2 * r + cc] = pv;
-          }
-        }
-      uint32_t pf[2][4], df[2][4];
-      pack_a<32>(pf, p);
-      pack_a<32>(df, dp);
-      nn_tile<D, 32>(vacc, pf, st + kTile + hq * kLd);  // dV += round(P^T) dO
-      nn_tile<D, 32>(kacc, df, st + hq * kLd);          // dK += dS^T Q
-    }
-  }
-  cp_async_wait<0>();
-  store_rows<D>(static_cast<__nv_bfloat16*>(a.dv) + ko, a.k_sl, k0 + row0, lk, vacc, 1.f);
-  store_rows<D>(static_cast<__nv_bfloat16*>(a.dk) + ko, a.k_sl, k0 + row0, lk, kacc, scale);
-}
-
-__host__ inline size_t sdpa_bwd_keys_tc_smem_bytes(int d) {
-  return (size_t)kRing * (d == 32 ? keys_tc_stage_bytes<32>() : keys_tc_stage_bytes<64>());
+  // dV and dK * scale, staged in the ring's first two stages (every load has
+  // landed and every product that reads them is done)
+  const long long ko = b * a.k_sb + h * a.k_sh;
+  __nv_bfloat16* sv = reinterpret_cast<__nv_bfloat16*>(tsmem + pad + L::ring);
+  __nv_bfloat16* sk = reinterpret_cast<__nv_bfloat16*>(tsmem + pad + L::ring + L::stage);
+  stage_tile<D>(sv, dv, 1.f);
+  stage_tile<D>(sk, dk, a.scale);
+  __syncthreads();
+  copy_tile_out<D>(static_cast<__nv_bfloat16*>(a.dv) + ko, a.k_sl, kt * 64, lk, sv);
+  copy_tile_out<D>(static_cast<__nv_bfloat16*>(a.dk) + ko, a.k_sl, kt * 64, lk, sk);
 }
 
 // Whether the tensor-core pair takes these arguments (bf16 is the caller's
 // test): a head dim of 32 or 64, more than kRowMaxLq query rows, rows and
-// pointers 16-byte aligned, the column map within a block's shared memory.
+// pointers 16-byte aligned.
 inline bool sdpa_bwd_tc_fits(const SdpaBwdArgs& a) {
   return (a.d == 32 || a.d == 64) && a.lq > kRowMaxLq && a.stats != nullptr &&
          sdpa_tc_fits(a.d, {a.q_sb, a.q_sh, a.q_sl, a.k_sb, a.k_sh, a.k_sl},
-                      {a.q, a.k, a.v, a.dout, a.dq, a.dk, a.dv, a.o}) &&
-         sdpa_tc_smem_bytes(a.lk, a.d) <= 232448;
+                      {a.q, a.k, a.v, a.dout, a.dq, a.dk, a.dv, a.o});
 }
 
+// The f32 map of pass A's (B * H, Lq, kTcStats) stats: boxes of 64 rows.
+inline bool encode_stats_map(EncodeTiledFn enc, CUtensorMap* map, const float* ptr, int bh, int lq) {
+  const cuuint64_t dims[3] = {(cuuint64_t)kTcStats, (cuuint64_t)lq, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {kTcStats * sizeof(float), (cuuint64_t)lq * kTcStats * sizeof(float)};
+  const cuuint32_t box[3] = {kTcStats, 64, 1}, step[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(ptr), dims, strides, box,
+             step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The pair's launches: the forward kernel first where the caller gives no
+// row stats or asks for ctx (it writes ctx as the forward's output and the
+// stats into the scratch after pass A's), then pass A, then pass B.
 template <int D>
 cudaError_t launch_sdpa_bwd_tc(const SdpaBwdArgs& a, int batch, cudaStream_t stream) {
-  const size_t smem_a = sdpa_tc_smem_bytes(a.lk, D);
-  cudaError_t err = smem_opt_in(sdpa_bwd_rows_tc_kernel<D>, smem_a);
+  const EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const int hi = a.q_sh < a.q_sl;
+  if ((a.k_sh < a.k_sl) != hi) return cudaErrorInvalidValue;
+  const float* fs = a.fwd_stats;
+  cudaError_t err;
+  if (fs == nullptr || a.o != nullptr) {
+    SdpaArgs f;
+    f.q = a.q;
+    f.k = a.k;
+    f.v = a.v;
+    f.mask = a.mask;
+    f.o = a.o;
+    f.heads = a.heads;
+    f.lq = a.lq;
+    f.lk = a.lk;
+    f.d = a.d;
+    f.q_sb = f.o_sb = a.q_sb;
+    f.q_sh = f.o_sh = a.q_sh;
+    f.q_sl = f.o_sl = a.q_sl;
+    f.k_sb = f.v_sb = a.k_sb;
+    f.k_sh = f.v_sh = a.k_sh;
+    f.k_sl = f.v_sl = a.k_sl;
+    f.scale = a.scale;
+    f.stats = a.stats + (size_t)batch * a.heads * a.lq * kTcStats;
+    err = launch_sdpa_tc_d<D>(f, batch, stream);
+    if (err != cudaSuccess) return err;
+    fs = f.stats;
+  }
+  SdpaBwdMaps maps;
+  memset(&maps, 0, sizeof(maps));
+  if (!encode_sdpa_map(enc, &maps.q, a.q, batch, a.heads, a.lq, D, a.q_sb, a.q_sh, a.q_sl, 64) ||
+      !encode_sdpa_map(enc, &maps.dout, a.dout, batch, a.heads, a.lq, D, a.q_sb, a.q_sh, a.q_sl, 64) ||
+      !encode_sdpa_map(enc, &maps.k, a.k, batch, a.heads, a.lk, D, a.k_sb, a.k_sh, a.k_sl, 64) ||
+      !encode_sdpa_map(enc, &maps.v, a.v, batch, a.heads, a.lk, D, a.k_sb, a.k_sh, a.k_sl, 64) ||
+      !encode_stats_map(enc, &maps.st, a.stats, batch * a.heads, a.lq))
+    return cudaErrorInvalidValue;
+  const size_t smem_a = rows_smem_bytes<D>(a.lk);
+  err = smem_opt_in(sdpa_bwd_rows_wg_kernel<D>, smem_a);
   if (err != cudaSuccess) return err;
-  sdpa_bwd_rows_tc_kernel<D><<<dim3((a.lq + kMQ - 1) / kMQ, a.heads, batch), kThreads, smem_a,
-                               stream>>>(a);
+  sdpa_bwd_rows_wg_kernel<D><<<dim3((a.lq + 63) / 64, a.heads, batch), kTcThreads, smem_a,
+                               stream>>>(maps, a, fs, hi);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t smem_b = sdpa_bwd_keys_tc_smem_bytes(D);
-  err = smem_opt_in(sdpa_bwd_keys_tc_kernel<D>, smem_b);
+  const size_t smem_b = keys_smem_bytes<D>();
+  err = smem_opt_in(sdpa_bwd_keys_wg_kernel<D>, smem_b);
   if (err != cudaSuccess) return err;
-  sdpa_bwd_keys_tc_kernel<D><<<dim3((a.lk + kMK - 1) / kMK, a.heads, batch), kThreads, smem_b,
-                               stream>>>(a);
+  sdpa_bwd_keys_wg_kernel<D><<<dim3((a.lk + 63) / 64, a.heads, batch), kTcThreads, smem_b,
+                               stream>>>(maps, a, hi);
   return cudaGetLastError();
 }
 
@@ -1103,14 +1234,11 @@ inline int sdpa_bwd_tc_blocks_per_sm(int pass, int d, int lk) {
     return blocks_per_sm(sdpa_bwd_row_cols_kernel<float, true>, kRowThreads,
                          sdpa_bwd_row_smem_bytes(1, lk));
   if (d != 32 && d != 64) return -(int)cudaErrorInvalidValue;
-  if (pass == 0) {
-    const size_t smem = sdpa_tc_smem_bytes(lk, d);
-    return d == 32 ? blocks_per_sm(sdpa_bwd_rows_tc_kernel<32>, kThreads, smem)
-                   : blocks_per_sm(sdpa_bwd_rows_tc_kernel<64>, kThreads, smem);
-  }
-  const size_t smem = sdpa_bwd_keys_tc_smem_bytes(d);
-  return d == 32 ? blocks_per_sm(sdpa_bwd_keys_tc_kernel<32>, kThreads, smem)
-                 : blocks_per_sm(sdpa_bwd_keys_tc_kernel<64>, kThreads, smem);
+  if (pass == 0)
+    return d == 32 ? blocks_per_sm(sdpa_bwd_rows_wg_kernel<32>, kTcThreads, rows_smem_bytes<32>(lk))
+                   : blocks_per_sm(sdpa_bwd_rows_wg_kernel<64>, kTcThreads, rows_smem_bytes<64>(lk));
+  return d == 32 ? blocks_per_sm(sdpa_bwd_keys_wg_kernel<32>, kTcThreads, keys_smem_bytes<32>())
+                 : blocks_per_sm(sdpa_bwd_keys_wg_kernel<64>, kTcThreads, keys_smem_bytes<64>());
 }
 
 enum SdpaBwdKernel { kBwdAuto = 0, kBwdTiled = 1, kBwdBlock = 2 };
@@ -1203,6 +1331,9 @@ template <typename T>
 cudaError_t launch_sdpa_bwd(const SdpaBwdArgs& a, int batch, cudaStream_t stream,
                             int kernel = kBwdAuto) {
   if (!sdpa_bwd_fits(a.lq, a.lk, a.d)) return cudaErrorInvalidValue;
+  if (a.fwd_stats != nullptr &&
+      !(std::is_same<T, __nv_bfloat16>::value && kernel != kBwdBlock && sdpa_bwd_tc_fits(a)))
+    return cudaErrorInvalidValue;
   if (kernel == kBwdBlock) {
     if (!sdpa_bwd_block_fits(a.lq, a.lk)) return cudaErrorInvalidValue;
     return launch_sdpa_bwd_block<T>(a, batch, stream);

@@ -1,6 +1,6 @@
-// Scaled-dot-product attention forward, shared by sdpa_fwd.cu and
-// attn_block_fwd.cu, and the tensor-core tiles that the backward
-// (sdpa_bwd_core.cuh) shares with it.
+// Scaled-dot-product attention forward, shared by sdpa_fwd.cu,
+// attn_block_fwd.cu and the per-head block, and the wgmma pieces that the
+// backward (sdpa_bwd_core.cuh) shares with it.
 //
 // Computes softmax(q k^T * scale, key mask) v with the numerics of the JAX
 // package's Pallas kernels (ops/attention.py::_fwd_kernel,
@@ -14,12 +14,14 @@
 //   * the output is rounded once, to the input dtype.
 //
 // Three kernels, chosen by launch_sdpa from the arguments:
-//   * the tensor-core kernel (sdpa_fwd_tc_kernel), for bf16 with a head dim
-//     of 32, 64 or 128, 16-byte aligned rows and more than kRowMaxLq query
-//     rows: every self-attention of the serving and training paths, text
-//     (L = 128), image (197) and ViLT's joint sequence (185, 402 > 256: TPU
-//     kernel 3, _fwd_kernel_blocked, whose 128-row query tiles are this
-//     kernel's 64-row tiles); its design note stands above it, below;
+//   * the tensor-core kernel (sdpa_fwd_wg_kernel: wgmma fed by TMA), for
+//     bf16 with a head dim of 32, 64 or 128, 16-byte aligned rows and more
+//     than kRowMaxLq query rows: every self-attention of the serving and
+//     training paths, text (L = 128), image (197) and ViLT's joint sequence
+//     (185, 402 > 256: TPU kernel 3, _fwd_kernel_blocked, whose 128-row query
+//     tiles are this kernel's 64-row tiles); it also writes each query row's
+//     max and sum for the backward when asked; its design note stands above
+//     it, below;
 //   * the row kernel, for at most kRowMaxLq query rows (the fusion head's one
 //     query of width 768 over 197 image keys, 605 KB of f32 K per batch row):
 //     one block per query row, so no block computes idle rows;
@@ -39,11 +41,16 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <string.h>
+
 #include <initializer_list>
 #include <map>
 #include <mutex>
+#include <tuple>
 #include <type_traits>
 #include <utility>
+
+#include "hopper_core.cuh"
 
 namespace smtc {
 
@@ -106,6 +113,9 @@ struct SdpaArgs {
   long long v_sb, v_sh, v_sl;
   long long o_sb, o_sh, o_sl;
   float scale;
+  // (B, H, Lq, 2) f32, each query row's max and sum, or nullptr; only the
+  // tensor-core kernel writes them (a launch that cannot, refuses)
+  float* stats = nullptr;
 };
 
 // Padded score-row length: a whole number of key tiles, plus 4 floats so rows
@@ -301,62 +311,7 @@ __global__ void __launch_bounds__(kRowThreads) sdpa_fwd_row_kernel(SdpaArgs a) {
   }
 }
 
-// ---- bf16 on the tensor cores ------------------------------------------------
-//
-// sdpa_fwd_tc_kernel replaces the Pallas ops/attention.py::_fwd_kernel (TPU
-// kernel 1) and ::_fwd_kernel_blocked (TPU kernel 3) for bf16.
-//
-// Design (FlashAttention-2's register layout, with the JAX rounding points).
-// One block of 4 warps per (64-query tile, head, batch); each warp owns 16
-// query rows, whose Q fragments stay in registers. K and V stream through a
-// ring of kRing cp.async stages, two 64-row bf16 tiles each ([64][D + 8]:
-// 9 KB at D = 64), loaded while the warps multiply the stage before. Nothing
-// score-shaped lives in shared memory: the ring and a column map of the key
-// mask (one f32 per key: 1 keep, -1e30 masked, -inf past Lk) are 39 KB at
-// D = 64, Lk = 402. Every product is mma.sync.m16n8k16 (bf16 operands, f32
-// accumulators), operands through ldmatrix.
-//   1. Row statistics: S = Q K^T tile by tile into registers (a stage holds
-//      two K tiles in this sweep), scaled in f32, masked at -1e30, keys past
-//      Lk excluded (-inf, never -1e30). A running row max m and sum l in f32,
-//      each quad's four lanes agreeing on m through __shfl_xor_sync; l is
-//      summed across the quad at the end.
-//   2. Output: S recomputed per (K, V) stage, P = exp(s - m) * (1 / l) from the
-//      final m and l, rounded to bf16 and packed straight from the C
-//      fragments into A fragments, O += round(P) V with V through
-//      ldmatrix.trans. O is rounded once.
-// What this keeps: P is formed from the exact final row max and rounded at
-// the JAX point (_probs, then astype, then the dot). What changes: the order
-// of the f32 sums, l summed online (its terms rescaled by exp(m_old - m_new),
-// about 1e-7 relative), and p = e * (1 / l) instead of e / l (1 ulp of f32).
-// A running O is never rescaled: that would round unnormalised partial sums
-// instead of P, another rounding point.
-//
-// What bounds it on the H100. ViLT's 32x12x402x402x64 is 15.9 GFLOP for the
-// two products, 16 us at 989 TFLOP/s, against 24 us for its bytes; the
-// kernel does 1.5x the products (S twice) and two exponentials per score,
-// so mma.sync issue and the softmax arithmetic bound it, not device memory.
-// With no score rows in shared memory 4 blocks share an SM at D = 64 (128
-// registers, no spills; 3 at D = 128, 165 registers; the occupancy query
-// below, logged by chip_smoke.py), so one block's loads and softmax overlap
-// another's products. A third ring stage measured slower (PERF.md).
-
-constexpr int kMQ = 64;   // query rows per block: 4 warps x 16
-constexpr int kMK = 64;   // rows per ring tile (keys; pass B's query rows)
-constexpr int kRing = 2;  // cp.async stages, two tiles each
-
-// bf16 row stride of a ring tile: +8 puts the 8 rows an ldmatrix reads in
-// distinct banks
-__host__ __device__ constexpr int tc_ld(int d) { return d + 8; }
-__host__ __device__ constexpr int tc_tile(int d) { return kMK * tc_ld(d); }  // elements
-// the column map covers whole sweep-1 stages (two key tiles)
-__host__ __device__ inline int tc_cols(int lk) {
-  return (lk + 2 * kMK - 1) / (2 * kMK) * (2 * kMK);
-}
-
-// the ring, then the column map
-__host__ inline size_t sdpa_tc_smem_bytes(int lk, int d) {
-  return sizeof(__nv_bfloat16) * (size_t)kRing * 2 * tc_tile(d) + sizeof(float) * tc_cols(lk);
-}
+// ---- mma.sync helpers of the per-head block's product (perhead_core.cuh) ----
 
 __device__ __forceinline__ void mma_16816(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
   asm volatile(
@@ -370,19 +325,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred
   const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   const int n = pred ? 16 : 0;  // 0 source bytes: the 16 bytes are zero-filled
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  const int n = pred ? 4 : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
@@ -399,130 +341,254 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
                : "r"(a));
 }
 
-// two f32 rounded to bf16 (nearest even, as XLA's convert), lo in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&t);
+// ---- bf16 on the tensor cores: wgmma fed by TMA -------------------------------
+//
+// sdpa_fwd_wg_kernel replaces the Pallas ops/attention.py::_fwd_kernel (TPU
+// kernel 1) and ::_fwd_kernel_blocked (TPU kernel 3) for bf16, and writes the
+// row statistics (each query row's max and sum) that the backward's pass A
+// reads (sdpa_bwd_core.cuh).
+//
+// What bounds it on the H100. The image tower's 16x12x197x197x64 is 1.2 GFLOP
+// of products (1.2 us at 989 TFLOP/s) against 5.8 us for the bytes of q, k, v
+// and o; ViLT's 32x12x402x402x64 is 15.9 GFLOP (16 us) against 24 us. So the
+// least time is the bytes'. What the kernel spends goes to the softmax on the
+// CUDA cores: a score takes an FMA (scale and mask), a max, a subtraction, an
+// accurate expf (about eight instructions), a sum and the P scaling and
+// packing, about 14 instructions, and two warpgroups share an SM (255
+// registers a thread). Clock counts of one unit (64 rows x 197 keys, thread
+// 0; tools/sdpa_clocks.py, PERF.md): S 1,250-1,460 cycles, the softmax
+// 4,030-4,210, P 740-790, P V 1,210-1,250, the staged store 920-1,360 of
+// 9,240-10,270.
+//
+// Design. A block is one warpgroup (64 query rows, wgmma's M), persistent:
+// the grid is as many blocks as the SMs hold, each walking the (query tile,
+// head, batch) units u = blockIdx.x + i gridDim.x, query tile fastest, so
+// neighbouring blocks share a head's K and V in L2 and no wave runs part full
+// beyond the units' own remainder. Thread 0 keeps the block's buffers in
+// flight by TMA: Q (64 rows), K windows of W keys (a ring of two at 128-key
+// windows) and a V window, each guarded by an mbarrier that takes the copy's
+// bytes; a buffer's next load is issued as soon as the products that read it
+// are done, so the next unit's Q and K arrive while this one forms P and O.
+// (A producer warp beside the warpgroup would cap a thread at 168 registers:
+// the SM's four register partitions would hold three warps each; the 256-key
+// row spilled there.) TMA zero-fills rows past Lq and Lk; keys past Lk are
+// excluded through the column map (0 keep, -1e30 masked, -inf past Lk: one
+// FMA gives the scaled, masked score), filled per unit in shared memory.
+// Products:
+//   * S = Q K^T: wgmma.mma_async with both operands K-major from the swizzled
+//     tiles; a full window is one wgmma (N = W), a shorter one is cut into
+//     pieces of W/2, W/4, .. 8 keys by the bits of ceil(keys / 8): 197 keys
+//     are 128 + 64 + 8 = 200 columns, not 256;
+//   * O += round(P) V: P packed from the f32 accumulators straight into
+//     wgmma's register A operand (the accumulator layout of two 8-column groups
+//     is the A layout of a k16 step), V an MN-major B operand; O stays in
+//     registers over the windows, is rounded once and leaves through a staging
+//     tile in whole 16-byte rows.
+// For 129 to 256 keys at head dim 64 (every model's image tower, ViLT's 185,
+// DeiT's 198, MMBT's 132) the whole key row is one 256-key window, and 128-key
+// rows are one 128-key window: S is formed once, the row max is exact, each
+// score takes one exponential (e = exp(s - m), summed, then P = e * (1 / l)).
+// Longer rows (ViLT's 402) take two sweeps over 128-key windows: the first
+// forms S for the max and the sum (the sum rescaled once per window as the
+// max grows), the second forms S again for P from the final max and sum. (Two
+// 256-key windows measured 0.202 against 0.171 ms at 402; keeping the row's
+// f32 scores in shared memory instead would hold 64 x Lk x 4 bytes, 103 KB at
+// 402 keys and 410 KB at the longest row the kernels take.)
+// What this keeps of the JAX rounding points: scores in f32 times the scale,
+// masked keys at -1e30, P from the row's final max and sum rounded once to
+// bf16 before P V, O rounded once. What changes: the order of the f32 sums
+// (the tensor cores' k16 steps; a row's sum in four partial sums per thread,
+// then across the quad; past 256 keys the windows' sums rescaled by
+// exp(m_old - m_new)) and p = e * (1 / l) instead of e / l (1 ulp of f32). A
+// running O is never rescaled: that would round unnormalised partial sums
+// instead of P.
+
+template <int D>
+struct TcDims {
+  static constexpr int kCols = D < 64 ? D : 64;  // columns of one TMA box
+  static constexpr int kSwz = 2 * kCols;         // its swizzle span: 64 or 128 bytes
+  static constexpr int kBoxes = D / kCols;       // boxes across the head dim
+};
+template <int D>
+__host__ __device__ constexpr int tc_tile_bytes(int rows) {
+  return rows * D * 2;
 }
 
-// rows [r0, r0 + kMK) of an (n, D) bf16 matrix with row stride sl into a ring
-// tile by cp.async; rows at or past n are zero-filled
+constexpr int kTcRows = 64;  // query rows of a unit: a warpgroup's wgmma M
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// rows r0.. (as many as the map's box holds) of head h, batch b of an
+// operand into the tile at dst, which holds `rows` rows: one box per kCols
+// columns, each at its block of rows x kSwz bytes
 template <int D>
-__device__ __forceinline__ void tile_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                           long long sl, int r0, int n) {
-  constexpr int kVec = D / 8;
-  for (int e = threadIdx.x; e < kMK * kVec; e += kThreads) {
-    const int r = e / kVec, c = (e % kVec) * 8;
-    const bool ok = r0 + r < n;
-    cp_async16(dst + r * tc_ld(D) + c, ok ? src + (r0 + r) * sl + c : src, ok);
+__device__ __forceinline__ void tma_rows(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int rows, int r0, int h, int b, int head_inner) {
+#pragma unroll
+  for (int c = 0; c < TcDims<D>::kBoxes; ++c) {
+    const uint32_t at = dst + c * rows * TcDims<D>::kSwz;
+    if (head_inner)
+      tma_load_4d(at, map, bar, c * TcDims<D>::kCols, h, r0, b);
+    else
+      tma_load_4d(at, map, bar, c * TcDims<D>::kCols, r0, h, b);
   }
 }
 
-// the A fragments (16 rows x D, row-major) of rows row0 .. row0 + 15 of a tile
+// A K-major operand: k16 step kk (head-dim columns 16 kk ..) of the rows from
+// r0 (a multiple of 8) of a tile of `rows` rows
 template <int D>
-__device__ __forceinline__ void a_frags(uint32_t (&f)[D / 16][4], const __nv_bfloat16* t,
-                                        int row0) {
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks)
-    ldmatrix_x4(f[ks], t + (row0 + (lane & 15)) * tc_ld(D) + ks * 16 + (lane >> 4) * 8);
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int rows, int r0, int kk) {
+  constexpr int cols = TcDims<D>::kCols, swz = TcDims<D>::kSwz;
+  return wg_desc(tile + (kk * 16 / cols) * rows * swz + r0 * swz + (kk * 16 % cols) * 2, swz, 16);
+}
+// An MN-major operand: the k16 step of rows r0 .. r0 + 15 (r0 a multiple of
+// 16) of a tile of `rows` rows, all D columns
+template <int D>
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int rows, int r0) {
+  constexpr int swz = TcDims<D>::kSwz;
+  return wg_desc(tile + r0 * swz, swz, rows * swz);
 }
 
-// acc = F T^T over the head dim: the warp's 16 rows (A fragments f) against
-// the first N rows of tile t (K, V, Q or dO), in N / 8 blocks of 8 columns.
-// C fragment layout: acc[nb][0..1] row grp, acc[nb][2..3] row grp + 8, at
-// columns nb * 8 + 2 t4 + {0, 1} (grp = lane / 4, t4 = lane % 4).
-template <int D, int N>
-__device__ __forceinline__ void nt_tile(float (&acc)[N / 8][4], const uint32_t (&f)[D / 16][4],
-                                        const __nv_bfloat16* t) {
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int nb = 0; nb < N / 8; ++nb)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nb][e] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks)
-#pragma unroll
-    for (int np = 0; np < N / 16; ++np) {
-      uint32_t r[4];
-      ldmatrix_x4(r, t + (np * 16 + (lane >> 4) * 8 + (lane & 7)) * tc_ld(D) + ks * 16 +
-                         ((lane >> 3) & 1) * 8);
-      mma_16816(acc[2 * np], f[ks], r[0], r[1]);
-      mma_16816(acc[2 * np + 1], f[ks], r[2], r[3]);
-    }
-}
-
-// acc += P T over the first N rows of tile t (V, K, dO or Q, rows as the
-// summed dimension, read through ldmatrix.trans), P the warp's 16 x N A
-// fragments
-template <int D, int N>
-__device__ __forceinline__ void nn_tile(float (&acc)[D / 8][4], const uint32_t (&p)[N / 16][4],
-                                        const __nv_bfloat16* t) {
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int ks = 0; ks < N / 16; ++ks)
-#pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp) {
-      uint32_t r[4];
-      ldmatrix_x4_trans(r, t + (ks * 16 + (lane & 15)) * tc_ld(D) + dp * 16 + (lane >> 4) * 8);
-      mma_16816(acc[2 * dp], p[ks], r[0], r[1]);
-      mma_16816(acc[2 * dp + 1], p[ks], r[2], r[3]);
-    }
-}
-
-// C fragments of 16 x N f32 values, rounded to bf16, as the A fragments of a
-// product over those N columns: no trip through shared memory
-template <int N>
-__device__ __forceinline__ void pack_a(uint32_t (&f)[N / 16][4], const float (&x)[N / 8][4]) {
-#pragma unroll
-  for (int ks = 0; ks < N / 16; ++ks) {
-    f[ks][0] = pack_bf16(x[2 * ks][0], x[2 * ks][1]);
-    f[ks][1] = pack_bf16(x[2 * ks][2], x[2 * ks][3]);
-    f[ks][2] = pack_bf16(x[2 * ks + 1][0], x[2 * ks + 1][1]);
-    f[ks][3] = pack_bf16(x[2 * ks + 1][2], x[2 * ks + 1][3]);
+template <int I, int N, typename F>
+__device__ __forceinline__ void static_for(F&& f) {
+  if constexpr (I < N) {
+    f(std::integral_constant<int, I>());
+    static_for<I + 1, N>(f);
   }
 }
 
-// the key mask as one f32 per key of whole sweep-1 stages: 1 keep, -1e30
-// masked, -inf past lk (excluded from max, sum and products)
-__device__ __forceinline__ void fill_cols(float* cm, const int* mask, int lk) {
-  for (int j = threadIdx.x; j < tc_cols(lk); j += kThreads)
-    cm[j] = j >= lk ? -INFINITY : (mask == nullptr || mask[j] > 0) ? 1.f : kNegInf;
+// The wgmma pieces of a window of W keys: piece 0 is the whole window (wgmma's
+// N = W), used when the window is full; a shorter window of n8 8-key groups
+// uses piece i > 0 (W / 2^i keys, groups(i) groups) where bit groups(i) of n8
+// is set, so at most 7 columns are padding. Pieces lie in key order, and
+// their accumulators in that order in the window's registers (4 f32 a thread
+// per 8-key group); piece 0 spans them all, as it is used alone.
+template <int W>
+struct Pieces {
+  static constexpr int n = W == 256 ? 6 : 5;
+  __host__ __device__ static constexpr int groups(int i) { return (W / 8) >> i; }
+  __host__ __device__ static constexpr int reg(int i) {
+    int r = 0;
+    for (int j = 1; j < i; ++j) r += 4 * groups(j);
+    return r;
+  }
+};
+
+template <int W, int I>
+__device__ __forceinline__ bool piece_used(int n8) {
+  if (I == 0) return n8 == W / 8;
+  return n8 != W / 8 && (n8 & Pieces<W>::groups(I)) != 0;
+}
+// the piece's first key within the window
+template <int W, int I>
+__device__ __forceinline__ int piece_key(int n8) {
+  return I == 0 ? 0 : 8 * (n8 & ~(2 * Pieces<W>::groups(I) - 1));
 }
 
-// s *= scale where the key is kept; the column map's value where it is not
-template <int N>
-__device__ __forceinline__ void scale_mask(float (&s)[N / 8][4], const float* cm, float scale) {
+// f(piece, its first key) for each piece a window of n8 groups uses, in key order
+template <int W, typename F>
+__device__ __forceinline__ void for_pieces(int n8, F&& f) {
+  static_for<0, Pieces<W>::n>([&](auto ic) {
+    constexpr int I = decltype(ic)::value;
+    if (piece_used<W, I>(n8)) f(ic, piece_key<W, I>(n8));
+  });
+}
+
+// S = Q K^T over the window's 8 n8 keys: Q the 64-row tile q, the window the
+// tile k of W rows, both K-major; s holds the result when this returns
+template <int D, int W>
+__device__ __forceinline__ void window_scores(float (&s)[W / 2], uint32_t q, uint32_t k, int n8) {
+  wgmma_fence();
+  for_pieces<W>(n8, [&](auto ic, int key) {
+    constexpr int I = decltype(ic)::value;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<8 * Pieces<W>::groups(I)>(s + Pieces<W>::reg(I), kmajor<D>(q, kTcRows, 0, kk),
+                                         kmajor<D>(k, W, key, kk), kk);
+  });
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(s);
+}
+
+// the accumulator layout: register 4 g + e of a thread holds row
+// 16 warp + lane / 4 + 8 (e / 2), column 8 g + 2 (lane % 4) + e % 2
+
+// The column map of a row of keys: 0 where the key is kept, -1e30 where it is
+// masked, -inf past Lk. s * scale + c is then the scaled score (adding 0 keeps
+// its one rounding), -1e30 (|s * scale| is far below half an ulp of 1e30, so
+// the sum rounds to it, as the JAX kernels' where gives) or -inf: one FMA.
+__device__ __forceinline__ float col_map(const int* mask, int j, int lk) {
+  return j >= lk ? -INFINITY : (mask == nullptr || mask[j] > 0) ? 0.f : kNegInf;
+}
+
+// s = s * scale + the column map (cm: the window's first key)
+template <int W>
+__device__ __forceinline__ void window_mask(float (&s)[W / 2], const float* cm, int n8,
+                                            float scale) {
   const int t4 = threadIdx.x & 3;
+  for_pieces<W>(n8, [&](auto ic, int key) {
+    constexpr int I = decltype(ic)::value, R = Pieces<W>::reg(I);
 #pragma unroll
-  for (int nb = 0; nb < N / 8; ++nb) {
-    const float2 c = *reinterpret_cast<const float2*>(cm + nb * 8 + 2 * t4);
-    s[nb][0] = c.x > 0.f ? s[nb][0] * scale : c.x;
-    s[nb][1] = c.y > 0.f ? s[nb][1] * scale : c.y;
-    s[nb][2] = c.x > 0.f ? s[nb][2] * scale : c.x;
-    s[nb][3] = c.y > 0.f ? s[nb][3] * scale : c.y;
+    for (int g = 0; g < Pieces<W>::groups(I); ++g) {
+      const float2 c = *reinterpret_cast<const float2*>(cm + key + 8 * g + 2 * t4);
+      float* x = s + R + 4 * g;
+      x[0] = fmaf(x[0], scale, c.x);
+      x[1] = fmaf(x[1], scale, c.y);
+      x[2] = fmaf(x[2], scale, c.x);
+      x[3] = fmaf(x[3], scale, c.y);
+    }
+  });
+}
+
+// mx = max(mx, the window's row max), agreed across the quad that holds a row;
+// four partial maxima a row shorten the chain of dependent steps (a max is
+// exact in any order)
+template <int W>
+__device__ __forceinline__ void window_max(float (&mx)[2], const float (&s)[W / 2], int n8) {
+  float part[2][4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) part[0][k] = mx[0], part[1][k] = mx[1];
+  for_pieces<W>(n8, [&](auto ic, int) {
+    constexpr int I = decltype(ic)::value, R = Pieces<W>::reg(I);
+#pragma unroll
+    for (int g = 0; g < Pieces<W>::groups(I); ++g) {
+      const int k = (R / 4 + g) & 3;
+      part[0][k] = fmaxf(part[0][k], fmaxf(s[R + 4 * g], s[R + 4 * g + 1]));
+      part[1][k] = fmaxf(part[1][k], fmaxf(s[R + 4 * g + 2], s[R + 4 * g + 3]));
+    }
+  });
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    mx[e] = fmaxf(fmaxf(part[e][0], part[e][1]), fmaxf(part[e][2], part[e][3]));
+    mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 1));
+    mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 2));
   }
 }
 
-// the running row max m and the thread's share of the row sum l (relative to
-// m) over one key tile of scaled, masked scores; m agrees across the quad
-template <int N>
-__device__ __forceinline__ void online_stats(float (&m)[2], float (&l)[2],
-                                             const float (&s)[N / 8][4]) {
+// s = exp(s - m) * alpha in place; sum (when given) += the thread's
+// exponentials of each row, in four partial sums a row (8-key groups g, g + 4,
+// .. in each) added in order
+template <int W>
+__device__ __forceinline__ void window_exp(float (&s)[W / 2], const float (&m)[2],
+                                           const float (&alpha)[2], float* sum, int n8) {
+  float part[2][4] = {};
+  for_pieces<W>(n8, [&](auto ic, int) {
+    constexpr int I = decltype(ic)::value, R = Pieces<W>::reg(I);
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float mx = m[r];
+    for (int g = 0; g < Pieces<W>::groups(I); ++g)
 #pragma unroll
-    for (int nb = 0; nb < N / 8; ++nb) mx = fmaxf(mx, fmaxf(s[nb][2 * r], s[nb][2 * r + 1]));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    float sum = 0.f;
+      for (int e = 0; e < 4; ++e) {
+        const float x = expf(s[R + 4 * g + e] - m[e >> 1]);
+        part[e >> 1][(R / 4 + g) & 3] += x;
+        s[R + 4 * g + e] = x * alpha[e >> 1];
+      }
+  });
+  if (sum)
 #pragma unroll
-    for (int nb = 0; nb < N / 8; ++nb)
-      sum += expf(s[nb][2 * r] - mx) + expf(s[nb][2 * r + 1] - mx);
-    l[r] = l[r] * expf(m[r] - mx) + sum;  // m = -inf before the first tile: 0 * 0
-    m[r] = mx;
-  }
+    for (int e = 0; e < 2; ++e) sum[e] += (part[e][0] + part[e][1]) + (part[e][2] + part[e][3]);
 }
 
 __device__ __forceinline__ float quad_sum(float x) {
@@ -530,141 +596,295 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// s = exp(s - m) * rl, the f32 probabilities of the warp's two rows
-template <int N>
-__device__ __forceinline__ void probs(float (&s)[N / 8][4], const float (&m)[2],
-                                      const float (&rl)[2]) {
-#pragma unroll
-  for (int nb = 0; nb < N / 8; ++nb)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[nb][e] = expf(s[nb][e] - m[e >> 1]) * rl[e >> 1];
+// two f32 rounded to bf16 (nearest even, as XLA's convert), lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&t);
 }
 
-// rows row0 + grp and row0 + grp + 8 of a 16 x D C-fragment accumulator,
-// times alpha, rounded once, for rows below n
-template <int D>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* out, long long sl, int r0, int n,
-                                           const float (&acc)[D / 8][4], float alpha) {
-  const int lane = threadIdx.x % 32, grp = lane >> 2, t4 = lane & 3;
+// The window's f32 probabilities rounded to bf16 as wgmma's A fragments:
+// group g's two rows as p[2 g] and p[2 g + 1], so a k16 step over groups
+// (g, g + 1) reads p[2 g .. 2 g + 3]. The 8-key piece pairs with zeros.
+template <int W>
+__device__ __forceinline__ void window_pack(uint32_t (&p)[W / 4], const float (&s)[W / 2],
+                                            int n8) {
+  for_pieces<W>(n8, [&](auto ic, int) {
+    constexpr int I = decltype(ic)::value, R = Pieces<W>::reg(I);
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int i = r0 + grp + 8 * r;
-    if (i >= n) continue;
-#pragma unroll
-    for (int nb = 0; nb < D / 8; ++nb)
-      *reinterpret_cast<__nv_bfloat162*>(out + i * sl + nb * 8 + 2 * t4) =
-          __floats2bfloat162_rn(acc[nb][2 * r] * alpha, acc[nb][2 * r + 1] * alpha);
-  }
-}
-
-// The cp.async ring's protocol, shared by the tensor-core kernels. issue(s)
-// loads stage s into ring slot s % kRing and commits one group (an empty one
-// past the last stage, to keep the count uniform). Before ring_start the
-// caller has committed one group of its own, the operands it keeps in
-// registers, staged in the last slot, which the prologue leaves free.
-template <typename Issue>
-__device__ __forceinline__ void ring_start(Issue& issue) {
-#pragma unroll
-  for (int s = 0; s < kRing - 1; ++s) issue(s);
-  cp_async_wait<kRing - 1>();  // the caller's group has landed
-  __syncthreads();
-}
-
-// Waits for stage s, frees the slot before it (every warp is past it), loads
-// kRing - 1 stages ahead; returns s's slot and moves s on.
-template <typename Issue>
-__device__ __forceinline__ int ring_next(int& s, Issue& issue) {
-  cp_async_wait<kRing - 2>();
-  __syncthreads();
-  issue(s + kRing - 1);
-  return s++ % kRing;
-}
-
-// Sweep 1 of the forward and of the backward's pass A: the final row max m
-// and sum l of the warp's rows (l summed across the quad), streaming the ring
-// stages `next` hands out, two K tiles each.
-template <int D, typename Next>
-__device__ __forceinline__ void row_stats(float (&m)[2], float (&l)[2],
-                                          const uint32_t (&qf)[D / 16][4], Next& next,
-                                          const float* cm, int lk, float scale) {
-  m[0] = m[1] = -INFINITY;
-  l[0] = l[1] = 0.f;
-  for (int kt = 0; kt < lk; kt += 2 * kMK) {
-    const __nv_bfloat16* st = next();
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      if (kt + half * kMK >= lk) break;
-      float s[kMK / 8][4];
-      nt_tile<D, kMK>(s, qf, st + half * tc_tile(D));
-      scale_mask<kMK>(s, cm + kt + half * kMK, scale);
-      online_stats<kMK>(m, l, s);
+    for (int g = 0; g < Pieces<W>::groups(I); ++g) {
+      p[R / 2 + 2 * g] = pack_bf16(s[R + 4 * g], s[R + 4 * g + 1]);
+      p[R / 2 + 2 * g + 1] = pack_bf16(s[R + 4 * g + 2], s[R + 4 * g + 3]);
     }
-  }
-  l[0] = quad_sum(l[0]);
-  l[1] = quad_sum(l[1]);
+  });
+  constexpr int RL = Pieces<W>::reg(Pieces<W>::n - 1) / 2;
+  if (piece_used<W, Pieces<W>::n - 1>(n8)) p[RL + 2] = p[RL + 3] = 0u;
 }
 
+// o += P V over the window: p the packed probabilities, v the window's V tile
+// of W rows (MN-major), a k16 step at a time (the 8-key piece's is half zeros)
+template <int D, int W>
+__device__ __forceinline__ void window_pv(float (&o)[D / 2], uint32_t (&p)[W / 4], uint32_t v,
+                                          int n8) {
+  wgmma_fence();
+  for_pieces<W>(n8, [&](auto ic, int key) {
+    constexpr int I = decltype(ic)::value, R = Pieces<W>::reg(I), G = Pieces<W>::groups(I);
+#pragma unroll
+    for (int j = 0; j < (G + 1) / 2; ++j)
+      wgmma_rs<D>(o, p + R / 2 + 4 * j, mnmajor<D>(v, W, key + 16 * j));
+  });
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(o);
+  fence_regs(p);
+}
+
+// Writing a 64 x D accumulator out, rounded once: the accumulator layout's own
+// stores would each touch eight rows (4 bytes a row; at 16x12x197 they took
+// 1,600-2,100 of a unit's 10,000 cycles), so the tile goes through a staging
+// tile in shared memory (64 rows of D + 8 bf16: a warp's writes fall in
+// distinct banks) and out in 16-byte pieces along whole rows.
 template <int D>
-__global__ void __launch_bounds__(kThreads) sdpa_fwd_tc_kernel(SdpaArgs a) {
-  extern __shared__ float4 smem4[];
-  constexpr int kTile = tc_tile(D);
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem4);  // kRing x 2 tiles
-  float* cm = reinterpret_cast<float*>(ring + kRing * 2 * kTile);  // [tc_cols(lk)]
-  const int q0 = blockIdx.x * kMQ, h = blockIdx.y, b = blockIdx.z;
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(a.v) + b * a.v_sb + h * a.v_sh;
-  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(a.o) + b * a.o_sb + h * a.o_sh;
-  const int lk = a.lk, nt = (lk + kMK - 1) / kMK, n1 = (nt + 1) / 2;
-  const int row0 = (threadIdx.x / 32) * 16;  // the warp's rows within the tile
+__host__ __device__ constexpr int stage_bytes() {
+  return kTcRows * (D + 8) * 2;
+}
 
-  __nv_bfloat16* last = ring + (kRing - 1) * 2 * kTile;
-  tile_async<D>(last, q, a.q_sl, q0, a.lq);
-  cp_async_commit();
-  fill_cols(cm, a.mask ? a.mask + (long long)b * lk : nullptr, lk);
-  // stage s: two K tiles (sweep 1, s < n1), then a (K, V) pair per key tile
-  auto issue = [&](int s) {
-    __nv_bfloat16* dst = ring + (s % kRing) * 2 * kTile;
-    if (s < n1) {
-      tile_async<D>(dst, k, a.k_sl, 2 * s * kMK, lk);
-      if ((2 * s + 1) * kMK < lk) tile_async<D>(dst + kTile, k, a.k_sl, (2 * s + 1) * kMK, lk);
-    } else if (s < n1 + nt) {
-      tile_async<D>(dst, k, a.k_sl, (s - n1) * kMK, lk);
-      tile_async<D>(dst + kTile, v, a.v_sl, (s - n1) * kMK, lk);
-    }
-    cp_async_commit();
-  };
-  ring_start(issue);
-  uint32_t qf[D / 16][4];
-  a_frags<D>(qf, last, row0);
-  int s = 0;
-  auto next = [&]() {
-    return static_cast<const __nv_bfloat16*>(ring + ring_next(s, issue) * 2 * kTile);
-  };
+// acc * alpha rounded to bf16 into the staging tile (rows 16 warp + lane / 4
+// and + 8, columns 8 g + 2 (lane % 4) and + 1)
+template <int D>
+__device__ __forceinline__ void stage_tile(__nv_bfloat16* stage, const float (&acc)[D / 2],
+                                           float alpha) {
+  const int lane = threadIdx.x % 32, t4 = lane & 3, r = 16 * (threadIdx.x / 32 % 4) + lane / 4;
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+#pragma unroll
+    for (int g = 0; g < D / 8; ++g)
+      *reinterpret_cast<__nv_bfloat162*>(stage + (r + 8 * e) * (D + 8) + 8 * g + 2 * t4) =
+          __floats2bfloat162_rn(acc[4 * g + 2 * e] * alpha, acc[4 * g + 2 * e + 1] * alpha);
+}
 
-  // 1. row max and sum
-  float m[2], l[2];
-  row_stats<D>(m, l, qf, next, cm, lk, a.scale);
-  const float rl[2] = {1.f / l[0], 1.f / l[1]};
-
-  // 2. O = round(P) V, P from the final max and sum
-  float oacc[D / 8][4] = {};
-  for (int t = 0; t < nt; ++t) {
-    const __nv_bfloat16* st = next();
-    float p[kMK / 8][4];
-    nt_tile<D, kMK>(p, qf, st);
-    scale_mask<kMK>(p, cm + t * kMK, a.scale);
-    probs<kMK>(p, m, rl);
-    uint32_t pf[kMK / 16][4];
-    pack_a<kMK>(pf, p);
-    nn_tile<D, kMK>(oacc, pf, st + kTile);
+// the staged tile's rows to rows row0.. of out (row stride sl) below n, 16
+// bytes a thread at a time; after a barrier that follows stage_tile
+template <int D>
+__device__ __forceinline__ void copy_tile_out(__nv_bfloat16* out, long long sl, int row0, int n,
+                                              const __nv_bfloat16* stage) {
+  for (int c = threadIdx.x; c < kTcRows * (D / 8); c += 128) {
+    const int row = c / (D / 8), col = c % (D / 8) * 8;
+    if (row0 + row < n)
+      *reinterpret_cast<uint4*>(out + (row0 + row) * sl + col) =
+          *reinterpret_cast<const uint4*>(stage + row * (D + 8) + col);
   }
-  cp_async_wait<0>();
-  store_rows<D>(o, a.o_sl, q0 + row0, a.lq, oacc, 1.f);
+}
+
+// a unit's (query tile, head, batch), query tile fastest
+struct TcUnit {
+  int t, h, b;
+};
+__device__ __forceinline__ TcUnit tc_unit(int u, int tiles, int heads) {
+  return {u % tiles, u / tiles % heads, u / tiles / heads};
+}
+
+struct SdpaFwdMaps {
+  CUtensorMap q, k, v;  // boxes of 64 query rows; of a window's keys (sdpa_kv_rows)
+};
+
+// The keys a K or V box holds: a whole window, or the row of a single
+// window rounded up to 16 (the last k16 step), so a short row's loads are no
+// longer than its keys (every row a product reads lies inside the box).
+__host__ __device__ inline int sdpa_kv_rows(int lk, int w) {
+  return lk > w ? w : (lk + 15) / 16 * 16;
+}
+
+// The forward's shared memory from a 1024-byte aligned base: Q (64 rows), a
+// ring of kStagesK K windows, a V window (W rows each), O's staging tile, then
+// a barrier per tile, then the column map of whole windows. 128-key windows
+// at head dims up to 64 take two K stages, so a window's scores start as soon
+// as the window before them is done (past 256 keys, and for the next unit's)
+// and three blocks still share an SM; the rest take one.
+template <int D, int W>
+struct FwdLayout {
+  static constexpr int kStagesK = W == 128 && D <= 64 ? 2 : 1;
+  static constexpr int kWin = tc_tile_bytes<D>(W);
+  static constexpr int q = 0, k = tc_tile_bytes<D>(kTcRows), v = k + kStagesK * kWin;
+  static constexpr int out = v + kWin, bars = out + stage_bytes<D>();
+  static constexpr int cols = bars + (2 + kStagesK) * 8;
+};
+template <int D, int W>
+__host__ inline size_t fwd_smem_bytes(int lk) {
+  return 1024 + FwdLayout<D, W>::cols + sizeof(float) * (size_t)((lk + W - 1) / W * W);
+}
+
+// TMA fills the three buffers (Q, the K ring, V); the barrier of a stage
+// takes thread 0's expect_tx, then TMA's bytes. A buffer's loads and uses run
+// in one order, each counted, so the count gives a use its stage and its
+// wait's parity.
+enum FwdBuffer { kBufQ = 0, kBufK = 1, kBufV = 2 };
+
+constexpr int kFwdThreads = 128;  // one warpgroup (the design note above)
+
+template <int D, int W>
+__global__ void __launch_bounds__(kFwdThreads, W == 256 || D == 128 ? 2 : 3)
+    sdpa_fwd_wg_kernel(const __grid_constant__ SdpaFwdMaps maps, const SdpaArgs a, int units,
+                       int head_inner) {
+  using L = FwdLayout<D, W>;
+  constexpr int S = L::kStagesK;
+  extern __shared__ __align__(1024) unsigned char tsmem[];
+  const uint32_t raw = smem_addr(tsmem), pad = ((raw + 1023) & ~1023u) - raw;
+  const uint32_t base = raw + pad, bars = base + L::bars;
+  float* cm = reinterpret_cast<float*>(tsmem + pad + L::cols);
+  __nv_bfloat16* staged = reinterpret_cast<__nv_bfloat16*>(tsmem + pad + L::out);
+  const int stages[3] = {1, S, 1};
+  const uint32_t first[3] = {base + L::q, base + L::k, base + L::v};
+  const int tile_rows[3] = {kTcRows, W, W};
+  const int kv = tc_tile_bytes<D>(sdpa_kv_rows(a.lk, W));  // a K or V box's bytes
+  const int bytes[3] = {tc_tile_bytes<D>(kTcRows), kv, kv};
+  // barrier of stage st of a buffer, and its tile
+  auto full = [&](int buf, int st) {
+    return bars + 8 * (buf == kBufQ ? 0 : buf == kBufK ? 1 + st : 1 + S);
+  };
+  auto tile = [&](int buf, int st) {
+    return first[buf] + st * tc_tile_bytes<D>(tile_rows[buf]);
+  };
+  const int tiles = (a.lq + kTcRows - 1) / kTcRows, nwin = (a.lk + W - 1) / W;
+  const int last8 = (a.lk - (nwin - 1) * W + 7) / 8;  // 8-key groups of the last window
+  const bool want_o = a.o != nullptr;
+  // one window holds the whole key row (the launch takes W = 256 only then)
+  const bool single = W == 256 || nwin == 1;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2 + S; ++i) mbar_init(bars + 8 * i, 1);
+    mbar_init_fence();
+    prefetch_tensormap(&maps.q);
+    prefetch_tensormap(&maps.k);
+    if (want_o) prefetch_tensormap(&maps.v);
+  }
+  __syncthreads();
+
+  // Each buffer's loads, in the order the block uses them: Q once a unit; K
+  // per window (twice over past one window when O is wanted: a sweep for the
+  // statistics, one for P); V per window when O is wanted. Thread 0 issues a
+  // stage's next load as soon as the warpgroup is done with it, so the next
+  // window's or unit's Q, K and V arrive while this one is formed.
+  const int per[3] = {1, single ? 1 : want_o ? 2 * nwin : nwin, want_o ? nwin : 0};
+  const CUtensorMap* map[3] = {&maps.q, &maps.k, &maps.v};
+  int next_u[3] = {(int)blockIdx.x, (int)blockIdx.x, (int)blockIdx.x};  // the next load's unit
+  int next_j[3] = {0, 0, 0};                                           // and its place there
+  uint32_t issued[3] = {0, 0, 0}, used[3] = {0, 0, 0};
+  auto issue = [&](int buf) {
+    if (next_u[buf] >= units || per[buf] == 0) return;
+    if (threadIdx.x == 0) {
+      const TcUnit n = tc_unit(next_u[buf], tiles, a.heads);
+      const int st = issued[buf] % stages[buf];
+      const int r0 = buf == kBufQ ? n.t * kTcRows : next_j[buf] % nwin * W;
+      mbar_expect_tx(full(buf, st), bytes[buf]);
+      tma_rows<D>(tile(buf, st), map[buf], full(buf, st), tile_rows[buf], r0, n.h, n.b,
+                  head_inner);
+    }
+    ++issued[buf];
+    if (++next_j[buf] == per[buf]) next_j[buf] = 0, next_u[buf] += gridDim.x;
+  };
+  // the tile of a buffer's next use, once it has arrived
+  auto acquire = [&](int buf) {
+    const int st = used[buf] % stages[buf];
+    mbar_wait(full(buf, st), (used[buf] / stages[buf]) & 1);
+    return tile(buf, st);
+  };
+  // done with a buffer's stage (every wgmma that reads it has completed): its next load
+  auto release = [&](int buf) {
+    ++used[buf];
+    issue(buf);
+  };
+  issue(kBufQ);
+  for (int i = 0; i < S; ++i) issue(kBufK);
+  issue(kBufV);
+
+  // rows 16 warp + lane / 4 and + 8 of the unit's 64
+  const int t4 = threadIdx.x & 3, r = 16 * (threadIdx.x / 32) + (threadIdx.x & 31) / 4;
+  float s[W / 2];
+  uint32_t p[W / 4];
+  float o[D / 2];
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const TcUnit n = tc_unit(u, tiles, a.heads);
+    const int* mask = a.mask ? a.mask + (long long)n.b * a.lk : nullptr;
+    __syncthreads();  // every thread is past the last unit's column map and staged O
+    for (int j = threadIdx.x; j < nwin * W; j += kFwdThreads) cm[j] = col_map(mask, j, a.lk);
+    __syncthreads();
+
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    const float one[2] = {1.f, 1.f};
+    const uint32_t qs = acquire(kBufQ);
+    if (single) {
+      // the whole row at once: the exact max, one exponential per score
+      window_scores<D, W>(s, qs, acquire(kBufK), last8);
+      release(kBufK);
+      release(kBufQ);
+      window_mask<W>(s, cm, last8, a.scale);
+      window_max<W>(m, s, last8);
+      window_exp<W>(s, m, one, l, last8);
+    } else {
+      // sweep 1: the max and the sum, the sum rescaled once per window
+      for (int w = 0; w < nwin; ++w) {
+        const int n8 = w + 1 < nwin ? W / 8 : last8;
+        window_scores<D, W>(s, qs, acquire(kBufK), n8);
+        release(kBufK);
+        if (w + 1 == nwin && !want_o) release(kBufQ);
+        window_mask<W>(s, cm + w * W, n8, a.scale);
+        float mx[2] = {m[0], m[1]}, sum[2] = {0.f, 0.f};
+        window_max<W>(mx, s, n8);
+        window_exp<W>(s, mx, one, sum, n8);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          l[e] = l[e] * expf(m[e] - mx[e]) + sum[e];  // m = -inf before the first window: 0 * 0
+          m[e] = mx[e];
+        }
+      }
+    }
+    l[0] = quad_sum(l[0]);
+    l[1] = quad_sum(l[1]);
+    const float rl[2] = {1.f / l[0], 1.f / l[1]};
+    if (a.stats != nullptr && t4 == 0)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = n.t * kTcRows + r + 8 * e;
+        if (i < a.lq)
+          *reinterpret_cast<float2*>(a.stats + (((long long)n.b * a.heads + n.h) * a.lq + i) * 2) =
+              make_float2(m[e], l[e]);
+      }
+    if (!want_o) continue;
+
+    if (single) {
+#pragma unroll
+      for (int i = 0; i < W / 2; ++i) s[i] *= rl[i / 2 % 2];  // P = e * (1 / l)
+      window_pack<W>(p, s, last8);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+      window_pv<D, W>(o, p, acquire(kBufV), last8);
+      release(kBufV);
+    } else {
+      // sweep 2: S again, P from the final max and sum
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+      for (int w = 0; w < nwin; ++w) {
+        const int n8 = w + 1 < nwin ? W / 8 : last8;
+        window_scores<D, W>(s, qs, acquire(kBufK), n8);
+        release(kBufK);
+        if (w + 1 == nwin) release(kBufQ);
+        window_mask<W>(s, cm + w * W, n8, a.scale);
+        window_exp<W>(s, m, rl, nullptr, n8);
+        window_pack<W>(p, s, n8);
+        window_pv<D, W>(o, p, acquire(kBufV), n8);
+        release(kBufV);
+      }
+    }
+    stage_tile<D>(staged, o, 1.f);
+    __syncthreads();
+    copy_tile_out<D>(static_cast<__nv_bfloat16*>(a.o) + n.b * a.o_sb + n.h * a.o_sh, a.o_sl,
+                     n.t * kTcRows, a.lq, staged);
+  }
 }
 
 // Whether the tensor-core kernels take these arguments: bf16 is the caller's
-// test; a head dim they are built for, rows and pointers 16-byte aligned.
+// test; a head dim they are built for, rows and pointers 16-byte aligned (so
+// TMA can describe every operand).
 inline bool sdpa_tc_fits(int d, std::initializer_list<long long> strides,
                          std::initializer_list<const void*> ptrs) {
   if (d != 32 && d != 64 && d != 128) return false;
@@ -675,14 +895,29 @@ inline bool sdpa_tc_fits(int d, std::initializer_list<long long> strides,
   return true;
 }
 
-template <int D>
-cudaError_t launch_sdpa_tc(const SdpaArgs& a, int batch, cudaStream_t stream) {
-  const size_t smem = sdpa_tc_smem_bytes(a.lk, D);
-  cudaError_t err = smem_opt_in(sdpa_fwd_tc_kernel<D>, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.lq + kMQ - 1) / kMQ, a.heads, batch);
-  sdpa_fwd_tc_kernel<D><<<grid, kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
+// The 4D tensor map of a bf16 SDPA operand (element strides sb, sh, sl of
+// batch, head and position; the head dim unit stride): head dim, then
+// position and head in the order of their strides (the packed (B, L, H * D)
+// layout has the head inside the position), then batch, so each stride is the
+// one before it times its extent for both layouts the callers pass. Boxes of
+// kCols columns x `rows` positions of one head under the 64- or 128-byte
+// swizzle; positions past `len` read as zeros.
+inline bool encode_sdpa_map(EncodeTiledFn enc, CUtensorMap* map, const void* ptr, int batch,
+                            int heads, int len, int d, long long sb, long long sh, long long sl,
+                            int rows) {
+  const int cols = d < 64 ? d : 64;
+  const bool hi = sh < sl;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)(hi ? heads : len),
+                              (cuuint64_t)(hi ? len : heads), (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)(hi ? sh : sl) * 2, (cuuint64_t)(hi ? sl : sh) * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, hi ? 1u : (cuuint32_t)rows,
+                             hi ? (cuuint32_t)rows : 1u, 1u};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+             step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // Resident blocks per SM of a kernel at its launch's block size and shared
@@ -696,19 +931,90 @@ int blocks_per_sm(Kernel kernel, int threads, size_t smem) {
   return err == cudaSuccess ? n : -(int)err;
 }
 
+// SMs x resident blocks of a kernel at this block size and shared memory
+// (the opt-in set), looked up once per (device, kernel, size) and kept, so a
+// launch adds no query to the host's enqueue.
+template <typename Kernel>
+inline cudaError_t resident_slots(Kernel* kernel, int threads, size_t smem, int* slots) {
+  static std::mutex mu;
+  static std::map<std::tuple<int, const void*, size_t>, int> seen;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const auto key = std::make_tuple(device, (const void*)kernel, smem);
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    const auto it = seen.find(key);
+    if (it != seen.end()) {
+      *slots = it->second;
+      return cudaSuccess;
+    }
+  }
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const int n = blocks_per_sm(kernel, threads, smem);
+  if (n <= 0) return n < 0 ? (cudaError_t)-n : cudaErrorInvalidConfiguration;
+  std::lock_guard<std::mutex> lock(mu);
+  seen[key] = *slots = sms * n;
+  return cudaSuccess;
+}
+
+// The window: the whole row of 129 to 256 keys at head dim 64 (every model's),
+// else 128 keys (at head dim 128 the output accumulator leaves no room for a
+// 256-key row; past 256 keys, 128-key windows hold S, P and O in registers at
+// three blocks an SM and measured faster than two 256-key windows, PERF.md).
+__host__ inline int sdpa_tc_window(int d, int lk) { return d == 64 && lk > 128 && lk <= 256 ? 256 : 128; }
+
+template <int D, int W>
+cudaError_t launch_sdpa_wg(const SdpaArgs& a, int batch, cudaStream_t stream) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const int hi = a.q_sh < a.q_sl;
+  if ((a.k_sh < a.k_sl) != hi || (a.v_sh < a.v_sl) != hi) return cudaErrorInvalidValue;
+  SdpaFwdMaps maps;
+  memset(&maps, 0, sizeof(maps));
+  if (!encode_sdpa_map(enc, &maps.q, a.q, batch, a.heads, a.lq, D, a.q_sb, a.q_sh, a.q_sl, kTcRows) ||
+      !encode_sdpa_map(enc, &maps.k, a.k, batch, a.heads, a.lk, D, a.k_sb, a.k_sh, a.k_sl,
+                       sdpa_kv_rows(a.lk, W)) ||
+      !encode_sdpa_map(enc, &maps.v, a.v, batch, a.heads, a.lk, D, a.v_sb, a.v_sh, a.v_sl,
+                       sdpa_kv_rows(a.lk, W)))
+    return cudaErrorInvalidValue;
+  const size_t smem = fwd_smem_bytes<D, W>(a.lk);
+  int slots = 0;
+  cudaError_t err = resident_slots(sdpa_fwd_wg_kernel<D, W>, kFwdThreads, smem, &slots);
+  if (err != cudaSuccess) return err;
+  const int units = (a.lq + kTcRows - 1) / kTcRows * a.heads * batch;
+  sdpa_fwd_wg_kernel<D, W><<<units < slots ? units : slots, kFwdThreads, smem, stream>>>(
+      maps, a, units, hi);
+  return cudaGetLastError();
+}
+
+// the tensor-core forward at head dim D and the window its arguments take
+template <int D>
+cudaError_t launch_sdpa_tc_d(const SdpaArgs& a, int batch, cudaStream_t stream) {
+  if constexpr (D == 64)
+    if (sdpa_tc_window(D, a.lk) == 256) return launch_sdpa_wg<D, 256>(a, batch, stream);
+  return launch_sdpa_wg<D, 128>(a, batch, stream);
+}
+
+inline cudaError_t launch_sdpa_tc(const SdpaArgs& a, int batch, cudaStream_t stream) {
+  if (a.d == 32) return launch_sdpa_tc_d<32>(a, batch, stream);
+  if (a.d == 64) return launch_sdpa_tc_d<64>(a, batch, stream);
+  if (a.d == 128) return launch_sdpa_tc_d<128>(a, batch, stream);
+  return cudaErrorInvalidValue;
+}
+
 template <typename T>
 cudaError_t launch_sdpa(const SdpaArgs& a, int batch, cudaStream_t stream) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     if (a.lq > kRowMaxLq &&
         sdpa_tc_fits(a.d, {a.q_sb, a.q_sh, a.q_sl, a.k_sb, a.k_sh, a.k_sl, a.v_sb, a.v_sh,
                            a.v_sl, a.o_sb, a.o_sh, a.o_sl},
-                     {a.q, a.k, a.v, a.o}) &&
-        sdpa_tc_smem_bytes(a.lk, a.d) <= 232448) {
-      if (a.d == 32) return launch_sdpa_tc<32>(a, batch, stream);
-      if (a.d == 64) return launch_sdpa_tc<64>(a, batch, stream);
-      return launch_sdpa_tc<128>(a, batch, stream);
-    }
+                     {a.q, a.k, a.v, a.o}))
+      return launch_sdpa_tc(a, batch, stream);
   }
+  if (a.stats != nullptr) return cudaErrorInvalidValue;  // only the tensor-core kernel writes them
   if (a.lq <= kRowMaxLq) {
     const size_t smem = sizeof(float) * ((size_t)a.d + a.lk);
     cudaError_t err = smem_opt_in(sdpa_fwd_row_kernel<T>, smem);

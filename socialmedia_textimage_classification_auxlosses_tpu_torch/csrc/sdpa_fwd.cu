@@ -5,7 +5,7 @@
 // and ::_fwd_kernel_blocked (Lq > 256: Q in 128-row tiles, the whole K and V,
 // the padded tail sliced off). The TPU kernels held one batch element's Q/K/V
 // for all heads in VMEM and ran head-batched MXU contractions; here a block
-// takes one (batch, head, tile of 32 or 64 query rows), since Hopper runs
+// takes (batch, head, tile of 32 or 64 query rows) units, since Hopper runs
 // blocks in parallel on 132 SMs and has 227 KB of shared memory per block,
 // not megabytes of VMEM. Query tiles make the blocked variant the same
 // kernel: ViLT's joint sequence (Lq = Lk = 402, a ragged last tile of 18
@@ -16,10 +16,11 @@
 // f32) the least time is set by the bytes of q, k, v and o at 3.35 TB/s
 // (about 3.8 us, 5.8 us and 5.8 us); at ViLT's 32x12x402x402x64 the bf16
 // products (16 us at 989 TFLOP/s) and the bytes (24 us) are close. The bf16
-// attentions run in sdpa_core.cuh's tensor-core kernel: scores, probabilities
-// and the output accumulator in registers, K and V through a cp.async ring,
-// mma.sync for both products, so only q, k, v and o cross device memory and
-// several blocks share an SM. The fusion head's single query runs in the row
+// attentions run in sdpa_core.cuh's tensor-core kernel: wgmma for both
+// products, Q, K and V by TMA into mbarrier-guarded buffers that one thread
+// keeps in flight, scores, probabilities and the output accumulator in
+// registers, the whole key row in one pass up to 256 keys, so only q, k, v
+// and o cross device memory. The fusion head's single query runs in the row
 // kernel, one block per query row, reading K and V once. PERF.md has the
 // times against these bounds.
 //
@@ -31,10 +32,13 @@
 extern "C" {
 
 // q: (B, H, Lq, D), k/v: (B, H, Lk, D), o: (B, H, Lq, D), all contiguous in
-// one dtype (0 = float32, 1 = bfloat16); mask: (B, Lk) int32 or nullptr.
+// one dtype (0 = float32, 1 = bfloat16); mask: (B, Lk) int32 or nullptr;
+// stats: nullptr, or (B, H, Lq, 2) float32 for each query row's max and sum,
+// which only the tensor-core kernel forms (cudaErrorInvalidValue where
+// another kernel would run).
 int smtc_sdpa_fwd(const void* q, const void* k, const void* v, const int* mask, void* o,
-                  int batch, int heads, int lq, int lk, int d, float scale, int dtype,
-                  int device, void* stream) {
+                  float* stats, int batch, int heads, int lq, int lk, int d, float scale,
+                  int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   smtc::SdpaArgs a;
@@ -60,6 +64,7 @@ int smtc_sdpa_fwd(const void* q, const void* k, const void* v, const int* mask, 
   a.o_sh = a.q_sh;
   a.o_sb = a.q_sb;
   a.scale = scale;
+  a.stats = stats;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)smtc::launch_sdpa<float>(a, batch, s);
   if (dtype == 1) return (int)smtc::launch_sdpa<__nv_bfloat16>(a, batch, s);
@@ -77,10 +82,15 @@ int smtc_sdpa_max_lk(void) {
 // Resident blocks per SM of the tensor-core kernel at head dim d and Lk keys,
 // or minus the CUDA error (the occupancy line of chip_smoke.py).
 int smtc_sdpa_fwd_blocks_per_sm(int d, int lk) {
-  const size_t smem = smtc::sdpa_tc_smem_bytes(lk, d);
-  if (d == 32) return smtc::blocks_per_sm(smtc::sdpa_fwd_tc_kernel<32>, smtc::kThreads, smem);
-  if (d == 64) return smtc::blocks_per_sm(smtc::sdpa_fwd_tc_kernel<64>, smtc::kThreads, smem);
-  if (d == 128) return smtc::blocks_per_sm(smtc::sdpa_fwd_tc_kernel<128>, smtc::kThreads, smem);
+  using namespace smtc;
+  if (d == 32)
+    return blocks_per_sm(sdpa_fwd_wg_kernel<32, 128>, kFwdThreads, fwd_smem_bytes<32, 128>(lk));
+  if (d == 64)
+    return sdpa_tc_window(d, lk) == 256
+               ? blocks_per_sm(sdpa_fwd_wg_kernel<64, 256>, kFwdThreads, fwd_smem_bytes<64, 256>(lk))
+               : blocks_per_sm(sdpa_fwd_wg_kernel<64, 128>, kFwdThreads, fwd_smem_bytes<64, 128>(lk));
+  if (d == 128)
+    return blocks_per_sm(sdpa_fwd_wg_kernel<128, 128>, kFwdThreads, fwd_smem_bytes<128, 128>(lk));
   return -(int)cudaErrorInvalidValue;
 }
 

@@ -31,8 +31,11 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 SOURCES = ("sdpa_fwd", "attn_block_fwd", "sdpa_bwd", "attn_block_bwd",
            "attn_block_perhead_fwd", "attn_block_perhead_bwd")
+# --split-compile=0: nvcc optimizes a library's kernels on every free core; the
+# six build at once and the SDPA backward's libraries finish last (PERF.md,
+# tools/build_times.py)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--split-compile=0")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -12,12 +12,17 @@ vision tower needs no backward; the text tower, the fusion head and ViLT do.
 ``_sdpa_pallas``: on a CUDA tensor its forward launches the hand-written
 Hopper kernel (``csrc/sdpa_fwd.cu``, TPU kernels 1 and 3 of PERF.md's table:
 its 64-row query tiles cover the JAX whole-Lq and 128-row-blocked forwards
-alike; bf16 on the tensor cores) and its backward the backward kernels
-(``csrc/sdpa_bwd.cu``, TPU kernels 2 and 4: for bf16 the tensor-core
-query-tiled pair, else the row pair, a block kernel or the FMA query-tiled
-pair, by shape); on a CPU tensor they are the plain versions
-``sdpa_reference`` and ``sdpa_bwd_reference``. Like the JAX residuals, the function saves only its
-inputs and recomputes the probabilities in the backward. Unlike the JAX
+alike; bf16 on the tensor cores, wgmma fed by TMA) and its backward the
+backward kernels (``csrc/sdpa_bwd.cu``, TPU kernels 2 and 4: for bf16 the
+tensor-core query-tiled pair, else the row pair, a block kernel or the FMA
+query-tiled pair, by shape); on a CPU tensor they are the plain versions
+``sdpa_reference`` and ``sdpa_bwd_reference``. Like the JAX residuals, the
+function saves its inputs and recomputes the probabilities in the backward;
+where the backward will run the tensor-core pair (bf16, more than 4 query
+rows, head dim 32 or 64), it also saves the forward kernel's row statistics,
+each query row's float32 max and sum of exponentials, (B, H, Lq, 2) (0.3 MB
+at 16x12x197), which the backward's first pass reads instead of forming them
+again. Unlike the JAX
 package's TPU dispatch (``_auto_impl``, tuned on a v5e), ``auto`` on the card
 always means the kernels. ``impl="jnp"`` asks for the plain forward on
 either device, with PyTorch's autograd of its ops for the gradient; it is how
@@ -51,7 +56,8 @@ launches = _cuda.LaunchCounter("sdpa_fwd")
 bwd_launches = _cuda.LaunchCounter("sdpa_bwd")
 
 
-def sdpa_reference(q, k, v, key_mask=None, scale: Optional[float] = None):
+def sdpa_reference(q, k, v, key_mask=None, scale: Optional[float] = None,
+                   with_stats: bool = False):
     """softmax(q k^T * scale + mask) v, in plain PyTorch.
 
     q: (B, H, Lq, D); k, v: (B, H, Lk, D); key_mask: (B, Lk) 1=keep 0=pad.
@@ -60,6 +66,8 @@ def sdpa_reference(q, k, v, key_mask=None, scale: Optional[float] = None):
     the plain version of the forward at every length: the JAX Pallas
     forwards for Lq <= 256 (``_fwd_kernel``) and above it
     (``_fwd_kernel_blocked``, 128-row query tiles) compute this one function.
+    ``with_stats`` also returns ``row_stats`` of the same inputs, the plain
+    version of the statistics the tensor-core kernel writes: ``(o, stats)``.
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -69,7 +77,34 @@ def sdpa_reference(q, k, v, key_mask=None, scale: Optional[float] = None):
         keep = key_mask[:, None, None, :] > 0
         scores = scores + torch.where(keep, 0.0, _NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bhkd->bhqd", probs, v)
+    out = torch.einsum("bhqk,bhkd->bhqd", probs, v)
+    if with_stats:
+        return out, row_stats(q, k, key_mask, scale)
+    return out
+
+
+def _scores(q, k, key_mask, scale):
+    """The JAX kernels' scores (``_probs``): q k^T with float32 products and
+    sums (the inputs raised to float32 first), times scale, masked keys at
+    -1e30."""
+    acc = _acc_dtype(q.dtype)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(acc), k.to(acc)) * scale
+    if key_mask is not None:
+        s = torch.where(key_mask[:, None, None, :] > 0, s, _NEG_INF)
+    return s
+
+
+def row_stats(q, k, key_mask=None, scale: Optional[float] = None):
+    """Each query row's max m of the scores and sum l of exp(s - m), as the
+    JAX ``_probs`` forms them before P = exp(s - m) / l: (B, H, Lq, 2) in
+    float32 (the accumulation dtype), m then l. The plain version of what the
+    bf16 tensor-core forward writes for the backward."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    s = _scores(q, k, key_mask, scale)
+    m = s.amax(dim=-1, keepdim=True)
+    l = torch.exp(s - m).sum(dim=-1, keepdim=True)
+    return torch.cat([m, l], dim=-1)
 
 
 def _acc_dtype(dtype):
@@ -78,7 +113,8 @@ def _acc_dtype(dtype):
     return torch.promote_types(dtype, torch.float32)
 
 
-def sdpa_bwd_reference(q, k, v, key_mask, do, scale: Optional[float] = None):
+def sdpa_bwd_reference(q, k, v, key_mask, do, scale: Optional[float] = None,
+                       stats=None):
     """The backward of ``sdpa``: (dq, dk, dv) for the output gradient ``do``.
 
     An op-for-op mirror of the JAX Pallas kernel ``_bwd_kernel`` with its
@@ -93,17 +129,23 @@ def sdpa_bwd_reference(q, k, v, key_mask, do, scale: Optional[float] = None):
     (``_bwd_kernel_blocked``, Lq > 256) computes the same function per
     128-row query tile and sums dK and dV over the tiles in float32 before
     its one rounding, so the two JAX kernels differ only in the order of
-    their float32 sums, as the port's block kernel and query-tiled pair do."""
+    their float32 sums, as the port's block kernel and query-tiled pair do.
+
+    ``stats``: the forward's (B, H, Lq, 2) row max and sum (``row_stats``),
+    taken for P = exp(s - m) / l in place of forming them again, as the
+    tensor-core pair takes the forward kernel's."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     acc = _acc_dtype(q.dtype)
     qa, ka, va, doa = (t.to(acc) for t in (q, k, v, do))
-    s = torch.einsum("bhqd,bhkd->bhqk", qa, ka) * scale
-    if key_mask is not None:
-        s = torch.where(key_mask[:, None, None, :] > 0, s, _NEG_INF)
-    s = s - s.amax(dim=-1, keepdim=True)
-    e = torch.exp(s)
-    p = e / e.sum(dim=-1, keepdim=True)
+    s = _scores(q, k, key_mask, scale)
+    if stats is None:
+        s = s - s.amax(dim=-1, keepdim=True)
+        e = torch.exp(s)
+        p = e / e.sum(dim=-1, keepdim=True)
+    else:
+        stats = stats.to(acc)
+        p = torch.exp(s - stats[..., :1]) / stats[..., 1:]
     pc = p.to(do.dtype).to(acc)
     dv = torch.einsum("bhqk,bhqd->bhkd", pc, doa)
     dp = torch.einsum("bhqd,bhkd->bhqk", doa, va)
@@ -118,7 +160,7 @@ def _lib():
     lib = _cuda.library("sdpa_fwd")
     if not getattr(lib, "_smtc_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.smtc_sdpa_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i,
+        lib.smtc_sdpa_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
                                       ctypes.c_float, i, i, p]
         lib.smtc_sdpa_fwd.restype = i
         lib.smtc_sdpa_max_lk.argtypes = []
@@ -131,8 +173,8 @@ def _bwd_lib():
     lib = _cuda.library("sdpa_bwd")
     if not getattr(lib, "_smtc_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.smtc_sdpa_bwd.argtypes = [p] * 9 + [i, i, i, i, i, ctypes.c_float,
-                                                 i, i, i, p]
+        lib.smtc_sdpa_bwd.argtypes = [p] * 10 + [i, i, i, i, i, ctypes.c_float,
+                                                  i, i, i, p]
         lib.smtc_sdpa_bwd_scratch_floats.argtypes = [i, i, i, i]
         lib.smtc_sdpa_bwd_scratch_floats.restype = ctypes.c_longlong
         lib.smtc_sdpa_bwd.restype = i
@@ -168,11 +210,24 @@ def max_key_length() -> int:
     return _lib().smtc_sdpa_max_lk()
 
 
-def sdpa_fwd_cuda(q, k, v, key_mask, scale: float):
+def tc_pair_takes(q, k, v) -> bool:
+    """Whether the backward runs the tensor-core pair, which reads the
+    forward's row statistics, for these inputs (``csrc/sdpa_bwd_core.cuh``'s
+    ``sdpa_bwd_tc_fits`` for contiguous tensors): bfloat16, more than 4 query
+    rows, head dim 32 or 64, every operand 16-byte aligned (the outputs are
+    fresh allocations)."""
+    lq, d = q.shape[2], q.shape[3]
+    return (q.dtype == torch.bfloat16 and lq > 4 and d in (32, 64)
+            and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
+
+
+def sdpa_fwd_cuda(q, k, v, key_mask, scale: float, with_stats: bool = False):
     """Launch the forward kernel (TPU kernels 1 and 3). q: (B, H, Lq, D),
     k/v: (B, H, Lk, D), contiguous CUDA tensors of one dtype (float32 or
     bfloat16); key_mask: None or (B, Lk) int32 on the same device. Returns
-    o: (B, H, Lq, D)."""
+    o: (B, H, Lq, D), or with ``with_stats`` (o, stats): each query row's
+    float32 max and sum, (B, H, Lq, 2), which only the bf16 tensor-core
+    kernel forms (the library refuses the call where another kernel runs)."""
     if q.device.type != "cuda":
         raise ValueError(f"sdpa_fwd_cuda needs CUDA tensors, got {q.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
@@ -187,14 +242,17 @@ def sdpa_fwd_cuda(q, k, v, key_mask, scale: float):
         raise ValueError(f"sdpa kernel: Lk={lk} exceeds its shared-memory row "
                          f"of {lib.smtc_sdpa_max_lk()} keys")
     out = torch.empty_like(q)
+    stats = (torch.empty(b, h, lq, 2, dtype=torch.float32, device=q.device)
+             if with_stats else None)
     rc = lib.smtc_sdpa_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if key_mask is None else key_mask.data_ptr(), out.data_ptr(),
+        None if stats is None else stats.data_ptr(),
         b, h, lq, lk, d, float(scale), _cuda.DTYPE_CODES[dtype],
         q.device.index or 0, _cuda.stream_of(q))
     _cuda.check(lib, rc, "sdpa_fwd")
     launches.add((dtype, b, h, lq, lk, d, key_mask is not None))
-    return out
+    return (out, stats) if with_stats else out
 
 
 def _check_qkv(q, k, v, key_mask, what):
@@ -225,13 +283,18 @@ def _check_qkv(q, k, v, key_mask, what):
 BWD_KERNELS = {"auto": 0, "tiled": 1, "block": 2}
 
 
-def sdpa_bwd_cuda(q, k, v, key_mask, do, scale: float, kernel: str = "auto"):
+def sdpa_bwd_cuda(q, k, v, key_mask, do, scale: float, kernel: str = "auto",
+                  stats=None):
     """Launch the backward kernels (TPU kernels 2 and 4): (dq, dk, dv) for
     the output gradient ``do``. Takes what ``sdpa_fwd_cuda`` takes, plus a
     contiguous ``do`` shaped like q. ``kernel="auto"`` picks the kernel by
     shape (for bf16 at head dims 32 and 64 the tensor-core query-tiled pair);
     ``"tiled"`` asks for a query-tiled pair and ``"block"`` for the block
-    kernel at any shape it holds, to time them against each other."""
+    kernel at any shape it holds, to time them against each other.
+    ``stats``: the forward kernel's row statistics (``sdpa_fwd_cuda(...,
+    with_stats=True)``), which the tensor-core pair reads instead of running
+    the forward kernel for them (the library refuses them where another
+    kernel runs); the gradients are the same, bit for bit."""
     if q.device.type != "cuda":
         raise ValueError(f"sdpa_bwd_cuda needs CUDA tensors, got {q.device}")
     _check_qkv(q, k, v, key_mask, "sdpa_bwd")
@@ -247,12 +310,20 @@ def sdpa_bwd_cuda(q, k, v, key_mask, do, scale: float, kernel: str = "auto"):
                          "does not fit one block's shared memory")
     if kernel not in BWD_KERNELS:
         raise ValueError(f"sdpa_bwd_cuda kernel {kernel!r}: one of {tuple(BWD_KERNELS)}")
+    if stats is not None:
+        if (tuple(stats.shape) != (b, h, lq, 2) or stats.dtype != torch.float32
+                or stats.device != q.device or not stats.is_contiguous()):
+            raise ValueError("stats must be the forward's contiguous (B, H, Lq, 2) "
+                             "float32 row statistics")
+        if do.data_ptr() % 16:
+            do = do.clone()  # the tensor-core pair reads it by TMA: 16-byte aligned
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    stats = bwd_scratch(b, h, lq, lk, q.device)
+    scratch = bwd_scratch(b, h, lq, lk, q.device)
     rc = lib.smtc_sdpa_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if key_mask is None else key_mask.data_ptr(), do.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(),
+        None if stats is None else stats.data_ptr(),
         b, h, lq, lk, d, float(scale), _cuda.DTYPE_CODES[dtype], BWD_KERNELS[kernel],
         q.device.index or 0, _cuda.stream_of(q))
     _cuda.check(lib, rc, "sdpa_bwd")
@@ -262,24 +333,32 @@ def sdpa_bwd_cuda(q, k, v, key_mask, do, scale: float, kernel: str = "auto"):
 
 class _SdpaFunction(torch.autograd.Function):
     """``sdpa`` with a gradient: the kernels on CUDA, the plain versions on
-    the CPU. Saves only its inputs, as the JAX residuals do."""
+    the CPU. Saves its inputs, as the JAX residuals do, and on CUDA, where
+    the backward runs the tensor-core pair, the forward kernel's row
+    statistics ((B, H, Lq, 2) float32: each query row's max and sum), which
+    the pair reads in place of forming them again."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_mask, scale):
         ctx.scale = scale
-        ctx.save_for_backward(q, k, v, key_mask)
+        stats = None
         if q.device.type == "cpu":
-            return sdpa_reference(q, k, v, key_mask, scale)
-        return sdpa_fwd_cuda(q, k, v, key_mask, scale)
+            out = sdpa_reference(q, k, v, key_mask, scale)
+        elif any(ctx.needs_input_grad[:3]) and tc_pair_takes(q, k, v):
+            out, stats = sdpa_fwd_cuda(q, k, v, key_mask, scale, with_stats=True)
+        else:
+            out = sdpa_fwd_cuda(q, k, v, key_mask, scale)
+        ctx.save_for_backward(q, k, v, key_mask, stats)
+        return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, key_mask = ctx.saved_tensors
+        q, k, v, key_mask, stats = ctx.saved_tensors
         do = do.contiguous()  # the head transpose of Attention hands a strided one
         if q.device.type == "cpu":
             grads = sdpa_bwd_reference(q, k, v, key_mask, do, ctx.scale)
         else:
-            grads = sdpa_bwd_cuda(q, k, v, key_mask, do, ctx.scale)
+            grads = sdpa_bwd_cuda(q, k, v, key_mask, do, ctx.scale, stats=stats)
         return (*grads, None, None)
 
 

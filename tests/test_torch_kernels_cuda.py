@@ -34,6 +34,14 @@ autograd round trips through ``sdpa`` and ``attn_block`` (at 128 and at
 ViLT's 402) show that the gradient on the card comes from the backward
 kernels.
 
+The bf16 forward and backward on wgmma fed by TMA are held at their branch
+points: Lk = 197 (200 columns), 256 (one window), 257 and 402 (two sweeps of
+128-key windows), Lq != Lk (36 x 128 and 128 x 36), a fully masked row, head
+dims 32 and 128 in the forward, the fused block's packed (B, L, H * D)
+column slices at 257; the backward given the forward's row statistics equals
+the one that forms them, and two backward runs agree, bit for bit; the
+autograd function hands its forward's statistics to the backward.
+
 The per-head block (``impl="fused_perhead"``, kernels 5 and 6) is held the
 same way: its forward, its backward kernel's dx and head-banked dq, dk, dv
 and ctx, and the ten gradients through autograd, against the plain per-head
@@ -105,6 +113,21 @@ SDPA_CASES = {
     "tc_long_q_short_k": (2, 3, 402, 37, 64, True, False),
     "tc_vilt_masked_row": (2, 3, 402, 402, 64, True, True),
     "tc_head32_odd_tiles": (2, 2, 130, 321, 32, True, True),
+    # the wgmma kernel's branch points: the whole row in one window up to 256
+    # keys (197 keys as 200 columns, 256 the last), two sweeps of 128-key
+    # windows from 257, Lq != Lk (LXMERT's 36 x 128 and 128 x 36), a fully
+    # masked row, head dims 32 and 128
+    "wg_lk197": (2, 3, 197, 197, 64, True, False),
+    "wg_lk197_masked_row": (2, 3, 197, 197, 64, True, True),
+    "wg_lk256": (2, 3, 100, 256, 64, True, False),
+    "wg_lk257": (2, 3, 100, 257, 64, True, True),
+    "wg_lk402": (2, 3, 130, 402, 64, False, False),
+    "wg_lxmert_36x128": (4, 12, 36, 128, 64, True, False),
+    "wg_lxmert_128x36": (4, 12, 128, 36, 64, False, False),
+    "wg_head32_197": (2, 3, 197, 197, 32, True, True),
+    "wg_head32_257": (2, 2, 70, 257, 32, True, False),
+    "wg_head128_197": (2, 3, 197, 197, 128, True, False),
+    "wg_head128_402": (2, 2, 70, 402, 128, True, True),
 }
 
 
@@ -144,6 +167,8 @@ BLOCK_CASES = {
     "image_width": (2, 197, 768, 12, False),
     "narrow_ragged": (3, 37, 64, 2, True),
     "vilt_exact": (2, 402, 768, 12, True),
+    # the packed (B, L, H * D) column slices at the first two-sweep length
+    "wg_packed_257": (2, 257, 768, 12, True),
 }
 
 
@@ -204,6 +229,14 @@ SDPA_BWD_CASES = {
     # the image-only runner's trained towers, unmasked: ViT-B/16 and DeiT-B/16
     "tc_image_train": (16, 12, 197, 197, 64, False, False),
     "tc_deit_train": (16, 12, 198, 198, 64, False, False),
+    # the wgmma pair's branch points: the forward's one window (197, 256) and
+    # two sweeps (257) for the stats, Lq != Lk, a fully masked row, head dim 32
+    "wg_bwd_lk197_masked_row": (2, 3, 197, 197, 64, True, True),
+    "wg_bwd_lk256": (2, 3, 130, 256, 64, True, False),
+    "wg_bwd_lk257": (2, 3, 130, 257, 64, True, True),
+    "wg_bwd_36x128": (4, 12, 36, 128, 64, True, False),
+    "wg_bwd_128x36": (4, 12, 128, 36, 64, False, False),
+    "wg_bwd_head32_197": (2, 3, 197, 197, 32, True, False),
 }
 
 
@@ -279,6 +312,9 @@ BLOCK_BWD_CASES = {
     # 3,168 rows, no multiple of the GEMMs' 128-row tile
     "image_train": (16, 197, 768, 12, False),
     "deit_train": (16, 198, 768, 12, False),
+    # the packed column slices where the forward run inside the backward takes
+    # two sweeps
+    "wg_packed_257": (2, 257, 768, 12, True),
 }
 
 
@@ -346,6 +382,61 @@ def test_attn_block_bwd_round_trip_matches_plain(cuda, case, dtype):
         err = (t.grad.float() - r.float()).abs().max().item()
         tol = (1e-4 if dtype == torch.float32 else 2e-2) * max(1.0, sc.max().item())
         assert torch.isfinite(t.grad).all() and err <= tol, ("d" + name, err, tol)
+
+
+STATS_CASES = ["tc_image_train", "wg_bwd_lk197_masked_row", "wg_bwd_lk256", "wg_bwd_lk257",
+               "tc_vilt_masked_row", "wg_bwd_36x128", "wg_bwd_128x36", "wg_bwd_head32_197"]
+
+
+@pytest.mark.parametrize("case", STATS_CASES)
+def test_sdpa_bwd_with_forward_stats_is_bit_equal(cuda, case):
+    """The forward's row statistics: the output of a forward that writes them
+    is the one that does not, m and l match ``row_stats`` (1e-5 relative), and
+    the tensor-core pair given them returns the gradients it forms without
+    them (running the forward kernel for them), bit for bit; two runs of the
+    backward agree bit for bit too."""
+    b, h, lq, lk, d, masked, empty = SDPA_BWD_CASES[case]
+    q, k, v, do = (torch.randn(b, h, n, d, generator=cuda, device="cuda").bfloat16()
+                   for n in (lq, lk, lk, lq))
+    mask = _mask(cuda, b, lk, empty) if masked else None
+    scale = d ** -0.5
+    out, stats = A.sdpa_fwd_cuda(q, k, v, mask, scale, with_stats=True)
+    assert torch.equal(out, A.sdpa_fwd_cuda(q, k, v, mask, scale))
+    want = A.row_stats(q, k, mask, scale)
+    assert stats.shape == (b, h, lq, 2) and stats.dtype == torch.float32
+    assert ((stats - want).abs() <= 1e-5 * want.abs()).all()
+    given = A.sdpa_bwd_cuda(q, k, v, mask, do, scale, stats=stats)
+    formed = A.sdpa_bwd_cuda(q, k, v, mask, do, scale)
+    again = A.sdpa_bwd_cuda(q, k, v, mask, do, scale, stats=stats)
+    torch.cuda.synchronize()
+    for name, x, y, z in zip("qkv", given, formed, again):
+        assert torch.equal(x, y), f"d{name}: the forward's stats change the gradient"
+        assert torch.equal(x, z), f"d{name}: two runs disagree"
+
+
+def test_sdpa_stats_refused_where_the_tensor_core_pair_does_not_run(cuda):
+    q = torch.randn(1, 2, 4, 64, generator=cuda, device="cuda").bfloat16()  # four rows
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        A.sdpa_fwd_cuda(q, q, q, None, 0.125, with_stats=True)
+    x = torch.randn(1, 2, 40, 64, generator=cuda, device="cuda")  # float32
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        A.sdpa_bwd_cuda(x, x, x, None, x, 0.125,
+                        stats=torch.zeros(1, 2, 40, 2, device="cuda"))
+
+
+def test_sdpa_autograd_passes_the_forward_stats(cuda):
+    """``sdpa``'s gradient at the image tower's shape: the forward keeps its
+    row statistics and the backward reads them; the gradient is the one the
+    pair forms alone, bit for bit."""
+    q, k, v = (torch.randn(16, 12, 197, 64, generator=cuda, device="cuda").bfloat16()
+               .requires_grad_(True) for _ in range(3))
+    do = torch.randn(16, 12, 197, 64, generator=cuda, device="cuda").bfloat16()
+    out = A.sdpa(q, k, v)
+    assert out.grad_fn.saved_tensors[4] is not None  # the statistics
+    out.backward(do)
+    want = A.sdpa_bwd_cuda(q.detach(), k.detach(), v.detach(), None, do, 64 ** -0.5)
+    for t, w in zip((q, k, v), want):
+        assert torch.equal(t.grad, w)
 
 
 @pytest.mark.parametrize("length", [128, 402])
