@@ -226,8 +226,12 @@ and the CUDA toolkit. It
    (wgmma), UTMALDG (TMA load) and HMMA (mma.sync) instructions in each
    kernel function's SASS (``cuobjdump --dump-sass``), failing if a bf16
    GEMM function (NT, NN or TN) has none of the first two, or if the bf16
-   SDPA forward or either backward pass lacks wgmma or TMA loads or issues
-   mma.sync, or a library lacks one of them it should hold; then holds the
+   or float32 SDPA forward or either backward pass lacks wgmma or TMA loads
+   or issues mma.sync, or a library lacks one of them it should hold; the
+   float32 SDPA kernels (three tf32 passes a product) are held to float64:
+   at every float32 SDPA shape the kernel's error against the float64
+   plain version must be at most 4x the plain float32 version's, and their
+   bound counts the three passes at 495 TF32 TFLOP/s; then holds the
    bf16 GEMM alone against its plain version and times it beside one cuBLAS
    call over the same operands (a yardstick the port never calls), with the
    TFLOP/s of each: NT at row 7's shapes (M = 2048, 3152, 12864; three
@@ -351,7 +355,12 @@ JAX_PKG = "socialmedia_textimage_classification_auxlosses_tpu"
 
 # NVIDIA H100 SXM data sheet (dense): bytes/s of HBM3, operations/s by type
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
+# the float32 SDPA kernels on the tensor cores: each product three tf32
+# passes, and their error against float64 at most this many times the plain
+# float32 version's
+TF32_PASSES = 3
+F32_GATE = 4.0
 
 BATCH = 16
 N_REQUESTS = 48
@@ -438,10 +447,39 @@ def device_ms(torch, fn, iters=30, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: int, ops: float, dtype: str):
+def bound(nbytes: int, ops: float, dtype: str, tf32: bool = False):
+    """The least ms for ``nbytes`` and ``ops``: the larger of the bytes at
+    HBM's rate and the operations at the dtype's peak; ``tf32``: a float32
+    kernel on the tensor cores, its operations TF32_PASSES tf32 passes (the
+    67 TFLOP/s CUDA-core basis is logged beside it)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    if tf32:
+        t_tc = TF32_PASSES * ops / PEAK_OPS_PER_S["tf32"] * 1e3
+        log(f"bound: {max(t_bytes, t_tc):.6f} ms on the tensor cores ({TF32_PASSES} tf32 "
+            f"passes at 495 TFLOP/s); {max(t_bytes, t_ops):.6f} ms on the CUDA cores' "
+            "67 TFLOP/s basis")
+        t_ops = t_tc
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def f32_tensor_cores(dtype: str, lq: int, d: int) -> bool:
+    """Whether an SDPA of these arguments runs the float32 tensor-core
+    kernels (csrc/sdpa_core.cuh: head dim 32 or 64, more than 4 query rows)."""
+    return dtype == "float32" and d in (32, 64) and lq > 4
+
+
+def f32_accuracy_gate(name, outs, plains, refs64):
+    """Each float32 output against the float64 plain version: the kernel's
+    max abs error at most F32_GATE times the plain float32 version's."""
+    for i, (o, p, w) in enumerate(zip(outs, plains, refs64)):
+        got = (o.double() - w).abs().max().item()
+        plain = (p.double() - w).abs().max().item()
+        log(f"f32 gate {name}[{i}]: kernel {got:.3e}, plain float32 {plain:.3e} against "
+            f"float64 ({got / max(plain, 1e-30):.2f}x; gate {F32_GATE}x)")
+        if not got <= F32_GATE * plain:
+            raise AssertionError(f"{name}: output {i} is {got} from float64, more than "
+                                 f"{F32_GATE}x the plain float32 version's {plain}")
 
 
 def nbytes(*tensors) -> int:
@@ -505,13 +543,17 @@ def log_occupancy(A, AB):
     with shared memory and registers as launched: the bf16 SDPA forward
     (wgmma, 128 threads a block) at the image tower's 197 keys (one 256-key
     window), the text tower's 128 and ViLT's 402 (128-key windows), the
-    backward's two passes at 402 (a warpgroup each), head dim 64, the row pair of the fusion head's backward at 197
+    backward's two passes at 402 (a warpgroup each), head dim 64, the
+    float32 forward (at 197 and 402) and backward passes on the tensor cores
+    (two warpgroups a block),
+    the row pair of the fusion head's backward at 197
     keys in float32 (256 threads) and the bf16 GEMM in its three
     orientations (384 threads, its 4-stage ring and output staging)."""
     import ctypes
 
     fwd, bwd, gemm = A._lib(), A._bwd_lib(), AB._bwd_lib()
     fwd.smtc_sdpa_fwd_blocks_per_sm.argtypes = [ctypes.c_int] * 2
+    fwd.smtc_sdpa_fwd_f32_blocks_per_sm.argtypes = [ctypes.c_int] * 2
     bwd.smtc_sdpa_bwd_blocks_per_sm.argtypes = [ctypes.c_int] * 3
     for kernel, n, what in (
             ("sdpa_fwd_wg_kernel<64, 256>", fwd.smtc_sdpa_fwd_blocks_per_sm(64, 197),
@@ -524,6 +566,14 @@ def log_occupancy(A, AB):
              bwd.smtc_sdpa_bwd_blocks_per_sm(0, 64, VILT_LEN), f"128 threads at Lk = {VILT_LEN}"),
             ("sdpa_bwd_keys_wg_kernel<64> (pass B)",
              bwd.smtc_sdpa_bwd_blocks_per_sm(1, 64, VILT_LEN), f"128 threads at Lk = {VILT_LEN}"),
+            ("sdpa_fwd_f32_wg_kernel<64>", fwd.smtc_sdpa_fwd_f32_blocks_per_sm(64, 197),
+             "256 threads at Lk = 197"),
+            ("sdpa_fwd_f32_wg_kernel<64>", fwd.smtc_sdpa_fwd_f32_blocks_per_sm(64, VILT_LEN),
+             f"256 threads at Lk = {VILT_LEN}"),
+            ("sdpa_bwd_rows_f32_wg_kernel<64> (float32 pass A)",
+             bwd.smtc_sdpa_bwd_blocks_per_sm(4, 64, VILT_LEN), "256 threads"),
+            ("sdpa_bwd_keys_f32_wg_kernel<64> (float32 pass B)",
+             bwd.smtc_sdpa_bwd_blocks_per_sm(5, 64, VILT_LEN), "256 threads"),
             ("sdpa_bwd_row_scores_kernel<float> (row pair, score pass)",
              bwd.smtc_sdpa_bwd_blocks_per_sm(2, 768, 197), "256 threads"),
             ("sdpa_bwd_row_cols_kernel<float> (row pair, column pass)",
@@ -539,12 +589,17 @@ def log_occupancy(A, AB):
 # the bf16 GEMM's orientations (gemm_core.cuh::GemmMode) each library must hold
 GEMM_MODES = {"attn_block_fwd": {0}, "attn_block_bwd": {0, 1, 2},
               "attn_block_perhead_fwd": {0}, "attn_block_perhead_bwd": {0}}
-# the bf16 SDPA kernels on wgmma fed by TMA (sdpa_core.cuh, sdpa_bwd_core.cuh)
-# and the libraries that must hold them: every forward's, and with the
-# backward passes every backward's (which runs the forward for ctx and stats)
-SDPA_WG = {"sdpa_fwd_wg_kernel": "forward", "sdpa_bwd_rows_wg_kernel": "backward pass A",
-           "sdpa_bwd_keys_wg_kernel": "backward pass B"}
-SDPA_WG_LIBS = {lib: ({"sdpa_fwd_wg_kernel"} if lib.endswith("fwd") else set(SDPA_WG))
+# the bf16 and float32 SDPA kernels on wgmma fed by TMA (sdpa_core.cuh,
+# sdpa_bwd_core.cuh) and the libraries that must hold them: every forward's,
+# and with the backward passes every backward's (which runs the forward for
+# ctx and stats)
+SDPA_WG = {"sdpa_fwd_wg_kernel": "bf16 forward", "sdpa_bwd_rows_wg_kernel": "bf16 backward pass A",
+           "sdpa_bwd_keys_wg_kernel": "bf16 backward pass B",
+           "sdpa_fwd_f32_wg_kernel": "float32 forward",
+           "sdpa_bwd_rows_f32_wg_kernel": "float32 backward pass A",
+           "sdpa_bwd_keys_f32_wg_kernel": "float32 backward pass B"}
+SDPA_WG_LIBS = {lib: ({k for k in SDPA_WG if k.startswith("sdpa_fwd")} if lib.endswith("fwd")
+                      else set(SDPA_WG))
                 for lib in ("sdpa_fwd", "attn_block_fwd", "attn_block_perhead_fwd",
                             "sdpa_bwd", "attn_block_bwd", "attn_block_perhead_bwd")}
 
@@ -556,8 +611,8 @@ def log_sass(_cuda):
     bf16 GEMM orientation it should hold (``GEMM_MODES``: NT, and in the
     block backward's library NN and TN too), or if one of those functions
     issues no wgmma or no TMA load; and, by name, if a library lacks one of
-    the bf16 SDPA kernels it should hold (``SDPA_WG_LIBS``) or one of those
-    issues no wgmma, no TMA load or any mma.sync."""
+    the bf16 or float32 SDPA kernels it should hold (``SDPA_WG_LIBS``) or
+    one of those issues no wgmma, no TMA load or any mma.sync."""
     import re
     import shutil
 
@@ -600,7 +655,7 @@ def log_sass(_cuda):
                 seen_wg.add(wg)
                 if not (n["HGMMA"] and n["UTMALDG"]) or n["HMMA"]:
                     raise AssertionError(
-                        f"{lib}: {fn}: the bf16 SDPA {SDPA_WG[wg]} must issue wgmma and TMA "
+                        f"{lib}: {fn}: the {SDPA_WG[wg]} SDPA kernel must issue wgmma and TMA "
                         f"loads and no mma.sync: HGMMA {n['HGMMA']}, UTMALDG {n['UTMALDG']}, "
                         f"HMMA {n['HMMA']}")
         if not GEMM_MODES.get(lib, set()) <= seen:
@@ -608,7 +663,7 @@ def log_sass(_cuda):
                                  f"{sorted(GEMM_MODES[lib])}")
         missing = SDPA_WG_LIBS.get(lib, set()) - seen_wg
         if missing:
-            raise AssertionError(f"{lib}: no SASS of the bf16 SDPA kernel(s) {sorted(missing)}")
+            raise AssertionError(f"{lib}: no SASS of the SDPA kernel(s) {sorted(missing)}")
 
 
 def time_gemm(torch, AB):
@@ -871,7 +926,7 @@ def check_kernels(torch, sdpa_shapes=SDPA_FWD_SHAPES, block_shapes=BLOCK_FWD_SHA
         mask[0] = 0  # a fully masked row: uniform weights, not NaN
         return mask
 
-    def record(name, kernel, key, out, ref, run, plain, library, nb, ops, dtype):
+    def record(name, kernel, key, out, ref, run, plain, library, nb, ops, dtype, tf32=False):
         out, ref = out.float(), ref.float()
         if not torch.isfinite(out).all():
             raise AssertionError(f"{name}: kernel output is not finite")
@@ -883,7 +938,7 @@ def check_kernels(torch, sdpa_shapes=SDPA_FWD_SHAPES, block_shapes=BLOCK_FWD_SHA
         if not err <= tol:
             raise AssertionError(f"{name}: kernel disagrees with its plain version "
                                  f"({err} > {tol})")
-        bound_ms, bound_by = bound(nb, ops, dtype)
+        bound_ms, bound_by = bound(nb, ops, dtype, tf32)
         with torch.no_grad():
             row = dict(name=name, kernel=kernel, key=key, max_abs_err=err,
                        ms=device_ms(torch, run), plain_ms=device_ms(torch, plain),
@@ -902,11 +957,15 @@ def check_kernels(torch, sdpa_shapes=SDPA_FWD_SHAPES, block_shapes=BLOCK_FWD_SHA
         attn_mask = None if mask is None else (mask > 0)[:, None, None, :]
         out = A.sdpa(q, k, v, mask, scale)
         ref = A.sdpa_reference(q, k, v, mask, scale)
+        if dtype == "float32":
+            f32_accuracy_gate(f"sdpa_fwd/{tag}", [out], [ref], [A.sdpa_reference(
+                q.double(), k.double(), v.double(), mask, scale)])
         record(f"sdpa_fwd/{tag}", "sdpa_fwd", (dtype, b, h, lq, lk, d, masked), out, ref,
                lambda: A.sdpa(q, k, v, mask, scale),
                lambda: A.sdpa_reference(q, k, v, mask, scale),
                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask, scale=scale),
-               nbytes(q, k, v, mask, out), 4.0 * b * h * lq * lk * d, dtype)
+               nbytes(q, k, v, mask, out), 4.0 * b * h * lq * lk * d, dtype,
+               f32_tensor_cores(dtype, lq, d))
 
     hid, heads = 768, 12
     for tag, (b, l, masked) in block_shapes.items():
@@ -975,8 +1034,8 @@ def check_bwd_kernels(torch, sdpa_shapes=SDPA_BWD_SHAPES, block_shapes=BLOCK_BWD
         log(f"check {name}: max_abs_err {worst:.3e} over {len(outs)} outputs ({dtype})")
         return worst
 
-    def timed(name, kernel, key, err, run, plain, library, nb, ops, dtype):
-        bound_ms, bound_by = bound(nb, ops, dtype)
+    def timed(name, kernel, key, err, run, plain, library, nb, ops, dtype, tf32=False):
+        bound_ms, bound_by = bound(nb, ops, dtype, tf32)
         row = dict(name=name, kernel=kernel, key=key, max_abs_err=err,
                    ms=device_ms(torch, run), plain_ms=device_ms(torch, plain),
                    bound_ms=bound_ms, bound_by=bound_by,
@@ -996,6 +1055,9 @@ def check_bwd_kernels(torch, sdpa_shapes=SDPA_BWD_SHAPES, block_shapes=BLOCK_BWD
         refs = A.sdpa_bwd_reference(q, k, v, mask, do, scale)
         err = close(f"sdpa_bwd/{tag}", outs, refs, [r.float().abs().max().item() for r in refs],
                     dtype)
+        if dtype == "float32":
+            f32_accuracy_gate(f"sdpa_bwd/{tag}", outs, refs, A.sdpa_bwd_reference(
+                q.double(), k.double(), v.double(), mask, do.double(), scale))
         stats = None
         if A.tc_pair_takes(q, k, v):
             # as the autograd function calls it: the forward kernel's row
@@ -1006,6 +1068,7 @@ def check_bwd_kernels(torch, sdpa_shapes=SDPA_BWD_SHAPES, block_shapes=BLOCK_BWD
             if not all(torch.equal(x, y) for x, y in zip(given, outs)):
                 raise AssertionError(f"sdpa_bwd/{tag}: the forward's row stats change the "
                                      "gradients")
+            log(f"check sdpa_bwd/{tag}: given the forward's row stats, bit for bit ({dtype})")
         if tag == "text":
             # the block kernel, asked for, where the tensor-core pair runs:
             # which is faster
@@ -1024,7 +1087,8 @@ def check_bwd_kernels(torch, sdpa_shapes=SDPA_BWD_SHAPES, block_shapes=BLOCK_BWD
               lambda: A.sdpa_bwd_cuda(q, k, v, mask, do, scale, stats=stats),
               lambda: A.sdpa_bwd_reference(q, k, v, mask, do, scale),
               lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True),
-              nbytes(q, k, v, do, mask, *outs), 10.0 * b * h * lq * lk * d, dtype)
+              nbytes(q, k, v, do, mask, *outs), 10.0 * b * h * lq * lk * d, dtype,
+              f32_tensor_cores(dtype, lq, d))
 
     hid, heads = 768, 12
     for tag, (b, l, masked) in block_shapes.items():

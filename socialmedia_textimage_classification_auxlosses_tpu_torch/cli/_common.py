@@ -71,7 +71,10 @@ def add_common_args(parser: argparse.ArgumentParser, multimodal: bool = False):
                         choices=["bfloat16", "float32"],
                         help="activation compute dtype; float32 is float32 "
                              "everywhere (no TF32 in matrix products or "
-                             "convolutions, cli/_common.py::set_precision_policy)")
+                             "convolutions, cli/_common.py::set_precision_policy; "
+                             "the float32 attention kernels run each product as "
+                             "a three-pass TF32 split that keeps float32's "
+                             "accuracy, single-pass TF32 is off everywhere)")
     parser.add_argument("--attn_impl", type=str, default="auto",
                         choices=["auto", "pallas", "pallas_interpret", "jnp",
                                  "fused", "fused_interpret"],
@@ -297,7 +300,13 @@ def set_precision_policy() -> None:
     neither cuBLAS's matrix products nor cuDNN's convolutions may round
     their float32 inputs to TF32 (PyTorch's default leaves cuDNN on TF32).
     ``--dtype bfloat16`` is unaffected; the float32 parts of a bfloat16 run
-    (a CNN late-fusion trunk, the heads) stay float32."""
+    (a CNN late-fusion trunk, the heads) stay float32. The port's own float32
+    attention kernels (``csrc/sdpa_core.cuh``, ``sdpa_bwd_core.cuh``) run on
+    the tensor cores as a three-pass TF32 split: each operand is split into a
+    TF32 part and a TF32 remainder and the three products that matter are
+    summed in float32, which keeps float32's accuracy (held against float64
+    on the card by ``chip_smoke.py``); single-pass TF32 stays off
+    everywhere."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 

@@ -8,12 +8,13 @@
 // dims 32 and 64 (every training path) runs the tensor-core query-tiled pair:
 // pass A writes dQ and per-row statistics from the forward's row max and sum,
 // pass B sums dK and dV per key tile over every query row, without atomics,
-// every product on wgmma fed by TMA. The
-// fusion head's single query runs in the row pair (a score pass per key, then
-// a gradient pass per 64 head-dim columns), and float32 in the block
-// kernel where the whole (Lq, Lk) problem fits a block's shared memory, else
-// in the FMA query-tiled pair. The kernels and what bounds them are described
-// in sdpa_bwd_core.cuh.
+// every product on wgmma fed by TMA; float32 at those head dims runs the
+// same pair with every product three tf32 passes (float32's accuracy kept).
+// The fusion head's single query runs in the row pair (a score pass per key,
+// then a gradient pass per 64 head-dim columns), and other head dims in the
+// block kernel where the whole (Lq, Lk) problem fits a block's shared memory,
+// else in the FMA query-tiled pair. The kernels and what bounds them are
+// described in sdpa_bwd_core.cuh.
 //
 // Plain-C interface for ctypes: pointers from tensor.data_ptr(), PyTorch's
 // current stream, and cudaGetLastError() as the return value.
@@ -28,7 +29,7 @@ extern "C" {
 // query-tiled pair's per-row stats), followed, for Lq <= 4, by the row pair's
 // (B, H, Lq, Lk, 2) scores and dP; fwd_stats: nullptr, or the forward's
 // (B, H, Lq, 2) float32 row max and sum (smtc_sdpa_fwd's stats), which only
-// the tensor-core pair reads (cudaErrorInvalidValue where another kernel
+// the tensor-core pairs read (cudaErrorInvalidValue where another kernel
 // would run); kernel: 0 = chosen by shape, 1 = a query-tiled pair (the
 // tensor-core one where it fits), 2 = the block kernel.
 int smtc_sdpa_bwd(const void* q, const void* k, const void* v, const int* mask,
@@ -77,10 +78,11 @@ long long smtc_sdpa_bwd_scratch_floats(int batch, int heads, int lq, int lk) {
   return (long long)smtc::sdpa_bwd_scratch_floats(batch, heads, lq, lk);
 }
 
-// Resident blocks per SM of the tensor-core pair's pass A (pass 0) or pass B
-// (pass 1) at head dim d and Lk keys, of the float32 row pair's score pass
-// (pass 2) or column pass (pass 3), or minus the CUDA error (the occupancy
-// lines of chip_smoke.py).
+// Resident blocks per SM of the bf16 tensor-core pair's pass A (pass 0) or
+// pass B (pass 1) at head dim d and Lk keys, of the float32 row pair's score
+// pass (pass 2) or column pass (pass 3), or of the float32 tensor-core pair's
+// pass A (4) or pass B (5), or minus the CUDA error (the occupancy lines of
+// chip_smoke.py).
 int smtc_sdpa_bwd_blocks_per_sm(int pass, int d, int lk) {
   return smtc::sdpa_bwd_tc_blocks_per_sm(pass, d, lk);
 }

@@ -77,6 +77,11 @@
 //     waiting for its loads, a pass B block 28,710 and 1,370.
 //     D = 128 would hold 64 more f32 accumulators per thread in pass B and is
 //     left to the FMA kernels below.
+//   * the float32 tensor-core pair, the same two passes for float32 at head
+//     dims 32 and 64 with the same arguments (the grid's float32 towers, ViLT
+//     exact in float32, the per-head blocks' float32 column slices): every
+//     product three tf32 passes (sdpa_core.cuh's split), float32's accuracy
+//     kept; its note stands above it, below.
 //   * the row pair, for at most kRowMaxLq query rows (the fusion head's one
 //     query of width 768 over 197 image keys, 605 KB of f32 K or V per batch
 //     row, far beyond shared memory): a score pass with one warp per key
@@ -86,15 +91,15 @@
 //     sums over the keys (design note below). One block per (batch, head)
 //     would run 32 blocks on 132 SMs at the fusion head's shape; the column
 //     pass runs 384.
-//   * the block kernel, float32 (and bf16 at other head dims) up to what its
+//   * the block kernel, for the other head dims (such as 128) up to what its
 //     two row sets leave room for: one block per (batch, head) holds the
 //     whole Lq x Lk problem, the f32 P and dP/dS row sets in shared memory
 //     (2 x 66 KB at Lq = Lk = 128), like the Pallas kernel's grid over batch
 //     rows, so dK and dV sum over every query row inside the block. The six
 //     products are 64 x 64 output tiles of 4 x 4 f32 FMA micro-tiles.
-//   * the FMA query-tiled pair for the other float32 shapes (and bf16 at
-//     other head dims, including 128, whose tensor-core pair would hold
-//     more accumulators than a thread has registers): pass A
+//   * the FMA query-tiled pair for the other head dims past the block
+//     kernel's reach (including 128, whose tensor-core pairs would hold more
+//     accumulators than a thread has registers): pass A
 //     (sdpa_bwd_rows_kernel) per 32 query rows holds one f32 row set of
 //     scores, P and then dS in shared memory, sweeping dP = dO V^T twice;
 //     pass B (sdpa_bwd_keys_kernel) per 64 keys recomputes P and dS from the
@@ -111,8 +116,8 @@
 // GFLOP (41 us) against 41 us. The tensor-core pair does 1.6x the products
 // (S and dP twice in pass A, once each in pass B) and three exponentials per
 // score (two in pass A, one in pass B), so at 402 its products and the
-// softmax arithmetic, not device memory, bound it.
-// f32 runs on the CUDA cores at 67 TFLOP/s.
+// softmax arithmetic, not device memory, bound it. The float32 pair's
+// products are three tf32 passes at 495 TFLOP/s.
 
 #pragma once
 
@@ -1148,13 +1153,13 @@ __global__ void __launch_bounds__(kTcThreads, 3)
   copy_tile_out<D>(static_cast<__nv_bfloat16*>(a.dk) + ko, a.k_sl, kt * 64, lk, sk);
 }
 
-// Whether the tensor-core pair takes these arguments (bf16 is the caller's
-// test): a head dim of 32 or 64, more than kRowMaxLq query rows, rows and
-// pointers 16-byte aligned.
-inline bool sdpa_bwd_tc_fits(const SdpaBwdArgs& a) {
+// Whether a tensor-core pair takes these arguments (bf16, elem 2, or
+// float32, elem 4, is the caller's test): a head dim of 32 or 64, more than
+// kRowMaxLq query rows, rows and pointers 16-byte aligned.
+inline bool sdpa_bwd_tc_fits(const SdpaBwdArgs& a, int elem) {
   return (a.d == 32 || a.d == 64) && a.lq > kRowMaxLq && a.stats != nullptr &&
          sdpa_tc_fits(a.d, {a.q_sb, a.q_sh, a.q_sl, a.k_sb, a.k_sh, a.k_sl},
-                      {a.q, a.k, a.v, a.dout, a.dq, a.dk, a.dv, a.o});
+                      {a.q, a.k, a.v, a.dout, a.dq, a.dk, a.dv, a.o}, elem);
 }
 
 // The f32 map of pass A's (B * H, Lq, kTcStats) stats: boxes of 64 rows.
@@ -1165,6 +1170,30 @@ inline bool encode_stats_map(EncodeTiledFn enc, CUtensorMap* map, const float* p
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(ptr), dims, strides, box,
              step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The forward's arguments for the same q, k and v (o: ctx, or nullptr), its
+// row stats into the scratch after the pairs' own
+inline SdpaArgs sdpa_fwd_args(const SdpaBwdArgs& a, int batch) {
+  SdpaArgs f;
+  f.q = a.q;
+  f.k = a.k;
+  f.v = a.v;
+  f.mask = a.mask;
+  f.o = a.o;
+  f.heads = a.heads;
+  f.lq = a.lq;
+  f.lk = a.lk;
+  f.d = a.d;
+  f.q_sb = f.o_sb = a.q_sb;
+  f.q_sh = f.o_sh = a.q_sh;
+  f.q_sl = f.o_sl = a.q_sl;
+  f.k_sb = f.v_sb = a.k_sb;
+  f.k_sh = f.v_sh = a.k_sh;
+  f.k_sl = f.v_sl = a.k_sl;
+  f.scale = a.scale;
+  f.stats = a.stats + (size_t)batch * a.heads * a.lq * kTcStats;
+  return f;
 }
 
 // The pair's launches: the forward kernel first where the caller gives no
@@ -1179,24 +1208,7 @@ cudaError_t launch_sdpa_bwd_tc(const SdpaBwdArgs& a, int batch, cudaStream_t str
   const float* fs = a.fwd_stats;
   cudaError_t err;
   if (fs == nullptr || a.o != nullptr) {
-    SdpaArgs f;
-    f.q = a.q;
-    f.k = a.k;
-    f.v = a.v;
-    f.mask = a.mask;
-    f.o = a.o;
-    f.heads = a.heads;
-    f.lq = a.lq;
-    f.lk = a.lk;
-    f.d = a.d;
-    f.q_sb = f.o_sb = a.q_sb;
-    f.q_sh = f.o_sh = a.q_sh;
-    f.q_sl = f.o_sl = a.q_sl;
-    f.k_sb = f.v_sb = a.k_sb;
-    f.k_sh = f.v_sh = a.k_sh;
-    f.k_sl = f.v_sl = a.k_sl;
-    f.scale = a.scale;
-    f.stats = a.stats + (size_t)batch * a.heads * a.lq * kTcStats;
+    const SdpaArgs f = sdpa_fwd_args(a, batch);
     err = launch_sdpa_tc_d<D>(f, batch, stream);
     if (err != cudaSuccess) return err;
     fs = f.stats;
@@ -1224,16 +1236,394 @@ cudaError_t launch_sdpa_bwd_tc(const SdpaBwdArgs& a, int batch, cudaStream_t str
   return cudaGetLastError();
 }
 
-// Resident blocks per SM of the tensor-core pair's pass A (pass 0) or pass B
-// (pass 1) at head dim d and Lk keys, or of the float32 row pair's score pass
-// (pass 2) or column pass (pass 3, one query row of Lk keys), or minus the
-// CUDA error.
+// ---- the tensor-core pair (float32): three tf32 passes a product, wgmma fed by TMA ----
+//
+// The bf16 pair's two passes with float32 operands, each product split as
+// the float32 forward's are (sdpa_core.cuh: x = big + small, a b ~ a_s b_b +
+// a_b b_s + a_b b_b), float32's accuracy kept. A staged operand that a
+// product contracts along its rows is also staged transposed (.tf32 wgmma
+// reads shared memory K-major only): K for dQ = dS K in pass A, Q and dO for
+// dK = dS^T Q and dV = P^T dO in pass B, each transposed from its split pair
+// once S and dP have read it, in the order of the registers' A fragments
+// (kcol_of). One block an SM (each pass holds 193-225 KB at D = 64), of two
+// warpgroups that split every chunk between them (pass A its keys, pass B its
+// query rows: 32 each, wgmma's N = 32), their two sums added in a fixed order
+// at the end; the 256 threads split each operand once as it arrives, the
+// products issued and waited on in turn; TMA refills a stage as soon as the
+// products that read it are done, so the next chunk's loads overlap this
+// one's work.
+//   pass A (sdpa_bwd_rows_f32_wg_kernel), one block per (64 query rows, head,
+//   batch): the Q and dO pairs, then the (K, V) chunks twice through a ring of
+//   two: sweep 1 S and dP for rowsum(dP P) (the warpgroups' halves added in
+//   order); sweep 2 S and dP again, dS and dQ += dS K (K transposed). It
+//   writes dQ * scale and (m, l, rowsum, 0) a row.
+//   pass B (sdpa_bwd_keys_f32_wg_kernel), one block per (64 keys, head,
+//   batch): the K and V pairs, then each query chunk's Q, dO and stats (one
+//   stage): S^T = K Q^T, dP^T = V dO^T, P^T and dS^T from the stats, dV +=
+//   P^T dO and dK += dS^T Q in f32 registers over the chunks in order, so two
+//   runs agree bit for bit.
+// What bounds it: at 16x12x128x128x64 the nine products (S and dP twice in
+// pass A, dQ; S^T, dP^T, dV, dK in pass B: 9 x 0.40 GFLOP, x 3 passes, 22 us
+// at 495 TF32 TFLOP/s) against 44 MB of q, k, v, dO and the gradients (13 us),
+// and beside them the CUDA cores' splits and transposes, which a block does
+// not overlap with its products (PERF.md: the tensor cores busy about a
+// quarter of the time at 197).
+
+// A pass's block: two warpgroups over one stream of tiles, each taking half
+// of every chunk (pass A: 32 of its keys; pass B: 32 of its query rows), the
+// two halves' sums added in a fixed order at the end.
+constexpr int kF32BwdWgs = 2;
+constexpr int kF32BwdThreads = 128 * kF32BwdWgs;
+
+template <int D>
+struct RowsF32Layout {  // pass A: Q, dO; the ring's (K, V) pairs; K transposed
+  static constexpr int T = F32Tile<D>::kBytes;
+  static constexpr int q = 0, dout = 2 * T, ring = 4 * T, stage = 4 * T, kt = 12 * T;
+  static constexpr int bars = 14 * T, ex = bars + 64, end = ex + 2 * 64 * 4;
+};
+template <int D>
+__host__ inline size_t rows_f32_smem_bytes() {
+  return 1024 + RowsF32Layout<D>::end;
+}
+
+template <int D>
+struct KeysF32Layout {  // pass B: K, V; the stage's Q, dO and stats; Q, dO transposed
+  static constexpr int T = F32Tile<D>::kBytes;
+  static constexpr int k = 0, v = 2 * T, q = 4 * T, dout = 6 * T, st = 8 * T;
+  static constexpr int qt = 8 * T + 1024, dot = 10 * T + 1024, bars = 12 * T + 1024;
+  static constexpr int end = bars + 2 * 8;
+};
+template <int D>
+__host__ inline size_t keys_f32_smem_bytes() {
+  return 1024 + KeysF32Layout<D>::end;
+}
+
+// acc += X B over 8 n8 positions (X in registers, split here; B the
+// transposed pair bt): summed apart, issued and waited on, then added in f32
+template <int D>
+__device__ __forceinline__ void nn_chunk_f32(float (&acc)[D / 2], const float (&x)[32], uint32_t bt,
+                                             int n8) {
+  uint32_t xb[32], sm[32];
+  split_pieces(x, xb, sm, n8);
+  float c[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) c[i] = 0.f;
+  wgmma_fence();
+  nn_pieces_f32<D>(c, xb, sm, bt, n8);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(c);
+  fence_regs(xb);
+  fence_regs(sm);
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] += c[i];
+}
+
+// The two warpgroups' 64 x D f32 sums added, warpgroup 0's first, through
+// `ex` (64 D floats; after a barrier that ends every read of it): warpgroup
+// 1 stages its own, warpgroup 0 adds and returns true.
+template <int D>
+__device__ __forceinline__ bool add_halves(float (&acc)[D / 2], float* ex) {
+  const int tid = threadIdx.x & 127;
+  if (threadIdx.x >= 128)
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) ex[i * 128 + tid] = acc[i];
+  __syncthreads();
+  if (threadIdx.x >= 128) return false;
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] += ex[i * 128 + tid];
+  return true;
+}
+
+// rows r + 8 e (e = 0, 1) of a 64 x D f32 accumulator, below n, to out (row
+// stride sl) times alpha: a float2 a thread per 8-column group
+template <int D>
+__device__ __forceinline__ void store_rows_f32(float* out, long long sl, int row0, int n,
+                                               const float (&acc)[D / 2], float alpha) {
+  const int t4 = threadIdx.x & 3, r = 16 * (threadIdx.x / 32 % 4) + (threadIdx.x & 31) / 4;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int i = row0 + r + 8 * e;
+    if (i < n)
+#pragma unroll
+      for (int g = 0; g < D / 8; ++g)
+        *reinterpret_cast<float2*>(out + i * sl + 8 * g + 2 * t4) =
+            make_float2(acc[4 * g + 2 * e] * alpha, acc[4 * g + 2 * e + 1] * alpha);
+  }
+}
+
+// Pass A: one block per (64 query rows, head, batch); warpgroup w takes keys
+// 32 w .. 32 w + 31 of every chunk.
+template <int D>
+__global__ void __launch_bounds__(kF32BwdThreads, 1)
+    sdpa_bwd_rows_f32_wg_kernel(const __grid_constant__ SdpaBwdMaps maps, const SdpaBwdArgs a,
+                                const float* fs, int head_inner) {
+  using L = RowsF32Layout<D>;
+  constexpr int T = L::T, NT = kF32BwdThreads;
+  extern __shared__ __align__(1024) unsigned char tsmem[];
+  const uint32_t raw = smem_addr(tsmem), pad = ((raw + 1023) & ~1023u) - raw;
+  unsigned char* sm = tsmem + pad;
+  const uint32_t base = raw + pad, bars = base + L::bars;
+  auto full = [&](int i) { return bars + 8 * (1 + (i & 1)); };
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z, lq = a.lq, lk = a.lk;
+  const int wg = threadIdx.x / 128, nc = (lk + 63) / 64;
+  const int* mask = a.mask ? a.mask + (long long)b * lk : nullptr;
+  // step i of the ring: chunk i % nc's K and V into stage i % 2
+  auto issue = [&](int i) {
+    if (threadIdx.x != 0 || i >= 2 * nc) return;
+    const uint32_t st = base + L::ring + (i & 1) * L::stage;
+    mbar_expect_tx(full(i), 2 * T);
+    tma_rows_f32<D>(st, &maps.k, full(i), i % nc * 64, h, b, head_inner);
+    tma_rows_f32<D>(st + 2 * T, &maps.v, full(i), i % nc * 64, h, b, head_inner);
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(bars + 8 * i, 1);
+    mbar_init_fence();
+    mbar_expect_tx(bars, 2 * T);
+    tma_rows_f32<D>(base + L::q, &maps.q, bars, qt * 64, h, b, head_inner);
+    tma_rows_f32<D>(base + L::dout, &maps.dout, bars, qt * 64, h, b, head_inner);
+    issue(0);
+    issue(1);
+  }
+  __syncthreads();
+
+  const int t4 = threadIdx.x & 3, r = 16 * (threadIdx.x / 32 % 4) + (threadIdx.x & 31) / 4;
+  const long long row0 = ((long long)b * a.heads + h) * lq + qt * 64;
+  // the forward's max and 1 / sum of the thread's two rows (0 past Lq: P = 0)
+  float m[2], l[2], rl[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const bool in = qt * 64 + r + 8 * e < lq;
+    const float2 x = in ? *reinterpret_cast<const float2*>(fs + (row0 + r + 8 * e) * 2)
+                        : make_float2(0.f, 0.f);
+    m[e] = x.x;
+    l[e] = x.y;
+    rl[e] = in ? 1.f / x.y : 0.f;
+  }
+  float sc[32], dp[32], dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  float rs[2] = {0.f, 0.f};
+  mbar_wait(bars, 0);
+  split_tile<D, NT>(sm + L::q, 64);
+  split_tile<D, NT>(sm + L::dout, 64);
+  for (int i = 0; i < 2 * nc; ++i) {
+    const int c = i % nc, off = L::ring + (i & 1) * L::stage;
+    mbar_wait(full(i), (i >> 1) & 1);
+    split_tile<D, NT>(sm + off, 64);
+    split_tile<D, NT>(sm + off + 2 * T, 64);
+    __syncthreads();
+    // S and dP of the rows against the warpgroup's 32 keys of the chunk
+    wgmma_fence();
+    nt_pieces_f32<D>(sc, base + L::q, base + off + 32 * 128 * wg, 4);
+    nt_pieces_f32<D>(dp, base + L::dout, base + off + 2 * T + 32 * 128 * wg, 4);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(sc);
+    fence_acc(dp);
+    if (i >= nc) transpose_tile<D, false, NT>(sm + L::kt, sm + off, 64);  // K for dQ
+    __syncthreads();  // the stage is read
+    issue(i + 2);
+    // P in f32 from the forward's max and sum
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      const int j = c * 64 + 32 * wg + 8 * g + 2 * t4;
+      const float cc[2] = {col_map(mask, j, lk), col_map(mask, j + 1, lk)};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = fmaf(sc[4 * g + e], a.scale, cc[e & 1]);
+        sc[4 * g + e] = expf(x - m[e >> 1]) * rl[e >> 1];
+      }
+    }
+    if (i < nc) {
+      // sweep 1: rowsum(dP P) from P, in key order
+#pragma unroll
+      for (int j = 0; j < 16; ++j) rs[(j >> 1) & 1] += dp[j] * sc[j];
+      if (i + 1 == nc) {
+        rs[0] = quad_sum(rs[0]);
+        rs[1] = quad_sum(rs[1]);
+        // the warpgroups' halves of each row, added in order
+        float* ex = reinterpret_cast<float*>(sm + L::ex);
+        if (t4 == 0)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) ex[64 * wg + r + 8 * e] = rs[e];
+        __syncthreads();
+#pragma unroll
+        for (int e = 0; e < 2; ++e) rs[e] = ex[r + 8 * e] + ex[64 + r + 8 * e];
+        if (t4 == 0 && wg == 0)  // pass B's stats: max, sum, rowsum
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (qt * 64 + r + 8 * e < lq)
+              *reinterpret_cast<float4*>(a.stats + (row0 + r + 8 * e) * kTcStats) =
+                  make_float4(m[e], l[e], rs[e], 0.f);
+      }
+    } else {
+      // sweep 2: dS = P (dP - rowsum), dQ += dS K over the warpgroup's keys
+#pragma unroll
+      for (int j = 0; j < 16; ++j) dp[j] = sc[j] * (dp[j] - rs[(j >> 1) & 1]);
+      nn_chunk_f32<D>(dq, dp, base + L::kt + wg * D * 128, 4);
+    }
+  }
+  __syncthreads();  // every read of the ring is done
+  if (add_halves<D>(dq, reinterpret_cast<float*>(sm + L::ring)))
+    store_rows_f32<D>(static_cast<float*>(a.dq) + b * a.q_sb + h * a.q_sh, a.q_sl, qt * 64, lq,
+                      dq, a.scale);
+}
+
+// Pass B: one block per (64 keys, head, batch); dV and dK of the block's keys
+// summed over every query chunk in f32 registers, in chunk order; warpgroup w
+// takes query rows 32 w .. 32 w + 31 of every chunk.
+template <int D>
+__global__ void __launch_bounds__(kF32BwdThreads, 1)
+    sdpa_bwd_keys_f32_wg_kernel(const __grid_constant__ SdpaBwdMaps maps, const SdpaBwdArgs a,
+                                int head_inner) {
+  using L = KeysF32Layout<D>;
+  constexpr int T = L::T, NT = kF32BwdThreads;
+  extern __shared__ __align__(1024) unsigned char tsmem[];
+  const uint32_t raw = smem_addr(tsmem), pad = ((raw + 1023) & ~1023u) - raw;
+  unsigned char* sm = tsmem + pad;
+  const uint32_t base = raw + pad, bars = base + L::bars, full = bars + 8;
+  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z, lq = a.lq, lk = a.lk;
+  const int wg = threadIdx.x / 128, nqc = (lq + 63) / 64;
+  // query chunk i's Q, dO and stats into the stage
+  auto issue = [&](int i) {
+    if (threadIdx.x != 0 || i >= nqc) return;
+    mbar_expect_tx(full, 2 * T + 64 * kTcStats * 4);
+    tma_rows_f32<D>(base + L::q, &maps.q, full, i * 64, h, b, head_inner);
+    tma_rows_f32<D>(base + L::dout, &maps.dout, full, i * 64, h, b, head_inner);
+    tma_load_3d(base + L::st, &maps.st, full, 0, i * 64, b * a.heads + h);
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) mbar_init(bars + 8 * i, 1);
+    mbar_init_fence();
+    mbar_expect_tx(bars, 2 * T);
+    tma_rows_f32<D>(base + L::k, &maps.k, bars, kt * 64, h, b, head_inner);
+    tma_rows_f32<D>(base + L::v, &maps.v, bars, kt * 64, h, b, head_inner);
+    issue(0);
+  }
+  __syncthreads();
+
+  const int t4 = threadIdx.x & 3, r = 16 * (threadIdx.x / 32 % 4) + (threadIdx.x & 31) / 4;
+  // the column map of the thread's two key rows (rows past Lk are never written)
+  float cmap[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+    cmap[e] = col_map(a.mask ? a.mask + (long long)b * lk : nullptr, kt * 64 + r + 8 * e, lk);
+  const float4* st = reinterpret_cast<const float4*>(sm + L::st);
+  float sc[32], dp[32], dv[D / 2], dk[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dv[i] = dk[i] = 0.f;
+  mbar_wait(bars, 0);
+  split_tile<D, NT>(sm + L::k, 64);
+  split_tile<D, NT>(sm + L::v, 64);
+  for (int i = 0; i < nqc; ++i) {
+    mbar_wait(full, i & 1);
+    split_tile<D, NT>(sm + L::q, 64);
+    split_tile<D, NT>(sm + L::dout, 64);
+    __syncthreads();
+    // S^T = K Q^T and dP^T = V dO^T of the block's keys against the
+    // warpgroup's 32 query rows of the chunk
+    wgmma_fence();
+    nt_pieces_f32<D>(sc, base + L::k, base + L::q + 32 * 128 * wg, 4);
+    nt_pieces_f32<D>(dp, base + L::v, base + L::dout + 32 * 128 * wg, 4);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(sc);
+    fence_acc(dp);
+    transpose_tile<D, false, NT>(sm + L::qt, sm + L::q, 64);
+    transpose_tile<D, false, NT>(sm + L::dot, sm + L::dout, 64);
+    // P^T and dS^T = P^T (dP^T - rowsum) from pass A's stats; query rows past
+    // Lq give 0
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+#pragma unroll
+      for (int cc = 0; cc < 2; ++cc) {
+        const int qi = 32 * wg + 8 * g + 2 * t4 + cc;
+        const float4 x = st[qi];
+        const bool valid = i * 64 + qi < lq;
+        const float rlq = valid ? 1.f / x.y : 0.f;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = 4 * g + 2 * e + cc;
+          const float pv = valid ? expf(fmaf(sc[j], a.scale, cmap[e]) - x.x) * rlq : 0.f;
+          dp[j] = valid ? pv * (dp[j] - x.z) : 0.f;
+          sc[j] = pv;
+        }
+      }
+    __syncthreads();  // the stage is read, the transposed pairs written
+    issue(i + 1);
+    nn_chunk_f32<D>(dv, sc, base + L::dot + wg * D * 128, 4);  // dV += P^T dO
+    nn_chunk_f32<D>(dk, dp, base + L::qt + wg * D * 128, 4);   // dK += dS^T Q
+  }
+  __syncthreads();  // every read of the stage is done
+  const long long ko = b * a.k_sb + h * a.k_sh;
+  if (add_halves<D>(dv, reinterpret_cast<float*>(sm + L::q)))
+    store_rows_f32<D>(static_cast<float*>(a.dv) + ko, a.k_sl, kt * 64, lk, dv, 1.f);
+  if (add_halves<D>(dk, reinterpret_cast<float*>(sm + L::q + 2 * T)))
+    store_rows_f32<D>(static_cast<float*>(a.dk) + ko, a.k_sl, kt * 64, lk, dk, a.scale);
+}
+
+// The float32 pair's launches: the float32 forward first where the caller
+// gives no row stats or asks for ctx, then pass A, then pass B.
+template <int D>
+cudaError_t launch_sdpa_bwd_f32_tc(const SdpaBwdArgs& a, int batch, cudaStream_t stream) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const int hi = a.q_sh < a.q_sl;
+  if ((a.k_sh < a.k_sl) != hi) return cudaErrorInvalidValue;
+  const float* fs = a.fwd_stats;
+  cudaError_t err;
+  if (fs == nullptr || a.o != nullptr) {
+    const SdpaArgs f = sdpa_fwd_args(a, batch);
+    err = launch_sdpa_f32_wg<D>(f, batch, stream);
+    if (err != cudaSuccess) return err;
+    fs = f.stats;
+  }
+  SdpaBwdMaps maps;
+  memset(&maps, 0, sizeof(maps));
+  if (!encode_sdpa_map(enc, &maps.q, a.q, batch, a.heads, a.lq, D, a.q_sb, a.q_sh, a.q_sl, 64, 4) ||
+      !encode_sdpa_map(enc, &maps.dout, a.dout, batch, a.heads, a.lq, D, a.q_sb, a.q_sh, a.q_sl, 64,
+                       4) ||
+      !encode_sdpa_map(enc, &maps.k, a.k, batch, a.heads, a.lk, D, a.k_sb, a.k_sh, a.k_sl, 64, 4) ||
+      !encode_sdpa_map(enc, &maps.v, a.v, batch, a.heads, a.lk, D, a.k_sb, a.k_sh, a.k_sl, 64, 4) ||
+      !encode_stats_map(enc, &maps.st, a.stats, batch * a.heads, a.lq))
+    return cudaErrorInvalidValue;
+  const size_t smem_a = rows_f32_smem_bytes<D>();
+  err = smem_opt_in(sdpa_bwd_rows_f32_wg_kernel<D>, smem_a);
+  if (err != cudaSuccess) return err;
+  sdpa_bwd_rows_f32_wg_kernel<D><<<dim3((a.lq + 63) / 64, a.heads, batch), kF32BwdThreads,
+                                   smem_a, stream>>>(maps, a, fs, hi);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t smem_b = keys_f32_smem_bytes<D>();
+  err = smem_opt_in(sdpa_bwd_keys_f32_wg_kernel<D>, smem_b);
+  if (err != cudaSuccess) return err;
+  sdpa_bwd_keys_f32_wg_kernel<D><<<dim3((a.lk + 63) / 64, a.heads, batch), kF32BwdThreads,
+                                   smem_b, stream>>>(maps, a, hi);
+  return cudaGetLastError();
+}
+
+// Resident blocks per SM of the bf16 tensor-core pair's pass A (pass 0) or
+// pass B (pass 1) at head dim d and Lk keys, of the float32 row pair's score
+// pass (pass 2) or column pass (pass 3, one query row of Lk keys), or of the
+// float32 tensor-core pair's pass A (4) or pass B (5), or minus the CUDA
+// error.
 inline int sdpa_bwd_tc_blocks_per_sm(int pass, int d, int lk) {
   if (pass == 2) return blocks_per_sm(sdpa_bwd_row_scores_kernel<float, true>, kRowThreads, 0);
   if (pass == 3)
     return blocks_per_sm(sdpa_bwd_row_cols_kernel<float, true>, kRowThreads,
                          sdpa_bwd_row_smem_bytes(1, lk));
   if (d != 32 && d != 64) return -(int)cudaErrorInvalidValue;
+  if (pass == 4)
+    return d == 32 ? blocks_per_sm(sdpa_bwd_rows_f32_wg_kernel<32>, kF32BwdThreads,
+                                   rows_f32_smem_bytes<32>())
+                   : blocks_per_sm(sdpa_bwd_rows_f32_wg_kernel<64>, kF32BwdThreads,
+                                   rows_f32_smem_bytes<64>());
+  if (pass == 5)
+    return d == 32 ? blocks_per_sm(sdpa_bwd_keys_f32_wg_kernel<32>, kF32BwdThreads,
+                                   keys_f32_smem_bytes<32>())
+                   : blocks_per_sm(sdpa_bwd_keys_f32_wg_kernel<64>, kF32BwdThreads,
+                                   keys_f32_smem_bytes<64>());
   if (pass == 0)
     return d == 32 ? blocks_per_sm(sdpa_bwd_rows_wg_kernel<32>, kTcThreads, rows_smem_bytes<32>(lk))
                    : blocks_per_sm(sdpa_bwd_rows_wg_kernel<64>, kTcThreads, rows_smem_bytes<64>(lk));
@@ -1322,27 +1712,29 @@ cudaError_t launch_sdpa_bwd_row(const SdpaBwdArgs& a, int batch, cudaStream_t st
                                         : launch_sdpa_bwd_row_pair<T, false>(a, batch, stream);
 }
 
-// kernel: kBwdAuto takes the tensor-core pair where it fits (bf16), else the
-// row pair for a few query rows, else the block kernel where its row sets
-// fit, else the FMA query-tiled pair; kBwdTiled asks for a query-tiled pair
-// (the tensor-core one where it fits) and kBwdBlock for the block kernel, at
-// any shape they take, to time them against each other.
+// kernel: kBwdAuto takes the tensor-core pair of the dtype where it fits,
+// else the row pair for a few query rows, else the block kernel where its
+// row sets fit, else the FMA query-tiled pair; kBwdTiled asks for a
+// query-tiled pair (the tensor-core one where it fits) and kBwdBlock for the
+// block kernel, at any shape they take, to time them against each other.
 template <typename T>
 cudaError_t launch_sdpa_bwd(const SdpaBwdArgs& a, int batch, cudaStream_t stream,
                             int kernel = kBwdAuto) {
   if (!sdpa_bwd_fits(a.lq, a.lk, a.d)) return cudaErrorInvalidValue;
-  if (a.fwd_stats != nullptr &&
-      !(std::is_same<T, __nv_bfloat16>::value && kernel != kBwdBlock && sdpa_bwd_tc_fits(a)))
-    return cudaErrorInvalidValue;
+  const bool tc = sdpa_bwd_tc_fits(a, (int)sizeof(T));
+  if (a.fwd_stats != nullptr && !(kernel != kBwdBlock && tc)) return cudaErrorInvalidValue;
   if (kernel == kBwdBlock) {
     if (!sdpa_bwd_block_fits(a.lq, a.lk)) return cudaErrorInvalidValue;
     return launch_sdpa_bwd_block<T>(a, batch, stream);
   }
   if (kernel != kBwdAuto && kernel != kBwdTiled) return cudaErrorInvalidValue;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (sdpa_bwd_tc_fits(a))
+  if (tc) {
+    if constexpr (std::is_same<T, __nv_bfloat16>::value)
       return a.d == 32 ? launch_sdpa_bwd_tc<32>(a, batch, stream)
                        : launch_sdpa_bwd_tc<64>(a, batch, stream);
+    else
+      return a.d == 32 ? launch_sdpa_bwd_f32_tc<32>(a, batch, stream)
+                       : launch_sdpa_bwd_f32_tc<64>(a, batch, stream);
   }
   if (kernel == kBwdTiled ||
       (!sdpa_bwd_row_fits(a.lq, a.lk, a.d) && !sdpa_bwd_block_fits(a.lq, a.lk)))

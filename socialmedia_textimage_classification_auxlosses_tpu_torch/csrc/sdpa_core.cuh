@@ -13,7 +13,7 @@
 //     the P.V product, which accumulates in f32;
 //   * the output is rounded once, to the input dtype.
 //
-// Three kernels, chosen by launch_sdpa from the arguments:
+// Four kernels, chosen by launch_sdpa from the arguments:
 //   * the tensor-core kernel (sdpa_fwd_wg_kernel: wgmma fed by TMA), for
 //     bf16 with a head dim of 32, 64 or 128, 16-byte aligned rows and more
 //     than kRowMaxLq query rows: every self-attention of the serving and
@@ -22,13 +22,19 @@
 //     tiles are this kernel's 64-row tiles); it also writes each query row's
 //     max and sum for the backward when asked; its design note stands above
 //     it, below;
+//   * its float32 counterpart (sdpa_fwd_f32_wg_kernel: three tf32 passes a
+//     product on wgmma fed by TMA, float32's accuracy kept), for float32 with
+//     a head dim of 32 or 64 and otherwise the same arguments: the grid's
+//     float32 towers, ViLT exact in float32, the per-head blocks' float32
+//     column slices; it writes the row statistics too; design note below;
 //   * the row kernel, for at most kRowMaxLq query rows (the fusion head's one
 //     query of width 768 over 197 image keys, 605 KB of f32 K per batch row):
 //     one block per query row, so no block computes idle rows;
-//   * the FMA kernel for the rest (float32, other head dims): one block per
-//     (batch, head, kBQ query rows) keeps its rows of f32 scores in shared
-//     memory, exact two-pass softmax, K and V in chunks of kDC head-dim
-//     columns, so the head dim is unbounded; f32 FMA on the CUDA cores.
+//   * the FMA kernel for the rest (other head dims, such as 128 in float32):
+//     one block per (batch, head, kBQ query rows) keeps its rows of f32 scores
+//     in shared memory, exact two-pass softmax, K and V in chunks of kDC
+//     head-dim columns, so the head dim is unbounded; f32 FMA on the CUDA
+//     cores.
 //
 // Strides are in elements and the head dim has stride 1, so the same kernel
 // reads the (B, H, L, D) layout of ops/attention.py and the packed (B, L, H*D)
@@ -114,7 +120,7 @@ struct SdpaArgs {
   long long o_sb, o_sh, o_sl;
   float scale;
   // (B, H, Lq, 2) f32, each query row's max and sum, or nullptr; only the
-  // tensor-core kernel writes them (a launch that cannot, refuses)
+  // tensor-core kernels write them (a launch that cannot, refuses)
   float* stats = nullptr;
 };
 
@@ -467,7 +473,7 @@ __device__ __forceinline__ void static_for(F&& f) {
 // per 8-key group); piece 0 spans them all, as it is used alone.
 template <int W>
 struct Pieces {
-  static constexpr int n = W == 256 ? 6 : 5;
+  static constexpr int n = W == 256 ? 6 : W == 128 ? 5 : 4;
   __host__ __device__ static constexpr int groups(int i) { return (W / 8) >> i; }
   __host__ __device__ static constexpr int reg(int i) {
     int r = 0;
@@ -882,41 +888,42 @@ __global__ void __launch_bounds__(kFwdThreads, W == 256 || D == 128 ? 2 : 3)
   }
 }
 
-// Whether the tensor-core kernels take these arguments: bf16 is the caller's
-// test; a head dim they are built for, rows and pointers 16-byte aligned (so
-// TMA can describe every operand).
+// Whether the tensor-core kernels take these arguments: the dtype is the
+// caller's test (elem: its bytes); a head dim they are built for, rows and
+// pointers 16-byte aligned (so TMA can describe every operand).
 inline bool sdpa_tc_fits(int d, std::initializer_list<long long> strides,
-                         std::initializer_list<const void*> ptrs) {
-  if (d != 32 && d != 64 && d != 128) return false;
+                         std::initializer_list<const void*> ptrs, int elem = 2) {
+  if (d != 32 && d != 64 && (d != 128 || elem != 2)) return false;
   for (long long s : strides)
-    if (s % 8) return false;
+    if (s * elem % 16) return false;
   for (const void* p : ptrs)
     if (reinterpret_cast<uintptr_t>(p) % 16) return false;
   return true;
 }
 
-// The 4D tensor map of a bf16 SDPA operand (element strides sb, sh, sl of
-// batch, head and position; the head dim unit stride): head dim, then
-// position and head in the order of their strides (the packed (B, L, H * D)
-// layout has the head inside the position), then batch, so each stride is the
-// one before it times its extent for both layouts the callers pass. Boxes of
-// kCols columns x `rows` positions of one head under the 64- or 128-byte
-// swizzle; positions past `len` read as zeros.
+// The 4D tensor map of a bf16 (elem 2) or f32 (elem 4) SDPA operand
+// (element strides sb, sh, sl of batch, head and position; the head dim unit
+// stride): head dim, then position and head in the order of their strides
+// (the packed (B, L, H * D) layout has the head inside the position), then
+// batch, so each stride is the one before it times its extent for both
+// layouts the callers pass. Boxes of kCols columns (f32: 32) x `rows`
+// positions of one head under the 64- or 128-byte swizzle; positions past
+// `len` read as zeros.
 inline bool encode_sdpa_map(EncodeTiledFn enc, CUtensorMap* map, const void* ptr, int batch,
                             int heads, int len, int d, long long sb, long long sh, long long sl,
-                            int rows) {
-  const int cols = d < 64 ? d : 64;
+                            int rows, int elem = 2) {
+  const int cols = elem == 4 ? 32 : d < 64 ? d : 64;
   const bool hi = sh < sl;
   const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)(hi ? heads : len),
                               (cuuint64_t)(hi ? len : heads), (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)(hi ? sh : sl) * 2, (cuuint64_t)(hi ? sl : sh) * 2,
-                                 (cuuint64_t)sb * 2};
+  const cuuint64_t strides[3] = {(cuuint64_t)((hi ? sh : sl) * elem),
+                                 (cuuint64_t)((hi ? sl : sh) * elem), (cuuint64_t)(sb * elem)};
   const cuuint32_t box[4] = {(cuuint32_t)cols, hi ? 1u : (cuuint32_t)rows,
                              hi ? (cuuint32_t)rows : 1u, 1u};
   const cuuint32_t step[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
-             step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+  return enc(map, elem == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+             const_cast<void*>(ptr), dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             cols * elem == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -1005,6 +1012,469 @@ inline cudaError_t launch_sdpa_tc(const SdpaArgs& a, int batch, cudaStream_t str
   return cudaErrorInvalidValue;
 }
 
+// ---- float32 on the tensor cores: a three-pass tf32 split, wgmma fed by TMA ----
+//
+// sdpa_fwd_f32_wg_kernel replaces the Pallas ops/attention.py::_fwd_kernel
+// (TPU kernel 1) and ::_fwd_kernel_blocked (TPU kernel 3) for float32 at head
+// dims 32 and 64 (the grid's float32 towers, ViLT exact in float32, the
+// per-head blocks' float32 column slices), and writes the row statistics the
+// float32 backward pair reads (sdpa_bwd_core.cuh).
+//
+// Float32 accuracy. The port's --dtype float32 promises float32 products (no
+// TF32). Each product runs as three tf32 products: x = big + small with big =
+// tf32_rna(x) (cvt.rna: wgmma's own read of raw bits truncates, twice the
+// error) and small = tf32_rna(x - big); a b ~ a_s b_b + a_b b_s + a_b b_b in
+// f32 accumulators, only small x small dropped (about 2^-22 of a b). A CPU
+// emulation (tests/test_torch_sdpa_f32.py) and the card (chip_smoke.py's
+// float32 accuracy gate) hold its error against float64 to within a small
+// factor of the plain float32 version's; single-pass tf32 would be 1,000x off.
+//
+// What bounds it on the H100. At 16x12x197x197x64 the two products in three
+// passes are 5.7 GFLOP (12 us at 495 TF32 TFLOP/s; S's second sweep adds
+// half) against 38.7 MB of q, k, v and o (12 us at 3.35 TB/s); each staged
+// operand also takes a pass on the CUDA cores to form its halves, and V one
+// more to stand transposed, and a block waits on each product. So the CUDA
+// cores' passes and the softmax beside the tensor cores bound it (0.105 ms,
+// PERF.md).
+//
+// Design. A block is two warpgroups, 64 query rows each (wgmma's M), of one
+// head and batch element, over one stream of K and V chunks (one block an SM:
+// 192 KB of shared memory at D = 64; one warpgroup a block measured slower,
+// PERF.md). Thread 0 keeps the two Q tiles, a ring of two K chunks (64 keys)
+// and a ring of two raw V chunks in flight by TMA (64 rows x 128 bytes a box,
+// the 128-byte swizzle; two boxes a row at D = 64), each behind an mbarrier.
+// The block's 256 threads split each tile as it arrives, once for both
+// warpgroups: Q and K in place (big where TMA wrote it, small one tile on: an
+// elementwise pass that keeps the swizzle), V transposed into its own pair
+// (.tf32 wgmma reads both shared-memory operands K-major; P V contracts over
+// V's rows). Products, each warpgroup its own rows:
+//   * S = Q K^T: wgmma_ss_tf32 x 3 per k8 step; a short last chunk in pieces
+//     of 32, 16, 8 keys by the bits of its 8-key groups (197 keys are 3 x 64
+//     + 8, not 4 x 64);
+//   * O += P V: P split in registers (big in place, small beside it) as the A
+//     operand, straight from the accumulator layout: its 8-key group holds
+//     keys 2t and 2t + 1 where the A fragment wants k columns t and t + 4, so
+//     the transposed V stages each group's keys in that order (kcol_of) and
+//     the registers go in as they are.
+// A thread holds one chunk's scores (32 f32) beside O and the chunk's
+// accumulator: the row takes two sweeps, the max and sum chunk by chunk (the
+// sum rescaled as the max grows), then S again for P (a row of 64 keys or
+// fewer: once). The numerics are the bf16 kernel's (its note above), with no
+// rounding of P (float32). (Four chunks' scores in registers, for one
+// exponential a score up to 256 keys, spilled at 255 registers and
+// serialized the wgmmas: 0.261 ms at 16x12x197.)
+
+// A 64-row f32 tile of head dim D: D / 32 TMA boxes of 64 rows x 128 bytes
+// (32 floats) under the 128-byte swizzle. A split pair is the tile (big)
+// then its small half one tile on.
+template <int D>
+struct F32Tile {
+  static constexpr int kBoxes = D / 32;
+  static constexpr int kBytes = 64 * D * 4;
+};
+
+// rows r0 .. r0 + 63 of head h, batch b of an operand into the tile at dst
+template <int D>
+__device__ __forceinline__ void tma_rows_f32(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                             int r0, int h, int b, int head_inner) {
+#pragma unroll
+  for (int c = 0; c < F32Tile<D>::kBoxes; ++c) {
+    const uint32_t at = dst + c * 64 * 128;
+    if (head_inner)
+      tma_load_4d(at, map, bar, c * 32, h, r0, b);
+    else
+      tma_load_4d(at, map, bar, c * 32, r0, h, b);
+  }
+}
+
+// The descriptor of k8 step kk of a K-major f32 operand: rows from r0 (a
+// multiple of 8) of a tile in blocks of `rows` rows x 128 bytes, kk / 4 the
+// block. A 64-row tile has rows = 64 (kk over the head dim); a transposed
+// pair rows = D (kk over the 64 positions).
+__device__ __forceinline__ uint64_t kmajor_f32(uint32_t tile, int rows, int r0, int kk) {
+  return wg_desc(tile + (kk >> 2) * rows * 128 + r0 * 128 + (kk & 3) * 32, 128, 16);
+}
+
+// x = its tf32 rounding, in place; returns the remainder's
+__device__ __forceinline__ uint32_t split_tf32(float& x) {
+  const uint32_t big = tf32_rna(x);
+  const uint32_t small = tf32_rna(x - __uint_as_float(big));
+  x = __uint_as_float(big);
+  return small;
+}
+
+// The first `rows` rows of every box of the 64-row tile at `tile`, split in
+// place by the block's NT threads: big over the value, small one tile on.
+template <int D, int NT = 128>
+__device__ __forceinline__ void split_tile(unsigned char* tile, int rows) {
+  constexpr int T = F32Tile<D>::kBytes;
+#pragma unroll
+  for (int c = 0; c < F32Tile<D>::kBoxes; ++c) {
+    float4* big = reinterpret_cast<float4*>(tile + c * 64 * 128);
+    uint4* small = reinterpret_cast<uint4*>(tile + T + c * 64 * 128);
+    for (int i = threadIdx.x; i < rows * 8; i += NT) {
+      float4 x = big[i];
+      uint4 s;
+      s.x = split_tf32(x.x);
+      s.y = split_tf32(x.y);
+      s.z = split_tf32(x.z);
+      s.w = split_tf32(x.w);
+      big[i] = x;
+      small[i] = s;
+    }
+  }
+  fence_proxy_async();
+}
+
+// Where position j of a 64-position chunk stands along K in a transposed
+// pair: a k8 step's A fragment taken from the accumulator layout holds, at k
+// columns t and t + 4, the group's positions 2 t and 2 t + 1.
+__device__ __forceinline__ int kcol_of(int j) {
+  return (j & ~7) | ((j & 1) << 2) | ((j & 6) >> 1);
+}
+
+// The transposed pair at dst of positions j < n of the 64-row tile at src:
+// D rows (head-dim columns) of the 64 positions in kcol_of order, two blocks
+// of 32 positions (D rows x 128 bytes, the 128-byte swizzle), big then small
+// one tile on; from a raw tile (SPLIT: split here) or a split pair, by the
+// block's NT threads. A warp takes 32 positions of one block: 16-byte reads
+// and 4-byte writes, each free of bank conflicts.
+template <int D, bool SPLIT, int NT = 128>
+__device__ __forceinline__ void transpose_tile(unsigned char* dst, const unsigned char* src, int n) {
+  constexpr int T = F32Tile<D>::kBytes;
+  const int warp = threadIdx.x / 32, j = threadIdx.x % 32 + 32 * (warp & 1);
+  if (j < n) {
+    const int p = kcol_of(j), at_p = (p >> 5) * D * 128 + (p & 31) * 4;
+#pragma unroll
+    for (int qd = warp >> 1; qd < D / 4; qd += NT / 64) {
+      const int d0 = 4 * qd;
+      const int at = (d0 >> 5) * 64 * 128 + j * 128 + (((d0 & 31) * 4) ^ ((j & 7) << 4));
+      float4 x = *reinterpret_cast<const float4*>(src + at);
+      uint4 s;
+      if (SPLIT) {
+        s.x = split_tf32(x.x);
+        s.y = split_tf32(x.y);
+        s.z = split_tf32(x.z);
+        s.w = split_tf32(x.w);
+      } else {
+        s = *reinterpret_cast<const uint4*>(src + T + at);
+      }
+      const float xb[4] = {x.x, x.y, x.z, x.w};
+      const uint32_t xs[4] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int d = d0 + e, o = (at_p + d * 128) ^ ((d & 7) << 4);
+        *reinterpret_cast<float*>(dst + o) = xb[e];
+        *reinterpret_cast<uint32_t*>(dst + T + o) = xs[e];
+      }
+    }
+  }
+  fence_proxy_async();
+}
+
+// The order of a product's terms. The tensor cores add each wgmma's eight
+// products to the accumulator with truncation, an error of up to an ulp of
+// the accumulator's magnitude per wgmma. So every product below issues its
+// cross terms (a_s b_b, a_b b_s; about 2^-11 of the result) first, while
+// the accumulator is still that small, and the big terms (a_b b_b) after:
+// three wgmmas per k8 step, and the error of about one. (Measured on the
+// H100: issued in step order, the error was 4-7x the plain float32 version's;
+// PERF.md.)
+
+// c (64 x 8 n8) = A B^T over the head dim in three tf32 passes, A and B split
+// pairs of 64-row tiles (K-major), the 8 n8 rows of B from row 0 in
+// window_scores's pieces (W = 64: n8 = 8 is one product); issued, not waited on
+template <int D>
+__device__ __forceinline__ void nt_pieces_f32(float (&c)[32], uint32_t a, uint32_t b, int n8) {
+  constexpr int T = F32Tile<D>::kBytes;
+  for_pieces<64>(n8, [&](auto ic, int key) {
+    constexpr int I = decltype(ic)::value, N = 8 * Pieces<64>::groups(I), R = Pieces<64>::reg(I);
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const uint64_t ab = kmajor_f32(a, 64, 0, kk), as = kmajor_f32(a + T, 64, 0, kk);
+      const uint64_t bb = kmajor_f32(b, 64, key, kk), bs = kmajor_f32(b + T, 64, key, kk);
+      wgmma_ss_tf32<N>(c + R, as, bb, kk);
+      wgmma_ss_tf32<N>(c + R, ab, bs, 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk)
+      wgmma_ss_tf32<N>(c + R, kmajor_f32(a, 64, 0, kk), kmajor_f32(b, 64, key, kk), 1);
+  });
+}
+
+// the pieces' f32 values split: big halves in xb, small in sm (as the b32
+// registers wgmma reads, formed before its fence: a conversion after it
+// would make the compiler serialize the wgmmas)
+__device__ __forceinline__ void split_pieces(const float (&x)[32], uint32_t (&xb)[32],
+                                             uint32_t (&sm)[32], int n8) {
+  for_pieces<64>(n8, [&](auto ic, int) {
+    constexpr int I = decltype(ic)::value, R = Pieces<64>::reg(I);
+#pragma unroll
+    for (int i = 0; i < 4 * Pieces<64>::groups(I); ++i) {
+      xb[R + i] = tf32_rna(x[R + i]);
+      sm[R + i] = tf32_rna(x[R + i] - __uint_as_float(xb[R + i]));
+    }
+  });
+}
+
+// acc (64 x D) += A B over 8 n8 positions in three tf32 passes, cross terms
+// first: A the pieces' values in the accumulator layout, split (split_pieces:
+// big in xb, small in sm), B the transposed pair bt; issued, not waited on
+// (xb and sm stay put until then). Callers sum a chunk into a zeroed
+// accumulator and add it to the running one in f32, so the truncation is the
+// chunk's.
+template <int D>
+__device__ __forceinline__ void nn_pieces_f32(float (&acc)[D / 2], const uint32_t (&xb)[32],
+                                              const uint32_t (&sm)[32], uint32_t bt, int n8) {
+  constexpr int T = F32Tile<D>::kBytes;
+  // group g's A fragment: rows r, r + 8 at k columns t and t + 4 (kcol_of)
+  auto frag = [](uint32_t (&f)[4], const uint32_t (&x)[32], int i) {
+    f[0] = x[i];
+    f[1] = x[i + 2];
+    f[2] = x[i + 1];
+    f[3] = x[i + 3];
+  };
+  for_pieces<64>(n8, [&](auto ic, int key) {
+    constexpr int I = decltype(ic)::value, R = Pieces<64>::reg(I);
+#pragma unroll
+    for (int g = 0; g < Pieces<64>::groups(I); ++g) {
+      uint32_t big[4], small[4];
+      frag(big, xb, R + 4 * g);
+      frag(small, sm, R + 4 * g);
+      wgmma_rs_tf32<D>(acc, small, kmajor_f32(bt, D, 0, key / 8 + g));
+      wgmma_rs_tf32<D>(acc, big, kmajor_f32(bt + T, D, 0, key / 8 + g));
+    }
+  });
+  for_pieces<64>(n8, [&](auto ic, int key) {
+    constexpr int I = decltype(ic)::value, R = Pieces<64>::reg(I);
+#pragma unroll
+    for (int g = 0; g < Pieces<64>::groups(I); ++g) {
+      uint32_t big[4];
+      frag(big, xb, R + 4 * g);
+      wgmma_rs_tf32<D>(acc, big, kmajor_f32(bt, D, 0, key / 8 + g));
+    }
+  });
+}
+
+// The forward's block: two warpgroups, 64 query rows each, over one K and V
+// stream (each chunk split and transposed once for 128 rows, by 256 threads).
+constexpr int kF32FwdWgs = 2;
+constexpr int kF32FwdThreads = 128 * kF32FwdWgs;
+constexpr int kF32FwdRows = 64 * kF32FwdWgs;
+
+// The forward's shared memory from a 1024-byte aligned base: the warpgroups'
+// Q pairs, the K ring (two pairs), the raw V ring (two tiles), V's transposed
+// pair, the five barriers, then the column map of whole chunks.
+template <int D>
+struct F32FwdLayout {
+  static constexpr int T = F32Tile<D>::kBytes;
+  static constexpr int q = 0, k = 2 * kF32FwdWgs * T, v = k + 4 * T, vt = v + 2 * T;
+  static constexpr int bars = vt + 2 * T, cols = bars + 64;
+};
+template <int D>
+__host__ inline size_t fwd_f32_smem_bytes(int lk) {
+  return 1024 + F32FwdLayout<D>::cols + sizeof(float) * (size_t)((lk + 63) / 64 * 64);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kF32FwdThreads, 1)
+    sdpa_fwd_f32_wg_kernel(const __grid_constant__ SdpaFwdMaps maps, const SdpaArgs a,
+                           int head_inner) {
+  using L = F32FwdLayout<D>;
+  constexpr int T = L::T, NT = kF32FwdThreads;
+  extern __shared__ __align__(1024) unsigned char tsmem[];
+  const uint32_t raw = smem_addr(tsmem), pad = ((raw + 1023) & ~1023u) - raw;
+  unsigned char* sm = tsmem + pad;
+  const uint32_t base = raw + pad, bars = base + L::bars;
+  float* cm = reinterpret_cast<float*>(sm + L::cols);
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z, wg = threadIdx.x / 128;
+  const int nc = (a.lk + 63) / 64;
+  const int last8 = (a.lk - (nc - 1) * 64 + 7) / 8;  // 8-key groups of the last chunk
+  // one chunk holds the whole key row: its scores are formed once
+  const bool want_o = a.o != nullptr, single = nc == 1;
+  // K is read once a chunk, twice when O is wanted past one chunk; V once
+  const int kuses = want_o && !single ? 2 * nc : nc, vuses = want_o ? nc : 0;
+  const int* mask = a.mask ? a.mask + (long long)b * a.lk : nullptr;
+  // barriers: Q, the K ring's two stages, the V ring's two
+  auto bar_k = [&](int i) { return bars + 8 * (1 + (i & 1)); };
+  auto bar_v = [&](int i) { return bars + 8 * (3 + (i & 1)); };
+  auto issue_k = [&](int i) {  // K use i (chunk i % nc) into stage i % 2
+    if (threadIdx.x != 0 || i >= kuses) return;
+    mbar_expect_tx(bar_k(i), T);
+    tma_rows_f32<D>(base + L::k + (i & 1) * 2 * T, &maps.k, bar_k(i), i % nc * 64, h, b,
+                    head_inner);
+  };
+  auto issue_v = [&](int i) {  // V chunk i into stage i % 2
+    if (threadIdx.x != 0 || i >= vuses) return;
+    mbar_expect_tx(bar_v(i), T);
+    tma_rows_f32<D>(base + L::v + (i & 1) * T, &maps.v, bar_v(i), i * 64, h, b, head_inner);
+  };
+  // the warpgroups with rows below Lq load their Q tile; one past them (a
+  // last tile of 64 rows or fewer) is zeroed instead (no TMA box lies wholly
+  // outside the tensor) and computes rows that are never stored
+  const int nq = (a.lq - qt * kF32FwdRows + 63) / 64 < kF32FwdWgs
+                     ? (a.lq - qt * kF32FwdRows + 63) / 64 : kF32FwdWgs;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 5; ++i) mbar_init(bars + 8 * i, 1);
+    mbar_init_fence();
+    mbar_expect_tx(bars, nq * T);
+    for (int w = 0; w < nq; ++w)
+      tma_rows_f32<D>(base + L::q + w * 2 * T, &maps.q, bars, qt * kF32FwdRows + 64 * w, h, b,
+                      head_inner);
+    issue_k(0);
+    issue_k(1);
+    issue_v(0);
+    issue_v(1);
+  }
+  for (int w = nq; w < kF32FwdWgs; ++w)
+    for (int i = threadIdx.x; i < T / 16; i += NT)
+      reinterpret_cast<float4*>(sm + L::q + w * 2 * T)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int j = threadIdx.x; j < nc * 64; j += NT) cm[j] = col_map(mask, j, a.lk);
+  __syncthreads();
+  mbar_wait(bars, 0);
+  for (int w = 0; w < kF32FwdWgs; ++w) split_tile<D, NT>(sm + L::q + w * 2 * T, 64);
+  __syncthreads();
+
+  const uint32_t qs = base + L::q + wg * 2 * T;  // this warpgroup's Q pair
+  int ku = 0, vu = 0;  // K and V uses so far
+  // S of chunk c (n8 groups of keys) from the next K use into s, scaled and masked
+  auto scores = [&](float (&s)[32], int c, int n8) {
+    const int off = L::k + (ku & 1) * 2 * T;
+    mbar_wait(bar_k(ku), (ku >> 1) & 1);
+    split_tile<D, NT>(sm + off, 8 * n8);
+    __syncthreads();
+    wgmma_fence();
+    nt_pieces_f32<D>(s, qs, base + off, n8);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(s);
+    __syncthreads();  // every warp is done with the stage
+    issue_k(ku + 2);
+    ++ku;
+    window_mask<64>(s, cm + 64 * c, n8, a.scale);
+  };
+  // o += P V over the next V chunk (n8 groups): V transposed and split, P
+  // split, the chunk summed apart (oc) and added in f32
+  float o[D / 2], oc[D / 2];
+  auto pv = [&](float (&p)[32], int n8) {
+    mbar_wait(bar_v(vu), (vu >> 1) & 1);
+    transpose_tile<D, true, NT>(sm + L::vt, sm + L::v + (vu & 1) * T, 8 * n8);
+    __syncthreads();  // V's raw stage is read, its pair written
+    issue_v(vu + 2);
+    ++vu;
+    uint32_t pb[32], psm[32];
+    split_pieces(p, pb, psm, n8);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) oc[i] = 0.f;
+    wgmma_fence();
+    nn_pieces_f32<D>(oc, pb, psm, base + L::vt, n8);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(oc);
+    fence_regs(pb);
+    fence_regs(psm);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] += oc[i];
+    __syncthreads();  // every warp is done with the pair before the next one
+  };
+  auto n8_of = [&](int c) { return c + 1 < nc ? 8 : last8; };
+
+  // rows 16 warp + lane / 4 and + 8 of the warpgroup's 64
+  const int t4 = threadIdx.x & 3, r = 16 * (threadIdx.x / 32 % 4) + (threadIdx.x & 31) / 4;
+  const int row0 = qt * kF32FwdRows + 64 * wg;
+  float s[32] = {};
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  const float one[2] = {1.f, 1.f};
+  // sweep 1: the max and the sum, chunk by chunk, the sum rescaled as the max
+  // grows (a single chunk: its exact max, s left holding exp(s - m))
+  for (int c = 0; c < nc; ++c) {
+    const int n8 = n8_of(c);
+    scores(s, c, n8);
+    float mx[2] = {m[0], m[1]}, sum[2] = {0.f, 0.f};
+    window_max<64>(mx, s, n8);
+    window_exp<64>(s, mx, one, sum, n8);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      l[e] = l[e] * expf(m[e] - mx[e]) + sum[e];  // m = -inf before the first chunk: 0 * 0
+      m[e] = mx[e];
+    }
+  }
+  l[0] = quad_sum(l[0]);
+  l[1] = quad_sum(l[1]);
+  const float rl[2] = {1.f / l[0], 1.f / l[1]};
+  if (a.stats != nullptr && t4 == 0)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int i = row0 + r + 8 * e;
+      if (i < a.lq)
+        *reinterpret_cast<float2*>(a.stats + (((long long)b * a.heads + h) * a.lq + i) * 2) =
+            make_float2(m[e], l[e]);
+    }
+  if (!want_o) return;
+
+  // sweep 2: S again, P from the final max and sum, O += P V
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int c = 0; c < nc; ++c) {
+    const int n8 = n8_of(c);
+    if (single) {
+#pragma unroll
+      for (int j = 0; j < 32; ++j) s[j] *= rl[j / 2 % 2];  // P = e * (1 / l)
+    } else {
+      scores(s, c, n8);
+      window_exp<64>(s, m, rl, nullptr, n8);
+    }
+    pv(s, n8);
+  }
+  // O's rows below Lq: a float2 a thread per 8-column group and row
+  float* out = static_cast<float*>(a.o) + b * a.o_sb + h * a.o_sh;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int i = row0 + r + 8 * e;
+    if (i < a.lq)
+#pragma unroll
+      for (int g = 0; g < D / 8; ++g)
+        *reinterpret_cast<float2*>(out + i * a.o_sl + 8 * g + 2 * t4) =
+            make_float2(o[4 * g + 2 * e], o[4 * g + 2 * e + 1]);
+  }
+}
+
+// Whether the float32 tensor-core kernels take these arguments: a head dim
+// of 32 or 64, more than kRowMaxLq query rows, rows and pointers 16-byte
+// aligned.
+inline bool sdpa_f32_tc_fits(const SdpaArgs& a) {
+  return (a.d == 32 || a.d == 64) && a.lq > kRowMaxLq &&
+         sdpa_tc_fits(a.d, {a.q_sb, a.q_sh, a.q_sl, a.k_sb, a.k_sh, a.k_sl, a.v_sb, a.v_sh,
+                            a.v_sl, a.o_sb, a.o_sh, a.o_sl},
+                      {a.q, a.k, a.v, a.o}, 4);
+}
+
+template <int D>
+cudaError_t launch_sdpa_f32_wg(const SdpaArgs& a, int batch, cudaStream_t stream) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const int hi = a.q_sh < a.q_sl;
+  if ((a.k_sh < a.k_sl) != hi || (a.v_sh < a.v_sl) != hi) return cudaErrorInvalidValue;
+  SdpaFwdMaps maps;
+  memset(&maps, 0, sizeof(maps));
+  if (!encode_sdpa_map(enc, &maps.q, a.q, batch, a.heads, a.lq, D, a.q_sb, a.q_sh, a.q_sl, 64, 4) ||
+      !encode_sdpa_map(enc, &maps.k, a.k, batch, a.heads, a.lk, D, a.k_sb, a.k_sh, a.k_sl, 64, 4) ||
+      !encode_sdpa_map(enc, &maps.v, a.v, batch, a.heads, a.lk, D, a.v_sb, a.v_sh, a.v_sl, 64, 4))
+    return cudaErrorInvalidValue;
+  const size_t smem = fwd_f32_smem_bytes<D>(a.lk);
+  const cudaError_t err = smem_opt_in(sdpa_fwd_f32_wg_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  sdpa_fwd_f32_wg_kernel<D><<<dim3((a.lq + kF32FwdRows - 1) / kF32FwdRows, a.heads, batch),
+                              kF32FwdThreads, smem, stream>>>(maps, a, hi);
+  return cudaGetLastError();
+}
+
+inline cudaError_t launch_sdpa_f32_tc(const SdpaArgs& a, int batch, cudaStream_t stream) {
+  if (a.d == 32) return launch_sdpa_f32_wg<32>(a, batch, stream);
+  if (a.d == 64) return launch_sdpa_f32_wg<64>(a, batch, stream);
+  return cudaErrorInvalidValue;
+}
+
 template <typename T>
 cudaError_t launch_sdpa(const SdpaArgs& a, int batch, cudaStream_t stream) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
@@ -1013,8 +1483,10 @@ cudaError_t launch_sdpa(const SdpaArgs& a, int batch, cudaStream_t stream) {
                            a.v_sl, a.o_sb, a.o_sh, a.o_sl},
                      {a.q, a.k, a.v, a.o}))
       return launch_sdpa_tc(a, batch, stream);
+  } else {
+    if (sdpa_f32_tc_fits(a)) return launch_sdpa_f32_tc(a, batch, stream);
   }
-  if (a.stats != nullptr) return cudaErrorInvalidValue;  // only the tensor-core kernel writes them
+  if (a.stats != nullptr) return cudaErrorInvalidValue;  // only the tensor-core kernels write them
   if (a.lq <= kRowMaxLq) {
     const size_t smem = sizeof(float) * ((size_t)a.d + a.lk);
     cudaError_t err = smem_opt_in(sdpa_fwd_row_kernel<T>, smem);

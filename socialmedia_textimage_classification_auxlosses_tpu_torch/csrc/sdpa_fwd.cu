@@ -9,7 +9,7 @@
 // blocks in parallel on 132 SMs and has 227 KB of shared memory per block,
 // not megabytes of VMEM. Query tiles make the blocked variant the same
 // kernel: ViLT's joint sequence (Lq = Lk = 402, a ragged last tile of 18
-// rows) runs in the tensor-core kernel in bf16 and the FMA kernel in f32.
+// rows) runs in the tensor-core kernels, bf16 and float32 alike.
 //
 // What bounds it on the H100. On the serving shapes (text 16x12x128x64 and
 // image 16x12x197x64 in bf16; the fusion head 16x1x1x768 over 197 keys in
@@ -20,7 +20,9 @@
 // products, Q, K and V by TMA into mbarrier-guarded buffers that one thread
 // keeps in flight, scores, probabilities and the output accumulator in
 // registers, the whole key row in one pass up to 256 keys, so only q, k, v
-// and o cross device memory. The fusion head's single query runs in the row
+// and o cross device memory. Float32 at head dims 32 and 64 runs the same
+// design with every product three tf32 passes (float32's accuracy kept;
+// sdpa_core.cuh's note). The fusion head's single query runs in the row
 // kernel, one block per query row, reading K and V once. PERF.md has the
 // times against these bounds.
 //
@@ -34,7 +36,7 @@ extern "C" {
 // q: (B, H, Lq, D), k/v: (B, H, Lk, D), o: (B, H, Lq, D), all contiguous in
 // one dtype (0 = float32, 1 = bfloat16); mask: (B, Lk) int32 or nullptr;
 // stats: nullptr, or (B, H, Lq, 2) float32 for each query row's max and sum,
-// which only the tensor-core kernel forms (cudaErrorInvalidValue where
+// which only the tensor-core kernels form (cudaErrorInvalidValue where
 // another kernel would run).
 int smtc_sdpa_fwd(const void* q, const void* k, const void* v, const int* mask, void* o,
                   float* stats, int batch, int heads, int lq, int lk, int d, float scale,
@@ -71,8 +73,8 @@ int smtc_sdpa_fwd(const void* q, const void* k, const void* v, const int* mask, 
   return (int)cudaErrorInvalidValue;
 }
 
-// Largest Lk the forward takes: the FMA kernel's (float32, other head dims)
-// rows of scores fit one block's shared memory.
+// Largest Lk the forward takes: the FMA kernel's (other head dims) rows of
+// scores fit one block's shared memory.
 int smtc_sdpa_max_lk(void) {
   int lk = smtc::kBK;
   while (smtc::sdpa_smem_bytes(lk + smtc::kBK) <= 232448) lk += smtc::kBK;
@@ -91,6 +93,17 @@ int smtc_sdpa_fwd_blocks_per_sm(int d, int lk) {
                : blocks_per_sm(sdpa_fwd_wg_kernel<64, 128>, kFwdThreads, fwd_smem_bytes<64, 128>(lk));
   if (d == 128)
     return blocks_per_sm(sdpa_fwd_wg_kernel<128, 128>, kFwdThreads, fwd_smem_bytes<128, 128>(lk));
+  return -(int)cudaErrorInvalidValue;
+}
+
+// Resident blocks per SM of the float32 tensor-core kernel at head dim d and
+// Lk keys, or minus the CUDA error.
+int smtc_sdpa_fwd_f32_blocks_per_sm(int d, int lk) {
+  using namespace smtc;
+  if (d == 32)
+    return blocks_per_sm(sdpa_fwd_f32_wg_kernel<32>, kF32FwdThreads, fwd_f32_smem_bytes<32>(lk));
+  if (d == 64)
+    return blocks_per_sm(sdpa_fwd_f32_wg_kernel<64>, kF32FwdThreads, fwd_f32_smem_bytes<64>(lk));
   return -(int)cudaErrorInvalidValue;
 }
 

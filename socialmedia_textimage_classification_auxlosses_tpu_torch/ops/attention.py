@@ -12,14 +12,16 @@ vision tower needs no backward; the text tower, the fusion head and ViLT do.
 ``_sdpa_pallas``: on a CUDA tensor its forward launches the hand-written
 Hopper kernel (``csrc/sdpa_fwd.cu``, TPU kernels 1 and 3 of PERF.md's table:
 its 64-row query tiles cover the JAX whole-Lq and 128-row-blocked forwards
-alike; bf16 on the tensor cores, wgmma fed by TMA) and its backward the
-backward kernels (``csrc/sdpa_bwd.cu``, TPU kernels 2 and 4: for bf16 the
-tensor-core query-tiled pair, else the row pair, a block kernel or the FMA
-query-tiled pair, by shape); on a CPU tensor they are the plain versions
-``sdpa_reference`` and ``sdpa_bwd_reference``. Like the JAX residuals, the
-function saves its inputs and recomputes the probabilities in the backward;
-where the backward will run the tensor-core pair (bf16, more than 4 query
-rows, head dim 32 or 64), it also saves the forward kernel's row statistics,
+alike; on the tensor cores, wgmma fed by TMA, in float32 each product three
+tf32 passes that keep float32's accuracy) and its backward the backward
+kernels (``csrc/sdpa_bwd.cu``, TPU kernels 2 and 4: at head dims 32 and 64
+the tensor-core query-tiled pair of the dtype, else the row pair, a block
+kernel or the FMA query-tiled pair, by shape); on a CPU tensor they are the
+plain versions ``sdpa_reference`` and ``sdpa_bwd_reference``. Like the JAX
+residuals, the function saves its inputs and recomputes the probabilities in
+the backward; where the backward will run a tensor-core pair (bf16 or
+float32, more than 4 query rows, head dim 32 or 64), it also saves the
+forward kernel's row statistics,
 each query row's float32 max and sum of exponentials, (B, H, Lq, 2) (0.3 MB
 at 16x12x197), which the backward's first pass reads instead of forming them
 again. Unlike the JAX
@@ -98,7 +100,7 @@ def row_stats(q, k, key_mask=None, scale: Optional[float] = None):
     """Each query row's max m of the scores and sum l of exp(s - m), as the
     JAX ``_probs`` forms them before P = exp(s - m) / l: (B, H, Lq, 2) in
     float32 (the accumulation dtype), m then l. The plain version of what the
-    bf16 tensor-core forward writes for the backward."""
+    tensor-core forwards write for the backward."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     s = _scores(q, k, key_mask, scale)
@@ -211,13 +213,13 @@ def max_key_length() -> int:
 
 
 def tc_pair_takes(q, k, v) -> bool:
-    """Whether the backward runs the tensor-core pair, which reads the
+    """Whether the backward runs a tensor-core pair, which reads the
     forward's row statistics, for these inputs (``csrc/sdpa_bwd_core.cuh``'s
-    ``sdpa_bwd_tc_fits`` for contiguous tensors): bfloat16, more than 4 query
-    rows, head dim 32 or 64, every operand 16-byte aligned (the outputs are
-    fresh allocations)."""
+    ``sdpa_bwd_tc_fits`` for contiguous tensors): bfloat16 or float32, more
+    than 4 query rows, head dim 32 or 64, every operand 16-byte aligned (the
+    outputs are fresh allocations)."""
     lq, d = q.shape[2], q.shape[3]
-    return (q.dtype == torch.bfloat16 and lq > 4 and d in (32, 64)
+    return (q.dtype in (torch.bfloat16, torch.float32) and lq > 4 and d in (32, 64)
             and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
 
 
@@ -226,8 +228,9 @@ def sdpa_fwd_cuda(q, k, v, key_mask, scale: float, with_stats: bool = False):
     k/v: (B, H, Lk, D), contiguous CUDA tensors of one dtype (float32 or
     bfloat16); key_mask: None or (B, Lk) int32 on the same device. Returns
     o: (B, H, Lq, D), or with ``with_stats`` (o, stats): each query row's
-    float32 max and sum, (B, H, Lq, 2), which only the bf16 tensor-core
-    kernel forms (the library refuses the call where another kernel runs)."""
+    float32 max and sum, (B, H, Lq, 2), which only the tensor-core kernels
+    form (bf16 or float32, head dim 32 or 64, more than 4 query rows; the
+    library refuses the call where another kernel runs)."""
     if q.device.type != "cuda":
         raise ValueError(f"sdpa_fwd_cuda needs CUDA tensors, got {q.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
@@ -288,11 +291,11 @@ def sdpa_bwd_cuda(q, k, v, key_mask, do, scale: float, kernel: str = "auto",
     """Launch the backward kernels (TPU kernels 2 and 4): (dq, dk, dv) for
     the output gradient ``do``. Takes what ``sdpa_fwd_cuda`` takes, plus a
     contiguous ``do`` shaped like q. ``kernel="auto"`` picks the kernel by
-    shape (for bf16 at head dims 32 and 64 the tensor-core query-tiled pair);
+    shape (at head dims 32 and 64 the tensor-core query-tiled pair);
     ``"tiled"`` asks for a query-tiled pair and ``"block"`` for the block
     kernel at any shape it holds, to time them against each other.
     ``stats``: the forward kernel's row statistics (``sdpa_fwd_cuda(...,
-    with_stats=True)``), which the tensor-core pair reads instead of running
+    with_stats=True)``), which a tensor-core pair reads instead of running
     the forward kernel for them (the library refuses them where another
     kernel runs); the gradients are the same, bit for bit."""
     if q.device.type != "cuda":
@@ -334,7 +337,7 @@ def sdpa_bwd_cuda(q, k, v, key_mask, do, scale: float, kernel: str = "auto",
 class _SdpaFunction(torch.autograd.Function):
     """``sdpa`` with a gradient: the kernels on CUDA, the plain versions on
     the CPU. Saves its inputs, as the JAX residuals do, and on CUDA, where
-    the backward runs the tensor-core pair, the forward kernel's row
+    the backward runs a tensor-core pair, the forward kernel's row
     statistics ((B, H, Lq, 2) float32: each query row's max and sum), which
     the pair reads in place of forming them again."""
 

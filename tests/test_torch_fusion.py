@@ -55,8 +55,9 @@ def test_mm_late_matches_jax(rng, fusion, dtype):
 
 def test_mm_late_without_tim_has_no_tim_logits(rng):
     jm, tm = _models("attention", "float32")
-    ids, mask = text_batch(rng, b=2, vocab=1000)
-    px = rng.randn(2, 32, 32, 3).astype(np.float32)
+    # the batch of the tests above, so the JAX side's compiled ops are reused
+    ids, mask = text_batch(rng, b=3, vocab=1000)
+    px = rng.randn(3, 32, 32, 3).astype(np.float32)
     params = JF.init_mm_late_params(jm, jax.random.PRNGKey(3), j(ids, "int32"),
                                     j(mask, "int32"), j(px))
     jout = jm.apply(params, j(ids, "int32"), j(mask, "int32"), j(px))

@@ -8,8 +8,8 @@ host that has only PyTorch:
 
 Shapes go beyond the serving path's: ragged key tiles, several query tiles,
 the bf16 tensor-core kernel at each head dim it is built for and at its
-longest key row, the FMA kernel (float32, other head dims, the longest key
-row it holds), the row kernel (at most 4 query rows) with and without a
+longest key row, the FMA kernel (other head dims, the longest key row it
+holds), the row kernel (at most 4 query rows) with and without a
 mask, a fully masked row, the block kernel at a narrow width, and ViLT's
 joint lengths (402 with a ragged last query tile, 185, and 296 = 2 x 128 + 40,
 the JAX blocked kernel's padded tail). Tolerances: float32 1e-4 of the
@@ -41,6 +41,16 @@ dims 32 and 128 in the forward, the fused block's packed (B, L, H * D)
 column slices at 257; the backward given the forward's row statistics equals
 the one that forms them, and two backward runs agree, bit for bit; the
 autograd function hands its forward's statistics to the backward.
+
+The float32 forward and backward on the tensor cores (three tf32 passes a
+product) are held at their own branch points: a row of one 64-key chunk and
+of several, 197 keys (three chunks and an 8-key piece), 402, a fully masked
+row, Lq != Lk both ways, five query rows, head dim 32, and the per-head
+block's packed column slices at 197; against the plain float32 version
+(1e-4 of the scale) and against float64 (at most 4x the plain float32
+version's error, ``chip_smoke.py``'s gate); their row statistics against
+``row_stats``; the backward given the statistics equals the one that forms
+them, and two runs, bit for bit.
 
 The per-head block (``impl="fused_perhead"``, kernels 5 and 6) is held the
 same way: its forward, its backward kernel's dx and head-banked dq, dk, dv
@@ -418,10 +428,76 @@ def test_sdpa_stats_refused_where_the_tensor_core_pair_does_not_run(cuda):
     q = torch.randn(1, 2, 4, 64, generator=cuda, device="cuda").bfloat16()  # four rows
     with pytest.raises(RuntimeError, match="CUDA error"):
         A.sdpa_fwd_cuda(q, q, q, None, 0.125, with_stats=True)
-    x = torch.randn(1, 2, 40, 64, generator=cuda, device="cuda")  # float32
+    x = torch.randn(1, 2, 40, 128, generator=cuda, device="cuda")  # float32 at head dim 128
     with pytest.raises(RuntimeError, match="CUDA error"):
         A.sdpa_bwd_cuda(x, x, x, None, x, 0.125,
                         stats=torch.zeros(1, 2, 40, 2, device="cuda"))
+
+
+F32_TC_CASES = {
+    # name: (b, h, lq, lk, d, masked, one fully masked row)
+    "f32_one_chunk": (2, 3, 100, 37, 64, True, False),
+    "f32_text_masked_row": (2, 3, 128, 128, 64, True, True),
+    "f32_lk197": (2, 3, 197, 197, 64, False, False),
+    "f32_lk197_masked_row": (2, 3, 197, 197, 64, True, True),
+    "f32_short_q_long_k": (2, 3, 70, 402, 64, True, True),
+    "f32_long_q_short_k": (2, 3, 402, 37, 64, False, False),
+    "f32_vilt_exact": (2, 3, 402, 402, 64, True, False),
+    "f32_head32": (2, 3, 150, 201, 32, True, True),
+    "f32_five_rows": (2, 2, 5, 130, 64, True, False),
+}
+
+
+def _f64_gate(got, plain, want, what):
+    """chip_smoke.py's float32 gate: the kernel at most 4x the plain float32
+    version's error against float64."""
+    err = (got.double() - want).abs().max().item()
+    base = (plain.double() - want).abs().max().item()
+    assert err <= 4 * base, (what, err, base)
+
+
+def _f32_inputs(gen, case):
+    b, h, lq, lk, d, masked, empty = F32_TC_CASES[case]
+    q, k, v, do = (torch.randn(b, h, n, d, generator=gen, device="cuda")
+                   for n in (lq, lk, lk, lq))
+    return q, k, v, do, _mask(gen, b, lk, empty) if masked else None, d ** -0.5
+
+
+@pytest.mark.parametrize("case", sorted(F32_TC_CASES))
+def test_sdpa_f32_tensor_core_forward(cuda, case):
+    """The float32 forward on the tensor cores: its output with and without
+    row statistics alike, against the plain float32 version and float64, its
+    statistics against ``row_stats``."""
+    q, k, v, _, mask, scale = _f32_inputs(cuda, case)
+    out, stats = A.sdpa_fwd_cuda(q, k, v, mask, scale, with_stats=True)
+    assert torch.equal(out, A.sdpa_fwd_cuda(q, k, v, mask, scale))
+    plain = A.sdpa_reference(q, k, v, mask, scale)
+    want = A.sdpa_reference(q.double(), k.double(), v.double(), mask, scale)
+    torch.cuda.synchronize()
+    _close(out, plain, torch.float32, "o")
+    _f64_gate(out, plain, want, "o")
+    rows = A.row_stats(q, k, mask, scale)
+    assert ((stats - rows).abs() <= 1e-5 * rows.abs()).all()
+
+
+@pytest.mark.parametrize("case", sorted(F32_TC_CASES))
+def test_sdpa_f32_tensor_core_backward(cuda, case):
+    """The float32 pair: given the forward's statistics it returns what it
+    forms without them, and two runs agree, bit for bit; each gradient
+    against the plain float32 version and float64."""
+    q, k, v, do, mask, scale = _f32_inputs(cuda, case)
+    assert A.tc_pair_takes(q, k, v)
+    _, stats = A.sdpa_fwd_cuda(q, k, v, mask, scale, with_stats=True)
+    given = A.sdpa_bwd_cuda(q, k, v, mask, do, scale, stats=stats)
+    formed = A.sdpa_bwd_cuda(q, k, v, mask, do, scale)
+    again = A.sdpa_bwd_cuda(q, k, v, mask, do, scale, stats=stats)
+    plain = A.sdpa_bwd_reference(q, k, v, mask, do, scale)
+    want = A.sdpa_bwd_reference(q.double(), k.double(), v.double(), mask, do.double(), scale)
+    torch.cuda.synchronize()
+    for name, g, f, a, p, w in zip("qkv", given, formed, again, plain, want):
+        assert torch.equal(g, f) and torch.equal(g, a), f"d{name} not bit for bit"
+        _close(g, p, torch.float32, f"d{name}")
+        _f64_gate(g, p, w, f"d{name}")
 
 
 def test_sdpa_autograd_passes_the_forward_stats(cuda):
@@ -485,6 +561,9 @@ PERHEAD_CASES = {
     "ragged": (3, 37, 96, 3, False),
     "text_path": (32, 128, 768, 12, True),
     "vilt_exact": (2, 402, 768, 12, True),
+    # head dim 64 column slices at 197 keys (the float32 tensor-core kernels'
+    # pieces over the packed layout)
+    "packed_197": (2, 197, 128, 2, True),
 }
 
 
